@@ -1,0 +1,78 @@
+"""The port's vision tower against the JAX `vision_forward`, with and without
+the kernel route (which on CPU tensors runs the kernels' plain versions), on
+padded windows and multi-video layouts; plus the host-side plan and patchify."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from test_torch_bridge import CFG, JCFG, jax_params, port_params
+from time_r1_tpu.models.processor import patchify_video as jax_patchify_video
+from time_r1_tpu.models.qwen25vl import prepare_vision_inputs as jax_prepare
+from time_r1_tpu.models.qwen25vl.vision import vision_forward as jax_vision_forward
+from time_r1_tpu_torch.models.processor import patchify_video
+from time_r1_tpu_torch.models.qwen25vl import VisionInputs, prepare_vision_inputs, vision_forward
+from time_r1_tpu_torch.ops.vision_attention import full_attention_rope, window_attention_rope
+
+torch.set_num_threads(2)
+
+GRIDS = [[(2, 4, 4)], [(2, 4, 4), (2, 6, 2)]]
+
+
+@pytest.fixture(scope="module")
+def params():
+    jp = jax_params()
+    return jp, port_params(jp)
+
+
+@pytest.mark.parametrize("grids", GRIDS)
+@pytest.mark.parametrize("use_window_kernel", [True, False])
+def test_vision_forward_matches_jax(params, grids, use_window_kernel):
+    jp, tp = params
+    rng = np.random.default_rng(0)
+    n_patches = sum(t * h * w for t, h, w in grids)
+    patches = rng.normal(size=(n_patches, CFG.vision.patch_input_dim)).astype(np.float32)
+    jprep = jax_prepare(grids, JCFG.vision)
+    want = np.asarray(jax_vision_forward(
+        jp["visual"], JCFG.vision, jnp.asarray(patches), jnp.asarray(jprep.perm),
+        jnp.asarray(jprep.pos_hw), jnp.asarray(jprep.key_valid), jnp.asarray(jprep.full_gather),
+        jnp.asarray(jprep.full_inverse), jnp.asarray(jprep.reverse),
+    ))
+    vis = VisionInputs.build(prepare_vision_inputs(grids, CFG.vision), torch.from_numpy(patches))
+    window_attention_rope.launches = full_attention_rope.launches = 0
+    got = vision_forward(
+        tp["visual"], CFG.vision, vis.patches, vis.perm, vis.pos_hw, vis.key_valid,
+        vis.full_gather, vis.full_inverse, vis.reverse, use_window_kernel=use_window_kernel,
+    ).numpy()
+    assert window_attention_rope.launches == full_attention_rope.launches == 0
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("grids,pad_to", [
+    ([(2, 4, 4)], None),
+    ([(2, 4, 4), (2, 6, 2)], 256),
+    ([(16, 16, 28), (12, 20, 24)], 16384),  # the serving shapes of chip_smoke.py
+    ([(3, 10, 14)], None),
+])
+def test_prepare_vision_inputs_equals_jax(grids, pad_to):
+    from time_r1_tpu.models.qwen25vl import Qwen25VLConfig as JaxConfig
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
+
+    a = jax_prepare(grids, JaxConfig().vision, pad_patches_to=pad_to)
+    b = prepare_vision_inputs(grids, Qwen25VLConfig().vision, pad_patches_to=pad_to)
+    for field in ("perm", "pos_hw", "key_valid", "full_gather", "full_inverse", "reverse", "unit_valid"):
+        x, y = getattr(a, field), getattr(b, field)
+        assert x.dtype == y.dtype and np.array_equal(x, y), field
+    assert (a.n_patches, a.n_units) == (b.n_patches, b.n_units)
+
+
+@pytest.mark.parametrize("T,H,W", [(4, 56, 84), (3, 28, 56)])
+def test_patchify_equals_jax(T, H, W):
+    frames = np.random.default_rng(4).integers(0, 256, size=(T, 3, H, W)).astype(np.float32)
+    got, grid = patchify_video(frames)
+    want, want_grid = jax_patchify_video(frames)
+    assert grid == tuple(want_grid)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)

@@ -1,0 +1,278 @@
+// Tiled attention forward with an online softmax, shared by the port's three
+// attention kernels (flash_attention.cu: K1; vision_attention.cu: K2, K3).
+//
+// One block of 256 threads computes a 64-row query tile of one head of one
+// batch entry (a batch entry is a sequence for K1, a window for K2, a
+// (sample, t)-slice for K3). It walks 64-key tiles up to the causal limit,
+// keeps the running max m, the running sum l and the output accumulator in
+// f32 registers, and never writes the (rows, keys) scores to device memory.
+// Ragged tile edges are masked in the kernel, so no shape has to be a
+// multiple of 64 or 128.
+//
+// Thread layout: the 16x16 threads own a 4x4 block of the 64x64 score tile
+// (rows ty + 16i, keys tx + 16j) and a 4 x D/16 block of the output
+// (rows ty + 16i, columns tx + 16j). Row max and row sum are reduced over the
+// 16 lanes that share a row with shuffles. Operands are staged in shared
+// memory as f32: Q (scaled, and roped when ROPE) once per block, then K
+// (transposed, roped when ROPE) and V in turn through one buffer, so that a
+// head dim of 128 fits two blocks on an SM.
+//
+// Arithmetic is plain f32 FMA: the same code serves the f32 instance (which
+// the comparisons use) and the bf16 one. Tensor cores (mma/wgmma) and TMA are
+// the work of a later change.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace t1 {
+
+constexpr int BQ = 64;
+constexpr int BK = 64;
+constexpr int NTHREADS = 256;
+constexpr float NEG_INF = -1e30f;  // finite, as in the JAX package: -inf would turn
+                                   // fully masked pad rows into NaN
+
+struct AttnParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* lse;          // (batch, H, Sq) log-sum-exp, or nullptr
+  const float* bias;   // additive key bias: bias[b * bias_batch + key], or nullptr
+  const float* cos;    // rope tables, row-major [b * rope_batch + row][D] (ROPE only)
+  const float* sin;
+  long long q_batch;   // element strides between batch entries
+  long long kv_batch;
+  long long o_batch;
+  long long bias_batch;
+  long long rope_batch;  // rows
+  int q_row;           // element strides between rows
+  int kv_row;
+  int o_row;
+  int Sq;
+  int Skv;
+  int H;
+  int G;               // q heads per kv head: q head h reads kv head h / G
+  int causal;          // key j is visible to query row i iff j <= q_offset + i
+  int q_offset;
+  float scale;
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+template <int D>
+constexpr int smem_floats() {
+  // Q tile [BQ][D+1] + K^T [D][BK+1] (V [BK][D] reuses it) + P [BQ][BK+1]
+  return BQ * (D + 1) + D * (BK + 1) + BQ * (BK + 1);
+}
+
+// x[d] rotated by half the head dim (rotate_half) and mixed with cos/sin.
+template <typename T, int D>
+__device__ __forceinline__ float rope_at(const T* row, int d, const float* c, const float* s) {
+  constexpr int HALF = D / 2;
+  const float x = to_f(row[d]);
+  const float xr = to_f(row[d < HALF ? d + HALF : d - HALF]);
+  return x * c[d] + (d < HALF ? -xr : xr) * s[d];
+}
+
+template <typename T, int D, bool ROPE>
+__global__ void __launch_bounds__(NTHREADS, 2) attn_fwd(const AttnParams p) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int DJ = D / 16;
+  constexpr int QS = D + 1;   // padded row strides keep shared-memory banks apart
+  constexpr int KS = BK + 1;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* KV = Qs + BQ * QS;   // K^T during QK^T, then V during PV
+  float* Ps = KV + D * KS;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const T* qg = static_cast<const T*>(p.q) + b * p.q_batch + (long long)h * D;
+  const T* kg = static_cast<const T*>(p.k) + b * p.kv_batch + (long long)(h / p.G) * D;
+  const T* vg = static_cast<const T*>(p.v) + b * p.kv_batch + (long long)(h / p.G) * D;
+  const float* bias = p.bias ? p.bias + b * p.bias_batch : nullptr;
+  const float* cosb = ROPE ? p.cos + b * p.rope_batch * D : nullptr;
+  const float* sinb = ROPE ? p.sin + b * p.rope_batch * D : nullptr;
+
+  for (int idx = tid; idx < BQ * D; idx += NTHREADS) {
+    const int r = idx / D;
+    const int d = idx - r * D;
+    const int row = q0 + r;
+    float x = 0.f;
+    if (row < p.Sq) {
+      const T* src = qg + (long long)row * p.q_row;
+      x = ROPE ? rope_at<T, D>(src, d, cosb + (long long)row * D, sinb + (long long)row * D)
+               : to_f(src[d]);
+      x *= p.scale;
+    }
+    Qs[r * QS + d] = x;
+  }
+
+  float m[4], l[4], acc[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  }
+
+  int n_tiles = (p.Skv + BK - 1) / BK;
+  if (p.causal) {
+    const int last = min(q0 + BQ, p.Sq) - 1 + p.q_offset;  // last visible key of the tile
+    n_tiles = min(n_tiles, last / BK + 1);
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK;
+    __syncthreads();  // Q staged / previous PV done with KV and Ps
+    for (int idx = tid; idx < BK * D; idx += NTHREADS) {
+      const int c = idx / D;
+      const int d = idx - c * D;
+      const int key = k0 + c;
+      float x = 0.f;
+      if (key < p.Skv) {
+        const T* src = kg + (long long)key * p.kv_row;
+        x = ROPE ? rope_at<T, D>(src, d, cosb + (long long)key * D, sinb + (long long)key * D)
+                 : to_f(src[d]);
+      }
+      KV[d * KS + c] = x;
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * QS + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = KV[d * KS + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = k0 + tx + 16 * j;
+      const float kb = (key < p.Skv && bias) ? bias[key] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qpos = q0 + ty + 16 * i + p.q_offset;
+        if (key >= p.Skv)
+          s[i][j] = -INFINITY;  // past the end: no weight at all
+        else if (p.causal && key > qpos)
+          s[i][j] = NEG_INF;
+        else
+          s[i][j] += kb;
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        rs += s[i][j];
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      l[i] = l[i] * alpha + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) Ps[(ty + 16 * i) * KS + tx + 16 * j] = s[i][j];
+    }
+    __syncthreads();  // K^T no longer read; P complete
+
+    for (int idx = tid; idx < BK * D; idx += NTHREADS) {
+      const int c = idx / D;
+      const int d = idx - c * D;
+      const int key = k0 + c;
+      KV[c * D + d] = key < p.Skv ? to_f(vg[(long long)key * p.kv_row + d]) : 0.f;
+    }
+    __syncthreads();
+
+    const int kmax = min(BK, p.Skv - k0);
+    for (int c = 0; c < kmax; ++c) {
+      float pv[4], vv[DJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * KS + c];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) vv[j] = KV[c * D + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= p.Sq) continue;
+    const float l_safe = fmaxf(l[i], 1e-30f);
+    T* dst = static_cast<T*>(p.o) + b * p.o_batch + (long long)row * p.o_row + (long long)h * D;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) store_f(dst + tx + 16 * j, acc[i][j] / l_safe);
+    if (p.lse != nullptr && tx == 0)
+      p.lse[((long long)b * p.H + h) * p.Sq + row] = m[i] + logf(l_safe);
+  }
+}
+
+template <typename T, int D, bool ROPE>
+cudaError_t launch(const AttnParams& p, int batch, cudaStream_t stream) {
+  const int smem = smem_floats<D>() * (int)sizeof(float);
+  // above 48 KB of dynamic shared memory a kernel must opt in
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd<T, D, ROPE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, batch);
+  attn_fwd<T, D, ROPE><<<grid, NTHREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t, or -1 for a head
+// dim or dtype without an instance.
+template <bool ROPE>
+int dispatch(int dtype, int D, const AttnParams& p, int batch, cudaStream_t stream) {
+  if (dtype != 0 && dtype != 1) return -1;
+  switch (D) {
+    case 64:
+      return dtype ? launch<__nv_bfloat16, 64, ROPE>(p, batch, stream)
+                   : launch<float, 64, ROPE>(p, batch, stream);
+    case 80:
+      return dtype ? launch<__nv_bfloat16, 80, ROPE>(p, batch, stream)
+                   : launch<float, 80, ROPE>(p, batch, stream);
+    case 128:
+      return dtype ? launch<__nv_bfloat16, 128, ROPE>(p, batch, stream)
+                   : launch<float, 128, ROPE>(p, batch, stream);
+    default:
+      return -1;
+  }
+}
+
+}  // namespace t1

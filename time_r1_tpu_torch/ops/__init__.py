@@ -1,0 +1,1 @@
+"""Attention, projections and the wrappers of the port's CUDA kernels."""
