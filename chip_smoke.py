@@ -153,6 +153,8 @@ def phase_kernels() -> dict:
         allowed = ((torch.arange(Skv, device=dev)[None, :] <= rows[:, None])[None]
                    & (kv_bias[:, None, :] == 0) & valid[:, :, None])
         pairs = allowed.sum().item()
+        live_q = valid.sum().item()  # q read, out and lse written
+        live_kv = allowed.any(1).sum().item()  # (b, key) read by some valid row
 
         def inputs(dtype, q_offset=q_offset):
             q, k, v = randn(B, Sq, H, D, dtype=dtype), randn(B, Skv, Hkv, D, dtype=dtype), randn(B, Skv, Hkv, D, dtype=dtype)
@@ -163,7 +165,7 @@ def phase_kernels() -> dict:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
-        nbytes = (2 * B * Sq * H * D + 2 * B * Skv * Hkv * D) * 2 + B * Skv * 4 + B * H * Sq * 4
+        nbytes = (2 * live_q * H * D + 2 * live_kv * Hkv * D) * 2 + B * Skv * 4 + live_q * H * 4
         entry = check_kernel(
             "flash_attention", lambda *a: flash_attention_fwd(*a)[0],
             lambda *a: flash_attention_plain(*a)[0], library, inputs, valid,
@@ -186,7 +188,11 @@ def phase_kernels() -> dict:
     key_bias = torch.where(key_valid, 0.0, NEG_INF).float()
     P = key_valid.shape[0]
     per_win = key_valid.reshape(-1, win).sum(1).double()
-    vbytes = 4 * P * nh * hd * 2 + 2 * P * hd * 4 + P * 4
+    # Bytes over live rows only, as the FLOPs count live (query, key) pairs:
+    # q/k/v read and out written in bf16, cos/sin read in f32, and the bias
+    # of every row read once. Dead rows are never keys and their outputs are dropped.
+    live = key_valid.sum().item()
+    vbytes = 4 * live * nh * hd * 2 + 2 * live * hd * 4 + P * 4
 
     def win_inputs(dtype):
         return (randn(P, nh, hd, dtype=dtype), randn(P, nh, hd, dtype=dtype), randn(P, nh, hd, dtype=dtype),
@@ -209,7 +215,8 @@ def phase_kernels() -> dict:
     full_bias = (key_bias[fgs].reshape(n_slices, S) + torch.where(pad, NEG_INF, 0.0)).contiguous()
     cos_f, sin_f = cos[fgs].reshape(n_slices, S, hd), sin[fgs].reshape(n_slices, S, hd)
     per_slice = (full_bias == 0).sum(1).double()
-    fbytes = 4 * n_slices * S * nh * hd * 2 + 2 * n_slices * S * hd * 4 + n_slices * S * 4
+    live_f = (full_bias == 0).sum().item()  # live rows; -1 sentinels and dead patches excluded
+    fbytes = 4 * live_f * nh * hd * 2 + 2 * live_f * hd * 4 + n_slices * S * 4
 
     def full_inputs(dtype):
         shape = (n_slices, S, nh, hd)

@@ -119,7 +119,7 @@ def test_cached_prefill_equals_no_cache_forward(params):
     for c0, c1 in ((0, 16), (16, 32), (32, 48)):
         h, cache = decoder_forward(tp["text"], CFG.text, torch.from_numpy(hidden[:, c0:c1]),
                                    torch.from_numpy(pos[:, :, c0:c1]), attention_mask=torch.from_numpy(mask),
-                                   cache=cache, use_flash=True, flash_q_offset=c0)
+                                   cache=cache, use_flash=True)
         parts.append(h)
     valid = mask.astype(bool)
     np.testing.assert_allclose(torch.cat(parts, 1).numpy()[valid], h_full.numpy()[valid], **TOL)

@@ -94,13 +94,16 @@ def decoder_forward(
     attention_mask: Optional[torch.Tensor] = None,  # (B, S) or, with a cache, (B, max_len)
     cache: Optional[KVCache] = None,
     use_flash: Optional[bool] = None,  # force (True) or deny (False) the flash branch
-    flash_q_offset: Optional[int] = None,  # the prefill chunk's start: enables flash when cached
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Run all decoder layers; returns (hidden (B, S, hid), updated cache).
 
     With a cache, each layer writes its chunk K/V into the cache buffer in
     place before attending (JAX writes all layers once, after its scan); the
-    returned KVCache shares the buffers and has length + S."""
+    returned KVCache shares the buffers and has length + S. A cached chunk
+    takes the flash branch when it is eligible and the cache length and
+    buffer are 128-aligned, which a prefill chunk is and a decode step
+    (S = 1) is not; JAX needs a static `flash_q_offset` for this, the port
+    reads the host-int `cache.length`."""
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
     B, S, _ = hidden.shape
@@ -114,11 +117,8 @@ def decoder_forward(
     if cache is not None:
         L0 = cache.length
         kv_len = cache.k.shape[2]
-        if flash_q_offset is not None and flash_q_offset != L0:
-            raise ValueError(f"flash_q_offset {flash_q_offset} != cache length {L0}")
         flash = use_flash if use_flash is not None else (
-            flash_q_offset is not None
-            and _flash_eligible(cfg, hidden, S)
+            _flash_eligible(cfg, hidden, S)
             and kv_len % 128 == 0
             and L0 % 128 == 0
         )

@@ -75,6 +75,15 @@ def merge_vision_embeddings(
     return merged.reshape(B, S, H)
 
 
+def compute_vision_features(params: dict, cfg: Qwen25VLConfig, vis: VisionInputs) -> torch.Tensor:
+    """The vision tower; K2/K3 carry its attention when the patches are on the card."""
+    return vision_forward(
+        params["visual"], cfg.vision, vis.patches, vis.perm, vis.pos_hw,
+        vis.key_valid, vis.full_gather, vis.full_inverse, vis.reverse,
+        use_window_kernel=vis.patches.is_cuda,
+    )
+
+
 def forward(
     params: dict,
     cfg: Qwen25VLConfig,
@@ -84,21 +93,14 @@ def forward(
     vision: Optional[VisionInputs] = None,
     cache: Optional[KVCache] = None,
     use_flash: Optional[bool] = None,
-    flash_q_offset: Optional[int] = None,
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
-    """Full forward → (logits (B, S, V) f32, updated KV cache). The vision
-    tower's attention runs through K2/K3 when the patches are on the card."""
+    """Full forward → (logits (B, S, V) f32, updated KV cache)."""
     embeds = embed_lookup(params["text"]["embed_tokens"], input_ids, dtype=params["text"]["norm"].dtype)
     if vision is not None:
-        feats = vision_forward(
-            params["visual"], cfg.vision, vision.patches, vision.perm, vision.pos_hw,
-            vision.key_valid, vision.full_gather, vision.full_inverse, vision.reverse,
-            use_window_kernel=vision.patches.is_cuda,
-        )
+        feats = compute_vision_features(params, cfg, vision)
         embeds = merge_vision_embeddings(embeds, input_ids, feats, (cfg.video_token_id, cfg.image_token_id))
     hidden, new_cache = decoder_forward(
         params["text"], cfg.text, embeds, position_ids,
         attention_mask=attention_mask, cache=cache, use_flash=use_flash,
-        flash_q_offset=flash_q_offset,
     )
     return lm_logits(params["text"], cfg.text, hidden), new_cache

@@ -34,8 +34,7 @@ from ..models.qwen25vl import (
     prepare_vision_inputs,
 )
 from ..models.qwen25vl.language import decoder_forward, lm_logits
-from ..models.qwen25vl.model import merge_vision_embeddings
-from ..models.qwen25vl.vision import vision_forward
+from ..models.qwen25vl.model import compute_vision_features, merge_vision_embeddings
 from ..ops.quant import embed_lookup
 from .params import SamplingParams
 
@@ -92,15 +91,6 @@ def sample_tokens(
     return (logits + gumbel).argmax(dim=-1)
 
 
-def compute_vision_features(params: dict, cfg: Qwen25VLConfig, vis: VisionInputs) -> torch.Tensor:
-    """The vision tower; K2/K3 carry its attention for CUDA tensors."""
-    return vision_forward(
-        params["visual"], cfg.vision, vis.patches, vis.perm, vis.pos_hw,
-        vis.key_valid, vis.full_gather, vis.full_inverse, vis.reverse,
-        use_window_kernel=vis.patches.is_cuda,
-    )
-
-
 def prefill_chunk(
     params: dict,
     cfg: Qwen25VLConfig,
@@ -110,10 +100,9 @@ def prefill_chunk(
     mask: torch.Tensor,  # (B, max_len)
     feats: Optional[torch.Tensor],  # (U_pad, hidden) or None
     feat_offsets: Optional[torch.Tensor],  # (B,) absolute feature starts
-    q_offset: int,
 ) -> tuple[torch.Tensor, KVCache]:
-    """One prompt chunk through the decoder, appending to the cache; returns
-    (logits at the chunk's last position (B, 1, V), cache)."""
+    """One prompt chunk through the decoder, appending to the cache at
+    `cache.length`; returns (logits at the chunk's last position (B, 1, V), cache)."""
     embeds = embed_lookup(params["text"]["embed_tokens"], ids, dtype=params["text"]["norm"].dtype)
     if feats is not None:
         embeds = merge_vision_embeddings(
@@ -121,7 +110,7 @@ def prefill_chunk(
         )
     hidden, cache = decoder_forward(
         params["text"], cfg.text, embeds, pos_ids,
-        attention_mask=mask, cache=cache, flash_q_offset=q_offset,
+        attention_mask=mask, cache=cache,
     )
     return lm_logits(params["text"], cfg.text, hidden[:, -1:]), cache
 
@@ -261,7 +250,7 @@ class Engine:
                 feat_off = torch.from_numpy(row_start + is_vis[:, :c0].sum(axis=1)).to(dev)
             logits, cache = prefill_chunk(
                 self.params, self.cfg, cache, ids_t[:, c0:c1], pos_t[:, :, c0:c1],
-                mask_t, feats, feat_off, c0,
+                mask_t, feats, feat_off,
             )
         t2 = self._sync()
         self.timings = {"vision_s": t1 - t0, "prefill_s": t2 - t1}
