@@ -6,15 +6,22 @@
 Phases (any failed check raises and the exit code is non-zero):
 1. build every kernel under time_r1_tpu_torch/csrc (one nvcc each, in parallel);
 2. hold each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes, in bf16 and f32, and time kernel, plain version and
-   one library call (`scaled_dot_product_attention`, a yardstick the port never
-   calls);
+   serving and training paths' shapes, in bf16 and f32, and time kernel, plain
+   version and one library call (`scaled_dot_product_attention`, a yardstick
+   the port never calls): K1-K3 (serving), B1, B2, S1, S2 (training);
 3. end-to-end agreement at reduced depth: Qwen2.5-VL-3B widths with 2 decoder
    layers and 2 vision blocks, one 8-frame video request in f32, card
    (kernels) against CPU (plain versions);
+3b. the same for one GRPO loss step (G = 4 fixed completions, fixed
+   advantages, beta = 0.04 against a reference copy): loss, metrics and every
+   gradient, card against CPU;
 4. the serving path at full size: Qwen2.5-VL-3B in bf16 with seeded random
-   weights, two video requests, greedy decode of 128 tokens, with every
-   kernel's launch count read around that one generate() call.
+   weights, two video requests, greedy decode of 128 tokens, with K1-K3's
+   launch counts read around that one generate() call;
+5. the training path at full size: `GRPOTrainer` over the same model and a
+   reference copy, one 32-frame video request, the default TrainConfig (G = 8,
+   200 new tokens at T = 1.0, gradient accumulation 2), two `step_batch` calls
+   (one optimizer update), with every kernel's launch count read around each.
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 kernels JSON line and the result JSON line. Without a CUDA device, or without
@@ -231,6 +238,197 @@ def phase_kernels() -> dict:
         "full_attention_rope", full_attention_rope, full_attention_rope_plain, full_library,
         full_inputs, full_bias == 0, flops=4.0 * (per_slice**2).sum().item() * nh * hd, nbytes=fbytes,
     )
+    results.update(phase_train_kernels())
+    return results
+
+
+# Gradient tolerances, as max |kernel - plain| / max |plain| over the output.
+# f32: the kernels sum dK/dV over up to 64 (row, head) pairs x 2048 query rows,
+# and dq over 2304 keys, in another order than the plain einsums; bf16: dq is
+# stored in bf16 (relative spacing 2^-8), and the forward outputs likewise.
+GRAD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+
+
+def phase_train_kernels() -> dict:
+    """B1, B2, S1 and S2 against their plain versions at the training step's
+    shapes (the prompt forward of phase 5: one 2048-token prompt with 134 left
+    pad keys; the split-loss chunk: 8 rows of 256 completion tokens over that
+    prefix), in bf16 and f32; times in bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from time_r1_tpu_torch.ops.attention import NEG_INF
+    from time_r1_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    H, Hkv, D, pad = 16, 2, 128, 134
+    G = H // Hkv
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+
+    def rel_err(got, want) -> float:
+        got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
+        errs = []
+        for a, b in zip(got, want):
+            diff, scale = (a.float() - b.float()).abs().max().item(), b.float().abs().max().item()
+            log(f"[kernels]   max |kernel - plain| {diff:.3e}, max |plain| {scale:.3e}, "
+                f"max |kernel| {a.float().abs().max().item():.3e}")
+            errs.append(diff / max(scale, 1e-30))
+        return max(errs)
+
+    def check(name, kernel, plain, inputs, flops, nbytes, library):
+        entry = {"name": name}
+        for dtype in (torch.bfloat16, torch.float32):
+            args = inputs(dtype)
+            up = [a.float() if isinstance(a, torch.Tensor) and a.is_floating_point() else a for a in args]
+            err = rel_err(kernel(*args), plain(*up))
+            torch.cuda.synchronize()
+            key = str(dtype).split(".")[-1]
+            if not np.isfinite(err) or err > GRAD_TOL[key]:
+                raise AssertionError(f"{name} {key}: max |kernel - plain| / max |plain| = {err} > {GRAD_TOL[key]}")
+            entry["max_abs_err" if dtype is torch.bfloat16 else "max_abs_err_f32"] = err
+            log(f"[kernels] {name} {key}: max |kernel - plain| / max |plain| = {err:.3e} (tol {GRAD_TOL[key]})")
+            if dtype is torch.bfloat16:
+                entry["ms"] = entry["kernel_ms"] = cuda_ms(lambda: kernel(*args))
+                entry["plain_ms"] = cuda_ms(lambda: plain(*args), iters=3)
+                entry["library_ms"] = library(*args) if library else None
+                entry["bound_ms"], entry["bound_by"] = bound(flops, nbytes)
+        entry["tol"], entry["tol_f32"] = GRAD_TOL["bfloat16"], GRAD_TOL["float32"]
+        entry["err_is"] = "max |kernel - plain| / max |plain|"
+        log(f"[kernels] {name}: {entry['ms']:.3f} ms (plain {entry['plain_ms']:.3f}, bound "
+            f"{entry['bound_ms']:.4f} by {entry['bound_by']}, library {entry['library_ms']})")
+        return entry
+
+    def sdpa_times(q, k, v, mask):
+        """(forward ms, forward + backward ms) of one SDPA call: the yardstick."""
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        g = torch.randn(qt.shape, generator=gen, device=dev).to(q.dtype)
+
+        def fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        def fwd_bwd():
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True).backward(g)
+
+        return cuda_ms(fwd), cuda_ms(fwd_bwd)
+
+    def grad_inputs(q, k, v, bias, do, valid_rows):
+        """lse and delta from the plain forward (f32), dO zero on rows that see no key."""
+        do = do * valid_rows[:, :, None, None]
+        out, lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), bias, True, None, 0)
+        return do, lse, (do.float() * out.float()).sum(-1)
+
+    results = {}
+    # ---- B1, B2 at the prompt forward: q (1, 2048, 16, 128), k/v (1, 2048, 2, 128)
+    S = 2048
+    bias = torch.where(torch.arange(S, device=dev)[None] < pad, NEG_INF, 0.0).float()
+    rows = torch.arange(S, device=dev)
+    valid = (rows >= pad)[None].float()
+    live = S - pad
+    pairs = live * (live + 1) // 2  # per head: valid row i sees keys [pad, i]
+    base = dict(q=randn(1, S, H, D), k=randn(1, S, Hkv, D), v=randn(1, S, Hkv, D), do=randn(1, S, H, D))
+
+    def prompt_inputs(dtype):
+        q, k, v = (base[n].to(dtype) for n in ("q", "k", "v"))
+        do, lse, delta = grad_inputs(q, k, v, bias, base["do"], valid)
+        return q, k, v, bias, do.to(dtype), lse, delta
+
+    mask = torch.where((rows[None, :] <= rows[:, None]) & (rows[None, :] >= pad), 0.0, NEG_INF)
+    mask = mask.to(torch.bfloat16)[None, None]
+    t_fwd, t_fb = sdpa_times(*(base[n].to(torch.bfloat16) for n in ("q", "k", "v")), mask)
+    io_rows = live * H * D * 2 * 2  # q and dO read (bf16)
+    io_keys = live * Hkv * D * 2 * 2  # k and v read
+    stats = live * H * 4 * 2  # lse and delta
+    results["flash_bwd_dq"] = check(
+        "flash_bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, prompt_inputs,
+        flops=6.0 * D * pairs * H, nbytes=io_rows + io_keys + stats + S * 4 + live * H * D * 2,
+        library=lambda *a: t_fb - t_fwd,
+    )
+    results["flash_bwd_dq"]["library_is"] = "SDPA forward+backward minus forward: the whole of B1 + B2"
+    results["flash_bwd_dkv"] = check(
+        "flash_bwd_dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, prompt_inputs,
+        flops=8.0 * D * pairs * H, nbytes=io_rows + io_keys + stats + S * 4 + 2 * live * Hkv * D * 4,
+        library=None,
+    )
+    results["flash_bwd_dkv"]["library_is"] = "in flash_bwd_dq's row (one SDPA backward covers B1 + B2)"
+    results["flash_bwd_dkv"]["grid_blocks"] = (S // 64) * Hkv
+
+    # ---- B2 at the own chunk of the split loss: q (8, 256, 16, 128), zero bias
+    R, Sc = 8, 256
+    own = dict(q=randn(R, Sc, H, D), k=randn(R, Sc, Hkv, D), v=randn(R, Sc, Hkv, D), do=randn(R, Sc, H, D))
+    zero = torch.zeros(R, Sc, device=dev)
+
+    def own_inputs(dtype):
+        q, k, v = (own[n].to(dtype) for n in ("q", "k", "v"))
+        do, lse, delta = grad_inputs(q, k, v, zero, own["do"], torch.ones(R, Sc, device=dev))
+        return q, k, v, zero, do.to(dtype), lse, delta
+
+    for dtype in (torch.bfloat16, torch.float32):
+        args = own_inputs(dtype)
+        err = rel_err(fa.flash_bwd_dkv(*args), fa.flash_bwd_dkv_plain(*[a.float() for a in args]))
+        key = str(dtype).split(".")[-1]
+        log(f"[kernels] flash_bwd_dkv own chunk {key}: rel err {err:.3e} (tol {GRAD_TOL[key]})")
+        if not np.isfinite(err) or err > GRAD_TOL[key]:
+            raise AssertionError(f"flash_bwd_dkv own chunk {key}: {err}")
+        if dtype is torch.bfloat16:
+            results["flash_bwd_dkv"]["own_chunk_ms"] = cuda_ms(lambda: fa.flash_bwd_dkv(*args))
+
+    # ---- S1, S2 at the split-loss chunk: q (8, 256, 16, 128), prefix (1, 2048, 2, 128)
+    P, Lp = 1, 2048
+    pbias = torch.where(torch.arange(Lp, device=dev)[None] < pad, NEG_INF, 0.0).float()
+    sp = dict(q=own["q"], kp=randn(P, Lp, Hkv, D), vp=randn(P, Lp, Hkv, D), ko=own["k"], vo=own["v"], do=own["do"])
+
+    def sp_fwd_inputs(dtype):
+        return tuple(sp[n].to(dtype) for n in ("q", "kp", "vp", "ko", "vo")) + (pbias,)
+
+    def sp_bwd_parts(dtype):
+        q, kp, vp, ko, vo, pb = sp_fwd_inputs(dtype)
+        out, lse = fa.shared_prefix_plain(q.float(), kp.float(), vp.float(), ko.float(), vo.float(), pb)
+        delta = (sp["do"].to(dtype).float() * out).sum(-1)
+        return q, kp, vp, ko, vo, pb, sp["do"].to(dtype), lse, delta
+
+    def sp_bwd(q, kp, vp, ko, vo, pb, do, lse, delta):
+        return (fa.shared_prefix_bwd_dq(q, kp, vp, ko, vo, pb, do, lse, delta),
+                *fa.shared_prefix_bwd_dkv(q, kp, vp, pb, do, lse, delta))
+
+    def sp_bwd_plain(q, kp, vp, ko, vo, pb, do, lse, delta):
+        return (fa.shared_prefix_bwd_dq_plain(q, kp, vp, ko, vo, pb, do, lse, delta),
+                *fa.shared_prefix_bwd_dkv_plain(q, kp, vp, pb, do, lse, delta))
+
+    live_p = Lp - pad
+    own_pairs = Sc * (Sc + 1) // 2
+    pre_pairs = Sc * live_p
+    rows_io = R * Sc * H * D * 2
+    keys_io = (live_p * Hkv * D * 2) * 2 + (R * Sc * Hkv * D * 2) * 2
+    cat_k = torch.cat([sp["kp"].expand(R, -1, -1, -1), sp["ko"]], 1).to(torch.bfloat16)
+    cat_v = torch.cat([sp["vp"].expand(R, -1, -1, -1), sp["vo"]], 1).to(torch.bfloat16)
+    i = torch.arange(Sc, device=dev)
+    cat_mask = torch.cat([pbias.expand(Sc, -1), torch.where(i[None, :] <= i[:, None], 0.0, NEG_INF)], 1)
+    cat_mask = cat_mask.to(torch.bfloat16)[None, None]
+    s_fwd, s_fb = sdpa_times(sp["q"].to(torch.bfloat16), cat_k, cat_v, cat_mask)
+    results["shared_prefix_fwd"] = check(
+        "shared_prefix_fwd", lambda *a: fa.shared_prefix_fwd(*a)[0], lambda *a: fa.shared_prefix_plain(*a)[0],
+        sp_fwd_inputs, flops=4.0 * D * (pre_pairs + own_pairs) * R * H,
+        nbytes=2 * rows_io + keys_io + Lp * 4 + R * Sc * H * 4, library=lambda *a: s_fwd,
+    )
+    results["shared_prefix_fwd"]["library_is"] = "SDPA over [prefix repeated 8x | own chunk] with the mask"
+    bwd = check(
+        "shared_prefix_bwd", sp_bwd, sp_bwd_plain, sp_bwd_parts,
+        flops=6.0 * D * (pre_pairs + own_pairs) * R * H + 8.0 * D * pre_pairs * R * H,
+        nbytes=2 * (2 * rows_io + keys_io + R * Sc * H * 8) + rows_io + 2 * live_p * Hkv * D * 4,
+        library=lambda *a: s_fb - s_fwd,
+    )
+    bwd["library_is"] = ("SDPA forward+backward minus forward over [prefix repeated | own chunk]:"
+                         " also covers the own-chunk dK/dV that B2 computes")
+    a = sp_bwd_parts(torch.bfloat16)
+    bwd["ms_dq"] = cuda_ms(lambda: fa.shared_prefix_bwd_dq(*a))
+    bwd["ms_dkv_prefix"] = cuda_ms(lambda: fa.shared_prefix_bwd_dkv(a[0], a[1], a[2], a[5], *a[6:]))
+    bwd["grid_blocks_dkv_prefix"] = (Lp // 64) * Hkv * P
+    log(f"[kernels] shared_prefix_bwd: dq {bwd['ms_dq']:.3f} ms, prefix dK/dV {bwd['ms_dkv_prefix']:.3f} ms")
+    results["shared_prefix_bwd"] = bwd
     return results
 
 
@@ -249,26 +447,22 @@ def video_request(cfg, rng, frames: int, height: int, width: int, n_text: int = 
     return Request(input_ids=ids, patches=patches, grid_thw=grid, second_per_grid_t=1.0)
 
 
-def to_device(tree, device):
+def to_device(tree, device, scale: float = 1.0):
+    """A copy of a parameter tree on `device`, optionally scaled."""
     if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
+        return {k: to_device(v, device, scale) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [to_device(v, device) for v in tree]
-    return tree.to(device)
+        return [to_device(v, device, scale) for v in tree]
+    return (tree.detach() * scale).to(device) if scale != 1.0 else tree.detach().to(device, copy=True)
 
 
 def phase_reduced_depth() -> None:
     import torch
 
-    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig, init_params
+    from time_r1_tpu_torch.models.qwen25vl import init_params
     from time_r1_tpu_torch.sampler import Engine, SamplingParams
 
-    base = Qwen25VLConfig.qwen25vl_3b()
-    cfg = replace(
-        base,
-        vision=replace(base.vision, depth=2, fullatt_block_indexes=(1,)),
-        text=replace(base.text, num_hidden_layers=2),
-    )
+    cfg = reduced_config()
     torch.set_num_threads(os.cpu_count() or 1)
     params_cpu = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
     params_gpu = to_device(params_cpu, torch.device("cuda"))
@@ -292,15 +486,97 @@ def phase_reduced_depth() -> None:
         raise AssertionError(f"greedy tokens differ: card {tg} cpu {tc}")
 
 
+def reduced_config():
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
+
+    base = Qwen25VLConfig.qwen25vl_3b()
+    return replace(
+        base,
+        vision=replace(base.vision, depth=2, fullatt_block_indexes=(1,)),
+        text=replace(base.text, num_hidden_layers=2),
+    )
+
+
+# Phase 3b tolerance, max |card - cpu| / max |cpu| per gradient leaf (and for
+# the loss and metrics): f32 on both sides, with sums in other orders in the
+# attention kernels (up to 896 keys), in cuBLAS against the CPU's GEMMs over
+# reductions 2048-11008 wide, and in the 151936-way log-softmax.
+TRAIN_TOL = 1e-3
+
+
+def phase_reduced_train() -> None:
+    """One GRPO loss step at reduced depth, card (kernels) against CPU (plain)."""
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.rl import GRPOHyperParams, build_grpo_split_batch
+    from time_r1_tpu_torch.rl.grpo import compute_ref_logps, grpo_value_and_grad, precompute_frozen_vision
+
+    cfg = reduced_config()
+    params_cpu = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    # the reference model: the same weights scaled, so that the KL term is not zero
+    ref_cpu = to_device(params_cpu, torch.device("cpu"), scale=0.98)
+    req = video_request(cfg, np.random.default_rng(1), frames=8, height=224, width=392)
+    rng = np.random.default_rng(2)
+    eos = cfg.eos_token_id
+    comps = [rng.integers(0, 151000, n).tolist() + ([eos] if i % 2 == 0 else []) for i, n in enumerate((20, 57, 101, 127))]
+    group = {"prompt_ids": req.input_ids, "completions": comps,
+             "advantages": np.array([1.0, -0.5, 0.25, -0.75], np.float32),
+             "patches": req.patches, "grid_thw": req.grid_thw, "second_per_grid_t": 1.0}
+    hp = GRPOHyperParams(num_generations=4, beta=0.04)
+    out = {}
+    for device in ("cuda", "cpu"):
+        dev = torch.device(device)
+        params = params_cpu if device == "cpu" else to_device(params_cpu, dev)
+        ref = ref_cpu if device == "cpu" else to_device(ref_cpu, dev)
+        t0 = time.perf_counter()
+        batch = build_grpo_split_batch(cfg, [group], dtype=torch.float32, device=dev)
+        batch = precompute_frozen_vision(params, cfg, batch)
+        batch = batch._replace(ref_logps=compute_ref_logps(ref, cfg, hp, batch))
+        loss, metrics, grads = grpo_value_and_grad(params, cfg, hp, batch)
+        out[device] = (float(loss), {k: float(v) for k, v in metrics.items()}, [g.cpu() for g in grads])
+        log(f"[train-reduced] {device}: {time.perf_counter() - t0:.1f} s, prompt {len(req.input_ids)} tokens, "
+            f"Lp {batch.prompt_ids.shape[1]}, Lc {batch.comp_ids.shape[1]}, loss {float(loss):.6f}, "
+            f"metrics {out[device][1]}")
+    (lg, mg, gg), (lc, mc, gc) = out["cuda"], out["cpu"]
+    worst = 0.0
+    for g, c in zip(gg, gc):
+        scale = c.abs().max().item()
+        if scale > 0:
+            worst = max(worst, (g - c).abs().max().item() / scale)
+    loss_err = abs(lg - lc) / max(abs(lc), 1e-30)
+    metric_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6) for k in mc)
+    log(f"[train-reduced] card vs cpu: loss {loss_err:.3e}, metrics {metric_err:.3e}, worst gradient leaf "
+        f"{worst:.3e} of {len(gc)} (max |Δ| / max |g|, tol {TRAIN_TOL})")
+    if not (np.isfinite(lg) and loss_err <= TRAIN_TOL and metric_err <= TRAIN_TOL and worst <= TRAIN_TOL):
+        raise AssertionError("reduced-depth train step: card and CPU disagree")
+
+
 def kernel_wrappers():
-    from time_r1_tpu_torch.ops.flash_attention import flash_attention_fwd
+    """Every kernel wrapper of the port, by the name its phase-2 entry has
+    (S2's two kernels count apart)."""
+    from time_r1_tpu_torch.ops import flash_attention as fa
     from time_r1_tpu_torch.ops.vision_attention import full_attention_rope, window_attention_rope
 
     return {
-        "flash_attention": flash_attention_fwd,
+        "flash_attention": fa.flash_attention_fwd,
         "window_attention_rope": window_attention_rope,
         "full_attention_rope": full_attention_rope,
+        "flash_bwd_dq": fa.flash_bwd_dq,
+        "flash_bwd_dkv": fa.flash_bwd_dkv,
+        "shared_prefix_fwd": fa.shared_prefix_fwd,
+        "shared_prefix_bwd": fa.shared_prefix_bwd_dq,
+        "shared_prefix_bwd_dkv": fa.shared_prefix_bwd_dkv,
     }
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def phase_full_size() -> dict:
@@ -321,14 +597,12 @@ def phase_full_size() -> dict:
     eng.generate(reqs, SamplingParams(max_new_tokens=2, stop_token_ids=()))  # warm-up
 
     sp = SamplingParams(max_new_tokens=128)
-    wrappers = kernel_wrappers()
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out = eng.generate(reqs, sp)
     total = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = {k: v for k, v in read_launches().items() if k in SERVING_KERNELS}
     tm = eng.timings
     n_gen = sum(len(o) for o in out)
     log(f"[full] launches on the main path: {launches}")
@@ -350,8 +624,89 @@ def phase_full_size() -> dict:
     return launches
 
 
+SERVING_KERNELS = ("flash_attention", "window_attention_rope", "full_attention_rope")
+
+
+def token_parity_reward(completions, **kwargs):
+    """A stand-in reward that varies across the rows of a group (the share of
+    odd token ids), so that the advantages are not zero: with random weights
+    the timestamp and format rewards are 0 for every row."""
+    out = []
+    for text in completions:
+        ids = [int(t) for t in text.split()]
+        out.append(sum(t % 2 for t in ids) / max(len(ids), 1))
+    return out
+
+
+class IdsProcessor:
+    """The trainer's processor stand-in: a completion decodes to its token ids
+    as text (no tokenizer is in the repository)."""
+
+    def batch_decode(self, seqs, skip_special_tokens=True):
+        return [" ".join(str(int(t)) for t in s) for s in seqs]
+
+
+def phase_train_full_size() -> dict:
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig, init_params
+    from time_r1_tpu_torch.rl import GRPOTrainer, TrainConfig
+    from time_r1_tpu_torch.rl.grpo import trainable_leaves
+    from time_r1_tpu_torch.utils.profiling import PhaseTimers
+    from time_r1_tpu_torch.utils.rewards import REWARD_FUNCS_REGISTRY
+
+    cfg = Qwen25VLConfig.qwen25vl_3b()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    ref = to_device(params, torch.device("cuda"))
+    torch.cuda.synchronize()
+    log(f"[train] init_params 3B bf16 and its reference copy on the card: {time.perf_counter() - t0:.1f} s")
+    req = video_request(cfg, np.random.default_rng(0), 32, 224, 392)  # phase 4's first request
+    config = TrainConfig(report_to="none")
+    rewards = [REWARD_FUNCS_REGISTRY["iou"], REWARD_FUNCS_REGISTRY["format"], token_parity_reward]
+    trainer = GRPOTrainer(params, cfg, IdsProcessor(), rewards, config=config, ref_params=ref,
+                          dtype=torch.bfloat16, device="cuda")
+    example = {"problem": "a person opens a door", "solution": (2.0, 9.5), "durations": 32.0}
+    before = [p.detach().cpu() for p in trainable_leaves(params, config.fix_vit)]
+    per_call = []
+    for call in (1, 2):
+        trainer.timers = PhaseTimers(sync=True)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        info = trainer.step_batch([example], [req])
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = read_launches()
+        metrics = trainer.pop_metrics()
+        tm = trainer.engine.timings
+        phases = {k: round(v["total_s"] * 1e3, 1) for k, v in trainer.timers.summary().items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        per_call.append(launches)
+        log(f"[train] step_batch {call}: {total:.2f} s; phases (ms, synced) {phases}; rollout vision "
+            f"{tm['vision_s'] * 1e3:.1f} ms, prefill {tm['prefill_s'] * 1e3:.1f} ms, decode "
+            f"{tm['decode_s'] * 1e3 / max(tm['decode_steps'], 1):.2f} ms/step over {tm['decode_steps']} steps; "
+            f"peak {peak:.2f} GiB allocated")
+        log(f"[train] step_batch {call}: launches {launches}")
+        log(f"[train] step_batch {call}: loss {info['loss']:.6f}, reward {info['reward']:.4f}, metrics {metrics}")
+        if not (np.isfinite(info["loss"]) and np.isfinite(metrics["grad_norm"]) and metrics["grad_norm"] > 0):
+            raise AssertionError(f"step_batch {call}: loss {info['loss']} or grad_norm {metrics['grad_norm']}")
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"step_batch {call}: {name} was not launched")
+    changed = total_elems = 0
+    for p, b in zip(trainable_leaves(params, config.fix_vit), before):
+        changed += int((p.detach().cpu() != b).sum())
+        total_elems += b.numel()
+    log(f"[train] after one optimizer update (two micro-steps, lr {config.learning_rate}): {changed} of "
+        f"{total_elems} trainable bf16 elements changed")
+    return per_call[-1]
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
+    # the training phase holds ~60 GB of live tensors of many sizes
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -371,17 +726,30 @@ def main() -> int:
     phase_build()
     checks = phase_kernels()
     phase_reduced_depth()
-    launches = phase_full_size()
+    phase_reduced_train()
+    launches = phase_full_size()  # K1-K3: the serving path
+    train_launches = phase_train_full_size()  # B1, B2, S1, S2: the training path
+    launches.update({k: v for k, v in train_launches.items() if k not in SERVING_KERNELS})
 
+    jax_fa = "time_r1_tpu/ops/flash_attention.py"
     replaces = {
-        "flash_attention": "time_r1_tpu/ops/flash_attention.py:135",
+        "flash_attention": f"{jax_fa}:135",
         "window_attention_rope": "time_r1_tpu/ops/vision_attention.py:140",
         "full_attention_rope": "time_r1_tpu/ops/vision_attention.py:233",
+        "flash_bwd_dq": f"{jax_fa}:325",
+        "flash_bwd_dkv": f"{jax_fa}:368",
+        "shared_prefix_fwd": f"{jax_fa}:575",
+        "shared_prefix_bwd": f"{jax_fa}:739",
     }
+    csrc = "time_r1_tpu_torch/csrc"
     sources = {
-        "flash_attention": "time_r1_tpu_torch/csrc/flash_attention.cu",
-        "window_attention_rope": "time_r1_tpu_torch/csrc/vision_attention.cu",
-        "full_attention_rope": "time_r1_tpu_torch/csrc/vision_attention.cu",
+        "flash_attention": f"{csrc}/flash_attention.cu",
+        "window_attention_rope": f"{csrc}/vision_attention.cu",
+        "full_attention_rope": f"{csrc}/vision_attention.cu",
+        "flash_bwd_dq": f"{csrc}/flash_attention_bwd.cu",
+        "flash_bwd_dkv": f"{csrc}/flash_attention_bwd.cu",
+        "shared_prefix_fwd": f"{csrc}/shared_prefix_attention.cu",
+        "shared_prefix_bwd": f"{csrc}/shared_prefix_attention.cu",
     }
     kernels = []
     for name, entry in checks.items():
@@ -392,6 +760,10 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": launches[name],
         })
+    # S2 is two kernels (dq at :739, the prefix dK/dV at :769): its entry gives both counts
+    s2 = next(k for k in kernels if k["name"] == "shared_prefix_bwd")
+    s2["launches_dkv_prefix"] = launches["shared_prefix_bwd_dkv"]
+    s2["replaces_dkv_prefix"] = f"{jax_fa}:769"
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

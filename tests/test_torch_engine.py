@@ -158,8 +158,6 @@ def test_sample_tokens_distribution():
 def test_unported_options_raise(engines):
     _, teng, tp = engines
     with pytest.raises(NotImplementedError):
-        teng.generate(_text_requests()[:1], SamplingParams(num_return_sequences=2, max_new_tokens=2))
-    with pytest.raises(NotImplementedError):
         Engine(tp, CFG, device="cpu", quantization="int8")
     with pytest.raises(NotImplementedError):
         Engine(tp, CFG, device="cpu", kv_cache_quant=True)

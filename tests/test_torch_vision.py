@@ -1,6 +1,7 @@
-"""The port's vision tower against the JAX `vision_forward`, with and without
-the kernel route (which on CPU tensors runs the kernels' plain versions), on
-padded windows and multi-video layouts; plus the host-side plan and patchify."""
+"""The port's vision tower against the JAX `vision_forward`, whole and as the
+blocks → merger split that the trainer uses (on CPU tensors the K2/K3
+wrappers run their plain versions), on padded windows and multi-video
+layouts; plus the host-side plan and patchify."""
 
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ from time_r1_tpu.models.qwen25vl import prepare_vision_inputs as jax_prepare
 from time_r1_tpu.models.qwen25vl.vision import vision_forward as jax_vision_forward
 from time_r1_tpu_torch.models.processor import patchify_video
 from time_r1_tpu_torch.models.qwen25vl import VisionInputs, prepare_vision_inputs, vision_forward
+from time_r1_tpu_torch.models.qwen25vl.vision import vision_blocks_forward, vision_merge_forward
 from time_r1_tpu_torch.ops.vision_attention import full_attention_rope, window_attention_rope
 
 torch.set_num_threads(2)
@@ -28,8 +30,8 @@ def params():
 
 
 @pytest.mark.parametrize("grids", GRIDS)
-@pytest.mark.parametrize("use_window_kernel", [True, False])
-def test_vision_forward_matches_jax(params, grids, use_window_kernel):
+@pytest.mark.parametrize("split", [True, False])
+def test_vision_forward_matches_jax(params, grids, split):
     jp, tp = params
     rng = np.random.default_rng(0)
     n_patches = sum(t * h * w for t, h, w in grids)
@@ -42,10 +44,15 @@ def test_vision_forward_matches_jax(params, grids, use_window_kernel):
     ))
     vis = VisionInputs.build(prepare_vision_inputs(grids, CFG.vision), torch.from_numpy(patches))
     window_attention_rope.launches = full_attention_rope.launches = 0
-    got = vision_forward(
-        tp["visual"], CFG.vision, vis.patches, vis.perm, vis.pos_hw, vis.key_valid,
-        vis.full_gather, vis.full_inverse, vis.reverse, use_window_kernel=use_window_kernel,
-    ).numpy()
+    if split:
+        hidden = vision_blocks_forward(tp["visual"], CFG.vision, vis.patches, vis.perm, vis.pos_hw,
+                                       vis.key_valid, vis.full_gather, vis.full_inverse)
+        got = vision_merge_forward(tp["visual"], CFG.vision, hidden, vis.reverse).numpy()
+    else:
+        got = vision_forward(
+            tp["visual"], CFG.vision, vis.patches, vis.perm, vis.pos_hw, vis.key_valid,
+            vis.full_gather, vis.full_inverse, vis.reverse,
+        ).numpy()
     assert window_attention_rope.launches == full_attention_rope.launches == 0
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)

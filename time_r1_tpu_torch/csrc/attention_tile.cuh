@@ -1,5 +1,7 @@
-// Tiled attention forward with an online softmax, shared by the port's three
-// attention kernels (flash_attention.cu: K1; vision_attention.cu: K2, K3).
+// Tiled attention forward with an online softmax, shared by the port's four
+// attention forward kernels (flash_attention.cu: K1; vision_attention.cu: K2,
+// K3; shared_prefix_attention.cu: S1, which chains two key sources through
+// `fwd_source`). The backward tiles are in attention_bwd.cuh.
 //
 // One block of 256 threads computes a 64-row query tile of one head of one
 // batch entry (a batch entry is a sequence for K1, a window for K2, a
@@ -80,58 +82,43 @@ __device__ __forceinline__ float rope_at(const T* row, int d, const float* c, co
   return x * c[d] + (d < HALF ? -xr : xr) * s[d];
 }
 
+// Stage a 64-row query tile in shared memory as f32: scaled, and roped when ROPE.
+// Rows past Sq are zeros.
 template <typename T, int D, bool ROPE>
-__global__ void __launch_bounds__(NTHREADS, 2) attn_fwd(const AttnParams p) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int DJ = D / 16;
-  constexpr int QS = D + 1;   // padded row strides keep shared-memory banks apart
-  constexpr int KS = BK + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* KV = Qs + BQ * QS;   // K^T during QK^T, then V during PV
-  float* Ps = KV + D * KS;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_batch + (long long)h * D;
-  const T* kg = static_cast<const T*>(p.k) + b * p.kv_batch + (long long)(h / p.G) * D;
-  const T* vg = static_cast<const T*>(p.v) + b * p.kv_batch + (long long)(h / p.G) * D;
-  const float* bias = p.bias ? p.bias + b * p.bias_batch : nullptr;
-  const float* cosb = ROPE ? p.cos + b * p.rope_batch * D : nullptr;
-  const float* sinb = ROPE ? p.sin + b * p.rope_batch * D : nullptr;
-
-  for (int idx = tid; idx < BQ * D; idx += NTHREADS) {
+__device__ __forceinline__ void load_q_tile(float* Qs, const T* qg, int q_row, int Sq, int q0,
+                                            float scale, const float* cosb, const float* sinb) {
+  for (int idx = threadIdx.x; idx < BQ * D; idx += NTHREADS) {
     const int r = idx / D;
     const int d = idx - r * D;
     const int row = q0 + r;
     float x = 0.f;
-    if (row < p.Sq) {
-      const T* src = qg + (long long)row * p.q_row;
+    if (row < Sq) {
+      const T* src = qg + (long long)row * q_row;
       x = ROPE ? rope_at<T, D>(src, d, cosb + (long long)row * D, sinb + (long long)row * D)
                : to_f(src[d]);
-      x *= p.scale;
+      x *= scale;
     }
-    Qs[r * QS + d] = x;
+    Qs[r * (D + 1) + d] = x;
   }
+}
 
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
-
-  int n_tiles = (p.Skv + BK - 1) / BK;
-  if (p.causal) {
-    const int last = min(q0 + BQ, p.Sq) - 1 + p.q_offset;  // last visible key of the tile
-    n_tiles = min(n_tiles, last / BK + 1);
-  }
+// One key source of the online softmax: key tiles [0, n_tiles) of kg/vg
+// (Skv rows, kv_row elements apart), with an optional additive key bias and,
+// when causal, key j hidden from query row i unless j <= qpos0 + i. Updates
+// the running max m, sum l and output accumulator of the thread's 4 rows.
+// Sources chain: K1 runs one, S1 runs the shared prefix and then the own chunk.
+template <typename T, int D, bool ROPE>
+__device__ __forceinline__ void fwd_source(const float* Qs, float* KV, float* Ps, const T* kg,
+                                           const T* vg, int kv_row, int Skv, const float* bias,
+                                           int causal, int qpos0, int n_tiles, const float* cosb,
+                                           const float* sinb, float (&m)[4], float (&l)[4],
+                                           float (&acc)[4][D / 16]) {
+  constexpr int DJ = D / 16;
+  constexpr int QS = D + 1;   // padded row strides keep shared-memory banks apart
+  constexpr int KS = BK + 1;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
@@ -141,8 +128,8 @@ __global__ void __launch_bounds__(NTHREADS, 2) attn_fwd(const AttnParams p) {
       const int d = idx - c * D;
       const int key = k0 + c;
       float x = 0.f;
-      if (key < p.Skv) {
-        const T* src = kg + (long long)key * p.kv_row;
+      if (key < Skv) {
+        const T* src = kg + (long long)key * kv_row;
         x = ROPE ? rope_at<T, D>(src, d, cosb + (long long)key * D, sinb + (long long)key * D)
                  : to_f(src[d]);
       }
@@ -171,13 +158,13 @@ __global__ void __launch_bounds__(NTHREADS, 2) attn_fwd(const AttnParams p) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int key = k0 + tx + 16 * j;
-      const float kb = (key < p.Skv && bias) ? bias[key] : 0.f;
+      const float kb = (key < Skv && bias) ? bias[key] : 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int qpos = q0 + ty + 16 * i + p.q_offset;
-        if (key >= p.Skv)
+        const int qpos = qpos0 + ty + 16 * i;
+        if (key >= Skv)
           s[i][j] = -INFINITY;  // past the end: no weight at all
-        else if (p.causal && key > qpos)
+        else if (causal && key > qpos)
           s[i][j] = NEG_INF;
         else
           s[i][j] += kb;
@@ -212,11 +199,11 @@ __global__ void __launch_bounds__(NTHREADS, 2) attn_fwd(const AttnParams p) {
       const int c = idx / D;
       const int d = idx - c * D;
       const int key = k0 + c;
-      KV[c * D + d] = key < p.Skv ? to_f(vg[(long long)key * p.kv_row + d]) : 0.f;
+      KV[c * D + d] = key < Skv ? to_f(vg[(long long)key * kv_row + d]) : 0.f;
     }
     __syncthreads();
 
-    const int kmax = min(BK, p.Skv - k0);
+    const int kmax = min(BK, Skv - k0);
     for (int c = 0; c < kmax; ++c) {
       float pv[4], vv[DJ];
 #pragma unroll
@@ -229,18 +216,72 @@ __global__ void __launch_bounds__(NTHREADS, 2) attn_fwd(const AttnParams p) {
         for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
     }
   }
+}
 
+// Key tiles a causal 64-row query tile starting at q0 reads: up to its last
+// visible key q_offset + min(q0 + BQ, Sq) - 1.
+__device__ __forceinline__ int causal_tiles(int Skv, int Sq, int q0, int q_offset) {
+  const int n = (Skv + BK - 1) / BK;
+  const int last = min(q0 + BQ, Sq) - 1 + q_offset;
+  return min(n, last / BK + 1);
+}
+
+// Normalise and store the thread's 4 output rows (and lse = m + log l).
+template <typename T, int D>
+__device__ __forceinline__ void store_out(T* og, int o_row, float* lse_bh, int Sq, int q0,
+                                          const float (&m)[4], const float (&l)[4],
+                                          const float (&acc)[4][D / 16]) {
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
-    if (row >= p.Sq) continue;
+    if (row >= Sq) continue;
     const float l_safe = fmaxf(l[i], 1e-30f);
-    T* dst = static_cast<T*>(p.o) + b * p.o_batch + (long long)row * p.o_row + (long long)h * D;
+    T* dst = og + (long long)row * o_row;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) store_f(dst + tx + 16 * j, acc[i][j] / l_safe);
-    if (p.lse != nullptr && tx == 0)
-      p.lse[((long long)b * p.H + h) * p.Sq + row] = m[i] + logf(l_safe);
+    for (int j = 0; j < D / 16; ++j) store_f(dst + tx + 16 * j, acc[i][j] / l_safe);
+    if (lse_bh != nullptr && tx == 0) lse_bh[row] = m[i] + logf(l_safe);
   }
+}
+
+template <int D>
+__device__ __forceinline__ void init_softmax(float (&m)[4], float (&l)[4], float (&acc)[4][D / 16]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
+  }
+}
+
+template <typename T, int D, bool ROPE>
+__global__ void __launch_bounds__(NTHREADS, 2) attn_fwd(const AttnParams p) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* KV = Qs + BQ * (D + 1);   // K^T during QK^T, then V during PV
+  float* Ps = KV + D * (BK + 1);
+
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const T* qg = static_cast<const T*>(p.q) + b * p.q_batch + (long long)h * D;
+  const T* kg = static_cast<const T*>(p.k) + b * p.kv_batch + (long long)(h / p.G) * D;
+  const T* vg = static_cast<const T*>(p.v) + b * p.kv_batch + (long long)(h / p.G) * D;
+  const float* bias = p.bias ? p.bias + b * p.bias_batch : nullptr;
+  const float* cosb = ROPE ? p.cos + b * p.rope_batch * D : nullptr;
+  const float* sinb = ROPE ? p.sin + b * p.rope_batch * D : nullptr;
+
+  load_q_tile<T, D, ROPE>(Qs, qg, p.q_row, p.Sq, q0, p.scale, cosb, sinb);
+  float m[4], l[4], acc[4][D / 16];
+  init_softmax<D>(m, l, acc);
+  const int n_tiles = p.causal ? causal_tiles(p.Skv, p.Sq, q0, p.q_offset) : (p.Skv + BK - 1) / BK;
+  fwd_source<T, D, ROPE>(Qs, KV, Ps, kg, vg, p.kv_row, p.Skv, bias, p.causal, q0 + p.q_offset,
+                         n_tiles, cosb, sinb, m, l, acc);
+  store_out<T, D>(static_cast<T*>(p.o) + b * p.o_batch + (long long)h * D, p.o_row,
+                  p.lse ? p.lse + ((long long)b * p.H + h) * p.Sq : nullptr, p.Sq, q0, m, l, acc);
 }
 
 template <typename T, int D, bool ROPE>

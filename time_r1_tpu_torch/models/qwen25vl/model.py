@@ -12,7 +12,7 @@ import torch
 
 from ...ops.quant import embed_lookup
 from .config import Qwen25VLConfig
-from .language import KVCache, decoder_forward, lm_logits
+from .language import KVCache, decoder_forward, lm_logits, shared_decode_forward
 from .vision import VisionPrep, vision_forward
 
 
@@ -75,12 +75,19 @@ def merge_vision_embeddings(
     return merged.reshape(B, S, H)
 
 
+def vision_signature(grids, vis: VisionInputs) -> tuple:
+    """(grids, padded patch rows): the padded vision layout is a function of
+    the two, so inputs with equal signatures are equal. The engine tags the
+    ViT hidden states it captures with it, and the trainer checks its loss
+    batch (`rl/rollout._pack_vision`) against the tag before reusing them."""
+    return tuple(tuple(int(x) for x in g) for g in grids), int(vis.perm.shape[0])
+
+
 def compute_vision_features(params: dict, cfg: Qwen25VLConfig, vis: VisionInputs) -> torch.Tensor:
     """The vision tower; K2/K3 carry its attention when the patches are on the card."""
     return vision_forward(
         params["visual"], cfg.vision, vis.patches, vis.perm, vis.pos_hw,
         vis.key_valid, vis.full_gather, vis.full_inverse, vis.reverse,
-        use_window_kernel=vis.patches.is_cuda,
     )
 
 
@@ -104,3 +111,21 @@ def forward(
         attention_mask=attention_mask, cache=cache, use_flash=use_flash,
     )
     return lm_logits(params["text"], cfg.text, hidden), new_cache
+
+
+def forward_shared_decode(
+    params: dict,
+    cfg: Qwen25VLConfig,
+    input_ids: torch.Tensor,  # (B, S) decode chunk (no vision tokens)
+    position_ids: torch.Tensor,  # (3, B, S)
+    prefix: KVCache,  # (L, P, Lp, ...) shared prompt prefixes
+    suffix: KVCache,  # (L, B, max_new, ...) per-row generated suffix
+    prefix_bias: torch.Tensor,  # (P, Lp) f32 additive
+) -> tuple[torch.Tensor, KVCache]:
+    """Decode-phase forward with the prompt KV shared across rollout rows
+    (language.shared_decode_forward) → (logits (B, S, V) f32, new suffix)."""
+    embeds = embed_lookup(params["text"]["embed_tokens"], input_ids, dtype=params["text"]["norm"].dtype)
+    hidden, new_suffix = shared_decode_forward(
+        params["text"], cfg.text, embeds, position_ids, prefix, suffix, prefix_bias,
+    )
+    return lm_logits(params["text"], cfg.text, hidden), new_suffix

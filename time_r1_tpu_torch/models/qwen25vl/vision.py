@@ -7,9 +7,10 @@ reshape to (n_windows, win, ...) with a key-validity bias, and the
 full-attention blocks attend within each (sample, t)-slice, gathered to
 (n_slices, max_slice, ...) and scattered back by an inverse permutation.
 
-The blocks run as a Python loop. With `use_window_kernel` the attention of
-the window layers goes through K2 and that of the full layers through K3
-(ops/vision_attention.py); without it, through their plain versions. Dead
+The blocks run as a Python loop. The attention of the window layers goes
+through K2 and that of the full layers through K3 (ops/vision_attention.py),
+whose wrappers launch the kernels for CUDA tensors and run their plain
+versions for CPU tensors. Dead
 (padding) slots flow through as garbage but are never attention keys and are
 dropped by the final original-order gather.
 """
@@ -23,12 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ...ops.attention import NEG_INF
-from ...ops.vision_attention import (
-    full_attention_rope,
-    full_attention_rope_plain,
-    window_attention_rope,
-    window_attention_rope_plain,
-)
+from ...ops.vision_attention import full_attention_rope, window_attention_rope
 from .config import VisionConfig
 from .language import _rms_norm
 
@@ -172,15 +168,13 @@ def vision_blocks_forward(
     prep_key_valid: torch.Tensor,
     prep_full_gather: torch.Tensor,
     prep_full_inverse: torch.Tensor,
-    use_window_kernel: bool = False,
 ) -> torch.Tensor:
     """Patch embed + the ViT blocks, in window-layout order; returns the
-    pre-merger hidden states (P_pad, hidden_size)."""
+    pre-merger hidden states (P_pad, hidden_size). K2/K3 have no backward:
+    on the card the blocks run frozen, under `torch.no_grad()`."""
     nh, hd = cfg.num_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
     win_patches = cfg.window_patches * cfg.window_patches * cfg.merge_unit
-    window_attn = window_attention_rope if use_window_kernel else window_attention_rope_plain
-    full_attn = full_attention_rope if use_window_kernel else full_attention_rope_plain
 
     perm = prep_perm.long().clamp(0, patches.shape[0] - 1)
     w_embed = params["patch_embed"]
@@ -209,10 +203,10 @@ def vision_blocks_forward(
             for t in F.linear(h, bp["qkv_w"], bp["qkv_b"]).chunk(3, dim=-1)
         )
         if i in fullatt:
-            out = full_attn(slices(q), slices(k), slices(v), cos_full, sin_full, full_bias)
+            out = full_attention_rope(slices(q), slices(k), slices(v), cos_full, sin_full, full_bias)
             attn = out.reshape(-1, nh, hd).index_select(0, inverse)
         else:
-            attn = window_attn(q, k, v, cos, sin, key_bias, win_patches)
+            attn = window_attention_rope(q, k, v, cos, sin, key_bias, win_patches)
         x = x + F.linear(attn.reshape(-1, nh * hd), bp["proj_w"], bp["proj_b"])
         h = _rms_norm(x, bp["norm2"], eps)
         g = F.linear(h, bp["gate_w"], bp["gate_b"])
@@ -241,12 +235,11 @@ def vision_forward(
     prep_full_gather: torch.Tensor,
     prep_full_inverse: torch.Tensor,
     prep_reverse: torch.Tensor,
-    use_window_kernel: bool = False,
 ) -> torch.Tensor:
     """The vision tower; returns merged features (U_pad, out_hidden_size) in
     original merge-unit order."""
     x = vision_blocks_forward(
         params, cfg, patches, prep_perm, prep_pos_hw, prep_key_valid,
-        prep_full_gather, prep_full_inverse, use_window_kernel=use_window_kernel,
+        prep_full_gather, prep_full_inverse,
     )
     return vision_merge_forward(params, cfg, x, prep_reverse)

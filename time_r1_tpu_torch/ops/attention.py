@@ -86,3 +86,62 @@ def mha_cached(
         "bhgqk,bkhd->bqhgd", pn, v_new.float()
     )
     return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def mha_shared_prefix(
+    q: torch.Tensor,  # (B, S, H, D) current chunk queries (post-rope), B = P·R
+    k_pref: torch.Tensor,  # (P, Lp, Hkv, D) prompt-prefix cache, one copy per prompt
+    v_pref: torch.Tensor,
+    ks_pref: Optional[torch.Tensor],  # int8 prefix scales: not ported
+    vs_pref: Optional[torch.Tensor],
+    k_own: Optional[torch.Tensor],  # (B, Lo, Hkv, D) per-row suffix cache; None → no suffix
+    v_own: Optional[torch.Tensor],
+    ks_own: Optional[torch.Tensor],  # int8 suffix scales: not ported
+    vs_own: Optional[torch.Tensor],
+    k_new: torch.Tensor,  # (B, S, Hkv, D) current chunk
+    v_new: torch.Tensor,
+    bias_pref: torch.Tensor,  # (P, 1, S|1, Lp) additive (prompt padding)
+    bias_own: Optional[torch.Tensor],  # (B|1, 1, S|1, Lo) additive (suffix validity)
+    bias_new: torch.Tensor,  # (B|1, 1, S, S) additive (causal within chunk)
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Grouped-rollout attention with the prompt KV stored once per prompt:
+    rows [i·R, (i+1)·R) attend prefix i, their own generated suffix and the
+    chunk, with one softmax over all three (`time_r1_tpu/ops/attention.py:101`).
+    Serves the G-way decode step, and the split-loss completion chunk off the
+    S1 kernel (k_own=None). Differentiable; probabilities are cast to the
+    operand dtype before the value products, as in JAX."""
+    if any(s is not None for s in (ks_pref, vs_pref, ks_own, vs_own)):
+        raise NotImplementedError("int8 KV caches are not ported yet (ROADMAP A5)")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    B, S, H, D = q.shape
+    P, Lp, Hkv, _ = k_pref.shape
+    R = B // P
+    G = H // Hkv
+    qf = q.float()
+    qp = qf.reshape(P, R, S, Hkv, G, D)
+    lp = torch.einsum("prshgd,pkhd->prhgsk", qp, k_pref.to(q.dtype).float()) * scale
+    lp = lp.reshape(B, Hkv, G, S, Lp)
+    bp = bias_pref.float().repeat_interleave(R, dim=0)
+    lp = lp + _bias_grouped(bp, H, Hkv)
+    qg = qf.reshape(B, S, Hkv, G, D)
+    logits = [lp]
+    if k_own is not None:
+        lo = torch.einsum("bshgd,bkhd->bhgsk", qg, k_own.to(q.dtype).float()) * scale
+        logits.append(lo + _bias_grouped(bias_own, H, Hkv))
+    ln = torch.einsum("bshgd,bkhd->bhgsk", qg, k_new.float()) * scale
+    logits.append(ln + _bias_grouped(bias_new, H, Hkv))
+    m = torch.stack([x.amax(-1) for x in logits]).amax(0)[..., None]
+    probs = [torch.exp(x - m) for x in logits]
+    denom = sum(p.sum(-1, keepdim=True) for p in probs)
+    probs = [(p / denom).to(q.dtype).float() for p in probs]
+    out = torch.einsum(
+        "prhgsk,pkhd->prshgd", probs[0].reshape(P, R, Hkv, G, S, Lp), v_pref.to(q.dtype).float()
+    ).reshape(B, S, H, D)
+    if k_own is not None:
+        out = out + torch.einsum(
+            "bhgsk,bkhd->bshgd", probs[1], v_own.to(q.dtype).float()
+        ).reshape(B, S, H, D)
+    out = out + torch.einsum("bhgsk,bkhd->bshgd", probs[-1], v_new.float()).reshape(B, S, H, D)
+    return out.to(q.dtype)

@@ -29,12 +29,49 @@ def embed_lookup(emb, ids: torch.Tensor, dtype=None) -> torch.Tensor:
     return out if dtype is None else out.to(dtype)
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) with the products accumulated and returned in f32 (JAX's
+    `preferred_element_type=jnp.float32`). On CUDA the low-precision operands
+    stay as they are (`aten::mm.dtype`, cuBLAS); on the CPU the product is
+    taken in f32."""
+    if a.dtype == torch.float32 or not a.is_cuda:
+        return a.float() @ b.float()
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+class _HeadF32(torch.autograd.Function):
+    """logits = hidden @ w.T in f32 for an (N, H) head matrix. The backward
+    takes the f32 logits' cotangent in the weight's dtype and accumulates its
+    products in f32, then rounds to the operands' dtypes."""
+
+    @staticmethod
+    def forward(ctx, hidden, w):
+        ctx.save_for_backward(hidden, w)
+        return _mm_f32(hidden.reshape(-1, hidden.shape[-1]), w.t()).reshape(*hidden.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(w.dtype)
+        h2 = hidden.reshape(-1, hidden.shape[-1])
+        dh = dw = None
+        if ctx.needs_input_grad[0]:
+            dh = _mm_f32(g2, w).to(hidden.dtype).reshape(hidden.shape)
+        if ctx.needs_input_grad[1]:
+            dw = _mm_f32(g2.t(), h2.to(w.dtype)).to(w.dtype)
+        return dh, dw
+
+
+def head_logits(hidden: torch.Tensor, w) -> torch.Tensor:
+    """hidden @ w.T as f32 logits for an (N, H) matrix, read as it is (no
+    transposed copy), with the f32 accumulator kept: the tied LM head, the
+    untied one, and the loss chunks' logits."""
+    return _HeadF32.apply(hidden, _plain(w))
+
+
 def tied_head_logits(hidden: torch.Tensor, emb) -> torch.Tensor:
-    """hidden @ emb.T as f32 logits. F.linear reads the (V, H) table as it is:
-    no transposed copy. In bf16 the product is rounded to bf16 before the f32
-    cast (JAX keeps the f32 accumulator; torch has no mixed-output matmul that
-    every version offers)."""
-    return F.linear(hidden, _plain(emb)).float()
+    """hidden @ emb.T as f32 logits against the (V, H) embedding table."""
+    return head_logits(hidden, emb)
 
 
 def attn_qkv_proj(h: torch.Tensor, attn: dict, nh: int, nkv: int, hd: int):

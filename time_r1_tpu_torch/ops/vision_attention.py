@@ -65,6 +65,8 @@ def _check(name, q, k, v, cos, sin, key_bias, rows_shape):
     kernels.require(cos.shape == rows_shape + (hd,) and sin.shape == cos.shape, name, "cos/sin shape")
     kernels.require(key_bias.shape == rows_shape, name, "key_bias shape")
     kernels.require(hd in kernels.ATTN_HEAD_DIMS, name, f"head dim {hd}")
+    kernels.require(not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))),
+                    name, "the kernel has no backward: run the frozen tower under torch.no_grad()")
 
 
 def window_attention_rope(q, k, v, cos, sin, key_bias, win_patches: int) -> torch.Tensor:

@@ -7,19 +7,20 @@
 - a Python decode loop with early exit once every row has hit a stop token;
   greedy / temperature / top-k / top-p / repetition-penalty sampling on the
   device;
+- G-way grouped rollouts (`num_return_sequences > 1`, the GRPO shape): each
+  unique prompt is prefilled once and its KV stored once; the G rows decode
+  against [shared prefix | own suffix] (`decode_loop_shared`);
 - stop ids kept in the output (include_stop_token), left-padded power-of-two
   prompt buckets.
 
-One sequence per prompt only: the G-way grouped rollouts
-(`num_return_sequences > 1`, the shared-prefix cache) come with the training
-slice, and weight-only / KV-cache quantization with ROADMAP A5.
+Weight-only and KV-cache quantization come with ROADMAP A5.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,8 +34,14 @@ from ..models.qwen25vl import (
     get_rope_index,
     prepare_vision_inputs,
 )
-from ..models.qwen25vl.language import decoder_forward, lm_logits
-from ..models.qwen25vl.model import compute_vision_features, merge_vision_embeddings
+from ..models.qwen25vl.language import NEG_INF, decoder_forward, lm_logits, suffix_cache_zeros
+from ..models.qwen25vl.model import (
+    compute_vision_features,
+    forward_shared_decode,
+    merge_vision_embeddings,
+    vision_signature,
+)
+from ..models.qwen25vl.vision import vision_blocks_forward, vision_merge_forward
 from ..ops.quant import embed_lookup
 from .params import SamplingParams
 
@@ -115,18 +122,17 @@ def prefill_chunk(
     return lm_logits(params["text"], cfg.text, hidden[:, -1:]), cache
 
 
-def decode_loop(
-    params: dict,
+def _run_decode_loop(
     cfg: Qwen25VLConfig,
-    cache: KVCache,
     first_logits: torch.Tensor,  # (B, V) logits at the last prompt position
     start_pos: torch.Tensor,  # (B,) rope position of the first generated token
-    mask: torch.Tensor,  # (B, max_len)
     sp: SamplingParams,
     generator: Optional[torch.Generator],
+    step_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],  # (last (B,), pos3) → logits (B, V)
 ) -> tuple[torch.Tensor, int]:
-    """Sample + decode up to sp.max_new_tokens; returns (tokens (B, max_new),
-    number of decode steps run).
+    """The sample/stop/repetition bookkeeping both decode loops share; the
+    cache layout lives in `step_fn`. Returns (tokens (B, max_new), number of
+    decode steps run).
 
     Position convention: `last` is generated token step-1 (0-based), which
     sits at rope position start_pos + step - 1 on all three mrope axes."""
@@ -147,8 +153,8 @@ def decode_loop(
     step = 1
     while step < max_new and not bool(done.all()):
         pos3 = (start_pos + step - 1)[None, :, None].expand(3, B, 1)
-        logits, cache = forward(params, cfg, last[:, None], pos3, attention_mask=mask, cache=cache)
-        nxt = sample_tokens(logits[:, -1], generator, sp, counts if track_counts else None)
+        logits = step_fn(last, pos3)
+        nxt = sample_tokens(logits, generator, sp, counts if track_counts else None)
         nxt = torch.where(done, cfg.pad_token_id, nxt)
         if track_counts:
             counts.index_put_((rows, nxt), (~done).int(), accumulate=True)
@@ -159,8 +165,56 @@ def decode_loop(
     return tokens, step - 1
 
 
+def decode_loop(
+    params: dict,
+    cfg: Qwen25VLConfig,
+    cache: KVCache,
+    first_logits: torch.Tensor,  # (B, V) logits at the last prompt position
+    start_pos: torch.Tensor,  # (B,) rope position of the first generated token
+    mask: torch.Tensor,  # (B, max_len)
+    sp: SamplingParams,
+    generator: Optional[torch.Generator],
+) -> tuple[torch.Tensor, int]:
+    """Sample + decode up to sp.max_new_tokens over the full per-row cache;
+    returns (tokens (B, max_new), number of decode steps run)."""
+
+    def step_fn(last, pos3):
+        nonlocal cache
+        logits, cache = forward(params, cfg, last[:, None], pos3, attention_mask=mask, cache=cache)
+        return logits[:, -1]
+
+    return _run_decode_loop(cfg, first_logits, start_pos, sp, generator, step_fn)
+
+
+def decode_loop_shared(
+    params: dict,
+    cfg: Qwen25VLConfig,
+    prefix: KVCache,  # (L, P, Lp, ...) shared prompt prefixes, one per prompt
+    suffix: KVCache,  # (L, B, max_new_pad, ...) per-row suffix, B = P·G
+    first_logits: torch.Tensor,  # (B, V)
+    start_pos: torch.Tensor,  # (B,)
+    prefix_bias: torch.Tensor,  # (P, Lp) f32 additive (prompt padding)
+    sp: SamplingParams,
+    generator: Optional[torch.Generator],
+) -> tuple[torch.Tensor, int]:
+    """decode_loop over the shared-prefix layout: the prompt KV is stored once
+    per prompt and each rollout row keeps only its generated-suffix cache
+    (language.shared_decode_forward), with the same sampling and stop
+    semantics. The step's attention is plain `mha_shared_prefix`, as in the
+    JAX package, whose decode kernels D1/D2 are opt-in there (ROADMAP queue B)."""
+
+    def step_fn(last, pos3):
+        nonlocal suffix
+        logits, suffix = forward_shared_decode(params, cfg, last[:, None], pos3, prefix, suffix, prefix_bias)
+        return logits[:, -1]
+
+    return _run_decode_loop(cfg, first_logits, start_pos, sp, generator, step_fn)
+
+
 class Engine:
-    """Request-level generation engine over a loaded model."""
+    """Request-level generation engine over a loaded model. Every call runs
+    under `torch.no_grad()`, so a trainer may hand it parameters that require
+    grad."""
 
     def __init__(
         self,
@@ -181,6 +235,18 @@ class Engine:
         self.device = resolve_device(device)
         # seconds of the last generate(): vision, prefill, decode, and decode steps
         self.timings: dict = {}
+        # fix_vit reuse across phases: with capture on, the prefill runs the
+        # tower as blocks → merger and keeps (signature, pre-merger hidden);
+        # the GRPO trainer's loss and ref forwards reuse the hidden states
+        # instead of running the frozen blocks again
+        self.capture_vision_hidden = False
+        self.captured_vision: Optional[tuple] = None
+        self._last_vis_sig: Optional[tuple] = None
+
+    def set_params(self, params: dict) -> None:
+        """Swap in live policy weights (GRPO rollouts). The trainer updates its
+        tree in place, so this hands over the same tensors: no copy."""
+        self.params = params
 
     def _sync(self) -> float:
         if self.device.type == "cuda":
@@ -215,6 +281,7 @@ class Engine:
             pad_patches = _round_up(_bucket(patches.shape[0], 256), unit)
             prep = prepare_vision_inputs(grids, self.cfg.vision, pad_patches_to=pad_patches)
             vis = VisionInputs.build(prep, patches)
+            self._last_vis_sig = vision_signature(grids, vis)
 
         pos_ids, _ = get_rope_index(
             self.cfg,
@@ -226,11 +293,24 @@ class Engine:
         start_pos = pos_ids.max(axis=(0, 2)) + 1
         return ids, mask, pos_ids, start_pos, vis, S, max_len
 
+    def _vision(self, vis: VisionInputs) -> torch.Tensor:
+        """Merged vision features; with capture on, as blocks → merger with the
+        pre-merger hidden states kept for the trainer."""
+        if not self.capture_vision_hidden:
+            return compute_vision_features(self.params, self.cfg, vis)
+        vcfg, visual = self.cfg.vision, self.params["visual"]
+        hidden = vision_blocks_forward(visual, vcfg, vis.patches, vis.perm, vis.pos_hw,
+                                       vis.key_valid, vis.full_gather, vis.full_inverse)
+        self.captured_vision = (self._last_vis_sig, hidden)
+        return vision_merge_forward(visual, vcfg, hidden, vis.reverse)
+
     def _prefill(self, ids, mask, pos_ids, vis, S: int, max_len: int):
         """Vision tower, then chunked prefill → (last-position logits (B, V), cache)."""
         B = ids.shape[0]
         t0 = self._sync()
-        feats = compute_vision_features(self.params, self.cfg, vis) if vis is not None else None
+        if self.capture_vision_hidden:
+            self.captured_vision = None  # never serve a previous batch's videos
+        feats = self._vision(vis) if vis is not None else None
         t1 = self._sync()
         cache = KVCache.zeros(self.cfg.text, B, max_len, dtype=self.dtype, device=self.device)
         dev = self.device
@@ -257,23 +337,40 @@ class Engine:
         return logits[:, -1], cache, mask_t
 
     # ------------------------------------------------------------------
+    @torch.no_grad()
     def generate(self, requests: Sequence[Request], sp: SamplingParams) -> list[list[int]]:
         """Generate completions for a batch of requests; returns token lists
-        (stop token included when sp.include_stop_token)."""
-        if sp.num_return_sequences > 1:
-            raise NotImplementedError("grouped rollouts (num_return_sequences > 1) come with the training slice")
+        (stop token included when sp.include_stop_token), row-major: with
+        G = num_return_sequences > 1, rows [i·G, (i+1)·G) belong to request i.
+
+        G-way rollouts prefill each unique prompt once and keep one copy of
+        its prompt KV; the G rows decode against [shared prefix | own suffix]
+        (`decode_loop_shared`)."""
         reqs = list(requests)
-        ids, mask, pos_ids, start_pos, vis, S, max_len = self._pack(reqs, extra_len=sp.max_new_tokens)
-        first_logits, cache, mask_t = self._prefill(ids, mask, pos_ids, vis, S, max_len)
+        G = sp.num_return_sequences
         gen = torch.Generator(device=self.device).manual_seed(sp.seed if sp.seed is not None else 0)
-        t0 = self._sync()
-        tokens, steps = decode_loop(
-            self.params, self.cfg, cache, first_logits,
-            torch.from_numpy(start_pos).to(self.device).long(), mask_t, sp, gen,
-        )
+        if G > 1:
+            ids, mask, pos_ids, start1, vis, S, _ = self._pack(reqs, extra_len=0)
+            first1, prefix, _ = self._prefill(ids, mask, pos_ids, vis, S, S)
+            prefix_bias = torch.where(torch.from_numpy(mask[:, :S] > 0).to(self.device), 0.0, NEG_INF).float()
+            suffix = suffix_cache_zeros(self.cfg.text, len(reqs) * G, _round_up(sp.max_new_tokens, 128),
+                                        dtype=self.dtype, device=self.device)
+            t0 = self._sync()
+            tokens, steps = decode_loop_shared(
+                self.params, self.cfg, prefix, suffix, first1.repeat_interleave(G, dim=0),
+                torch.from_numpy(np.repeat(start1, G)).to(self.device).long(), prefix_bias, sp, gen,
+            )
+        else:
+            ids, mask, pos_ids, start_pos, vis, S, max_len = self._pack(reqs, extra_len=sp.max_new_tokens)
+            first_logits, cache, mask_t = self._prefill(ids, mask, pos_ids, vis, S, max_len)
+            t0 = self._sync()
+            tokens, steps = decode_loop(
+                self.params, self.cfg, cache, first_logits,
+                torch.from_numpy(start_pos).to(self.device).long(), mask_t, sp, gen,
+            )
         tokens = tokens.cpu().numpy()
         self.timings.update(decode_s=time.perf_counter() - t0, decode_steps=steps)
-        return self._postprocess(tokens, len(reqs), sp)
+        return self._postprocess(tokens, len(reqs) * G, sp)
 
     def _postprocess(self, tokens: np.ndarray, n: int, sp: SamplingParams) -> list[list[int]]:
         out = []
@@ -291,6 +388,7 @@ class Engine:
         return out
 
     # ------------------------------------------------------------------
+    @torch.no_grad()
     def last_token_logits(self, requests: Sequence[Request]) -> np.ndarray:
         """(B, V) f32 logits at each prompt's last position (the prob-based MCQ
         path)."""
