@@ -268,35 +268,39 @@ def phase_train_kernels() -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
 
-    def rel_err(got, want) -> float:
+    def errors(got, want) -> tuple[float, float]:
+        """(max |kernel - plain|, max over outputs of max |kernel - plain| / max |plain|)."""
         got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
-        errs = []
+        diffs, rels = [], []
         for a, b in zip(got, want):
             diff, scale = (a.float() - b.float()).abs().max().item(), b.float().abs().max().item()
             log(f"[kernels]   max |kernel - plain| {diff:.3e}, max |plain| {scale:.3e}, "
                 f"max |kernel| {a.float().abs().max().item():.3e}")
-            errs.append(diff / max(scale, 1e-30))
-        return max(errs)
+            diffs.append(diff)
+            rels.append(diff / max(scale, 1e-30))
+        return max(diffs), max(rels)
 
     def check(name, kernel, plain, inputs, flops, nbytes, library):
         entry = {"name": name}
         for dtype in (torch.bfloat16, torch.float32):
             args = inputs(dtype)
             up = [a.float() if isinstance(a, torch.Tensor) and a.is_floating_point() else a for a in args]
-            err = rel_err(kernel(*args), plain(*up))
+            diff, err = errors(kernel(*args), plain(*up))
             torch.cuda.synchronize()
             key = str(dtype).split(".")[-1]
             if not np.isfinite(err) or err > GRAD_TOL[key]:
                 raise AssertionError(f"{name} {key}: max |kernel - plain| / max |plain| = {err} > {GRAD_TOL[key]}")
-            entry["max_abs_err" if dtype is torch.bfloat16 else "max_abs_err_f32"] = err
-            log(f"[kernels] {name} {key}: max |kernel - plain| / max |plain| = {err:.3e} (tol {GRAD_TOL[key]})")
+            suffix = "" if dtype is torch.bfloat16 else "_f32"
+            entry["max_abs_err" + suffix], entry["max_rel_err" + suffix] = diff, err
+            log(f"[kernels] {name} {key}: max |kernel - plain| = {diff:.3e}, / max |plain| = {err:.3e} "
+                f"(tol {GRAD_TOL[key]})")
             if dtype is torch.bfloat16:
                 entry["ms"] = entry["kernel_ms"] = cuda_ms(lambda: kernel(*args))
                 entry["plain_ms"] = cuda_ms(lambda: plain(*args), iters=3)
                 entry["library_ms"] = library(*args) if library else None
                 entry["bound_ms"], entry["bound_by"] = bound(flops, nbytes)
         entry["tol"], entry["tol_f32"] = GRAD_TOL["bfloat16"], GRAD_TOL["float32"]
-        entry["err_is"] = "max |kernel - plain| / max |plain|"
+        entry["tol_is"] = "on max_rel_err: max |kernel - plain| / max |plain| per output"
         log(f"[kernels] {name}: {entry['ms']:.3f} ms (plain {entry['plain_ms']:.3f}, bound "
             f"{entry['bound_ms']:.4f} by {entry['bound_by']}, library {entry['library_ms']})")
         return entry
@@ -368,9 +372,10 @@ def phase_train_kernels() -> dict:
 
     for dtype in (torch.bfloat16, torch.float32):
         args = own_inputs(dtype)
-        err = rel_err(fa.flash_bwd_dkv(*args), fa.flash_bwd_dkv_plain(*[a.float() for a in args]))
+        diff, err = errors(fa.flash_bwd_dkv(*args), fa.flash_bwd_dkv_plain(*[a.float() for a in args]))
         key = str(dtype).split(".")[-1]
-        log(f"[kernels] flash_bwd_dkv own chunk {key}: rel err {err:.3e} (tol {GRAD_TOL[key]})")
+        log(f"[kernels] flash_bwd_dkv own chunk {key}: max |kernel - plain| = {diff:.3e}, "
+            f"/ max |plain| = {err:.3e} (tol {GRAD_TOL[key]})")
         if not np.isfinite(err) or err > GRAD_TOL[key]:
             raise AssertionError(f"flash_bwd_dkv own chunk {key}: {err}")
         if dtype is torch.bfloat16:

@@ -168,6 +168,10 @@ def test_shared_decode_forward_matches_jax(with_suffix):
         assert got_suf.length == int(want_suf.length) == 4
         np.testing.assert_allclose(got_suf.k.numpy(), np.asarray(want_suf.k), atol=2e-5, rtol=2e-5)
         np.testing.assert_allclose(got_suf.v.numpy(), np.asarray(want_suf.v), atol=2e-5, rtol=2e-5)
+        with pytest.raises(ValueError, match="suffix"):  # S1 is the loss chunk: no suffix cache
+            shared_decode_forward(tp["text"], CFG.text, torch.from_numpy(hidden), torch.from_numpy(pos),
+                                  KVCache(torch.from_numpy(pk), torch.from_numpy(pv), 24), tsuf,
+                                  torch.from_numpy(pb), use_flash=True)
     else:
         assert got_suf is None and want_suf is None
 
