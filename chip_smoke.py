@@ -8,20 +8,31 @@ Phases (any failed check raises and the exit code is non-zero):
 2. hold each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes, in bf16 and f32, and time kernel, plain
    version and one library call (`scaled_dot_product_attention`, a yardstick
-   the port never calls): K1-K3 (serving), B1, B2, S1, S2 (training);
+   the port never calls): K1-K3 (serving), B1, B2, S1, S2 (training), D1, D2,
+   Q1, Q2 (quantized rollouts: caches in bf16/f32 and int8, a fully masked
+   first prefix chunk, suffix lengths 0 and 199, Q1 at M = 1, 8, 200 and a
+   ragged shape), and the bf16 head's backward against the f32 cotangent;
 3. end-to-end agreement at reduced depth: Qwen2.5-VL-3B widths with 2 decoder
    layers and 2 vision blocks, one 8-frame video request in f32, card
    (kernels) against CPU (plain versions);
 3b. the same for one GRPO loss step (G = 4 fixed completions, fixed
    advantages, beta = 0.04 against a reference copy): loss, metrics and every
    gradient, card against CPU;
+3c. the quantized G-way decode at reduced depth, int8 weights and int8 KV,
+   then int4 weights: 16 teacher-forced steps, card (D2, Q2, Q1) against CPU
+   (plain paths) on every step's logits;
 4. the serving path at full size: Qwen2.5-VL-3B in bf16 with seeded random
    weights, two video requests, greedy decode of 128 tokens, with K1-K3's
    launch counts read around that one generate() call;
 5. the training path at full size: `GRPOTrainer` over the same model and a
    reference copy, one 32-frame video request, the default TrainConfig (G = 8,
    200 new tokens at T = 1.0, gradient accumulation 2), two `step_batch` calls
-   (one optimizer update), with every kernel's launch count read around each.
+   (one optimizer update), with every kernel's launch count read around each;
+   the G-way rollout decode runs D2 (36 launches per step);
+6. quantized rollouts at full size, once phase 5's model is freed: two
+   `step_batch` calls with rollout_quantization="int8" (D2 and Q2 36 launches
+   per decode step), then one `Engine(quantization="int4",
+   kv_cache_quant=True).generate` at G = 8, 200 tokens (Q1 144 per step).
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 kernels JSON line and the result JSON line. Without a CUDA device, or without
@@ -49,13 +60,25 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int = 10) -> float:
-    """Mean device time of fn() over `iters` launches (CUDA events, after a warm-up)."""
+SPIN_CYCLES_PER_S = 2.0e9  # about the H100's SM clock; a longer spin than needed costs only time
+
+
+def cuda_ms(fn, iters: int = 10, queued: bool = True) -> float:
+    """Mean device time of fn() over `iters` launches (CUDA events, after a
+    warm-up). Queued: the launches wait behind a GPU spin that outlasts the
+    host's time to issue them, so the events time the device work back to back
+    and not the Python that issues it (a 20 us kernel behind a 100 us wrapper).
+    queued=False times the calls as a caller issues them, host gaps included."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(min(2.0 * iters * (time.perf_counter() - t0), 1.0) * SPIN_CYCLES_PER_S))
     start.record()
     for _ in range(iters):
         fn()
@@ -239,6 +262,7 @@ def phase_kernels() -> dict:
         full_inputs, full_bias == 0, flops=4.0 * (per_slice**2).sum().item() * nh * hd, nbytes=fbytes,
     )
     results.update(phase_train_kernels())
+    results.update(phase_decode_quant_kernels())
     return results
 
 
@@ -434,7 +458,251 @@ def phase_train_kernels() -> dict:
     bwd["grid_blocks_dkv_prefix"] = (Lp // 64) * Hkv * P
     log(f"[kernels] shared_prefix_bwd: dq {bwd['ms_dq']:.3f} ms, prefix dK/dV {bwd['ms_dkv_prefix']:.3f} ms")
     results["shared_prefix_bwd"] = bwd
+    head_backward_check(gen)
     return results
+
+
+def head_backward_check(gen) -> None:
+    """The bf16 head's backward on the card against the product of the
+    unrounded f32 cotangent (the JAX package's transpose keeps it in f32),
+    taken in f64 and rounded to bf16: within one bf16 ulp of each output's
+    scale. The cotangent has detail below bf16's spacing."""
+    import torch
+
+    from time_r1_tpu_torch.ops.quant import head_logits
+
+    dev = torch.device("cuda")
+    S, V, Hd = 64, 4096, 2048
+    h = torch.randn(S, Hd, generator=gen, device=dev).bfloat16()
+    w = (torch.randn(V, Hd, generator=gen, device=dev) * 0.05).bfloat16()
+    base = torch.randn(S, V, generator=gen, device=dev).bfloat16().float()
+    g = base + base.abs() * torch.rand(S, V, generator=gen, device=dev) * 2**-10
+    hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
+    dh, dw = torch.autograd.grad(head_logits(hh, ww), (hh, ww), g)
+    want_dh = (g.double() @ w.double()).to(torch.bfloat16)
+    want_dw = (g.double().t() @ h.double()).to(torch.bfloat16)
+    for name, got, want in (("dh", dh, want_dh), ("dw", dw, want_dw)):
+        scale = want.float().abs().max().item()
+        ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+        err = (got.float() - want.float()).abs().max().item()
+        log(f"[kernels] bf16 head backward {name}: max |card - f32-cotangent product| = {err:.3e}, "
+            f"one bf16 ulp of the scale {scale:.3e} = {ulp:.3e}")
+        if not err <= ulp:
+            raise AssertionError(f"bf16 head backward {name}: {err} > {ulp}")
+
+
+# D1/D2 tolerances, as max |kernel - plain| / max |plain|: D1's (acc, m, l) are
+# f32 sums over 1914 live keys of the same f32 operands in another order; D2's
+# output is stored in the activation dtype (bf16 spacing 2^-8).
+DECODE_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# Q1: the kernel scales the f32 sum and casts once; the plain version (the JAX
+# package's reference) rounds the product to bf16 before the bf16 scale, so in
+# bf16 the two differ by up to two bf16 roundings. Q2: both round x and the
+# activation to bf16; the sums over 2048 and 11008 run in another order, which
+# can move an activation across a bf16 rounding boundary.
+QUANT_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+
+
+def check_case(entry: dict, label: str, case: str, pairs, tol: float) -> None:
+    """Hold one case's (kernel, plain) output pairs against each other: the
+    absolute error and the relative one (max |kernel - plain| / max |plain|,
+    the worst output), which the tolerance reads. The case's relative error
+    goes to entry["cases"], the worst of both over the cases to
+    entry["max_abs_err"] and entry["max_rel_err"]."""
+    diffs = [(got.float() - want.float()).abs().max().item() for got, want in pairs]
+    rels = [d / max(want.float().abs().max().item(), 1e-30) for d, (_, want) in zip(diffs, pairs)]
+    if not np.isfinite(diffs + rels).all():
+        raise AssertionError(f"{label} {case}: non-finite error {diffs}")
+    abs_err, rel = max(diffs), max(rels)
+    entry["cases"][case] = rel
+    entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0), abs_err)
+    entry["max_rel_err"] = max(entry.get("max_rel_err", 0.0), rel)
+    log(f"[kernels] {label} {case}: max |kernel - plain| = {abs_err:.3e}, / max |plain| = {rel:.3e} (tol {tol})")
+    if rel > tol:
+        raise AssertionError(f"{label} {case}: max |kernel - plain| / max |plain| = {rel} > {tol}")
+
+
+def phase_decode_quant_kernels() -> dict:
+    """D1, D2, Q1 and Q2 against their plain versions at the quantized
+    rollout's shapes (one 2048-token prompt with 134 left-pad keys, G = 8
+    rows, the suffix cache of 256 slots; the 3B projections at M = 8 rows), in
+    bf16 and f32 activations, with caches in the activation dtype and in int8;
+    times in bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from time_r1_tpu_torch.ops import decode_attention as da
+    from time_r1_tpu_torch.ops.attention import NEG_INF
+    from time_r1_tpu_torch.ops.fused_mlp import fused_mlp_int8, fused_mlp_int8_plain
+    from time_r1_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+    from time_r1_tpu_torch.ops.quant import dequantize_weight, quantize_kv, quantize_weight
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    H, Hkv, D, pad, P, R, Lp, Lo = 16, 2, 128, 134, 1, 8, 2048, 256
+    G, B = H // Hkv, P * R
+    N = R * G
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+
+    base = dict(q=randn(B, 1, H, D), kp=randn(P, Lp, Hkv, D), vp=randn(P, Lp, Hkv, D),
+                ko=randn(B, Lo, Hkv, D), vo=randn(B, Lo, Hkv, D), kn=randn(B, Hkv, D), vn=randn(B, Hkv, D))
+    bias = torch.where(torch.arange(Lp, device=dev)[None] < pad, NEG_INF, 0.0).float().expand(P, Lp).contiguous()
+
+    def decode_inputs(dtype, int8: bool):
+        """The path's layouts: q regrouped (P, Hkv, N, D); token-major caches
+        handed over as head-major views; scales (…, Hkv) likewise."""
+        q = base["q"].to(dtype).reshape(P, R, Hkv, G, D).transpose(1, 2).reshape(P, Hkv, N, D)
+        out = {"q": q, "kn": base["kn"].to(dtype), "vn": base["vn"].to(dtype)}
+        for n in ("kp", "vp", "ko", "vo"):
+            if int8:
+                x8, s = quantize_kv(base[n])
+                out[n], out[n + "_s"] = x8.transpose(1, 2), s.transpose(1, 2)
+            else:
+                out[n], out[n + "_s"] = base[n].to(dtype).transpose(1, 2), None
+        return out
+
+    def d1_args(x):
+        return x["q"], x["kp"], x["vp"], x["kp_s"], x["vp_s"], bias
+
+    def d2_args(x, own_len):
+        return (x["q"], x["kp"], x["vp"], x["kp_s"], x["vp_s"], bias, x["ko"], x["vo"], x["ko_s"], x["vo_s"],
+                own_len, x["kn"], x["vn"])
+
+    d1 = {"name": "shared_prefix_decode_attention", "cases": {}}
+    d2 = {"name": "shared_prefix_decode_full", "cases": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        key = str(dtype).split(".")[-1]
+        for int8 in (False, True):
+            x = decode_inputs(dtype, int8)
+            case = f"{key}, {'int8' if int8 else key} caches"
+            got, want = da.shared_prefix_decode_attention(*d1_args(x)), da.shared_prefix_decode_attention_plain(*d1_args(x))
+            check_case(d1, "D1 (acc, m, l)", case, list(zip(got, want)), DECODE_TOL["float32"])
+            for own_len in (0, 199):
+                got = da.shared_prefix_decode_full(*d2_args(x, own_len))
+                want = da.shared_prefix_decode_full_plain(*d2_args(x, own_len))
+                check_case(d2, "D2", f"{case}, suffix {own_len}", [(got, want)], DECODE_TOL[key])
+    d1["tol"] = d1["tol_f32"] = DECODE_TOL["float32"]
+    d2["tol"], d2["tol_f32"] = DECODE_TOL["bfloat16"], DECODE_TOL["float32"]
+
+    # times: bf16 activations, bf16 and int8 caches, suffix length 199 (the
+    # step in the middle of a 200-token rollout)
+    live, own = Lp - pad, 199
+    cat_k = torch.cat([base["kp"].expand(B, -1, -1, -1), base["ko"][:, :own], base["kn"][:, None]], 1)
+    cat_v = torch.cat([base["vp"].expand(B, -1, -1, -1), base["vo"][:, :own], base["vn"][:, None]], 1)
+    cat_mask = torch.cat([bias.expand(B, -1), torch.zeros(B, own + 1, device=dev)], 1)[:, None, None, :]
+    qt = base["q"].transpose(1, 2).to(torch.bfloat16)
+    kt, vt = cat_k.transpose(1, 2).to(torch.bfloat16), cat_v.transpose(1, 2).to(torch.bfloat16)
+    mk = cat_mask.to(torch.bfloat16)
+    sdpa_full = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mk, enable_gqa=True), 50)
+    kpt, vpt = (base[n].transpose(1, 2).to(torch.bfloat16) for n in ("kp", "vp"))
+    qp = base["q"].to(torch.bfloat16).reshape(P, R, H, D).transpose(1, 2)
+    mp = bias[:, None, None, :].to(torch.bfloat16)
+    sdpa_prefix = cuda_ms(lambda: F.scaled_dot_product_attention(qp, kpt, vpt, attn_mask=mp, enable_gqa=True), 50)
+    for int8 in (False, True):
+        x = decode_inputs(torch.bfloat16, int8)
+        kv_bytes = 1 if int8 else 2
+        scale_bytes = 2 * 4 if int8 else 0
+        io_q = P * Hkv * N * D * 2
+        d1_bytes = (P * Hkv * live * (2 * D * kv_bytes + scale_bytes) + io_q + Lp * P * 4
+                    + P * Hkv * N * (D + 2) * 4)
+        d2_bytes = (P * Hkv * live * (2 * D * kv_bytes + scale_bytes) + B * Hkv * own * (2 * D * kv_bytes + scale_bytes)
+                    + 2 * B * Hkv * D * 2 + 2 * io_q + Lp * P * 4)
+        suffix = " int8" if int8 else ""
+        for e, fn, plain, args, flops, nbytes, lib in (
+            (d1, da.shared_prefix_decode_attention, da.shared_prefix_decode_attention_plain, d1_args(x),
+             4.0 * D * N * live * P * Hkv, d1_bytes, sdpa_prefix),
+            (d2, da.shared_prefix_decode_full, da.shared_prefix_decode_full_plain, d2_args(x, own),
+             4.0 * D * (N * live * P * Hkv + B * H * (own + 1)), d2_bytes, sdpa_full),
+        ):
+            ms, plain_ms = cuda_ms(lambda: fn(*args), 50), cuda_ms(lambda: plain(*args), 10)
+            call = cuda_ms(lambda: fn(*args), 50, queued=False)
+            b_ms, b_by = bound(flops, nbytes)
+            if int8:
+                e.update(ms_int8=ms, call_ms_int8=call, plain_ms_int8=plain_ms, bound_ms_int8=b_ms, bound_by_int8=b_by)
+            else:
+                e.update(ms=ms, kernel_ms=ms, call_ms=call, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib)
+            log(f"[kernels] {e['name']}{suffix}: {ms:.4f} ms on the device, {call:.4f} ms per call from Python "
+                f"(plain {plain_ms:.3f}, bound {b_ms:.5f} by {b_by}, library {lib:.4f})")
+    d1["library_is"] = "SDPA of the 64 query rows over the prefix, bf16"
+    d2["library_is"] = "SDPA over [prefix repeated per row | live suffix | new token] with the mask, bf16"
+
+    # ---- Q1 at the 3B int4 decode projections (M = 8), plus M = 1 and 200 and a ragged shape
+    q1 = {"name": "int4_matmul", "cases": {}, "per_product": {}}
+    shapes = {"qkv": (2560, 2048), "o": (2048, 2048), "gu": (22016, 2048), "down": (2048, 11008)}
+    cases = [(8, n, k, name) for name, (n, k) in shapes.items()]
+    cases += [(1, 22016, 2048, "gu"), (200, 22016, 2048, "gu"), (3, 300, 1000, "ragged")]
+    weights = {}
+    for M, Nw, K, name in cases:
+        if (Nw, K) not in weights:
+            weights[(Nw, K)] = quantize_weight(randn(Nw, K) * 0.02, bits=4)
+        w = weights[(Nw, K)]
+        xf = randn(M, K)
+        for dtype in (torch.bfloat16, torch.float32):
+            key = str(dtype).split(".")[-1]
+            x = xf.to(dtype)
+            pair = (int4_matmul(x, w["q4"], w["s"]), int4_matmul_plain(x, w["q4"], w["s"]))
+            check_case(q1, "Q1", f"M={M} {name} ({Nw}, {K}) {key}", [pair], QUANT_TOL[key])
+    for tkey in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms"):
+        q1[tkey] = 0.0
+    bound_by = set()
+    for name, (Nw, K) in shapes.items():
+        w = weights[(Nw, K)]
+        x = randn(8, K).to(torch.bfloat16)
+        wd = dequantize_weight(w, torch.bfloat16)
+        t = dict(ms=cuda_ms(lambda: int4_matmul(x, w["q4"], w["s"]), 50),
+                 call_ms=cuda_ms(lambda: int4_matmul(x, w["q4"], w["s"]), 50, queued=False),
+                 plain_ms=cuda_ms(lambda: int4_matmul_plain(x, w["q4"], w["s"]), 10),
+                 library_ms=cuda_ms(lambda: F.linear(x, wd), 50))
+        t["bound_ms"], by = bound(2.0 * 8 * Nw * K, Nw * K // 2 + Nw * 4 + 8 * K * 2 + 8 * Nw * 2)
+        bound_by.add(by)
+        q1["per_product"][name] = t
+        for tkey in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms"):
+            q1[tkey] += t[tkey]
+        log(f"[kernels] int4_matmul {name} ({Nw}, {K}) M=8: {t['ms']:.4f} ms on the device, {t['call_ms']:.4f} "
+            f"ms per call from Python (plain {t['plain_ms']:.3f}, bound "
+            f"{t['bound_ms']:.5f} by {by}, library {t['library_ms']:.4f})")
+    q1["kernel_ms"] = q1["ms"]
+    q1["bound_by"] = "/".join(sorted(bound_by))
+    q1["times_are"] = "sums over one layer's four products (qkv, o, gu, down) at M = 8"
+    q1["library_is"] = "F.linear in bf16 over weights dequantized before timing (4x the weight bytes)"
+    q1["tol"], q1["tol_f32"] = QUANT_TOL["bfloat16"], QUANT_TOL["float32"]
+
+    # ---- Q2 at the 3B int8 decode MLP: hid 2048, inter 11008
+    hid, inter = 2048, 11008
+    gu = quantize_weight(randn(2 * inter, hid) * 0.02)
+    dn = quantize_weight(randn(hid, inter) * 0.02)
+    q2 = {"name": "fused_mlp_int8", "cases": {}}
+    for M in (1, 8):
+        xf = randn(M, hid)
+        for dtype in (torch.bfloat16, torch.float32):
+            key = str(dtype).split(".")[-1]
+            args = (xf.to(dtype), gu["q8"], gu["s"], dn["q8"], dn["s"])
+            check_case(q2, "Q2", f"M={M} {key}", [(fused_mlp_int8(*args), fused_mlp_int8_plain(*args))],
+                       QUANT_TOL[key])
+    args = (randn(8, hid).to(torch.bfloat16), gu["q8"], gu["s"], dn["q8"], dn["s"])
+    gud, dnd = dequantize_weight(gu, torch.bfloat16), dequantize_weight(dn, torch.bfloat16)
+
+    def library():
+        g, u = F.linear(args[0], gud).chunk(2, dim=-1)
+        return F.linear(F.silu(g) * u, dnd)
+
+    q2["ms"] = q2["kernel_ms"] = cuda_ms(lambda: fused_mlp_int8(*args), 50)
+    q2["call_ms"] = cuda_ms(lambda: fused_mlp_int8(*args), 50, queued=False)
+    q2["plain_ms"] = cuda_ms(lambda: fused_mlp_int8_plain(*args), 10)
+    q2["library_ms"] = cuda_ms(library, 50)
+    q2["bound_ms"], q2["bound_by"] = bound(2.0 * 8 * hid * 3 * inter,
+                                           3 * inter * hid + (2 * inter + hid) * 4 + 2 * 8 * hid * 2)
+    q2["library_is"] = "two F.linear in bf16 over weights dequantized before timing, silu between (2x the bytes)"
+    q2["tol"], q2["tol_f32"] = QUANT_TOL["bfloat16"], QUANT_TOL["float32"]
+    log(f"[kernels] fused_mlp_int8 M=8: {q2['ms']:.4f} ms on the device, {q2['call_ms']:.4f} ms per call from "
+        f"Python (plain {q2['plain_ms']:.3f}, bound "
+        f"{q2['bound_ms']:.5f} by {q2['bound_by']}, library {q2['library_ms']:.4f})")
+    for e in (d1, d2, q1, q2):
+        e["tol_is"] = "on max_rel_err and each of `cases`: max |kernel - plain| / max |plain|"
+    return {d1["name"]: d1, d2["name"]: d2, q1["name"]: q1, q2["name"]: q2}
 
 
 # ---------------------------------------------------------------------------
@@ -560,7 +828,10 @@ def phase_reduced_train() -> None:
 def kernel_wrappers():
     """Every kernel wrapper of the port, by the name its phase-2 entry has
     (S2's two kernels count apart)."""
+    from time_r1_tpu_torch.ops import decode_attention as da
     from time_r1_tpu_torch.ops import flash_attention as fa
+    from time_r1_tpu_torch.ops.fused_mlp import fused_mlp_int8
+    from time_r1_tpu_torch.ops.int4_matmul import int4_matmul
     from time_r1_tpu_torch.ops.vision_attention import full_attention_rope, window_attention_rope
 
     return {
@@ -572,6 +843,10 @@ def kernel_wrappers():
         "shared_prefix_fwd": fa.shared_prefix_fwd,
         "shared_prefix_bwd": fa.shared_prefix_bwd_dq,
         "shared_prefix_bwd_dkv": fa.shared_prefix_bwd_dkv,
+        "shared_prefix_decode_attention": da.shared_prefix_decode_attention,
+        "shared_prefix_decode_full": da.shared_prefix_decode_full,
+        "int4_matmul": int4_matmul,
+        "fused_mlp_int8": fused_mlp_int8,
     }
 
 
@@ -630,6 +905,18 @@ def phase_full_size() -> dict:
 
 
 SERVING_KERNELS = ("flash_attention", "window_attention_rope", "full_attention_rope")
+TRAIN_KERNELS = SERVING_KERNELS + ("flash_bwd_dq", "flash_bwd_dkv", "shared_prefix_fwd", "shared_prefix_bwd",
+                                   "shared_prefix_bwd_dkv", "shared_prefix_decode_attention",
+                                   "shared_prefix_decode_full")
+DECODE_KERNELS = ("shared_prefix_decode_attention", "shared_prefix_decode_full")  # per layer per G-way step
+
+
+def check_step_launches(tag: str, launches: dict, steps: int, layers: int, per_layer: dict) -> None:
+    """Kernels that run on every decode step: exactly per_layer[name] x layers
+    x steps launches; kernels at 0 per layer must not run."""
+    for name, n in per_layer.items():
+        if launches[name] != n * layers * steps:
+            raise AssertionError(f"{tag}: {name} launched {launches[name]} times, want {n} x {layers} x {steps}")
 
 
 def token_parity_reward(completions, **kwargs):
@@ -696,9 +983,12 @@ def phase_train_full_size() -> dict:
         log(f"[train] step_batch {call}: loss {info['loss']:.6f}, reward {info['reward']:.4f}, metrics {metrics}")
         if not (np.isfinite(info["loss"]) and np.isfinite(metrics["grad_norm"]) and metrics["grad_norm"] > 0):
             raise AssertionError(f"step_batch {call}: loss {info['loss']} or grad_norm {metrics['grad_norm']}")
-        for name, n in launches.items():
-            if n <= 0:
+        for name in TRAIN_KERNELS:
+            if launches[name] <= 0:
                 raise AssertionError(f"step_batch {call}: {name} was not launched")
+        check_step_launches(f"step_batch {call}", launches, tm["decode_steps"], cfg.text.num_hidden_layers,
+                            {"shared_prefix_decode_full": 1, "shared_prefix_decode_attention": 1,
+                             "int4_matmul": 0, "fused_mlp_int8": 0})
     changed = total_elems = 0
     for p, b in zip(trainable_leaves(params, config.fix_vit), before):
         changed += int((p.detach().cpu() != b).sum())
@@ -706,6 +996,169 @@ def phase_train_full_size() -> dict:
     log(f"[train] after one optimizer update (two micro-steps, lr {config.learning_rate}): {changed} of "
         f"{total_elems} trainable bf16 elements changed")
     return per_call[-1]
+
+
+def phase_quant_full_size() -> dict:
+    """Phase 6: quantized rollouts at full size, after phase 5 freed its model.
+    Two `step_batch` calls with rollout_quantization="int8" (int8 weights, int8
+    KV: D2 and Q2 on every decode step), then one int4 G = 8 `generate` (Q1 for
+    the four projections of every layer, D2 over the int8 KV). Launch counts
+    read around each call."""
+    import gc
+
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig, init_params
+    from time_r1_tpu_torch.rl import GRPOTrainer, TrainConfig
+    from time_r1_tpu_torch.sampler import Engine, SamplingParams
+    from time_r1_tpu_torch.utils.profiling import PhaseTimers
+    from time_r1_tpu_torch.utils.rewards import REWARD_FUNCS_REGISTRY
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = Qwen25VLConfig.qwen25vl_3b()
+    L = cfg.text.num_hidden_layers
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    ref = to_device(params, torch.device("cuda"))
+    req = video_request(cfg, np.random.default_rng(0), 32, 224, 392)  # phase 4's first request
+    config = TrainConfig(report_to="none", rollout_quantization="int8")
+    rewards = [REWARD_FUNCS_REGISTRY["iou"], REWARD_FUNCS_REGISTRY["format"], token_parity_reward]
+    t0 = time.perf_counter()
+    trainer = GRPOTrainer(params, cfg, IdsProcessor(), rewards, config=config, ref_params=ref,
+                          dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[quant] GRPOTrainer(rollout_quantization='int8') built (one int8 quantization pass) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    example = {"problem": "a person opens a door", "solution": (2.0, 9.5), "durations": 32.0}
+    out = {}
+    for call in (1, 2):
+        trainer.timers = PhaseTimers(sync=True)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        info = trainer.step_batch([example], [req])
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = read_launches()
+        metrics = trainer.pop_metrics()
+        tm = trainer.engine.timings
+        phases = {k: round(v["total_s"] * 1e3, 1) for k, v in trainer.timers.summary().items()}
+        log(f"[quant] int8 step_batch {call}: {total:.2f} s; phases (ms, synced) {phases}; rollout vision "
+            f"{tm['vision_s'] * 1e3:.1f} ms, prefill {tm['prefill_s'] * 1e3:.1f} ms, decode "
+            f"{tm['decode_s'] * 1e3 / max(tm['decode_steps'], 1):.2f} ms/step over {tm['decode_steps']} steps; "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+        log(f"[quant] int8 step_batch {call}: launches {launches}")
+        log(f"[quant] int8 step_batch {call}: loss {info['loss']:.6f}, reward {info['reward']:.4f}, "
+            f"grad_norm {metrics['grad_norm']:.4f}")
+        if not (np.isfinite(info["loss"]) and np.isfinite(metrics["grad_norm"]) and metrics["grad_norm"] > 0):
+            raise AssertionError(f"int8 step_batch {call}: loss {info['loss']} or grad_norm {metrics['grad_norm']}")
+        check_step_launches(f"int8 step_batch {call}", launches, tm["decode_steps"], L,
+                            {"shared_prefix_decode_full": 1, "shared_prefix_decode_attention": 1,
+                             "fused_mlp_int8": 1, "int4_matmul": 0})
+        out = {k: launches[k] for k in ("shared_prefix_decode_attention", "shared_prefix_decode_full",
+                                        "fused_mlp_int8")}
+    del trainer, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    eng = Engine(params, cfg, dtype=torch.bfloat16, device="cuda", quantization="int4", kv_cache_quant=True)
+    del params
+    torch.cuda.synchronize()
+    log(f"[quant] Engine(quantization='int4', kv_cache_quant=True) built in {time.perf_counter() - t0:.2f} s")
+    sp = SamplingParams(temperature=1.0, max_new_tokens=200, num_return_sequences=8, stop_token_ids=(), seed=0)
+    eng.generate([req], SamplingParams(max_new_tokens=2, num_return_sequences=8, stop_token_ids=()))  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    rows = eng.generate([req], sp)
+    total = time.perf_counter() - t0
+    launches = read_launches()
+    tm = eng.timings
+    log(f"[quant] int4 generate (G = 8, 200 tokens): {total:.2f} s; vision {tm['vision_s'] * 1e3:.1f} ms, prefill "
+        f"{tm['prefill_s'] * 1e3:.1f} ms, decode {tm['decode_s'] * 1e3 / max(tm['decode_steps'], 1):.2f} ms/step "
+        f"over {tm['decode_steps']} steps; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+    log(f"[quant] int4 generate: launches {launches}")
+    check_step_launches("int4 generate", launches, tm["decode_steps"], L,
+                        {"int4_matmul": 4, "shared_prefix_decode_full": 1, "fused_mlp_int8": 0})
+    if len(rows) != 8 or not all(len(r) == 200 for r in rows):
+        raise AssertionError(f"int4 generate: rows of {[len(r) for r in rows]} tokens")
+    out["int4_matmul"] = launches["int4_matmul"]
+    return out
+
+
+QUANT_LOGIT_TOL = {"int8": 1e-2, "int4": 1e-2}
+
+
+def teacher_forced_logits(eng, cfg, req, tokens: np.ndarray) -> list:
+    """The G-way decode of `generate` with fixed tokens (G, steps): the
+    prefill's last-position logits, then one per step, as numpy (G, V)."""
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import forward_shared_decode, suffix_cache_zeros
+    from time_r1_tpu_torch.ops.attention import NEG_INF
+
+    G, steps = tokens.shape
+    dev = eng.device
+    with torch.no_grad():
+        ids, mask, pos_ids, start, vis, S, _ = eng._pack([req], extra_len=0)
+        first, prefix, _ = eng._prefill(ids, mask, pos_ids, vis, S, S)
+        prefix = eng._maybe_quant_cache(prefix)
+        bias = torch.where(torch.from_numpy(mask[:, :S] > 0).to(dev), 0.0, NEG_INF).float()
+        suffix = suffix_cache_zeros(cfg.text, G, 128, dtype=eng.dtype, device=dev, quant=eng.kv_cache_quant)
+        out = [first.float().cpu().numpy()]
+        tok = torch.from_numpy(tokens).to(dev)
+        for t in range(steps):
+            pos3 = torch.full((3, G, 1), int(start[0]) + t, dtype=torch.long, device=dev)
+            lg, suffix = forward_shared_decode(eng.params, cfg, tok[:, t:t + 1], pos3, prefix, suffix, bias)
+            out.append(lg[:, -1].float().cpu().numpy())
+    return out
+
+
+def phase_reduced_quant() -> dict:
+    """Phase 3c: the quantized G-way decode at reduced depth (3B widths, 2
+    layers, 2 ViT blocks, f32 activations, int8 KV), int8 then int4 weights,
+    16 teacher-forced steps of fixed tokens for G = 4 rows: the card (D2 with
+    Q2 at int8, Q1 at int4) against the CPU (plain paths) on every step's
+    logits. Tolerance, on max |card - cpu| / max |cpu| per step: Q2 rounds x
+    and the activation to bf16 where the CPU's unfused MLP stays f32 (about
+    2^-9 of each value), and in both runs the f32 K/V of card and CPU, equal to
+    about 1e-6, can quantize to int8 values one apart where they sit at a
+    rounding boundary."""
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.sampler import Engine
+
+    cfg = reduced_config()
+    params_cpu = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    params_gpu = to_device(params_cpu, torch.device("cuda"))
+    req = video_request(cfg, np.random.default_rng(1), frames=8, height=224, width=392)
+    G, steps = 4, 16
+    tokens = np.random.default_rng(4).integers(0, 151000, size=(G, steps))
+    errs = {}
+    for quant in ("int8", "int4"):
+        out = {}
+        for device, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+            eng = Engine(params, cfg, dtype=torch.float32, device=device, quantization=quant, kv_cache_quant=True)
+            reset_launches()
+            t0 = time.perf_counter()
+            out[device] = teacher_forced_logits(eng, cfg, req, tokens)
+            launches = read_launches()
+            log(f"[reduced-quant] {quant} {device}: {time.perf_counter() - t0:.1f} s, launches "
+                f"{ {k: v for k, v in launches.items() if v} }")
+            if device == "cuda":
+                check_step_launches(f"reduced {quant}", launches, steps, cfg.text.num_hidden_layers,
+                                    {"shared_prefix_decode_full": 1,
+                                     "fused_mlp_int8": int(quant == "int8"), "int4_matmul": 4 * (quant == "int4")})
+        per_step = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(out["cuda"], out["cpu"])]
+        errs[quant] = max(per_step)
+        finite = all(np.isfinite(a).all() for a in out["cuda"])
+        log(f"[reduced-quant] {quant}: max |card - cpu| / max |cpu| per step {['%.2e' % e for e in per_step]}, "
+            f"worst {errs[quant]:.3e} (tol {QUANT_LOGIT_TOL[quant]}); |logits| max {np.abs(out['cpu'][-1]).max():.3f}")
+        if not finite or errs[quant] > QUANT_LOGIT_TOL[quant]:
+            raise AssertionError(f"reduced-depth {quant} decode: card and CPU disagree ({errs[quant]})")
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -732,9 +1185,11 @@ def main() -> int:
     checks = phase_kernels()
     phase_reduced_depth()
     phase_reduced_train()
+    phase_reduced_quant()
     launches = phase_full_size()  # K1-K3: the serving path
-    train_launches = phase_train_full_size()  # B1, B2, S1, S2: the training path
+    train_launches = phase_train_full_size()  # B1, B2, S1, S2 (and D1/D2 in the rollout): the training path
     launches.update({k: v for k, v in train_launches.items() if k not in SERVING_KERNELS})
+    quant_launches = phase_quant_full_size()  # D1, D2, Q2 (int8 step_batch), Q1 (int4 generate)
 
     jax_fa = "time_r1_tpu/ops/flash_attention.py"
     replaces = {
@@ -745,6 +1200,10 @@ def main() -> int:
         "flash_bwd_dkv": f"{jax_fa}:368",
         "shared_prefix_fwd": f"{jax_fa}:575",
         "shared_prefix_bwd": f"{jax_fa}:739",
+        "shared_prefix_decode_attention": "time_r1_tpu/ops/decode_attention.py:171",
+        "shared_prefix_decode_full": "time_r1_tpu/ops/decode_attention.py:403",
+        "int4_matmul": "time_r1_tpu/ops/int4_matmul.py:128",
+        "fused_mlp_int8": "time_r1_tpu/ops/fused_mlp.py:85",
     }
     csrc = "time_r1_tpu_torch/csrc"
     sources = {
@@ -755,6 +1214,10 @@ def main() -> int:
         "flash_bwd_dkv": f"{csrc}/flash_attention_bwd.cu",
         "shared_prefix_fwd": f"{csrc}/shared_prefix_attention.cu",
         "shared_prefix_bwd": f"{csrc}/shared_prefix_attention.cu",
+        "shared_prefix_decode_attention": f"{csrc}/decode_attention.cu",
+        "shared_prefix_decode_full": f"{csrc}/decode_attention.cu",
+        "int4_matmul": f"{csrc}/int4_matmul.cu",
+        "fused_mlp_int8": f"{csrc}/fused_mlp.cu",
     }
     kernels = []
     for name, entry in checks.items():
@@ -763,12 +1226,17 @@ def main() -> int:
             "route": "cuda",
             "source": sources[name],
             "replaces": replaces[name],
-            "launches": launches[name],
+            "launches": quant_launches.get(name, launches[name]),
         })
     # S2 is two kernels (dq at :739, the prefix dK/dV at :769): its entry gives both counts
     s2 = next(k for k in kernels if k["name"] == "shared_prefix_bwd")
     s2["launches_dkv_prefix"] = launches["shared_prefix_bwd_dkv"]
     s2["replaces_dkv_prefix"] = f"{jax_fa}:769"
+    # D1 and D2 run on both G-way paths: `launches` is the int8 step_batch's
+    # (phase 6), this the bf16 step_batch's (phase 5)
+    for k in kernels:
+        if k["name"] in DECODE_KERNELS:
+            k["launches_bf16_step_batch"] = launches[k["name"]]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -156,8 +156,35 @@ def test_sample_tokens_distribution():
 
 
 def test_unported_options_raise(engines):
-    _, teng, tp = engines
-    with pytest.raises(NotImplementedError):
-        Engine(tp, CFG, device="cpu", quantization="int8")
-    with pytest.raises(NotImplementedError):
-        Engine(tp, CFG, device="cpu", kv_cache_quant=True)
+    """Quantized serving is ported; an unknown `quantization` name fails as
+    the JAX Engine's dict lookup does, with a KeyError."""
+    jeng, teng, tp = engines
+    with pytest.raises(KeyError):
+        JaxEngine(jeng.params, JCFG, dtype=jnp.float32, quantization="int3")
+    with pytest.raises(KeyError):
+        Engine(tp, CFG, device="cpu", quantization="int3")
+
+
+@pytest.fixture(scope="module")
+def quantized_engines():
+    """Both packages' engines over the same weights, quantized by each
+    (bit-equal values and scales), with the int8 KV cache."""
+    jp = jax_params()
+    tp = port_params(jp)
+    out = {}
+    for quant in ("int8", "int4"):
+        out[quant] = (
+            JaxEngine(jp, JCFG, dtype=jnp.float32, quantization=quant, kv_cache_quant=True),
+            Engine(tp, CFG, dtype=torch.float32, device="cpu", quantization=quant, kv_cache_quant=True),
+        )
+    return out
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_quantized_greedy_matches_jax(quantized_engines, quant):
+    jeng, teng = quantized_engines[quant]
+    assert teng.params["text"]["layers"][0]["gu"]["q8" if quant == "int8" else "q4"] is not None
+    reqs = _text_requests() + _video_requests(False)
+    sp = dict(temperature=0.0, max_new_tokens=8, stop_token_ids=CFG.stop_token_ids)
+    want = jeng.generate(_both(reqs)[0], JaxSamplingParams(**sp))
+    assert teng.generate(reqs, SamplingParams(**sp)) == want

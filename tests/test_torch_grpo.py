@@ -159,3 +159,38 @@ def test_bf16_head_logits_keep_the_f32_accumulator():
     assert np.abs(got.numpy() - want).max() <= 1e-5 * scale
     rounded = got.bfloat16().float().numpy()
     assert np.abs(rounded - want).max() > 1e-4 * scale  # what the old bf16 head lost
+
+
+def test_bf16_head_grads_keep_the_f32_cotangent():
+    """The head's backward consumes the f32 logits' cotangent at f32 precision
+    in both products, as `jax.vjp` of JAX's f32-accumulating head does
+    (`dot_general(c: f32, w: bf16, preferred_element_type=f32)`): dh and dw
+    within one bf16 ulp of their scale. The cotangent's bf16-representable
+    part cancels in pairs (duplicated rows of w and h meet opposite values of
+    it), so the products carry only its sub-bf16 detail, which a cotangent
+    rounded to bf16 before the products would drop."""
+    rng = np.random.default_rng(0)
+    S, V, Hd = 4, 96, 64
+    h = rng.normal(size=(S, Hd)).astype(np.float32)
+    w = (rng.normal(size=(V, Hd)) * 0.5).astype(np.float32)
+    h[1::2], w[1::2] = h[0::2], w[0::2]
+    h16, w16 = torch.from_numpy(h).bfloat16(), torch.from_numpy(w).bfloat16()
+    a = torch.from_numpy(rng.normal(size=(S // 2, V // 2)).astype(np.float32)).bfloat16().float().numpy()
+    base = np.zeros((S, V), np.float32)
+    base[0::2, 0::2], base[0::2, 1::2], base[1::2, 0::2], base[1::2, 1::2] = a, -a, -a, a
+    detail = (np.abs(base) * rng.uniform(0.1, 1.0, size=base.shape) * 2**-10).astype(np.float32)
+    g = (base + detail).astype(np.float32)
+    assert np.array_equal(torch.from_numpy(g).bfloat16().float().numpy(), base)  # bf16 sees only the pairs
+
+    jh = jnp.asarray(h16.float().numpy(), jnp.bfloat16)[None]
+    jw = jnp.asarray(w16.float().numpy(), jnp.bfloat16)
+    _, vjp = jax.vjp(jax_tied_head_logits, jh, jw)
+    want_dh, want_dw = (np.asarray(x, np.float32) for x in vjp(jnp.asarray(g)[None]))
+    th, tw = h16[None].clone().requires_grad_(), w16.clone().requires_grad_()
+    dh, dw = torch.autograd.grad(head_logits(th, tw), (th, tw), torch.from_numpy(g)[None])
+    assert dh.dtype == dw.dtype == torch.bfloat16
+    for name, got, want in (("dh", dh.float().numpy(), want_dh), ("dw", dw.float().numpy(), want_dw)):
+        scale = np.abs(want).max()
+        assert scale > 0, name
+        ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+        assert np.abs(got - want).max() <= ulp, (name, np.abs(got - want).max(), ulp)

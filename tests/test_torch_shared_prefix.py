@@ -5,12 +5,13 @@ tensors (so the S1/S2 wrappers run their plain versions):
   Pallas kernel in interpret mode for R ∈ {1, 2, 4} rows per prompt, with a
   left-padded prompt; the ValueError of JAX's `_sp_blocks`;
 - `mha_shared_prefix` (the G-way decode step's attention) with and without a
-  suffix;
+  suffix (its int8 scales are in tests/test_torch_quant.py);
 - `shared_decode_forward`: the decode step (with a suffix) and the loss chunk
   (without), through S1's plain version and through `mha_shared_prefix`,
   with parameter gradients;
 - `Engine.generate` at G > 1: greedy tokens equal to the JAX Engine's and to
-  the G = 1 tokens of each prompt.
+  the G = 1 tokens of each prompt, also with int8/int4 weights and the int8
+  KV cache.
 
 Tolerances: f32 forwards 2e-5 (sums in another order); gradients 5e-4, the
 JAX package's own for its kernels' gradients."""
@@ -121,11 +122,6 @@ def test_mha_shared_prefix_matches_jax(with_suffix, S):
         *(conv(torch.from_numpy, a) for a in (kn, vn, bp, bo, bn)),
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
-    with pytest.raises(NotImplementedError, match="A5"):
-        mha_shared_prefix(torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
-                          torch.ones(2), None, None, None, None, None,
-                          torch.from_numpy(kn), torch.from_numpy(vn), torch.from_numpy(bp), None,
-                          torch.from_numpy(bn))
 
 
 def _shared_decode_case(cfg, P, R, Lp, S, with_suffix, seed=3):
@@ -239,3 +235,19 @@ def test_group_generate_with_video_matches_jax(engines):  # noqa: F811
     jreqs = [JaxRequest(input_ids=r.input_ids, patches=r.patches, grid_thw=r.grid_thw,
                         second_per_grid_t=r.second_per_grid_t) for r in reqs]
     assert teng.generate(reqs, SamplingParams(**sp)) == jeng.generate(jreqs, JaxSamplingParams(**sp))
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_quantized_group_generate_matches_jax(quant):
+    """G = 3 rollouts over int8 or int4 weights and int8 prefix and suffix
+    caches: greedy tokens equal to the JAX Engine's."""
+    from time_r1_tpu.sampler import Engine as JaxEngine
+    from time_r1_tpu_torch.sampler import Engine
+
+    jp = jax_params()
+    jeng = JaxEngine(jp, JCFG, dtype=jnp.float32, quantization=quant, kv_cache_quant=True)
+    teng = Engine(port_params(jp), CFG, dtype=torch.float32, device="cpu", quantization=quant, kv_cache_quant=True)
+    prompts = _prompts()
+    sp = dict(temperature=0.0, max_new_tokens=8, stop_token_ids=CFG.stop_token_ids, num_return_sequences=3)
+    want = jeng.generate([JaxRequest(input_ids=p) for p in prompts], JaxSamplingParams(**sp))
+    assert teng.generate([Request(input_ids=p) for p in prompts], SamplingParams(**sp)) == want

@@ -8,6 +8,9 @@ config):
   tests/tiny_tokenizer.py as the processor: rewards, loss, metrics and the
   parameter update agree;
 - an unreplaced CPU run at T = 1.0 that completes and moves the weights;
+- int8 rollouts: three CPU `step_batch` calls (one optimizer update between
+  the second and third), each rollout sampling from `quantize_params` of the
+  live weights; a quantized base without LoRA raises ValueError, as in JAX;
 - the options that are not ported raise NotImplementedError.
 
 Tolerances: the optimizer 1e-6 (f32, the same formulas); the trainers'
@@ -167,7 +170,7 @@ def test_unpatched_cpu_run_completes():
 
 
 @pytest.mark.parametrize("option", [
-    dict(use_peft=True), dict(rollout_quantization="int8"), dict(context_parallel_size=2),
+    dict(use_peft=True), dict(context_parallel_size=2),
     dict(offload_optimizer=True), dict(shared_prefix_loss=False), dict(gradient_checkpointing=True),
 ])
 def test_unported_options_raise(option):
@@ -184,3 +187,47 @@ def test_prepare_requests_and_mesh_raise():
         tr.prepare_requests([EXAMPLE])
     with pytest.raises(NotImplementedError, match="A13"):
         GRPOTrainer(tp, CFG, Processor(), [spread_reward], dtype=torch.float32, device="cpu", mesh=object())
+
+
+def test_int8_rollouts_run_and_resync():
+    from time_r1_tpu_torch.ops.quant import quantize_params
+
+    rng = np.random.default_rng(7)
+    ids, patches = _request(rng)
+    tp = port_params(jax_params())
+    rewards = [REWARD_FUNCS_REGISTRY["iou"], REWARD_FUNCS_REGISTRY["format"], spread_reward]
+    tr = GRPOTrainer(tp, CFG, Processor(), rewards,
+                     config=_config(TrainConfig, temperature=1.0, rollout_quantization="int8"),
+                     ref_params=port_params(jax_params()), dtype=torch.float32, device="cpu")
+    assert tr.engine.quantization == "int8" and tr.engine.kv_cache_quant
+    generate, synced = tr.engine.generate, []
+
+    def checked_generate(reqs, sp):
+        """The rollout samples from quantize_params of the live weights."""
+        want = params_to_jax(quantize_params(tr.params, bits=8), CFG)
+        got = params_to_jax(tr.engine.params, CFG)
+        assert jax.tree.structure(got) == jax.tree.structure(want)
+        for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            np.testing.assert_array_equal(a, b)
+        synced.append(float(np.abs(got["text"]["layers"]["self_attn"]["qkv"]["s"]).sum()))
+        return generate(reqs, sp)
+
+    tr.engine.generate = checked_generate
+    for _ in range(3):  # the third call follows the first optimizer update
+        info = tr.step_batch([EXAMPLE], [Request(ids, patches, (2, 4, 4), 1.0)])
+        assert np.isfinite(info["loss"])
+    assert len(synced) == 3 and synced[2] != synced[0]  # the update reached the rollout weights
+    m = tr.pop_metrics()
+    assert np.isfinite(m["grad_norm"]) and m["grad_norm"] > 0
+    # the loss trains the unquantized tree: the engine's copy is re-made from it
+    assert tr.params["text"]["layers"][0]["q_w"].dtype == torch.float32
+    assert "weight_sync" in tr.timers.summary()
+
+
+def test_quantized_base_without_peft_raises():
+    from time_r1_tpu_torch.ops.quant import quantize_params
+
+    for fuse in (True, False):
+        base = quantize_params(port_params(jax_params()), bits=8, fuse=fuse)
+        with pytest.raises(ValueError, match="LoRA"):
+            GRPOTrainer(base, CFG, Processor(), [spread_reward], dtype=torch.float32, device="cpu")

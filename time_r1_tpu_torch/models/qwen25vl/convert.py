@@ -14,6 +14,13 @@ linear weights as (in, out) and stacks the layers on axis 0
             layers[i]: input_layernorm post_attention_layernorm
                        q_w q_b k_w k_b v_w v_b o_w gate_w up_w down_w
 
+Quantized trees (`ops/quant.py`) carry {"q8"|"q4", "s"} dicts in place of
+weights, transposed like them (JAX's (K, N) values and (1, N) scales become
+(N, K) and (N, 1)); decode-fused layers hold qkv, qkv_b and gu in place of
+q/k/v and gate/up. The quantized embedding keeps its (V, H) layout; JAX's
+int4 row marker `_row4` is dropped (the port packs every weight along its
+last axis) and restored on the way back.
+
 HF safetensors loading comes with the CLI slice of the port.
 """
 
@@ -47,20 +54,23 @@ _MERGER = [
     (("fc2", "kernel"), "fc2_w", True),
     (("fc2", "bias"), "fc2_b", False),
 ]
-_TEXT_LAYER = [
+_TEXT_NORMS = [
     (("input_layernorm", "scale"), "input_layernorm", False),
     (("post_attention_layernorm", "scale"), "post_attention_layernorm", False),
-    (("self_attn", "q_w"), "q_w", True),
-    (("self_attn", "q_b"), "q_b", False),
-    (("self_attn", "k_w"), "k_w", True),
-    (("self_attn", "k_b"), "k_b", False),
-    (("self_attn", "v_w"), "v_w", True),
-    (("self_attn", "v_b"), "v_b", False),
-    (("self_attn", "o_w"), "o_w", True),
-    (("mlp", "gate_w"), "gate_w", True),
-    (("mlp", "up_w"), "up_w", True),
-    (("mlp", "down_w"), "down_w", True),
 ]
+_ATTN_KEYS = ("q_w", "q_b", "k_w", "k_b", "v_w", "v_b", "o_w", "qkv", "qkv_b")
+_MLP_KEYS = ("gate_w", "up_w", "down_w", "gu")
+_QKEYS = ("q8", "q4", "s")  # leaves of a quantized weight dict
+
+
+def _text_layer_table(keys) -> list:
+    """(path in the JAX tree, key in the port, transposed) for a text layer
+    with these projection keys (plain, quantized, or decode-fused)."""
+    table = list(_TEXT_NORMS)
+    for key in keys:
+        if key in _ATTN_KEYS or key in _MLP_KEYS:
+            table.append((("self_attn" if key in _ATTN_KEYS else "mlp", key), key, not key.endswith("_b")))
+    return table
 
 
 def _get(tree: dict, path: tuple):
@@ -79,16 +89,22 @@ def params_from_jax(tree: dict, cfg: Qwen25VLConfig, device="cuda", dtype=torch.
     """JAX param tree (numpy leaves) → the port's params on `device`."""
     device = resolve_device(device)
 
-    def T(x, transpose: bool) -> torch.Tensor:
+    def T(x, transpose: bool, keep_dtype: bool = False):
+        if isinstance(x, dict):  # a quantized weight: values and scales keep their dtypes
+            return {k: T(x[k], transpose, keep_dtype=True) for k in _QKEYS if k in x}
         a = np.asarray(x)
         if a.dtype.kind == "V" or a.dtype.name == "bfloat16":  # ml_dtypes bf16 has no torch view
             a = a.astype(np.float32)
         if transpose:
             a = np.swapaxes(a, -1, -2)
-        return torch.tensor(a, device=device, dtype=dtype)  # a copy: never aliases the JAX tree
+        # a copy: never aliases the JAX tree
+        return torch.tensor(a, device=device, dtype=None if keep_dtype else dtype)
+
+    def index(x, i: int):
+        return {k: v[i] for k, v in x.items()} if isinstance(x, dict) else x[i]
 
     def layers(sub: dict, table, n: int) -> list:
-        return [{key: T(_get(sub, path)[i], tr) for path, key, tr in table} for i in range(n)]
+        return [{key: T(index(_get(sub, path), i), tr) for path, key, tr in table} for i in range(n)]
 
     vis, txt = tree["visual"], tree["text"]
     visual = {
@@ -98,7 +114,8 @@ def params_from_jax(tree: dict, cfg: Qwen25VLConfig, device="cuda", dtype=torch.
     }
     text = {
         "embed_tokens": T(txt["embed_tokens"]["embedding"], False),
-        "layers": layers(txt["layers"], _TEXT_LAYER, cfg.text.num_hidden_layers),
+        "layers": layers(txt["layers"], _text_layer_table([*txt["layers"]["self_attn"], *txt["layers"]["mlp"]]),
+                         cfg.text.num_hidden_layers),
         "norm": T(txt["norm"]["scale"], False),
     }
     if "lm_head" in txt:
@@ -110,16 +127,29 @@ def params_to_jax(params: dict, cfg: Qwen25VLConfig) -> dict:
     """Inverse of params_from_jax: the port's params → JAX tree of numpy
     arrays ((in, out) weights, layers stacked on axis 0)."""
 
-    def N(t: torch.Tensor, transpose: bool) -> np.ndarray:
+    def N(t, transpose: bool):
+        if isinstance(t, dict):
+            return {k: N(v, transpose) for k, v in t.items()}
         a = t.detach().cpu()
         a = (a.float() if a.dtype == torch.bfloat16 else a).numpy()
         return np.ascontiguousarray(np.swapaxes(a, -1, -2) if transpose else a)
 
+    def stack(leaves: list):
+        if isinstance(leaves[0], dict):
+            return {k: np.stack([x[k] for x in leaves]) for k in leaves[0]}
+        return np.stack(leaves)
+
     def stacked(layer_list: list, table) -> dict:
         out: dict = {}
         for path, key, tr in table:
-            _set(out, path, np.stack([N(lp[key], tr) for lp in layer_list]))
+            _set(out, path, stack([N(lp[key], tr) for lp in layer_list]))
         return out
+
+    def embedding(emb):
+        e = N(emb, False)
+        if isinstance(e, dict) and "q4" in e:
+            e["_row4"] = np.ones((), np.int8)  # JAX's marker of a row-packed int4 table
+        return e
 
     vis, txt = params["visual"], params["text"]
     merger: dict = {}
@@ -131,8 +161,8 @@ def params_to_jax(params: dict, cfg: Qwen25VLConfig) -> dict:
         "merger": merger,
     }
     text = {
-        "embed_tokens": {"embedding": N(txt["embed_tokens"], False)},
-        "layers": stacked(txt["layers"], _TEXT_LAYER),
+        "embed_tokens": {"embedding": embedding(txt["embed_tokens"])},
+        "layers": stacked(txt["layers"], _text_layer_table(txt["layers"][0])),
         "norm": {"scale": N(txt["norm"], False)},
     }
     if "lm_head" in txt:

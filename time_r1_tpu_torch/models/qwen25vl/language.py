@@ -17,38 +17,56 @@ loop over the layers where JAX scans.
   reaches them.
 - Shared-prefix forward (`shared_decode_forward`): B = P·R rollout rows over
   one prompt-prefix cache per prompt. The loss chunk (no suffix) runs S1 on
-  the card; a decode step attends [prefix | own suffix | itself]
-  (`mha_shared_prefix`).
+  the card; a decode step attends [prefix | own suffix | itself], through D2
+  (`ops/decode_attention.py`) on the card, else `mha_shared_prefix`.
+- The int8 KV cache (the quantized rollouts' decode form, made after the
+  bf16 prefill by `ops/quant.py::quantize_kv_cache`): per-(token, head) f32
+  scales beside the int8 buffers; each step quantizes its chunk with
+  `quantize_kv` and writes it in place. Weights may be quantized dicts
+  (`ops/quant.py`) anywhere a projection, the embedding or the head is read.
 
-LoRA, the int8 KV cache, remat policies and context parallelism are not
-ported yet.
+LoRA, remat policies and context parallelism are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
 from ...device import resolve_device
-from ...ops.attention import NEG_INF, mha_cached, mha_reference, mha_shared_prefix, rope
+from ...ops.attention import NEG_INF, mha_cached, mha_cached_q8, mha_reference, mha_shared_prefix, rope
+from ...ops.decode_attention import pick_block, shared_prefix_decode_full
 from ...ops.flash_attention import flash_attention, flash_attention_shared_prefix
-from ...ops.quant import attn_qkv_proj, head_logits, mlp_proj, qmatmul
+from ...ops.quant import attn_qkv_proj, head_logits, mlp_proj, qmatmul, quantize_kv
 from .config import TextConfig
 
 
 @dataclass
 class KVCache:
-    k: torch.Tensor  # (L, B, max_len, Hkv, hd)
+    k: torch.Tensor  # (L, B, max_len, Hkv, hd), bf16/f32, or int8 in the decode form
     v: torch.Tensor  # (L, B, max_len, Hkv, hd)
     length: int = 0  # filled prefix length, uniform across the batch; a host int so
     #                  that a decode step never waits on the device to read it
+    k_scale: Optional[torch.Tensor] = None  # int8 form only: (L, B, max_len, Hkv) f32
+    v_scale: Optional[torch.Tensor] = None
 
     @staticmethod
-    def zeros(cfg: TextConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda") -> "KVCache":
+    def zeros(cfg: TextConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda",
+              quant: bool = False) -> "KVCache":
+        """An empty cache; quant=True gives the int8 form with zero scales."""
         device = resolve_device(device)
         shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
+        if quant:
+            return KVCache(
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                0,
+                torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            )
         return KVCache(
             torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device),
@@ -113,7 +131,11 @@ def decoder_forward(
     (S = 1) is not; JAX needs a static `flash_q_offset` for this, the port
     reads the host-int `cache.length`.
 
-    A chunk that fills an empty buffer (length 0, buffer length S) is the
+    An int8 cache (`KVCache.k_scale` set) never takes the flash branch: the
+    chunk attends [int8 cache | itself] through `mha_cached_q8` and is then
+    quantized with `quantize_kv` and written at `cache.length`, with its scales.
+
+    A bf16 chunk that fills an empty buffer (length 0, buffer length S) is the
     no-cache forward (K1 with q_offset 0 and the mask as key bias, the same
     function as JAX's cached call with `flash_q_offset=0`, without a sliding
     window); its cache is a new one stacked from the per-layer K/V, written
@@ -129,16 +151,20 @@ def decoder_forward(
     def where_allowed(allowed: torch.Tensor) -> torch.Tensor:
         return torch.where(allowed, 0.0, NEG_INF).float()
 
-    fills = cache is not None and cache.length == 0 and cache.k.shape[2] == S
+    quant_kv = cache is not None and cache.k.dtype == torch.int8
+    fills = cache is not None and not quant_kv and cache.length == 0 and cache.k.shape[2] == S
     in_place = cache is not None and not fills
     if in_place:
         L0 = cache.length
         kv_len = cache.k.shape[2]
         flash = use_flash if use_flash is not None else (
-            _flash_eligible(cfg, hidden, S)
+            not quant_kv
+            and _flash_eligible(cfg, hidden, S)
             and kv_len % 128 == 0
             and L0 % 128 == 0
         )
+        if flash and quant_kv:
+            raise ValueError("an int8 KV cache has no flash branch")
         if not flash:
             kv_pos = torch.arange(kv_len, device=device)[None, :]
             bias_old = where_allowed(kv_pos < L0)[None, None]  # (1, 1, 1, kv_len)
@@ -180,7 +206,11 @@ def decoder_forward(
         k = rope(k, cos_b, sin_b).to(x.dtype)
         if fills:
             layer_kv.append((k, v))
-        if in_place:
+        if quant_kv:
+            attn = mha_cached_q8(q, cache.k[li], cache.v[li], cache.k_scale[li], cache.v_scale[li],
+                                 k, v, bias_old, bias_new)
+            _write_q8(cache, li, L0, k, v)
+        elif in_place:
             cache.k[li, :, L0:L0 + S] = k.to(cache.k.dtype)
             cache.v[li, :, L0:L0 + S] = v.to(cache.v.dtype)
             layer_k, layer_v = cache.k[li].to(q.dtype), cache.v[li].to(q.dtype)
@@ -201,15 +231,50 @@ def decoder_forward(
         ks, vs = zip(*layer_kv)
         new_cache = KVCache(torch.stack(ks).to(cache.k.dtype), torch.stack(vs).to(cache.v.dtype), S)
     else:
-        new_cache = None if cache is None else KVCache(cache.k, cache.v, cache.length + S)
+        new_cache = None if cache is None else dataclasses.replace(cache, length=cache.length + S)
     return hidden, new_cache
 
 
+def _write_q8(cache: KVCache, li: int, at: int, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Quantize a chunk's K/V (B, S, Hkv, hd) and write them, with their
+    scales, into layer li of an int8 cache at positions [at, at + S)."""
+    S = k.shape[1]
+    k8, ks = quantize_kv(k)
+    v8, vs = quantize_kv(v)
+    cache.k[li, :, at:at + S] = k8
+    cache.v[li, :, at:at + S] = v8
+    cache.k_scale[li, :, at:at + S] = ks
+    cache.v_scale[li, :, at:at + S] = vs
+
+
 def suffix_cache_zeros(cfg: TextConfig, batch: int, max_new: int, dtype=torch.bfloat16,
-                       device="cuda") -> KVCache:
+                       device="cuda", quant: bool = False) -> KVCache:
     """Empty per-row generated-suffix cache (L, batch, max_new, Hkv, hd) for
-    the shared-prefix decode."""
-    return KVCache.zeros(cfg, batch, max_new, dtype=dtype, device=device)
+    the shared-prefix decode; quant=True gives the int8 form."""
+    return KVCache.zeros(cfg, batch, max_new, dtype=dtype, device=device, quant=quant)
+
+
+def decode_step_attention(q, kp, vp, kps, vps, ko, vo, kos, vos, own_len: int, k, v,
+                          prefix_bias) -> torch.Tensor:
+    """One decode step's attention (S = 1) through D2: q (B, 1, H, hd) and the
+    new K/V (B, 1, Hkv, hd), the caches in the port's token-major layout
+    ((P, Lp, Hkv, hd) prefix, (B, Lo, Hkv, hd) suffix, scales without hd).
+    The caches go to the kernel as head-major views, read through their
+    strides: nothing is transposed, per step or per session. Only q and the
+    (B, 1, H, hd) output are regrouped, into D2's (P, Hkv, R·G, hd) rows."""
+    B, _, H, hd = q.shape
+    P, _, Hkv, _ = kp.shape
+    R, G = B // P, H // Hkv
+
+    def hm(x):
+        return None if x is None else x.transpose(1, 2)
+
+    q_rows = q.reshape(P, R, Hkv, G, hd).transpose(1, 2).reshape(P, Hkv, R * G, hd)
+    # v is a view into the fused qkv product: both tokens go over as (B, Hkv, hd) copies
+    ctx = shared_prefix_decode_full(q_rows, hm(kp), hm(vp), hm(kps), hm(vps), prefix_bias,
+                                    hm(ko), hm(vo), hm(kos), hm(vos), own_len,
+                                    k[:, 0].contiguous(), v[:, 0].contiguous())
+    return ctx.reshape(P, Hkv, R, G, hd).transpose(1, 2).reshape(B, 1, H, hd)
 
 
 def shared_decode_forward(
@@ -232,9 +297,12 @@ def shared_decode_forward(
     (`flash_attention_shared_prefix`) when the chunk is flash-eligible and
     Lp % 128 == 0, else `mha_shared_prefix`.
 
-    With a suffix it is one decode step through `mha_shared_prefix`: the new
-    K/V are written into the suffix buffers in place at the host-int
-    `suffix.length`, and the returned KVCache shares them with length + S."""
+    With a suffix it is one decode step: the new K/V are written into the
+    suffix buffers in place at the host-int `suffix.length` (quantized, with
+    their scales, when the caches are int8), and the returned KVCache shares
+    them with length + S. On CUDA tensors a one-token step over a
+    128-divisible prefix runs D2 (`decode_step_attention`), the route the JAX
+    package takes with `prefix_head_major`; otherwise `mha_shared_prefix`."""
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
     B, S, _ = hidden.shape
@@ -251,10 +319,12 @@ def shared_decode_forward(
         own_valid = torch.arange(suffix.k.shape[2], device=device) < L0
         bias_own = torch.where(own_valid, 0.0, NEG_INF).float()[None, None, None]
     flash = use_flash if use_flash is not None else (
-        suffix is None and _flash_eligible(cfg, hidden, S) and Lp % 128 == 0
+        suffix is None and prefix.k.dtype != torch.int8 and _flash_eligible(cfg, hidden, S) and Lp % 128 == 0
     )
     if flash and suffix is not None:
         raise ValueError("the S1 branch is the loss chunk: it takes no suffix cache")
+    quant = suffix is not None and suffix.k.dtype == torch.int8
+    d2 = suffix is not None and S == 1 and hidden.is_cuda and pick_block(Lp) > 0
 
     x = hidden
     for li, lp in enumerate(params["layers"]):
@@ -263,28 +333,41 @@ def shared_decode_forward(
         q = rope(q, cos_b, sin_b).to(x.dtype)
         k = rope(k, cos_b, sin_b).to(x.dtype)
         kp, vp = prefix.k[li], prefix.v[li]
+        kps = vps = kos = vos = None
+        if prefix.k_scale is not None:
+            kps, vps = prefix.k_scale[li], prefix.v_scale[li]
+        if quant:
+            kos, vos = suffix.k_scale[li], suffix.v_scale[li]
         if flash:
             attn = flash_attention_shared_prefix(
                 q, kp.to(q.dtype).contiguous(), vp.to(q.dtype).contiguous(),
                 k.contiguous(), v.contiguous(), prefix_bias.contiguous(),
             )
         elif suffix is None:
-            attn = mha_shared_prefix(q, kp, vp, None, None, None, None, None, None,
+            attn = mha_shared_prefix(q, kp, vp, kps, vps, None, None, None, None,
                                      k, v, bias_pref, None, bias_new)
         else:
-            attn = mha_shared_prefix(q, kp, vp, None, None, suffix.k[li], suffix.v[li], None, None,
-                                     k, v, bias_pref, bias_own, bias_new)
-            suffix.k[li, :, L0:L0 + S] = k.to(suffix.k.dtype)
-            suffix.v[li, :, L0:L0 + S] = v.to(suffix.v.dtype)
+            if d2:
+                attn = decode_step_attention(q, kp, vp, kps, vps, suffix.k[li], suffix.v[li], kos, vos, L0,
+                                             k, v, prefix_bias)
+            else:
+                attn = mha_shared_prefix(q, kp, vp, kps, vps, suffix.k[li], suffix.v[li], kos, vos,
+                                         k, v, bias_pref, bias_own, bias_new)
+            if quant:
+                _write_q8(suffix, li, L0, k, v)
+            else:
+                suffix.k[li, :, L0:L0 + S] = k.to(suffix.k.dtype)
+                suffix.v[li, :, L0:L0 + S] = v.to(suffix.v.dtype)
         x = x + qmatmul(attn.reshape(B, S, nh * hd).to(x.dtype), lp["o_w"])
         x = x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp)
 
     hidden = _rms_norm(x, params["norm"], eps)
-    new_suffix = None if suffix is None else KVCache(suffix.k, suffix.v, suffix.length + S)
+    new_suffix = None if suffix is None else dataclasses.replace(suffix, length=suffix.length + S)
     return hidden, new_suffix
 
 
 def lm_logits(params: dict, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tensor:
     """Final hidden states → f32 vocab logits. The tied head contracts against
-    the (V, hidden) embedding table as it is (no transposed copy)."""
+    the (V, hidden) embedding table as it is (no transposed copy); a
+    row-quantized table or head (`ops/quant.py`) streams its int8 values."""
     return head_logits(hidden, params["embed_tokens"] if cfg.tie_word_embeddings else params["lm_head"])

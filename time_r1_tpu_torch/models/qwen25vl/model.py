@@ -1,7 +1,9 @@
 """Qwen2.5-VL combined model: vision features merged into token embeddings.
 
 Port of `time_r1_tpu/models/qwen25vl/model.py`. The vision-token scatter is a
-cumsum gather + where (no boolean indexing), as in JAX.
+cumsum gather + where (no boolean indexing), as in JAX. The text parameters
+may be quantized (`ops/quant.py`: the embedding lookup and the head read the
+int8 table) and the caches int8; both pass through to the decoder.
 """
 
 from __future__ import annotations

@@ -7,12 +7,18 @@ hidden states taken from the rollout's prefill (fix_vit), the reference
 log-probs, then forward, backward and the optimizer micro-step
 (clip + AdamW inside MultiSteps, `rl/optim.py`).
 
+Quantized rollouts (`rollout_quantization="int8" | "int4"`) follow the JAX
+trainer's full-parameter branch: the engine keeps an int8/int4 copy of the
+policy with an int8 KV cache, re-quantized from the live bf16 weights once
+per `step_batch` (the weight_sync phase); the loss and the reference forward
+stay bf16 over the unquantized tree. A quantized base is trainable only
+through LoRA, as in JAX (ValueError).
+
 Not ported yet, each raising NotImplementedError where it is asked for: the
 host input path (`prepare_requests`: video decode, chat template, tokenizer;
-ROADMAP A4), quantized rollouts (A5), the full-row loss
-(`shared_prefix_loss=False`, A7), LoRA (A8), the training loop around
-`step_batch`, remat, checkpoints and optimizer offload (A9), and device
-meshes and context parallelism (A13).
+ROADMAP A4), the full-row loss (`shared_prefix_loss=False`, A7), LoRA (A8),
+the training loop around `step_batch`, remat, checkpoints and optimizer
+offload (A9), and device meshes and context parallelism (A13).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 from ..device import resolve_device
 from ..models.qwen25vl import Qwen25VLConfig
 from ..models.qwen25vl.model import vision_signature
+from ..ops.quant import is_quantized
 from ..sampler import Engine, SamplingParams
 from ..utils.profiling import PhaseTimers
 from .grpo import (
@@ -94,8 +101,6 @@ def _unported(config: TrainConfig, mesh) -> Optional[str]:
         return "device meshes and context parallelism are not ported yet (ROADMAP A13)"
     if config.use_peft:
         return "LoRA training is not ported yet (ROADMAP A8)"
-    if config.rollout_quantization:
-        return "quantized rollouts are not ported yet (ROADMAP A5)"
     if not config.shared_prefix_loss:
         return "the full-row loss (shared_prefix_loss=False) is not ported yet (ROADMAP A7)"
     if config.offload_optimizer or config.gradient_checkpointing:
@@ -109,7 +114,9 @@ class GRPOTrainer:
     takes pre-built engine Requests (the host input path is ROADMAP A4).
 
     Full-parameter training updates `params` in place; the engine holds the
-    same tensors, so the rollouts sample from the live weights with no copy.
+    same tensors, so the rollouts sample from the live weights with no copy
+    (with rollout_quantization it holds a quantized copy, re-made at each
+    weight sync).
     With beta ≠ 0, `ref_params` (a separate copy) gives the KL reference, as in
     the JAX trainer, which likewise has no reference without one."""
 
@@ -127,6 +134,12 @@ class GRPOTrainer:
         device="cuda",
     ):
         config = dataclasses.replace(config) if config is not None else TrainConfig()
+        lp = params["text"]["layers"][0]
+        if is_quantized(lp["qkv"] if "qkv" in lp else lp["q_w"]) and not config.use_peft:
+            raise ValueError(
+                "a quantized base is trainable via LoRA only (use_peft=True); "
+                "full-tree training needs bf16 params"
+            )
         why = _unported(config, mesh)
         if why:
             raise NotImplementedError(why)
@@ -139,7 +152,12 @@ class GRPOTrainer:
         self.dtype = dtype
         self.params = params
         self.ref_params = ref_params if config.beta != 0.0 else None
-        self.engine = Engine(params, cfg, dtype=dtype, device=self.device)
+        # int8 KV rides with quantized weights, as in the JAX trainer: the
+        # rollout samples through the quantized policy and the loss recomputes
+        # its log-probs in bf16
+        self.engine = Engine(params, cfg, dtype=dtype, device=self.device,
+                             quantization=config.rollout_quantization or None,
+                             kv_cache_quant=bool(config.rollout_quantization))
         self.hp = GRPOHyperParams(
             num_generations=config.num_generations,
             beta=config.beta,
@@ -186,7 +204,7 @@ class GRPOTrainer:
         engine Requests."""
         c = self.c
         G = c.num_generations
-        with self.timers.phase("weight_sync"):
+        with self.timers.phase("weight_sync"):  # a re-quantization pass with rollout_quantization
             self.engine.set_params(self.params)
         if requests is None:
             with self.timers.phase("host_preproc"):

@@ -9,11 +9,15 @@
   device;
 - G-way grouped rollouts (`num_return_sequences > 1`, the GRPO shape): each
   unique prompt is prefilled once and its KV stored once; the G rows decode
-  against [shared prefix | own suffix] (`decode_loop_shared`);
+  against [shared prefix | own suffix] (`decode_loop_shared`), each step's
+  attention through D2 on the card;
+- weight-only quantization (`quantization="int8" | "int4"`: the engine keeps
+  its own quantized copy, `ops/quant.py::quantize_params`; the decode step's
+  MLP runs Q2 at int8 and its projections Q1 at int4 on the card) and the
+  int8 KV cache for the decode phase (`kv_cache_quant=True`: the prefill runs
+  in the engine's dtype, then one pass quantizes the cache);
 - stop ids kept in the output (include_stop_token), left-padded power-of-two
   prompt buckets.
-
-Weight-only and KV-cache quantization come with ROADMAP A5.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from ..models.qwen25vl.model import (
     vision_signature,
 )
 from ..models.qwen25vl.vision import vision_blocks_forward, vision_merge_forward
-from ..ops.quant import embed_lookup
+from ..ops.quant import QBITS, embed_lookup, quantize_kv_cache, quantize_params
 from .params import SamplingParams
 
 PREFILL_CHUNK = 8192  # max_num_batched_tokens parity
@@ -200,8 +204,10 @@ def decode_loop_shared(
     """decode_loop over the shared-prefix layout: the prompt KV is stored once
     per prompt and each rollout row keeps only its generated-suffix cache
     (language.shared_decode_forward), with the same sampling and stop
-    semantics. The step's attention is plain `mha_shared_prefix`, as in the
-    JAX package, whose decode kernels D1/D2 are opt-in there (ROADMAP queue B)."""
+    semantics, over bf16 or int8 caches. On the card each step's attention is
+    one D2 call per layer, reading the token-major caches through strides, so
+    no relayout is made for the session (the JAX package transposes its caches
+    head-major here, behind an opt-in); on the CPU it is `mha_shared_prefix`."""
 
     def step_fn(last, pos3):
         nonlocal suffix
@@ -226,13 +232,13 @@ class Engine:
         quantization: Optional[str] = None,
         kv_cache_quant: bool = False,
     ):
-        if quantization or kv_cache_quant:
-            raise NotImplementedError("quantized serving is not ported yet (ROADMAP A5)")
-        self.params = params
+        self.device = resolve_device(device)
         self.cfg = cfg
         self.dtype = dtype
+        self.quantization = quantization
+        self.kv_cache_quant = kv_cache_quant
+        self.set_params(params)
         self.prefill_chunk_tokens = prefill_chunk_tokens
-        self.device = resolve_device(device)
         # seconds of the last generate(): vision, prefill, decode, and decode steps
         self.timings: dict = {}
         # fix_vit reuse across phases: with capture on, the prefill runs the
@@ -243,10 +249,22 @@ class Engine:
         self.captured_vision: Optional[tuple] = None
         self._last_vis_sig: Optional[tuple] = None
 
-    def set_params(self, params: dict) -> None:
-        """Swap in live policy weights (GRPO rollouts). The trainer updates its
-        tree in place, so this hands over the same tensors: no copy."""
+    def set_params(self, params: dict, prequantized: bool = False) -> None:
+        """Swap in live policy weights (GRPO rollouts). Unquantized, the
+        trainer updates its tree in place, so this hands over the same
+        tensors: no copy. A quantized engine re-quantizes its own copy (unless
+        the caller passes one, prequantized=True); the previous copy is dropped
+        first so that its memory serves the new one. An unknown `quantization`
+        name is a KeyError, as the JAX package's dict lookup."""
+        self.params = None
+        if self.quantization and not prequantized:
+            params = quantize_params(params, bits=QBITS[self.quantization])
         self.params = params
+
+    def _maybe_quant_cache(self, cache: KVCache) -> KVCache:
+        """The prefill runs in the engine's dtype; with kv_cache_quant the
+        decode phase reads an int8 copy of its cache (one conversion pass)."""
+        return quantize_kv_cache(cache) if self.kv_cache_quant else cache
 
     def _sync(self) -> float:
         if self.device.type == "cuda":
@@ -352,9 +370,10 @@ class Engine:
         if G > 1:
             ids, mask, pos_ids, start1, vis, S, _ = self._pack(reqs, extra_len=0)
             first1, prefix, _ = self._prefill(ids, mask, pos_ids, vis, S, S)
+            prefix = self._maybe_quant_cache(prefix)
             prefix_bias = torch.where(torch.from_numpy(mask[:, :S] > 0).to(self.device), 0.0, NEG_INF).float()
             suffix = suffix_cache_zeros(self.cfg.text, len(reqs) * G, _round_up(sp.max_new_tokens, 128),
-                                        dtype=self.dtype, device=self.device)
+                                        dtype=self.dtype, device=self.device, quant=self.kv_cache_quant)
             t0 = self._sync()
             tokens, steps = decode_loop_shared(
                 self.params, self.cfg, prefix, suffix, first1.repeat_interleave(G, dim=0),
@@ -363,6 +382,7 @@ class Engine:
         else:
             ids, mask, pos_ids, start_pos, vis, S, max_len = self._pack(reqs, extra_len=sp.max_new_tokens)
             first_logits, cache, mask_t = self._prefill(ids, mask, pos_ids, vis, S, max_len)
+            cache = self._maybe_quant_cache(cache)
             t0 = self._sync()
             tokens, steps = decode_loop(
                 self.params, self.cfg, cache, first_logits,
