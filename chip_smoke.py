@@ -550,24 +550,26 @@ def phase_decode_quant_kernels() -> dict:
                 ko=randn(B, Lo, Hkv, D), vo=randn(B, Lo, Hkv, D), kn=randn(B, Hkv, D), vn=randn(B, Hkv, D))
     bias = torch.where(torch.arange(Lp, device=dev)[None] < pad, NEG_INF, 0.0).float().expand(P, Lp).contiguous()
 
-    def decode_inputs(dtype, int8: bool):
+    def decode_inputs(dtype, int8: bool, lp: int = Lp):
         """The path's layouts: q regrouped (P, Hkv, N, D); token-major caches
-        handed over as head-major views; scales (…, Hkv) likewise."""
+        handed over as head-major views; scales (…, Hkv) likewise. lp < Lp
+        keeps the first lp prefix keys."""
         q = base["q"].to(dtype).reshape(P, R, Hkv, G, D).transpose(1, 2).reshape(P, Hkv, N, D)
-        out = {"q": q, "kn": base["kn"].to(dtype), "vn": base["vn"].to(dtype)}
+        out = {"q": q, "kn": base["kn"].to(dtype), "vn": base["vn"].to(dtype), "bias": bias[:, :lp].contiguous()}
         for n in ("kp", "vp", "ko", "vo"):
+            src = base[n][:, :lp] if n in ("kp", "vp") else base[n]
             if int8:
-                x8, s = quantize_kv(base[n])
+                x8, s = quantize_kv(src)
                 out[n], out[n + "_s"] = x8.transpose(1, 2), s.transpose(1, 2)
             else:
-                out[n], out[n + "_s"] = base[n].to(dtype).transpose(1, 2), None
+                out[n], out[n + "_s"] = src.to(dtype).transpose(1, 2), None
         return out
 
     def d1_args(x):
-        return x["q"], x["kp"], x["vp"], x["kp_s"], x["vp_s"], bias
+        return x["q"], x["kp"], x["vp"], x["kp_s"], x["vp_s"], x["bias"]
 
     def d2_args(x, own_len):
-        return (x["q"], x["kp"], x["vp"], x["kp_s"], x["vp_s"], bias, x["ko"], x["vo"], x["ko_s"], x["vo_s"],
+        return (x["q"], x["kp"], x["vp"], x["kp_s"], x["vp_s"], x["bias"], x["ko"], x["vo"], x["ko_s"], x["vo_s"],
                 own_len, x["kn"], x["vn"])
 
     d1 = {"name": "shared_prefix_decode_attention", "cases": {}}
@@ -583,6 +585,15 @@ def phase_decode_quant_kernels() -> dict:
                 got = da.shared_prefix_decode_full(*d2_args(x, own_len))
                 want = da.shared_prefix_decode_full_plain(*d2_args(x, own_len))
                 check_case(d2, "D2", f"{case}, suffix {own_len}", [(got, want)], DECODE_TOL[key])
+    # a prefix of 2000 keys, which fits no TPU block and ends in a partial
+    # 64-key chunk: the decode step takes D2 at any prefix length
+    for int8 in (False, True):
+        x = decode_inputs(torch.bfloat16, int8, lp=2000)
+        case = f"bfloat16, {'int8' if int8 else 'bfloat16'} caches, Lp 2000"
+        got, want = da.shared_prefix_decode_attention(*d1_args(x)), da.shared_prefix_decode_attention_plain(*d1_args(x))
+        check_case(d1, "D1 (acc, m, l)", case, list(zip(got, want)), DECODE_TOL["float32"])
+        got, want = da.shared_prefix_decode_full(*d2_args(x, 199)), da.shared_prefix_decode_full_plain(*d2_args(x, 199))
+        check_case(d2, "D2", f"{case}, suffix 199", [(got, want)], DECODE_TOL["bfloat16"])
     d1["tol"] = d1["tol_f32"] = DECODE_TOL["float32"]
     d2["tol"], d2["tol_f32"] = DECODE_TOL["bfloat16"], DECODE_TOL["float32"]
 
@@ -1087,7 +1098,10 @@ def phase_quant_full_size() -> dict:
     return out
 
 
-QUANT_LOGIT_TOL = {"int8": 1e-2, "int4": 1e-2}
+# Phase 3c tolerances (the reasons in `phase_reduced_quant`): int8 carries Q2's
+# bf16 roundings; int4 has none, and read 4.4e-4 on an H100, so 3e-3 leaves
+# room for the int8-KV boundary flips and still sees a fault in the suffix.
+QUANT_LOGIT_TOL = {"int8": 1e-2, "int4": 3e-3}
 
 
 def teacher_forced_logits(eng, cfg, req, tokens: np.ndarray) -> list:
@@ -1120,10 +1134,10 @@ def phase_reduced_quant() -> dict:
     layers, 2 ViT blocks, f32 activations, int8 KV), int8 then int4 weights,
     16 teacher-forced steps of fixed tokens for G = 4 rows: the card (D2 with
     Q2 at int8, Q1 at int4) against the CPU (plain paths) on every step's
-    logits. Tolerance, on max |card - cpu| / max |cpu| per step: Q2 rounds x
-    and the activation to bf16 where the CPU's unfused MLP stays f32 (about
-    2^-9 of each value), and in both runs the f32 K/V of card and CPU, equal to
-    about 1e-6, can quantize to int8 values one apart where they sit at a
+    logits. Tolerance, on max |card - cpu| / max |cpu| per step: at int8, Q2
+    rounds x and the activation to bf16 where the CPU's unfused MLP stays f32
+    (about 2^-9 of each value); in both runs the f32 K/V of card and CPU, equal
+    to about 1e-6, can quantize to int8 values one apart where they sit at a
     rounding boundary."""
     import torch
 

@@ -10,7 +10,8 @@ plain versions and launch nothing):
 - no own suffix: D1 followed by `merge_shared_tail`; and the merge with a
   suffix, against JAX's merge;
 - `decode_step_attention`, the decoder's glue around D2 (regrouped q, the
-  token-major caches as head-major views), against `mha_shared_prefix`;
+  token-major caches as head-major views), against `mha_shared_prefix`, also
+  at a prefix length that fits no block;
 - `shared_decode_forward` over int8 caches against JAX's.
 
 Tolerance: 2e-5, the JAX tests' own (f32 sums in another order)."""
@@ -182,6 +183,19 @@ def test_shared_decode_forward_int8_matches_jax():
         assert np.abs(tsuf.k.numpy().astype(int) - np.asarray(jsuf.k).astype(int)).max() <= 1
 
 
-def test_pick_block():
-    assert [da.pick_block(n) for n in (2048, 384, 256, 128, 320)] == [512, 128, 256, 128, 0]
-    assert [da.pick_block(n) for n in (2048, 384, 320)] == [jda.pick_block(n) for n in (2048, 384, 320)]
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_step_glue_at_a_ragged_prefix(quant):
+    """A prefix of 200 keys, not a multiple of the JAX kernels' 128-key blocks
+    nor of D2's 64-key chunks, with its first chunk fully masked. The port's
+    decode step takes D2 on the card at any prefix length; here D2's plain
+    version, through the decoder's glue, equals `mha_shared_prefix`."""
+    P, R, Lp, own_len = 2, 4, 200, 9
+    c = _case(P, R, quant, Lp=Lp, Lo=32, pad=70, seed=4)
+    got = decode_step_attention(_t(c["q"]), _t(c["kp"]), _t(c["vp"]), _t(c["kp_s"]), _t(c["vp_s"]),
+                                _t(c["ko"]), _t(c["vo"]), _t(c["ko_s"]), _t(c["vo_s"]), own_len,
+                                _t(c["kn"]), _t(c["vn"]), _t(c["bias"]))
+    bias_own = torch.where(torch.arange(32) < own_len, 0.0, NEG_INF).float()[None, None, None]
+    want = mha_shared_prefix(_t(c["q"]), _t(c["kp"]), _t(c["vp"]), _t(c["kp_s"]), _t(c["vp_s"]),
+                             _t(c["ko"]), _t(c["vo"]), _t(c["ko_s"]), _t(c["vo_s"]), _t(c["kn"]), _t(c["vn"]),
+                             _t(c["bias"])[:, None, None, :], bias_own, torch.zeros(1, 1, 1, 1))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)

@@ -76,15 +76,22 @@ def test_q2_plain_matches_jax(M):
 
 
 def test_fused_mlp_eligibility_matches_jax():
+    """The port's eligibility is JAX's layout rule (int8 gu and down; int4 is
+    not eligible) without its TPU block shapes: where JAX's blocks refuse a
+    shape (hid 192, inter 200) the port stays eligible, and the Q2 wrapper
+    raises on a CUDA shape its kernel cannot take."""
+    from time_r1_tpu.ops.fused_mlp import fused_mlp_eligible as jax_eligible
+
     rng = np.random.default_rng(0)
-    for hid, inter, bits in ((256, 384, 8), (256, 384, 4), (192, 384, 8), (256, 200, 8)):
+    for hid, inter, bits, jax_takes in ((256, 384, 8, True), (256, 384, 4, False), (192, 384, 8, False),
+                                        (256, 200, 8, False)):
         w = {"gu": rng.normal(size=(hid, 2 * inter)).astype(np.float32),
              "down_w": rng.normal(size=(inter, hid)).astype(np.float32)}
         jmlp = {k: jq.quantize_weight(jnp.asarray(v), bits=bits) for k, v in w.items()}
         tmlp = {k: tq.quantize_weight(_t(v), bits=bits) for k, v in w.items()}
-        from time_r1_tpu.ops.fused_mlp import fused_mlp_eligible as jax_eligible
-
-        assert fm.fused_mlp_eligible(tmlp, hid) == jax_eligible(jmlp, hid)
+        assert jax_eligible(jmlp, hid) == jax_takes
+        assert fm.fused_mlp_eligible(tmlp) == (bits == 8)
+    assert not fm.fused_mlp_eligible({"gate_w": tmlp["gu"], "down_w": tmlp["down_w"]})
 
 
 def test_mlp_proj_on_cpu_takes_the_unfused_path():

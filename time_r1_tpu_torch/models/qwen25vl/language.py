@@ -38,7 +38,7 @@ import torch
 
 from ...device import resolve_device
 from ...ops.attention import NEG_INF, mha_cached, mha_cached_q8, mha_reference, mha_shared_prefix, rope
-from ...ops.decode_attention import pick_block, shared_prefix_decode_full
+from ...ops.decode_attention import shared_prefix_decode_full
 from ...ops.flash_attention import flash_attention, flash_attention_shared_prefix
 from ...ops.quant import attn_qkv_proj, head_logits, mlp_proj, qmatmul, quantize_kv
 from .config import TextConfig
@@ -300,9 +300,10 @@ def shared_decode_forward(
     With a suffix it is one decode step: the new K/V are written into the
     suffix buffers in place at the host-int `suffix.length` (quantized, with
     their scales, when the caches are int8), and the returned KVCache shares
-    them with length + S. On CUDA tensors a one-token step over a
-    128-divisible prefix runs D2 (`decode_step_attention`), the route the JAX
-    package takes with `prefix_head_major`; otherwise `mha_shared_prefix`."""
+    them with length + S. On CUDA tensors a one-token step runs D2
+    (`decode_step_attention`) at any prefix length, the route the JAX package
+    takes with `prefix_head_major` (which also needs a 128-divisible prefix,
+    for its TPU blocks); otherwise `mha_shared_prefix`."""
     nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
     B, S, _ = hidden.shape
@@ -324,7 +325,7 @@ def shared_decode_forward(
     if flash and suffix is not None:
         raise ValueError("the S1 branch is the loss chunk: it takes no suffix cache")
     quant = suffix is not None and suffix.k.dtype == torch.int8
-    d2 = suffix is not None and S == 1 and hidden.is_cuda and pick_block(Lp) > 0
+    d2 = suffix is not None and S == 1 and hidden.is_cuda
 
     x = hidden
     for li, lp in enumerate(params["layers"]):

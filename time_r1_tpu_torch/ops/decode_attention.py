@@ -52,15 +52,6 @@ class _Params(ctypes.Structure):
     )] + [(n, _I) for n in ("P", "Hkv", "N", "Lp", "R", "G", "nchunk", "own_len")] + [("scale", ctypes.c_float)]
 
 
-def pick_block(lp: int) -> int:
-    """The JAX kernels' prefix block; 0 when Lp is not 128-divisible (the
-    decode step then stays on `mha_shared_prefix`, as in the JAX package)."""
-    for blk in (512, 256, 128):
-        if lp % blk == 0:
-            return blk
-    return 0
-
-
 # ---------------------------------------------------------------------------
 # plain versions
 

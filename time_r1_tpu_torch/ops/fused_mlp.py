@@ -29,21 +29,12 @@ _I = ctypes.c_int
 NB = 64  # csrc/fused_mlp.cu: inter columns per block of pass 1
 
 
-def _pick_block(inter: int) -> int:
-    for nb in (512, 384, 256, 128):
-        if inter % nb == 0:
-            return nb
-    return 0
-
-
-def fused_mlp_eligible(mlp: dict, hid: int) -> bool:
-    """The fused int8 layout on the shapes the JAX package's kernel takes."""
-    if not (isinstance(mlp.get("gu"), dict) and "q8" in mlp["gu"]):
-        return False
-    if not (isinstance(mlp.get("down_w"), dict) and "q8" in mlp["down_w"]):
-        return False
-    inter = mlp["down_w"]["q8"].shape[1]
-    return hid % 128 == 0 and _pick_block(inter) > 0
+def fused_mlp_eligible(mlp: dict) -> bool:
+    """The fused int8 layout (gu and down int8). Unlike the JAX package's rule,
+    no shape test: the TPU kernel's 512/384/256/128 inter blocks do not bind
+    this kernel, and a shape it cannot take raises in the wrapper rather than
+    falling back to the unfused products on the card."""
+    return all(isinstance(mlp.get(k), dict) and "q8" in mlp[k] for k in ("gu", "down_w"))
 
 
 def fused_mlp_int8_plain(x, gu_q8, gu_s, down_q8, down_s) -> torch.Tensor:

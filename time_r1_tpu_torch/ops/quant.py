@@ -190,14 +190,14 @@ def attn_qkv_proj(h: torch.Tensor, attn: dict, nh: int, nkv: int, hd: int):
 def mlp_proj(h: torch.Tensor, mlp: dict) -> torch.Tensor:
     """SwiGLU MLP, down(silu(gate(h)) * up(h)), from fused ("gu") or separate
     layer params. On CUDA tensors the fused int8 layout at B·S <= 128 rows
-    (the decode step) runs Q2, JAX's eligibility rule
-    (`time_r1_tpu/ops/quant.py:298-317`) without its TPU-only opt-in."""
+    (the decode step) runs Q2, JAX's route (`time_r1_tpu/ops/quant.py:298-317`)
+    without its TPU-only opt-in and its TPU block shapes."""
     if (
         "gu" in mlp
         and h.is_cuda
         and h.ndim == 3
         and h.shape[0] * h.shape[1] <= 128
-        and fused_mlp_eligible(mlp, h.shape[-1])
+        and fused_mlp_eligible(mlp)
     ):
         B, S, hid = h.shape
         out = fused_mlp_int8(h.reshape(B * S, hid), mlp["gu"]["q8"], mlp["gu"]["s"],

@@ -249,15 +249,15 @@ class Engine:
         self.captured_vision: Optional[tuple] = None
         self._last_vis_sig: Optional[tuple] = None
 
-    def set_params(self, params: dict, prequantized: bool = False) -> None:
+    def set_params(self, params: dict) -> None:
         """Swap in live policy weights (GRPO rollouts). Unquantized, the
         trainer updates its tree in place, so this hands over the same
-        tensors: no copy. A quantized engine re-quantizes its own copy (unless
-        the caller passes one, prequantized=True); the previous copy is dropped
-        first so that its memory serves the new one. An unknown `quantization`
-        name is a KeyError, as the JAX package's dict lookup."""
+        tensors: no copy. A quantized engine re-quantizes its own copy; the
+        previous copy is dropped first so that its memory serves the new one.
+        An unknown `quantization` name is a KeyError, as the JAX package's
+        dict lookup."""
         self.params = None
-        if self.quantization and not prequantized:
+        if self.quantization:
             params = quantize_params(params, bits=QBITS[self.quantization])
         self.params = params
 
