@@ -11,7 +11,10 @@ Phases (any failed check raises and the exit code is non-zero):
    the port never calls): K1-K3 (serving), B1, B2, S1, S2 (training), D1, D2,
    Q1, Q2 (quantized rollouts: caches in bf16/f32 and int8, a fully masked
    first prefix chunk, suffix lengths 0 and 199, Q1 at M = 1, 8, 200 and a
-   ragged shape), and the bf16 head's backward against the f32 cotangent;
+   ragged shape), P1, P2 (continuous-batching decode: 4 slots of lengths 0,
+   327, 1689, 2041 over a shuffled page table, page size 16, full slots, a
+   dead slot with a stale table row, head dim 64), and the bf16 head's
+   backward against the f32 cotangent;
 3. end-to-end agreement at reduced depth: Qwen2.5-VL-3B widths with 2 decoder
    layers and 2 vision blocks, one 8-frame video request in f32, card
    (kernels) against CPU (plain versions);
@@ -21,6 +24,10 @@ Phases (any failed check raises and the exit code is non-zero):
 3c. the quantized G-way decode at reduced depth, int8 weights and int8 KV,
    then int4 weights: 16 teacher-forced steps, card (D2, Q2, Q1) against CPU
    (plain paths) on every step's logits;
+3d. continuous batching at reduced depth (f32, one 8-frame video and four
+   text requests through 2 slots): equal greedy tokens card against CPU for
+   PagedEngine (P1), PagedEngine with int8 KV pages (P2) and
+   ContinuousEngine, and paged against the bucket Engine on the card;
 4. the serving path at full size: Qwen2.5-VL-3B in bf16 with seeded random
    weights, two video requests, greedy decode of 128 tokens, with K1-K3's
    launch counts read around that one generate() call;
@@ -32,7 +39,12 @@ Phases (any failed check raises and the exit code is non-zero):
 6. quantized rollouts at full size, once phase 5's model is freed: two
    `step_batch` calls with rollout_quantization="int8" (D2 and Q2 36 launches
    per decode step), then one `Engine(quantization="int4",
-   kv_cache_quant=True).generate` at G = 8, 200 tokens (Q1 144 per step).
+   kv_cache_quant=True).generate` at G = 8, 200 tokens (Q1 144 per step);
+7. continuous-batching serving at full size, once phase 6's model is freed:
+   12 requests (phase 4's two videos, ten text prompts of 200-1800 tokens),
+   128 greedy tokens each, through 4 slots with 1024-token prefill chunks:
+   PagedEngine (P1 on every decode step), PagedEngine with int8 weights and
+   int8 KV pages (P2, Q2) and ContinuousEngine, every launch count checked.
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 kernels JSON line and the result JSON line. Without a CUDA device, or without
@@ -263,6 +275,7 @@ def phase_kernels() -> dict:
     )
     results.update(phase_train_kernels())
     results.update(phase_decode_quant_kernels())
+    results.update(phase_paged_kernels())
     return results
 
 
@@ -716,6 +729,133 @@ def phase_decode_quant_kernels() -> dict:
     return {d1["name"]: d1, d2["name"]: d2, q1["name"]: q1, q2["name"]: q2}
 
 
+# P1/P2 tolerances, as max |kernel - plain| / max |plain| per output: both sides
+# sum the same f32 products of the same (bf16 or f32) operands, in another
+# order, over up to 4096 keys.
+PAGED_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+
+def paged_case(gen, dev, lengths, P: int, max_pages: int, n_pages: int, stale_from: int | None = None,
+               G: int = 8, D: int = 128) -> dict:
+    """One paged-attention input set: q (S, 2, G, D), pages (2, n_pages, P, D)
+    in f32 (cast per dtype by the caller), int8 pages and scales from
+    them, and a page table whose live entries are a shuffle of pages 1.. (page
+    0 is the engine's scratch sink; dead entries point at it). stale_from:
+    slot 0 (length 0) takes that slot's table row, as a retired slot's stale
+    row points at pages another slot owns."""
+    import torch
+
+    from time_r1_tpu_torch.ops.quant import quantize_kv
+
+    S, nkv = len(lengths), 2
+    need = [-(-n // P) for n in lengths]
+    perm = (torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(P + sum(lengths))) + 1).tolist()
+    assert sum(need) <= len(perm), "the pool holds every live page"
+    table = torch.zeros((S, max_pages), dtype=torch.int32)
+    at = 0
+    for s, n in enumerate(need):
+        table[s, :n] = torch.tensor(perm[at:at + n], dtype=torch.int32)
+        at += n
+    if stale_from is not None:
+        table[0] = table[stale_from]
+    kp = torch.randn((nkv, n_pages, P, D), generator=gen, device=dev)
+    vp = torch.randn((nkv, n_pages, P, D), generator=gen, device=dev)
+    k8, ks = quantize_kv(kp)
+    v8, vs = quantize_kv(vp)
+    return dict(q=torch.randn((S, nkv, G, D), generator=gen, device=dev), kp=kp, vp=vp, k8=k8, v8=v8, ks=ks, vs=vs,
+                table=table.to(dev), lengths=torch.tensor(lengths, dtype=torch.int32, device=dev), P=P)
+
+
+def phase_paged_kernels() -> dict:
+    """P1 and P2 against their plain versions: the phase-7 decode step's shape
+    (4 slots, 2 kv heads, G = 8, hd 128, P = 128, 32-page table rows over a
+    128-page pool, lengths 0, 327, 1689, 2041), then P = 16 with lengths 0, 37,
+    300, every slot at its full 32·128 keys, a dead slot whose stale row
+    points at another slot's pages, and head dim 64 with G = 12 (more rows
+    than a block's 8 warps); q and pages in bf16 and f32 (P2: int8
+    pages, q in bf16 and f32). An empty slot must end at exactly m = -1e30,
+    l = 0, acc = 0. Times at the main shape in bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from time_r1_tpu_torch.ops import paged_attention as pa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = {
+        "main": paged_case(gen, dev, (0, 327, 1689, 2041), 128, 32, 128),
+        "P16": paged_case(gen, dev, (0, 37, 300), 16, 32, 128),
+        "full": paged_case(gen, dev, (4096,) * 4, 128, 32, 129),
+        "dead slot": paged_case(gen, dev, (0, 327, 1689, 2041), 128, 32, 128, stale_from=3),
+        "hd 64, G 12": paged_case(gen, dev, (5, 0, 200), 32, 8, 32, G=12, D=64),
+    }
+    p1 = {"name": "paged_prefix_attention", "cases": {}}
+    p2 = {"name": "paged_prefix_attention_q8", "cases": {}}
+
+    def p1_args(c, dtype):
+        return c["q"].to(dtype), c["kp"].to(dtype), c["vp"].to(dtype), c["table"], c["lengths"], c["P"]
+
+    def p2_args(c, dtype):
+        return c["q"].to(dtype), c["k8"], c["v8"], c["ks"], c["vs"], c["table"], c["lengths"], c["P"]
+
+    def upcast(args):
+        return [a.float() if isinstance(a, torch.Tensor) and a.is_floating_point() else a for a in args]
+
+    for label, c in cases.items():
+        live = c["lengths"] > 0
+        for dtype in (torch.bfloat16, torch.float32):
+            key = str(dtype).split(".")[-1]
+            for e, fn, plain, args in ((p1, pa.paged_prefix_attention, pa.paged_prefix_attention_plain, p1_args(c, dtype)),
+                                       (p2, pa.paged_prefix_attention_q8, pa.paged_prefix_attention_q8_plain,
+                                        p2_args(c, dtype))):
+                (acc, m, l), (acc_w, m_w, l_w) = fn(*args), plain(*upcast(args))
+                torch.cuda.synchronize()
+                # m over the live slots: an empty slot's -1e30 would swamp the scale
+                check_case(e, e["name"], f"{label}, {key}", [(acc, acc_w), (m[live], m_w[live]), (l, l_w)],
+                           PAGED_TOL[key])
+                dead = ~live
+                if not (torch.all(m[dead] == pa.NEG_INF) and torch.all(l[dead] == 0) and torch.all(acc[dead] == 0)):
+                    raise AssertionError(f"{e['name']} {label} {key}: an empty slot is not at m = -1e30, l = 0, acc = 0")
+    for e in (p1, p2):
+        e["tol"], e["tol_f32"] = PAGED_TOL["bfloat16"], PAGED_TOL["float32"]
+        e["tol_is"] = "on max_rel_err and each of `cases`: max |kernel - plain| / max |plain| per output (m over live slots)"
+
+    # times at the main shape, bf16 q (and pages for P1)
+    c = cases["main"]
+    S, nkv, G, D = c["q"].shape
+    lens = c["lengths"].tolist()
+    live_keys = sum(lens)
+    view = c["table"].shape[1] * c["P"]
+    idx = c["table"].long()
+    qt = c["q"].to(torch.bfloat16).reshape(S, nkv * G, 1, D)
+    # the library yardstick: one SDPA over the pre-gathered contiguous view,
+    # GQA expanded to 16 heads, with a length mask (gathered before timing)
+    kt = c["kp"].to(torch.bfloat16)[:, idx].reshape(nkv, S, view, D).transpose(0, 1).repeat_interleave(G, dim=1)
+    vt = c["vp"].to(torch.bfloat16)[:, idx].reshape(nkv, S, view, D).transpose(0, 1).repeat_interleave(G, dim=1)
+    mask = torch.where(torch.arange(view, device=dev)[None] < c["lengths"][:, None], 0.0, -1e4)
+    mask = mask.to(torch.bfloat16)[:, None, None, :]
+    sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 50)
+    out_bytes = S * nkv * G * (D + 2) * 4
+    small = S * nkv * G * D * 2 + c["table"].numel() * 4 + S * 4 + out_bytes
+    for e, fn, plain, args, kv_bytes in (
+        (p1, pa.paged_prefix_attention, pa.paged_prefix_attention_plain, p1_args(c, torch.bfloat16),
+         live_keys * nkv * D * 2 * 2),
+        (p2, pa.paged_prefix_attention_q8, pa.paged_prefix_attention_q8_plain, p2_args(c, torch.bfloat16),
+         live_keys * nkv * (D * 1 * 2 + 4 * 2)),
+    ):
+        ms, plain_ms = cuda_ms(lambda: fn(*args), 50), cuda_ms(lambda: plain(*args), 10)
+        call = cuda_ms(lambda: fn(*args), 50, queued=False)
+        b_ms, b_by = bound(4.0 * live_keys * nkv * G * D, kv_bytes + small)
+        e.update(ms=ms, kernel_ms=ms, call_ms=call, plain_ms=plain_ms, library_ms=sdpa, bound_ms=b_ms, bound_by=b_by,
+                 live_kv_bytes=kv_bytes)
+        log(f"[kernels] {e['name']}: {ms:.4f} ms on the device, {call:.4f} ms per call from Python "
+            f"(plain {plain_ms:.3f}, bound {b_ms:.5f} by {b_by}, library {sdpa:.4f})")
+    p1["library_is"] = ("SDPA of the 16 query heads over the pre-gathered (4, 16, 4096, 128) bf16 view, GQA expanded, "
+                        "length mask")
+    p2["library_is"] = "P1's row: the same SDPA over the view dequantized to bf16 before timing"
+    return {p1["name"]: p1, p2["name"]: p2}
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4
 def video_request(cfg, rng, frames: int, height: int, width: int, n_text: int = 120):
@@ -843,6 +983,7 @@ def kernel_wrappers():
     from time_r1_tpu_torch.ops import flash_attention as fa
     from time_r1_tpu_torch.ops.fused_mlp import fused_mlp_int8
     from time_r1_tpu_torch.ops.int4_matmul import int4_matmul
+    from time_r1_tpu_torch.ops.paged_attention import paged_prefix_attention, paged_prefix_attention_q8
     from time_r1_tpu_torch.ops.vision_attention import full_attention_rope, window_attention_rope
 
     return {
@@ -858,6 +999,8 @@ def kernel_wrappers():
         "shared_prefix_decode_full": da.shared_prefix_decode_full,
         "int4_matmul": int4_matmul,
         "fused_mlp_int8": fused_mlp_int8,
+        "paged_prefix_attention": paged_prefix_attention,
+        "paged_prefix_attention_q8": paged_prefix_attention_q8,
     }
 
 
@@ -1175,6 +1318,181 @@ def phase_reduced_quant() -> dict:
     return errs
 
 
+def text_request(cfg, rng, n: int):
+    """n prompt ids below the vision specials, drawn from rng."""
+    from time_r1_tpu_torch.sampler import Request
+
+    vocab = min(cfg.vision_start_token_id, cfg.text.vocab_size)
+    return Request(input_ids=rng.integers(2, vocab, n).tolist())
+
+
+def phase_reduced_serving() -> dict:
+    """Phase 3d: continuous batching at reduced depth (3B widths, 2 layers, 2
+    ViT blocks, f32), one 8-frame video request and four text requests
+    through two slots (slots and pages recycle; 256-token prefill chunks, so
+    the video's prompt streams in while a resident slot decodes). Greedy
+    tokens must be equal, card against CPU, for PagedEngine (f32 pool, P1),
+    PagedEngine with int8 KV pages (P2) and ContinuousEngine; on the card,
+    the paged tokens must equal the bucket Engine's, and the int8-KV paged
+    tokens the bucket Engine's over its int8 KV cache."""
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.sampler import ContinuousEngine, Engine, PagedEngine, SamplingParams
+
+    cfg = reduced_config()
+    L = cfg.text.num_hidden_layers
+    params_cpu = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    params_gpu = to_device(params_cpu, torch.device("cuda"))
+    rng = np.random.default_rng(2)
+    reqs = [video_request(cfg, np.random.default_rng(1), frames=8, height=224, width=392)]
+    reqs += [text_request(cfg, rng, n) for n in (37, 150, 290, 460)]
+    sp = SamplingParams(max_new_tokens=8, stop_token_ids=())
+    kw = dict(max_slots=2, max_len=1024, segment=4, prefill_chunk_tokens=256, dtype=torch.float32)
+    engines = {
+        "paged": lambda p, d: PagedEngine(p, cfg, page_size=128, device=d, **kw),
+        "paged int8 KV": lambda p, d: PagedEngine(p, cfg, page_size=128, kv_cache_quant=True, device=d, **kw),
+        "continuous": lambda p, d: ContinuousEngine(p, cfg, device=d, **kw),
+    }
+    kernel = {"paged": "paged_prefix_attention", "paged int8 KV": "paged_prefix_attention_q8", "continuous": None}
+    out = {}
+    for name, make in engines.items():
+        got = {}
+        for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+            eng = make(params, dev)
+            reset_launches()
+            t0 = time.perf_counter()
+            got[dev] = eng.generate(reqs, sp)
+            launches = {k: v for k, v in read_launches().items() if v}
+            tm = eng.timings
+            log(f"[serving-reduced] {name} {dev}: {time.perf_counter() - t0:.1f} s, {tm['segments']} segments "
+                f"({tm['interleaved_segments']} inside admissions), launches {launches}")
+            if dev == "cuda":
+                for k in ("paged_prefix_attention", "paged_prefix_attention_q8"):
+                    want = L * tm["decode_steps"] if k == kernel[name] else 0
+                    if launches.get(k, 0) != want:
+                        raise AssertionError(f"reduced {name}: {k} launched {launches.get(k, 0)} times, want {want}")
+        log(f"[serving-reduced] {name}: tokens {got['cuda']}")
+        if got["cuda"] != got["cpu"]:
+            raise AssertionError(f"reduced {name}: greedy tokens differ, card {got['cuda']} cpu {got['cpu']}")
+        out[name] = got["cuda"]
+    for name, quant in (("paged", False), ("paged int8 KV", True)):
+        bucket = Engine(params_gpu, cfg, dtype=torch.float32, device="cuda", kv_cache_quant=quant).generate(reqs, sp)
+        if bucket != out[name]:
+            raise AssertionError(f"reduced {name}: the bucket Engine gives {bucket}, paged {out[name]}")
+    log("[serving-reduced] card == cpu for the three engines; paged == bucket Engine (f32 and int8 KV)")
+    return out
+
+
+LENGTH_MIX = (200, 450, 900, 1800)  # scripts/bench_serving.py:38
+
+
+def stream_requests(cfg):
+    """Phase 7's stream: phase 4's two video requests, then ten text requests
+    whose lengths cycle through LENGTH_MIX, shuffled and drawn from seed 0 as
+    scripts/bench_serving.py's build_requests does."""
+    rng = np.random.default_rng(0)
+    reqs = [video_request(cfg, rng, 32, 224, 392), video_request(cfg, rng, 24, 280, 336)]
+    trng = np.random.default_rng(0)
+    lens = [LENGTH_MIX[i % len(LENGTH_MIX)] for i in range(10)]
+    trng.shuffle(lens)
+    return reqs + [text_request(cfg, trng, int(n)) for n in lens]
+
+
+def phase_serving_full_size() -> dict:
+    """Phase 7: continuous-batching serving at full size, after phase 6 freed
+    its model. Qwen2.5-VL-3B in bf16 with seeded random weights; 12 requests
+    (stream_requests), greedy, 128 new tokens with no stop ids; 4 slots,
+    max_len 4096, pages of 128, segments of 16, 1024-token prefill chunks.
+    (a) PagedEngine with a bf16 pool (P1); (b) PagedEngine with int8
+    weights and int8 KV pages, scripts/bench_serving.py's default (P2, Q2);
+    (c) ContinuousEngine over the same stream. Launch counts are checked
+    exactly: P1/P2 36 x 16 x segments, K1 36 x the prefill chunks of the
+    admissions, K2/K3 28/4 per admission that holds a video, Q2 36 per step
+    in (b), D1/D2 and the training kernels 0."""
+    import gc
+
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig, init_params
+    from time_r1_tpu_torch.sampler import ContinuousEngine, PagedEngine, SamplingParams
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = Qwen25VLConfig.qwen25vl_3b()
+    L = cfg.text.num_hidden_layers
+    n_full = len(cfg.vision.fullatt_block_indexes)
+    n_window = cfg.vision.depth - n_full
+    chunk = 1024
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    reqs = stream_requests(cfg)
+    log(f"[serve] init_params bf16: {time.perf_counter() - t0:.1f} s; prompts {[len(r.input_ids) for r in reqs]} "
+        f"tokens")
+    sp = SamplingParams(max_new_tokens=128, stop_token_ids=())
+    kw = dict(max_slots=4, max_len=4096, segment=16, prefill_chunk_tokens=chunk, dtype=torch.bfloat16, device="cuda")
+    runs = (
+        ("a", "PagedEngine, bf16 pool", lambda: PagedEngine(params, cfg, page_size=128, **kw)),
+        ("b", "PagedEngine, int8 weights + int8 KV pages",
+         lambda: PagedEngine(params, cfg, page_size=128, quantization="int8", kv_cache_quant=True, **kw)),
+        ("c", "ContinuousEngine, bf16", lambda: ContinuousEngine(params, cfg, **kw)),
+    )
+    tokens, result = {}, {}
+    for tag, what, make in runs:
+        eng = make()
+        eng.generate([reqs[-1]], replace(sp, max_new_tokens=2))  # warm-up: one short text request
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = eng.generate(reqs, sp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        tm = eng.timings
+        n_gen = sum(len(o) for o in out)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[serve] ({tag}) {what}: {wall:.2f} s wall, {n_gen} tokens, {n_gen / wall:.1f} tok/s; prefill "
+            f"{tm['prefill_s']:.2f} s (vision {tm['vision_s']:.2f} s), decode {tm['decode_s']:.2f} s = "
+            f"{tm['decode_s'] * 1e3 / tm['decode_steps']:.2f} ms/step over {tm['decode_steps']} steps, "
+            f"{tm['segments']} segments ({tm['interleaved_segments']} inside admissions), peak {peak:.2f} GiB")
+        log(f"[serve] ({tag}) admissions (rows, bucket, video) {tm['admissions']}")
+        log(f"[serve] ({tag}) launches {launches}")
+        if not all(len(o) == sp.max_new_tokens for o in out):
+            raise AssertionError(f"({tag}): rows of {[len(o) for o in out]} tokens, want {sp.max_new_tokens} each")
+        chunks = sum(-(-S // chunk) for _, S, _ in tm["admissions"])
+        videos = sum(v for _, _, v in tm["admissions"])
+        steps = L * tm["decode_steps"]
+        want = {name: 0 for name in launches}
+        want.update(flash_attention=L * chunks, window_attention_rope=n_window * videos,
+                    full_attention_rope=n_full * videos)
+        if tag == "a":
+            want["paged_prefix_attention"] = steps
+        if tag == "b":
+            want["paged_prefix_attention_q8"] = steps
+            want["fused_mlp_int8"] = steps
+        bad = {k: (launches[k], want[k]) for k in want if launches[k] != want[k]}
+        if bad:
+            raise AssertionError(f"({tag}): launches (got, want) {bad}")
+        if tag in ("a", "b") and tm["interleaved_segments"] < 1:
+            raise AssertionError(f"({tag}): no segment ran inside an admission")
+        tokens[tag] = out
+        result[tag] = dict(launches=launches, wall_s=wall, tok_s=n_gen / wall, prefill_s=tm["prefill_s"],
+                           vision_s=tm["vision_s"], decode_ms_per_step=tm["decode_s"] * 1e3 / tm["decode_steps"],
+                           segments=tm["segments"], interleaved_segments=tm["interleaved_segments"], peak_gib=peak)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = sum(a == c for a, c in zip(tokens["a"], tokens["c"]))
+    prefix = [next((i for i, (x, y) in enumerate(zip(a, c)) if x != y), len(a)) for a, c in zip(tokens["a"], tokens["c"])]
+    log(f"[serve] rows whose tokens agree, (a) paged vs (c) continuous: {same} of {len(reqs)}; tokens before the "
+        f"first difference, per row: {prefix} (for information: bf16 rounds at other places in the two attention "
+        f"routes)")
+    result["a_vs_c"] = dict(rows_equal=same, common_prefix=prefix)
+    log(f"[serve] summary {json.dumps(result)}")
+    return result
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     # the training phase holds ~60 GB of live tensors of many sizes
@@ -1200,10 +1518,14 @@ def main() -> int:
     phase_reduced_depth()
     phase_reduced_train()
     phase_reduced_quant()
+    phase_reduced_serving()
     launches = phase_full_size()  # K1-K3: the serving path
     train_launches = phase_train_full_size()  # B1, B2, S1, S2 (and D1/D2 in the rollout): the training path
     launches.update({k: v for k, v in train_launches.items() if k not in SERVING_KERNELS})
     quant_launches = phase_quant_full_size()  # D1, D2, Q2 (int8 step_batch), Q1 (int4 generate)
+    serve = phase_serving_full_size()  # P1 (a), P2 (b): continuous-batching serving
+    quant_launches["paged_prefix_attention"] = serve["a"]["launches"]["paged_prefix_attention"]
+    quant_launches["paged_prefix_attention_q8"] = serve["b"]["launches"]["paged_prefix_attention_q8"]
 
     jax_fa = "time_r1_tpu/ops/flash_attention.py"
     replaces = {
@@ -1218,6 +1540,8 @@ def main() -> int:
         "shared_prefix_decode_full": "time_r1_tpu/ops/decode_attention.py:403",
         "int4_matmul": "time_r1_tpu/ops/int4_matmul.py:128",
         "fused_mlp_int8": "time_r1_tpu/ops/fused_mlp.py:85",
+        "paged_prefix_attention": "time_r1_tpu/ops/paged_attention.py:163",
+        "paged_prefix_attention_q8": "time_r1_tpu/ops/paged_attention.py:311",
     }
     csrc = "time_r1_tpu_torch/csrc"
     sources = {
@@ -1232,6 +1556,8 @@ def main() -> int:
         "shared_prefix_decode_full": f"{csrc}/decode_attention.cu",
         "int4_matmul": f"{csrc}/int4_matmul.cu",
         "fused_mlp_int8": f"{csrc}/fused_mlp.cu",
+        "paged_prefix_attention": f"{csrc}/paged_attention.cu",
+        "paged_prefix_attention_q8": f"{csrc}/paged_attention.cu",
     }
     kernels = []
     for name, entry in checks.items():

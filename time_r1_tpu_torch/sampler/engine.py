@@ -322,8 +322,12 @@ class Engine:
         self.captured_vision = (self._last_vis_sig, hidden)
         return vision_merge_forward(visual, vcfg, hidden, vis.reverse)
 
-    def _prefill(self, ids, mask, pos_ids, vis, S: int, max_len: int):
-        """Vision tower, then chunked prefill → (last-position logits (B, V), cache)."""
+    def _prefill(self, ids, mask, pos_ids, vis, S: int, max_len: int, on_chunk: Optional[Callable[[], object]] = None):
+        """Vision tower, then chunked prefill → (last-position logits (B, V), cache).
+
+        on_chunk: called between chunks (the continuous-batching engines'
+        interleave: resident slots decode while a long admission streams in).
+        Its time is left out of `timings["prefill_s"]`."""
         B = ids.shape[0]
         t0 = self._sync()
         if self.capture_vision_hidden:
@@ -341,7 +345,12 @@ class Engine:
 
         chunk = self.prefill_chunk_tokens
         logits = None
+        in_callback = 0.0
         for c0 in range(0, S, chunk):
+            if c0 > 0 and on_chunk is not None:
+                tc = self._sync()
+                on_chunk()
+                in_callback += self._sync() - tc
             c1 = min(S, c0 + chunk)
             feat_off = None
             if feats is not None:
@@ -351,7 +360,7 @@ class Engine:
                 mask_t, feats, feat_off,
             )
         t2 = self._sync()
-        self.timings = {"vision_s": t1 - t0, "prefill_s": t2 - t1}
+        self.timings = {"vision_s": t1 - t0, "prefill_s": t2 - t1 - in_callback}
         return logits[:, -1], cache, mask_t
 
     # ------------------------------------------------------------------
