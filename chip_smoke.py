@@ -14,13 +14,16 @@ Phases (any failed check raises and the exit code is non-zero):
    ragged shape), P1, P2 (continuous-batching decode: 4 slots of lengths 0,
    327, 1689, 2041 over a shuffled page table, page size 16, full slots, a
    dead slot with a stale table row, head dim 64), and the bf16 head's
-   backward against the f32 cotangent;
+   backward against the f32 cotangent. B1/B2 in bf16 run the tensor-core
+   kernels; besides the training shapes they are checked at q_offset 64,
+   ragged Sq 200 over Skv 328, head dim 64, G 1, non-causal and a block of
+   all-masked rows, and two B2 launches must give bit-equal dK/dV;
 3. end-to-end agreement at reduced depth: Qwen2.5-VL-3B widths with 2 decoder
    layers and 2 vision blocks, one 8-frame video request in f32, card
    (kernels) against CPU (plain versions);
 3b. the same for one GRPO loss step (G = 4 fixed completions, fixed
    advantages, beta = 0.04 against a reference copy): loss, metrics and every
-   gradient, card against CPU;
+   gradient, card against CPU; in f32 B1/B2 run the FMA kernels only;
 3c. the quantized G-way decode at reduced depth, int8 weights and int8 KV,
    then int4 weights: 16 teacher-forced steps, card (D2, Q2, Q1) against CPU
    (plain paths) on every step's logits;
@@ -35,7 +38,9 @@ Phases (any failed check raises and the exit code is non-zero):
    reference copy, one 32-frame video request, the default TrainConfig (G = 8,
    200 new tokens at T = 1.0, gradient accumulation 2), two `step_batch` calls
    (one optimizer update), with every kernel's launch count read around each;
-   the G-way rollout decode runs D2 (36 launches per step);
+   the G-way rollout decode runs D2 (36 launches per step); each call runs
+   exactly 36 B1 and 72 B2 launches (prompt and own chunk), all on the
+   tensor cores;
 6. quantized rollouts at full size, once phase 5's model is freed: two
    `step_batch` calls with rollout_quantization="int8" (D2 and Q2 36 launches
    per decode step), then one `Engine(quantization="int4",
@@ -115,15 +120,23 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 # phase 1
 def phase_build() -> None:
+    import ctypes
+
     from time_r1_tpu_torch import kernels
 
     t0 = time.perf_counter()
     logs = kernels.build()
     log(f"[build] {len(logs)} sources rebuilt in {time.perf_counter() - t0:.1f} s")
     for stem, text in logs.items():
+        func = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {stem}: {line.strip()}")
+            if "Compiling entry function" in line:
+                func = line.split("'")[1]
+            elif "registers" in line or "spill" in line or "wgmma" in line:
+                log(f"[build] {stem} {func}: {line.strip()}")
+    smem = kernels.bind("flash_attention_bwd", "t1_flash_bwd_tc_smem_bytes", [ctypes.c_int])
+    log(f"[build] flash_attention_bwd tensor-core blocks (B1, B2): dynamic shared memory "
+        f"{smem(64)} bytes at head dim 64, {smem(128)} at 128")
 
 
 # ---------------------------------------------------------------------------
@@ -336,10 +349,13 @@ def phase_train_kernels() -> dict:
                 entry["plain_ms"] = cuda_ms(lambda: plain(*args), iters=3)
                 entry["library_ms"] = library(*args) if library else None
                 entry["bound_ms"], entry["bound_by"] = bound(flops, nbytes)
+                entry["tflops"] = flops / entry["ms"] / 1e9
+                entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         entry["tol"], entry["tol_f32"] = GRAD_TOL["bfloat16"], GRAD_TOL["float32"]
         entry["tol_is"] = "on max_rel_err: max |kernel - plain| / max |plain| per output"
         log(f"[kernels] {name}: {entry['ms']:.3f} ms (plain {entry['plain_ms']:.3f}, bound "
-            f"{entry['bound_ms']:.4f} by {entry['bound_by']}, library {entry['library_ms']})")
+            f"{entry['bound_ms']:.4f} by {entry['bound_by']}, {entry['tflops']:.1f} TFLOP/s, "
+            f"{100 * entry['bound_share']:.1f}% of the bound, library {entry['library_ms']})")
         return entry
 
     def sdpa_times(q, k, v, mask):
@@ -395,7 +411,7 @@ def phase_train_kernels() -> dict:
         library=None,
     )
     results["flash_bwd_dkv"]["library_is"] = "in flash_bwd_dq's row (one SDPA backward covers B1 + B2)"
-    results["flash_bwd_dkv"]["grid_blocks"] = (S // 64) * Hkv
+    results["flash_bwd_dkv"]["grid_blocks"] = (S // 64) * Hkv * fa.bwd_dkv_split(G, S, Hkv, 1)
 
     # ---- B2 at the own chunk of the split loss: q (8, 256, 16, 128), zero bias
     R, Sc = 8, 256
@@ -417,6 +433,8 @@ def phase_train_kernels() -> dict:
             raise AssertionError(f"flash_bwd_dkv own chunk {key}: {err}")
         if dtype is torch.bfloat16:
             results["flash_bwd_dkv"]["own_chunk_ms"] = cuda_ms(lambda: fa.flash_bwd_dkv(*args))
+            log(f"[kernels] flash_bwd_dkv own chunk: {results['flash_bwd_dkv']['own_chunk_ms']:.4f} ms")
+    bwd_edge_cases(gen, results["flash_bwd_dq"], results["flash_bwd_dkv"])
 
     # ---- S1, S2 at the split-loss chunk: q (8, 256, 16, 128), prefix (1, 2048, 2, 128)
     P, Lp = 1, 2048
@@ -473,6 +491,79 @@ def phase_train_kernels() -> dict:
     results["shared_prefix_bwd"] = bwd
     head_backward_check(gen)
     return results
+
+
+# B1/B2 edge cases (bf16, tensor-core kernels): (B, Sq, Skv, H, Hkv, D,
+# causal, q_offset, left pad keys per batch entry). Rows that see no key get a
+# zero cotangent, as the training step gives them.
+BWD_EDGE_CASES = {
+    "q_offset_64": (1, 256, 320, 16, 2, 128, True, 64, (0,)),
+    "ragged_Sq200_Skv328": (2, 200, 328, 16, 2, 128, True, 128, (37, 0)),
+    "head_dim_64": (2, 256, 256, 8, 2, 64, True, 0, (20, 0)),
+    "G1": (2, 192, 192, 4, 4, 128, True, 0, (0, 50)),
+    "non_causal": (2, 256, 300, 16, 2, 128, False, 0, (10, 0)),
+    "all_masked_rows": (2, 256, 256, 16, 2, 128, True, 0, (150, 256)),
+}
+
+
+def bwd_edge_cases(gen, dq_entry: dict, dkv_entry: dict) -> None:
+    """B1 and B2 in bf16 against their plain versions (f32 on the same
+    inputs) at the edges the main path and ring attention reach, at
+    GRAD_TOL; then two B2 launches at the prompt shape must be bit-equal."""
+    import torch
+
+    from time_r1_tpu_torch.ops import flash_attention as fa
+    from time_r1_tpu_torch.ops.attention import NEG_INF
+
+    dev = torch.device("cuda")
+    tol = GRAD_TOL["bfloat16"]
+    dq_entry["cases"], dkv_entry["cases"] = {}, {}
+    for case, (B, Sq, Skv, H, Hkv, D, causal, q_offset, pads) in BWD_EDGE_CASES.items():
+        keys = torch.arange(Skv, device=dev)
+        pad = torch.tensor(pads, device=dev)
+        bias = torch.where(keys[None] < pad[:, None], NEG_INF, 0.0).float()
+        last = q_offset + torch.arange(Sq, device=dev) if causal else torch.full((Sq,), Skv - 1, device=dev)
+        valid = (last[None] >= pad[:, None]).float()  # (B, Sq): rows that see a key
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+                   for shape in ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+        do = (torch.randn(B, Sq, H, D, generator=gen, device=dev) * valid[:, :, None, None]).bfloat16()
+        out, lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), bias, causal, None, q_offset)
+        delta = (do.float() * out).sum(-1)
+        args = (q, k, v, bias, do, lse, delta, causal, None, q_offset)
+        up = (q.float(), k.float(), v.float(), bias, do.float(), lse, delta, causal, None, q_offset)
+        check_case(dq_entry, "flash_bwd_dq", case, [(fa.flash_bwd_dq(*args), fa.flash_bwd_dq_plain(*up))], tol)
+        check_case(dkv_entry, "flash_bwd_dkv", case, list(zip(fa.flash_bwd_dkv(*args), fa.flash_bwd_dkv_plain(*up))), tol)
+    # bit-equality across launches at the prompt shape (n_split = 8: folded partials)
+    S, H, Hkv, D = 2048, 16, 2, 128
+    q, do = (torch.randn(1, S, H, D, generator=gen, device=dev).bfloat16() for _ in range(2))
+    k, v = (torch.randn(1, S, Hkv, D, generator=gen, device=dev).bfloat16() for _ in range(2))
+    bias = torch.where(torch.arange(S, device=dev)[None] < 134, NEG_INF, 0.0).float()
+    out, lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), bias, True, None, 0)
+    args = (q, k, v, bias, do, lse, (do.float() * out).sum(-1))
+    first, second = fa.flash_bwd_dkv(*args), fa.flash_bwd_dkv(*args)
+    equal = all(torch.equal(a, b) for a, b in zip(first, second))
+    dkv_entry["bit_equal_across_launches"] = equal
+    log(f"[kernels] flash_bwd_dkv: two launches bit-equal: {equal} (n_split "
+        f"{fa.bwd_dkv_split(H // Hkv, S, Hkv, 1)})")
+    if not equal:
+        raise AssertionError("flash_bwd_dkv: two launches on the same inputs differ")
+    # what the kernels do not take raises in the wrapper, never falls back
+    refused = {
+        "float16": (q.half(), k.half(), v.half(), bias, do.half(), *args[5:]),
+        "head dim 96": (q[..., :96].contiguous(), k[..., :96].contiguous(), v[..., :96].contiguous(), bias,
+                        do[..., :96].contiguous(), *args[5:]),
+        "q 2 bytes off 16-byte alignment": (q.flatten()[1: 1 + (S - 1) * H * D].view(1, S - 1, H, D), k, v,
+                                             bias, do[:, 1:].contiguous(), lse[..., 1:].contiguous(),
+                                             args[6][:, 1:]),
+    }
+    for what, bad in refused.items():
+        for fn in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+            try:
+                fn(*bad)
+            except ValueError as e:
+                log(f"[kernels] {fn.__name__} refuses {what}: {e}")
+            else:
+                raise AssertionError(f"{fn.__name__} took {what}")
 
 
 def head_backward_check(gen) -> None:
@@ -954,10 +1045,13 @@ def phase_reduced_train() -> None:
         params = params_cpu if device == "cpu" else to_device(params_cpu, dev)
         ref = ref_cpu if device == "cpu" else to_device(ref_cpu, dev)
         t0 = time.perf_counter()
+        reset_launches()
         batch = build_grpo_split_batch(cfg, [group], dtype=torch.float32, device=dev)
         batch = precompute_frozen_vision(params, cfg, batch)
         batch = batch._replace(ref_logps=compute_ref_logps(ref, cfg, hp, batch))
         loss, metrics, grads = grpo_value_and_grad(params, cfg, hp, batch)
+        if device == "cuda":  # f32: B1/B2 take the exact FMA kernels, never the tensor cores
+            check_bwd_route("train-reduced", read_launches(), {n: None for n in TC_KERNELS}, tensor_cores=False)
         out[device] = (float(loss), {k: float(v) for k, v in metrics.items()}, [g.cpu() for g in grads])
         log(f"[train-reduced] {device}: {time.perf_counter() - t0:.1f} s, prompt {len(req.input_ids)} tokens, "
             f"Lp {batch.prompt_ids.shape[1]}, Lc {batch.comp_ids.shape[1]}, loss {float(loss):.6f}, "
@@ -1004,13 +1098,35 @@ def kernel_wrappers():
     }
 
 
+TC_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")  # wrappers that also count tensor-core launches
+
+
 def reset_launches() -> None:
-    for fn in kernel_wrappers().values():
+    for name, fn in kernel_wrappers().items():
         fn.launches = 0
+        if name in TC_KERNELS:
+            fn.tc_launches = 0
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    """Every wrapper's launches; for B1/B2 also `<name>_tc`, their
+    tensor-core launches (the rest ran the f32 FMA kernels)."""
+    wrappers = kernel_wrappers()
+    out = {name: fn.launches for name, fn in wrappers.items()}
+    out.update({f"{name}_tc": wrappers[name].tc_launches for name in TC_KERNELS})
+    return out
+
+
+def check_bwd_route(tag: str, launches: dict, want: dict, tensor_cores: bool) -> None:
+    """B1/B2 ran `want[name]` launches (None: at least one), all on the
+    tensor-core kernels (bf16) or all on the f32 FMA kernels."""
+    for name in TC_KERNELS:
+        n, tc = launches[name], launches[f"{name}_tc"]
+        fma = n - tc
+        log(f"[{tag}] {name}: {tc} tensor-core launches, {fma} FMA launches")
+        if (want[name] is not None and n != want[name]) or n <= 0 or (fma if tensor_cores else tc) != 0:
+            raise AssertionError(f"{tag}: {name} ran {tc} tensor-core and {fma} FMA launches, want "
+                                 f"{want[name]} {'tensor-core' if tensor_cores else 'FMA'} launches only")
 
 
 def phase_full_size() -> dict:
@@ -1143,6 +1259,9 @@ def phase_train_full_size() -> dict:
         check_step_launches(f"step_batch {call}", launches, tm["decode_steps"], cfg.text.num_hidden_layers,
                             {"shared_prefix_decode_full": 1, "shared_prefix_decode_attention": 1,
                              "int4_matmul": 0, "fused_mlp_int8": 0})
+        layers = cfg.text.num_hidden_layers  # B1 once per layer; B2 for the prompt and the own chunk
+        check_bwd_route(f"train step_batch {call}", launches,
+                        {"flash_bwd_dq": layers, "flash_bwd_dkv": 2 * layers}, tensor_cores=True)
     changed = total_elems = 0
     for p, b in zip(trainable_leaves(params, config.fix_vit), before):
         changed += int((p.detach().cpu() != b).sum())
@@ -1568,6 +1687,10 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": quant_launches.get(name, launches[name]),
         })
+    # B1/B2: the bf16 step_batch's tensor-core launches (all of them: no FMA launch there)
+    for k in kernels:
+        if k["name"] in TC_KERNELS:
+            k["tc_launches"] = launches[f"{k['name']}_tc"]
     # S2 is two kernels (dq at :739, the prefix dK/dV at :769): its entry gives both counts
     s2 = next(k for k in kernels if k["name"] == "shared_prefix_bwd")
     s2["launches_dkv_prefix"] = launches["shared_prefix_bwd_dkv"]

@@ -6,7 +6,9 @@ of the port's CUDA kernels and their plain versions.
 - B1 `flash_bwd_dq` and B2 `flash_bwd_dkv` (`csrc/flash_attention_bwd.cu`)
   replace `_flash_bwd_dq` (:325) and `_flash_bwd_dkv` (:368 grouped, :400 per
   head). `flash_attention` is a `torch.autograd.Function` whose backward runs
-  them, as `_flash_vjp_bwd` (:437) does.
+  them, as `_flash_vjp_bwd` (:437) does. bf16 operands launch the
+  tensor-core kernels (`csrc/attention_bwd_tc.cuh`), f32 operands the exact
+  f32 FMA ones (`csrc/attention_bwd.cuh`); `.tc_launches` counts the first.
 - S1 `shared_prefix_fwd`, S2 `shared_prefix_bwd_dq` and
   `shared_prefix_bwd_dkv` (`csrc/shared_prefix_attention.cu`) replace `_sp_fwd`
   (:575) and the two kernels of `_sp_vjp_bwd` (:739, :769);
@@ -29,7 +31,8 @@ import torch
 from .. import kernels
 from .attention import NEG_INF
 
-BWD_HEAD_DIMS = (64, 128)  # head dims instantiated in csrc/attention_bwd.cuh
+BWD_HEAD_DIMS = (64, 128)  # head dims instantiated in csrc/attention_bwd{,_tc}.cuh
+SMS = 132  # streaming multiprocessors of an H100 SXM: B2's split fills two blocks on each
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -176,6 +179,32 @@ def _bwd_launch(name, symbol, stem, args_types, args):
     kernels.check(fn(*args), name)
 
 
+def bwd_dkv_split(G: int, Skv: int, Hkv: int, B: int) -> int:
+    """B2's n_split on the tensor-core path: the smallest divisor of G whose
+    grid (ceil(Skv/64), Hkv·n_split, B) has at least two blocks per SM, else G."""
+    blocks = -(-Skv // 64) * Hkv * B
+    for n in range(1, G + 1):
+        if G % n == 0 and blocks * n >= 2 * SMS:
+            return n
+    return G
+
+
+def _bwd_check(name, q, k, v, kv_bias, do, lse, delta_t):
+    """The operand checks of B1 and B2; bf16 operands (the tensor-core
+    kernels) must also start on 16 bytes, as their 16-byte copies do."""
+    _check_attn(name, q, k, v, kv_bias, BWD_HEAD_DIMS)
+    _check_grads_in(name, q, do, lse, delta_t)
+    kernels.require(q.shape[1] > 0 and k.shape[1] > 0, name, "empty query or key range")
+    if q.dtype == torch.bfloat16:
+        kernels.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v, do)), name,
+                        "bf16 operands must be 16-byte aligned")
+
+
+_DQ_ARGS = [_P] * 8 + [_I] * 7 + [_F, _I, _P]
+_DKV_ARGS = [_P] * 9 + [_I] * 7 + [_F, _I, _P]
+_DKV_TC_ARGS = [_P] * 11 + [_I] * 8 + [_F, _I, _P]
+
+
 def flash_bwd_dq(q, k, v, kv_bias, do, lse, delta, causal=True, scale=None, q_offset=0):
     """B1: dq (B, Sq, H, D) in q's dtype. delta is (B, Sq, H) f32."""
     if not q.is_cuda:
@@ -183,49 +212,58 @@ def flash_bwd_dq(q, k, v, kv_bias, do, lse, delta, causal=True, scale=None, q_of
     name = "flash_bwd_dq"
     scale = _scale(q, scale)
     delta_t = delta.transpose(1, 2).contiguous()
-    _check_attn(name, q, k, v, kv_bias, BWD_HEAD_DIMS)
-    _check_grads_in(name, q, do, lse, delta_t)
+    _bwd_check(name, q, k, v, kv_bias, do, lse, delta_t)
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
-    _bwd_launch(name, "t1_flash_bwd_dq", "flash_attention_bwd",
-                [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-                (kernels.DTYPE_CODE[q.dtype], kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
-                 kernels.ptr(kv_bias), kernels.ptr(do), kernels.ptr(lse), kernels.ptr(delta_t),
-                 kernels.ptr(dq), B, Sq, Skv, H, Hkv, D, int(causal), scale, int(q_offset),
-                 kernels.stream(q)))
+    ptrs = [kernels.ptr(t) for t in (q, k, v, kv_bias, do, lse, delta_t, dq)]
+    tail = [B, Sq, Skv, H, Hkv, D, int(causal), scale, int(q_offset), kernels.stream(q)]
+    tc = q.dtype == torch.bfloat16
+    _bwd_launch(name, "t1_flash_bwd_dq_tc" if tc else "t1_flash_bwd_dq", "flash_attention_bwd", _DQ_ARGS,
+                ptrs + tail)
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.tc_launches += int(tc)
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.tc_launches = 0
 
 
 def flash_bwd_dkv(q, k, v, kv_bias, do, lse, delta, causal=True, scale=None, q_offset=0):
     """B2: (dk, dv) (B, Skv, Hkv, D) f32, summed over the G q-heads of each kv
-    head inside the kernel. delta is (B, Sq, H) f32."""
+    head. delta is (B, Sq, H) f32. In bf16 the heads are split over
+    `bwd_dkv_split` blocks whose f32 partials one more kernel folds in a fixed
+    order; in f32 one block sums them."""
     if not q.is_cuda:
         return flash_bwd_dkv_plain(q, k, v, kv_bias, do, lse, delta, causal, scale, q_offset)
     name = "flash_bwd_dkv"
     scale = _scale(q, scale)
     delta_t = delta.transpose(1, 2).contiguous()
-    _check_attn(name, q, k, v, kv_bias, BWD_HEAD_DIMS)
-    _check_grads_in(name, q, do, lse, delta_t)
+    _bwd_check(name, q, k, v, kv_bias, do, lse, delta_t)
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    _bwd_launch(name, "t1_flash_bwd_dkv", "flash_attention_bwd",
-                [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-                (kernels.DTYPE_CODE[q.dtype], kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
-                 kernels.ptr(kv_bias), kernels.ptr(do), kernels.ptr(lse), kernels.ptr(delta_t),
-                 kernels.ptr(dk), kernels.ptr(dv), B, Sq, Skv, H, Hkv, D, int(causal), scale,
-                 int(q_offset), kernels.stream(q)))
+    ptrs = [kernels.ptr(t) for t in (q, k, v, kv_bias, do, lse, delta_t, dk, dv)]
+    tail = [B, Sq, Skv, H, Hkv, D, int(causal), scale, int(q_offset), kernels.stream(q)]
+    if q.dtype == torch.bfloat16:
+        n_split = bwd_dkv_split(H // Hkv, Skv, Hkv, B)
+        part_ptrs = [_P(), _P()]  # n_split == 1: the blocks write dk, dv themselves
+        if n_split > 1:
+            parts = torch.empty((2, n_split, *k.shape), dtype=torch.float32, device=q.device)
+            part_ptrs = [kernels.ptr(parts[0]), kernels.ptr(parts[1])]
+        _bwd_launch(name, "t1_flash_bwd_dkv_tc", "flash_attention_bwd", _DKV_TC_ARGS,
+                    ptrs + part_ptrs + [n_split] + tail)
+        flash_bwd_dkv.tc_launches += 1
+    else:
+        _bwd_launch(name, "t1_flash_bwd_dkv", "flash_attention_bwd", _DKV_ARGS, ptrs + tail)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.tc_launches = 0
 
 
 def _delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
