@@ -14,16 +14,22 @@ Phases (any failed check raises and the exit code is non-zero):
    ragged shape), P1, P2 (continuous-batching decode: 4 slots of lengths 0,
    327, 1689, 2041 over a shuffled page table, page size 16, full slots, a
    dead slot with a stale table row, head dim 64), and the bf16 head's
-   backward against the f32 cotangent. B1/B2 in bf16 run the tensor-core
-   kernels; besides the training shapes they are checked at q_offset 64,
-   ragged Sq 200 over Skv 328, head dim 64, G 1, non-causal and a block of
-   all-masked rows, and two B2 launches must give bit-equal dK/dV;
+   backward against the f32 cotangent. B1, B2, S1 and S2 in bf16 run the
+   tensor-core kernels; besides the training shapes B1/B2 are checked at
+   q_offset 64, ragged Sq 200 over Skv 328, head dim 64, G 1, non-causal and a
+   block of all-masked rows, and S1/S2 at P = 2 prompts of R = 4 rows, Lp 640
+   with Sc 384, Lp = Sc = 128, head dim 64, G 1 and a prompt whose bias masks
+   every prefix key; two B2 launches and two prefix dK/dV launches must each
+   give bit-equal results, and the wrappers refuse f16, head dim 96 and a
+   misaligned q;
 3. end-to-end agreement at reduced depth: Qwen2.5-VL-3B widths with 2 decoder
    layers and 2 vision blocks, one 8-frame video request in f32, card
    (kernels) against CPU (plain versions);
 3b. the same for one GRPO loss step (G = 4 fixed completions, fixed
    advantages, beta = 0.04 against a reference copy): loss, metrics and every
-   gradient, card against CPU; in f32 B1/B2 run the FMA kernels only;
+   gradient, card against CPU, with fix_vit and with fix_vit=False (the whole
+   tower trains; K2/K3 must not launch inside the differentiated call); in
+   f32 B1, B2, S1 and S2 run the FMA kernels only;
 3c. the quantized G-way decode at reduced depth, int8 weights and int8 KV,
    then int4 weights: 16 teacher-forced steps, card (D2, Q2, Q1) against CPU
    (plain paths) on every step's logits;
@@ -39,8 +45,8 @@ Phases (any failed check raises and the exit code is non-zero):
    200 new tokens at T = 1.0, gradient accumulation 2), two `step_batch` calls
    (one optimizer update), with every kernel's launch count read around each;
    the G-way rollout decode runs D2 (36 launches per step); each call runs
-   exactly 36 B1 and 72 B2 launches (prompt and own chunk), all on the
-   tensor cores;
+   exactly 36 B1 and 72 B2 launches (prompt and own chunk), 72 S1 (ref_logps
+   and the loss) and 36 + 36 S2 (dq, prefix dK/dV), all on the tensor cores;
 6. quantized rollouts at full size, once phase 5's model is freed: two
    `step_batch` calls with rollout_quantization="int8" (D2 and Q2 36 launches
    per decode step), then one `Engine(quantization="int4",
@@ -135,7 +141,10 @@ def phase_build() -> None:
             elif "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"[build] {stem} {func}: {line.strip()}")
     smem = kernels.bind("flash_attention_bwd", "t1_flash_bwd_tc_smem_bytes", [ctypes.c_int])
-    log(f"[build] flash_attention_bwd tensor-core blocks (B1, B2): dynamic shared memory "
+    log(f"[build] flash_attention_bwd tensor-core blocks (B1, B2, S2): dynamic shared memory "
+        f"{smem(64)} bytes at head dim 64, {smem(128)} at 128")
+    smem = kernels.bind("shared_prefix_attention", "t1_sp_fwd_tc_smem_bytes", [ctypes.c_int])
+    log(f"[build] shared_prefix_attention tensor-core S1 blocks: dynamic shared memory "
         f"{smem(64)} bytes at head dim 64, {smem(128)} at 128")
 
 
@@ -486,9 +495,19 @@ def phase_train_kernels() -> dict:
     a = sp_bwd_parts(torch.bfloat16)
     bwd["ms_dq"] = cuda_ms(lambda: fa.shared_prefix_bwd_dq(*a))
     bwd["ms_dkv_prefix"] = cuda_ms(lambda: fa.shared_prefix_bwd_dkv(a[0], a[1], a[2], a[5], *a[6:]))
-    bwd["grid_blocks_dkv_prefix"] = (Lp // 64) * Hkv * P
-    log(f"[kernels] shared_prefix_bwd: dq {bwd['ms_dq']:.3f} ms, prefix dK/dV {bwd['ms_dkv_prefix']:.3f} ms")
+    # dq: S, dP and dS·K over both sources; the prefix dK/dV: S, dP, Pᵀ·dO and dSᵀ·Q over the prefix
+    for part, ms, flops in (("dq", bwd["ms_dq"], 6.0 * D * (pre_pairs + own_pairs) * R * H),
+                            ("dkv_prefix", bwd["ms_dkv_prefix"], 8.0 * D * pre_pairs * R * H)):
+        bwd[f"tflops_{part}"] = flops / ms / 1e9
+        bwd[f"bound_share_{part}"] = flops / PEAK_BF16_FLOPS * 1e3 / ms
+    n_split = fa.bwd_dkv_split(G, Lp, Hkv, P, R)
+    bwd["n_split_dkv_prefix"] = n_split
+    bwd["grid_blocks_dkv_prefix"] = (Lp // 64) * Hkv * P * n_split
+    log(f"[kernels] shared_prefix_bwd: dq {bwd['ms_dq']:.4f} ms ({bwd['tflops_dq']:.1f} TFLOP/s), prefix dK/dV "
+        f"{bwd['ms_dkv_prefix']:.4f} ms with the fold ({bwd['tflops_dkv_prefix']:.1f} TFLOP/s; n_split {n_split}, "
+        f"{bwd['grid_blocks_dkv_prefix']} blocks)")
     results["shared_prefix_bwd"] = bwd
+    sp_edge_cases(gen, results["shared_prefix_fwd"], bwd)
     head_backward_check(gen)
     return results
 
@@ -564,6 +583,90 @@ def bwd_edge_cases(gen, dq_entry: dict, dkv_entry: dict) -> None:
                 log(f"[kernels] {fn.__name__} refuses {what}: {e}")
             else:
                 raise AssertionError(f"{fn.__name__} took {what}")
+
+
+# S1/S2 edge cases (bf16, tensor-core kernels): (P, R, Lp, Sc, H, Hkv, D,
+# left pad keys per prompt). Every shape is a multiple of 128, as `_sp_blocks`
+# requires of the split loss. A prompt whose bias masks every prefix key still
+# sees its own causal chunk.
+SP_EDGE_CASES = {
+    "P2_R4": (2, 4, 256, 128, 16, 2, 128, (0, 37)),
+    "Lp640_Sc384": (1, 2, 640, 384, 16, 2, 128, (100,)),
+    "Lp128_Sc128": (1, 2, 128, 128, 16, 2, 128, (0,)),
+    "head_dim_64": (1, 2, 256, 128, 8, 2, 64, (5,)),
+    "G1": (1, 3, 256, 128, 4, 4, 128, (20,)),
+    "prefix_all_masked": (2, 2, 256, 128, 16, 2, 128, (256, 0)),
+}
+
+
+def sp_edge_cases(gen, fwd_entry: dict, bwd_entry: dict) -> None:
+    """S1 and S2 in bf16 against their plain versions (f32 on the same
+    inputs) at GRAD_TOL, at the shapes the split loss can reach beyond the
+    main one; then two prefix dK/dV launches at the split-loss shape must be
+    bit-equal, and the wrappers must refuse f16, head dim 96 and a misaligned q."""
+    import torch
+
+    from time_r1_tpu_torch.ops import flash_attention as fa
+    from time_r1_tpu_torch.ops.attention import NEG_INF
+
+    dev = torch.device("cuda")
+    tol = GRAD_TOL["bfloat16"]
+    fwd_entry["cases"], bwd_entry["cases"] = {}, {}
+
+    def inputs(P, R, Lp, Sc, H, Hkv, D, pads):
+        B = P * R
+        shapes = ((B, Sc, H, D), (P, Lp, Hkv, D), (P, Lp, Hkv, D), (B, Sc, Hkv, D), (B, Sc, Hkv, D))
+        q, kp, vp, ko, vo = (torch.randn(s, generator=gen, device=dev).bfloat16() for s in shapes)
+        pb = torch.where(torch.arange(Lp, device=dev)[None] < torch.tensor(pads, device=dev)[:, None], NEG_INF, 0.0)
+        do = torch.randn(B, Sc, H, D, generator=gen, device=dev).bfloat16()
+        out, lse = fa.shared_prefix_plain(q.float(), kp.float(), vp.float(), ko.float(), vo.float(), pb.float())
+        return (q, kp, vp, ko, vo, pb.float()), do, lse, (do.float() * out).sum(-1)
+
+    for case, shape in SP_EDGE_CASES.items():
+        fwd, do, lse, delta = inputs(*shape)
+        up = tuple(t.float() for t in fwd)
+        out, got_lse = fa.shared_prefix_fwd(*fwd)
+        want, want_lse = fa.shared_prefix_plain(*up)
+        check_case(fwd_entry, "shared_prefix_fwd", case, [(out, want), (got_lse, want_lse)], tol)
+        (q, kp, vp, _, _, pb), (uq, ukp, uvp, _, _, _) = fwd, up
+        got = (fa.shared_prefix_bwd_dq(*fwd, do, lse, delta), *fa.shared_prefix_bwd_dkv(q, kp, vp, pb, do, lse, delta))
+        want = (fa.shared_prefix_bwd_dq_plain(*up, do.float(), lse, delta),
+                *fa.shared_prefix_bwd_dkv_plain(uq, ukp, uvp, pb, do.float(), lse, delta))
+        check_case(bwd_entry, "shared_prefix_bwd", case, list(zip(got, want)), tol)
+    # bit-equality across launches at the split-loss shape (n_split = 8: folded partials)
+    fwd, do, lse, delta = inputs(1, 8, 2048, 256, 16, 2, 128, (134,))
+    q, kp, vp, ko, vo, pb = fwd
+    args = (q, kp, vp, pb, do, lse, delta)
+    first, second = fa.shared_prefix_bwd_dkv(*args), fa.shared_prefix_bwd_dkv(*args)
+    equal = all(torch.equal(a, b) for a, b in zip(first, second))
+    bwd_entry["bit_equal_across_launches"] = equal
+    log(f"[kernels] shared_prefix_bwd_dkv: two launches bit-equal: {equal} (n_split {fa.bwd_dkv_split(8, 2048, 2, 1, 8)})")
+    if not equal:
+        raise AssertionError("shared_prefix_bwd_dkv: two launches on the same inputs differ")
+    # what the kernels do not take raises in the wrapper, never falls back
+    d96 = [t[..., :96].contiguous() for t in (q, kp, vp, ko, vo, do)]
+    skew = q.flatten()[1: 1 + q.numel() - q[:, :1].numel()].view(8, 255, 16, 128)  # 2 bytes off 16
+    refused = {
+        "float16": ((q.half(), kp.half(), vp.half(), ko.half(), vo.half(), pb), do.half()),
+        "head dim 96": ((*d96[:5], pb), d96[5]),
+        "q 2 bytes off 16-byte alignment": ((skew, kp, vp, ko[:, 1:].contiguous(), vo[:, 1:].contiguous(), pb),
+                                            do[:, 1:].contiguous()),
+    }
+    for what, (f, d) in refused.items():
+        sc = f[0].shape[1]
+        l, dl = lse[..., -sc:].contiguous(), delta[:, -sc:].contiguous()
+        calls = {
+            "shared_prefix_fwd": lambda: fa.shared_prefix_fwd(*f),
+            "shared_prefix_bwd_dq": lambda: fa.shared_prefix_bwd_dq(*f, d, l, dl),
+            "shared_prefix_bwd_dkv": lambda: fa.shared_prefix_bwd_dkv(f[0], f[1], f[2], f[5], d, l, dl),
+        }
+        for name, call in calls.items():
+            try:
+                call()
+            except ValueError as e:
+                log(f"[kernels] {name} refuses {what}: {e}")
+            else:
+                raise AssertionError(f"{name} took {what}")
 
 
 def head_backward_check(gen) -> None:
@@ -1020,7 +1123,10 @@ TRAIN_TOL = 1e-3
 
 
 def phase_reduced_train() -> None:
-    """One GRPO loss step at reduced depth, card (kernels) against CPU (plain)."""
+    """One GRPO loss step at reduced depth, card (kernels) against CPU (plain),
+    with the frozen ViT (fix_vit, the default) and with the whole tower
+    trained (fix_vit=False: the differentiated tower runs off K2/K3, which
+    have no backward; the reference forward still takes them)."""
     import torch
 
     from time_r1_tpu_torch.models.qwen25vl import init_params
@@ -1038,36 +1144,46 @@ def phase_reduced_train() -> None:
     group = {"prompt_ids": req.input_ids, "completions": comps,
              "advantages": np.array([1.0, -0.5, 0.25, -0.75], np.float32),
              "patches": req.patches, "grid_thw": req.grid_thw, "second_per_grid_t": 1.0}
-    hp = GRPOHyperParams(num_generations=4, beta=0.04)
-    out = {}
-    for device in ("cuda", "cpu"):
-        dev = torch.device(device)
-        params = params_cpu if device == "cpu" else to_device(params_cpu, dev)
-        ref = ref_cpu if device == "cpu" else to_device(ref_cpu, dev)
-        t0 = time.perf_counter()
-        reset_launches()
-        batch = build_grpo_split_batch(cfg, [group], dtype=torch.float32, device=dev)
-        batch = precompute_frozen_vision(params, cfg, batch)
-        batch = batch._replace(ref_logps=compute_ref_logps(ref, cfg, hp, batch))
-        loss, metrics, grads = grpo_value_and_grad(params, cfg, hp, batch)
-        if device == "cuda":  # f32: B1/B2 take the exact FMA kernels, never the tensor cores
-            check_bwd_route("train-reduced", read_launches(), {n: None for n in TC_KERNELS}, tensor_cores=False)
-        out[device] = (float(loss), {k: float(v) for k, v in metrics.items()}, [g.cpu() for g in grads])
-        log(f"[train-reduced] {device}: {time.perf_counter() - t0:.1f} s, prompt {len(req.input_ids)} tokens, "
-            f"Lp {batch.prompt_ids.shape[1]}, Lc {batch.comp_ids.shape[1]}, loss {float(loss):.6f}, "
-            f"metrics {out[device][1]}")
-    (lg, mg, gg), (lc, mc, gc) = out["cuda"], out["cpu"]
-    worst = 0.0
-    for g, c in zip(gg, gc):
-        scale = c.abs().max().item()
-        if scale > 0:
-            worst = max(worst, (g - c).abs().max().item() / scale)
-    loss_err = abs(lg - lc) / max(abs(lc), 1e-30)
-    metric_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6) for k in mc)
-    log(f"[train-reduced] card vs cpu: loss {loss_err:.3e}, metrics {metric_err:.3e}, worst gradient leaf "
-        f"{worst:.3e} of {len(gc)} (max |Δ| / max |g|, tol {TRAIN_TOL})")
-    if not (np.isfinite(lg) and loss_err <= TRAIN_TOL and metric_err <= TRAIN_TOL and worst <= TRAIN_TOL):
-        raise AssertionError("reduced-depth train step: card and CPU disagree")
+    for fix_vit in (True, False):
+        tag = "train-reduced" if fix_vit else "train-reduced fix_vit=False"
+        hp = GRPOHyperParams(num_generations=4, beta=0.04, fix_vit=fix_vit)
+        out = {}
+        for device in ("cuda", "cpu"):
+            dev = torch.device(device)
+            params = to_device(params_cpu, dev)
+            ref = ref_cpu if device == "cpu" else to_device(ref_cpu, dev)
+            t0 = time.perf_counter()
+            reset_launches()
+            batch = build_grpo_split_batch(cfg, [group], dtype=torch.float32, device=dev)
+            if fix_vit:
+                batch = precompute_frozen_vision(params, cfg, batch)
+            batch = batch._replace(ref_logps=compute_ref_logps(ref, cfg, hp, batch))
+            before = read_launches()
+            loss, metrics, grads = grpo_value_and_grad(params, cfg, hp, batch)
+            after = read_launches()
+            if device == "cuda":  # f32: B1, B2, S1, S2 take the exact FMA kernels, never the tensor cores
+                check_tc_route(tag, after, {n: None for n in TC_KERNELS}, tensor_cores=False)
+                vit = {n: (before[n], after[n]) for n in ("window_attention_rope", "full_attention_rope")}
+                log(f"[{tag}] K2/K3 launches before / after the differentiated call: {vit}")
+                if any(a != b or b <= 0 for b, a in vit.values()):  # the frozen blocks (or ref) ran them
+                    raise AssertionError(f"{tag}: K2/K3 launches moved inside the loss or never ran: {vit}")
+            out[device] = (float(loss), {k: float(v) for k, v in metrics.items()}, [g.cpu() for g in grads])
+            log(f"[{tag}] {device}: {time.perf_counter() - t0:.1f} s, prompt {len(req.input_ids)} tokens, "
+                f"Lp {batch.prompt_ids.shape[1]}, Lc {batch.comp_ids.shape[1]}, loss {float(loss):.6f}, "
+                f"metrics {out[device][1]}")
+        (lg, mg, gg), (lc, mc, gc) = out["cuda"], out["cpu"]
+        worst = 0.0
+        for g, c in zip(gg, gc):
+            scale = c.abs().max().item()
+            if scale > 0:
+                worst = max(worst, (g - c).abs().max().item() / scale)
+        live = sum(int(c.abs().max().item() > 0) for c in gc)
+        loss_err = abs(lg - lc) / max(abs(lc), 1e-30)
+        metric_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6) for k in mc)
+        log(f"[{tag}] card vs cpu: loss {loss_err:.3e}, metrics {metric_err:.3e}, worst gradient leaf "
+            f"{worst:.3e} of {len(gc)} ({live} non-zero; max |Δ| / max |g|, tol {TRAIN_TOL})")
+        if not (np.isfinite(lg) and loss_err <= TRAIN_TOL and metric_err <= TRAIN_TOL and worst <= TRAIN_TOL):
+            raise AssertionError(f"{tag}: card and CPU disagree")
 
 
 def kernel_wrappers():
@@ -1098,7 +1214,9 @@ def kernel_wrappers():
     }
 
 
-TC_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")  # wrappers that also count tensor-core launches
+# wrappers that also count tensor-core launches (bf16); the rest of their
+# launches ran the f32 FMA kernels
+TC_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv", "shared_prefix_fwd", "shared_prefix_bwd", "shared_prefix_bwd_dkv")
 
 
 def reset_launches() -> None:
@@ -1109,17 +1227,17 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    """Every wrapper's launches; for B1/B2 also `<name>_tc`, their
-    tensor-core launches (the rest ran the f32 FMA kernels)."""
+    """Every wrapper's launches; for B1, B2, S1 and S2 also `<name>_tc`,
+    their tensor-core launches (the rest ran the f32 FMA kernels)."""
     wrappers = kernel_wrappers()
     out = {name: fn.launches for name, fn in wrappers.items()}
     out.update({f"{name}_tc": wrappers[name].tc_launches for name in TC_KERNELS})
     return out
 
 
-def check_bwd_route(tag: str, launches: dict, want: dict, tensor_cores: bool) -> None:
-    """B1/B2 ran `want[name]` launches (None: at least one), all on the
-    tensor-core kernels (bf16) or all on the f32 FMA kernels."""
+def check_tc_route(tag: str, launches: dict, want: dict, tensor_cores: bool) -> None:
+    """B1, B2, S1 and S2 ran `want[name]` launches (None: at least one), all
+    on the tensor-core kernels (bf16) or all on the f32 FMA kernels."""
     for name in TC_KERNELS:
         n, tc = launches[name], launches[f"{name}_tc"]
         fma = n - tc
@@ -1259,9 +1377,12 @@ def phase_train_full_size() -> dict:
         check_step_launches(f"step_batch {call}", launches, tm["decode_steps"], cfg.text.num_hidden_layers,
                             {"shared_prefix_decode_full": 1, "shared_prefix_decode_attention": 1,
                              "int4_matmul": 0, "fused_mlp_int8": 0})
-        layers = cfg.text.num_hidden_layers  # B1 once per layer; B2 for the prompt and the own chunk
-        check_bwd_route(f"train step_batch {call}", launches,
-                        {"flash_bwd_dq": layers, "flash_bwd_dkv": 2 * layers}, tensor_cores=True)
+        # per layer: B1 once; B2 for the prompt and the own chunk; S1 in ref_logps and in the
+        # loss; S2's dq and prefix dK/dV once
+        layers = cfg.text.num_hidden_layers
+        check_tc_route(f"train step_batch {call}", launches,
+                       {"flash_bwd_dq": layers, "flash_bwd_dkv": 2 * layers, "shared_prefix_fwd": 2 * layers,
+                        "shared_prefix_bwd": layers, "shared_prefix_bwd_dkv": layers}, tensor_cores=True)
     changed = total_elems = 0
     for p, b in zip(trainable_leaves(params, config.fix_vit), before):
         changed += int((p.detach().cpu() != b).sum())
@@ -1687,13 +1808,14 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": quant_launches.get(name, launches[name]),
         })
-    # B1/B2: the bf16 step_batch's tensor-core launches (all of them: no FMA launch there)
+    # B1, B2, S1, S2: the bf16 step_batch's tensor-core launches (all of them: no FMA launch there)
     for k in kernels:
         if k["name"] in TC_KERNELS:
             k["tc_launches"] = launches[f"{k['name']}_tc"]
     # S2 is two kernels (dq at :739, the prefix dK/dV at :769): its entry gives both counts
     s2 = next(k for k in kernels if k["name"] == "shared_prefix_bwd")
     s2["launches_dkv_prefix"] = launches["shared_prefix_bwd_dkv"]
+    s2["tc_launches_dkv_prefix"] = launches["shared_prefix_bwd_dkv_tc"]
     s2["replaces_dkv_prefix"] = f"{jax_fa}:769"
     # D1 and D2 run on both G-way paths: `launches` is the int8 step_batch's
     # (phase 6), this the bf16 step_batch's (phase 5)

@@ -2,8 +2,8 @@
 CPU, so every kernel wrapper runs its plain version): the split-batch
 builder's arrays, the group advantages, `grpo_loss` with its metrics and
 every parameter gradient (with video, beta ∈ {0, 0.04}, PPO-clip and vanilla
-GRPO), the frozen-ViT precompute, and the tied head's f32 accumulator in
-bf16.
+GRPO, fix_vit on and off), the choice of the vision kernels by fix_vit, the
+frozen-ViT precompute, and the tied head's f32 accumulator in bf16.
 
 Tolerances are the JAX package's own for its split-loss test
 (tests/test_grpo.py): loss 2e-5, metrics 2e-4, gradients 5e-4 — f32 sums in
@@ -91,11 +91,22 @@ def test_group_advantages_equal_jax():
 @pytest.mark.parametrize("beta", [0.0, 0.04])
 @pytest.mark.parametrize("use_grpo", [False, True])
 def test_grpo_loss_and_grads_match_jax(params, beta, use_grpo):
+    _check_loss_and_grads(params, beta, use_grpo, fix_vit=True)
+
+
+@pytest.mark.parametrize("beta", [0.0, 0.04])
+def test_grpo_loss_and_grads_match_jax_unfrozen_vit(params, beta):
+    """fix_vit=False: the whole tower trains, so the ViT blocks' and the patch
+    embed's gradients are compared too (and are not zero)."""
+    _check_loss_and_grads(params, beta, False, fix_vit=False)
+
+
+def _check_loss_and_grads(params, beta, use_grpo, fix_vit):
     jp, tp = params
     G = 3
     groups = _mk_groups(True, G=G, P=2)
-    jhp = JaxHyperParams(num_generations=G, beta=beta, use_grpo=use_grpo, fix_vit=True)
-    hp = GRPOHyperParams(num_generations=G, beta=beta, use_grpo=use_grpo, fix_vit=True)
+    jhp = JaxHyperParams(num_generations=G, beta=beta, use_grpo=use_grpo, fix_vit=fix_vit)
+    hp = GRPOHyperParams(num_generations=G, beta=beta, use_grpo=use_grpo, fix_vit=fix_vit)
     jb, tb = _batches(groups, G)
     if beta:
         # the reference model: the same weights scaled, so the KL is not zero
@@ -112,12 +123,45 @@ def test_grpo_loss_and_grads_match_jax(params, beta, use_grpo):
     assert set(metrics) == set(jmetrics)
     for k in jmetrics:
         np.testing.assert_allclose(float(metrics[k]), float(jmetrics[k]), rtol=2e-4, atol=2e-5, err_msg=k)
-    got = _grad_tree(tp, grads, fix_vit=True)
+    got = _grad_tree(tp, grads, fix_vit=fix_vit)
     for (path, want), (_, g) in zip(jax.tree_util.tree_flatten_with_path(jgrads)[0],
                                      jax.tree_util.tree_flatten_with_path(got)[0]):
         name = jax.tree_util.keystr(path)
         np.testing.assert_allclose(g, np.asarray(want), rtol=5e-4, atol=5e-5, err_msg=name)
     assert all(np.abs(x).max() > 0 for x in jax.tree.leaves(got["visual"]["merger"]))  # trainable
+    vit = (got["visual"]["patch_embed"]["kernel"], got["visual"]["blocks"]["attn"]["qkv_w"])
+    assert all((np.abs(x).max() > 0) != fix_vit for x in vit)  # frozen with fix_vit, trained without
+
+
+@pytest.mark.parametrize("fix_vit", [True, False])
+def test_vision_feats_pick_the_kernels_by_fix_vit(params, monkeypatch, fix_vit):
+    """`_vision_feats` reaches the blocks with use_window_kernel=fix_vit, as
+    JAX's does: the frozen tower runs K2/K3 (here their plain versions, on CPU
+    tensors), the differentiated one never calls them. The reference forward
+    runs no graph and takes K2/K3 either way."""
+    from time_r1_tpu_torch.models.qwen25vl import vision as vision_mod
+    from time_r1_tpu_torch.rl.grpo import _vision_feats
+
+    _, tp = params
+    calls = []
+
+    def recorder(fn):
+        def entry(*args, **kwargs):
+            calls.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return entry
+
+    for name in ("window_attention_rope", "full_attention_rope"):
+        monkeypatch.setattr(vision_mod, name, recorder(getattr(vision_mod, name)))
+    _, tb = _batches(_mk_groups(True, G=3, P=2), 3)
+    feats = _vision_feats(tp, CFG, tb, fix_vit)
+    depth, n_full = len(tp["visual"]["blocks"]), len(CFG.vision.fullatt_block_indexes)
+    want = ["window_attention_rope"] * (depth - n_full) + ["full_attention_rope"] * n_full if fix_vit else []
+    assert sorted(calls) == sorted(want)
+    assert torch.isfinite(feats).all()
+    calls.clear()
+    compute_ref_logps(tp, CFG, GRPOHyperParams(num_generations=3, fix_vit=fix_vit), tb)
+    assert len(calls) == depth
 
 
 def test_precompute_frozen_vision_matches_jax(params):

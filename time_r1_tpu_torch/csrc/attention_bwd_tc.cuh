@@ -1,11 +1,15 @@
 // Tensor-core FlashAttention-2 backward for bf16 operands on Hopper (sm_90a):
 // B1 `attn_bwd_dq_tc`, B2 `attn_bwd_dkv_tc` and B2's fold `fold_dkv_partials`,
-// instantiated from flash_attention_bwd.cu. The f32 path keeps the exact f32
-// FMA kernels of attention_bwd.cuh.
+// instantiated from flash_attention_bwd.cu (B1, B2) and from
+// shared_prefix_attention.cu (S2's dq and prefix dK/dV). The f32 paths keep
+// the exact f32 FMA kernels of attention_bwd.cuh. The copy, descriptor and
+// wgmma helpers are in wgmma_tile.cuh.
 //
 // Replace the Pallas kernels of time_r1_tpu/ops/flash_attention.py:
 //   B1 `_flash_bwd_dq`  (pallas_call at :325),
-//   B2 `_flash_bwd_dkv` (grouped pallas_call at :368, per-head at :400).
+//   B2 `_flash_bwd_dkv` (grouped pallas_call at :368, per-head at :400),
+//   S2 `_sp_vjp_bwd`'s dq (:739, two key sources) and prefix dK/dV (:769,
+//      R rows per kv entry).
 // Same function as attention_bwd.cuh: the GLOBAL lse (B, H, Sq) and delta
 // (given here as (B, H, Sq)), an additive f32 key bias, causal masking at
 // global row q_offset + i, GQA (q head h reads kv head h / G; dK/dV summed
@@ -41,9 +45,11 @@
 //
 // B1 grid (ceil(Sq/64), H, B): block x takes query tile n_qt - 1 - x, so the
 // heaviest causal tiles start first; only tiles that cross the diagonal or a
-// ragged edge run the masks. B2 grid (ceil(Skv/64), Hkv * n_split, B): the G
-// q heads of a kv head are split over n_split blocks (the wrapper picks it to
-// fill the card), each writing f32 partial dK/dV (n_split, B, Skv, Hkv, D);
+// ragged edge run the masks. B2 grid (ceil(Skv/64), Hkv * n_split, kv
+// entries): the R * G (query row, q head) pairs that read a kv head of an
+// entry (R = 1 for B2, the R rollout rows of a prompt for S2's prefix) are
+// split over n_split blocks in order (the wrapper picks n_split to fill the
+// card), each writing f32 partial dK/dV (n_split, entries, Skv, Hkv, D);
 // `fold_dkv_partials` sums them in a fixed order. No atomics: two launches
 // give bit-equal results. With n_split = 1 the block writes dK/dV itself.
 //
@@ -53,180 +59,20 @@
 // 64 f32). ptxas's report per instance is in PERF.md.
 //
 // The interface is attention_bwd.cuh's BwdParams: the dq kernel walks
-// p.n_src key sources, and the dkv kernel sums over the R query rows of each
-// kv entry, so that S2's kernels can move onto this header.
+// p.n_src key sources (S2: the prefix, then the own causal chunk), and the
+// dkv kernel sums over the R query rows of each kv entry.
 #pragma once
 
-#include <stdint.h>
-
 #include "attention_bwd.cuh"
+#include "wgmma_tile.cuh"
 
 namespace t1 {
 namespace tc {
-
-using bf16 = __nv_bfloat16;
-constexpr int WG = 128;  // one warpgroup per block
-
-template <int D>
-__host__ __device__ constexpr int tile_bytes() { return 64 * D * 2; }
 
 // Q/dO (or K/V) resident, two stages of two streamed tiles, 1 KB of streamed
 // f32 rows (B1: bias; B2: lse and delta), two mbarriers, 1 KB of alignment.
 template <int D>
 __host__ __device__ constexpr int smem_bytes() { return 6 * tile_bytes<D>() + 1024 + 64 + 1024; }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- copies and barriers
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// The barrier's phase completes once every thread's earlier cp.asyncs have
-// landed (one arrival per thread: the barrier counts WG).
-__device__ __forceinline__ void mbar_arrive_copies(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// 64 rows x D bf16 from rows row0.. of a row-major source (row_stride
-// elements) into D/64 swizzled 64 x 64 blocks; rows >= n_rows are zeros.
-template <int D>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* g, long long row_stride, int row0,
-                                          int n_rows) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-#pragma unroll
-  for (int it = 0; it < 64 * CPR / WG; ++it) {
-    const int idx = it * WG + threadIdx.x;
-    const int r = idx / CPR;
-    const int c = idx % CPR;
-    const bool ok = row0 + r < n_rows;
-    const bf16* src = g + (long long)(ok ? row0 + r : 0) * row_stride + c * 8;
-    cp_async16(dst + (c >> 3) * 8192 + r * 128 + (((c & 7) ^ (r & 7)) << 4), src, ok);
-  }
-}
-
-// ---- wgmma
-
-// Shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-// K-major operand (rows = M or N, columns = the reduced dim) of a tile: the
-// kk-th 16-column step lies in block kk / 4, 32 bytes per step into its rows.
-__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
-  return desc_sw128(tile + (kk >> 2) * 8192 + (kk & 3) * 32, 16, 1024);
-}
-
-// MN-major B operand (rows = the reduced dim, columns = N = D): the kk-th
-// 16-row step starts 16 rows down; the 64-column blocks lie 8 KB apart.
-__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
-  return desc_sw128(tile + kk * 2048, 8192, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-
-// Keeps the compiler from moving reads of an accumulator above the wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// D (64 x 64, f32) (+)= A (64 x 16, smem, K-major) * B (16 x 64, smem, K-major).
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 128, f32) += A (64 x 16, bf16 registers) * B (16 x 128, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 64)
-    wgmma_rs_n64(d, a, db);
-  else
-    wgmma_rs_n128(d, a, db);
-}
-
-// S = Q K^T-style product of two resident K-major tiles: 64 x 64 in f32.
-template <int D>
-__device__ __forceinline__ void scores(float (&s)[32], uint32_t a_tile, uint32_t b_tile) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(s, kmajor(a_tile, kk), kmajor(b_tile, kk), kk);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// A 64 x 64 accumulator (thread: rows r, r + 8 of its warp's 16, columns
-// 8j + 2c, +1) rounded to bf16 as the A fragments of four k16 steps.
-__device__ __forceinline__ void to_afrag(const float (&x)[32], uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
-    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
-    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
-    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
-  }
-}
 
 // ---- B1: dq
 
@@ -276,12 +122,7 @@ __global__ void __launch_bounds__(WG, 2) attn_bwd_dq_tc(const __grid_constant__ 
     mbar_arrive_copies(bars + 8 * st);
   };
 
-  if (tid == 0) {
-    mbar_init(bars, WG);
-    mbar_init(bars + 8, WG);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  mbar_init_all(bars, 2);
   load_tile<D>(sQ, static_cast<const bf16*>(p.q) + q_off, q_row, q0, p.Sq);
   load_tile<D>(sdO, static_cast<const bf16*>(p.dout) + q_off, q_row, q0, p.Sq);
   load_kv(0);  // every query tile sees at least one key tile (Skv >= 1)
@@ -364,8 +205,9 @@ __global__ void __launch_bounds__(WG, 2) attn_bwd_dq_tc(const __grid_constant__ 
 
 // ---- B2: dK/dV
 
-// p.dk / p.dv: (n_split, kv entries, Skv, Hkv, D) f32, this block's q-head
-// share written whole (keys no query sees get zeros).
+// p.dk / p.dv: (n_split, kv entries, Skv, Hkv, D) f32, this block's share of
+// the (row, q head) pairs written whole (keys no query sees get zeros).
+// n_split divides R * G.
 template <int D>
 __global__ void __launch_bounds__(WG, 2) attn_bwd_dkv_tc(const __grid_constant__ BwdParams p, int n_split) {
   constexpr int TILE = tile_bytes<D>();
@@ -386,20 +228,20 @@ __global__ void __launch_bounds__(WG, 2) attn_bwd_dkv_tc(const __grid_constant__
   const int hk = blockIdx.y / n_split;
   const int split = blockIdx.y - hk * n_split;
   const long long entry = blockIdx.z;
-  const int Gs = p.G / n_split;
+  const int pairs = s.R * p.G / n_split;  // (row, q head) pairs of this block: pair = r * G + g
   const int q_row = p.H * D;
   const int n_qt = (p.Sq + BQ - 1) / BQ;
   const int qt0 = s.causal ? max(0, k0 - s.q_offset) / BQ : 0;  // first tile a key here is visible to
   const int per = max(0, n_qt - qt0);
-  const int total = s.R * Gs * per;  // (row, q head, query tile), query tile innermost
+  const int total = pairs * per;  // (pair, query tile), query tile innermost
 
   auto tile_of = [&](int t, long long& b, int& h, int& q0) {
-    const int r = t / (Gs * per);
-    const int rem = t - r * Gs * per;
-    const int g = rem / per;
+    const int i = t / per;
+    const int pair = split * pairs + i;
+    const int r = pair / p.G;
     b = entry * s.R + r;
-    h = hk * p.G + split * Gs + g;
-    q0 = (qt0 + rem - g * per) * BQ;
+    h = hk * p.G + pair - r * p.G;
+    q0 = (qt0 + t - i * per) * BQ;
   };
   auto load_q = [&](int t) {
     long long b;
@@ -416,12 +258,7 @@ __global__ void __launch_bounds__(WG, 2) attn_bwd_dkv_tc(const __grid_constant__
     mbar_arrive_copies(bars + 8 * st);
   };
 
-  if (tid == 0) {
-    mbar_init(bars, WG);
-    mbar_init(bars + 8, WG);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  mbar_init_all(bars, 2);
   const long long kv_off = entry * s.kv_batch + (long long)hk * D;
   load_tile<D>(sK, static_cast<const bf16*>(s.k) + kv_off, s.kv_row, k0, s.Skv);
   load_tile<D>(sV, static_cast<const bf16*>(s.v) + kv_off, s.kv_row, k0, s.Skv);

@@ -86,10 +86,10 @@ def vision_signature(grids, vis: VisionInputs) -> tuple:
 
 
 def compute_vision_features(params: dict, cfg: Qwen25VLConfig, vis: VisionInputs) -> torch.Tensor:
-    """The vision tower; K2/K3 carry its attention when the patches are on the card."""
+    """The frozen vision tower; K2/K3 carry its attention when the patches are on the card."""
     return vision_forward(
         params["visual"], cfg.vision, vis.patches, vis.perm, vis.pos_hw,
-        vis.key_valid, vis.full_gather, vis.full_inverse, vis.reverse,
+        vis.key_valid, vis.full_gather, vis.full_inverse, vis.reverse, use_window_kernel=True,
     )
 
 

@@ -7,10 +7,14 @@ reshape to (n_windows, win, ...) with a key-validity bias, and the
 full-attention blocks attend within each (sample, t)-slice, gathered to
 (n_slices, max_slice, ...) and scattered back by an inverse permutation.
 
-The blocks run as a Python loop. The attention of the window layers goes
-through K2 and that of the full layers through K3 (ops/vision_attention.py),
-whose wrappers launch the kernels for CUDA tensors and run their plain
-versions for CPU tensors. Dead
+The blocks run as a Python loop. With `use_window_kernel` (the frozen tower:
+serving, the rollout, `precompute_frozen_vision`, the reference forward) the
+attention of the window layers goes through K2 and that of the full layers
+through K3 (ops/vision_attention.py), whose wrappers launch the kernels for
+CUDA tensors and run their plain versions for CPU tensors. K2/K3 have no
+backward, so a tower that is differentiated (the GRPO loss with fix_vit off)
+runs without them, as JAX's jnp branch does: rope rounded to the input dtype,
+then a differentiable attention over the windows and the slices. Dead
 (padding) slots flow through as garbage but are never attention keys and are
 dropped by the final original-order gather.
 """
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ...ops.attention import NEG_INF
+from ...ops.attention import NEG_INF, rope
 from ...ops.vision_attention import full_attention_rope, window_attention_rope
 from .config import VisionConfig
 from .language import _rms_norm
@@ -159,6 +163,15 @@ def vision_rope_tables(cfg: VisionConfig, pos_hw: torch.Tensor) -> tuple[torch.T
     return emb.cos(), emb.sin()
 
 
+def _block_attention(q, k, v, key_bias, scale: float) -> torch.Tensor:
+    """JAX's `_block_attention`: attention within (n, S, nh, hd) blocks of
+    roped q/k, with an additive key bias (n, S); f32 logits and softmax, the
+    probabilities rounded to v's dtype before the product. Differentiable."""
+    logits = torch.einsum("nqhd,nkhd->nhqk", q.float(), k.float()) * scale + key_bias.float()[:, None, None, :]
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("nhqk,nkhd->nqhd", probs.to(v.dtype), v)
+
+
 def vision_blocks_forward(
     params: dict,
     cfg: VisionConfig,
@@ -168,10 +181,12 @@ def vision_blocks_forward(
     prep_key_valid: torch.Tensor,
     prep_full_gather: torch.Tensor,
     prep_full_inverse: torch.Tensor,
+    use_window_kernel: bool = False,
 ) -> torch.Tensor:
     """Patch embed + the ViT blocks, in window-layout order; returns the
-    pre-merger hidden states (P_pad, hidden_size). K2/K3 have no backward:
-    on the card the blocks run frozen, under `torch.no_grad()`."""
+    pre-merger hidden states (P_pad, hidden_size). use_window_kernel routes
+    the attention through K2/K3, which have no backward (a frozen tower);
+    without it the blocks are differentiable, as JAX's jnp branch."""
     nh, hd = cfg.num_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
     win_patches = cfg.window_patches * cfg.window_patches * cfg.merge_unit
@@ -196,17 +211,29 @@ def vision_blocks_forward(
     def slices(t: torch.Tensor) -> torch.Tensor:  # layout rows → (n_slices, max_slice, nh, hd)
         return t.index_select(0, fg).reshape(n_slices, max_slice, nh, hd)
 
+    def windows(t: torch.Tensor) -> torch.Tensor:  # layout rows → (n_windows, win_patches, ...)
+        return t.reshape(-1, win_patches, *t.shape[1:])
+
+    def roped(t: torch.Tensor) -> torch.Tensor:  # JAX's rope(): f32, rounded to the input dtype
+        return rope(t, cos[:, None, :], sin[:, None, :]).to(t.dtype)
+
     for i, bp in enumerate(params["blocks"]):
         h = _rms_norm(x, bp["norm1"], eps)
         q, k, v = (
             t.reshape(-1, nh, hd).contiguous()
             for t in F.linear(h, bp["qkv_w"], bp["qkv_b"]).chunk(3, dim=-1)
         )
-        if i in fullatt:
+        if use_window_kernel and i in fullatt:
             out = full_attention_rope(slices(q), slices(k), slices(v), cos_full, sin_full, full_bias)
             attn = out.reshape(-1, nh, hd).index_select(0, inverse)
-        else:
+        elif use_window_kernel:
             attn = window_attention_rope(q, k, v, cos, sin, key_bias, win_patches)
+        elif i in fullatt:
+            out = _block_attention(slices(roped(q)), slices(roped(k)), slices(v), full_bias, hd**-0.5)
+            attn = out.reshape(-1, nh, hd).index_select(0, inverse)
+        else:
+            out = _block_attention(windows(roped(q)), windows(roped(k)), windows(v), windows(key_bias), hd**-0.5)
+            attn = out.reshape(-1, nh, hd)
         x = x + F.linear(attn.reshape(-1, nh * hd), bp["proj_w"], bp["proj_b"])
         h = _rms_norm(x, bp["norm2"], eps)
         g = F.linear(h, bp["gate_w"], bp["gate_b"])
@@ -235,11 +262,12 @@ def vision_forward(
     prep_full_gather: torch.Tensor,
     prep_full_inverse: torch.Tensor,
     prep_reverse: torch.Tensor,
+    use_window_kernel: bool = False,
 ) -> torch.Tensor:
     """The vision tower; returns merged features (U_pad, out_hidden_size) in
-    original merge-unit order."""
+    original merge-unit order. use_window_kernel: see `vision_blocks_forward`."""
     x = vision_blocks_forward(
         params, cfg, patches, prep_perm, prep_pos_hw, prep_key_valid,
-        prep_full_gather, prep_full_inverse,
+        prep_full_gather, prep_full_inverse, use_window_kernel=use_window_kernel,
     )
     return vision_merge_forward(params, cfg, x, prep_reverse)

@@ -12,7 +12,10 @@ of the port's CUDA kernels and their plain versions.
 - S1 `shared_prefix_fwd`, S2 `shared_prefix_bwd_dq` and
   `shared_prefix_bwd_dkv` (`csrc/shared_prefix_attention.cu`) replace `_sp_fwd`
   (:575) and the two kernels of `_sp_vjp_bwd` (:739, :769);
-  `flash_attention_shared_prefix` is their autograd Function.
+  `flash_attention_shared_prefix` is their autograd Function. bf16 operands
+  launch the tensor-core kernels (S1 on `csrc/attention_fwd_tc.cuh`, S2 on
+  `csrc/attention_bwd_tc.cuh`), f32 operands the exact f32 FMA ones;
+  `.tc_launches` counts the first.
 
 Given CUDA tensors a wrapper launches its kernel (or raises) and adds one to
 its `.launches`; given CPU tensors it runs its plain version, which computes
@@ -179,14 +182,17 @@ def _bwd_launch(name, symbol, stem, args_types, args):
     kernels.check(fn(*args), name)
 
 
-def bwd_dkv_split(G: int, Skv: int, Hkv: int, B: int) -> int:
-    """B2's n_split on the tensor-core path: the smallest divisor of G whose
-    grid (ceil(Skv/64), Hkv·n_split, B) has at least two blocks per SM, else G."""
+def bwd_dkv_split(G: int, Skv: int, Hkv: int, B: int, R: int = 1) -> int:
+    """n_split of the tensor-core dK/dV kernel (B2, and S2's prefix dK/dV with
+    R query rows per kv entry): the smallest divisor of R·G whose grid
+    (ceil(Skv/64), Hkv·n_split, B kv entries) has at least two blocks per SM,
+    else R·G. The kernel gives each block R·G/n_split (row, q head) pairs."""
     blocks = -(-Skv // 64) * Hkv * B
-    for n in range(1, G + 1):
-        if G % n == 0 and blocks * n >= 2 * SMS:
+    pairs = R * G
+    for n in range(1, pairs + 1):
+        if pairs % n == 0 and blocks * n >= 2 * SMS:
             return n
-    return G
+    return pairs
 
 
 def _bwd_check(name, q, k, v, kv_bias, do, lse, delta_t):
@@ -393,8 +399,11 @@ def shared_prefix_bwd_dkv_plain(q, kp, vp, prefix_bias, do, lse, delta, scale=No
     return dk.reshape(P, R, Lp, Hkv, D).sum(1), dv.reshape(P, R, Lp, Hkv, D).sum(1)
 
 
-def _check_sp(name, q, kp, vp, ko, vo, prefix_bias):
-    """Checks of the S1/S2 operands; ko/vo are None for the prefix dK/dV kernel."""
+def _check_sp(name, q, kp, vp, ko, vo, prefix_bias, do=None):
+    """Checks of the S1/S2 operands (`do`: the backward's dout, checked apart
+    by `_check_grads_in`); ko/vo are None for the prefix dK/dV kernel. bf16
+    operands (the tensor-core kernels) must also start on 16 bytes, as their
+    16-byte copies do."""
     B, Sc, H, D = q.shape
     P, Lp, Hkv, _ = kp.shape
     own = () if ko is None else (ko, vo)
@@ -409,6 +418,16 @@ def _check_sp(name, q, kp, vp, ko, vo, prefix_bias):
     kernels.require(prefix_bias.shape == (P, Lp), name, "prefix_bias shape")
     kernels.require(H % Hkv == 0 and D in BWD_HEAD_DIMS, name, f"H={H} Hkv={Hkv} D={D}")
     kernels.require(B <= 65535 and H <= 65535, name, "grid too large")
+    kernels.require(Sc > 0 and Lp > 0, name, "empty query or prefix range")
+    if q.dtype == torch.bfloat16:
+        copied = (q, kp, vp, *own) + (() if do is None else (do,))
+        kernels.require(all(t.data_ptr() % 16 == 0 for t in copied), name, "bf16 operands must be 16-byte aligned")
+
+
+_SP_FWD_ARGS = [_P] * 8 + [_I] * 7 + [_F, _P]
+_SP_DQ_ARGS = [_P] * 10 + [_I] * 7 + [_F, _P]
+_SP_DKV_ARGS = [_P] * 9 + [_I] * 7 + [_F, _P]
+_SP_DKV_TC_ARGS = [_P] * 11 + [_I] * 8 + [_F, _P]
 
 
 def shared_prefix_fwd(q, kp, vp, ko, vo, prefix_bias, scale=None):
@@ -422,16 +441,17 @@ def shared_prefix_fwd(q, kp, vp, ko, vo, prefix_bias, scale=None):
     P, Lp, Hkv, _ = kp.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sc), dtype=torch.float32, device=q.device)
-    _bwd_launch(name, "t1_sp_fwd", "shared_prefix_attention",
-                [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-                (kernels.DTYPE_CODE[q.dtype], kernels.ptr(q), kernels.ptr(kp), kernels.ptr(vp),
-                 kernels.ptr(ko), kernels.ptr(vo), kernels.ptr(prefix_bias), kernels.ptr(out),
-                 kernels.ptr(lse), B, P, Sc, Lp, H, Hkv, D, scale, kernels.stream(q)))
+    tc = q.dtype == torch.bfloat16
+    _bwd_launch(name, "t1_sp_fwd_tc" if tc else "t1_sp_fwd", "shared_prefix_attention", _SP_FWD_ARGS,
+                [kernels.ptr(t) for t in (q, kp, vp, ko, vo, prefix_bias, out, lse)]
+                + [B, P, Sc, Lp, H, Hkv, D, scale, kernels.stream(q)])
     shared_prefix_fwd.launches += 1
+    shared_prefix_fwd.tc_launches += int(tc)
     return out, lse
 
 
 shared_prefix_fwd.launches = 0
+shared_prefix_fwd.tc_launches = 0
 
 
 def shared_prefix_bwd_dq(q, kp, vp, ko, vo, prefix_bias, do, lse, delta, scale=None):
@@ -441,27 +461,30 @@ def shared_prefix_bwd_dq(q, kp, vp, ko, vo, prefix_bias, do, lse, delta, scale=N
     name = "shared_prefix_bwd_dq"
     scale = _scale(q, scale)
     delta_t = delta.transpose(1, 2).contiguous()
-    _check_sp(name, q, kp, vp, ko, vo, prefix_bias)
+    _check_sp(name, q, kp, vp, ko, vo, prefix_bias, do)
     _check_grads_in(name, q, do, lse, delta_t)
     B, Sc, H, D = q.shape
     P, Lp, Hkv, _ = kp.shape
     dq = torch.empty_like(q)
-    _bwd_launch(name, "t1_sp_bwd_dq", "shared_prefix_attention",
-                [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-                (kernels.DTYPE_CODE[q.dtype], kernels.ptr(q), kernels.ptr(kp), kernels.ptr(vp),
-                 kernels.ptr(ko), kernels.ptr(vo), kernels.ptr(prefix_bias), kernels.ptr(do),
-                 kernels.ptr(lse), kernels.ptr(delta_t), kernels.ptr(dq), B, P, Sc, Lp, H, Hkv, D,
-                 scale, kernels.stream(q)))
+    tc = q.dtype == torch.bfloat16
+    _bwd_launch(name, "t1_sp_bwd_dq_tc" if tc else "t1_sp_bwd_dq", "shared_prefix_attention", _SP_DQ_ARGS,
+                [kernels.ptr(t) for t in (q, kp, vp, ko, vo, prefix_bias, do, lse, delta_t, dq)]
+                + [B, P, Sc, Lp, H, Hkv, D, scale, kernels.stream(q)])
     shared_prefix_bwd_dq.launches += 1
+    shared_prefix_bwd_dq.tc_launches += int(tc)
     return dq
 
 
 shared_prefix_bwd_dq.launches = 0
+shared_prefix_bwd_dq.tc_launches = 0
 
 
 def shared_prefix_bwd_dkv(q, kp, vp, prefix_bias, do, lse, delta, scale=None):
     """S2 (:769): the prefix (dk, dv) (P, Lp, Hkv, D) f32, summed over the R
-    rows and the G q-heads inside the kernel. delta is (B, Sc, H) f32."""
+    rows and the G q-heads inside the kernel. delta is (B, Sc, H) f32. In bf16
+    the R·G (row, q head) pairs are split over `bwd_dkv_split` blocks whose
+    f32 partials one more kernel folds in a fixed order; in f32 one block
+    sums them."""
     if not q.is_cuda:
         return shared_prefix_bwd_dkv_plain(q, kp, vp, prefix_bias, do, lse, delta, scale)
     name = "shared_prefix_bwd_dkv"
@@ -469,21 +492,29 @@ def shared_prefix_bwd_dkv(q, kp, vp, prefix_bias, do, lse, delta, scale=None):
     delta_t = delta.transpose(1, 2).contiguous()
     B, Sc, H, D = q.shape
     P, Lp, Hkv, _ = kp.shape
-    _check_sp(name, q, kp, vp, None, None, prefix_bias)
+    _check_sp(name, q, kp, vp, None, None, prefix_bias, do)
     _check_grads_in(name, q, do, lse, delta_t)
     dk = torch.empty(kp.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(kp.shape, dtype=torch.float32, device=q.device)
-    _bwd_launch(name, "t1_sp_bwd_dkv_prefix", "shared_prefix_attention",
-                [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-                (kernels.DTYPE_CODE[q.dtype], kernels.ptr(q), kernels.ptr(kp), kernels.ptr(vp),
-                 kernels.ptr(prefix_bias), kernels.ptr(do), kernels.ptr(lse), kernels.ptr(delta_t),
-                 kernels.ptr(dk), kernels.ptr(dv), B, P, Sc, Lp, H, Hkv, D, scale,
-                 kernels.stream(q)))
+    ptrs = [kernels.ptr(t) for t in (q, kp, vp, prefix_bias, do, lse, delta_t, dk, dv)]
+    tail = [B, P, Sc, Lp, H, Hkv, D, scale, kernels.stream(q)]
+    if q.dtype == torch.bfloat16:
+        n_split = bwd_dkv_split(H // Hkv, Lp, Hkv, P, B // P)
+        part_ptrs = [_P(), _P()]  # n_split == 1: the blocks write dk, dv themselves
+        if n_split > 1:  # freed when this call returns: they live only inside one layer's backward
+            parts = torch.empty((2, n_split, *kp.shape), dtype=torch.float32, device=q.device)
+            part_ptrs = [kernels.ptr(parts[0]), kernels.ptr(parts[1])]
+        _bwd_launch(name, "t1_sp_bwd_dkv_prefix_tc", "shared_prefix_attention", _SP_DKV_TC_ARGS,
+                    ptrs + part_ptrs + [n_split] + tail)
+        shared_prefix_bwd_dkv.tc_launches += 1
+    else:
+        _bwd_launch(name, "t1_sp_bwd_dkv_prefix", "shared_prefix_attention", _SP_DKV_ARGS, ptrs + tail)
     shared_prefix_bwd_dkv.launches += 1
     return dk, dv
 
 
 shared_prefix_bwd_dkv.launches = 0
+shared_prefix_bwd_dkv.tc_launches = 0
 
 
 class _SharedPrefixAttention(torch.autograd.Function):

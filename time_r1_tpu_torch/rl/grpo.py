@@ -77,27 +77,28 @@ def _vision_feats(params: dict, cfg: Qwen25VLConfig, batch: GRPOSplitBatch, fix_
     """Merged vision features for the loss. With `vision_hidden` (the frozen
     blocks' output, precomputed or captured by the rollout) only the trainable
     merger runs here. Otherwise fix_vit runs the blocks without a graph (they
-    get no gradient) and the merger with one; without fix_vit the whole tower
-    is differentiated, which K2/K3 (no backward) allow only off the card."""
+    get no gradient, K2/K3 carry their attention) and the merger with one;
+    without fix_vit the whole tower is differentiated, off K2/K3 (they have no
+    backward), as JAX's `_vision_feats` passes use_window_kernel=fix_vit."""
     if fix_vit:
         batch = precompute_frozen_vision(params, cfg, batch)
     v = batch.vision
     if batch.vision_hidden is not None:
         return vision_merge_forward(params["visual"], cfg.vision, batch.vision_hidden, v.reverse)
     return vision_forward(params["visual"], cfg.vision, v.patches, v.perm, v.pos_hw, v.key_valid,
-                          v.full_gather, v.full_inverse, v.reverse)
+                          v.full_gather, v.full_inverse, v.reverse, use_window_kernel=fix_vit)
 
 
 def precompute_frozen_vision(params: dict, cfg: Qwen25VLConfig, batch: GRPOSplitBatch) -> GRPOSplitBatch:
-    """fix_vit: run the frozen ViT blocks once, without a graph, and attach
-    their output to the batch; the policy and ref forwards then run only the
-    merger."""
+    """fix_vit: run the frozen ViT blocks once, without a graph (K2/K3 on the
+    card), and attach their output to the batch; the policy and ref forwards
+    then run only the merger."""
     if batch.vision is None or batch.vision_hidden is not None:
         return batch
     v = batch.vision
     with torch.no_grad():
         x = vision_blocks_forward(params["visual"], cfg.vision, v.patches, v.perm, v.pos_hw,
-                                  v.key_valid, v.full_gather, v.full_inverse)
+                                  v.key_valid, v.full_gather, v.full_inverse, use_window_kernel=True)
     return batch._replace(vision_hidden=x)
 
 
@@ -178,8 +179,13 @@ def _require_split(batch, hp: GRPOHyperParams) -> None:
 
 @torch.no_grad()
 def compute_ref_logps(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch: GRPOSplitBatch) -> torch.Tensor:
-    """Per-token logps (B, Lc) under the reference weights, without a graph."""
+    """Per-token logps (B, Lc) under the reference weights, without a graph.
+    Nothing is differentiated here, so the reference's ViT blocks run frozen
+    (K2/K3 on the card) whatever fix_vit says; with fix_vit the batch's
+    `vision_hidden` (the policy's frozen blocks, equal to the reference's) is
+    reused."""
     _require_split(batch, hp)
+    batch = precompute_frozen_vision(params, cfg, batch)
     logps, _ = _split_logps_entropy(params, cfg, hp, batch, fix_vit=hp.fix_vit)
     return logps
 

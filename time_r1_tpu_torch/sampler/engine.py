@@ -318,7 +318,8 @@ class Engine:
             return compute_vision_features(self.params, self.cfg, vis)
         vcfg, visual = self.cfg.vision, self.params["visual"]
         hidden = vision_blocks_forward(visual, vcfg, vis.patches, vis.perm, vis.pos_hw,
-                                       vis.key_valid, vis.full_gather, vis.full_inverse)
+                                       vis.key_valid, vis.full_gather, vis.full_inverse,
+                                       use_window_kernel=True)
         self.captured_vision = (self._last_vis_sig, hidden)
         return vision_merge_forward(visual, vcfg, hidden, vis.reverse)
 
