@@ -14,14 +14,18 @@ Phases (any failed check raises and the exit code is non-zero):
    ragged shape), P1, P2 (continuous-batching decode: 4 slots of lengths 0,
    327, 1689, 2041 over a shuffled page table, page size 16, full slots, a
    dead slot with a stale table row, head dim 64), and the bf16 head's
-   backward against the f32 cotangent. B1, B2, S1 and S2 in bf16 run the
-   tensor-core kernels; besides the training shapes B1/B2 are checked at
-   q_offset 64, ragged Sq 200 over Skv 328, head dim 64, G 1, non-causal and a
-   block of all-masked rows, and S1/S2 at P = 2 prompts of R = 4 rows, Lp 640
-   with Sc 384, Lp = Sc = 128, head dim 64, G 1 and a prompt whose bias masks
-   every prefix key; two B2 launches and two prefix dK/dV launches must each
-   give bit-equal results, and the wrappers refuse f16, head dim 96 and a
-   misaligned q;
+   backward against the f32 cotangent. K1, K3, B1, B2, S1 and S2 in bf16 run
+   the tensor-core kernels; besides the serving shapes K1 is checked (out and
+   lse) at phase 5's B = 1 prompt forward (timed), head dims 64 and 80, G 1,
+   non-causal, ragged Sq 200 over Skv 328 and all-masked rows, and K3 at S
+   100 with a slice whose keys are all masked, S 2048, nh 1 and head dims 64
+   and 128, every value finite; besides the training shapes B1/B2 are checked
+   at q_offset 64, ragged Sq 200 over Skv 328, head dim 64, G 1, non-causal
+   and a block of all-masked rows, and S1/S2 at P = 2 prompts of R = 4 rows,
+   Lp 640 with Sc 384, Lp = Sc = 128, head dim 64, G 1 and a prompt whose
+   bias masks every prefix key; two B2 launches and two prefix dK/dV
+   launches must each give bit-equal results, and the wrappers of K1, K3,
+   B1, B2, S1 and S2 refuse f16, head dim 96 and a misaligned q;
 3. end-to-end agreement at reduced depth: Qwen2.5-VL-3B widths with 2 decoder
    layers and 2 vision blocks, one 8-frame video request in f32, card
    (kernels) against CPU (plain versions);
@@ -29,7 +33,8 @@ Phases (any failed check raises and the exit code is non-zero):
    advantages, beta = 0.04 against a reference copy): loss, metrics and every
    gradient, card against CPU, with fix_vit and with fix_vit=False (the whole
    tower trains; K2/K3 must not launch inside the differentiated call); in
-   f32 B1, B2, S1 and S2 run the FMA kernels only;
+   f32 K1, K3, B1, B2, S1 and S2 run the FMA kernels only (in phases 3, 3c
+   and 3d K1 and K3 as well);
 3c. the quantized G-way decode at reduced depth, int8 weights and int8 KV,
    then int4 weights: 16 teacher-forced steps, card (D2, Q2, Q1) against CPU
    (plain paths) on every step's logits;
@@ -39,14 +44,16 @@ Phases (any failed check raises and the exit code is non-zero):
    ContinuousEngine, and paged against the bucket Engine on the card;
 4. the serving path at full size: Qwen2.5-VL-3B in bf16 with seeded random
    weights, two video requests, greedy decode of 128 tokens, with K1-K3's
-   launch counts read around that one generate() call;
+   launch counts read around that one generate() call (exactly 36 K1 and 4
+   K3 launches, all on the tensor cores);
 5. the training path at full size: `GRPOTrainer` over the same model and a
    reference copy, one 32-frame video request, the default TrainConfig (G = 8,
    200 new tokens at T = 1.0, gradient accumulation 2), two `step_batch` calls
    (one optimizer update), with every kernel's launch count read around each;
    the G-way rollout decode runs D2 (36 launches per step); each call runs
-   exactly 36 B1 and 72 B2 launches (prompt and own chunk), 72 S1 (ref_logps
-   and the loss) and 36 + 36 S2 (dq, prefix dK/dV), all on the tensor cores;
+   exactly 108 K1 launches (rollout prefill, ref_logps, the loss), 4 K3, 36
+   B1 and 72 B2 (prompt and own chunk), 72 S1 (ref_logps and the loss) and
+   36 + 36 S2 (dq, prefix dK/dV), all on the tensor cores;
 6. quantized rollouts at full size, once phase 5's model is freed: two
    `step_batch` calls with rollout_quantization="int8" (D2 and Q2 36 launches
    per decode step), then one `Engine(quantization="int4",
@@ -146,6 +153,11 @@ def phase_build() -> None:
     smem = kernels.bind("shared_prefix_attention", "t1_sp_fwd_tc_smem_bytes", [ctypes.c_int])
     log(f"[build] shared_prefix_attention tensor-core S1 blocks: dynamic shared memory "
         f"{smem(64)} bytes at head dim 64, {smem(128)} at 128")
+    for stem, symbol, what in (("flash_attention", "t1_flash_attention_fwd_tc_smem_bytes", "K1"),
+                               ("vision_attention", "t1_full_attention_rope_fwd_tc_smem_bytes", "K3 (with the rope)")):
+        smem = kernels.bind(stem, symbol, [ctypes.c_int])
+        log(f"[build] {stem} tensor-core {what} blocks: dynamic shared memory "
+            f"{smem(64)} bytes at head dim 64, {smem(80)} at 80, {smem(128)} at 128")
 
 
 # ---------------------------------------------------------------------------
@@ -180,11 +192,31 @@ def check_kernel(name, kernel, plain, library, make_inputs, valid, flops, nbytes
             lib = library(*args)
             entry["library_ms"] = cuda_ms(lib)
             entry["bound_ms"], entry["bound_by"] = bound(flops, nbytes)
+            entry["tflops"] = flops / entry["ms"] / 1e9
+            entry["bound_share"] = entry["bound_ms"] / entry["ms"]
+            log(f"[kernels] {name}: {entry['ms']:.4f} ms (plain {entry['plain_ms']:.3f}, bound "
+                f"{entry['bound_ms']:.4f} by {entry['bound_by']}, {entry['tflops']:.1f} TFLOP/s, "
+                f"{100 * entry['bound_share']:.1f}% of the bound, library {entry['library_ms']:.4f})")
     entry["tol"], entry["tol_f32"] = TOL["bfloat16"], TOL["float32"]
     return entry
 
 
 def phase_kernels() -> dict:
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = serving_attention_kernels(gen)
+    fwd_tc_edge_cases(gen, results["flash_attention"], results["full_attention_rope"])
+    results.update(phase_train_kernels())
+    results.update(phase_decode_quant_kernels())
+    results.update(phase_paged_kernels())
+    return results
+
+
+def serving_attention_kernels(gen) -> dict:
+    """K1, K2 and K3 against their plain versions at the serving path's
+    shapes (phase 4), in bf16 (K1 and K3 on the tensor cores, K2 on FMA) and
+    f32 (FMA); times in bf16."""
     import torch
     import torch.nn.functional as F
 
@@ -200,7 +232,6 @@ def phase_kernels() -> dict:
     )
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
 
     def randn(*shape, dtype):
@@ -209,31 +240,17 @@ def phase_kernels() -> dict:
     # K1 at the prefill shape of phase 4: two left-padded prompts in a
     # 2048-token bucket, a 2176-slot cache (128 decode slots)
     B, Sq, Skv, H, Hkv, D = 2, 2048, 2176, 16, 2, 128
-    pads = torch.tensor([134, 486], device=dev)
-    kv_bias = torch.where(torch.arange(Skv, device=dev)[None] < pads[:, None], NEG_INF, 0.0).float()
     for q_offset in (0, 128):
-        rows = q_offset + torch.arange(Sq, device=dev)
-        valid = (rows[None, :] >= pads[:, None])  # (B, Sq): rows that see a real key
-        allowed = ((torch.arange(Skv, device=dev)[None, :] <= rows[:, None])[None]
-                   & (kv_bias[:, None, :] == 0) & valid[:, :, None])
-        pairs = allowed.sum().item()
-        live_q = valid.sum().item()  # q read, out and lse written
-        live_kv = allowed.any(1).sum().item()  # (b, key) read by some valid row
+        kv_bias, valid, allowed, flops, nbytes = k1_work(B, Sq, Skv, H, Hkv, D, True, q_offset, (134, 486))
 
-        def inputs(dtype, q_offset=q_offset):
+        def inputs(dtype, q_offset=q_offset, kv_bias=kv_bias):
             q, k, v = randn(B, Sq, H, D, dtype=dtype), randn(B, Skv, Hkv, D, dtype=dtype), randn(B, Skv, Hkv, D, dtype=dtype)
             return q, k, v, kv_bias, True, None, q_offset
 
-        def library(q, k, v, kv_bias, causal, scale, q_offset, allowed=allowed):
-            mask = torch.where(allowed | ~valid[:, :, None], 0.0, NEG_INF).to(q.dtype)[:, None]
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
-
-        nbytes = (2 * live_q * H * D + 2 * live_kv * Hkv * D) * 2 + B * Skv * 4 + live_q * H * 4
         entry = check_kernel(
             "flash_attention", lambda *a: flash_attention_fwd(*a)[0],
-            lambda *a: flash_attention_plain(*a)[0], library, inputs, valid,
-            flops=4.0 * pairs * H * D, nbytes=nbytes, timed=q_offset == 0,
+            lambda *a: flash_attention_plain(*a)[0], k1_library(valid, allowed), inputs, valid,
+            flops=flops, nbytes=nbytes, timed=q_offset == 0,
         )
         if q_offset == 0:  # the main path's shape: the entry that is timed
             results["flash_attention"] = entry
@@ -295,10 +312,186 @@ def phase_kernels() -> dict:
         "full_attention_rope", full_attention_rope, full_attention_rope_plain, full_library,
         full_inputs, full_bias == 0, flops=4.0 * (per_slice**2).sum().item() * nh * hd, nbytes=fbytes,
     )
-    results.update(phase_train_kernels())
-    results.update(phase_decode_quant_kernels())
-    results.update(phase_paged_kernels())
     return results
+
+
+def k1_work(B, Sq, Skv, H, Hkv, D, causal, q_offset, pads):
+    """K1's inputs and work at one shape with left pad keys per batch entry:
+    (kv_bias (B, Skv), valid (B, Sq): rows that see a real key, allowed (B,
+    Sq, Skv): the (row, key) pairs of valid rows, the FLOPs of those pairs,
+    the bytes: live q read, out and lse written, each (entry, key) that a
+    valid row reads once, the bias)."""
+    import torch
+
+    from time_r1_tpu_torch.ops.attention import NEG_INF
+
+    dev = torch.device("cuda")
+    keys = torch.arange(Skv, device=dev)
+    pad = torch.tensor(pads, device=dev)
+    kv_bias = torch.where(keys[None] < pad[:, None], NEG_INF, 0.0).float()
+    last = q_offset + torch.arange(Sq, device=dev) if causal else torch.full((Sq,), Skv - 1, device=dev)
+    valid = last[None, :] >= pad[:, None]
+    allowed = (keys[None, :] <= last[:, None])[None] & (kv_bias[:, None, :] == 0) & valid[:, :, None]
+    live_q = valid.sum().item()
+    live_kv = allowed.any(1).sum().item()
+    nbytes = (2 * live_q * H * D + 2 * live_kv * Hkv * D) * 2 + B * Skv * 4 + live_q * H * 4
+    return kv_bias, valid, allowed, 4.0 * allowed.sum().item() * H * D, nbytes
+
+
+def k1_library(valid, allowed):
+    """The yardstick for K1: one SDPA call with the same mask (rows that see
+    no key attend to every key)."""
+    import torch
+    import torch.nn.functional as F
+
+    from time_r1_tpu_torch.ops.attention import NEG_INF
+
+    def library(q, k, v, kv_bias, causal, scale, q_offset):
+        mask = torch.where(allowed | ~valid[:, :, None], 0.0, NEG_INF).to(q.dtype)[:, None]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    return library
+
+
+# K1 edge cases (bf16, tensor-core kernel): (B, Sq, Skv, H, Hkv, D, causal,
+# q_offset, left pad keys per batch entry). The first two are phase 4's
+# prefill at both chunk offsets; `train_B1` is phase 5's prompt forward
+# (timed: the K1 row's B = 1 time); a batch entry padded over all its keys
+# has no row that sees a real key.
+K1_EDGE_CASES = {
+    "serving_q_offset_0": (2, 2048, 2176, 16, 2, 128, True, 0, (134, 486)),
+    "serving_q_offset_128": (2, 2048, 2176, 16, 2, 128, True, 128, (134, 486)),
+    "train_B1": (1, 2048, 2176, 16, 2, 128, True, 0, (134,)),
+    "head_dim_64": (2, 256, 256, 8, 2, 64, True, 0, (20, 0)),
+    "head_dim_80": (2, 256, 320, 8, 2, 80, True, 64, (0, 30)),
+    "G1": (2, 192, 192, 4, 4, 128, True, 0, (0, 50)),
+    "non_causal": (2, 256, 300, 16, 2, 128, False, 0, (10, 0)),
+    "ragged_Sq200_Skv328": (2, 200, 328, 16, 2, 128, True, 128, (37, 0)),
+    "all_masked_rows": (2, 256, 256, 16, 2, 128, True, 0, (150, 256)),
+}
+
+# K3 edge cases (bf16, tensor-core kernel): (n_slices, S, nh, hd, pad keys at
+# the end of each slice); besides, 5% of the other keys are dead patches. A
+# slice padded over its whole length has no live key: its rows must stay
+# finite. JAX's kernel caps S at 1536 (a VMEM limit); the port's does not.
+K3_EDGE_CASES = {
+    "S100_ragged_dead_slice": (3, 100, 16, 80, (0, 17, 100)),
+    "S2048": (1, 2048, 16, 80, (300,)),
+    "nh1": (4, 480, 1, 80, (0, 0, 55, 200)),
+    "head_dim_64": (2, 256, 4, 64, (0, 40)),
+    "head_dim_128": (2, 256, 4, 128, (0, 40)),
+}
+
+
+def misaligned(t):
+    """A contiguous copy of t that starts 2 bytes off 16-byte alignment."""
+    import torch
+
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def fwd_tc_edge_cases(gen, k1_entry: dict, k3_entry: dict) -> None:
+    """bf16 K1 and K3 (the tensor-core kernels) against their plain versions
+    (f32 on the same inputs) at TOL, max abs error on valid rows, for K1's out
+    and lse; every value of every row must be finite. K1's B = 1 shape is
+    timed. Then both wrappers must refuse f16, head dim 96 and a misaligned q."""
+    import torch
+
+    from time_r1_tpu_torch.ops import flash_attention as fa
+    from time_r1_tpu_torch.ops.attention import NEG_INF
+    from time_r1_tpu_torch.ops.vision_attention import full_attention_rope, full_attention_rope_plain
+
+    dev = torch.device("cuda")
+    tol = TOL["bfloat16"]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+    def hold(entry, label, case, pairs, D):
+        """(kernel, plain, valid-row mask) triples: the worst max abs error on
+        valid rows, also over the tail columns 64..79 at D = 80."""
+        errs, tail = [], None
+        for got, want, valid in pairs:
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{label} {case}: non-finite values")
+            diff = (got.float() - want.float()).abs()
+            errs.append(diff[valid].max().item())
+            if D == 80 and got.dim() == 4:
+                tail = diff[valid][..., 64:].max().item()
+        err = max(errs)
+        entry["cases"][case] = err
+        entry["max_abs_err_cases"] = max(entry.get("max_abs_err_cases", 0.0), err)
+        extra = "" if tail is None else f" (columns 64-79: {tail:.3e})"
+        log(f"[kernels] {label} {case}: max |kernel - plain| on valid rows = {errs}{extra}, every value finite "
+            f"(tol {tol})")
+        if not err <= tol:
+            raise AssertionError(f"{label} {case}: max |kernel - plain| = {err} > {tol}")
+
+    k1_entry["cases"], k3_entry["cases"] = {}, {}
+    for case, (B, Sq, Skv, H, Hkv, D, causal, q_offset, pads) in K1_EDGE_CASES.items():
+        bias, valid, allowed, flops, nbytes = k1_work(B, Sq, Skv, H, Hkv, D, causal, q_offset, pads)
+        q, k, v = randn(B, Sq, H, D), randn(B, Skv, Hkv, D), randn(B, Skv, Hkv, D)
+        args = (q, k, v, bias, causal, None, q_offset)
+        out, lse = fa.flash_attention_fwd(*args)
+        want, want_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), *args[3:])
+        torch.cuda.synchronize()
+        hold(k1_entry, "flash_attention", case, [(out, want, valid), (lse, want_lse, valid[:, None, :].expand(B, H, Sq))], D)
+        if case == "train_B1":
+            ms = cuda_ms(lambda: fa.flash_attention_fwd(*args))
+            bound_ms, bound_by = bound(flops, nbytes)
+            k1_entry["b1"] = dict(shape=[B, Sq, Skv, H, Hkv, D], pad=pads[0], ms=ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, tflops=flops / ms / 1e9, bound_share=bound_ms / ms,
+                                  library_ms=cuda_ms(k1_library(valid, allowed)(*args)))
+            log(f"[kernels] flash_attention at B = 1 (phase 5's prompt forward): {ms:.4f} ms, bound "
+                f"{bound_ms:.4f} by {bound_by}, {flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the "
+                f"bound, library {k1_entry['b1']['library_ms']:.4f} ms")
+
+    for case, (n, S, nh, hd, pads) in K3_EDGE_CASES.items():
+        q, k, v = randn(n, S, nh, hd), randn(n, S, nh, hd), randn(n, S, nh, hd)
+        theta = torch.rand(n, S, hd, generator=gen, device=dev) * 20.0
+        cos, sin = theta.cos(), theta.sin()
+        keys = torch.arange(S, device=dev)
+        dead = (keys[None] >= S - torch.tensor(pads, device=dev)[:, None]) | (
+            torch.rand(n, S, generator=gen, device=dev) < 0.05)
+        bias = torch.where(dead, NEG_INF, 0.0).float()
+        out = full_attention_rope(q, k, v, cos, sin, bias)
+        want = full_attention_rope_plain(q.float(), k.float(), v.float(), cos, sin, bias)
+        torch.cuda.synchronize()
+        hold(k3_entry, "full_attention_rope", case, [(out, want, ~dead)], hd)
+
+    # what the kernels do not take raises in the wrapper, never falls back
+    B, S, H, Hkv, D = 1, 256, 16, 2, 128
+    q, k, v = randn(B, S, H, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+    bias = torch.zeros(B, S, device=dev)
+    vq, vk, vv = randn(2, 64, 4, 80), randn(2, 64, 4, 80), randn(2, 64, 4, 80)
+    cs, vb = torch.rand(2, 64, 80, device=dev), torch.zeros(2, 64, device=dev)
+    d96 = [randn(1, S, H, 96), randn(1, S, Hkv, 96), randn(1, S, Hkv, 96)]
+    v96 = [randn(2, 64, 4, 96) for _ in range(3)]
+    refused = {
+        "flash_attention": {
+            "float16": lambda: fa.flash_attention_fwd(q.half(), k.half(), v.half(), bias),
+            "head dim 96": lambda: fa.flash_attention_fwd(*d96, bias),
+            "q 2 bytes off 16-byte alignment": lambda: fa.flash_attention_fwd(misaligned(q), k, v, bias),
+        },
+        "full_attention_rope": {
+            "float16": lambda: full_attention_rope(vq.half(), vk.half(), vv.half(), cs, cs, vb),
+            "head dim 96": lambda: full_attention_rope(*v96, torch.rand(2, 64, 96, device=dev),
+                                                       torch.rand(2, 64, 96, device=dev), vb),
+            "q 2 bytes off 16-byte alignment": lambda: full_attention_rope(misaligned(vq), vk, vv, cs, cs, vb),
+        },
+    }
+    for name, calls in refused.items():
+        for what, call in calls.items():
+            try:
+                call()
+            except ValueError as e:
+                log(f"[kernels] {name} refuses {what}: {e}")
+            else:
+                raise AssertionError(f"{name} took {what}")
 
 
 # Gradient tolerances, as max |kernel - plain| / max |plain| over the output.
@@ -1090,8 +1283,11 @@ def phase_reduced_depth() -> None:
     for device, params in (("cuda", params_gpu), ("cpu", params_cpu)):
         eng = Engine(params, cfg, dtype=torch.float32, device=device)
         t0 = time.perf_counter()
+        reset_launches()
         logits = eng.last_token_logits([req])
         tokens = eng.generate([req], sp)[0]
+        if device == "cuda":  # f32: K1 and K3 take the exact FMA kernels
+            check_tc_route("reduced", read_launches(), {n: None for n in FWD_TC}, tensor_cores=False)
         out[device] = (logits, tokens)
         log(f"[reduced] {device}: {time.perf_counter() - t0:.1f} s, tokens {tokens}")
     (lg, tg), (lc, tc) = out["cuda"], out["cpu"]
@@ -1216,7 +1412,9 @@ def kernel_wrappers():
 
 # wrappers that also count tensor-core launches (bf16); the rest of their
 # launches ran the f32 FMA kernels
-TC_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv", "shared_prefix_fwd", "shared_prefix_bwd", "shared_prefix_bwd_dkv")
+TC_KERNELS = ("flash_attention", "full_attention_rope", "flash_bwd_dq", "flash_bwd_dkv", "shared_prefix_fwd",
+              "shared_prefix_bwd", "shared_prefix_bwd_dkv")
+FWD_TC = ("flash_attention", "full_attention_rope")  # K1 and K3: on every serving and rollout path
 
 
 def reset_launches() -> None:
@@ -1227,8 +1425,8 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    """Every wrapper's launches; for B1, B2, S1 and S2 also `<name>_tc`,
-    their tensor-core launches (the rest ran the f32 FMA kernels)."""
+    """Every wrapper's launches; for K1, K3, B1, B2, S1 and S2 also
+    `<name>_tc`, their tensor-core launches (the rest ran the f32 FMA kernels)."""
     wrappers = kernel_wrappers()
     out = {name: fn.launches for name, fn in wrappers.items()}
     out.update({f"{name}_tc": wrappers[name].tc_launches for name in TC_KERNELS})
@@ -1236,9 +1434,10 @@ def read_launches() -> dict:
 
 
 def check_tc_route(tag: str, launches: dict, want: dict, tensor_cores: bool) -> None:
-    """B1, B2, S1 and S2 ran `want[name]` launches (None: at least one), all
-    on the tensor-core kernels (bf16) or all on the f32 FMA kernels."""
-    for name in TC_KERNELS:
+    """Each kernel `name` of `want` (of TC_KERNELS) ran `want[name]` launches
+    (None: at least one), all on the tensor-core kernels (bf16) or all on the
+    f32 FMA kernels."""
+    for name in want:
         n, tc = launches[name], launches[f"{name}_tc"]
         fma = n - tc
         log(f"[{tag}] {name}: {tc} tensor-core launches, {fma} FMA launches")
@@ -1270,7 +1469,10 @@ def phase_full_size() -> dict:
     t0 = time.perf_counter()
     out = eng.generate(reqs, sp)
     total = time.perf_counter() - t0
-    launches = {k: v for k, v in read_launches().items() if k in SERVING_KERNELS}
+    launches = {k: v for k, v in read_launches().items() if k in SERVING_KEYS}
+    check_tc_route("full", launches, {"flash_attention": cfg.text.num_hidden_layers,
+                                      "full_attention_rope": len(cfg.vision.fullatt_block_indexes)},
+                   tensor_cores=True)
     tm = eng.timings
     n_gen = sum(len(o) for o in out)
     log(f"[full] launches on the main path: {launches}")
@@ -1279,8 +1481,8 @@ def phase_full_size() -> dict:
         f"{n_gen} tokens generated, {n_gen / tm['decode_s']:.1f} tok/s in decode, "
         f"{total:.2f} s for the generate() call, "
         f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in SERVING_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
     if not all(len(o) >= 1 for o in out):
         raise AssertionError("a request produced no tokens")
@@ -1293,6 +1495,7 @@ def phase_full_size() -> dict:
 
 
 SERVING_KERNELS = ("flash_attention", "window_attention_rope", "full_attention_rope")
+SERVING_KEYS = SERVING_KERNELS + tuple(f"{n}_tc" for n in FWD_TC)  # phase 4's launch counts
 TRAIN_KERNELS = SERVING_KERNELS + ("flash_bwd_dq", "flash_bwd_dkv", "shared_prefix_fwd", "shared_prefix_bwd",
                                    "shared_prefix_bwd_dkv", "shared_prefix_decode_attention",
                                    "shared_prefix_decode_full")
@@ -1305,6 +1508,17 @@ def check_step_launches(tag: str, launches: dict, steps: int, layers: int, per_l
     for name, n in per_layer.items():
         if launches[name] != n * layers * steps:
             raise AssertionError(f"{tag}: {name} launched {launches[name]} times, want {n} x {layers} x {steps}")
+
+
+def step_batch_tc_launches(cfg) -> dict:
+    """The tensor-core launches of one bf16 `step_batch`, per layer: K1 in
+    the rollout prefill, ref_logps and the loss's prompt forward; B1 once; B2
+    for the prompt and the own chunk; S1 in ref_logps and in the loss; S2's
+    dq and prefix dK/dV once. K3 in the rollout's vision tower."""
+    layers = cfg.text.num_hidden_layers
+    return {"flash_attention": 3 * layers, "full_attention_rope": len(cfg.vision.fullatt_block_indexes),
+            "flash_bwd_dq": layers, "flash_bwd_dkv": 2 * layers, "shared_prefix_fwd": 2 * layers,
+            "shared_prefix_bwd": layers, "shared_prefix_bwd_dkv": layers}
 
 
 def token_parity_reward(completions, **kwargs):
@@ -1377,12 +1591,7 @@ def phase_train_full_size() -> dict:
         check_step_launches(f"step_batch {call}", launches, tm["decode_steps"], cfg.text.num_hidden_layers,
                             {"shared_prefix_decode_full": 1, "shared_prefix_decode_attention": 1,
                              "int4_matmul": 0, "fused_mlp_int8": 0})
-        # per layer: B1 once; B2 for the prompt and the own chunk; S1 in ref_logps and in the
-        # loss; S2's dq and prefix dK/dV once
-        layers = cfg.text.num_hidden_layers
-        check_tc_route(f"train step_batch {call}", launches,
-                       {"flash_bwd_dq": layers, "flash_bwd_dkv": 2 * layers, "shared_prefix_fwd": 2 * layers,
-                        "shared_prefix_bwd": layers, "shared_prefix_bwd_dkv": layers}, tensor_cores=True)
+        check_tc_route(f"train step_batch {call}", launches, step_batch_tc_launches(cfg), tensor_cores=True)
     changed = total_elems = 0
     for p, b in zip(trainable_leaves(params, config.fix_vit), before):
         changed += int((p.detach().cpu() != b).sum())
@@ -1449,6 +1658,7 @@ def phase_quant_full_size() -> dict:
         check_step_launches(f"int8 step_batch {call}", launches, tm["decode_steps"], L,
                             {"shared_prefix_decode_full": 1, "shared_prefix_decode_attention": 1,
                              "fused_mlp_int8": 1, "int4_matmul": 0})
+        check_tc_route(f"int8 step_batch {call}", launches, step_batch_tc_launches(cfg), tensor_cores=True)
         out = {k: launches[k] for k in ("shared_prefix_decode_attention", "shared_prefix_decode_full",
                                         "fused_mlp_int8")}
     del trainer, ref
@@ -1475,6 +1685,9 @@ def phase_quant_full_size() -> dict:
     log(f"[quant] int4 generate: launches {launches}")
     check_step_launches("int4 generate", launches, tm["decode_steps"], L,
                         {"int4_matmul": 4, "shared_prefix_decode_full": 1, "fused_mlp_int8": 0})
+    check_tc_route("int4 generate", launches, {"flash_attention": L,
+                                               "full_attention_rope": len(cfg.vision.fullatt_block_indexes)},
+                   tensor_cores=True)
     if len(rows) != 8 or not all(len(r) == 200 for r in rows):
         raise AssertionError(f"int4 generate: rows of {[len(r) for r in rows]} tokens")
     out["int4_matmul"] = launches["int4_matmul"]
@@ -1548,6 +1761,7 @@ def phase_reduced_quant() -> dict:
                 check_step_launches(f"reduced {quant}", launches, steps, cfg.text.num_hidden_layers,
                                     {"shared_prefix_decode_full": 1,
                                      "fused_mlp_int8": int(quant == "int8"), "int4_matmul": 4 * (quant == "int4")})
+                check_tc_route(f"reduced {quant}", launches, {n: None for n in FWD_TC}, tensor_cores=False)
         per_step = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(out["cuda"], out["cpu"])]
         errs[quant] = max(per_step)
         finite = all(np.isfinite(a).all() for a in out["cuda"])
@@ -1608,6 +1822,8 @@ def phase_reduced_serving() -> dict:
             log(f"[serving-reduced] {name} {dev}: {time.perf_counter() - t0:.1f} s, {tm['segments']} segments "
                 f"({tm['interleaved_segments']} inside admissions), launches {launches}")
             if dev == "cuda":
+                check_tc_route(f"serving-reduced {name}", read_launches(), {n: None for n in FWD_TC},
+                               tensor_cores=False)
                 for k in ("paged_prefix_attention", "paged_prefix_attention_q8"):
                     want = L * tm["decode_steps"] if k == kernel[name] else 0
                     if launches.get(k, 0) != want:
@@ -1706,6 +1922,7 @@ def phase_serving_full_size() -> dict:
         want = {name: 0 for name in launches}
         want.update(flash_attention=L * chunks, window_attention_rope=n_window * videos,
                     full_attention_rope=n_full * videos)
+        want.update({f"{n}_tc": want[n] for n in FWD_TC})  # bf16: every K1/K3 launch on the tensor cores
         if tag == "a":
             want["paged_prefix_attention"] = steps
         if tag == "b":
@@ -1714,6 +1931,7 @@ def phase_serving_full_size() -> dict:
         bad = {k: (launches[k], want[k]) for k in want if launches[k] != want[k]}
         if bad:
             raise AssertionError(f"({tag}): launches (got, want) {bad}")
+        check_tc_route(f"serve ({tag})", launches, {n: want[n] for n in FWD_TC}, tensor_cores=True)
         if tag in ("a", "b") and tm["interleaved_segments"] < 1:
             raise AssertionError(f"({tag}): no segment ran inside an admission")
         tokens[tag] = out
@@ -1761,7 +1979,7 @@ def main() -> int:
     phase_reduced_serving()
     launches = phase_full_size()  # K1-K3: the serving path
     train_launches = phase_train_full_size()  # B1, B2, S1, S2 (and D1/D2 in the rollout): the training path
-    launches.update({k: v for k, v in train_launches.items() if k not in SERVING_KERNELS})
+    launches.update({k: v for k, v in train_launches.items() if k not in SERVING_KEYS})
     quant_launches = phase_quant_full_size()  # D1, D2, Q2 (int8 step_batch), Q1 (int4 generate)
     serve = phase_serving_full_size()  # P1 (a), P2 (b): continuous-batching serving
     quant_launches["paged_prefix_attention"] = serve["a"]["launches"]["paged_prefix_attention"]
@@ -1808,7 +2026,7 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": quant_launches.get(name, launches[name]),
         })
-    # B1, B2, S1, S2: the bf16 step_batch's tensor-core launches (all of them: no FMA launch there)
+    # K1, K3 (phase 4), B1, B2, S1, S2 (phase 5): their tensor-core launches (all of them: no FMA launch there)
     for k in kernels:
         if k["name"] in TC_KERNELS:
             k["tc_launches"] = launches[f"{k['name']}_tc"]

@@ -1,7 +1,9 @@
-// Tiled attention forward with an online softmax, shared by the port's four
-// attention forward kernels (flash_attention.cu: K1; vision_attention.cu: K2,
-// K3; shared_prefix_attention.cu: S1, which chains two key sources through
-// `fwd_source`). The backward tiles are in attention_bwd.cuh.
+// Tiled attention forward with an online softmax in plain f32 FMA, shared by
+// the port's exact f32 attention forwards (flash_attention.cu: K1;
+// vision_attention.cu: K3; shared_prefix_attention.cu: S1, which chains two
+// key sources through `fwd_source`) and by K2 (vision_attention.cu) in both
+// dtypes. The bf16 K1, K3 and S1 run the tensor-core forward of
+// attention_fwd_tc.cuh instead; the backward tiles are in attention_bwd.cuh.
 //
 // One block of 256 threads computes a 64-row query tile of one head of one
 // batch entry (a batch entry is a sequence for K1, a window for K2, a
@@ -19,9 +21,9 @@
 // (transposed, roped when ROPE) and V in turn through one buffer, so that a
 // head dim of 128 fits two blocks on an SM.
 //
-// Arithmetic is plain f32 FMA: the same code serves the f32 instance (which
-// the comparisons use) and the bf16 one. Tensor cores (mma/wgmma) and TMA are
-// the work of a later change.
+// The same code serves the f32 instances (exact, which the card-against-CPU
+// comparisons use) and K2's bf16 one, whose operands are converted to f32 in
+// shared memory: K2 is bound by the FMA rate here, not by its bytes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -296,23 +298,15 @@ cudaError_t launch(const AttnParams& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t, or -1 for a head
-// dim or dtype without an instance.
-template <bool ROPE>
-int dispatch(int dtype, int D, const AttnParams& p, int batch, cudaStream_t stream) {
-  if (dtype != 0 && dtype != 1) return -1;
+// T = float or __nv_bfloat16. Returns a cudaError_t, or -1 for a head dim
+// without an instance.
+template <typename T, bool ROPE>
+int dispatch(int D, const AttnParams& p, int batch, cudaStream_t stream) {
   switch (D) {
-    case 64:
-      return dtype ? launch<__nv_bfloat16, 64, ROPE>(p, batch, stream)
-                   : launch<float, 64, ROPE>(p, batch, stream);
-    case 80:
-      return dtype ? launch<__nv_bfloat16, 80, ROPE>(p, batch, stream)
-                   : launch<float, 80, ROPE>(p, batch, stream);
-    case 128:
-      return dtype ? launch<__nv_bfloat16, 128, ROPE>(p, batch, stream)
-                   : launch<float, 128, ROPE>(p, batch, stream);
-    default:
-      return -1;
+    case 64: return launch<T, 64, ROPE>(p, batch, stream);
+    case 80: return launch<T, 80, ROPE>(p, batch, stream);
+    case 128: return launch<T, 128, ROPE>(p, batch, stream);
+    default: return -1;
   }
 }
 

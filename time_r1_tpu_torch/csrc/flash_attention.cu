@@ -12,15 +12,20 @@
 // limit never reaches, so the tile loop stops at the causal limit.
 //
 // What bounds it on the H100: at the serving shape (B=2, Sq=2048, H=16, D=128)
-// the causal product is ~34 GFLOP against ~38 MB of operands, so the bound is
-// the arithmetic (tensor cores, 989 TFLOP/s bf16). This first version runs
-// plain f32 FMA (67 TFLOP/s peak) out of shared memory, fed by a 4x4
-// register tile per thread: it is right and simple, and leaves the tensor
-// cores (mma/wgmma with TMA-fed tiles) to a later change. See
-// attention_tile.cuh for the tiling.
+// the causal product is ~25 GFLOP of live pairs against ~38 MB of operands,
+// so the bound is the arithmetic (tensor cores, 989 TFLOP/s bf16). Two
+// instances, picked by the wrapper by dtype:
+// - bf16 (`t1_flash_attention_fwd_tc`): the tensor-core forward of
+//   attention_fwd_tc.cuh (wgmma, a cp.async/mbarrier ring, the online softmax
+//   on the accumulators) with one key source; its notes give the design and
+//   the budget;
+// - f32 (`t1_flash_attention_fwd`): exact f32 FMA (attention_tile.cuh), so
+//   that f32 runs compare with the CPU at 1e-4 and below.
+#include "attention_fwd_tc.cuh"
 #include "attention_tile.cuh"
 
-extern "C" int t1_flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
+// K1, f32 q, k, v, o. kv_bias (B, Skv) and lse (B, H, Sq) f32.
+extern "C" int t1_flash_attention_fwd(const void* q, const void* k, const void* v,
                                       const float* kv_bias, void* o, float* lse, int B, int Sq,
                                       int Skv, int H, int Hkv, int D, int causal, float scale,
                                       int q_offset, void* stream) {
@@ -45,5 +50,27 @@ extern "C" int t1_flash_attention_fwd(int dtype, const void* q, const void* k, c
   p.causal = causal;
   p.q_offset = q_offset;
   p.scale = scale;
-  return t1::dispatch<false>(dtype, D, p, B, static_cast<cudaStream_t>(stream));
+  return t1::dispatch<float, false>(D, p, B, static_cast<cudaStream_t>(stream));
 }
+
+// K1, bf16 q, k, v, o (16-byte aligned); the rest as t1_flash_attention_fwd.
+// The tensor-core kernel.
+extern "C" int t1_flash_attention_fwd_tc(const void* q, const void* k, const void* v,
+                                         const float* kv_bias, void* o, float* lse, int B, int Sq,
+                                         int Skv, int H, int Hkv, int D, int causal, float scale,
+                                         int q_offset, void* stream) {
+  t1::tc::FwdParams p{};
+  p.q = q;
+  p.o = o;
+  p.lse = lse;
+  p.Sq = Sq;
+  p.H = H;
+  p.G = H / Hkv;
+  p.scale = scale;
+  p.n_src = 1;
+  p.src[0] = t1::BwdSource{k, v, kv_bias, (long long)Skv * Hkv * D, Hkv * D, Skv, causal, q_offset, 1};
+  return t1::tc::dispatch_fwd<false>(D, p, B, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory of one tensor-core K1 block at head dim D, in bytes.
+extern "C" int t1_flash_attention_fwd_tc_smem_bytes(int D) { return t1::tc::fwd_smem(D, false); }

@@ -177,8 +177,7 @@ extern "C" int t1_sp_fwd_tc(const void* q, const void* kp, const void* vp, const
   p.n_src = 2;
   p.src[0] = prefix_source(kp, vp, prefix_bias, B / P, Lp, Hkv, D);
   p.src[1] = own_source(ko, vo, Sc, Hkv, D);
-  const dim3 grid((Sc + t1::BQ - 1) / t1::BQ, H, B);
-  return t1::tc::dispatch_fwd(D, p, grid, static_cast<cudaStream_t>(stream));
+  return t1::tc::dispatch_fwd<false>(D, p, B, static_cast<cudaStream_t>(stream));
 }
 
 // S2, dq over the prefix and the own chunk, f32. dout, dq as q; lse, delta (B, H, Sc) f32.
@@ -242,5 +241,5 @@ extern "C" int t1_sp_bwd_dkv_prefix_tc(const void* q, const void* kp, const void
 // Dynamic shared memory of one tensor-core S1 block at head dim D, in bytes
 // (S2's blocks take t1_flash_bwd_tc_smem_bytes's).
 extern "C" int t1_sp_fwd_tc_smem_bytes(int D) {
-  return D == 64 ? t1::tc::fwd_smem_bytes<64>() : D == 128 ? t1::tc::fwd_smem_bytes<128>() : -1;
+  return D == 64 || D == 128 ? t1::tc::fwd_smem(D, false) : -1;
 }

@@ -22,10 +22,18 @@
 //
 // What bounds them on the H100: at the serving shape (two videos, 15104
 // patch rows, 16 heads of 80) K2 does ~5 GFLOP over ~165 MB of bf16
-// operands, so its bound is the bytes (~50 us at 3.35 TB/s); K3 does ~36
-// GFLOP over ~175 MB, bytes and tensor-core arithmetic about even. The shared
-// tile code (attention_tile.cuh) runs plain f32 FMA, so today both are bound
-// by the FMA rate instead; tensor cores come in a later change.
+// operands, so its bound is the bytes (~50 us at 3.35 TB/s); K3 does ~31
+// GFLOP over ~140 MB, bytes and tensor-core arithmetic about even. Instances:
+// - K3 in bf16 (`t1_full_attention_rope_fwd_tc`): the tensor-core forward of
+//   attention_fwd_tc.cuh with its ROPE flag (Q and each K tile roped in
+//   shared memory, in f32, and rounded to bf16 before wgmma; two 64-row query
+//   tiles a block share each roped K tile; head dim 80 in a 64-column block
+//   and a 16-column tail, no padded products);
+// - K3 in f32 and K2 in both dtypes: the FMA tiles of attention_tile.cuh
+//   (f32 operands in shared memory, 4x4 register tiles), exact in f32 so
+//   that f32 runs compare with the CPU; K2 runs FMA in bf16 too, bound by
+//   the FMA rate instead of its bytes.
+#include "attention_fwd_tc.cuh"
 #include "attention_tile.cuh"
 
 extern "C" int t1_window_attention_rope_fwd(int dtype, const void* q, const void* k,
@@ -54,10 +62,14 @@ extern "C" int t1_window_attention_rope_fwd(int dtype, const void* q, const void
   p.H = nh;
   p.G = 1;
   p.scale = scale;
-  return t1::dispatch<true>(dtype, hd, p, P / win, static_cast<cudaStream_t>(stream));
+  if (dtype != 0 && dtype != 1) return -1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype ? t1::dispatch<__nv_bfloat16, true>(hd, p, P / win, st) : t1::dispatch<float, true>(hd, p, P / win, st);
 }
 
-extern "C" int t1_full_attention_rope_fwd(int dtype, const void* q, const void* k, const void* v,
+// K3, f32 q, k, v, o (n_slices, S, nh, hd); cos, sin (n_slices, S, hd) and
+// key_bias (n_slices, S) f32.
+extern "C" int t1_full_attention_rope_fwd(const void* q, const void* k, const void* v,
                                           const float* cos, const float* sin,
                                           const float* key_bias, void* o, int n_slices, int S,
                                           int nh, int hd, float scale, void* stream) {
@@ -82,5 +94,28 @@ extern "C" int t1_full_attention_rope_fwd(int dtype, const void* q, const void* 
   p.H = nh;
   p.G = 1;
   p.scale = scale;
-  return t1::dispatch<true>(dtype, hd, p, n_slices, static_cast<cudaStream_t>(stream));
+  return t1::dispatch<float, true>(hd, p, n_slices, static_cast<cudaStream_t>(stream));
 }
+
+// K3, bf16 q, k, v, o (16-byte aligned; cos/sin too); the rest as
+// t1_full_attention_rope_fwd. The tensor-core kernel.
+extern "C" int t1_full_attention_rope_fwd_tc(const void* q, const void* k, const void* v,
+                                             const float* cos, const float* sin,
+                                             const float* key_bias, void* o, int n_slices, int S,
+                                             int nh, int hd, float scale, void* stream) {
+  t1::tc::FwdParams p{};
+  p.q = q;
+  p.o = o;
+  p.cos = cos;
+  p.sin = sin;
+  p.Sq = S;
+  p.H = nh;
+  p.G = 1;
+  p.scale = scale;
+  p.n_src = 1;
+  p.src[0] = t1::BwdSource{k, v, key_bias, (long long)S * nh * hd, nh * hd, S, 0, 0, 1};
+  return t1::tc::dispatch_fwd<true>(hd, p, n_slices, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory of one tensor-core K3 block at head dim D, in bytes.
+extern "C" int t1_full_attention_rope_fwd_tc_smem_bytes(int D) { return t1::tc::fwd_smem(D, true); }

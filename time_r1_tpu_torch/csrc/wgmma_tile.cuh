@@ -1,11 +1,16 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core attention kernels:
 // cp.async copies completed on mbarriers, 64-row bf16 tiles in shared memory
-// with the 128-byte swizzle, their wgmma descriptors, and the warpgroup
-// products. Shared by the forward (attention_fwd_tc.cuh: S1) and the
-// backward (attention_bwd_tc.cuh: B1, B2, S2).
+// with the 128-byte swizzle (and a 32-byte-swizzled tail at head dim 80),
+// their wgmma descriptors, and the warpgroup products. Shared by the forward
+// (attention_fwd_tc.cuh: K1, K3, S1) and the backward (attention_bwd_tc.cuh:
+// B1, B2, S2).
 //
-// A tile is 64 rows x D bf16, stored as D/64 blocks of 64 x 64 (8 KB each);
-// row r's 16-byte chunk c of a block lies at r * 128 + ((c ^ (r & 7)) << 4).
+// A tile is 64 rows x D bf16. Its first 64 * (D / 64) columns are stored as
+// D/64 blocks of 64 x 64 (8 KB each); row r's 16-byte chunk c of a block lies
+// at r * 128 + ((c ^ (r & 7)) << 4). At D = 80 the last 16 columns (32 bytes
+// a row) follow as one 2 KB block with the 32-byte swizzle: chunk c (0 or 1)
+// of row r at 8192 + r * 32 + ((c ^ ((r >> 2) & 1)) << 4), the pattern of
+// CUTLASS's Swizzle<1, 4, 3> (address bit 7 into bit 4).
 // One warpgroup (128 threads) issues every product; a 64 x N f32 accumulator
 // gives thread (warp w, lane l) rows 16w + l/4 and 16w + l/4 + 8, columns
 // 8j + 2(l % 4) and +1: element 4j + 2i + e is (row + 8i, column 8j + 2(l % 4) + e).
@@ -75,8 +80,20 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   }
 }
 
+// Columns of a tile in 128-byte-swizzled 64-column blocks, and the rest (16
+// at D = 80, in the 32-byte-swizzled tail block).
+template <int D>
+__host__ __device__ constexpr int main_cols() { return D == 80 ? 64 : D; }
+
+// Byte offset in a tile of row r's 16-byte chunk c (8 bf16, columns 8c..8c+7).
+template <int D>
+__device__ __forceinline__ uint32_t chunk_off(int r, int c) {
+  if (D == 80 && c >= 8) return 8192 + r * 32 + (((c & 1) ^ ((r >> 2) & 1)) << 4);
+  return (c >> 3) * 8192 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
 // 64 rows x D bf16 from rows row0.. of a row-major source (row_stride
-// elements) into D/64 swizzled 64 x 64 blocks; rows >= n_rows are zeros.
+// elements) into the swizzled tile; rows >= n_rows are zeros.
 template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* g, long long row_stride, int row0,
                                           int n_rows) {
@@ -88,7 +105,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* g, long long
     const int c = idx % CPR;
     const bool ok = row0 + r < n_rows;
     const bf16* src = g + (long long)(ok ? row0 + r : 0) * row_stride + c * 8;
-    cp_async16(dst + (c >> 3) * 8192 + r * 128 + (((c & 7) ^ (r & 7)) << 4), src, ok);
+    cp_async16(dst + chunk_off<D>(r, c), src, ok);
   }
 }
 
@@ -100,16 +117,37 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
          ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
 }
 
+// The same with the 32-byte swizzle (layout type 3 in bits 62-63, as
+// CUTLASS's GmmaDescriptor encodes LayoutType::B32).
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (3ull << 62);
+}
+
 // K-major operand (rows = M or N, columns = the reduced dim) of a tile: the
 // kk-th 16-column step lies in block kk / 4, 32 bytes per step into its rows.
 __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
   return desc_sw128(tile + (kk >> 2) * 8192 + (kk & 3) * 32, 16, 1024);
 }
 
+// The kk-th 16-column step of a D-column tile; at D = 80 the fifth step is
+// the whole 32-byte-swizzled tail block (8-row groups 256 bytes apart).
+template <int D>
+__device__ __forceinline__ uint64_t kdesc(uint32_t tile, int kk) {
+  if (D == 80 && kk == 4) return desc_sw32(tile + 8192, 16, 256);
+  return kmajor(tile, kk);
+}
+
 // MN-major B operand (rows = the reduced dim, columns = N = D): the kk-th
 // 16-row step starts 16 rows down; the 64-column blocks lie 8 KB apart.
 __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
   return desc_sw128(tile + kk * 2048, 8192, 1024);
+}
+
+// The same over the 16-column tail block at `tail` (32 bytes a row): the
+// kk-th 16-row step starts 512 bytes in, 8-row groups 256 bytes apart.
+__device__ __forceinline__ uint64_t mnmajor_tail(uint32_t tail, int kk) {
+  return desc_sw32(tail + kk * 512, 512, 256);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -144,6 +182,16 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 16, f32) += A (64 x 16, bf16 registers) * B (16 x 16, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D (64 x 128, f32) += A (64 x 16, bf16 registers) * B (16 x 128, smem, MN-major).
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -166,7 +214,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[
 template <int D>
 __device__ __forceinline__ void scores(float (&s)[32], uint32_t a_tile, uint32_t b_tile) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(s, kmajor(a_tile, kk), kmajor(b_tile, kk), kk);
+  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(s, kdesc<D>(a_tile, kk), kdesc<D>(b_tile, kk), kk);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -30,7 +30,7 @@ NVCC_FLAGS = [
 ]
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-ATTN_HEAD_DIMS = (64, 80, 128)  # head dims instantiated in csrc/attention_tile.cuh
+ATTN_HEAD_DIMS = (64, 80, 128)  # head dims of K1-K3 (csrc/attention_tile.cuh, attention_fwd_tc.cuh)
 
 _libs: dict[str, ctypes.CDLL] = {}
 

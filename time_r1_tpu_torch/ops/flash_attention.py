@@ -3,6 +3,9 @@ of the port's CUDA kernels and their plain versions.
 
 - K1 `flash_attention_fwd` (`csrc/flash_attention.cu`) replaces the Pallas
   `_flash_fwd` of `time_r1_tpu/ops/flash_attention.py` (pallas_call at :135).
+  bf16 operands launch the tensor-core kernel (`csrc/attention_fwd_tc.cuh`),
+  f32 operands the exact f32 FMA one (`csrc/attention_tile.cuh`);
+  `.tc_launches` counts the first.
 - B1 `flash_bwd_dq` and B2 `flash_bwd_dkv` (`csrc/flash_attention_bwd.cu`)
   replace `_flash_bwd_dq` (:325) and `_flash_bwd_dkv` (:368 grouped, :400 per
   head). `flash_attention` is a `torch.autograd.Function` whose backward runs
@@ -17,7 +20,8 @@ of the port's CUDA kernels and their plain versions.
   `csrc/attention_bwd_tc.cuh`), f32 operands the exact f32 FMA ones;
   `.tc_launches` counts the first.
 
-Given CUDA tensors a wrapper launches its kernel (or raises) and adds one to
+Given CUDA tensors a wrapper launches its kernel (or raises: a bf16 shape
+that the tensor-core kernel does not take has no fallback) and adds one to
 its `.launches`; given CPU tensors it runs its plain version, which computes
 the same function in plain torch (the backward's plain versions are the
 explicit FA-2 formulas, so on the CPU the autograd Functions run the same
@@ -44,6 +48,14 @@ _F = ctypes.c_float
 
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
     return q.shape[-1] ** -0.5 if scale is None else float(scale)
+
+
+_FWD_ARGS = [_P] * 6 + [_I] * 7 + [_F, _I, _P]
+
+
+def _launch(name, symbol, stem, args_types, args):
+    fn = kernels.bind(stem, symbol, args_types)
+    kernels.check(fn(*args), name)
 
 
 def _masked_scores(q, k, kv_bias, causal, scale, q_offset):
@@ -117,29 +129,32 @@ def flash_attention_fwd(
     scale: Optional[float] = None,
     q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(out, lse). CUDA tensors launch K1; CPU tensors run the plain version."""
+    """(out, lse). CUDA tensors launch K1 (bf16: the tensor-core kernel, whose
+    16-byte copies need q, k and v on 16 bytes); CPU tensors run the plain
+    version."""
     scale = _scale(q, scale)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, kv_bias, causal, scale, q_offset)
     name = "flash_attention"
     _check_attn(name, q, k, v, kv_bias, kernels.ATTN_HEAD_DIMS)
+    kernels.require(q.shape[1] > 0 and k.shape[1] > 0, name, "empty query or key range")
+    tc = q.dtype == torch.bfloat16
+    if tc:
+        kernels.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)), name, "bf16 operands must be 16-byte aligned")
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    fn = kernels.bind("flash_attention", "t1_flash_attention_fwd",
-                      [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P])
-    rc = fn(
-        kernels.DTYPE_CODE[q.dtype], kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
-        kernels.ptr(kv_bias), kernels.ptr(out), kernels.ptr(lse),
-        B, Sq, Skv, H, Hkv, D, int(causal), scale, int(q_offset), kernels.stream(q),
-    )
-    kernels.check(rc, name)
+    _launch(name, "t1_flash_attention_fwd_tc" if tc else "t1_flash_attention_fwd", "flash_attention",
+            _FWD_ARGS, [kernels.ptr(t) for t in (q, k, v, kv_bias, out, lse)]
+            + [B, Sq, Skv, H, Hkv, D, int(causal), scale, int(q_offset), kernels.stream(q)])
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.tc_launches += int(tc)
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.tc_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -175,11 +190,6 @@ def flash_bwd_dkv_plain(q, k, v, kv_bias, do, lse, delta, causal=True, scale=Non
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do.float().reshape(B, Sq, Hkv, H // Hkv, D))
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, q.float().reshape(B, Sq, Hkv, H // Hkv, D) * scale)
     return dk, dv
-
-
-def _bwd_launch(name, symbol, stem, args_types, args):
-    fn = kernels.bind(stem, symbol, args_types)
-    kernels.check(fn(*args), name)
 
 
 def bwd_dkv_split(G: int, Skv: int, Hkv: int, B: int, R: int = 1) -> int:
@@ -225,8 +235,8 @@ def flash_bwd_dq(q, k, v, kv_bias, do, lse, delta, causal=True, scale=None, q_of
     ptrs = [kernels.ptr(t) for t in (q, k, v, kv_bias, do, lse, delta_t, dq)]
     tail = [B, Sq, Skv, H, Hkv, D, int(causal), scale, int(q_offset), kernels.stream(q)]
     tc = q.dtype == torch.bfloat16
-    _bwd_launch(name, "t1_flash_bwd_dq_tc" if tc else "t1_flash_bwd_dq", "flash_attention_bwd", _DQ_ARGS,
-                ptrs + tail)
+    _launch(name, "t1_flash_bwd_dq_tc" if tc else "t1_flash_bwd_dq", "flash_attention_bwd", _DQ_ARGS,
+            ptrs + tail)
     flash_bwd_dq.launches += 1
     flash_bwd_dq.tc_launches += int(tc)
     return dq
@@ -259,11 +269,11 @@ def flash_bwd_dkv(q, k, v, kv_bias, do, lse, delta, causal=True, scale=None, q_o
         if n_split > 1:
             parts = torch.empty((2, n_split, *k.shape), dtype=torch.float32, device=q.device)
             part_ptrs = [kernels.ptr(parts[0]), kernels.ptr(parts[1])]
-        _bwd_launch(name, "t1_flash_bwd_dkv_tc", "flash_attention_bwd", _DKV_TC_ARGS,
-                    ptrs + part_ptrs + [n_split] + tail)
+        _launch(name, "t1_flash_bwd_dkv_tc", "flash_attention_bwd", _DKV_TC_ARGS,
+                ptrs + part_ptrs + [n_split] + tail)
         flash_bwd_dkv.tc_launches += 1
     else:
-        _bwd_launch(name, "t1_flash_bwd_dkv", "flash_attention_bwd", _DKV_ARGS, ptrs + tail)
+        _launch(name, "t1_flash_bwd_dkv", "flash_attention_bwd", _DKV_ARGS, ptrs + tail)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -442,9 +452,9 @@ def shared_prefix_fwd(q, kp, vp, ko, vo, prefix_bias, scale=None):
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sc), dtype=torch.float32, device=q.device)
     tc = q.dtype == torch.bfloat16
-    _bwd_launch(name, "t1_sp_fwd_tc" if tc else "t1_sp_fwd", "shared_prefix_attention", _SP_FWD_ARGS,
-                [kernels.ptr(t) for t in (q, kp, vp, ko, vo, prefix_bias, out, lse)]
-                + [B, P, Sc, Lp, H, Hkv, D, scale, kernels.stream(q)])
+    _launch(name, "t1_sp_fwd_tc" if tc else "t1_sp_fwd", "shared_prefix_attention", _SP_FWD_ARGS,
+            [kernels.ptr(t) for t in (q, kp, vp, ko, vo, prefix_bias, out, lse)]
+            + [B, P, Sc, Lp, H, Hkv, D, scale, kernels.stream(q)])
     shared_prefix_fwd.launches += 1
     shared_prefix_fwd.tc_launches += int(tc)
     return out, lse
@@ -467,9 +477,9 @@ def shared_prefix_bwd_dq(q, kp, vp, ko, vo, prefix_bias, do, lse, delta, scale=N
     P, Lp, Hkv, _ = kp.shape
     dq = torch.empty_like(q)
     tc = q.dtype == torch.bfloat16
-    _bwd_launch(name, "t1_sp_bwd_dq_tc" if tc else "t1_sp_bwd_dq", "shared_prefix_attention", _SP_DQ_ARGS,
-                [kernels.ptr(t) for t in (q, kp, vp, ko, vo, prefix_bias, do, lse, delta_t, dq)]
-                + [B, P, Sc, Lp, H, Hkv, D, scale, kernels.stream(q)])
+    _launch(name, "t1_sp_bwd_dq_tc" if tc else "t1_sp_bwd_dq", "shared_prefix_attention", _SP_DQ_ARGS,
+            [kernels.ptr(t) for t in (q, kp, vp, ko, vo, prefix_bias, do, lse, delta_t, dq)]
+            + [B, P, Sc, Lp, H, Hkv, D, scale, kernels.stream(q)])
     shared_prefix_bwd_dq.launches += 1
     shared_prefix_bwd_dq.tc_launches += int(tc)
     return dq
@@ -504,11 +514,11 @@ def shared_prefix_bwd_dkv(q, kp, vp, prefix_bias, do, lse, delta, scale=None):
         if n_split > 1:  # freed when this call returns: they live only inside one layer's backward
             parts = torch.empty((2, n_split, *kp.shape), dtype=torch.float32, device=q.device)
             part_ptrs = [kernels.ptr(parts[0]), kernels.ptr(parts[1])]
-        _bwd_launch(name, "t1_sp_bwd_dkv_prefix_tc", "shared_prefix_attention", _SP_DKV_TC_ARGS,
-                    ptrs + part_ptrs + [n_split] + tail)
+        _launch(name, "t1_sp_bwd_dkv_prefix_tc", "shared_prefix_attention", _SP_DKV_TC_ARGS,
+                ptrs + part_ptrs + [n_split] + tail)
         shared_prefix_bwd_dkv.tc_launches += 1
     else:
-        _bwd_launch(name, "t1_sp_bwd_dkv_prefix", "shared_prefix_attention", _SP_DKV_ARGS, ptrs + tail)
+        _launch(name, "t1_sp_bwd_dkv_prefix", "shared_prefix_attention", _SP_DKV_ARGS, ptrs + tail)
     shared_prefix_bwd_dkv.launches += 1
     return dk, dv
 

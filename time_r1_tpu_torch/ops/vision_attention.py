@@ -6,7 +6,11 @@ Replaces the Pallas kernels of `time_r1_tpu/ops/vision_attention.py`:
 (:204, pallas_call at :233). Both apply the 2D rope to q and k inside the
 kernel, scale q by hd**-0.5 after the rope in f32, and add a key-validity
 bias. Given CUDA tensors a wrapper launches its kernel (or raises); given CPU
-tensors it runs its plain version.
+tensors it runs its plain version. K3 in bf16 launches the tensor-core kernel
+(`csrc/attention_fwd_tc.cuh` with its rope flag: q and k roped in f32 and
+rounded to bf16 in shared memory, q with the scale) and adds one to its
+`.tc_launches` as well; K3 in f32 and K2 in both dtypes run the FMA tiles of
+`csrc/attention_tile.cuh`.
 
 The TPU kernel's tiling knobs (`block_windows`, `sub_blocks`) and the slice
 cap `FULL_KERNEL_MAX_SLICE` describe the TPU's matrix unit and VMEM; the CUDA
@@ -95,24 +99,31 @@ window_attention_rope.launches = 0
 
 
 def full_attention_rope(q, k, v, cos, sin, key_bias) -> torch.Tensor:
-    """Rope + attention over whole (sample, t)-slices. CUDA tensors launch K3."""
+    """Rope + attention over whole (sample, t)-slices. CUDA tensors launch K3
+    (bf16: the tensor-core kernel, whose 16-byte copies need q, k, v, cos and
+    sin on 16 bytes)."""
     if not q.is_cuda:
         return full_attention_rope_plain(q, k, v, cos, sin, key_bias)
     name = "full_attention_rope"
     n_slices, S, nh, hd = q.shape
     _check(name, q, k, v, cos, sin, key_bias, (n_slices, S))
-    kernels.require(n_slices <= 65535, name, "slice count")
+    kernels.require(0 < n_slices <= 65535 and 0 < S and nh <= 65535, name, "slice count")
+    tc = q.dtype == torch.bfloat16
+    if tc:
+        kernels.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v, cos, sin)), name,
+                        "operands must be 16-byte aligned")
     out = torch.empty_like(q)
-    fn = kernels.bind("vision_attention", "t1_full_attention_rope_fwd",
-                      _ARGS + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+    fn = kernels.bind("vision_attention", "t1_full_attention_rope_fwd_tc" if tc else "t1_full_attention_rope_fwd",
+                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
     rc = fn(
-        kernels.DTYPE_CODE[q.dtype], kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
-        kernels.ptr(cos), kernels.ptr(sin), kernels.ptr(key_bias), kernels.ptr(out),
-        n_slices, S, nh, hd, float(hd**-0.5), kernels.stream(q),
+        kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(cos), kernels.ptr(sin),
+        kernels.ptr(key_bias), kernels.ptr(out), n_slices, S, nh, hd, float(hd**-0.5), kernels.stream(q),
     )
     kernels.check(rc, name)
     full_attention_rope.launches += 1
+    full_attention_rope.tc_launches += int(tc)
     return out
 
 
 full_attention_rope.launches = 0
+full_attention_rope.tc_launches = 0
