@@ -14,8 +14,8 @@ Phases (any failed check raises and the exit code is non-zero):
    ragged shape), P1, P2 (continuous-batching decode: 4 slots of lengths 0,
    327, 1689, 2041 over a shuffled page table, page size 16, full slots, a
    dead slot with a stale table row, head dim 64), and the bf16 head's
-   backward against the f32 cotangent. K1, K3, B1, B2, S1 and S2 in bf16 run
-   the tensor-core kernels; besides the serving shapes K1 is checked (out and
+   backward against the f32 cotangent. K1-K3, B1, B2, S1, S2 and D2 in bf16
+   run the tensor-core kernels; besides the serving shapes K1 is checked (out and
    lse) at phase 5's B = 1 prompt forward (timed), head dims 64 and 80, G 1,
    non-causal, ragged Sq 200 over Skv 328 and all-masked rows, and K3 at S
    100 with a slice whose keys are all masked, S 2048, nh 1 and head dims 64
@@ -23,9 +23,14 @@ Phases (any failed check raises and the exit code is non-zero):
    at q_offset 64, ragged Sq 200 over Skv 328, head dim 64, G 1, non-causal
    and a block of all-masked rows, and S1/S2 at P = 2 prompts of R = 4 rows,
    Lp 640 with Sc 384, Lp = Sc = 128, head dim 64, G 1 and a prompt whose
-   bias masks every prefix key; two B2 launches and two prefix dK/dV
-   launches must each give bit-equal results, and the wrappers of K1, K3,
-   B1, B2, S1 and S2 refuse f16, head dim 96 and a misaligned q;
+   bias masks every prefix key; K2 at head dims 64 and 128 and with fully
+   dead windows; D2 at suffix lengths 0, 1 and 199 over bf16 and int8
+   caches at the rollout's shape, the 7B rollout's N = 56 rows over 4 kv
+   heads, head dim 64, two prompts, Lp 1000 and 2000 and a fully masked
+   first chunk; two B2 launches, two prefix dK/dV launches and two D2
+   launches must each give bit-equal results, and the wrappers of K1-K3,
+   B1, B2, S1, S2 and D2 refuse f16 and head dim 96 (K1-K3, B1, B2, S1, S2
+   a misaligned q, K2 windows of 128 rows);
 3. end-to-end agreement at reduced depth: Qwen2.5-VL-3B widths with 2 decoder
    layers and 2 vision blocks, one 8-frame video request in f32, card
    (kernels) against CPU (plain versions);
@@ -33,8 +38,8 @@ Phases (any failed check raises and the exit code is non-zero):
    advantages, beta = 0.04 against a reference copy): loss, metrics and every
    gradient, card against CPU, with fix_vit and with fix_vit=False (the whole
    tower trains; K2/K3 must not launch inside the differentiated call); in
-   f32 K1, K3, B1, B2, S1 and S2 run the FMA kernels only (in phases 3, 3c
-   and 3d K1 and K3 as well);
+   f32 K1-K3, B1, B2, S1 and S2 run the FMA kernels only (in phases 3, 3c
+   and 3d K1-K3 as well, and D2 in 3c);
 3c. the quantized G-way decode at reduced depth, int8 weights and int8 KV,
    then int4 weights: 16 teacher-forced steps, card (D2, Q2, Q1) against CPU
    (plain paths) on every step's logits;
@@ -44,20 +49,22 @@ Phases (any failed check raises and the exit code is non-zero):
    ContinuousEngine, and paged against the bucket Engine on the card;
 4. the serving path at full size: Qwen2.5-VL-3B in bf16 with seeded random
    weights, two video requests, greedy decode of 128 tokens, with K1-K3's
-   launch counts read around that one generate() call (exactly 36 K1 and 4
-   K3 launches, all on the tensor cores);
+   launch counts read around that one generate() call (exactly 36 K1, 28 K2
+   and 4 K3 launches, all on the tensor cores);
 5. the training path at full size: `GRPOTrainer` over the same model and a
    reference copy, one 32-frame video request, the default TrainConfig (G = 8,
    200 new tokens at T = 1.0, gradient accumulation 2), two `step_batch` calls
    (one optimizer update), with every kernel's launch count read around each;
-   the G-way rollout decode runs D2 (36 launches per step); each call runs
-   exactly 108 K1 launches (rollout prefill, ref_logps, the loss), 4 K3, 36
-   B1 and 72 B2 (prompt and own chunk), 72 S1 (ref_logps and the loss) and
-   36 + 36 S2 (dq, prefix dK/dV), all on the tensor cores;
+   the G-way rollout decode runs D2 (36 launches per step, D1 none); each
+   call runs exactly 108 K1 launches (rollout prefill, ref_logps, the loss),
+   28 K2, 4 K3, 36 B1 and 72 B2 (prompt and own chunk), 72 S1 (ref_logps and
+   the loss), 36 + 36 S2 (dq, prefix dK/dV) and 36 D2 a decode step, all on
+   the tensor cores;
 6. quantized rollouts at full size, once phase 5's model is freed: two
    `step_batch` calls with rollout_quantization="int8" (D2 and Q2 36 launches
-   per decode step), then one `Engine(quantization="int4",
-   kv_cache_quant=True).generate` at G = 8, 200 tokens (Q1 144 per step);
+   per decode step, D2 on the tensor cores over the int8 caches), then one
+   `Engine(quantization="int4", kv_cache_quant=True).generate` at G = 8, 200
+   tokens (Q1 144 and D2 36 per step);
 7. continuous-batching serving at full size, once phase 6's model is freed:
    12 requests (phase 4's two videos, ten text prompts of 200-1800 tokens),
    128 greedy tokens each, through 4 slots with 1024-token prefill chunks:
@@ -154,10 +161,15 @@ def phase_build() -> None:
     log(f"[build] shared_prefix_attention tensor-core S1 blocks: dynamic shared memory "
         f"{smem(64)} bytes at head dim 64, {smem(128)} at 128")
     for stem, symbol, what in (("flash_attention", "t1_flash_attention_fwd_tc_smem_bytes", "K1"),
+                               ("vision_attention", "t1_window_attention_rope_fwd_tc_smem_bytes",
+                                "K2 (a window, its cos/sin staged once)"),
                                ("vision_attention", "t1_full_attention_rope_fwd_tc_smem_bytes", "K3 (with the rope)")):
         smem = kernels.bind(stem, symbol, [ctypes.c_int])
         log(f"[build] {stem} tensor-core {what} blocks: dynamic shared memory "
             f"{smem(64)} bytes at head dim 64, {smem(80)} at 80, {smem(128)} at 128")
+    smem = kernels.bind("decode_attention", "t1_decode_full_tc_smem_bytes", [ctypes.c_int, ctypes.c_int])
+    log(f"[build] decode_attention tensor-core D2 blocks: dynamic shared memory {smem(0, 64)} / {smem(0, 128)} "
+        f"bytes at head dim 64 / 128 over bf16 caches, {smem(1, 64)} / {smem(1, 128)} over int8")
 
 
 # ---------------------------------------------------------------------------
@@ -215,21 +227,14 @@ def phase_kernels() -> dict:
 
 def serving_attention_kernels(gen) -> dict:
     """K1, K2 and K3 against their plain versions at the serving path's
-    shapes (phase 4), in bf16 (K1 and K3 on the tensor cores, K2 on FMA) and
-    f32 (FMA); times in bf16."""
+    shapes (phase 4), in bf16 (the tensor-core kernels) and f32 (FMA); times
+    in bf16."""
     import torch
     import torch.nn.functional as F
 
-    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig, prepare_vision_inputs
-    from time_r1_tpu_torch.models.qwen25vl.vision import vision_rope_tables
     from time_r1_tpu_torch.ops.attention import NEG_INF
     from time_r1_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_plain
-    from time_r1_tpu_torch.ops.vision_attention import (
-        full_attention_rope,
-        full_attention_rope_plain,
-        window_attention_rope,
-        window_attention_rope_plain,
-    )
+    from time_r1_tpu_torch.ops.vision_attention import full_attention_rope, full_attention_rope_plain
 
     dev = torch.device("cuda")
     results = {}
@@ -260,35 +265,9 @@ def serving_attention_kernels(gen) -> dict:
             }
 
     # K2 and K3 on the padded-window layout of the two phase-4 videos
-    vcfg = Qwen25VLConfig.qwen25vl_3b().vision
-    prep = prepare_vision_inputs(serving_grids(), vcfg)
+    results.update(window_kernel(gen))
+    vcfg, prep, _, cos, sin, key_bias = serving_vision_inputs()
     nh, hd = vcfg.num_heads, vcfg.head_dim
-    win = vcfg.window_patches**2 * vcfg.merge_unit
-    key_valid = torch.from_numpy(prep.key_valid).to(dev)
-    cos, sin = vision_rope_tables(vcfg, torch.from_numpy(prep.pos_hw).to(dev))
-    key_bias = torch.where(key_valid, 0.0, NEG_INF).float()
-    P = key_valid.shape[0]
-    per_win = key_valid.reshape(-1, win).sum(1).double()
-    # Bytes over live rows only, as the FLOPs count live (query, key) pairs:
-    # q/k/v read and out written in bf16, cos/sin read in f32, and the bias
-    # of every row read once. Dead rows are never keys and their outputs are dropped.
-    live = key_valid.sum().item()
-    vbytes = 4 * live * nh * hd * 2 + 2 * live * hd * 4 + P * 4
-
-    def win_inputs(dtype):
-        return (randn(P, nh, hd, dtype=dtype), randn(P, nh, hd, dtype=dtype), randn(P, nh, hd, dtype=dtype),
-                cos, sin, key_bias, win)
-
-    def win_library(q, k, v, cos, sin, key_bias, win):
-        qt, kt, vt = (t.reshape(-1, win, nh, hd).transpose(1, 2) for t in (q, k, v))
-        mask = key_bias.reshape(-1, 1, 1, win).to(q.dtype)
-        return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-
-    results["window_attention_rope"] = check_kernel(
-        "window_attention_rope", window_attention_rope, window_attention_rope_plain, win_library,
-        win_inputs, key_valid, flops=4.0 * (per_win**2).sum().item() * nh * hd, nbytes=vbytes,
-    )
-
     n_slices, S = prep.full_gather.shape
     fg = torch.from_numpy(prep.full_gather).to(dev).long()
     pad = fg < 0
@@ -313,6 +292,128 @@ def serving_attention_kernels(gen) -> dict:
         full_inputs, full_bias == 0, flops=4.0 * (per_slice**2).sum().item() * nh * hd, nbytes=fbytes,
     )
     return results
+
+
+def serving_vision_inputs():
+    """The two phase-4 videos' padded-window layout on the card: (vision
+    config, prepared inputs, key_valid (P,), cos, sin (P, hd), key_bias (P,))."""
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig, prepare_vision_inputs
+    from time_r1_tpu_torch.models.qwen25vl.vision import vision_rope_tables
+    from time_r1_tpu_torch.ops.attention import NEG_INF
+
+    dev = torch.device("cuda")
+    vcfg = Qwen25VLConfig.qwen25vl_3b().vision
+    prep = prepare_vision_inputs(serving_grids(), vcfg)
+    key_valid = torch.from_numpy(prep.key_valid).to(dev)
+    cos, sin = vision_rope_tables(vcfg, torch.from_numpy(prep.pos_hw).to(dev))
+    return vcfg, prep, key_valid, cos, sin, torch.where(key_valid, 0.0, NEG_INF).float()
+
+
+def window_kernel(gen) -> dict:
+    """K2 against its plain version at the serving path's shape (phase 4's
+    two videos: 236 windows of 64 rows, 16 heads of 80), in bf16 (the
+    tensor-core kernel) and f32 (FMA), timed in bf16; then K2_TC_CASES and
+    the refusals."""
+    import torch
+    import torch.nn.functional as F
+
+    from time_r1_tpu_torch.ops.vision_attention import window_attention_rope, window_attention_rope_plain
+
+    dev = torch.device("cuda")
+    vcfg, _, key_valid, cos, sin, key_bias = serving_vision_inputs()
+    nh, hd = vcfg.num_heads, vcfg.head_dim
+    win = vcfg.window_patches**2 * vcfg.merge_unit
+    P = key_valid.shape[0]
+    per_win = key_valid.reshape(-1, win).sum(1).double()
+    # Bytes over live rows only, as the FLOPs count live (query, key) pairs:
+    # q/k/v read and out written in bf16, cos/sin read in f32, and the bias
+    # of every row read once. Dead rows are never keys and their outputs are dropped.
+    live = key_valid.sum().item()
+    vbytes = 4 * live * nh * hd * 2 + 2 * live * hd * 4 + P * 4
+
+    def win_inputs(dtype):
+        return tuple(torch.randn(P, nh, hd, generator=gen, device=dev).to(dtype) for _ in range(3)) + (
+            cos, sin, key_bias, win)
+
+    def win_library(q, k, v, cos, sin, key_bias, win):
+        qt, kt, vt = (t.reshape(-1, win, nh, hd).transpose(1, 2) for t in (q, k, v))
+        mask = key_bias.reshape(-1, 1, 1, win).to(q.dtype)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    entry = check_kernel(
+        "window_attention_rope", window_attention_rope, window_attention_rope_plain, win_library,
+        win_inputs, key_valid, flops=4.0 * (per_win**2).sum().item() * nh * hd, nbytes=vbytes,
+    )
+    k2_tc_edge_cases(gen, entry)
+    return {"window_attention_rope": entry}
+
+
+# K2 edge cases (bf16, tensor-core kernel): (windows of 64 rows, nh, hd, the
+# windows whose keys are all dead); besides, 5% of the other keys are dead
+# patches. A dead window's rows must stay finite.
+K2_TC_CASES = {
+    "head_dim_64": (8, 4, 64, (3,)),
+    "head_dim_128": (8, 4, 128, ()),
+    "dead_windows": (6, 16, 80, (0, 5)),
+}
+
+
+def k2_tc_edge_cases(gen, entry: dict) -> None:
+    """bf16 K2 (the tensor-core kernel) at K2_TC_CASES against its plain
+    version (f32 on the same inputs) at TOL, max abs error on live rows,
+    every value finite; every launch on the tensor cores; then the wrapper
+    must refuse f16, head dim 96, a misaligned q and windows of 128 rows."""
+    import torch
+
+    from time_r1_tpu_torch.ops.attention import NEG_INF
+    from time_r1_tpu_torch.ops.vision_attention import window_attention_rope, window_attention_rope_plain
+
+    dev = torch.device("cuda")
+    tol = TOL["bfloat16"]
+    entry["cases"] = {}
+    n0, tc0 = window_attention_rope.launches, window_attention_rope.tc_launches
+    for case, (n, nh, hd, dead_windows) in K2_TC_CASES.items():
+        P = 64 * n
+        q, k, v = (torch.randn(P, nh, hd, generator=gen, device=dev).bfloat16() for _ in range(3))
+        theta = torch.rand(P, hd, generator=gen, device=dev) * 20.0
+        dead = torch.rand(P, generator=gen, device=dev) < 0.05
+        for w in dead_windows:
+            dead[64 * w:64 * (w + 1)] = True
+        bias = torch.where(dead, NEG_INF, 0.0).float()
+        args = (q, k, v, theta.cos(), theta.sin(), bias, 64)
+        out = window_attention_rope(*args)
+        want = window_attention_rope_plain(q.float(), k.float(), v.float(), *args[3:])
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"window_attention_rope {case}: non-finite values")
+        err = (out.float() - want)[~dead].abs().max().item()
+        entry["cases"][case] = err
+        log(f"[kernels] window_attention_rope {case}: max |kernel - plain| on live rows = {err:.3e}, every value "
+            f"finite (tol {tol})")
+        if not err <= tol:
+            raise AssertionError(f"window_attention_rope {case}: max |kernel - plain| = {err} > {tol}")
+    runs = window_attention_rope.launches - n0
+    if window_attention_rope.tc_launches - tc0 != runs:
+        raise AssertionError(f"K2 bf16: {runs} launches, {window_attention_rope.tc_launches - tc0} on the tensor cores")
+    vq = torch.randn(128, 4, 80, generator=gen, device=dev).bfloat16()
+    cs, vb = torch.rand(128, 80, device=dev), torch.zeros(128, device=dev)
+    v96 = torch.randn(128, 4, 96, generator=gen, device=dev).bfloat16()
+    c96 = torch.rand(128, 96, device=dev)
+    refused = {
+        "float16": lambda: window_attention_rope(vq.half(), vq.half(), vq.half(), cs, cs, vb, 64),
+        "head dim 96": lambda: window_attention_rope(v96, v96, v96, c96, c96, vb, 64),
+        "q 2 bytes off 16-byte alignment": lambda: window_attention_rope(misaligned(vq), vq, vq, cs, cs, vb, 64),
+        "windows of 128 rows": lambda: window_attention_rope(vq, vq, vq, cs, cs, vb, 128),
+    }
+    for what, call in refused.items():
+        try:
+            call()
+        except ValueError as e:
+            log(f"[kernels] window_attention_rope refuses {what}: {e}")
+        else:
+            raise AssertionError(f"window_attention_rope took {what}")
 
 
 def k1_work(B, Sq, Skv, H, Hkv, D, causal, q_offset, pads):
@@ -922,55 +1023,149 @@ def check_case(entry: dict, label: str, case: str, pairs, tol: float) -> None:
         raise AssertionError(f"{label} {case}: max |kernel - plain| / max |plain| = {rel} > {tol}")
 
 
-def phase_decode_quant_kernels() -> dict:
-    """D1, D2, Q1 and Q2 against their plain versions at the quantized
-    rollout's shapes (one 2048-token prompt with 134 left-pad keys, G = 8
-    rows, the suffix cache of 256 slots; the 3B projections at M = 8 rows), in
-    bf16 and f32 activations, with caches in the activation dtype and in int8;
-    times in bf16."""
+def decode_base(gen, P, R, H, Hkv, D, Lp, Lo, pad) -> dict:
+    """f32 operands of a G-way decode step in the port's token-major layouts:
+    q (B, 1, H, D), the prefix (P, Lp, Hkv, D) with `pad` left-pad keys in
+    its (P, Lp) bias, the suffix (B, Lo, Hkv, D), the new token (B, Hkv, D)."""
     import torch
-    import torch.nn.functional as F
 
-    from time_r1_tpu_torch.ops import decode_attention as da
     from time_r1_tpu_torch.ops.attention import NEG_INF
-    from time_r1_tpu_torch.ops.fused_mlp import fused_mlp_int8, fused_mlp_int8_plain
-    from time_r1_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
-    from time_r1_tpu_torch.ops.quant import dequantize_weight, quantize_kv, quantize_weight
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(3)
-    H, Hkv, D, pad, P, R, Lp, Lo = 16, 2, 128, 134, 1, 8, 2048, 256
-    G, B = H // Hkv, P * R
-    N = R * G
+    B = P * R
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
 
     base = dict(q=randn(B, 1, H, D), kp=randn(P, Lp, Hkv, D), vp=randn(P, Lp, Hkv, D),
                 ko=randn(B, Lo, Hkv, D), vo=randn(B, Lo, Hkv, D), kn=randn(B, Hkv, D), vn=randn(B, Hkv, D))
-    bias = torch.where(torch.arange(Lp, device=dev)[None] < pad, NEG_INF, 0.0).float().expand(P, Lp).contiguous()
+    base["bias"] = torch.where(torch.arange(Lp, device=dev)[None] < pad, NEG_INF, 0.0).float().expand(P, Lp).contiguous()
+    base["P"], base["R"] = P, R
+    return base
+
+
+def decode_views(base: dict, dtype, int8: bool, lp: int | None = None) -> dict:
+    """The decode path's layouts of `base`: q regrouped (P, Hkv, N, D);
+    token-major caches handed over as head-major views; scales (..., Hkv)
+    likewise. lp keeps the first lp prefix keys."""
+    from time_r1_tpu_torch.ops.quant import quantize_kv
+
+    P, R = base["P"], base["R"]
+    _, _, H, D = base["q"].shape
+    Hkv = base["kn"].shape[1]
+    G = H // Hkv
+    lp = base["kp"].shape[1] if lp is None else lp
+    q = base["q"].to(dtype).reshape(P, R, Hkv, G, D).transpose(1, 2).reshape(P, Hkv, R * G, D)
+    out = {"q": q, "kn": base["kn"].to(dtype), "vn": base["vn"].to(dtype), "bias": base["bias"][:, :lp].contiguous()}
+    for n in ("kp", "vp", "ko", "vo"):
+        src = base[n][:, :lp] if n in ("kp", "vp") else base[n]
+        if int8:
+            x8, s = quantize_kv(src)
+            out[n], out[n + "_s"] = x8.transpose(1, 2), s.transpose(1, 2)
+        else:
+            out[n], out[n + "_s"] = src.to(dtype).transpose(1, 2), None
+    return out
+
+
+def d1_args(x):
+    return x["q"], x["kp"], x["vp"], x["kp_s"], x["vp_s"], x["bias"]
+
+
+def d2_args(x, own_len):
+    return (x["q"], x["kp"], x["vp"], x["kp_s"], x["vp_s"], x["bias"], x["ko"], x["vo"], x["ko_s"], x["vo_s"],
+            own_len, x["kn"], x["vn"])
+
+
+# bf16 D2 edge cases (the tensor-core kernel): (P, R, H, Hkv, D, Lp, Lo, left
+# pad keys), each over bf16 and int8 caches at suffix lengths 0, 1 and 199.
+# The 7B rollout's G = 7 (N = 56 rows, Hkv 4) runs on no other phase; a pad
+# of 300 masks the first chunk (256 keys) whole, 134 the first two of its
+# tiles (one per warpgroup); Lp 1000 ends in a partial tile and chunk.
+D2_TC_CASES = {
+    "7B rollout (N 56, Hkv 4)": (1, 8, 28, 4, 128, 2048, 256, 134),
+    "head dim 64": (1, 8, 16, 2, 64, 2048, 256, 134),
+    "P 2 prompts of R 4": (2, 4, 16, 2, 128, 640, 256, 40),
+    "pad 300, Lp 1000": (1, 8, 16, 2, 128, 1000, 256, 300),
+}
+
+
+def d2_tc_edge_cases(gen, d2: dict, phase2: dict) -> None:
+    """bf16 D2 (the tensor-core kernel) at D2_TC_CASES against its plain
+    version within DECODE_TOL; two launches at phase 2's shape must be
+    bit-equal; the wrapper must refuse f16 and head dim 96, and run on the
+    tensor cores only."""
+    import torch
+
+    from time_r1_tpu_torch.ops import decode_attention as da
+
+    tol = DECODE_TOL["bfloat16"]
+    tc0 = da.shared_prefix_decode_full.tc_launches
+    n0 = da.shared_prefix_decode_full.launches
+    for case, (P, R, H, Hkv, D, Lp, Lo, pad) in D2_TC_CASES.items():
+        base = decode_base(gen, P, R, H, Hkv, D, Lp, Lo, pad)
+        for int8 in (False, True):
+            x = decode_views(base, torch.bfloat16, int8)
+            for own_len in (0, 1, 199):
+                got = da.shared_prefix_decode_full(*d2_args(x, own_len))
+                want = da.shared_prefix_decode_full_plain(*d2_args(x, own_len))
+                check_case(d2, "D2", f"{case}, {'int8' if int8 else 'bf16'} caches, suffix {own_len}",
+                           [(got, want)], tol)
+    for int8 in (False, True):
+        args = d2_args(decode_views(phase2, torch.bfloat16, int8), 199)
+        a, b = da.shared_prefix_decode_full(*args), da.shared_prefix_decode_full(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"D2 ({'int8' if int8 else 'bf16'} caches): two launches differ")
+        log(f"[kernels] D2 {'int8' if int8 else 'bf16'} caches: two launches bit-equal")
+    runs = da.shared_prefix_decode_full.launches - n0
+    if da.shared_prefix_decode_full.tc_launches - tc0 != runs:
+        raise AssertionError(f"D2 bf16: {runs} launches, {da.shared_prefix_decode_full.tc_launches - tc0} on the "
+                             f"tensor cores")
+    x = decode_views(phase2, torch.float16, False)
+    b96 = decode_base(gen, 1, 2, 4, 2, 96, 256, 16, 0)
+    refused = {"float16": lambda: da.shared_prefix_decode_full(*d2_args(x, 10)),
+               "head dim 96": lambda: da.shared_prefix_decode_full(*d2_args(decode_views(b96, torch.bfloat16, False),
+                                                                            10))}
+    for what, call in refused.items():
+        try:
+            call()
+        except ValueError as e:
+            log(f"[kernels] shared_prefix_decode_full refuses {what}: {e}")
+        else:
+            raise AssertionError(f"shared_prefix_decode_full took {what}")
+
+
+def phase_decode_quant_kernels() -> dict:
+    """D1, D2, Q1 and Q2 against their plain versions at the quantized
+    rollout's shapes; times in bf16."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = decode_kernels(gen)
+    out.update(quant_kernels(gen))
+    return out
+
+
+def decode_kernels(gen) -> dict:
+    """D1 and D2 against their plain versions at the G-way rollout's shapes
+    (one 2048-token prompt with 134 left-pad keys, G = 8 rows, the suffix
+    cache of 256 slots), in bf16 and f32 activations, with caches in the
+    activation dtype and in int8, and D2's tensor-core edge cases; times in
+    bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from time_r1_tpu_torch.ops import decode_attention as da
+
+    dev = torch.device("cuda")
+    H, Hkv, D, pad, P, R, Lp, Lo = 16, 2, 128, 134, 1, 8, 2048, 256
+    G, B = H // Hkv, P * R
+    N = R * G
+    base = decode_base(gen, P, R, H, Hkv, D, Lp, Lo, pad)
+    bias = base["bias"]
 
     def decode_inputs(dtype, int8: bool, lp: int = Lp):
-        """The path's layouts: q regrouped (P, Hkv, N, D); token-major caches
-        handed over as head-major views; scales (…, Hkv) likewise. lp < Lp
-        keeps the first lp prefix keys."""
-        q = base["q"].to(dtype).reshape(P, R, Hkv, G, D).transpose(1, 2).reshape(P, Hkv, N, D)
-        out = {"q": q, "kn": base["kn"].to(dtype), "vn": base["vn"].to(dtype), "bias": bias[:, :lp].contiguous()}
-        for n in ("kp", "vp", "ko", "vo"):
-            src = base[n][:, :lp] if n in ("kp", "vp") else base[n]
-            if int8:
-                x8, s = quantize_kv(src)
-                out[n], out[n + "_s"] = x8.transpose(1, 2), s.transpose(1, 2)
-            else:
-                out[n], out[n + "_s"] = src.to(dtype).transpose(1, 2), None
-        return out
-
-    def d1_args(x):
-        return x["q"], x["kp"], x["vp"], x["kp_s"], x["vp_s"], x["bias"]
-
-    def d2_args(x, own_len):
-        return (x["q"], x["kp"], x["vp"], x["kp_s"], x["vp_s"], x["bias"], x["ko"], x["vo"], x["ko_s"], x["vo_s"],
-                own_len, x["kn"], x["vn"])
+        return decode_views(base, dtype, int8, lp)
 
     d1 = {"name": "shared_prefix_decode_attention", "cases": {}}
     d2 = {"name": "shared_prefix_decode_full", "cases": {}}
@@ -981,12 +1176,12 @@ def phase_decode_quant_kernels() -> dict:
             case = f"{key}, {'int8' if int8 else key} caches"
             got, want = da.shared_prefix_decode_attention(*d1_args(x)), da.shared_prefix_decode_attention_plain(*d1_args(x))
             check_case(d1, "D1 (acc, m, l)", case, list(zip(got, want)), DECODE_TOL["float32"])
-            for own_len in (0, 199):
+            for own_len in (0, 1, 199):
                 got = da.shared_prefix_decode_full(*d2_args(x, own_len))
                 want = da.shared_prefix_decode_full_plain(*d2_args(x, own_len))
                 check_case(d2, "D2", f"{case}, suffix {own_len}", [(got, want)], DECODE_TOL[key])
     # a prefix of 2000 keys, which fits no TPU block and ends in a partial
-    # 64-key chunk: the decode step takes D2 at any prefix length
+    # 64-key tile: the decode step takes D2 at any prefix length
     for int8 in (False, True):
         x = decode_inputs(torch.bfloat16, int8, lp=2000)
         case = f"bfloat16, {'int8' if int8 else 'bfloat16'} caches, Lp 2000"
@@ -994,6 +1189,7 @@ def phase_decode_quant_kernels() -> dict:
         check_case(d1, "D1 (acc, m, l)", case, list(zip(got, want)), DECODE_TOL["float32"])
         got, want = da.shared_prefix_decode_full(*d2_args(x, 199)), da.shared_prefix_decode_full_plain(*d2_args(x, 199))
         check_case(d2, "D2", f"{case}, suffix 199", [(got, want)], DECODE_TOL["bfloat16"])
+    d2_tc_edge_cases(torch.Generator(device=dev).manual_seed(8), d2, base)
     d1["tol"] = d1["tol_f32"] = DECODE_TOL["float32"]
     d2["tol"], d2["tol_f32"] = DECODE_TOL["bfloat16"], DECODE_TOL["float32"]
 
@@ -1039,6 +1235,25 @@ def phase_decode_quant_kernels() -> dict:
                 f"(plain {plain_ms:.3f}, bound {b_ms:.5f} by {b_by}, library {lib:.4f})")
     d1["library_is"] = "SDPA of the 64 query rows over the prefix, bf16"
     d2["library_is"] = "SDPA over [prefix repeated per row | live suffix | new token] with the mask, bf16"
+    for e in (d1, d2):
+        e["tol_is"] = "on max_rel_err and each of `cases`: max |kernel - plain| / max |plain|"
+    return {d1["name"]: d1, d2["name"]: d2}
+
+
+def quant_kernels(gen) -> dict:
+    """Q1 and Q2 against their plain versions at the 3B projections (M = 8
+    rows), in bf16 and f32; times in bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from time_r1_tpu_torch.ops.fused_mlp import fused_mlp_int8, fused_mlp_int8_plain
+    from time_r1_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+    from time_r1_tpu_torch.ops.quant import dequantize_weight, quantize_weight
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
 
     # ---- Q1 at the 3B int4 decode projections (M = 8), plus M = 1 and 200 and a ragged shape
     q1 = {"name": "int4_matmul", "cases": {}, "per_product": {}}
@@ -1111,9 +1326,9 @@ def phase_decode_quant_kernels() -> dict:
     log(f"[kernels] fused_mlp_int8 M=8: {q2['ms']:.4f} ms on the device, {q2['call_ms']:.4f} ms per call from "
         f"Python (plain {q2['plain_ms']:.3f}, bound "
         f"{q2['bound_ms']:.5f} by {q2['bound_by']}, library {q2['library_ms']:.4f})")
-    for e in (d1, d2, q1, q2):
+    for e in (q1, q2):
         e["tol_is"] = "on max_rel_err and each of `cases`: max |kernel - plain| / max |plain|"
-    return {d1["name"]: d1, d2["name"]: d2, q1["name"]: q1, q2["name"]: q2}
+    return {q1["name"]: q1, q2["name"]: q2}
 
 
 # P1/P2 tolerances, as max |kernel - plain| / max |plain| per output: both sides
@@ -1358,7 +1573,8 @@ def phase_reduced_train() -> None:
             loss, metrics, grads = grpo_value_and_grad(params, cfg, hp, batch)
             after = read_launches()
             if device == "cuda":  # f32: B1, B2, S1, S2 take the exact FMA kernels, never the tensor cores
-                check_tc_route(tag, after, {n: None for n in TC_KERNELS}, tensor_cores=False)
+                check_tc_route(tag, after, {n: None for n in TC_KERNELS if n not in DECODE_KERNELS},
+                               tensor_cores=False)
                 vit = {n: (before[n], after[n]) for n in ("window_attention_rope", "full_attention_rope")}
                 log(f"[{tag}] K2/K3 launches before / after the differentiated call: {vit}")
                 if any(a != b or b <= 0 for b, a in vit.values()):  # the frozen blocks (or ref) ran them
@@ -1412,9 +1628,9 @@ def kernel_wrappers():
 
 # wrappers that also count tensor-core launches (bf16); the rest of their
 # launches ran the f32 FMA kernels
-TC_KERNELS = ("flash_attention", "full_attention_rope", "flash_bwd_dq", "flash_bwd_dkv", "shared_prefix_fwd",
-              "shared_prefix_bwd", "shared_prefix_bwd_dkv")
-FWD_TC = ("flash_attention", "full_attention_rope")  # K1 and K3: on every serving and rollout path
+TC_KERNELS = ("flash_attention", "window_attention_rope", "full_attention_rope", "flash_bwd_dq", "flash_bwd_dkv",
+              "shared_prefix_fwd", "shared_prefix_bwd", "shared_prefix_bwd_dkv", "shared_prefix_decode_full")
+FWD_TC = ("flash_attention", "window_attention_rope", "full_attention_rope")  # K1-K3: every serving and rollout path
 
 
 def reset_launches() -> None:
@@ -1470,8 +1686,7 @@ def phase_full_size() -> dict:
     out = eng.generate(reqs, sp)
     total = time.perf_counter() - t0
     launches = {k: v for k, v in read_launches().items() if k in SERVING_KEYS}
-    check_tc_route("full", launches, {"flash_attention": cfg.text.num_hidden_layers,
-                                      "full_attention_rope": len(cfg.vision.fullatt_block_indexes)},
+    check_tc_route("full", launches, vision_tc_launches(cfg) | {"flash_attention": cfg.text.num_hidden_layers},
                    tensor_cores=True)
     tm = eng.timings
     n_gen = sum(len(o) for o in out)
@@ -1497,8 +1712,7 @@ def phase_full_size() -> dict:
 SERVING_KERNELS = ("flash_attention", "window_attention_rope", "full_attention_rope")
 SERVING_KEYS = SERVING_KERNELS + tuple(f"{n}_tc" for n in FWD_TC)  # phase 4's launch counts
 TRAIN_KERNELS = SERVING_KERNELS + ("flash_bwd_dq", "flash_bwd_dkv", "shared_prefix_fwd", "shared_prefix_bwd",
-                                   "shared_prefix_bwd_dkv", "shared_prefix_decode_attention",
-                                   "shared_prefix_decode_full")
+                                   "shared_prefix_bwd_dkv", "shared_prefix_decode_full")
 DECODE_KERNELS = ("shared_prefix_decode_attention", "shared_prefix_decode_full")  # per layer per G-way step
 
 
@@ -1510,15 +1724,24 @@ def check_step_launches(tag: str, launches: dict, steps: int, layers: int, per_l
             raise AssertionError(f"{tag}: {name} launched {launches[name]} times, want {n} x {layers} x {steps}")
 
 
-def step_batch_tc_launches(cfg) -> dict:
+def vision_tc_launches(cfg) -> dict:
+    """K2 and K3 launches of one vision-tower forward: one per window block
+    and one per full-attention block."""
+    n_full = len(cfg.vision.fullatt_block_indexes)
+    return {"window_attention_rope": cfg.vision.depth - n_full, "full_attention_rope": n_full}
+
+
+def step_batch_tc_launches(cfg, decode_steps: int) -> dict:
     """The tensor-core launches of one bf16 `step_batch`, per layer: K1 in
     the rollout prefill, ref_logps and the loss's prompt forward; B1 once; B2
     for the prompt and the own chunk; S1 in ref_logps and in the loss; S2's
-    dq and prefix dK/dV once. K3 in the rollout's vision tower."""
+    dq and prefix dK/dV once; D2 once per decode step. K2 and K3 in the
+    rollout's vision tower."""
     layers = cfg.text.num_hidden_layers
-    return {"flash_attention": 3 * layers, "full_attention_rope": len(cfg.vision.fullatt_block_indexes),
-            "flash_bwd_dq": layers, "flash_bwd_dkv": 2 * layers, "shared_prefix_fwd": 2 * layers,
-            "shared_prefix_bwd": layers, "shared_prefix_bwd_dkv": layers}
+    return vision_tc_launches(cfg) | {
+        "flash_attention": 3 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": 2 * layers,
+        "shared_prefix_fwd": 2 * layers, "shared_prefix_bwd": layers, "shared_prefix_bwd_dkv": layers,
+        "shared_prefix_decode_full": layers * decode_steps}
 
 
 def token_parity_reward(completions, **kwargs):
@@ -1589,9 +1812,10 @@ def phase_train_full_size() -> dict:
             if launches[name] <= 0:
                 raise AssertionError(f"step_batch {call}: {name} was not launched")
         check_step_launches(f"step_batch {call}", launches, tm["decode_steps"], cfg.text.num_hidden_layers,
-                            {"shared_prefix_decode_full": 1, "shared_prefix_decode_attention": 1,
+                            {"shared_prefix_decode_full": 1, "shared_prefix_decode_attention": 0,
                              "int4_matmul": 0, "fused_mlp_int8": 0})
-        check_tc_route(f"train step_batch {call}", launches, step_batch_tc_launches(cfg), tensor_cores=True)
+        check_tc_route(f"train step_batch {call}", launches, step_batch_tc_launches(cfg, tm["decode_steps"]),
+                       tensor_cores=True)
     changed = total_elems = 0
     for p, b in zip(trainable_leaves(params, config.fix_vit), before):
         changed += int((p.detach().cpu() != b).sum())
@@ -1656,9 +1880,10 @@ def phase_quant_full_size() -> dict:
         if not (np.isfinite(info["loss"]) and np.isfinite(metrics["grad_norm"]) and metrics["grad_norm"] > 0):
             raise AssertionError(f"int8 step_batch {call}: loss {info['loss']} or grad_norm {metrics['grad_norm']}")
         check_step_launches(f"int8 step_batch {call}", launches, tm["decode_steps"], L,
-                            {"shared_prefix_decode_full": 1, "shared_prefix_decode_attention": 1,
+                            {"shared_prefix_decode_full": 1, "shared_prefix_decode_attention": 0,
                              "fused_mlp_int8": 1, "int4_matmul": 0})
-        check_tc_route(f"int8 step_batch {call}", launches, step_batch_tc_launches(cfg), tensor_cores=True)
+        check_tc_route(f"int8 step_batch {call}", launches, step_batch_tc_launches(cfg, tm["decode_steps"]),
+                       tensor_cores=True)
         out = {k: launches[k] for k in ("shared_prefix_decode_attention", "shared_prefix_decode_full",
                                         "fused_mlp_int8")}
     del trainer, ref
@@ -1684,10 +1909,10 @@ def phase_quant_full_size() -> dict:
         f"over {tm['decode_steps']} steps; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
     log(f"[quant] int4 generate: launches {launches}")
     check_step_launches("int4 generate", launches, tm["decode_steps"], L,
-                        {"int4_matmul": 4, "shared_prefix_decode_full": 1, "fused_mlp_int8": 0})
-    check_tc_route("int4 generate", launches, {"flash_attention": L,
-                                               "full_attention_rope": len(cfg.vision.fullatt_block_indexes)},
-                   tensor_cores=True)
+                        {"int4_matmul": 4, "shared_prefix_decode_full": 1, "shared_prefix_decode_attention": 0,
+                         "fused_mlp_int8": 0})
+    check_tc_route("int4 generate", launches, vision_tc_launches(cfg) | {
+        "flash_attention": L, "shared_prefix_decode_full": L * tm["decode_steps"]}, tensor_cores=True)
     if len(rows) != 8 or not all(len(r) == 200 for r in rows):
         raise AssertionError(f"int4 generate: rows of {[len(r) for r in rows]} tokens")
     out["int4_matmul"] = launches["int4_matmul"]
@@ -1761,7 +1986,8 @@ def phase_reduced_quant() -> dict:
                 check_step_launches(f"reduced {quant}", launches, steps, cfg.text.num_hidden_layers,
                                     {"shared_prefix_decode_full": 1,
                                      "fused_mlp_int8": int(quant == "int8"), "int4_matmul": 4 * (quant == "int4")})
-                check_tc_route(f"reduced {quant}", launches, {n: None for n in FWD_TC}, tensor_cores=False)
+                check_tc_route(f"reduced {quant}", launches, {n: None for n in FWD_TC + DECODE_KERNELS[1:]},
+                               tensor_cores=False)
         per_step = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(out["cuda"], out["cpu"])]
         errs[quant] = max(per_step)
         finite = all(np.isfinite(a).all() for a in out["cuda"])
@@ -2035,11 +2261,14 @@ def main() -> int:
     s2["launches_dkv_prefix"] = launches["shared_prefix_bwd_dkv"]
     s2["tc_launches_dkv_prefix"] = launches["shared_prefix_bwd_dkv_tc"]
     s2["replaces_dkv_prefix"] = f"{jax_fa}:769"
-    # D1 and D2 run on both G-way paths: `launches` is the int8 step_batch's
-    # (phase 6), this the bf16 step_batch's (phase 5)
+    # D2 runs on both G-way paths: `launches` is the int8 step_batch's (phase
+    # 6), this the bf16 step_batch's (phase 5). D1 runs on no path since D2
+    # folds its prefix chunks itself: 0 launches, checked in phases 5 and 6.
     for k in kernels:
         if k["name"] in DECODE_KERNELS:
             k["launches_bf16_step_batch"] = launches[k["name"]]
+        if k["name"] == "shared_prefix_decode_attention":
+            k["on_main_path"] = False
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

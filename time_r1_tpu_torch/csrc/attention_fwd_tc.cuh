@@ -110,12 +110,85 @@ __host__ __device__ constexpr int fwd_smem_bytes() {
   return (QT + 4) * tile_bytes<D>() + 512 + 64 + 1024 + (ROPE ? 2 * 64 * rope_stride<D>() * 4 : 0);
 }
 
+// The rope's staging (K2, K3): cos and sin rows row0.. of row-major (rows,
+// D) f32 tables into `dst` (cos rows 0..63, then sin rows, rope_stride<D>()
+// floats a row); rows from n_rows on are zeros. One cp.async group's worth
+// of copies per thread; the caller completes them.
+template <int D>
+__device__ __forceinline__ void load_rope_rows(uint32_t dst, const float* cos, const float* sin, int row0,
+                                               int n_rows) {
+  constexpr int CPR = D / 4;  // 16-byte chunks of a f32 row
+  constexpr int RS = rope_stride<D>();
+#pragma unroll
+  for (int it = 0; it < 2 * 64 * CPR / WG; ++it) {
+    const int idx = it * WG + threadIdx.x;
+    const int sn = idx / (64 * CPR);  // 0: cos, 1: sin
+    const int r = (idx / CPR) % 64;
+    const int c = idx % CPR;
+    const bool ok = row0 + r < n_rows;
+    const float* src = (sn ? sin : cos) + (long long)(ok ? row0 + r : 0) * D + 4 * c;
+    cp_async16(dst + ((sn * 64 + r) * RS + 4 * c) * 4, src, ok);
+  }
+}
+
+// x * cos + rotate_half(x) * sin, times `scale`, in place on a landed
+// 64-row tile at shared address `tile` (smem_raw at shared address raw),
+// with the staged cos/sin rows `cs`, one (row, chunk pair) at a time:
+// rotate_half at D/2 is a whole number of 16-byte chunks, so chunk c and
+// chunk c + D/16 of a row rotate into each other.
+template <int D>
+__device__ __forceinline__ void rope_tile_inplace(uint8_t* smem_raw, uint32_t raw, uint32_t tile, const float* cs,
+                                                  float scale) {
+  constexpr int RS = rope_stride<D>();
+  constexpr int H2 = D / 16;  // 16-byte chunks in half a row
+  const int tid = threadIdx.x;
+#pragma unroll 1  // one pair's 40 registers of operands live at a time
+  for (int it = 0; it < (64 * H2 + WG - 1) / WG; ++it) {
+    const int idx = it * WG + tid;
+    if (64 * H2 % WG == 0 || idx < 64 * H2) {
+      const int r = idx % 64;
+      const int c = idx / 64;
+      uint4* lo = reinterpret_cast<uint4*>(smem_raw + (tile + chunk_off<D>(r, c) - raw));
+      uint4* hi = reinterpret_cast<uint4*>(smem_raw + (tile + chunk_off<D>(r, c + H2) - raw));
+      const uint4 xl = *lo, xh = *hi;
+      const uint32_t wl[4] = {xl.x, xl.y, xl.z, xl.w}, wh[4] = {xh.x, xh.y, xh.z, xh.w};
+      const float4* cl = reinterpret_cast<const float4*>(cs + r * RS + 8 * c);  // cos, low chunk
+      const float4* ch = cl + 2 * H2;                                            // cos, high chunk
+      const float4* sl = cl + 16 * RS;                                           // sin rows: 64 on
+      const float4* sh = ch + 16 * RS;
+      const float4 c4l[2] = {cl[0], cl[1]}, c4h[2] = {ch[0], ch[1]};
+      const float4 s4l[2] = {sl[0], sl[1]}, s4h[2] = {sh[0], sh[1]};
+      uint32_t yl[4], yh[4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        // element 2w (low 16 bits of word w) and 2w + 1; a bf16 is the top half of its f32
+        const float x1[2] = {__uint_as_float(wl[w] << 16), __uint_as_float(wl[w] & 0xffff0000u)};
+        const float x2[2] = {__uint_as_float(wh[w] << 16), __uint_as_float(wh[w] & 0xffff0000u)};
+        const float4 cvl = c4l[w >> 1], cvh = c4h[w >> 1], svl = s4l[w >> 1], svh = s4h[w >> 1];
+        const float col[2] = {(w & 1) ? cvl.z : cvl.x, (w & 1) ? cvl.w : cvl.y};
+        const float coh[2] = {(w & 1) ? cvh.z : cvh.x, (w & 1) ? cvh.w : cvh.y};
+        const float sil[2] = {(w & 1) ? svl.z : svl.x, (w & 1) ? svl.w : svl.y};
+        const float sih[2] = {(w & 1) ? svh.z : svh.x, (w & 1) ? svh.w : svh.y};
+        float a[2], z[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          a[u] = (x1[u] * col[u] - x2[u] * sil[u]) * scale;
+          z[u] = (x2[u] * coh[u] + x1[u] * sih[u]) * scale;
+        }
+        yl[w] = pack_bf16(a[0], a[1]);
+        yh[w] = pack_bf16(z[0], z[1]);
+      }
+      *lo = make_uint4(yl[0], yl[1], yl[2], yl[3]);
+      *hi = make_uint4(yh[0], yh[1], yh[2], yh[3]);
+    }
+  }
+}
+
 template <int D, bool ROPE, int QT>
 __global__ void __launch_bounds__(WG, 2) attn_fwd_tc(const __grid_constant__ FwdParams p) {
   constexpr int TILE = tile_bytes<D>();
   constexpr int DM = main_cols<D>();  // columns in 64-column blocks: O's m64n64/n128 part
   constexpr int DT = D - DM;          // the 16-column tail at D = 80: O's m64n16 part
-  constexpr int RS = rope_stride<D>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;  // Q tile qt at base + qt TILE
@@ -164,65 +237,12 @@ __global__ void __launch_bounds__(WG, 2) attn_fwd_tc(const __grid_constant__ Fwd
   // ROPE: cos and sin of table rows b * Sq + row0.. (zeros from n_rows on)
   // into the staging buffer, completed on bar_cs.
   auto load_cs = [&](int row0, int n_rows) {
-    constexpr int CPR = D / 4;  // 16-byte chunks of a f32 row
-#pragma unroll
-    for (int it = 0; it < 2 * 64 * CPR / WG; ++it) {
-      const int idx = it * WG + tid;
-      const int sn = idx / (64 * CPR);  // 0: cos, 1: sin
-      const int r = (idx / CPR) % 64;
-      const int c = idx % CPR;
-      const bool ok = row0 + r < n_rows;
-      const float* src = (sn ? p.sin : p.cos) + ((long long)b * p.Sq + (ok ? row0 + r : 0)) * D + 4 * c;
-      cp_async16(sCS + ((sn * 64 + r) * RS + 4 * c) * 4, src, ok);
-    }
+    const long long tbl = (long long)b * p.Sq * D;
+    load_rope_rows<D>(sCS, p.cos + tbl, p.sin + tbl, row0, n_rows);
     mbar_arrive_copies(bar_cs);
   };
 
-  // ROPE: x * cos + rotate_half(x) * sin, times `scale`, in place on a
-  // landed tile, one (row, chunk pair) at a time.
-  auto rope_tile = [&](uint32_t tile, float scale) {
-    constexpr int H2 = D / 16;  // 16-byte chunks in half a row
-#pragma unroll 1  // one pair's 40 registers of operands live at a time
-    for (int it = 0; it < (64 * H2 + WG - 1) / WG; ++it) {
-      const int idx = it * WG + tid;
-      if (64 * H2 % WG == 0 || idx < 64 * H2) {
-        const int r = idx % 64;
-        const int c = idx / 64;
-        uint4* lo = reinterpret_cast<uint4*>(smem_raw + (tile + chunk_off<D>(r, c) - raw));
-        uint4* hi = reinterpret_cast<uint4*>(smem_raw + (tile + chunk_off<D>(r, c + H2) - raw));
-        const uint4 xl = *lo, xh = *hi;
-        const uint32_t wl[4] = {xl.x, xl.y, xl.z, xl.w}, wh[4] = {xh.x, xh.y, xh.z, xh.w};
-        const float4* cl = reinterpret_cast<const float4*>(cs + r * RS + 8 * c);  // cos, low chunk
-        const float4* ch = cl + 2 * H2;                                            // cos, high chunk
-        const float4* sl = cl + 16 * RS;                                           // sin rows: 64 on
-        const float4* sh = ch + 16 * RS;
-        const float4 c4l[2] = {cl[0], cl[1]}, c4h[2] = {ch[0], ch[1]};
-        const float4 s4l[2] = {sl[0], sl[1]}, s4h[2] = {sh[0], sh[1]};
-        uint32_t yl[4], yh[4];
-#pragma unroll
-        for (int w = 0; w < 4; ++w) {
-          // element 2w (low 16 bits of word w) and 2w + 1; a bf16 is the top half of its f32
-          const float x1[2] = {__uint_as_float(wl[w] << 16), __uint_as_float(wl[w] & 0xffff0000u)};
-          const float x2[2] = {__uint_as_float(wh[w] << 16), __uint_as_float(wh[w] & 0xffff0000u)};
-          const float4 cvl = c4l[w >> 1], cvh = c4h[w >> 1], svl = s4l[w >> 1], svh = s4h[w >> 1];
-          const float col[2] = {(w & 1) ? cvl.z : cvl.x, (w & 1) ? cvl.w : cvl.y};
-          const float coh[2] = {(w & 1) ? cvh.z : cvh.x, (w & 1) ? cvh.w : cvh.y};
-          const float sil[2] = {(w & 1) ? svl.z : svl.x, (w & 1) ? svl.w : svl.y};
-          const float sih[2] = {(w & 1) ? svh.z : svh.x, (w & 1) ? svh.w : svh.y};
-          float a[2], z[2];
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            a[u] = (x1[u] * col[u] - x2[u] * sil[u]) * scale;
-            z[u] = (x2[u] * coh[u] + x1[u] * sih[u]) * scale;
-          }
-          yl[w] = pack_bf16(a[0], a[1]);
-          yh[w] = pack_bf16(z[0], z[1]);
-        }
-        *lo = make_uint4(yl[0], yl[1], yl[2], yl[3]);
-        *hi = make_uint4(yh[0], yh[1], yh[2], yh[3]);
-      }
-    }
-  };
+  auto rope_tile = [&](uint32_t tile, float scale) { rope_tile_inplace<D>(smem_raw, raw, tile, cs, scale); };
 
   mbar_init_all(bars, ROPE ? 3 : 2);
   for (int qt = 0; qt < QT; ++qt)

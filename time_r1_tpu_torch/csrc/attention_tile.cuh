@@ -1,9 +1,10 @@
 // Tiled attention forward with an online softmax in plain f32 FMA, shared by
 // the port's exact f32 attention forwards (flash_attention.cu: K1;
-// vision_attention.cu: K3; shared_prefix_attention.cu: S1, which chains two
-// key sources through `fwd_source`) and by K2 (vision_attention.cu) in both
-// dtypes. The bf16 K1, K3 and S1 run the tensor-core forward of
-// attention_fwd_tc.cuh instead; the backward tiles are in attention_bwd.cuh.
+// vision_attention.cu: K2, K3; shared_prefix_attention.cu: S1, which chains
+// two key sources through `fwd_source`). The bf16 K1, K3 and S1 run the
+// tensor-core forward of attention_fwd_tc.cuh instead, the bf16 K2 its own
+// tensor-core kernel in vision_attention.cu; the backward tiles are in
+// attention_bwd.cuh.
 //
 // One block of 256 threads computes a 64-row query tile of one head of one
 // batch entry (a batch entry is a sequence for K1, a window for K2, a
@@ -21,9 +22,7 @@
 // (transposed, roped when ROPE) and V in turn through one buffer, so that a
 // head dim of 128 fits two blocks on an SM.
 //
-// The same code serves the f32 instances (exact, which the card-against-CPU
-// comparisons use) and K2's bf16 one, whose operands are converted to f32 in
-// shared memory: K2 is bound by the FMA rate here, not by its bytes.
+// The f32 instances are exact: the card-against-CPU comparisons use them.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -48,6 +48,15 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool va
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
+// Groups of the thread's cp.asyncs, completed in order: wait until at most N
+// of the groups committed so far are still in flight.
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
@@ -93,14 +102,15 @@ __device__ __forceinline__ uint32_t chunk_off(int r, int c) {
 }
 
 // 64 rows x D bf16 from rows row0.. of a row-major source (row_stride
-// elements) into the swizzled tile; rows >= n_rows are zeros.
+// elements) into the swizzled tile; rows >= n_rows are zeros. The copies are
+// spread over one warpgroup, `tid` being the thread's index in it.
 template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* g, long long row_stride, int row0,
-                                          int n_rows) {
+                                          int n_rows, int tid = threadIdx.x) {
   constexpr int CPR = D / 8;  // 16-byte chunks per row
 #pragma unroll
   for (int it = 0; it < 64 * CPR / WG; ++it) {
-    const int idx = it * WG + threadIdx.x;
+    const int idx = it * WG + tid;
     const int r = idx / CPR;
     const int c = idx % CPR;
     const bool ok = row0 + r < n_rows;

@@ -17,9 +17,11 @@ by the kernels). D2 takes the own suffix's live length as a host int
 validity bias it is made from.
 
 Given CUDA tensors a wrapper launches its kernel (or raises) and adds one to
-its `.launches`. D2 runs D1's prefix pass (the split kernel) and then its own
-tail kernel, so a D2 call adds one to both counters. Given CPU tensors the
-wrappers run the plain versions.
+its `.launches`. D2 in bf16 (bf16 or int8 caches) is one launch of the
+tensor-core kernel, which folds its prefix chunks, the row's suffix and the
+new token itself, and also adds one to `.tc_launches`; D2 in f32 runs the
+FMA split pass (D1's kernel, not counted as a D1 launch) and its tail
+kernel. Given CPU tensors the wrappers run the plain versions.
 """
 
 from __future__ import annotations
@@ -45,11 +47,11 @@ class _Params(ctypes.Structure):
 
     _fields_ = [(n, _P) for n in (
         "q", "kp", "vp", "ksp", "vsp", "bias", "ko", "vo", "kso", "vso", "kn", "vn", "o",
-        "acc_part", "m_part", "l_part", "acc_out", "m_out", "l_out",
+        "acc_part", "m_part", "l_part", "acc_out", "m_out", "l_out", "ticket",
     )] + [(n, _L) for n in (
         "kv_sp", "kv_sh", "kv_st", "s_sp", "s_sh", "s_st", "own_sb", "own_sh", "own_st",
         "os_sb", "os_sh", "os_st", "n_sb", "n_sh",
-    )] + [(n, _I) for n in ("P", "Hkv", "N", "Lp", "R", "G", "nchunk", "own_len")] + [("scale", ctypes.c_float)]
+    )] + [(n, _I) for n in ("P", "Hkv", "N", "Lp", "R", "G", "nchunk", "own_len", "ctiles", "parts")] + [("scale", ctypes.c_float)]
 
 
 # ---------------------------------------------------------------------------
@@ -181,8 +183,23 @@ def _check_prefix(name, q, k_pref, v_pref, ks, vs, bias) -> bool:
     return quant
 
 
+def _prefix_params(q, k_pref, v_pref, ks, vs, bias, quant: bool) -> _Params:
+    """The launch arguments of the prefix operands."""
+    P, Hkv, N, hd = q.shape
+    prm = _Params()
+    prm.q, prm.kp, prm.vp, prm.bias = q.data_ptr(), k_pref.data_ptr(), v_pref.data_ptr(), bias.data_ptr()
+    prm.kv_sp, prm.kv_sh, prm.kv_st = k_pref.stride(0), k_pref.stride(1), k_pref.stride(2)
+    if quant:
+        prm.ksp, prm.vsp = ks.data_ptr(), vs.data_ptr()
+        prm.s_sp, prm.s_sh, prm.s_st = ks.stride()
+    prm.P, prm.Hkv, prm.N, prm.Lp = P, Hkv, N, k_pref.shape[2]
+    prm.scale = hd**-0.5
+    return prm
+
+
 def _split(q, k_pref, v_pref, ks, vs, bias, quant: bool):
-    """Launch D1's prefix pass: (params, per-chunk scratch kept alive)."""
+    """Launch the f32-FMA prefix pass (D1's, and D2's in f32): (params,
+    per-chunk scratch kept alive)."""
     P, Hkv, N, hd = q.shape
     Lp = k_pref.shape[2]
     nchunk = -(-Lp // CH)
@@ -192,19 +209,12 @@ def _split(q, k_pref, v_pref, ks, vs, bias, quant: bool):
     acc_part = torch.empty((P, Hkv, nchunk, N, hd), dtype=torch.float32, device=dev)
     m_part = torch.empty((P, Hkv, nchunk, N), dtype=torch.float32, device=dev)
     l_part = torch.empty_like(m_part)
-    prm = _Params()
-    prm.q, prm.kp, prm.vp, prm.bias = q.data_ptr(), k_pref.data_ptr(), v_pref.data_ptr(), bias.data_ptr()
+    prm = _prefix_params(q, k_pref, v_pref, ks, vs, bias, quant)
     prm.acc_part, prm.m_part, prm.l_part = acc_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr()
-    prm.kv_sp, prm.kv_sh, prm.kv_st = k_pref.stride(0), k_pref.stride(1), k_pref.stride(2)
-    if quant:
-        prm.ksp, prm.vsp = ks.data_ptr(), vs.data_ptr()
-        prm.s_sp, prm.s_sh, prm.s_st = ks.stride()
-    prm.P, prm.Hkv, prm.N, prm.Lp, prm.nchunk = P, Hkv, N, Lp, nchunk
-    prm.scale = hd**-0.5
+    prm.nchunk = nchunk
     fn = kernels.bind("decode_attention", "t1_decode_prefix_split", [_I, _I, _I, ctypes.c_void_p, _P])
     rc = fn(kernels.DTYPE_CODE[q.dtype], int(quant), hd, ctypes.addressof(prm), kernels.stream(q))
     kernels.check(rc, "shared_prefix_decode_attention")
-    shared_prefix_decode_attention.launches += 1
     return prm, (acc_part, m_part, l_part)
 
 
@@ -216,6 +226,7 @@ def shared_prefix_decode_attention(q, k_pref, v_pref, ks, vs, bias):
     quant = _check_prefix("shared_prefix_decode_attention", q, k_pref, v_pref, ks, vs, bias)
     P, Hkv, N, hd = q.shape
     prm, scratch = _split(q, k_pref, v_pref, ks, vs, bias, quant)
+    shared_prefix_decode_attention.launches += 1
     acc = torch.empty((P, Hkv, N, hd), dtype=torch.float32, device=q.device)
     m = torch.empty((P, Hkv, N), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
@@ -229,11 +240,81 @@ def shared_prefix_decode_attention(q, k_pref, v_pref, ks, vs, bias):
 shared_prefix_decode_attention.launches = 0
 
 
+def tc_chunk_tiles(Lp: int, N: int, int8: bool) -> int:
+    """64-key tiles per prefix block of the tensor-core D2
+    (csrc/decode_attention.cu): at least 4 (two a warpgroup, the suffix
+    block's chain, and few slots for the one-block fold), at least enough
+    that a block's f32 partials (N·hd·4 bytes) are at most half the K/V they
+    summarise (tiles·64·hd·2·c bytes, c = 1 for int8, 2 for bf16), and at
+    most 64 chunks (the fold's slots); never more than the prefix has."""
+    ntiles = -(-Lp // 64)
+    least = max(4, -(-N // (16 * (1 if int8 else 2))), -(-ntiles // TC_MAX_CHUNKS))
+    return max(1, min(ntiles, least))
+
+
+TC_MAX_CHUNKS = 64  # csrc/decode_attention.cu: DEC_MAX_SLOTS - 1
+_tc_state: dict = {}  # per device: the tickets (zero between launches) and the partials' workspace
+
+
+def _tc_buffers(dev: torch.device, n_tickets: int, n_floats: int):
+    """The tensor-core D2's (P·Hkv) int32 tickets, zero between launches,
+    and a float32 workspace for the partials, grown as needed and reused by
+    every launch on the device (the launches are stream-ordered)."""
+    tickets, work = _tc_state.get(dev, (None, None))
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(max(n_tickets, 64), dtype=torch.int32, device=dev)
+    if work is None or work.numel() < n_floats:
+        work = torch.empty(n_floats, dtype=torch.float32, device=dev)
+    _tc_state[dev] = (tickets, work)
+    return tickets, work
+
+
+def _full_params(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own, own_len, k_new, v_new, quant):
+    """D2's launch arguments for both kernels; the partials are not set."""
+    P, Hkv, N, hd = q.shape
+    B = k_own.shape[0]
+    prm = _prefix_params(q, k_pref, v_pref, ks, vs, bias, quant)
+    prm.ko, prm.vo, prm.kn, prm.vn = k_own.data_ptr(), v_own.data_ptr(), k_new.data_ptr(), v_new.data_ptr()
+    prm.own_sb, prm.own_sh, prm.own_st = k_own.stride(0), k_own.stride(1), k_own.stride(2)
+    prm.n_sb, prm.n_sh = k_new.stride(0), k_new.stride(1)
+    if quant:
+        prm.kso, prm.vso = ks_own.data_ptr(), vs_own.data_ptr()
+        prm.os_sb, prm.os_sh, prm.os_st = ks_own.stride()
+    prm.R, prm.G, prm.own_len = B // P, N // (B // P), own_len
+    return prm
+
+
+def launch_full_tc(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own, own_len: int, k_new, v_new,
+                   ctiles: int, parts: int = 7, fn=None) -> torch.Tensor:
+    """The tensor-core D2 kernel on checked bf16 operands, `ctiles` 64-key
+    tiles per prefix block. parts 7 is the whole kernel; 1, 2 and 4 launch its
+    prefix blocks, its suffix blocks or its fold alone (for timing the parts:
+    they neither take tickets nor, but for 4, write the output). `fn`: another
+    build's `t1_decode_full_tc` (a timing variant), else this one's."""
+    P, Hkv, N, hd = q.shape
+    quant = k_pref.dtype == torch.int8
+    nchunk = -(-k_pref.shape[2] // (64 * ctiles))
+    nslot = nchunk + 1
+    tickets, work = _tc_buffers(q.device, P * Hkv, P * Hkv * nslot * N * (hd + 2))
+    out = torch.empty_like(q)
+    prm = _full_params(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own, own_len, k_new, v_new, quant)
+    n_acc = P * Hkv * nslot * N * hd
+    prm.acc_part = work.data_ptr()
+    prm.m_part = prm.acc_part + 4 * n_acc
+    prm.l_part = prm.m_part + 4 * P * Hkv * nslot * N
+    prm.ticket, prm.o, prm.nchunk, prm.ctiles, prm.parts = tickets.data_ptr(), out.data_ptr(), nchunk, ctiles, parts
+    if fn is None:
+        fn = kernels.bind("decode_attention", "t1_decode_full_tc", [_I, _I, ctypes.c_void_p, _P])
+    kernels.check(fn(int(quant), hd, ctypes.addressof(prm), kernels.stream(q)), "shared_prefix_decode_full")
+    return out
+
+
 def shared_prefix_decode_full(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own,
                               own_len: int, k_new, v_new) -> torch.Tensor:
     """D2: the normalised (P, Hkv, N, hd) context in q's dtype. CUDA tensors
-    launch D1's split pass and the tail kernel; CPU tensors run the plain
-    version."""
+    launch a kernel: bf16 the tensor-core one (one launch; also counted in
+    `.tc_launches`), f32 the FMA split pass and tail (two launches, one
+    count). CPU tensors run the plain version."""
     if not q.is_cuda:
         return shared_prefix_decode_full_plain(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own,
                                                own_len, k_new, v_new)
@@ -262,21 +343,30 @@ def shared_prefix_decode_full(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_
     tensors = [k_own, v_own, k_new, v_new] + ([ks_own, vs_own] if quant else [])
     kernels.require(all(t.is_cuda for t in tensors), name, "operands must be CUDA tensors")
     kernels.require(B <= 65535 and Hkv <= 65535, name, "grid too large")
+    if q.dtype == torch.bfloat16:
+        # 16-byte copies: every base and every cache row on 16 bytes
+        caches = [k_pref, v_pref, k_own, v_own]
+        kernels.require(all(t.data_ptr() % 16 == 0 for t in [q, k_new, v_new] + caches)
+                        and all((t.stride(2) * t.element_size()) % 16 == 0 for t in caches)
+                        and all((t.stride(0) * 2) % 16 == 0 and (t.stride(1) * 2) % 16 == 0 for t in (k_new, v_new)),
+                        name, "operands and cache rows must be 16-byte aligned")
+        kernels.require(N // R <= 64 and P <= 65535, name, f"G = {N // R} query heads per kv head (at most 64)")
+        out = launch_full_tc(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own, own_len, k_new, v_new,
+                             tc_chunk_tiles(k_pref.shape[2], N, quant))
+        shared_prefix_decode_full.launches += 1
+        shared_prefix_decode_full.tc_launches += 1
+        return out
     prm, scratch = _split(q, k_pref, v_pref, ks, vs, bias, quant)
     out = torch.empty_like(q)
-    prm.ko, prm.vo, prm.kn, prm.vn, prm.o = (k_own.data_ptr(), v_own.data_ptr(), k_new.data_ptr(),
-                                             v_new.data_ptr(), out.data_ptr())
-    prm.own_sb, prm.own_sh, prm.own_st = k_own.stride(0), k_own.stride(1), k_own.stride(2)
-    prm.n_sb, prm.n_sh = k_new.stride(0), k_new.stride(1)
-    if quant:
-        prm.kso, prm.vso = ks_own.data_ptr(), vs_own.data_ptr()
-        prm.os_sb, prm.os_sh, prm.os_st = ks_own.stride()
-    prm.R, prm.G, prm.own_len = R, N // R, own_len
+    full = _full_params(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own, own_len, k_new, v_new, quant)
+    full.acc_part, full.m_part, full.l_part, full.nchunk = prm.acc_part, prm.m_part, prm.l_part, prm.nchunk
+    full.o = out.data_ptr()
     fn = kernels.bind("decode_attention", "t1_decode_tail", [_I, _I, _I, ctypes.c_void_p, _P])
-    kernels.check(fn(kernels.DTYPE_CODE[q.dtype], int(quant), hd, ctypes.addressof(prm), kernels.stream(q)), name)
+    kernels.check(fn(kernels.DTYPE_CODE[q.dtype], int(quant), hd, ctypes.addressof(full), kernels.stream(q)), name)
     shared_prefix_decode_full.launches += 1
     del scratch
     return out
 
 
 shared_prefix_decode_full.launches = 0
+shared_prefix_decode_full.tc_launches = 0

@@ -6,11 +6,11 @@ Replaces the Pallas kernels of `time_r1_tpu/ops/vision_attention.py`:
 (:204, pallas_call at :233). Both apply the 2D rope to q and k inside the
 kernel, scale q by hd**-0.5 after the rope in f32, and add a key-validity
 bias. Given CUDA tensors a wrapper launches its kernel (or raises); given CPU
-tensors it runs its plain version. K3 in bf16 launches the tensor-core kernel
-(`csrc/attention_fwd_tc.cuh` with its rope flag: q and k roped in f32 and
-rounded to bf16 in shared memory, q with the scale) and adds one to its
-`.tc_launches` as well; K3 in f32 and K2 in both dtypes run the FMA tiles of
-`csrc/attention_tile.cuh`.
+tensors it runs its plain version. In bf16 both launch a tensor-core kernel
+(q and k roped in f32 and rounded to bf16 in shared memory, q with the scale)
+and add one to their `.tc_launches` as well: K2 one block per window (its
+cos/sin staged once for every head), K3 `csrc/attention_fwd_tc.cuh` with its
+rope flag. In f32 both run the exact FMA tiles of `csrc/attention_tile.cuh`.
 
 The TPU kernel's tiling knobs (`block_windows`, `sub_blocks`) and the slice
 cap `FULL_KERNEL_MAX_SLICE` describe the TPU's matrix unit and VMEM; the CUDA
@@ -25,8 +25,6 @@ import torch
 
 from .. import kernels
 from .attention import rope
-
-_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 7
 
 
 def _sdpa_rope(q, k, v, cos, sin, key_bias):
@@ -73,29 +71,53 @@ def _check(name, q, k, v, cos, sin, key_bias, rows_shape):
                     name, "the kernel has no backward: run the frozen tower under torch.no_grad()")
 
 
+def launch_window_tc(q, k, v, cos, sin, key_bias, win_patches: int, heads_per_block: int) -> torch.Tensor:
+    """The tensor-core K2 kernel on checked bf16 operands, one block per
+    (window, group of `heads_per_block` heads)."""
+    P, nh, hd = q.shape
+    out = torch.empty_like(q)
+    fn = kernels.bind("vision_attention", "t1_window_attention_rope_fwd_tc",
+                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    rc = fn(kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(cos), kernels.ptr(sin),
+            kernels.ptr(key_bias), kernels.ptr(out), P, nh, hd, win_patches, heads_per_block, float(hd**-0.5),
+            kernels.stream(q))
+    kernels.check(rc, "window_attention_rope")
+    return out
+
+
 def window_attention_rope(q, k, v, cos, sin, key_bias, win_patches: int) -> torch.Tensor:
     """Rope + attention inside each window of `win_patches` consecutive rows
-    of the padded-window layout. CUDA tensors launch K2."""
+    of the padded-window layout. CUDA tensors launch K2 (bf16: the
+    tensor-core kernel, whose 16-byte copies need q, k, v, cos and sin on 16
+    bytes and windows of at most 64 rows)."""
     if not q.is_cuda:
         return window_attention_rope_plain(q, k, v, cos, sin, key_bias, win_patches)
     name = "window_attention_rope"
     P, nh, hd = q.shape
     _check(name, q, k, v, cos, sin, key_bias, (P,))
-    kernels.require(P % win_patches == 0 and P // win_patches <= 65535, name, "window count")
-    out = torch.empty_like(q)
-    fn = kernels.bind("vision_attention", "t1_window_attention_rope_fwd",
-                      _ARGS + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
-    rc = fn(
-        kernels.DTYPE_CODE[q.dtype], kernels.ptr(q), kernels.ptr(k), kernels.ptr(v),
-        kernels.ptr(cos), kernels.ptr(sin), kernels.ptr(key_bias), kernels.ptr(out),
-        P, nh, hd, win_patches, float(hd**-0.5), kernels.stream(q),
-    )
-    kernels.check(rc, name)
+    kernels.require(win_patches > 0 and P % win_patches == 0 and P // win_patches <= 2**31 - 1, name,
+                    "window count")
+    tc = q.dtype == torch.bfloat16
+    if tc:
+        kernels.require(win_patches <= 64 and nh <= 65535, name, f"windows of {win_patches} rows (at most 64)")
+        kernels.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v, cos, sin)), name,
+                        "operands must be 16-byte aligned")
+        out = launch_window_tc(q, k, v, cos, sin, key_bias, win_patches, nh)
+    else:
+        out = torch.empty_like(q)
+        fn = kernels.bind("vision_attention", "t1_window_attention_rope_fwd",
+                          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+        rc = fn(kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(cos), kernels.ptr(sin),
+                kernels.ptr(key_bias), kernels.ptr(out), P, nh, hd, win_patches, float(hd**-0.5),
+                kernels.stream(q))
+        kernels.check(rc, name)
     window_attention_rope.launches += 1
+    window_attention_rope.tc_launches += int(tc)
     return out
 
 
 window_attention_rope.launches = 0
+window_attention_rope.tc_launches = 0
 
 
 def full_attention_rope(q, k, v, cos, sin, key_bias) -> torch.Tensor:
