@@ -26,8 +26,8 @@ Phases (any failed check raises and the exit code is non-zero):
    bias masks every prefix key; K2 at head dims 64 and 128 and with fully
    dead windows; D2 at suffix lengths 0, 1 and 199 over bf16 and int8
    caches at the rollout's shape, the 7B rollout's N = 56 rows over 4 kv
-   heads, head dim 64, two prompts, Lp 1000 and 2000 and a fully masked
-   first chunk; two B2 launches, two prefix dK/dV launches and two D2
+   heads, 16 rollouts a prompt (N = 128, and 112 over 4 kv heads), head dim
+   64, two prompts, Lp 1000 and 2000 and a fully masked first chunk; two B2 launches, two prefix dK/dV launches and two D2
    launches must each give bit-equal results, and the wrappers of K1-K3,
    B1, B2, S1, S2 and D2 refuse f16 and head dim 96 (K1-K3, B1, B2, S1, S2
    a misaligned q, K2 windows of 128 rows);
@@ -1077,12 +1077,17 @@ def d2_args(x, own_len):
 
 
 # bf16 D2 edge cases (the tensor-core kernel): (P, R, H, Hkv, D, Lp, Lo, left
-# pad keys), each over bf16 and int8 caches at suffix lengths 0, 1 and 199.
-# The 7B rollout's G = 7 (N = 56 rows, Hkv 4) runs on no other phase; a pad
-# of 300 masks the first chunk (256 keys) whole, 134 the first two of its
-# tiles (one per warpgroup); Lp 1000 ends in a partial tile and chunk.
+# pad keys), each over bf16 and int8 caches at suffix lengths 0, 1 and 199,
+# two launches at 199 bit-equal. The 7B rollout's G = 7 (N = 56 rows, Hkv 4)
+# runs on no other phase; R = 16 rollouts a prompt (N = 128 and, at G = 7,
+# 112) take the prefix blocks' loop over 64-row tiles and the fold's over
+# its row blocks; a pad of 300 masks the first chunk (256 keys) whole, 134
+# the first two of its tiles (one per warpgroup); Lp 1000 ends in a partial
+# tile and chunk.
 D2_TC_CASES = {
     "7B rollout (N 56, Hkv 4)": (1, 8, 28, 4, 128, 2048, 256, 134),
+    "16 rollouts (N 128)": (1, 16, 16, 2, 128, 2048, 256, 134),
+    "7B, 16 rollouts (N 112, Hkv 4)": (1, 16, 28, 4, 128, 2048, 256, 134),
     "head dim 64": (1, 8, 16, 2, 64, 2048, 256, 134),
     "P 2 prompts of R 4": (2, 4, 16, 2, 128, 640, 256, 40),
     "pad 300, Lp 1000": (1, 8, 16, 2, 128, 1000, 256, 300),
@@ -1091,9 +1096,9 @@ D2_TC_CASES = {
 
 def d2_tc_edge_cases(gen, d2: dict, phase2: dict) -> None:
     """bf16 D2 (the tensor-core kernel) at D2_TC_CASES against its plain
-    version within DECODE_TOL; two launches at phase 2's shape must be
-    bit-equal; the wrapper must refuse f16 and head dim 96, and run on the
-    tensor cores only."""
+    version within DECODE_TOL; two launches at suffix 199 of each case and
+    of phase 2's shape must be bit-equal; the wrapper must refuse f16 and
+    head dim 96, and run on the tensor cores only."""
     import torch
 
     from time_r1_tpu_torch.ops import decode_attention as da
@@ -1108,8 +1113,14 @@ def d2_tc_edge_cases(gen, d2: dict, phase2: dict) -> None:
             for own_len in (0, 1, 199):
                 got = da.shared_prefix_decode_full(*d2_args(x, own_len))
                 want = da.shared_prefix_decode_full_plain(*d2_args(x, own_len))
-                check_case(d2, "D2", f"{case}, {'int8' if int8 else 'bf16'} caches, suffix {own_len}",
-                           [(got, want)], tol)
+                label = f"{case}, {'int8' if int8 else 'bf16'} caches, suffix {own_len}"
+                check_case(d2, "D2", label, [(got, want)], tol)
+                if own_len == 199:
+                    again = da.shared_prefix_decode_full(*d2_args(x, own_len))
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"D2 {label}: two launches differ")
+                    log(f"[kernels] D2 {label}: two launches bit-equal")
     for int8 in (False, True):
         args = d2_args(decode_views(phase2, torch.bfloat16, int8), 199)
         a, b = da.shared_prefix_decode_full(*args), da.shared_prefix_decode_full(*args)

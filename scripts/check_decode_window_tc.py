@@ -9,9 +9,9 @@ It prints the card, the build's ptxas report (registers, spill) and the
 tensor-core blocks' shared memory; D1 and D2 against their plain versions
 at the rollout's shape in bf16 and f32 over caches in the activation dtype
 and int8 (suffix lengths 0, 1, 199, Lp 2000), D2 at `chip_smoke.D2_TC_CASES`
-(the 7B rollout's N = 56 over 4 kv heads, head dim 64, two prompts, a fully
-masked first int8 chunk), two D2 launches bit-equal, the refusals (f16, head
-dim 96); K2 at the serving shape and at `chip_smoke.K2_TC_CASES` (head dims
+(the 7B rollout's N = 56 over 4 kv heads, 16 rollouts a prompt at N = 128
+and 112, head dim 64, two prompts, a fully masked first int8 chunk), two D2
+launches bit-equal in each, the refusals (f16, head dim 96); K2 at the serving shape and at `chip_smoke.K2_TC_CASES` (head dims
 64 and 128, a fully dead window) and its refusals; each with device times
 (CUDA events behind a GPU spin), the plain version's and one SDPA call's.
 Needs a CUDA device and nvcc; exits 2 without one.

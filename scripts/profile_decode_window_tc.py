@@ -7,19 +7,18 @@ window attention) goes, on one card.
 Times with CUDA events behind a GPU spin (`chip_smoke.cuda_ms`), twice in
 turns, and prints one line each:
 - D2 at phase 2's shape (q (1, 2, 64, 128) bf16 over a 2048-key prefix with
-  134 pad keys, suffix 199 of 256, bf16 and int8 caches): the whole kernel,
-  its prefix blocks alone, its suffix blocks alone and its fold alone, at
-  the chunk length the wrapper picks and at 1, 2, 4 and 8 64-key tiles a
-  prefix block, against one SDPA call over the same keys; and over int8
-  caches as a variant of `csrc/decode_attention.cu` built without the int8
-  to bf16 conversion (into `time_r1_tpu_torch/_build/d2_variants/`, never
-  loaded by the port; its output is wrong, only the time counts);
-- K2 at phase 2's shape (the two serving videos' windows: q/k/v (16128, 16,
-  80) bf16, cos/sin, key bias) as built and at 16, 8, 4 and 2 heads a
-  block, against K3's tensor-core entry
-  called with one 64-row window per slice (S = 64: cos/sin staged once per
-  (window, head), where K2 stages them once per window), against SDPA over
-  the windows.
+  134 pad keys, suffix 199 of 256, bf16 and int8 caches): the wrapper, then
+  at 1, 2, 4 and 8 64-key tiles a prefix block the whole kernel, its prefix
+  blocks alone, its suffix blocks alone and its fold alone, against one SDPA
+  call over the same keys; and the wrapper at 16 rollouts a prompt (N =
+  128 rows, two 64-row tiles a prefix block). The parts come from a timing
+  build of `csrc/decode_attention.cu` with -DT1_D2_PROFILE_PARTS (into
+  `time_r1_tpu_torch/_build/d2_parts/`, never loaded by the port);
+- K2 at phase 2's shape (the two serving videos' windows: q/k/v (15104, 16,
+  80) bf16, cos/sin, key bias) against K3's tensor-core entry called with
+  one 64-row window per slice (S = 64: cos/sin staged once per (window,
+  head), where K2 stages them once per window), against SDPA over the
+  windows.
 With --parent DIR (another checkout, e.g. the parent commit unpacked with
 `git archive`), K3 as DIR builds it runs beside this tree's at phase 2's
 shape (q/k/v (28, 576, 16, 80)): their outputs must be bit-equal, and the
@@ -44,39 +43,36 @@ from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig, prepare_vision_inp
 from time_r1_tpu_torch.models.qwen25vl.vision import vision_rope_tables  # noqa: E402
 from time_r1_tpu_torch.ops import decode_attention as da  # noqa: E402
 from time_r1_tpu_torch.ops.attention import NEG_INF  # noqa: E402
-from time_r1_tpu_torch.ops.vision_attention import (  # noqa: E402
-    full_attention_rope,
-    launch_window_tc,
-    window_attention_rope,
-)
+from time_r1_tpu_torch.ops.vision_attention import full_attention_rope, window_attention_rope  # noqa: E402
 
 
-NO_CONVERT = [("          convert(0);\n", ""), ("          convert(1);\n", "")]
-
-
-def build_no_convert():
-    """decode_attention.cu without the int8 conversion: its t1_decode_full_tc."""
-    d = kernels.BUILD / "d2_variants" / "no_convert"
+def build_parts():
+    """decode_attention.cu's timing build: its t1_decode_full_tc_part."""
+    d = kernels.BUILD / "d2_parts"
     d.mkdir(parents=True, exist_ok=True)
-    text = (kernels.CSRC / "decode_attention.cu").read_text()
-    for old, new in NO_CONVERT:
-        if old not in text:
-            raise RuntimeError(f"decode_attention.cu no longer holds {old!r}")
-        text = text.replace(old, new)
-    for f in kernels.CSRC.glob("*.cuh"):
-        (d / f.name).write_text(f.read_text())
-    (d / "decode_attention.cu").write_text(text)
-    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / "decode_attention.cu")],
-                   check=True, capture_output=True)
-    fn = ctypes.CDLL(str(d / "lib.so")).t1_decode_full_tc
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib = d / "libdecode_attention.so"
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-DT1_D2_PROFILE_PARTS", "-o", str(lib),
+                    str(kernels.CSRC / "decode_attention.cu")], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).t1_decode_full_tc_part
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch_part(fn, args, ctiles: int, parts: int):
+    """The tensor-core D2's prefix blocks (parts 1), suffix blocks (2) or
+    fold (4) alone, on the wrapper's operands."""
+    prm, out = da.full_tc_params(*args, ctiles=ctiles)
+    q, k_pref = args[0], args[1]
+    kernels.check(fn(parts, int(k_pref.dtype == torch.int8), q.shape[-1], ctypes.addressof(prm), kernels.stream(q)),
+                  "D2 part")
+    return out
 
 
 def d2_calls(gen) -> dict:
     P, R, H, Hkv, D, Lp, Lo, pad, own = 1, 8, 16, 2, 128, 2048, 256, 134, 199
     base = chip_smoke.decode_base(gen, P, R, H, Hkv, D, Lp, Lo, pad)
+    parts_fn = build_parts()
     calls = {}
     for int8 in (False, True):
         x = chip_smoke.decode_views(base, torch.bfloat16, int8)
@@ -85,14 +81,10 @@ def d2_calls(gen) -> dict:
         picked = da.tc_chunk_tiles(Lp, R * H // Hkv, int8)
         calls[f"D2 {label} caches, wrapper ({picked} tiles a chunk)"] = lambda a=args: da.shared_prefix_decode_full(*a)
         for ct in (1, 2, 4, 8):
-            for parts, what in ((7, "whole"), (1, "prefix blocks"), (2, "suffix blocks"), (4, "fold")):
+            calls[f"D2 {label} caches, {ct} tiles a chunk: whole"] = lambda a=args, ct=ct: da.launch_full_tc(*a, ct)
+            for parts, what in ((1, "prefix blocks"), (2, "suffix blocks"), (4, "fold")):
                 calls[f"D2 {label} caches, {ct} tiles a chunk: {what}"] = (
-                    lambda a=args, ct=ct, parts=parts: da.launch_full_tc(*a, ctiles=ct, parts=parts))
-        if int8:
-            variant = build_no_convert()
-            for parts, what in ((7, "whole"), (1, "prefix blocks"), (2, "suffix blocks")):
-                calls[f"D2 int8 caches without the conversion, {picked} tiles a chunk: {what}"] = (
-                    lambda a=args, parts=parts: da.launch_full_tc(*a, ctiles=picked, parts=parts, fn=variant))
+                    lambda a=args, ct=ct, parts=parts: launch_part(parts_fn, a, ct, parts))
     k = torch.cat([base["kp"].expand(P * R, -1, -1, -1), base["ko"][:, :own], base["kn"][:, None]], 1)
     v = torch.cat([base["vp"].expand(P * R, -1, -1, -1), base["vo"][:, :own], base["vn"][:, None]], 1)
     mask = torch.cat([base["bias"].expand(P * R, -1), torch.zeros(P * R, own + 1, device="cuda")], 1)
@@ -100,6 +92,9 @@ def d2_calls(gen) -> dict:
     mk = mask[:, None, None, :].bfloat16()
     calls["SDPA over [prefix | suffix | new token]"] = lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mk, enable_gqa=True)
+    wide = chip_smoke.decode_views(chip_smoke.decode_base(gen, P, 2 * R, H, Hkv, D, Lp, Lo, pad), torch.bfloat16, False)
+    calls["D2 bf16 caches, 16 rollouts (N = 128: two 64-row tiles)"] = (
+        lambda a=chip_smoke.d2_args(wide, own): da.shared_prefix_decode_full(*a))
     return calls
 
 
@@ -119,10 +114,8 @@ def k2_calls(gen) -> dict:
     print(f"K2: q/k/v ({P}, {nh}, {hd}) bf16, {n} windows of {win}", flush=True)
     qt, kt, vt = (t.transpose(1, 2) for t in (qs, ks, vs))
     mask = bs[:, None, None, :].bfloat16()
-    calls = {"K2 as built": lambda: window_attention_rope(q, k, v, cos, sin, key_bias, win)}
-    for hpb in (16, 8, 4, 2):
-        calls[f"K2, {hpb} heads a block"] = lambda hpb=hpb: launch_window_tc(q, k, v, cos, sin, key_bias, win, hpb)
-    return calls | {
+    return {
+        "K2": lambda: window_attention_rope(q, k, v, cos, sin, key_bias, win),
         "K3's tensor-core entry at S = 64 (one window a slice)": lambda: full_attention_rope(qs, ks, vs, cs, ss, bs),
         "SDPA over the windows": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
     }

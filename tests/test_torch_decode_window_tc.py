@@ -14,7 +14,9 @@ against the JAX package's Pallas kernels in interpret mode (products in f32):
   weights exp(m_s - m) / l, out in bf16. Against
   `time_r1_tpu.ops.decode_attention.shared_prefix_decode_full` with a fully
   masked first chunk, own_len 0, 1 and 199, a prefix that is not a multiple
-  of the chunk, N = 56 (G = 7, the 7B rollout) and P = 2 prompts: within
+  of the chunk, N = 56 (G = 7, the 7B rollout), N = 128 and 112 (16
+  rollouts a prompt: a row's arithmetic does not depend on the 64-row tile
+  the kernel puts it in) and P = 2 prompts: within
   1e-2 of max |JAX| (every row is valid: the new token is always live), as
   `chip_smoke.py` holds the kernel to its plain version (DECODE_TOL);
 - (b) K2: the rope in f32, rope(q)·hd^-0.5 and rope(k) rounded to bf16, one
@@ -135,6 +137,8 @@ D2_CASES = [
     (1, 8, 14, 2, 128, 640, 64, 20, True, 40),
     (2, 4, 8, 2, 64, 256, 32, 70, False, 17),  # P = 2 prompts, head dim 64
     (2, 4, 8, 2, 64, 256, 32, 70, True, 31),
+    (1, 16, 16, 2, 64, 256, 32, 70, False, 9),  # 16 rollouts: N = 128, two 64-row tiles
+    (1, 16, 14, 2, 64, 256, 32, 70, True, 31),  # N = 112 at G = 7: the second tile ragged
 ]
 
 

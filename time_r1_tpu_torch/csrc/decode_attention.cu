@@ -22,10 +22,11 @@
 // (64-key chunk, kv head, prompt) its own block, which scores the chunk
 // against all N rows (a 64x64 tile, 4x4 per thread, as attention_tile.cuh)
 // and writes the chunk's (acc, m, l) in f32. D1 then folds the chunks
-// (`decode_combine`); D2 folds them in `decode_tail` (one block per (kv head,
-// rollout row), one warp per query row), continues the online softmax over
-// the row's live suffix and the in-register new token, and normalises. D1 is
-// two launches and D2 two, the split pass shared.
+// (`decode_combine`). D2 in f32 folds them in `decode_tail` (one block per
+// (kv head, rollout row), one warp per query row), continues the online
+// softmax over the row's live suffix and the in-register new token, and
+// normalises: two launches, the split pass shared with D1. D2 in bf16 is the
+// one-launch tensor-core kernel further down (`decode_full_tc`).
 //
 // The mask floor: prompts are left-padded with a -1e30 additive bias. A chunk
 // whose keys are all padding has m = -1e30; its probabilities are zeroed where
@@ -40,8 +41,9 @@
 // hd = 128) each key is used by 64 rows, about 64 operations per byte of bf16
 // K/V, so the bound is reading the live prefix and suffix (about 2-4 MB per
 // layer-step), about 1 us. At that size launches and the split's f32
-// partials (P·Hkv·Lp/64·N·D·4 = 2 MB) matter more; the arithmetic is plain
-// f32 FMA out of shared memory (tensor cores later).
+// partials (P·Hkv·Lp/64·N·D·4 = 2 MB) matter more. The split pass and the
+// tail are exact f32 FMA out of shared memory (D1 in both dtypes, D2 in
+// f32); the tensor-core D2 is described at its kernel.
 #include <stdint.h>
 
 #include <type_traits>
@@ -82,7 +84,6 @@ struct DecodeParams {
   long long n_sb, n_sh;
   int P, Hkv, N, Lp, R, G, nchunk, own_len;
   int ctiles;         // tensor-core D2: 64-key tiles per prefix chunk
-  int parts;          // tensor-core D2: 7 the whole kernel; 1, 2, 4 its prefix blocks, suffix blocks, fold alone
   float scale;
 };
 
@@ -451,35 +452,20 @@ int run_tail(const DecodeParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// dtype 0 = float32, 1 = bfloat16 (q, new token, output); quant: int8 caches,
-// else the caches have q's dtype; D 64 or 128. -1: no instance.
-template <template <typename, typename, int, bool> class F>
-int dispatch(int dtype, int quant, int D, const DecodeParams& p, cudaStream_t st) {
-  if ((dtype != 0 && dtype != 1) || (D != 64 && D != 128)) return -1;
-  if (dtype == 0) {
-    if (quant) return D == 64 ? F<float, int8_t, 64, true>::run(p, st) : F<float, int8_t, 128, true>::run(p, st);
-    return D == 64 ? F<float, float, 64, false>::run(p, st) : F<float, float, 128, false>::run(p, st);
-  }
-  if (quant)
-    return D == 64 ? F<__nv_bfloat16, int8_t, 64, true>::run(p, st) : F<__nv_bfloat16, int8_t, 128, true>::run(p, st);
-  return D == 64 ? F<__nv_bfloat16, __nv_bfloat16, 64, false>::run(p, st)
-                 : F<__nv_bfloat16, __nv_bfloat16, 128, false>::run(p, st);
-}
-
-template <typename T, typename C, int D, bool QUANT>
-struct Split {
-  static int run(const DecodeParams& p, cudaStream_t st) { return run_split<T, C, D, QUANT>(p, st); }
-};
-
-template <typename T, typename C, int D, bool QUANT>
-struct Tail {
-  static int run(const DecodeParams& p, cudaStream_t st) { return run_tail<T, C, D, QUANT>(p, st); }
-};
-
 }  // namespace
 
+// The split pass. dtype 0 = float32, 1 = bfloat16 (q); quant: int8 caches,
+// else the caches have q's dtype; D 64 or 128. -1: no instance.
 extern "C" int t1_decode_prefix_split(int dtype, int quant, int D, const DecodeParams* p, void* stream) {
-  return dispatch<Split>(dtype, quant, D, *p, static_cast<cudaStream_t>(stream));
+  if ((dtype != 0 && dtype != 1) || (D != 64 && D != 128)) return -1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (quant) return D == 64 ? run_split<float, int8_t, 64, true>(*p, st) : run_split<float, int8_t, 128, true>(*p, st);
+    return D == 64 ? run_split<float, float, 64, false>(*p, st) : run_split<float, float, 128, false>(*p, st);
+  }
+  using bf = __nv_bfloat16;
+  if (quant) return D == 64 ? run_split<bf, int8_t, 64, true>(*p, st) : run_split<bf, int8_t, 128, true>(*p, st);
+  return D == 64 ? run_split<bf, bf, 64, false>(*p, st) : run_split<bf, bf, 128, false>(*p, st);
 }
 
 extern "C" int t1_decode_prefix_combine(int D, const DecodeParams* p, void* stream) {
@@ -487,8 +473,13 @@ extern "C" int t1_decode_prefix_combine(int D, const DecodeParams* p, void* stre
   return cudaGetLastError();
 }
 
+// D2's tail in f32 (bf16 D2 runs t1_decode_full_tc): quant: int8 caches,
+// else f32; D 64 or 128. -1: no instance.
 extern "C" int t1_decode_tail(int dtype, int quant, int D, const DecodeParams* p, void* stream) {
-  return dispatch<Tail>(dtype, quant, D, *p, static_cast<cudaStream_t>(stream));
+  if (dtype != 0 || (D != 64 && D != 128)) return -1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (quant) return D == 64 ? run_tail<float, int8_t, 64, true>(*p, st) : run_tail<float, int8_t, 128, true>(*p, st);
+  return D == 64 ? run_tail<float, float, 64, false>(*p, st) : run_tail<float, float, 128, false>(*p, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -597,7 +588,9 @@ __device__ __forceinline__ void int8x16_to_bf16(const uint4 w, uint4& lo, uint4&
   hi = make_uint4(out[4], out[5], out[6], out[7]);
 }
 
-template <int D, bool QUANT>
+// PARTS 7 is the kernel; a timing build also instantiates 1, 2 and 4: its
+// prefix blocks, its suffix blocks or its fold alone (t1_decode_full_tc_part).
+template <int D, bool QUANT, int PARTS>
 __global__ void __launch_bounds__(DEC_WGS * WG, 1) decode_full_tc(const __grid_constant__ DecodeParams p) {
   using C = typename std::conditional<QUANT, int8_t, bf16>::type;
   constexpr int TILE = tile_bytes<D>();
@@ -625,8 +618,8 @@ __global__ void __launch_bounds__(DEC_WGS * WG, 1) decode_full_tc(const __grid_c
   const int nslot = p.nchunk + 1;
   const bf16* qph = static_cast<const bf16*>(p.q) + ph * p.N * D;
 
-  if (p.parts != 4) {
-    const int role = blockIdx.x + (p.parts == 2 ? p.nchunk : 0);
+  if constexpr (PARTS != 4) {
+    const int role = blockIdx.x + (PARTS == 2 ? p.nchunk : 0);
     const bool prefix = role < p.nchunk;
     const C *kg, *vg;
     const float *ksg = nullptr, *vsg = nullptr, *bg = nullptr;
@@ -906,7 +899,7 @@ __global__ void __launch_bounds__(DEC_WGS * WG, 1) decode_full_tc(const __grid_c
         }
       }
     }
-    if (p.parts != 7) return;
+    if constexpr (PARTS != 7) return;
     __syncthreads();  // the block's partials are written
     if (tid == 0) {   // as a grid barrier does: one fence releases them, the last block's acquires the others'
       __threadfence();
@@ -1002,17 +995,27 @@ __global__ void __launch_bounds__(DEC_WGS * WG, 1) decode_full_tc(const __grid_c
         *reinterpret_cast<uint2*>(og + 4 * f) = make_uint2(pack_bf16(acc[u].x, acc[u].y), pack_bf16(acc[u].z, acc[u].w));
     }
   }
-  if (tid == 0 && p.parts == 7) p.ticket[ph] = 0;  // every block of this (prompt, kv head) has arrived
+  if constexpr (PARTS == 7)
+    if (tid == 0) p.ticket[ph] = 0;  // every block of this (prompt, kv head) has arrived
 }
 
-template <int D, bool QUANT>
+template <int D, bool QUANT, int PARTS>
 int run_full_tc(const DecodeParams& p, cudaStream_t stream) {
   constexpr int smem = dec_smem_bytes<D, QUANT>();
-  cudaError_t err = cudaFuncSetAttribute(decode_full_tc<D, QUANT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(decode_full_tc<D, QUANT, PARTS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int gx = p.parts == 1 ? p.nchunk : p.parts == 2 ? p.R : p.parts == 4 ? 1 : p.nchunk + p.R;
-  decode_full_tc<D, QUANT><<<dim3(gx, p.Hkv, p.P), DEC_WGS * WG, smem, stream>>>(p);
+  const int gx = PARTS == 1 ? p.nchunk : PARTS == 2 ? p.R : PARTS == 4 ? 1 : p.nchunk + p.R;
+  decode_full_tc<D, QUANT, PARTS><<<dim3(gx, p.Hkv, p.P), DEC_WGS * WG, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int PARTS>
+int full_tc(int quant, int D, const DecodeParams& p, cudaStream_t st) {
+  if (D != 64 && D != 128) return -1;
+  if (p.nchunk < 1 || p.nchunk + 1 > DEC_MAX_SLOTS || p.G < 1 || p.G > 64 || p.ctiles < 1) return -2;
+  if (quant) return D == 64 ? run_full_tc<64, true, PARTS>(p, st) : run_full_tc<128, true, PARTS>(p, st);
+  return D == 64 ? run_full_tc<64, false, PARTS>(p, st) : run_full_tc<128, false, PARTS>(p, st);
 }
 
 }  // namespace tc
@@ -1021,15 +1024,24 @@ int run_full_tc(const DecodeParams& p, cudaStream_t stream) {
 // D2 on the tensor cores: bf16 q, new token and output; quant: int8 caches,
 // else bf16; D 64 or 128. -1: no instance; -2: a shape the kernel does not take.
 extern "C" int t1_decode_full_tc(int quant, int D, const t1::DecodeParams* p, void* stream) {
-  using namespace t1::tc;
-  if (D != 64 && D != 128) return -1;
-  if (p->nchunk < 1 || p->nchunk + 1 > DEC_MAX_SLOTS || p->G < 1 || p->G > 64 || p->ctiles < 1 ||
-      (p->parts != 1 && p->parts != 2 && p->parts != 4 && p->parts != 7))
-    return -2;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (quant) return D == 64 ? run_full_tc<64, true>(*p, st) : run_full_tc<128, true>(*p, st);
-  return D == 64 ? run_full_tc<64, false>(*p, st) : run_full_tc<128, false>(*p, st);
+  return t1::tc::full_tc<7>(quant, D, *p, static_cast<cudaStream_t>(stream));
 }
+
+#ifdef T1_D2_PROFILE_PARTS
+// A timing build only (scripts/profile_decode_window_tc.py compiles this
+// file with -DT1_D2_PROFILE_PARTS; the port never loads it): parts 1, 2 or 4
+// launch the tensor-core D2's prefix blocks, its suffix blocks or its fold
+// alone. None of them takes a ticket, and only the fold writes the output.
+extern "C" int t1_decode_full_tc_part(int parts, int quant, int D, const t1::DecodeParams* p, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (parts) {
+    case 1: return t1::tc::full_tc<1>(quant, D, *p, st);
+    case 2: return t1::tc::full_tc<2>(quant, D, *p, st);
+    case 4: return t1::tc::full_tc<4>(quant, D, *p, st);
+    default: return -2;
+  }
+}
+#endif
 
 // Dynamic shared memory of one tensor-core D2 block, in bytes.
 extern "C" int t1_decode_full_tc_smem_bytes(int quant, int D) {

@@ -25,14 +25,13 @@
 // ~165 MB of bf16 operands, so its bound is the bytes (~50 us at 3.35
 // TB/s); K3 does ~31 GFLOP over ~140 MB, bytes and tensor-core arithmetic
 // about even. Instances:
-// - K2 in bf16 (`t1_window_attention_rope_fwd_tc`): one block per (window,
-//   group of `hpb` heads), one warpgroup. A Qwen2.5-VL window is 64 rows
-//   (window_patches² · merge_unit = 4² · 4), so each (window, head) is one
-//   64 x 64 query/key tile and the softmax needs no running max. The
+// - K2 in bf16 (`t1_window_attention_rope_fwd_tc`): one block per window,
+//   one warpgroup, looping over all the heads. A Qwen2.5-VL window is 64
+//   rows (window_patches² · merge_unit = 4² · 4), so each (window, head) is
+//   one 64 x 64 query/key tile and the softmax needs no running max. The
 //   window's 64 rows of cos/sin are staged once per block and serve Q and K
-//   of every head: at hpb = 16 that is ~10 MB of cos/sin for the 252
-//   windows, where K3's kernel would stage them again for every (slice,
-//   head) (~165 MB). Q, K and V of head j + 2 stream in by cp.async into the
+//   of every head: ~10 MB of cos/sin for the 252 windows, where K3's kernel
+//   would stage them again for every (slice, head) (~165 MB). Q, K and V of head j + 2 stream in by cp.async into the
 //   stage head j frees (a ring of two), so a head's copies run under the
 //   previous head's products. Per head: Q (times hd^-0.5) and K roped in f32
 //   in shared memory and rounded to bf16 (attention_fwd_tc.cuh's
@@ -66,7 +65,6 @@ struct WindowParams {
   const float* bias;  // (P,) f32 additive key bias
   int nh;
   int win;  // rows of a window, <= 64
-  int hpb;  // heads per block
   float scale;
 };
 
@@ -77,7 +75,7 @@ __host__ __device__ constexpr int window_smem_bytes() {
   return 1024 + 6 * tile_bytes<D>() + 2 * 64 * rope_stride<D>() * 4 + 256;
 }
 
-// K2 in bf16: one block per (window, group of hpb heads), one warpgroup.
+// K2 in bf16: one block per window, one warpgroup, every head in turn.
 template <int D>
 __global__ void __launch_bounds__(WG, 2) window_attn_tc(const __grid_constant__ WindowParams p) {
   constexpr int TILE = tile_bytes<D>();
@@ -94,14 +92,12 @@ __global__ void __launch_bounds__(WG, 2) window_attn_tc(const __grid_constant__ 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int h0 = blockIdx.y * p.hpb;
-  const int nheads = min(p.hpb, p.nh - h0);
   const long long row0 = (long long)blockIdx.x * p.win;
   const int row_stride = p.nh * D;
 
   auto load_head = [&](int j) {
     const uint32_t dst = base + 3 * (j & 1) * TILE;
-    const long long off = row0 * row_stride + (long long)(h0 + j) * D;
+    const long long off = row0 * row_stride + (long long)j * D;
     load_tile<D>(dst, p.q + off, row_stride, 0, p.win);
     load_tile<D>(dst + TILE, p.k + off, row_stride, 0, p.win);
     load_tile<D>(dst + 2 * TILE, p.v + off, row_stride, 0, p.win);
@@ -112,11 +108,11 @@ __global__ void __launch_bounds__(WG, 2) window_attn_tc(const __grid_constant__ 
   if (tid < p.win) cp_async4(sBias + 4 * tid, p.bias + row0 + tid, true);
   load_head(0);
   cp_async_commit();
-  if (nheads > 1) load_head(1);
+  if (p.nh > 1) load_head(1);
   cp_async_commit();
 
   const int r0 = warp * 16 + (lane >> 2);  // the thread's rows: r0 and r0 + 8
-  for (int j = 0; j < nheads; ++j) {
+  for (int j = 0; j < p.nh; ++j) {
     const uint32_t sQ = base + 3 * (j & 1) * TILE;
     const uint32_t sK = sQ + TILE;
     const uint32_t sV = sK + TILE;
@@ -178,7 +174,7 @@ __global__ void __launch_bounds__(WG, 2) window_attn_tc(const __grid_constant__ 
     fence_regs(o);
     if constexpr (DT > 0) fence_regs(ot);
 
-    bf16* og = p.o + row0 * row_stride + (long long)(h0 + j) * D;
+    bf16* og = p.o + row0 * row_stride + (long long)j * D;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float li = l[i];
@@ -199,7 +195,7 @@ __global__ void __launch_bounds__(WG, 2) window_attn_tc(const __grid_constant__ 
       }
     }
     __syncthreads();  // every warp is done with stage j & 1
-    if (j + 2 < nheads) load_head(j + 2);
+    if (j + 2 < p.nh) load_head(j + 2);
     cp_async_commit();
   }
 }
@@ -209,7 +205,7 @@ int launch_window(const WindowParams& p, int n_windows, cudaStream_t stream) {
   constexpr int smem = window_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(window_attn_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  window_attn_tc<D><<<dim3(n_windows, (p.nh + p.hpb - 1) / p.hpb), WG, smem, stream>>>(p);
+  window_attn_tc<D><<<n_windows, WG, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -247,15 +243,14 @@ extern "C" int t1_window_attention_rope_fwd(const void* q, const void* k, const 
 }
 
 // K2, bf16 q, k, v, o (16-byte aligned; cos/sin too), windows of win <= 64
-// rows, `hpb` heads a block; the rest as t1_window_attention_rope_fwd. The
-// tensor-core kernel.
+// rows; the rest as t1_window_attention_rope_fwd. The tensor-core kernel.
 extern "C" int t1_window_attention_rope_fwd_tc(const void* q, const void* k, const void* v, const float* cos,
                                                const float* sin, const float* key_bias, void* o, int P, int nh,
-                                               int hd, int win, int hpb, float scale, void* stream) {
-  if (win <= 0 || win > 64 || P % win != 0 || hpb < 1) return -2;
+                                               int hd, int win, float scale, void* stream) {
+  if (win <= 0 || win > 64 || P % win != 0) return -2;
   t1::tc::WindowParams p{static_cast<const t1::tc::bf16*>(q), static_cast<const t1::tc::bf16*>(k),
                          static_cast<const t1::tc::bf16*>(v), static_cast<t1::tc::bf16*>(o), cos, sin, key_bias,
-                         nh, win, hpb, scale};
+                         nh, win, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64: return t1::tc::launch_window<64>(p, P / win, st);

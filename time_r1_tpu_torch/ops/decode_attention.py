@@ -51,7 +51,7 @@ class _Params(ctypes.Structure):
     )] + [(n, _L) for n in (
         "kv_sp", "kv_sh", "kv_st", "s_sp", "s_sh", "s_st", "own_sb", "own_sh", "own_st",
         "os_sb", "os_sh", "os_st", "n_sb", "n_sh",
-    )] + [(n, _I) for n in ("P", "Hkv", "N", "Lp", "R", "G", "nchunk", "own_len", "ctiles", "parts")] + [("scale", ctypes.c_float)]
+    )] + [(n, _I) for n in ("P", "Hkv", "N", "Lp", "R", "G", "nchunk", "own_len", "ctiles")] + [("scale", ctypes.c_float)]
 
 
 # ---------------------------------------------------------------------------
@@ -284,13 +284,11 @@ def _full_params(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own, 
     return prm
 
 
-def launch_full_tc(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own, own_len: int, k_new, v_new,
-                   ctiles: int, parts: int = 7, fn=None) -> torch.Tensor:
-    """The tensor-core D2 kernel on checked bf16 operands, `ctiles` 64-key
-    tiles per prefix block. parts 7 is the whole kernel; 1, 2 and 4 launch its
-    prefix blocks, its suffix blocks or its fold alone (for timing the parts:
-    they neither take tickets nor, but for 4, write the output). `fn`: another
-    build's `t1_decode_full_tc` (a timing variant), else this one's."""
+def full_tc_params(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own, own_len: int, k_new, v_new,
+                   ctiles: int) -> tuple[_Params, torch.Tensor]:
+    """The tensor-core D2's launch arguments on checked bf16 operands,
+    `ctiles` 64-key tiles per prefix block, and its output (not yet
+    written). The partials live in the device's workspace."""
     P, Hkv, N, hd = q.shape
     quant = k_pref.dtype == torch.int8
     nchunk = -(-k_pref.shape[2] // (64 * ctiles))
@@ -302,10 +300,19 @@ def launch_full_tc(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own
     prm.acc_part = work.data_ptr()
     prm.m_part = prm.acc_part + 4 * n_acc
     prm.l_part = prm.m_part + 4 * P * Hkv * nslot * N
-    prm.ticket, prm.o, prm.nchunk, prm.ctiles, prm.parts = tickets.data_ptr(), out.data_ptr(), nchunk, ctiles, parts
-    if fn is None:
-        fn = kernels.bind("decode_attention", "t1_decode_full_tc", [_I, _I, ctypes.c_void_p, _P])
-    kernels.check(fn(int(quant), hd, ctypes.addressof(prm), kernels.stream(q)), "shared_prefix_decode_full")
+    prm.ticket, prm.o, prm.nchunk, prm.ctiles = tickets.data_ptr(), out.data_ptr(), nchunk, ctiles
+    return prm, out
+
+
+def launch_full_tc(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own, own_len: int, k_new, v_new,
+                   ctiles: int) -> torch.Tensor:
+    """The tensor-core D2 kernel on checked bf16 operands, `ctiles` 64-key
+    tiles per prefix block."""
+    prm, out = full_tc_params(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own, own_len, k_new, v_new,
+                              ctiles)
+    fn = kernels.bind("decode_attention", "t1_decode_full_tc", [_I, _I, ctypes.c_void_p, _P])
+    rc = fn(int(k_pref.dtype == torch.int8), q.shape[-1], ctypes.addressof(prm), kernels.stream(q))
+    kernels.check(rc, "shared_prefix_decode_full")
     return out
 
 

@@ -71,20 +71,6 @@ def _check(name, q, k, v, cos, sin, key_bias, rows_shape):
                     name, "the kernel has no backward: run the frozen tower under torch.no_grad()")
 
 
-def launch_window_tc(q, k, v, cos, sin, key_bias, win_patches: int, heads_per_block: int) -> torch.Tensor:
-    """The tensor-core K2 kernel on checked bf16 operands, one block per
-    (window, group of `heads_per_block` heads)."""
-    P, nh, hd = q.shape
-    out = torch.empty_like(q)
-    fn = kernels.bind("vision_attention", "t1_window_attention_rope_fwd_tc",
-                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
-    rc = fn(kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(cos), kernels.ptr(sin),
-            kernels.ptr(key_bias), kernels.ptr(out), P, nh, hd, win_patches, heads_per_block, float(hd**-0.5),
-            kernels.stream(q))
-    kernels.check(rc, "window_attention_rope")
-    return out
-
-
 def window_attention_rope(q, k, v, cos, sin, key_bias, win_patches: int) -> torch.Tensor:
     """Rope + attention inside each window of `win_patches` consecutive rows
     of the padded-window layout. CUDA tensors launch K2 (bf16: the
@@ -99,18 +85,15 @@ def window_attention_rope(q, k, v, cos, sin, key_bias, win_patches: int) -> torc
                     "window count")
     tc = q.dtype == torch.bfloat16
     if tc:
-        kernels.require(win_patches <= 64 and nh <= 65535, name, f"windows of {win_patches} rows (at most 64)")
+        kernels.require(win_patches <= 64, name, f"windows of {win_patches} rows (at most 64)")
         kernels.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v, cos, sin)), name,
                         "operands must be 16-byte aligned")
-        out = launch_window_tc(q, k, v, cos, sin, key_bias, win_patches, nh)
-    else:
-        out = torch.empty_like(q)
-        fn = kernels.bind("vision_attention", "t1_window_attention_rope_fwd",
-                          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
-        rc = fn(kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(cos), kernels.ptr(sin),
-                kernels.ptr(key_bias), kernels.ptr(out), P, nh, hd, win_patches, float(hd**-0.5),
-                kernels.stream(q))
-        kernels.check(rc, name)
+    out = torch.empty_like(q)
+    fn = kernels.bind("vision_attention", "t1_window_attention_rope_fwd_tc" if tc else "t1_window_attention_rope_fwd",
+                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+    rc = fn(kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(cos), kernels.ptr(sin),
+            kernels.ptr(key_bias), kernels.ptr(out), P, nh, hd, win_patches, float(hd**-0.5), kernels.stream(q))
+    kernels.check(rc, name)
     window_attention_rope.launches += 1
     window_attention_rope.tc_launches += int(tc)
     return out
