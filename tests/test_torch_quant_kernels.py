@@ -6,7 +6,8 @@ wrappers run their plain versions), mirroring tests/test_int4_matmul.py:
   `int4_matmul_reference`, with ragged K and N (JAX pads them; the port's
   kernel masks them);
 - the K split the Q1 wrapper chooses covers K in whole staged tiles;
-- the Q2 plain version against `fused_mlp_int8(interpret=True)`;
+- the Q2 plain version against `fused_mlp_int8(interpret=True)` at M = 1, 4,
+  7, 8, 16 and a ragged narrow shape;
 - `mlp_proj` on the CPU takes the unfused path over the fused int8 layout, as
   the JAX package does off the TPU, and equals JAX's.
 
@@ -61,10 +62,8 @@ def test_q1_k_split_covers_k(M, K, N):
     assert splits * -(-N // i4.NT) <= 65535
 
 
-@pytest.mark.parametrize("M", [1, 8])
-def test_q2_plain_matches_jax(M):
+def _q2_plain_against_jax(M, hid, inter):
     rng = np.random.default_rng(M)
-    hid, inter = 256, 384
     x = rng.normal(size=(M, hid)).astype(np.float32)
     gu = jq.quantize_weight(jnp.asarray(rng.normal(size=(hid, 2 * inter)).astype(np.float32)))
     dn = jq.quantize_weight(jnp.asarray(rng.normal(size=(inter, hid)).astype(np.float32)))
@@ -73,6 +72,17 @@ def test_q2_plain_matches_jax(M):
     got = fm.fused_mlp_int8(torch.from_numpy(x), _t(gu["q8"]), _t(gu["s"]), _t(dn["q8"]), _t(dn["s"])).numpy()
     assert fm.fused_mlp_int8.launches == 0
     _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("M", [1, 4, 7, 8, 16])
+def test_q2_plain_matches_jax(M):
+    _q2_plain_against_jax(M, 256, 384)
+
+
+def test_q2_plain_matches_jax_ragged():
+    """A narrow shape both kernels take whose inter is no multiple of 256
+    (the TPU kernel's 128-column blocks; five 64-column blocks here)."""
+    _q2_plain_against_jax(3, 128, 640)
 
 
 def test_fused_mlp_eligibility_matches_jax():
