@@ -12,7 +12,8 @@ Phases (any failed check raises and the exit code is non-zero):
    Q1, Q2 (quantized rollouts: caches in bf16/f32 and int8, a fully masked
    first prefix chunk, suffix lengths 0 and 199, Q1 at M = 1, 8, 200 and a
    ragged shape, Q2 at M = 1, 4, 7, 8, 16, 128 at the 3B widths, M = 7, 8 at
-   the 7B widths and M = 3 at hid 256, inter 272), P1, P2 (continuous-batching decode: 4 slots of lengths 0,
+   the 7B widths and M = 3 at hid 256, inter 272, every case with its two
+   phases apart and in bf16 also end to end), P1, P2 (continuous-batching decode: 4 slots of lengths 0,
    327, 1689, 2041 over a shuffled page table, page size 16, full slots, a
    dead slot with a stale table row, head dim 64), and the bf16 head's
    backward against the f32 cotangent. K1-K3, B1, B2, S1, S2 and D2 in bf16
@@ -1322,14 +1323,14 @@ def quant_kernels(gen) -> dict:
 Q2_CASES = [(2048, 11008, M) for M in (1, 4, 7, 8, 16, 128)] + [(3584, 18944, 7), (3584, 18944, 8), (256, 272, 3)]
 
 
-# Q2_WIDE_F32: in f32 at M > 8 the kernel is held against its plain version
-# with its two phases apart (`q2_phases_apart`), not end to end. Its output
-# and the plain version's differ there by activation rounding flips: a sum of
-# 2048 products in another order than cuBLAS's moves an activation across a
-# bf16 rounding boundary (about one in 10^4), and one step of a large
-# activation is a few 1e-4 of the largest output, past QUANT_TOL's 1e-4;
-# held apart, the down product over the kernel's own activation agrees to
-# ~1e-6 on an H100.
+# Q2 is held with its two phases apart (`q2_phases_apart`) in every case, and
+# in bf16 also end to end at QUANT_TOL. In f32 the end-to-end error is
+# logged, not held: the function rounds each activation, an f32 sum over hid
+# products, to bf16, so two right implementations that sum in other orders
+# (the kernel and cuBLAS under the plain version) round some activations to
+# neighbouring bf16 values (1 to 4 in 10^4 here, at every M); one step of
+# a large activation moves an output by a few 1e-4 of the largest, past
+# QUANT_TOL's 1e-4, and how many such flips a case has depends on its data.
 Q2_FLIP_SHARE = 1e-3  # the most activations allowed one bf16 step off the plain version's
 
 
@@ -1377,7 +1378,8 @@ def q2_kernel(gen) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from time_r1_tpu_torch.ops.fused_mlp import fused_mlp_grid, fused_mlp_int8, fused_mlp_int8_plain
+    from time_r1_tpu_torch.ops.fused_mlp import _launch as fused_mlp_launch
+    from time_r1_tpu_torch.ops.fused_mlp import fused_mlp_int8, fused_mlp_int8_plain
     from time_r1_tpu_torch.ops.quant import dequantize_weight, quantize_weight
 
     dev = torch.device("cuda")
@@ -1393,7 +1395,7 @@ def q2_kernel(gen) -> dict:
                                      quantize_weight(randn(hid, inter) * 0.02))
         return weights[(hid, inter)]
 
-    q2 = {"name": "fused_mlp_int8", "cases": {}, "phases_apart": {}, "end_to_end_f32_wide": {}}
+    q2 = {"name": "fused_mlp_int8", "cases": {}, "phases_apart": {}, "end_to_end_f32": {}}
     for hid, inter, M in Q2_CASES:
         gu, dn = mlp(hid, inter)
         xf = randn(M, hid)
@@ -1401,16 +1403,16 @@ def q2_kernel(gen) -> dict:
             key = str(dtype).split(".")[-1]
             case = f"M={M} hid={hid} inter={inter} {key}"
             args = (xf.to(dtype), gu["q8"], gu["s"], dn["q8"], dn["s"])
-            y, act = fused_mlp_int8(*args, return_act=True)
+            y, act = fused_mlp_launch(*args)
             q2["phases_apart"][case] = q2_phases_apart(y, act, *args)
-            pair = [(y, fused_mlp_int8_plain(*args))]
-            if dtype is torch.float32 and M > 8:  # see Q2_WIDE_F32
-                rel = (y - pair[0][1]).abs().max().item() / pair[0][1].abs().max().item()
-                q2["end_to_end_f32_wide"][case] = rel
+            want = fused_mlp_int8_plain(*args)
+            if dtype is torch.float32:  # logged, not held: see Q2_FLIP_SHARE
+                rel = (y - want).abs().max().item() / want.abs().max().item()
+                q2["end_to_end_f32"][case] = rel
                 log(f"[kernels] Q2 {case}: max |kernel - plain| / max |plain| = {rel:.3e} (activation rounding "
-                    f"flips; held apart above)")
+                    f"flips; held with its phases apart)")
             else:
-                check_case(q2, "Q2", case, pair, QUANT_TOL[key])
+                check_case(q2, "Q2", case, [(y, want)], QUANT_TOL[key])
     gu, dn = mlp(2048, 11008)
     for M in (8, 16):
         args = (randn(M, 2048).to(torch.bfloat16), gu["q8"], gu["s"], dn["q8"], dn["s"])
@@ -1455,11 +1457,10 @@ def q2_kernel(gen) -> dict:
                                              weight_bytes + (2 * inter + hid) * 4 + 2 * M * hid * 2)
         t["weight_gbps"] = weight_bytes / t["ms"] / 1e6
         t["bound_share"] = t["bound_ms"] / t["ms"]
-        t["grid"] = fused_mlp_grid(M, hid)
         log(f"[kernels] fused_mlp_int8 hid={hid} inter={inter} M={M}: {t['ms']:.4f} ms on the device "
             f"({t['weight_gbps']:.0f} GB/s of int8 weights, {100 * t['bound_share']:.1f}% of the bound), "
             f"{t['call_ms']:.4f} ms per call from Python (plain {t['plain_ms']:.3f}, bound {t['bound_ms']:.5f} by "
-            f"{t['bound_by']}, library {t['library_ms']:.4f}, grid {t['grid']} blocks)")
+            f"{t['bound_by']}, library {t['library_ms']:.4f})")
         return t
 
     q2.update(timings(2048, 11008))
@@ -1467,7 +1468,8 @@ def q2_kernel(gen) -> dict:
     q2["at_7b"] = timings(3584, 18944)
     q2["library_is"] = "two F.linear in bf16 over weights dequantized before timing, silu between (2x the bytes)"
     q2["tol"], q2["tol_f32"] = QUANT_TOL["bfloat16"], QUANT_TOL["float32"]
-    q2["tol_is"] = "on max_rel_err and each of `cases`: max |kernel - plain| / max |plain|"
+    q2["tol_is"] = ("on max_rel_err and each of `cases` (bf16): max |kernel - plain| / max |plain|; every case "
+                    "in bf16 and f32 with its phases apart (`phases_apart`, tol on down_rel_err)")
     return q2
 
 

@@ -1,19 +1,13 @@
 #!/usr/bin/env python3
 """Where Q2's time goes (`csrc/fused_mlp.cu`): the kernel, its phase A (gate
-and up, activation stored) alone and its phase B (down) alone, from timing
-builds with -DT1_Q2_PROFILE_PARTS, at the 3B and 7B widths, M = 8, bf16;
-and the same for other stage shapes (-DT1_Q2_KC bytes of a row a stage,
--DT1_Q2_STAGES stages at M <= 8) at the 3B widths.
+and up, activation stored) alone and its phase B (down) alone, from a timing
+build with -DT1_Q2_PROFILE_PARTS, at the 3B and 7B widths, M = 8, bf16.
 
-    python3 scripts/profile_fused_mlp_tc.py [KC:STAGES ...]   (default 2048:3 1024:6)
-    python3 scripts/profile_fused_mlp_tc.py trace   (one launch's timeline, `trace`)
+    python3 scripts/profile_fused_mlp_tc.py
 
 Each part is one cooperative launch of the same grid; the parts alone skip
 the grid barrier, so A + B against the kernel shows what the barrier and the
-phase switch cost; with the first stage shape also the stream alone (the
-consumers wait and release each stage without products), the products
-alone (on stale stages, the producer copying nothing) and the skeleton
-(neither). Device times are CUDA events behind a GPU spin
+phase switch cost. Device times are CUDA events behind a GPU spin
 (`chip_smoke.cuda_ms`); rates count each phase's int8 weight bytes once.
 Needs a CUDA device and nvcc; exits 2 without one.
 """
@@ -34,83 +28,21 @@ from time_r1_tpu_torch.ops.fused_mlp import fused_mlp_int8, fused_mlp_int8_plain
 from time_r1_tpu_torch.ops.quant import quantize_weight  # noqa: E402
 
 
-# (name, Params::parts bits): the kernel, each phase alone, then the stream
-# alone (consumers skip the products: 4), the products alone (the producer
-# skips the copies: 8) and neither (the skeleton: launch, x staging (16
-# skips it), barriers, epilogues), for the first stage shape only
-PARTS = [("timing_build", 3), ("phase_a", 1), ("phase_b", 2), ("stream_only", 7), ("stream_only_a", 5),
-         ("stream_only_b", 6), ("products_only", 11), ("products_only_a", 9), ("products_only_b", 10),
-         ("skeleton", 15), ("skeleton_a", 13), ("skeleton_a_without_x", 29), ("skeleton_b", 14)]
+# (name, Params::parts bits): the kernel (a timing build's), each phase alone
+PARTS = [("timing_build", 3), ("phase_a", 1), ("phase_b", 2)]
 
 
-def build_parts(shapes):
-    """fused_mlp.cu's timing builds, one per (KC, STAGES), in parallel: their
-    t1_fused_mlp_int8_part."""
-    jobs = {}
-    for kc, st in shapes:
-        d = kernels.BUILD / f"q2_parts_{kc}_{st}"
-        d.mkdir(parents=True, exist_ok=True)
-        lib = d / "libfused_mlp.so"
-        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-DT1_Q2_PROFILE_PARTS", f"-DT1_Q2_KC={kc}",
-               f"-DT1_Q2_STAGES={st}", "-o", str(lib), str(kernels.CSRC / "fused_mlp.cu")]
-        jobs[(kc, st)] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    fns = {}
-    for key, (lib, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {key}:\n{log}")
-        fn = ctypes.CDLL(str(lib)).t1_fused_mlp_int8_part
-        fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[key] = fn
-    return fns
-
-
-def trace(gen) -> None:
-    """One launch of a -DT1_Q2_TRACE build at the 3B widths, M = 8: per-block
-    clock64() stamps (csrc/fused_mlp.cu's g_trace), printed in us at the SM
-    clock nvidia-smi reads just after, as medians over the blocks (and
-    block 0's), relative to each block's entry."""
-    d = kernels.BUILD / "q2_trace"
+def build_parts():
+    """fused_mlp.cu's timing build: its t1_fused_mlp_int8_part."""
+    d = kernels.BUILD / "q2_parts"
     d.mkdir(parents=True, exist_ok=True)
-    lib_path = d / "libfused_mlp.so"
-    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-DT1_Q2_PROFILE_PARTS", "-DT1_Q2_TRACE", "-o",
-                    str(lib_path), str(kernels.CSRC / "fused_mlp.cu")], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(lib_path))
-    part, read = lib.t1_fused_mlp_int8_part, lib.t1_fused_mlp_trace
-    part.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    read.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    hid, inter = 2048, 11008
-    gu = quantize_weight(torch.randn((2 * inter, hid), generator=gen, device="cuda") * 0.02)
-    dn = quantize_weight(torch.randn((hid, inter), generator=gen, device="cuda") * 0.02)
-    x = torch.randn((8, hid), generator=gen, device="cuda").to(torch.bfloat16)
-    y = torch.empty_like(x)
-    act = torch.zeros((8, -(-inter // 64) * 64), dtype=torch.bfloat16, device="cuda")
-    for _ in range(20):
-        kernels.check(part(3, 1, kernels.ptr(x), kernels.ptr(gu["q8"]), kernels.ptr(gu["s"]), kernels.ptr(dn["q8"]),
-                           kernels.ptr(dn["s"]), kernels.ptr(y), kernels.ptr(act), 8, hid, inter,
-                           kernels.stream(x)), "Q2 trace")
-    torch.cuda.synchronize()
-    blocks = 132
-    out = (ctypes.c_longlong * (200 * blocks))()
-    kernels.check(read(out, blocks), "Q2 trace read")
-    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
-                               capture_output=True, text=True).stdout.split()[0])
-    t = torch.tensor(list(out), dtype=torch.float64).reshape(blocks, 200)
-    t = (t - t[:, :1]) / mhz  # us after each block's entry
-    t[t < 0] = float("nan")
-
-    def show(label, cols):
-        med = [f"{v:.2f}" for v in t[:, cols].nanmedian(0).values.tolist()]
-        top = [f"{v:.2f}" for v in torch.nan_to_num(t[:, cols], nan=-1.0).max(0).values.tolist()]
-        b0 = [f"{v:.2f}" for v in t[0, cols].tolist()]
-        print(f"  {label}: median {med}; latest {top}; block 0 {b0}", flush=True)
-
-    print(f"trace at {mhz:.0f} MHz, us after entry (median over {blocks} blocks; block 0):", flush=True)
-    show("x staged, phase A end, past grid barrier, end", [1, 2, 3, 4])
-    show("stages issued 0-17", list(range(8, 26)))
-    show("stages full for warp 0, 0-17", list(range(72, 90)))
-    show("units ended 0-11", list(range(136, 148)))
+    lib = d / "libfused_mlp.so"
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-DT1_Q2_PROFILE_PARTS", "-o", str(lib),
+                    str(kernels.CSRC / "fused_mlp.cu")], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).t1_fused_mlp_int8_part
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def main() -> int:
@@ -118,16 +50,10 @@ def main() -> int:
         print(__doc__, file=sys.stderr)
         return 2
     print(chip_smoke.card_line(), flush=True)
-    if sys.argv[1:] == ["trace"]:
-        trace(torch.Generator(device="cuda").manual_seed(5))
-        return 0
-    shapes = [tuple(int(v) for v in a.split(":")) for a in sys.argv[1:]] or [(2048, 3), (1024, 6)]
-    libs = build_parts(shapes)
+    part = build_parts()
     gen = torch.Generator(device="cuda").manual_seed(5)
     out = {}
-    runs = [(2048, 11008, shapes[0]), (3584, 18944, shapes[0])] + [(2048, 11008, sh) for sh in shapes[1:]]
-    for hid, inter, shape in runs:
-        part = libs[shape]
+    for hid, inter in ((2048, 11008), (3584, 18944)):
         gu = quantize_weight(torch.randn((2 * inter, hid), generator=gen, device="cuda") * 0.02)
         dn = quantize_weight(torch.randn((hid, inter), generator=gen, device="cuda") * 0.02)
         x = torch.randn((8, hid), generator=gen, device="cuda").to(torch.bfloat16)
@@ -143,27 +69,24 @@ def main() -> int:
         want = fused_mlp_int8_plain(x, gu["q8"], gu["s"], dn["q8"], dn["s"])
         rel = (y.float() - want.float()).abs().max().item() / want.float().abs().max().item()
         if not rel <= chip_smoke.QUANT_TOL["bfloat16"]:
-            raise AssertionError(f"stages {shape}: max |build - plain| / max |plain| = {rel}")
+            raise AssertionError(f"timing build: max |build - plain| / max |plain| = {rel}")
         t = {"kernel": chip_smoke.cuda_ms(lambda: fused_mlp_int8(x, gu["q8"], gu["s"], dn["q8"], dn["s"]), 50),
-             "stage": shape, "rel_err": rel,
+             "rel_err": rel,
              # a read of the same int8 bytes by one PyTorch reduction, the card's streaming rate as PyTorch sees it
              "read_yardstick": chip_smoke.cuda_ms(lambda: (gu["q8"].view(torch.float32).sum(),
                                                            dn["q8"].view(torch.float32).sum()), 50)}
-        parts = PARTS if shape == shapes[0] else PARTS[:3]
-        for name, bits in parts:
+        for name, bits in PARTS:
             t[name] = chip_smoke.cuda_ms(lambda: launch(bits), 50)
         bytes_a, bytes_b = 2 * inter * hid, inter * hid
         t["phase_a_gbps"] = bytes_a / t["phase_a"] / 1e6
         t["phase_b_gbps"] = bytes_b / t["phase_b"] / 1e6
         t["kernel_gbps"] = (bytes_a + bytes_b) / t["kernel"] / 1e6
         t["read_yardstick_gbps"] = (bytes_a + bytes_b) / t["read_yardstick"] / 1e6
-        if shape == shapes[0]:
-            print("  " + ", ".join(f"{name} {t[name]:.4f}" for name, _ in PARTS[3:]), flush=True)
-        print(f"hid {hid} inter {inter} M 8, stages {shape}: kernel {t['kernel']:.4f} ms ({t['kernel_gbps']:.0f} "
-              f"GB/s; two sums over the weights {t['read_yardstick']:.4f} ms, {t['read_yardstick_gbps']:.0f} GB/s), "
-              f"timing build {t['timing_build']:.4f}, phase A alone {t['phase_a']:.4f} ({t['phase_a_gbps']:.0f} GB/s), "
-              f"phase B alone {t['phase_b']:.4f} ({t['phase_b_gbps']:.0f} GB/s)", flush=True)
-        out[f"{hid}x{inter} {shape[0]}:{shape[1]}"] = t
+        print(f"hid {hid} inter {inter} M 8: kernel {t['kernel']:.4f} ms ({t['kernel_gbps']:.0f} GB/s; two sums "
+              f"over the weights {t['read_yardstick']:.4f} ms, {t['read_yardstick_gbps']:.0f} GB/s), timing build "
+              f"{t['timing_build']:.4f}, phase A alone {t['phase_a']:.4f} ({t['phase_a_gbps']:.0f} GB/s), phase B "
+              f"alone {t['phase_b']:.4f} ({t['phase_b_gbps']:.0f} GB/s)", flush=True)
+        out[f"{hid}x{inter}"] = t
     print(json.dumps(out), flush=True)
     return 0
 

@@ -5,7 +5,8 @@ of it lives in Python, and its decomposition.
   (phase B) to exactly one block, at the 3B and 7B widths and the grids of
   one and two blocks per SM of an H100.
 - The wrapper's shape checks refuse, before any launch, what the kernel does
-  not take: inter % 16 != 0, hid % 128 != 0, M outside 1..128.
+  not take: inter % 16 != 0, hid % 128 != 0, M outside 1..128; CPU tensors
+  run the plain version and count no launch.
 - An emulation of the kernel's arithmetic order (blocks' unit ranges from
   `work_partition`, each unit's 64-deep k-blocks split over eight warps by
   index mod 8, the warps' partial tiles summed in warp order, the bf16
@@ -63,11 +64,17 @@ def test_q2_shape_checks_take(M, hid, inter):
     fm.check_shape(M, hid, inter)
 
 
-def test_q2_return_act_needs_cuda():
-    x = torch.zeros((1, 128))
-    with pytest.raises(ValueError):
-        fm.fused_mlp_int8(x, torch.zeros((32, 128), dtype=torch.int8), torch.ones(32, 1),
-                          torch.zeros((128, 16), dtype=torch.int8), torch.ones(128, 1), return_act=True)
+def test_q2_cpu_runs_plain_without_a_launch():
+    g = torch.Generator().manual_seed(4)
+    gu = quantize_weight(torch.randn((32, 128), generator=g))
+    dn = quantize_weight(torch.randn((128, 16), generator=g))
+    args = (torch.randn((2, 128), generator=g), gu["q8"], gu["s"], dn["q8"], dn["s"])
+    before = fm.fused_mlp_int8.launches
+    assert torch.equal(fm.fused_mlp_int8(*args), fm.fused_mlp_int8_plain(*args))
+    assert fm.fused_mlp_int8.launches == before
+    with pytest.raises(ValueError):  # the launch itself takes only CUDA tensors
+        fm._launch(*args)
+    assert fm.fused_mlp_int8.launches == before
 
 
 def _unit_sum(w8: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

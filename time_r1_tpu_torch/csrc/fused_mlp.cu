@@ -57,12 +57,6 @@ using bf16 = __nv_bfloat16;
 constexpr int CW = 8;               // consumer warps
 constexpr int NT = (CW + 1) * 32;   // and one producer warp
 constexpr int ROWS = 16;            // weight rows of a unit and of a stage (one A tile)
-#ifndef T1_Q2_KC  // a timing build may set the stage's shape at M <= 8
-#define T1_Q2_KC 2048
-#endif
-#ifndef T1_Q2_STAGES
-#define T1_Q2_STAGES 3
-#endif
 constexpr int MAX_SMEM = 232448;    // a block's dynamic shared memory on the H100
 constexpr int RED = 256;            // offset of the partial tiles (after the barriers)
 
@@ -70,9 +64,9 @@ constexpr int RED = 256;            // offset of the partial tiles (after the ba
 // them (a copy's cost is mostly per copy, so rows go in 2 KB pieces); above,
 // 16 KB stages, 4 of them (the activation's 16 rows take the room).
 template <int NTILE>
-__host__ __device__ constexpr int stage_kc() { return NTILE == 1 ? T1_Q2_KC : 1024; }
+__host__ __device__ constexpr int stage_kc() { return NTILE == 1 ? 2048 : 1024; }
 template <int NTILE>
-__host__ __device__ constexpr int stages() { return NTILE == 1 ? T1_Q2_STAGES : 4; }
+__host__ __device__ constexpr int stages() { return NTILE == 1 ? 3 : 4; }
 // Pitches of a staged weight row (rows g and g + 1 on other banks) and of a
 // staged activation row (bf16).
 template <int NTILE>
@@ -112,25 +106,11 @@ struct Params {
   bf16* act;  // (M, inter_pad): bf16 activation, zero past inter
   int M, hid, inter, inter_pad;
   // A timing build's parts (bits): 1 phase A, 2 phase B (alone: over a stale
-  // activation, no grid barrier), 4 the consumers skip the products (the
-  // stream alone), 8 the producer skips the copies (the products alone, on
-  // stale stages), 16 x is not staged. The kernel is 3.
+  // activation, no grid barrier). The kernel is 3.
   int parts;
 };
 
 __device__ GridBarrier g_barrier;
-
-#ifdef T1_Q2_TRACE
-// A timing build's timeline, clock64() per block (warp 0 and the producer's
-// lane 0): [0] entry, [1] x staged, [2] phase A's end, [3] past the grid
-// barrier, [4] the end, [8 + q] stage q issued, [72 + q] stage q full for
-// warp 0, [136 + n] warp 0 past unit n's end (q, n < 64).
-constexpr int TRACE = 200;
-__device__ long long g_trace[1024 * TRACE];
-#define T1_TRACE(i) (g_trace[blockIdx.x * TRACE + (i)] = clock64())
-#else
-#define T1_TRACE(i) ((void)0)
-#endif
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -188,7 +168,6 @@ __global__ void __launch_bounds__(NT, 1) fused_mlp_tc(const __grid_constant__ Pa
   const int nstA = passes * nua * chA, nstB = passes * nub * chB;
 
   if (threadIdx.x == 0) {
-    T1_TRACE(0);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, CW);
@@ -206,14 +185,14 @@ __global__ void __launch_bounds__(NT, 1) fused_mlp_tc(const __grid_constant__ Pa
   // producer's bulk copies, completed on x_full; any other x by the
   // consumers before the producer starts.
   const int xp = x_pitch(p.hid);
-  const bool x_by_copy = sizeof(T) == 2 && (reinterpret_cast<uintptr_t>(p.x) & 15) == 0 && !(parts & 16);
+  const bool x_by_copy = sizeof(T) == 2 && (reinterpret_cast<uintptr_t>(p.x) & 15) == 0;
   const int x_rows = min(MT, p.M);
   auto stage_x = [&](int m0) {
     const T* x = static_cast<const T*>(p.x);
     const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
     const int c8n = p.hid / 8;
 #pragma unroll 8
-    for (int i = threadIdx.x; i < ((parts & 16) ? 0 : MT * c8n); i += CW * 32) {
+    for (int i = threadIdx.x; i < MT * c8n; i += CW * 32) {
       const int r = i / c8n, c8 = i % c8n, m = m0 + r;
       *reinterpret_cast<uint4*>(region + r * xp + 16 * c8) =
           m < p.M ? load_x8(x + (long long)m * p.hid + 8 * c8, vec) : make_uint4(0u, 0u, 0u, 0u);
@@ -228,7 +207,6 @@ __global__ void __launch_bounds__(NT, 1) fused_mlp_tc(const __grid_constant__ Pa
     }
   }
   __syncthreads();  // the barriers are set up; x staged or about to be copied
-  if (threadIdx.x == 0) T1_TRACE(1);
 
   // Phase B's stage i: its pass, unit and chunk.
   auto b_stage = [&](int i, int& m0, int& u, int& c) {
@@ -247,11 +225,6 @@ __global__ void __launch_bounds__(NT, 1) fused_mlp_tc(const __grid_constant__ Pa
       const int kc = min(KC, p.inter - c * KC), kc64 = (kc + 63) & ~63, mrows = min(MT, p.M - m0);
       const uint32_t bar = full + 8 * slot;
       if (weights && q >= STAGES) mbar_wait(empty + 8 * slot, ring_parity<STAGES>(q) ^ 1);
-      if (parts & 8) {
-        if (weights && lane == 0) mbar_arrive(bar);
-        return;
-      }
-      if (weights && lane == 0 && q < 64) T1_TRACE(8 + q);
       if (weights) {
         if (lane == 0) mbar_arrive_expect_tx(bar, ROWS * kc + mrows * 2 * kc64);
         __syncwarp();
@@ -278,11 +251,6 @@ __global__ void __launch_bounds__(NT, 1) fused_mlp_tc(const __grid_constant__ Pa
       const int kc = min(KC, p.hid - c * KC), slot = ring_slot<STAGES>(q);
       const uint32_t bar = full + 8 * slot;
       if (q >= STAGES) mbar_wait(empty + 8 * slot, ring_parity<STAGES>(q) ^ 1);
-      if (lane == 0 && q < 64) T1_TRACE(8 + q);
-      if (parts & 8) {
-        if (lane == 0) mbar_arrive(bar);
-        continue;
-      }
       if (lane == 0) mbar_arrive_expect_tx(bar, ROWS * kc);
       __syncwarp();
       if (lane < ROWS) {
@@ -296,7 +264,6 @@ __global__ void __launch_bounds__(NT, 1) fused_mlp_tc(const __grid_constant__ Pa
     if ((parts & 3) == 3 && lane == 0) {
       grid_arrive(&g_barrier, gen0);
       grid_wait(&g_barrier, gen0);
-      T1_TRACE(3);
     }
     __syncwarp();
     fence_proxy_async();  // the activation's generic stores (every block's), x's in the region: before the copies
@@ -317,9 +284,8 @@ __global__ void __launch_bounds__(NT, 1) fused_mlp_tc(const __grid_constant__ Pa
   auto consume = [&](int nkb, int ntl, const uint8_t* bsrc, int bpitch) {
     const int slot = ring_slot<STAGES>(q);
     mbar_wait(full + 8 * slot, ring_parity<STAGES>(q));
-    if (warp == 0 && lane == 0 && q < 64) T1_TRACE(72 + q);
     const uint8_t* w = ring + slot * ROWS * WP + g * WP + 16 * t;
-    for (int kb = warp; kb < ((parts & 4) ? 0 : nkb); kb += CW) {
+    for (int kb = warp; kb < nkb; kb += CW) {
       uint32_t a[4][4];
       int8_block_frags(*reinterpret_cast<const uint4*>(w + kb * 64),
                        *reinterpret_cast<const uint4*>(w + 8 * WP + kb * 64), a);
@@ -395,7 +361,6 @@ __global__ void __launch_bounds__(NT, 1) fused_mlp_tc(const __grid_constant__ Pa
       if (lane == 0) mbar_arrive(red_free + 8 * buf);
       load_scales(nunit + CW);
     }
-    if (warp == 0 && lane == 0 && nunit < 64) T1_TRACE(136 + nunit);
     ++nunit;
   };
 
@@ -419,7 +384,6 @@ __global__ void __launch_bounds__(NT, 1) fused_mlp_tc(const __grid_constant__ Pa
       finish(true, u, m0, ntl);
     }
   }
-  if (tid == 0) T1_TRACE(2);
   named_sync(1, NT);  // to the producer: this block's activation is stored and x read out
 
   // Phase B: down, over the activation copied into each stage.
@@ -430,12 +394,11 @@ __global__ void __launch_bounds__(NT, 1) fused_mlp_tc(const __grid_constant__ Pa
     consume((min(KC, p.inter - c * KC) + 63) / 64, ntl, region + ring_slot<STAGES>(q) * MT * AP, AP);
     if (c == chB - 1) finish(false, u, m0, ntl);
   }
-  if (tid == 0) T1_TRACE(4);
 }
 
-// Launches on `stream`, or with grid != nullptr only writes the grid it would take.
+// One cooperative launch on `stream` of as many blocks as can be resident.
 template <typename T, int NTILE>
-int launch(const Params& p, cudaStream_t stream, int* grid) {
+int launch(const Params& p, cudaStream_t stream) {
   auto kern = fused_mlp_tc<T, NTILE>;
   const int smem = smem_bytes<NTILE>(p.hid);
   if (smem > MAX_SMEM) return -2;
@@ -446,20 +409,16 @@ int launch(const Params& p, cudaStream_t stream, int* grid) {
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT, smem)) != cudaSuccess) return err;
   if (per_sm < 1) return -3;
-  if (grid != nullptr) {
-    *grid = per_sm * sms;
-    return 0;
-  }
   void* args[] = {const_cast<Params*>(&p)};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), dim3(per_sm * sms), dim3(NT), args, smem,
                                     stream);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-int dispatch(int dtype, const Params& p, cudaStream_t stream, int* grid) {
+int dispatch(int dtype, const Params& p, cudaStream_t stream) {
   const bool wide = p.M > 8;
-  if (dtype == 0) return wide ? launch<float, 2>(p, stream, grid) : launch<float, 1>(p, stream, grid);
-  if (dtype == 1) return wide ? launch<bf16, 2>(p, stream, grid) : launch<bf16, 1>(p, stream, grid);
+  if (dtype == 0) return wide ? launch<float, 2>(p, stream) : launch<float, 1>(p, stream);
+  if (dtype == 1) return wide ? launch<bf16, 2>(p, stream) : launch<bf16, 1>(p, stream);
   return -1;
 }
 
@@ -481,17 +440,7 @@ extern "C" int t1_fused_mlp_int8(int dtype, const void* x, const void* gu, const
                                  const float* down_s, void* y, void* act, int M, int hid, int inter, void* stream) {
   if (!takes(M, hid, inter)) return -2;
   return dispatch(dtype, make_params(x, gu, gu_s, down, down_s, y, act, M, hid, inter),
-                  static_cast<cudaStream_t>(stream), nullptr);
-}
-
-// The grid a launch at (M, hid) takes on the current device (blocks per SM
-// from the occupancy query x SMs), or a negative code as the launch returns.
-extern "C" int t1_fused_mlp_grid(int M, int hid) {
-  if (!takes(M, hid, 16)) return -2;
-  int grid = 0;
-  const int rc = dispatch(1, make_params(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, M, hid, 16),
-                          nullptr, &grid);
-  return rc == 0 ? grid : (rc < 0 ? rc : -rc);
+                  static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory of a block at (M, hid).
@@ -504,15 +453,8 @@ extern "C" int t1_fused_mlp_smem_bytes(int M, int hid) {
 extern "C" int t1_fused_mlp_int8_part(int parts, int dtype, const void* x, const void* gu, const float* gu_s,
                                       const void* down, const float* down_s, void* y, void* act, int M, int hid,
                                       int inter, void* stream) {
-  if (!takes(M, hid, inter) || (parts & 3) == 0 || parts > 31) return -2;
+  if (!takes(M, hid, inter) || parts < 1 || parts > 3) return -2;
   return dispatch(dtype, make_params(x, gu, gu_s, down, down_s, y, act, M, hid, inter, parts),
-                  static_cast<cudaStream_t>(stream), nullptr);
-}
-#endif
-
-#ifdef T1_Q2_TRACE
-// The timeline of the last launch (g_trace) into out (blocks x 200 values).
-extern "C" int t1_fused_mlp_trace(long long* out, int blocks) {
-  return cudaMemcpyFromSymbol(out, g_trace, sizeof(long long) * TRACE * blocks);
+                  static_cast<cudaStream_t>(stream));
 }
 #endif

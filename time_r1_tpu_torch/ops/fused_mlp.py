@@ -83,13 +83,18 @@ def fused_mlp_int8_plain(x, gu_q8, gu_s, down_q8, down_s) -> torch.Tensor:
     return ((a @ down_q8.float().t()) * down_s.reshape(-1)).to(x.dtype)
 
 
-def fused_mlp_int8(x, gu_q8, gu_s, down_q8, down_s, return_act: bool = False):
+def fused_mlp_int8(x, gu_q8, gu_s, down_q8, down_s) -> torch.Tensor:
     """(M, hid) in x's dtype. CUDA tensors launch Q2; CPU tensors run the plain
-    version. return_act: also the kernel's bf16 activation (M, inter), for
-    checks that hold its two phases apart."""
+    version."""
     if not x.is_cuda:
-        kernels.require(not return_act, "fused_mlp_int8", "return_act needs CUDA tensors")
         return fused_mlp_int8_plain(x, gu_q8, gu_s, down_q8, down_s)
+    return _launch(x, gu_q8, gu_s, down_q8, down_s)[0]
+
+
+def _launch(x, gu_q8, gu_s, down_q8, down_s) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of Q2 on CUDA tensors: y and the kernel's bf16 activation
+    (M, inter), which `chip_smoke.q2_phases_apart` reads to hold the two
+    phases apart."""
     name = "fused_mlp_int8"
     M, hid = x.shape
     inter = down_q8.shape[1]
@@ -110,15 +115,7 @@ def fused_mlp_int8(x, gu_q8, gu_s, down_q8, down_s, return_act: bool = False):
             kernels.stream(x))
     kernels.check(rc, name)
     fused_mlp_int8.launches += 1
-    return (y, act[:, :inter]) if return_act else y
-
-
-def fused_mlp_grid(M: int, hid: int) -> int:
-    """The grid (blocks) a launch at (M, hid) takes on the current card."""
-    fn = kernels.bind("fused_mlp", "t1_fused_mlp_grid", [_I, _I])
-    rc = fn(M, hid)
-    kernels.check(min(rc, 0), "fused_mlp_grid")
-    return rc
+    return y, act[:, :inter]
 
 
 fused_mlp_int8.launches = 0
