@@ -10,8 +10,9 @@ Phases (any failed check raises and the exit code is non-zero):
    version and one library call (`scaled_dot_product_attention`, a yardstick
    the port never calls): K1-K3 (serving), B1, B2, S1, S2 (training), D1, D2,
    Q1, Q2 (quantized rollouts: caches in bf16/f32 and int8, a fully masked
-   first prefix chunk, suffix lengths 0 and 199, Q1 at M = 1, 8, 200 and a
-   ragged shape, Q2 at M = 1, 4, 7, 8, 16, 128 at the 3B widths, M = 7, 8 at
+   first prefix chunk, suffix lengths 0 and 199, Q1 at the 3B products at M
+   = 1, 8, 16, 200, 256, the 7B products at M = 8 and a ragged shape, bf16
+   on the tensor cores but for the ragged shape, Q2 at M = 1, 4, 7, 8, 16, 128 at the 3B widths, M = 7, 8 at
    the 7B widths and M = 3 at hid 256, inter 272, every case with its two
    phases apart and in bf16 also end to end), P1, P2 (continuous-batching decode: 4 slots of lengths 0,
    327, 1689, 2041 over a shuffled page table, page size 16, full slots, a
@@ -29,11 +30,12 @@ Phases (any failed check raises and the exit code is non-zero):
    dead windows; D2 at suffix lengths 0, 1 and 199 over bf16 and int8
    caches at the rollout's shape, the 7B rollout's N = 56 rows over 4 kv
    heads, 16 rollouts a prompt (N = 128, and 112 over 4 kv heads), head dim
-   64, two prompts, Lp 1000 and 2000 and a fully masked first chunk; two B2 launches, two prefix dK/dV launches, two D2
-   and two Q2 launches must each give bit-equal results, the wrappers of
+   64, two prompts, Lp 1000 and 2000 and a fully masked first chunk; two B2 launches, two prefix dK/dV launches, two D2,
+   two Q1 and two Q2 launches must each give bit-equal results, the wrappers of
    K1-K3, B1, B2, S1, S2 and D2 refuse f16 and head dim 96 (K1-K3, B1, B2,
-   S1, S2 a misaligned q, K2 windows of 128 rows), and Q2's refuses inter
-   % 16 != 0, M > 128 and a hid beyond its shared memory;
+   S1, S2 a misaligned q, K2 windows of 128 rows), Q1's f16 x, a w4 of the
+   wrong width, f64 scales, a non-contiguous x and a misaligned bf16 x, and
+   Q2's inter % 16 != 0, M > 128 and a hid beyond its shared memory;
 3. end-to-end agreement at reduced depth: Qwen2.5-VL-3B widths with 2 decoder
    layers and 2 vision blocks, one 8-frame video request in f32, card
    (kernels) against CPU (plain versions);
@@ -45,7 +47,7 @@ Phases (any failed check raises and the exit code is non-zero):
    and 3d K1-K3 as well, and D2 in 3c);
 3c. the quantized G-way decode at reduced depth, int8 weights and int8 KV,
    then int4 weights: 16 teacher-forced steps, card (D2, Q2, Q1) against CPU
-   (plain paths) on every step's logits;
+   (plain paths) on every step's logits, Q1 on its FMA kernel only;
 3d. continuous batching at reduced depth (f32, one 8-frame video and four
    text requests through 2 slots): equal greedy tokens card against CPU for
    PagedEngine (P1), PagedEngine with int8 KV pages (P2) and
@@ -67,7 +69,7 @@ Phases (any failed check raises and the exit code is non-zero):
    `step_batch` calls with rollout_quantization="int8" (D2 and Q2 36 launches
    per decode step, D2 on the tensor cores over the int8 caches), then one
    `Engine(quantization="int4", kv_cache_quant=True).generate` at G = 8, 200
-   tokens (Q1 144 and D2 36 per step);
+   tokens (Q1 144 and D2 36 per step, all on the tensor cores);
 7. continuous-batching serving at full size, once phase 6's model is freed:
    12 requests (phase 4's two videos, ten text prompts of 200-1800 tokens),
    128 greedy tokens each, through 4 slots with 1024-token prefill chunks:
@@ -176,6 +178,11 @@ def phase_build() -> None:
     smem = kernels.bind("decode_attention", "t1_decode_full_tc_smem_bytes", [ctypes.c_int, ctypes.c_int])
     log(f"[build] decode_attention tensor-core D2 blocks: dynamic shared memory {smem(0, 64)} / {smem(0, 128)} "
         f"bytes at head dim 64 / 128 over bf16 caches, {smem(1, 64)} / {smem(1, 128)} over int8")
+    smem = kernels.bind("int4_matmul", "t1_int4_matmul_tc_smem", [ctypes.c_int, ctypes.c_int])
+    for M in (8, 16):
+        shapes = [f"K {K}: {smem(M, K) >> 20} x {'whole-row' if K <= 4096 else 'segment'} stages, "
+                  f"{smem(M, K) & 0xFFFFF} bytes" for K in (2048, 3584, 11008, 18944)]
+        log(f"[build] int4_matmul tensor-core Q1 blocks at M {'<= 8' if M == 8 else '> 8'}: {'; '.join(shapes)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1258,8 +1265,33 @@ def decode_kernels(gen) -> dict:
 
 
 def quant_kernels(gen) -> dict:
-    """Q1 against its plain version at the 3B projections (M = 8 rows and
-    more), in bf16 and f32, times in bf16; then Q2 (`q2_kernel`)."""
+    """Q1 (`q1_kernel`), then Q2 (`q2_kernel`)."""
+    q1 = q1_kernel(gen)
+    q2 = q2_kernel(gen)
+    return {q1["name"]: q1, q2["name"]: q2}
+
+
+# Q1's checks: the int4 decode products (N, K) of Qwen2.5-VL 3B at M = 1, 8,
+# 16, 200 and 256 rows (the JAX package's threshold) and of 7B at M = 8, and
+# a ragged shape outside the tensor-core rule (N % 16, K % 128), in bf16 and
+# f32; times at 3B M = 1, 8 and 200 and at 7B M = 8, bf16.
+Q1_SHAPES = {
+    "3B": {"qkv": (2560, 2048), "o": (2048, 2048), "gu": (22016, 2048), "down": (2048, 11008)},
+    "7B": {"qkv": (4608, 3584), "o": (3584, 3584), "gu": (37888, 3584), "down": (3584, 18944)},
+}
+Q1_CASES = ([(M, "3B", name) for M in (1, 8, 16, 200, 256) for name in Q1_SHAPES["3B"]]
+            + [(8, "7B", name) for name in Q1_SHAPES["7B"]])
+Q1_RAGGED = (3, 300, 1000)  # M, N, K
+Q1_TIMED = [(M, "3B") for M in (8, 1, 200)] + [(8, "7B")]
+Q1_BIT_EQUAL = [(8, "3B", "gu"), (16, "3B", "down"), (200, "3B", "qkv"), (8, "7B", "down")]
+
+
+def q1_kernel(gen) -> dict:
+    """Q1 against its plain version at `Q1_CASES` and the ragged shape, in
+    bf16 (the tensor-core kernel, the ragged shape the FMA kernel) and f32
+    (the FMA kernel), each launch's route read from `.tc_launches`; two bf16
+    launches bit-equal; the refusals; device times at `Q1_TIMED` beside the
+    bound, the library and PyTorch's sum over the same bytes."""
     import torch
     import torch.nn.functional as F
 
@@ -1271,50 +1303,106 @@ def quant_kernels(gen) -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
 
-    # ---- Q1 at the 3B int4 decode projections (M = 8), plus M = 1 and 200 and a ragged shape
-    q1 = {"name": "int4_matmul", "cases": {}, "per_product": {}}
-    shapes = {"qkv": (2560, 2048), "o": (2048, 2048), "gu": (22016, 2048), "down": (2048, 11008)}
-    cases = [(8, n, k, name) for name, (n, k) in shapes.items()]
-    cases += [(1, 22016, 2048, "gu"), (200, 22016, 2048, "gu"), (3, 300, 1000, "ragged")]
     weights = {}
-    for M, Nw, K, name in cases:
-        if (Nw, K) not in weights:
-            weights[(Nw, K)] = quantize_weight(randn(Nw, K) * 0.02, bits=4)
-        w = weights[(Nw, K)]
+
+    def weight(N, K):
+        if (N, K) not in weights:
+            weights[(N, K)] = quantize_weight(randn(N, K) * 0.02, bits=4)
+        return weights[(N, K)]
+
+    def routed(x, w, tensor_cores: bool, label: str):
+        n0, tc0 = int4_matmul.launches, int4_matmul.tc_launches
+        y = int4_matmul(x, w["q4"], w["s"])
+        if int4_matmul.launches - n0 != 1 or int4_matmul.tc_launches - tc0 != int(tensor_cores):
+            raise AssertionError(f"Q1 {label}: {int4_matmul.launches - n0} launches, "
+                                 f"{int4_matmul.tc_launches - tc0} on the tensor cores; want 1, {int(tensor_cores)}")
+        return y
+
+    q1 = {"name": "int4_matmul", "cases": {}, "per_product": {}}
+    ragged = (Q1_RAGGED[0], "ragged", None)
+    for M, model, name in Q1_CASES + [ragged]:
+        N, K = Q1_SHAPES[model][name] if model != "ragged" else Q1_RAGGED[1:]
+        w = weight(N, K)
         xf = randn(M, K)
         for dtype in (torch.bfloat16, torch.float32):
             key = str(dtype).split(".")[-1]
+            case = f"{model}{' ' + name if name else ''} M={M} ({N}, {K}) {key}"
             x = xf.to(dtype)
-            pair = (int4_matmul(x, w["q4"], w["s"]), int4_matmul_plain(x, w["q4"], w["s"]))
-            check_case(q1, "Q1", f"M={M} {name} ({Nw}, {K}) {key}", [pair], QUANT_TOL[key])
-    for tkey in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms"):
-        q1[tkey] = 0.0
-    bound_by = set()
-    for name, (Nw, K) in shapes.items():
-        w = weights[(Nw, K)]
-        x = randn(8, K).to(torch.bfloat16)
-        wd = dequantize_weight(w, torch.bfloat16)
-        t = dict(ms=cuda_ms(lambda: int4_matmul(x, w["q4"], w["s"]), 50),
-                 call_ms=cuda_ms(lambda: int4_matmul(x, w["q4"], w["s"]), 50, queued=False),
-                 plain_ms=cuda_ms(lambda: int4_matmul_plain(x, w["q4"], w["s"]), 10),
-                 library_ms=cuda_ms(lambda: F.linear(x, wd), 50))
-        t["bound_ms"], by = bound(2.0 * 8 * Nw * K, Nw * K // 2 + Nw * 4 + 8 * K * 2 + 8 * Nw * 2)
-        bound_by.add(by)
-        q1["per_product"][name] = t
-        for tkey in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms"):
-            q1[tkey] += t[tkey]
-        log(f"[kernels] int4_matmul {name} ({Nw}, {K}) M=8: {t['ms']:.4f} ms on the device, {t['call_ms']:.4f} "
-            f"ms per call from Python (plain {t['plain_ms']:.3f}, bound "
-            f"{t['bound_ms']:.5f} by {by}, library {t['library_ms']:.4f})")
+            got = routed(x, w, dtype is torch.bfloat16 and model != "ragged", case)
+            check_case(q1, "Q1", case, [(got, int4_matmul_plain(x, w["q4"], w["s"]))], QUANT_TOL[key])
+    for M, model, name in Q1_BIT_EQUAL:
+        N, K = Q1_SHAPES[model][name]
+        w = weight(N, K)
+        x = randn(M, K).to(torch.bfloat16)
+        if not torch.equal(int4_matmul(x, w["q4"], w["s"]), int4_matmul(x, w["q4"], w["s"])):
+            raise AssertionError(f"Q1 {model} {name} M={M}: two launches differ")
+        log(f"[kernels] Q1 {model} {name} M={M}: two launches bit-equal")
+    w = weight(2048, 2048)
+    x = randn(8, 2048).to(torch.bfloat16)
+    bad = {
+        "float16 x": (x.half(), w["q4"], w["s"]),
+        "w4 of the wrong width": (x, w["q4"][:, :-16].contiguous(), w["s"]),
+        "float64 scales": (x, w["q4"], w["s"].double()),
+        "a non-contiguous x": (randn(2048, 8).to(torch.bfloat16).t(), w["q4"], w["s"]),
+        "a misaligned bf16 x": (randn(8 * 2048 + 1).to(torch.bfloat16)[1:].view(8, 2048), w["q4"], w["s"]),
+    }
+    refused = []
+    for what, args in bad.items():
+        before = int4_matmul.launches
+        try:
+            int4_matmul(*args)
+        except ValueError as e:
+            refused.append(what)
+            log(f"[kernels] Q1 refuses {what}: {e}")
+        else:
+            raise AssertionError(f"Q1 took {what}")
+        if int4_matmul.launches != before:
+            raise AssertionError("Q1 counted a refused launch")
+    torch.cuda.synchronize()
+    q1["refused"] = refused
+
+    for M, model in Q1_TIMED:
+        sums = {k: 0.0 for k in ("ms", "library_ms", "bound_ms", "read_yardstick_ms")}
+        for name, (N, K) in Q1_SHAPES[model].items():
+            w = weight(N, K)
+            x = randn(M, K).to(torch.bfloat16)
+            wd = dequantize_weight(w, torch.bfloat16)
+            t = dict(ms=cuda_ms(lambda: int4_matmul(x, w["q4"], w["s"]), 50),
+                     library_ms=cuda_ms(lambda: F.linear(x, wd), 50),
+                     # one PyTorch reduction over the same packed bytes: the card's streaming rate as PyTorch sees it
+                     read_yardstick_ms=cuda_ms(lambda: w["q4"].view(torch.float32).sum(), 50))
+            if (M, model) == (8, "3B"):
+                t["call_ms"] = cuda_ms(lambda: int4_matmul(x, w["q4"], w["s"]), 50, queued=False)
+                t["plain_ms"] = cuda_ms(lambda: int4_matmul_plain(x, w["q4"], w["s"]), 10)
+            del wd
+            weight_bytes = N * K // 2
+            t["bound_ms"], t["bound_by"] = bound(2.0 * M * N * K, weight_bytes + N * 4 + M * K * 2 + M * N * 2)
+            t["weight_gbps"] = weight_bytes / t["ms"] / 1e6
+            t["bound_share"] = t["bound_ms"] / t["ms"]
+            q1["per_product"][f"{model} M={M} {name}"] = t
+            for k in sums:
+                sums[k] += t[k]
+            log(f"[kernels] int4_matmul {model} {name} ({N}, {K}) M={M}: {t['ms']:.4f} ms on the device "
+                f"({t['weight_gbps']:.0f} GB/s of int4 weights, {100 * t['bound_share']:.1f}% of the bound "
+                f"{t['bound_ms']:.5f} by {t['bound_by']}), library {t['library_ms']:.4f}, PyTorch's sum over the "
+                f"bytes {t['read_yardstick_ms']:.4f}"
+                + (f", {t['call_ms']:.4f} per call from Python, plain {t['plain_ms']:.3f}" if "call_ms" in t else ""))
+        log(f"[kernels] int4_matmul {model} M={M}, a layer's four products: {sums['ms']:.4f} ms (bound "
+            f"{sums['bound_ms']:.5f}, {100 * sums['bound_ms'] / sums['ms']:.1f}%; library {sums['library_ms']:.4f}; "
+            f"PyTorch's sums {sums['read_yardstick_ms']:.4f})")
+        if (M, model) == (8, "3B"):
+            q1.update(sums)
+            q1["bound_by"] = "/".join(sorted({q1["per_product"][f"3B M=8 {n}"]["bound_by"] for n in Q1_SHAPES["3B"]}))
+            for k in ("call_ms", "plain_ms"):
+                q1[k] = sum(q1["per_product"][f"3B M=8 {n}"][k] for n in Q1_SHAPES["3B"])
+        else:
+            q1[f"layer_{model}_M{M}"] = sums
     q1["kernel_ms"] = q1["ms"]
-    q1["bound_by"] = "/".join(sorted(bound_by))
-    q1["times_are"] = "sums over one layer's four products (qkv, o, gu, down) at M = 8"
+    q1["times_are"] = "sums over one 3B layer's four products (qkv, o, gu, down) at M = 8, bf16 (tensor cores)"
     q1["library_is"] = "F.linear in bf16 over weights dequantized before timing (4x the weight bytes)"
     q1["tol"], q1["tol_f32"] = QUANT_TOL["bfloat16"], QUANT_TOL["float32"]
-
-    q2 = q2_kernel(gen)
     q1["tol_is"] = "on max_rel_err and each of `cases`: max |kernel - plain| / max |plain|"
-    return {q1["name"]: q1, q2["name"]: q2}
+    return q1
 
 
 # Q2's checks, (hid, inter, M): the 3B widths at the decode's M and past one
@@ -1715,8 +1803,8 @@ def phase_reduced_train() -> None:
             loss, metrics, grads = grpo_value_and_grad(params, cfg, hp, batch)
             after = read_launches()
             if device == "cuda":  # f32: B1, B2, S1, S2 take the exact FMA kernels, never the tensor cores
-                check_tc_route(tag, after, {n: None for n in TC_KERNELS if n not in DECODE_KERNELS},
-                               tensor_cores=False)
+                attention = [n for n in TC_KERNELS if n not in DECODE_KERNELS and n != "int4_matmul"]
+                check_tc_route(tag, after, {n: None for n in attention}, tensor_cores=False)
                 vit = {n: (before[n], after[n]) for n in ("window_attention_rope", "full_attention_rope")}
                 log(f"[{tag}] K2/K3 launches before / after the differentiated call: {vit}")
                 if any(a != b or b <= 0 for b, a in vit.values()):  # the frozen blocks (or ref) ran them
@@ -1771,7 +1859,8 @@ def kernel_wrappers():
 # wrappers that also count tensor-core launches (bf16); the rest of their
 # launches ran the f32 FMA kernels
 TC_KERNELS = ("flash_attention", "window_attention_rope", "full_attention_rope", "flash_bwd_dq", "flash_bwd_dkv",
-              "shared_prefix_fwd", "shared_prefix_bwd", "shared_prefix_bwd_dkv", "shared_prefix_decode_full")
+              "shared_prefix_fwd", "shared_prefix_bwd", "shared_prefix_bwd_dkv", "shared_prefix_decode_full",
+              "int4_matmul")
 FWD_TC = ("flash_attention", "window_attention_rope", "full_attention_rope")  # K1-K3: every serving and rollout path
 
 
@@ -1783,8 +1872,8 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    """Every wrapper's launches; for K1, K3, B1, B2, S1 and S2 also
-    `<name>_tc`, their tensor-core launches (the rest ran the f32 FMA kernels)."""
+    """Every wrapper's launches; for those of TC_KERNELS also `<name>_tc`,
+    their tensor-core launches (the rest ran the FMA kernels)."""
     wrappers = kernel_wrappers()
     out = {name: fn.launches for name, fn in wrappers.items()}
     out.update({f"{name}_tc": wrappers[name].tc_launches for name in TC_KERNELS})
@@ -2054,10 +2143,11 @@ def phase_quant_full_size() -> dict:
                         {"int4_matmul": 4, "shared_prefix_decode_full": 1, "shared_prefix_decode_attention": 0,
                          "fused_mlp_int8": 0})
     check_tc_route("int4 generate", launches, vision_tc_launches(cfg) | {
-        "flash_attention": L, "shared_prefix_decode_full": L * tm["decode_steps"]}, tensor_cores=True)
+        "flash_attention": L, "shared_prefix_decode_full": L * tm["decode_steps"],
+        "int4_matmul": 4 * L * tm["decode_steps"]}, tensor_cores=True)
     if len(rows) != 8 or not all(len(r) == 200 for r in rows):
         raise AssertionError(f"int4 generate: rows of {[len(r) for r in rows]} tokens")
-    out["int4_matmul"] = launches["int4_matmul"]
+    out["int4_matmul"], out["int4_matmul_tc"] = launches["int4_matmul"], launches["int4_matmul_tc"]
     return out
 
 
@@ -2128,8 +2218,8 @@ def phase_reduced_quant() -> dict:
                 check_step_launches(f"reduced {quant}", launches, steps, cfg.text.num_hidden_layers,
                                     {"shared_prefix_decode_full": 1,
                                      "fused_mlp_int8": int(quant == "int8"), "int4_matmul": 4 * (quant == "int4")})
-                check_tc_route(f"reduced {quant}", launches, {n: None for n in FWD_TC + DECODE_KERNELS[1:]},
-                               tensor_cores=False)
+                fma_only = FWD_TC + DECODE_KERNELS[1:] + (("int4_matmul",) if quant == "int4" else ())
+                check_tc_route(f"reduced {quant}", launches, {n: None for n in fma_only}, tensor_cores=False)
         per_step = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(out["cuda"], out["cpu"])]
         errs[quant] = max(per_step)
         finite = all(np.isfinite(a).all() for a in out["cuda"])
@@ -2394,10 +2484,11 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": quant_launches.get(name, launches[name]),
         })
-    # K1, K3 (phase 4), B1, B2, S1, S2 (phase 5): their tensor-core launches (all of them: no FMA launch there)
+    # K1, K3 (phase 4), B1, B2, S1, S2, D2 (phase 5), Q1 (phase 6's int4 generate): their tensor-core
+    # launches (all of them: no FMA launch there)
     for k in kernels:
         if k["name"] in TC_KERNELS:
-            k["tc_launches"] = launches[f"{k['name']}_tc"]
+            k["tc_launches"] = quant_launches.get(f"{k['name']}_tc", launches[f"{k['name']}_tc"])
     # S2 is two kernels (dq at :739, the prefix dK/dV at :769): its entry gives both counts
     s2 = next(k for k in kernels if k["name"] == "shared_prefix_bwd")
     s2["launches_dkv_prefix"] = launches["shared_prefix_bwd_dkv"]

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's weight-streaming decode
-// products (Q2: csrc/fused_mlp.cu; Q1 to follow): a ring of shared-memory
-// stages filled by 1-D bulk copies (cp.async.bulk, completed on an mbarrier
-// with expect_tx), the exact int8 -> bf16 conversion of mma fragments, the
-// m16n8k16 bf16 tensor-core product, and a grid barrier for cooperative
-// launches.
+// products (Q2: csrc/fused_mlp.cu; Q1: csrc/int4_matmul.cu): a ring of
+// shared-memory stages filled by 1-D bulk copies (cp.async.bulk, completed on
+// an mbarrier with expect_tx), the exact int8 and int4 -> bf16 conversions of
+// mma fragments, the m16n8k16 bf16 tensor-core product, and a grid barrier
+// for cooperative launches.
 //
 // The ring: stage q of a block's sequence lives in slot q % STAGES. Its
 // `full` barrier (one arrival: the producer's expect_tx) completes once the
@@ -25,6 +25,17 @@
 // give the B registers of products 0 and 1, the next 16 bytes of 2 and 3.
 // So both operands come from shared memory with 16-byte loads and no
 // shuffles.
+//
+// int4 (two k a byte, the even k in the low nibble, so nibble i of a word is
+// its k i): a thread that reads 16 bytes of rows g and g + 8 (k = 32t .. 32t
+// + 31 of a 128-deep block) feeds eight products. A register holds nibbles j
+// and j + 4 of a word (one mask, no byte moves: `int4x8_to_bf16`), so word q
+// feeds products 2q (A registers 0, 1: k 8q + 0 / + 4; 2, 3: k 8q + 1 / + 5)
+// and 2q + 1 (k 8q + 2 / + 6, 8q + 3 / + 7), and B's registers pair x's
+// values the same way: `int4_b_frags` turns 16 bytes of x in its natural
+// order (8 bf16 at k = 32t + 8q) into them with four byte permutes. The
+// thread's 64 bytes of B row g at k = 32t are four 16-byte loads, two
+// products each.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -111,6 +122,30 @@ __device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_
   hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
 }
 
+// One word of offset-8 int4 (nibble i = the word's k i) to 4 bf16x2,
+// exactly: r[j] holds nibble j - 8 in its low half and nibble j + 4 - 8 in
+// its high half. Each nibble n goes into the mantissa of bf16 128 (0x4300 |
+// n = 128 + n) by one three-input mask-and-or (a shift first for j > 0), and
+// 136 comes off in one bf16x2 fma: n - 8. No int-to-float converts, no byte
+// moves: about 1.75 integer instructions a register, which bound the
+// conversion (the integer pipe runs at half the rate of the fma pipe).
+__device__ __forceinline__ void int4x8_to_bf16(uint32_t w, uint32_t (&r)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t v;
+    asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(v) : "r"(w >> (4 * j)), "r"(0x000F000Fu), "r"(0x43004300u));
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r[j]) : "r"(v), "r"(0x3F803F80u), "r"(0xC308C308u));
+  }
+}
+
+// 8 bf16 of B in k order (k 0..7 of a word's nibbles) to the B registers of
+// products 2q and 2q + 1 in `int4x8_to_bf16`'s pairing: (0, 4), (1, 5) and
+// (2, 6), (3, 7).
+__device__ __forceinline__ uint4 int4_b_frags(const uint4& x) {
+  return make_uint4(__byte_perm(x.x, x.z, 0x5410), __byte_perm(x.x, x.z, 0x7632), __byte_perm(x.y, x.w, 0x5410),
+                    __byte_perm(x.y, x.w, 0x7632));
+}
+
 // d += A (16 x 16 bf16, a[0..3] in the PTX register order) x B (16 x 8 bf16).
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -140,6 +175,37 @@ __device__ __forceinline__ void mma_block(float (&d)[4], const uint32_t (&a)[4][
   const uint32_t b[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) mma_bf16_16816(d, a[i], b[2 * i], b[2 * i + 1]);
+}
+
+// A fragments of one 128-deep int4 block: wg / wg8 are this thread's 16
+// weight bytes of rows g and g + 8 (k = 32t ..); a[i] feeds product i.
+__device__ __forceinline__ void int4_block_frags(const uint4& wg, const uint4& wg8, uint32_t (&a)[8][4]) {
+  const uint32_t r0[4] = {wg.x, wg.y, wg.z, wg.w};
+  const uint32_t r8[4] = {wg8.x, wg8.y, wg8.z, wg8.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t g0[4], g8[4];
+    int4x8_to_bf16(r0[q], g0);
+    int4x8_to_bf16(r8[q], g8);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // nibble pairs (2h, 2h + 4), (2h + 1, 2h + 5): product 2q + h
+      a[2 * q + h][0] = g0[2 * h];
+      a[2 * q + h][1] = g8[2 * h];
+      a[2 * q + h][2] = g0[2 * h + 1];
+      a[2 * q + h][3] = g8[2 * h + 1];
+    }
+  }
+}
+
+// The eight products of one 128-deep int4 block against one 8-column B tile:
+// xv are this thread's 64 bytes of B row (column) g at k = 32t, each 16
+// bytes through `int4_b_frags`.
+__device__ __forceinline__ void mma_int4_block(float (&d)[4], const uint32_t (&a)[8][4], const uint4 (&xv)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    mma_bf16_16816(d, a[2 * q], xv[q].x, xv[q].y);
+    mma_bf16_16816(d, a[2 * q + 1], xv[q].z, xv[q].w);
+  }
 }
 
 // ---- grid barrier for a cooperative launch (every block resident)

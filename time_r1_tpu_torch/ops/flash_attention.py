@@ -100,6 +100,14 @@ def _check_grads_in(name, q, do, lse, delta_bhs):
 # K1: forward
 
 
+# log2(e): the plain K1 takes its exponentials as exp2(z · log2 e). torch's
+# float exp on the CPU can come out ~1e-4 off in a process's first call when
+# the machine is loaded (measured: 5 of 32 fresh processes under parallel
+# load, each later call exact; exp2 0 of 48), which the K1 parity tests
+# against JAX at 2e-5 saw now and then under parallel workers.
+LOG2E = 1.4426950408889634
+
+
 def flash_attention_plain(
     q: torch.Tensor,  # (B, Sq, H, D)
     k: torch.Tensor,  # (B, Skv, Hkv, D)
@@ -113,7 +121,7 @@ def flash_attention_plain(
     B, Sq, H, D = q.shape
     s = _masked_scores(q, k, kv_bias, causal, _scale(q, scale), q_offset)
     m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
+    p = torch.exp2((s - m) * LOG2E)
     l_safe = p.sum(-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p / l_safe, v.float())
     lse = (m + torch.log(l_safe)).reshape(B, H, Sq)
