@@ -178,6 +178,11 @@ def phase_build() -> None:
     smem = kernels.bind("decode_attention", "t1_decode_full_tc_smem_bytes", [ctypes.c_int, ctypes.c_int])
     log(f"[build] decode_attention tensor-core D2 blocks: dynamic shared memory {smem(0, 64)} / {smem(0, 128)} "
         f"bytes at head dim 64 / 128 over bf16 caches, {smem(1, 64)} / {smem(1, 128)} over int8")
+    smem = kernels.bind("paged_attention", "t1_paged_tc_smem_bytes", [ctypes.c_int] * 4)
+    log(f"[build] paged_attention tensor-core P1 / P2 blocks at 32 chunks of 1-4 tiles: dynamic shared memory "
+        f"{[smem(0, 128, ct, 32) for ct in (1, 2, 4)]} / {[smem(1, 128, ct, 32) for ct in (1, 2, 4)]} bytes at "
+        f"head dim 128, {[smem(0, 64, ct, 32) for ct in (1, 2, 4)]} / {[smem(1, 64, ct, 32) for ct in (1, 2, 4)]} "
+        f"at 64")
     smem = kernels.bind("int4_matmul", "t1_int4_matmul_tc_smem", [ctypes.c_int, ctypes.c_int])
     for M in (8, 16):
         shapes = [f"K {K}: {smem(M, K) >> 20} x {'whole-row' if K <= 4096 else 'segment'} stages, "
@@ -1568,9 +1573,9 @@ PAGED_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 
 def paged_case(gen, dev, lengths, P: int, max_pages: int, n_pages: int, stale_from: int | None = None,
-               G: int = 8, D: int = 128) -> dict:
-    """One paged-attention input set: q (S, 2, G, D), pages (2, n_pages, P, D)
-    in f32 (cast per dtype by the caller), int8 pages and scales from
+               G: int = 8, D: int = 128, nkv: int = 2) -> dict:
+    """One paged-attention input set: q (S, nkv, G, D), pages (nkv, n_pages,
+    P, D) in f32 (cast per dtype by the caller), int8 pages and scales from
     them, and a page table whose live entries are a shuffle of pages 1.. (page
     0 is the engine's scratch sink; dead entries point at it). stale_from:
     slot 0 (length 0) takes that slot's table row, as a retired slot's stale
@@ -1579,7 +1584,7 @@ def paged_case(gen, dev, lengths, P: int, max_pages: int, n_pages: int, stale_fr
 
     from time_r1_tpu_torch.ops.quant import quantize_kv
 
-    S, nkv = len(lengths), 2
+    S = len(lengths)
     need = [-(-n // P) for n in lengths]
     perm = (torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(P + sum(lengths))) + 1).tolist()
     assert sum(need) <= len(perm), "the pool holds every live page"
@@ -1603,10 +1608,12 @@ def phase_paged_kernels() -> dict:
     (4 slots, 2 kv heads, G = 8, hd 128, P = 128, 32-page table rows over a
     128-page pool, lengths 0, 327, 1689, 2041), then P = 16 with lengths 0, 37,
     300, every slot at its full 32·128 keys, a dead slot whose stale row
-    points at another slot's pages, and head dim 64 with G = 12 (more rows
-    than a block's 8 warps); q and pages in bf16 and f32 (P2: int8
-    pages, q in bf16 and f32). An empty slot must end at exactly m = -1e30,
-    l = 0, acc = 0. Times at the main shape in bf16."""
+    points at another slot's pages, head dim 64 with G = 12 (more rows than
+    the f32 route's 8 warps) and the 7B's G = 7 over 4 kv heads; q and pages
+    in bf16 and f32 (P2: int8 pages, q in bf16 and f32). bf16 runs the
+    tensor-core kernel (each launch's route read from `.tc_launches`; two
+    launches bit-equal), f32 the FMA kernels only. An empty slot must end at
+    exactly m = -1e30, l = 0, acc = 0. Times at the main shape in bf16."""
     import torch
     import torch.nn.functional as F
 
@@ -1620,6 +1627,7 @@ def phase_paged_kernels() -> dict:
         "full": paged_case(gen, dev, (4096,) * 4, 128, 32, 129),
         "dead slot": paged_case(gen, dev, (0, 327, 1689, 2041), 128, 32, 128, stale_from=3),
         "hd 64, G 12": paged_case(gen, dev, (5, 0, 200), 32, 8, 32, G=12, D=64),
+        "7B (Hkv 4, G 7)": paged_case(gen, dev, (0, 327, 1689, 2041), 128, 32, 128, G=7, nkv=4),
     }
     p1 = {"name": "paged_prefix_attention", "cases": {}}
     p2 = {"name": "paged_prefix_attention_q8", "cases": {}}
@@ -1640,14 +1648,25 @@ def phase_paged_kernels() -> dict:
             for e, fn, plain, args in ((p1, pa.paged_prefix_attention, pa.paged_prefix_attention_plain, p1_args(c, dtype)),
                                        (p2, pa.paged_prefix_attention_q8, pa.paged_prefix_attention_q8_plain,
                                         p2_args(c, dtype))):
+                n0, tc0 = fn.launches, fn.tc_launches
                 (acc, m, l), (acc_w, m_w, l_w) = fn(*args), plain(*upcast(args))
                 torch.cuda.synchronize()
+                tc = dtype is torch.bfloat16  # bf16 on the tensor cores, f32 on the FMA kernels, every launch
+                if (fn.launches - n0, fn.tc_launches - tc0) != (1, int(tc)):
+                    raise AssertionError(f"{e['name']} {label} {key}: {fn.launches - n0} launches, "
+                                         f"{fn.tc_launches - tc0} on the tensor cores")
+                if tc:
+                    again = fn(*args)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(x, y) for x, y in zip((acc, m, l), again)):
+                        raise AssertionError(f"{e['name']} {label} {key}: two launches differ")
                 # m over the live slots: an empty slot's -1e30 would swamp the scale
                 check_case(e, e["name"], f"{label}, {key}", [(acc, acc_w), (m[live], m_w[live]), (l, l_w)],
                            PAGED_TOL[key])
                 dead = ~live
                 if not (torch.all(m[dead] == pa.NEG_INF) and torch.all(l[dead] == 0) and torch.all(acc[dead] == 0)):
                     raise AssertionError(f"{e['name']} {label} {key}: an empty slot is not at m = -1e30, l = 0, acc = 0")
+    log("[kernels] P1/P2 bf16: every case on the tensor cores, two launches bit-equal; f32 on the FMA kernels")
     for e in (p1, p2):
         e["tol"], e["tol_f32"] = PAGED_TOL["bfloat16"], PAGED_TOL["float32"]
         e["tol_is"] = "on max_rel_err and each of `cases`: max |kernel - plain| / max |plain| per output (m over live slots)"
@@ -1803,7 +1822,7 @@ def phase_reduced_train() -> None:
             loss, metrics, grads = grpo_value_and_grad(params, cfg, hp, batch)
             after = read_launches()
             if device == "cuda":  # f32: B1, B2, S1, S2 take the exact FMA kernels, never the tensor cores
-                attention = [n for n in TC_KERNELS if n not in DECODE_KERNELS and n != "int4_matmul"]
+                attention = [n for n in TC_KERNELS if n not in DECODE_KERNELS + PAGED_KERNELS + ("int4_matmul",)]
                 check_tc_route(tag, after, {n: None for n in attention}, tensor_cores=False)
                 vit = {n: (before[n], after[n]) for n in ("window_attention_rope", "full_attention_rope")}
                 log(f"[{tag}] K2/K3 launches before / after the differentiated call: {vit}")
@@ -1860,7 +1879,7 @@ def kernel_wrappers():
 # launches ran the f32 FMA kernels
 TC_KERNELS = ("flash_attention", "window_attention_rope", "full_attention_rope", "flash_bwd_dq", "flash_bwd_dkv",
               "shared_prefix_fwd", "shared_prefix_bwd", "shared_prefix_bwd_dkv", "shared_prefix_decode_full",
-              "int4_matmul")
+              "int4_matmul", "paged_prefix_attention", "paged_prefix_attention_q8")
 FWD_TC = ("flash_attention", "window_attention_rope", "full_attention_rope")  # K1-K3: every serving and rollout path
 
 
@@ -1945,6 +1964,7 @@ SERVING_KEYS = SERVING_KERNELS + tuple(f"{n}_tc" for n in FWD_TC)  # phase 4's l
 TRAIN_KERNELS = SERVING_KERNELS + ("flash_bwd_dq", "flash_bwd_dkv", "shared_prefix_fwd", "shared_prefix_bwd",
                                    "shared_prefix_bwd_dkv", "shared_prefix_decode_full")
 DECODE_KERNELS = ("shared_prefix_decode_attention", "shared_prefix_decode_full")  # per layer per G-way step
+PAGED_KERNELS = ("paged_prefix_attention", "paged_prefix_attention_q8")  # per layer per paged decode step
 
 
 def check_step_launches(tag: str, launches: dict, steps: int, layers: int, per_layer: dict) -> None:
@@ -2279,8 +2299,9 @@ def phase_reduced_serving() -> dict:
             tm = eng.timings
             log(f"[serving-reduced] {name} {dev}: {time.perf_counter() - t0:.1f} s, {tm['segments']} segments "
                 f"({tm['interleaved_segments']} inside admissions), launches {launches}")
-            if dev == "cuda":
-                check_tc_route(f"serving-reduced {name}", read_launches(), {n: None for n in FWD_TC},
+            if dev == "cuda":  # f32: K1-K3 and P1/P2 on the FMA kernels only
+                paged = {kernel[name]: L * tm["decode_steps"]} if kernel[name] else {}
+                check_tc_route(f"serving-reduced {name}", read_launches(), {n: None for n in FWD_TC} | paged,
                                tensor_cores=False)
                 for k in ("paged_prefix_attention", "paged_prefix_attention_q8"):
                     want = L * tm["decode_steps"] if k == kernel[name] else 0
@@ -2380,16 +2401,17 @@ def phase_serving_full_size() -> dict:
         want = {name: 0 for name in launches}
         want.update(flash_attention=L * chunks, window_attention_rope=n_window * videos,
                     full_attention_rope=n_full * videos)
-        want.update({f"{n}_tc": want[n] for n in FWD_TC})  # bf16: every K1/K3 launch on the tensor cores
         if tag == "a":
             want["paged_prefix_attention"] = steps
         if tag == "b":
             want["paged_prefix_attention_q8"] = steps
             want["fused_mlp_int8"] = steps
+        tc = FWD_TC + {"a": PAGED_KERNELS[:1], "b": PAGED_KERNELS[1:], "c": ()}[tag]
+        want.update({f"{n}_tc": want[n] for n in tc})  # bf16: every K1-K3 and P1/P2 launch on the tensor cores
         bad = {k: (launches[k], want[k]) for k in want if launches[k] != want[k]}
         if bad:
             raise AssertionError(f"({tag}): launches (got, want) {bad}")
-        check_tc_route(f"serve ({tag})", launches, {n: want[n] for n in FWD_TC}, tensor_cores=True)
+        check_tc_route(f"serve ({tag})", launches, {n: want[n] for n in tc}, tensor_cores=True)
         if tag in ("a", "b") and tm["interleaved_segments"] < 1:
             raise AssertionError(f"({tag}): no segment ran inside an admission")
         tokens[tag] = out
@@ -2440,8 +2462,9 @@ def main() -> int:
     launches.update({k: v for k, v in train_launches.items() if k not in SERVING_KEYS})
     quant_launches = phase_quant_full_size()  # D1, D2, Q2 (int8 step_batch), Q1 (int4 generate)
     serve = phase_serving_full_size()  # P1 (a), P2 (b): continuous-batching serving
-    quant_launches["paged_prefix_attention"] = serve["a"]["launches"]["paged_prefix_attention"]
-    quant_launches["paged_prefix_attention_q8"] = serve["b"]["launches"]["paged_prefix_attention_q8"]
+    for tag, name in zip("ab", PAGED_KERNELS):
+        quant_launches[name] = serve[tag]["launches"][name]
+        quant_launches[f"{name}_tc"] = serve[tag]["launches"][f"{name}_tc"]
 
     jax_fa = "time_r1_tpu/ops/flash_attention.py"
     replaces = {
@@ -2484,8 +2507,8 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": quant_launches.get(name, launches[name]),
         })
-    # K1, K3 (phase 4), B1, B2, S1, S2, D2 (phase 5), Q1 (phase 6's int4 generate): their tensor-core
-    # launches (all of them: no FMA launch there)
+    # K1, K3 (phase 4), B1, B2, S1, S2, D2 (phase 5), Q1 (phase 6's int4 generate), P1, P2 (phase 7 (a),
+    # (b)): their tensor-core launches (all of them: no FMA launch there)
     for k in kernels:
         if k["name"] in TC_KERNELS:
             k["tc_launches"] = quant_launches.get(f"{k['name']}_tc", launches[f"{k['name']}_tc"])

@@ -568,26 +568,6 @@ __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "r"(WG) : "memory");
 }
 
-// 16 int8 (one 16-byte word) to 16 bf16 (two words), exactly: the byte x
-// + 128 goes into the mantissa of 2^23 (f32 bits 0x4B0000uu) and 2^23 + 128
-// comes off, which gives x as a float; a float integer of 8 bits is its top
-// 16 bits as a bf16. Integer and f32-add work only, no int-to-float converts.
-__device__ __forceinline__ void int8x16_to_bf16(const uint4 w, uint4& lo, uint4& hi) {
-  const uint32_t in[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u, w.z ^ 0x80808080u, w.w ^ 0x80808080u};
-  uint32_t out[8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float f[4];
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      f[b] = __uint_as_float(__byte_perm(in[i], 0x4B000000u, 0x7440 | b)) - 8388736.f;
-    out[2 * i] = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
-    out[2 * i + 1] = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
-  }
-  lo = make_uint4(out[0], out[1], out[2], out[3]);
-  hi = make_uint4(out[4], out[5], out[6], out[7]);
-}
-
 // PARTS 7 is the kernel; a timing build also instantiates 1, 2 and 4: its
 // prefix blocks, its suffix blocks or its fold alone (t1_decode_full_tc_part).
 template <int D, bool QUANT, int PARTS>

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core attention kernels:
 // cp.async copies completed on mbarriers, 64-row bf16 tiles in shared memory
 // with the 128-byte swizzle (and a 32-byte-swizzled tail at head dim 80),
-// their wgmma descriptors, and the warpgroup products. Shared by the forward
-// (attention_fwd_tc.cuh: K1, K3, S1) and the backward (attention_bwd_tc.cuh:
-// B1, B2, S2).
+// their wgmma descriptors, the warpgroup products, and the exact int8 -> bf16
+// conversion of a 16-byte word. Shared by the forward (attention_fwd_tc.cuh:
+// K1, K3, S1), the backward (attention_bwd_tc.cuh: B1, B2, S2) and the decode
+// kernels (decode_attention.cu: D2; paged_attention.cu: P1, P2, whose
+// mma.sync products read the same swizzled tiles through ldmatrix).
 //
 // A tile is 64 rows x D bf16. Its first 64 * (D / 64) columns are stored as
 // D/64 blocks of 64 x 64 (8 KB each); row r's 16-byte chunk c of a block lies
@@ -117,6 +119,28 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* g, long long
     const bf16* src = g + (long long)(ok ? row0 + r : 0) * row_stride + c * 8;
     cp_async16(dst + chunk_off<D>(r, c), src, ok);
   }
+}
+
+// ---- int8 tiles
+
+// 16 int8 (one 16-byte word) to 16 bf16 (two words), exactly: the byte x
+// + 128 goes into the mantissa of 2^23 (f32 bits 0x4B0000uu) and 2^23 + 128
+// comes off, which gives x as a float; a float integer of 8 bits is its top
+// 16 bits as a bf16. Integer and f32-add work only, no int-to-float converts.
+__device__ __forceinline__ void int8x16_to_bf16(const uint4 w, uint4& lo, uint4& hi) {
+  const uint32_t in[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u, w.z ^ 0x80808080u, w.w ^ 0x80808080u};
+  uint32_t out[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float f[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      f[b] = __uint_as_float(__byte_perm(in[i], 0x4B000000u, 0x7440 | b)) - 8388736.f;
+    out[2 * i] = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+    out[2 * i + 1] = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+  }
+  lo = make_uint4(out[0], out[1], out[2], out[3]);
+  hi = make_uint4(out[4], out[5], out[6], out[7]);
 }
 
 // ---- wgmma
