@@ -74,7 +74,22 @@ Phases (any failed check raises and the exit code is non-zero):
    12 requests (phase 4's two videos, ten text prompts of 200-1800 tokens),
    128 greedy tokens each, through 4 slots with 1024-token prefill chunks:
    PagedEngine (P1 on every decode step), PagedEngine with int8 weights and
-   int8 KV pages (P2, Q2) and ContinuousEngine, every launch count checked.
+   int8 KV pages (P2, Q2) and ContinuousEngine, every launch count checked;
+8. the host input path at full size, once phase 7's model is freed: seeded
+   raw uint8 frames at 360x640 stand in for the decoder (no video and no
+   FFmpeg development files on the card's machine; the decode is held against
+   the JAX package on the CPU), then the port's plan_frame_window,
+   plan_video_shapes and resize_frames_bicubic, as fetch_video calls them,
+   and its Qwen25VLProcessor over a character-level stand-in tokenizer on the
+   3B's special ids: the resize on the card with TF32 requested (at most 1
+   gray level off the host's, on under 1e-3 of the pixels), a 32 s clip at
+   10 fps (64 frames at 196x392, 3136 video tokens) served through the
+   trainer's engine at bucket 4096, greedy, 128 tokens, and two
+   `step_batch([example])` calls with requests=None on a 4 s clip at 30 fps
+   (8 frames at 364x644, 1196 video tokens, bucket 2048), prepare_requests
+   inside host_preproc, the same requests prepared meanwhile on a worker
+   thread and held bit-equal against a serial call; launch counts as in
+   phase 5 (`step_batch_tc_launches`), all on the tensor cores.
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 kernels JSON line and the result JSON line. Without a CUDA device, or without
@@ -2432,6 +2447,371 @@ def phase_serving_full_size() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8
+INPUT_HW = (360, 640)  # the raw frames' size (the 360p the eval videos decode to)
+# the stand-in decoder's clips: name -> (raw frames, fps, seed), and what
+# TrainConfig's budget must make of them: (sampled frames, resized h x w,
+# video tokens, prompt bucket)
+INPUT_CLIPS = {
+    "clip_32s_10fps": ((320, 10.0, 1), (64, (196, 392), 3136, 4096)),
+    "clip_4s_30fps": ((120, 30.0, 2), (8, (364, 644), 1196, 2048)),
+}
+RESIZE_SHARE = 1e-3  # device vs host resize: at most 1 gray level, on under this share of the pixels
+
+
+class StandInTokenizer:
+    """A character-level tokenizer over Qwen2.5-VL-3B's ids (no tokenizer is
+    in the repository), as tests/tiny_tokenizer.py is over the tiny config's:
+    the special tokens map to the 3B's ids, printable ASCII to ids 3..97,
+    anything else to id 98; every id decodes (one character of its own for
+    the ids no string maps to), so sampled completions decode too."""
+
+    chat_template = None
+
+    def __init__(self, cfg):
+        self.specials = {
+            "<|vision_start|>": cfg.vision_start_token_id, "<|vision_end|>": cfg.vision_end_token_id,
+            "<|image_pad|>": cfg.image_token_id, "<|video_pad|>": cfg.video_token_id,
+            "<|im_start|>": 151644, "<|im_end|>": cfg.eos_token_id, "<|endoftext|>": cfg.pad_token_id,
+        }
+        self._rev = {v: k for k, v in self.specials.items()}
+
+    def encode(self, s, add_special_tokens=False):
+        out, i = [], 0
+        while i < len(s):
+            if s[i] == "<":
+                tok = next((t for t in self.specials if s.startswith(t, i)), None)
+                if tok is not None:
+                    out.append(self.specials[tok])
+                    i += len(tok)
+                    continue
+            c = ord(s[i])
+            out.append(c - 32 + 3 if 32 <= c < 127 else 98)
+            i += 1
+        return out
+
+    def decode(self, ids, skip_special_tokens=False):
+        parts = []
+        for t in ids:
+            t = int(t)
+            if t in self._rev:
+                if not skip_special_tokens:
+                    parts.append(self._rev[t])
+            elif 3 <= t <= 97:
+                parts.append(chr(t - 3 + 32))
+            else:
+                parts.append(chr(0x4E00 + t % 0x5000))
+        return "".join(parts)
+
+
+def char_parity_reward(completions, **kwargs):
+    """A stand-in reward that varies across the rows of a group (the share of
+    odd code points in the decoded text), so that the advantages are not zero."""
+    return [sum(ord(c) % 2 for c in text) / max(len(text), 1) for text in completions]
+
+
+class FrameLoader:
+    """Phase 8's `video_loader`: seeded uint8 RGB frames at INPUT_HW stand in
+    for the decoder (each sampled frame drawn from its clip's seed and index,
+    as a decoder decodes only the sampled frames), then the port's own
+    plan_frame_window, plan_video_shapes and resize_frames_bicubic: the same
+    three calls as `video.pipeline.fetch_video`. `times` holds the host ms of
+    the main thread's last call."""
+
+    def __init__(self):
+        self.times = {}
+
+    @staticmethod
+    def raw_frames(name: str, indices) -> np.ndarray:
+        n, _, seed = INPUT_CLIPS[name][0]
+        return np.stack([np.random.default_rng([seed, int(i)]).integers(0, 256, (*INPUT_HW, 3), dtype=np.uint8)
+                         for i in indices])
+
+    def __call__(self, ele: dict):
+        import threading
+
+        from time_r1_tpu_torch.utils.vision_math import VIDEO_MIN_PIXELS, plan_frame_window, plan_video_shapes
+        from time_r1_tpu_torch.video.pipeline import resize_frames_bicubic
+
+        n, fps, _ = INPUT_CLIPS[ele["video"]][0]
+        t0 = time.perf_counter()
+        plan = plan_frame_window(ele, total_frames=n, video_fps=fps)
+        frames = self.raw_frames(ele["video"], plan.indices)
+        t1 = time.perf_counter()
+        out_h, out_w = plan_video_shapes(*INPUT_HW, nframes=len(frames), total_pixels=ele.get("total_pixels"),
+                                         min_pixels=ele.get("min_pixels", VIDEO_MIN_PIXELS),
+                                         max_pixels=ele.get("max_pixels"))
+        frames = resize_frames_bicubic(frames, out_h, out_w)
+        t2 = time.perf_counter()
+        if threading.current_thread() is threading.main_thread():
+            self.times = {"loader_ms": (t1 - t0) * 1e3, "resize_ms": (t2 - t1) * 1e3}
+        return frames.transpose(0, 3, 1, 2).astype(np.float32), plan.sample_fps
+
+
+class MainThreadTimed:
+    """`inner` with its calls timed: each call from the main thread adds its
+    host ms (after a device sync with `sync`) to times[key]; calls from other
+    threads (the prefetch worker) pass through untimed. Other attributes are
+    `inner`'s."""
+
+    def __init__(self, inner, times: dict, key: str, sync: bool = False):
+        self.inner, self.times, self.key, self.sync = inner, times, key, sync
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __call__(self, *args, **kwargs):
+        import threading
+
+        import torch
+
+        if threading.current_thread() is not threading.main_thread():
+            return self.inner(*args, **kwargs)
+        t0 = time.perf_counter()
+        out = self.inner(*args, **kwargs)
+        if self.sync:
+            torch.cuda.synchronize()
+        self.times[self.key] = self.times.get(self.key, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+
+def resize_on_the_card(total_pixels: int, min_pixels: int) -> dict:
+    """(b): the 32 s clip's sampled frames through the host's native resize
+    and through `resize_frames_device` on the card with TF32 requested by the
+    caller; at most 1 gray level apart, on under RESIZE_SHARE of the pixels.
+    For information, the same two matmuls with TF32 on, as the device resize
+    would be without its pin."""
+    import torch
+
+    from time_r1_tpu_torch.utils.vision_math import plan_frame_window, plan_video_shapes
+    from time_r1_tpu_torch.video.resize import resize_frames_device, resize_frames_host, resize_weights
+
+    name = "clip_32s_10fps"
+    n, fps, _ = INPUT_CLIPS[name][0]
+    plan = plan_frame_window({"total_pixels": total_pixels, "min_pixels": min_pixels}, n, fps)
+    raw = FrameLoader.raw_frames(name, plan.indices)
+    out_h, out_w = plan_video_shapes(*INPUT_HW, len(raw), total_pixels, min_pixels)
+    t0 = time.perf_counter()
+    resize_frames_host(raw[:1], out_h, out_w)  # first use: g++ builds the library
+    build_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    host = resize_frames_host(raw, out_h, out_w)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.backends.cuda.matmul.allow_tf32 = True  # the caller asks for TF32: the resize must not use it
+    try:
+        resize_frames_device(raw, out_h, out_w)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev = resize_frames_device(raw, out_h, out_w).cpu().numpy()
+        dev_ms = (time.perf_counter() - t0) * 1e3
+        on_card = torch.from_numpy(raw).cuda()
+        kernel_ms = cuda_ms(lambda: resize_frames_device(on_card, out_h, out_w), iters=10, queued=False)
+        still_on = torch.backends.cuda.matmul.allow_tf32
+        T, H, W, C = raw.shape
+        wh = torch.tensor(resize_weights(H, out_h), device="cuda")
+        ww = torch.tensor(resize_weights(W, out_w), device="cuda")
+        y = torch.matmul(wh, on_card.float().reshape(T, H, W * C))
+        y = torch.matmul(y.reshape(T * out_h, W, C).transpose(1, 2).reshape(-1, W), ww.t())
+        tf32 = y.round_().clamp_(0, 255).to(torch.uint8).reshape(T, out_h, C, out_w).permute(0, 1, 3, 2).cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    diff = np.abs(dev.astype(int) - host.astype(int))
+    tf32_diff = np.abs(tf32.astype(int) - host.astype(int))
+    out = dict(frames=list(raw.shape), to=[out_h, out_w], host_first_frame_with_build_ms=build_ms,
+               host_native_ms=host_ms, device_ms_with_copies=dev_ms,
+               device_ms_on_card=kernel_ms, max_diff=int(diff.max()), share_diff=float((diff > 0).mean()),
+               tf32_max_diff=int(tf32_diff.max()), tf32_share_diff=float((tf32_diff > 0).mean()))
+    log(f"[input] (b) resize of {raw.shape} uint8 to {out_h}x{out_w}: host native {host_ms:.1f} ms (its first "
+        f"frame, with the library's g++ build, {build_ms:.1f} ms before); device "
+        f"{dev_ms:.1f} ms with the copies, {kernel_ms:.3f} ms on the card from frames there; device vs host max "
+        f"{out['max_diff']} gray, {out['share_diff']:.2e} of pixels differ (TF32 requested by the caller, still "
+        f"on after: {still_on}); for information, TF32 matmuls: max {out['tf32_max_diff']}, "
+        f"{out['tf32_share_diff']:.2e} of pixels")
+    if not still_on:
+        raise AssertionError("(b): resize_frames_device did not give the caller's TF32 setting back")
+    if out["max_diff"] > 1 or out["share_diff"] >= RESIZE_SHARE:
+        raise AssertionError(f"(b): device resize off the host's by {out['max_diff']} gray on "
+                             f"{out['share_diff']:.2e} of pixels (bound 1, {RESIZE_SHARE})")
+    return out
+
+
+def same_requests(a, b) -> bool:
+    """ids, grid and seconds per grid equal; patches bit-equal."""
+    import torch
+
+    return len(a) == len(b) and all(
+        list(x.input_ids) == list(y.input_ids) and tuple(x.grid_thw) == tuple(y.grid_thw)
+        and x.second_per_grid_t == y.second_per_grid_t and x.patches.dtype == y.patches.dtype
+        and torch.equal(x.patches, y.patches) for x, y in zip(a, b))
+
+
+def phase_input_path(card: str) -> dict:
+    """Phase 8: the host input path at full size, after phase 7 freed its
+    model. Qwen2.5-VL-3B in bf16 with seeded random weights and a reference
+    copy under `GRPOTrainer`, whose video_loader is FrameLoader (seeded raw
+    frames at 360x640 in place of the decoder: no video and no FFmpeg
+    development files on the card's machine) and whose processor is the
+    port's Qwen25VLProcessor over StandInTokenizer, at TrainConfig's budget:
+    (a) the loader's two clips, planned as INPUT_CLIPS says; (b) the resize on
+    the card against the host's; (c) the processor's video tokens, t·h·w/4 of
+    the grid; (d) the 32 s clip served through `trainer.engine.generate`
+    (greedy, 128 tokens, bucket 4096, after a 2-token warm-up), then two
+    `step_batch([example])` calls on the 4 s clip with requests=None (bucket
+    2048, prepare_requests inside host_preproc); while the first runs, a
+    one-worker thread pool prepares the same example's requests, held against
+    a serial `prepare_requests`; every launch count checked. Returns the
+    second call's launches."""
+    import gc
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from time_r1_tpu_torch.models.processor import Qwen25VLProcessor
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig, init_params
+    from time_r1_tpu_torch.rl import GRPOTrainer, TrainConfig
+    from time_r1_tpu_torch.sampler import SamplingParams
+    from time_r1_tpu_torch.sampler.engine import PREFILL_CHUNK, _bucket
+    from time_r1_tpu_torch.utils.profiling import PhaseTimers
+    from time_r1_tpu_torch.utils.rewards import REWARD_FUNCS_REGISTRY
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[input] no video file is decoded here (the repository holds no video, and this machine has no FFmpeg "
+        "development files): seeded raw frames stand in for the decoder, whose decode is held against the JAX "
+        "package on the CPU (tests/test_torch_video.py)")
+    cfg = Qwen25VLConfig.qwen25vl_3b()
+    L = cfg.text.num_hidden_layers
+    config = TrainConfig(report_to="none")
+    result = {"card": card, "resize": resize_on_the_card(config.total_pixels, config.min_pixels)}
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    ref = to_device(params, torch.device("cuda"))
+    loader = FrameLoader()
+    pre = {}  # host_preproc's processor and staging ms, main thread
+    processor = Qwen25VLProcessor(StandInTokenizer(cfg), pad_token_id=cfg.pad_token_id,
+                                  eos_token_id=cfg.eos_token_id)
+    rewards = [REWARD_FUNCS_REGISTRY["iou"], REWARD_FUNCS_REGISTRY["format"], char_parity_reward]
+    trainer = GRPOTrainer(params, cfg, MainThreadTimed(processor, pre, "processor_ms"), rewards, config=config,
+                          video_loader=loader, ref_params=ref, dtype=torch.bfloat16, device="cuda")
+    trainer._stage = MainThreadTimed(trainer._stage, pre, "staging_ms", sync=True)
+    torch.cuda.synchronize()
+    log(f"[input] init_params 3B bf16, its reference copy and the trainer: {time.perf_counter() - t0:.1f} s")
+
+    def example(name):
+        n, fps, _ = INPUT_CLIPS[name][0]
+        return {"problem": "a person opens a door", "solution": (1.0, 3.0), "durations": n / fps,
+                "video_path": name}
+
+    def prepare_checked(name):
+        """(a) and (c): one example's request, planned and tokenized as INPUT_CLIPS says."""
+        pre.clear()
+        t0 = time.perf_counter()
+        req = trainer.prepare_requests([example(name)])[0]
+        ms = (time.perf_counter() - t0) * 1e3
+        sampled, hw, tokens, bucket = INPUT_CLIPS[name][1]
+        t, h, w = req.grid_thw
+        n_vid = req.input_ids.count(cfg.video_token_id)
+        got = (2 * t, (h * 14, w * 14), n_vid, _bucket(len(req.input_ids)))
+        log(f"[input] (a, c) {name}: {sampled} sampled frames at {hw[0]}x{hw[1]}, grid {req.grid_thw}, "
+            f"{n_vid} video tokens of {len(req.input_ids)}, bucket {got[3]}, patches {tuple(req.patches.shape)} "
+            f"{req.patches.dtype} on {req.patches.device}; prepare_requests {ms:.1f} ms: {loader.times} {pre}")
+        if got != (sampled, hw, tokens, bucket) or n_vid != t * h * w // 4:
+            raise AssertionError(f"{name}: (frames, size, video tokens, bucket) {got}, want "
+                                 f"{(sampled, hw, tokens, bucket)}; t*h*w/4 = {t * h * w // 4}")
+        if req.patches.device.type != "cuda" or req.patches.dtype != torch.bfloat16:
+            raise AssertionError(f"{name}: patches not staged on the card in bf16")
+        return req
+
+    # (d) serving: the 32 s clip, greedy, 128 tokens
+    req32 = prepare_checked("clip_32s_10fps")
+    prepare_checked("clip_4s_30fps")
+    sp = SamplingParams(max_new_tokens=128, stop_token_ids=())
+    t0 = time.perf_counter()
+    trainer.engine.generate([req32], replace(sp, max_new_tokens=2))  # warm-up, as phase 4
+    torch.cuda.synchronize()
+    log(f"[input] (d) warm-up generate of the 32 s clip (2 tokens, the trainer's first): "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = trainer.engine.generate([req32], sp)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = read_launches()
+    tm = trainer.engine.timings
+    chunks = -(-_bucket(len(req32.input_ids)) // PREFILL_CHUNK)
+    serve = dict(vision_ms=tm["vision_s"] * 1e3, prefill_ms=tm["prefill_s"] * 1e3,
+                 decode_ms_per_step=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1),
+                 decode_steps=tm["decode_steps"], generate_s=total,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[input] (d) served the 32 s clip: vision {serve['vision_ms']:.1f} ms, prefill {serve['prefill_ms']:.1f} "
+        f"ms, decode {serve['decode_ms_per_step']:.2f} ms/step over {tm['decode_steps']} steps, {total:.2f} s for "
+        f"the generate() call, peak {serve['peak_gib']:.2f} GiB allocated")
+    check_tc_route("input serve", launches, vision_tc_launches(cfg) | {"flash_attention": L * chunks},
+                   tensor_cores=True)
+    if len(out) != 1 or len(out[0]) != sp.max_new_tokens:
+        raise AssertionError(f"input serve: rows of {[len(o) for o in out]} tokens, want {sp.max_new_tokens}")
+    result["serve"] = serve
+
+    # (d) training: two step_batch calls from frames, the first beside a prefetch worker
+    calls = []
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        for call in (1, 2):
+            trainer.timers = PhaseTimers(sync=True)
+            pre.clear()
+            loader.times = {}
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            ahead = pool.submit(trainer.prepare_requests, [example("clip_4s_30fps")]) if call == 1 else None
+            t0 = time.perf_counter()
+            info = trainer.step_batch([example("clip_4s_30fps")])
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            launches = read_launches()
+            if ahead is not None:
+                threaded = ahead.result(timeout=600)
+            metrics = trainer.pop_metrics()
+            tm = trainer.engine.timings
+            phases = {k: round(v["total_s"] * 1e3, 1) for k, v in trainer.timers.summary().items()}
+            split = {k: round(v, 1) for k, v in (loader.times | pre).items()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            log(f"[input] step_batch {call} from frames: {total:.2f} s; phases (ms, synced) {phases}; host_preproc "
+                f"split (ms) {split}; rollout vision {tm['vision_s'] * 1e3:.1f} ms, prefill "
+                f"{tm['prefill_s'] * 1e3:.1f} ms, decode {tm['decode_s'] * 1e3 / max(tm['decode_steps'], 1):.2f} "
+                f"ms/step over {tm['decode_steps']} steps; peak {peak:.2f} GiB allocated"
+                + ("; a worker thread prepared the next requests meanwhile" if call == 1 else ""))
+            log(f"[input] step_batch {call}: launches {launches}")
+            log(f"[input] step_batch {call}: loss {info['loss']:.6f}, reward {info['reward']:.4f}, grad_norm "
+                f"{metrics['grad_norm']:.4f}")
+            if "host_preproc" not in phases:
+                raise AssertionError(f"step_batch {call}: prepare_requests did not run in host_preproc")
+            if not (np.isfinite(info["loss"]) and np.isfinite(metrics["grad_norm"]) and metrics["grad_norm"] > 0):
+                raise AssertionError(f"step_batch {call}: loss {info['loss']} or grad_norm {metrics['grad_norm']}")
+            for name in TRAIN_KERNELS:
+                if launches[name] <= 0:
+                    raise AssertionError(f"step_batch {call} from frames: {name} was not launched")
+            check_step_launches(f"input step_batch {call}", launches, tm["decode_steps"], L,
+                                {"shared_prefix_decode_full": 1, "shared_prefix_decode_attention": 0,
+                                 "int4_matmul": 0, "fused_mlp_int8": 0})
+            check_tc_route(f"input step_batch {call}", launches, step_batch_tc_launches(cfg, tm["decode_steps"]),
+                           tensor_cores=True)
+            calls.append(dict(step_s=total, phases_ms=phases, host_preproc_split_ms=split,
+                              decode_ms_per_step=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1), peak_gib=peak))
+    serial = trainer.prepare_requests([example("clip_4s_30fps")])
+    if not same_requests(threaded, serial):
+        raise AssertionError("requests prepared on the worker thread differ from a serial prepare_requests")
+    log("[input] the worker thread's requests equal a serial prepare_requests (ids, grid, bf16 patches "
+        "bit-equal)")
+    result["step_batch"] = calls
+    log(f"[input] summary on {card}: {json.dumps(result)}")
+    del trainer, ref, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     # the training phase holds ~60 GB of live tensors of many sizes
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -2462,6 +2842,7 @@ def main() -> int:
     launches.update({k: v for k, v in train_launches.items() if k not in SERVING_KEYS})
     quant_launches = phase_quant_full_size()  # D1, D2, Q2 (int8 step_batch), Q1 (int4 generate)
     serve = phase_serving_full_size()  # P1 (a), P2 (b): continuous-batching serving
+    input_launches = phase_input_path(card)  # K1-K3, B1, B2, S1, S2, D2 from frames the processor made
     for tag, name in zip("ab", PAGED_KERNELS):
         quant_launches[name] = serve[tag]["launches"][name]
         quant_launches[f"{name}_tc"] = serve[tag]["launches"][f"{name}_tc"]
@@ -2525,6 +2906,8 @@ def main() -> int:
             k["launches_bf16_step_batch"] = launches[k["name"]]
         if k["name"] == "shared_prefix_decode_attention":
             k["on_main_path"] = False
+        if k["name"] in TRAIN_KERNELS:  # phase 8's second step_batch, from video frames
+            k["launches_from_frames"] = input_launches[k["name"]]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

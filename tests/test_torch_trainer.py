@@ -11,6 +11,13 @@ config):
 - int8 rollouts: three CPU `step_batch` calls (one optimizer update between
   the second and third), each rollout sampling from `quantize_params` of the
   live weights; a quantized base without LoRA raises ValueError, as in JAX;
+- the host input path on the clip that tests/test_torch_video.py writes with
+  OpenCV: `prepare_requests` equal to the JAX trainer's (token ids, grid and
+  seconds per grid equal, patches bit-equal in f32 and after the bf16 cast;
+  also from an offline-preprocessed `video.npz`), the same requests when
+  prepared on worker threads, and `step_batch(examples)` with no requests
+  equal to `step_batch(examples, prepare_requests(examples))` on a second
+  trainer with the same seed;
 - the options that are not ported raise NotImplementedError.
 
 Tolerances: the optimizer 1e-6 (f32, the same formulas); the trainers'
@@ -31,13 +38,20 @@ import optax
 
 from test_torch_bridge import CFG, JCFG, jax_params, port_params
 from test_torch_engine import _video
+from test_torch_video import jax_native_libs, write_clip
 from tiny_tokenizer import TinyTokenizer
+from time_r1_tpu.models.processor import Qwen25VLProcessor as JaxProcessor
 from time_r1_tpu.rl import GRPOTrainer as JaxTrainer
 from time_r1_tpu.rl import TrainConfig as JaxTrainConfig
+from time_r1_tpu.rl import trainer as jax_trainer_module
 from time_r1_tpu.sampler import Request as JaxRequest
 from time_r1_tpu.utils.rewards import REWARD_FUNCS_REGISTRY as JAX_REWARDS
+from time_r1_tpu.video.pipeline import video_loader as jax_video_loader
+from time_r1_tpu_torch.models.processor import Qwen25VLProcessor
 from time_r1_tpu_torch.models.qwen25vl import params_to_jax
 from time_r1_tpu_torch.rl import GRPOTrainer, TrainConfig
+from time_r1_tpu_torch.rl import trainer as trainer_module
+from time_r1_tpu_torch.video.pipeline import video_loader
 from time_r1_tpu_torch.rl.optim import AdamWMultiSteps
 from time_r1_tpu_torch.sampler import Request
 from time_r1_tpu_torch.utils.rewards import REWARD_FUNCS_REGISTRY
@@ -181,10 +195,12 @@ def test_unported_options_raise(option):
 
 
 def test_prepare_requests_and_mesh_raise():
+    """prepare_requests needs a video_loader for an example that has no
+    preprocessed video; a mesh is not ported (A13)."""
     tp = port_params(jax_params())
     tr = GRPOTrainer(tp, CFG, Processor(), [spread_reward], dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        tr.prepare_requests([EXAMPLE])
+    with pytest.raises(ValueError, match="video_loader"):
+        tr.prepare_requests([dict(EXAMPLE, video_path="clip.mp4")])
     with pytest.raises(NotImplementedError, match="A13"):
         GRPOTrainer(tp, CFG, Processor(), [spread_reward], dtype=torch.float32, device="cpu", mesh=object())
 
@@ -231,3 +247,117 @@ def test_quantized_base_without_peft_raises():
         base = quantize_params(port_params(jax_params()), bits=8, fuse=fuse)
         with pytest.raises(ValueError, match="LoRA"):
             GRPOTrainer(base, CFG, Processor(), [spread_reward], dtype=torch.float32, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the host input path: prepare_requests from video frames
+
+BUDGET = dict(total_pixels=8 * 28 * 28, min_pixels=4 * 28 * 28)
+
+
+@pytest.fixture(scope="module")
+def clip(tmp_path_factory):
+    jax_native_libs()
+    return write_clip(tmp_path_factory.mktemp("trainer") / "clip.mp4")
+
+
+def _examples(clip, tmp_path=None):
+    out = [dict(EXAMPLE, video_path=clip),
+           dict(EXAMPLE, video_path=clip, problem="a door opens", video_start=0.5, video_end=2.5),
+           dict(EXAMPLE, video_path=clip, video_start=1.0, video_end=None)]
+    if tmp_path is not None:  # an offline-preprocessed video: video.npz wins over the decode
+        frames = np.random.default_rng(9).uniform(0, 255, size=(3, 3, 28, 56)).astype(np.float16)
+        np.savez(tmp_path / "video.npz", video=frames, fps=np.float32(1.6))
+        out.append(dict(EXAMPLE, video_path="not-decoded.mp4", preprocessed_path=str(tmp_path)))
+    return out
+
+
+def _port_trainer(dtype=torch.float32, tp=None, **kw):
+    processor = Qwen25VLProcessor(TinyTokenizer(), pad_token_id=CFG.pad_token_id, eos_token_id=CFG.eos_token_id)
+    return GRPOTrainer(tp if tp is not None else port_params(jax_params()), CFG, processor, [spread_reward],
+                       config=_config(TrainConfig, **BUDGET, **kw), video_loader=video_loader, dtype=dtype,
+                       device="cpu")
+
+
+def _jax_trainer(dtype):
+    processor = JaxProcessor(TinyTokenizer(), pad_token_id=JCFG.pad_token_id, eos_token_id=JCFG.eos_token_id)
+    return JaxTrainer(jax_params(), JCFG, processor, [spread_reward], config=_config(JaxTrainConfig, **BUDGET),
+                      video_loader=jax_video_loader, dtype=dtype)
+
+
+def _assert_requests_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert list(g.input_ids) == list(w.input_ids)
+        assert tuple(g.grid_thw) == tuple(w.grid_thw) and g.second_per_grid_t == w.second_per_grid_t
+        assert isinstance(g.patches, torch.Tensor)
+        wp = w.patches if isinstance(w.patches, torch.Tensor) else torch.from_numpy(np.asarray(w.patches))
+        assert g.patches.dtype == wp.dtype and g.patches.shape == wp.shape
+        assert torch.equal(g.patches, wp)
+
+
+def test_prompt_templates_match_jax():
+    assert trainer_module.SYSTEM_PROMPT == jax_trainer_module.SYSTEM_PROMPT
+    assert trainer_module.PROMPT_TEMPLATES == jax_trainer_module.PROMPT_TEMPLATES
+    for kind in ("v1", "v2", "v3"):
+        for ex in (EXAMPLE, dict(EXAMPLE, video_path="v.mp4", video_start=1.0, video_end=2.0)):
+            ex = dict(ex, video_path=ex.get("video_path", "v.mp4"))
+            assert trainer_module.make_conversation_video(ex, kind, 100, 10) == \
+                jax_trainer_module.make_conversation_video(ex, kind, 100, 10)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prepare_requests_matches_jax(clip, tmp_path, dtype):
+    """f32: patches bit-equal to JAX's; bf16: bit-equal after the cast (both
+    round to nearest even), staged in the trainer's dtype."""
+    examples = _examples(clip, tmp_path)
+    want = _jax_trainer(getattr(jnp, dtype)).prepare_requests(examples)
+    want = [JaxRequest(w.input_ids, torch.from_numpy(np.array(w.patches.astype(jnp.float32))).to(
+        getattr(torch, dtype)), w.grid_thw, w.second_per_grid_t) for w in want]
+    got = _port_trainer(getattr(torch, dtype)).prepare_requests(examples)
+    _assert_requests_equal(got, want)
+    assert got[-1].grid_thw == (2, 2, 4) and got[-1].second_per_grid_t == 2 / float(np.float32(1.6))
+    assert all(g.patches.dtype == getattr(torch, dtype) for g in got)
+    vid = CFG.video_token_id
+    assert [g.input_ids.count(vid) for g in got] == [int(np.prod(g.grid_thw)) // 4 for g in got]
+
+
+def test_prepare_requests_on_worker_threads_equal_serial(clip):
+    """Prepared on one prefetch worker, and by 12 concurrent workers (more
+    than this host's cores, a short switch interval), the requests equal a
+    serial call's."""
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    tr = _port_trainer()
+    examples = _examples(clip)
+    serial = tr.prepare_requests(examples)
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        _assert_requests_equal(ex.submit(tr.prepare_requests, examples).result(timeout=300), serial)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with ThreadPoolExecutor(max_workers=12) as ex:
+            futures = [ex.submit(tr.prepare_requests, [examples[i % 3]]) for i in range(12)]
+            for i, f in enumerate(futures):
+                _assert_requests_equal(f.result(timeout=300), [serial[i % 3]])
+    finally:
+        sys.setswitchinterval(interval)
+
+
+def test_step_batch_prepares_its_own_requests(clip):
+    """`step_batch(examples)` runs prepare_requests in host_preproc and gives
+    what a second trainer with the same seed gives from requests prepared
+    beforehand: the same loss, reward, metrics and updated weights."""
+    jp = jax_params()
+    examples = _examples(clip)[:1]
+    a = _port_trainer(tp=port_params(jp), temperature=1.0)
+    b = _port_trainer(tp=port_params(jp), temperature=1.0)
+    for _ in range(2):
+        got = a.step_batch(examples)
+        want = b.step_batch(examples, b.prepare_requests(examples))
+        assert got == want and np.isfinite(got["loss"])
+    assert a.pop_metrics() == b.pop_metrics()
+    assert "host_preproc" in a.timers.summary() and "host_preproc" not in b.timers.summary()
+    for x, y in zip(jax.tree.leaves(params_to_jax(a.params, CFG)), jax.tree.leaves(params_to_jax(b.params, CFG))):
+        np.testing.assert_array_equal(x, y)

@@ -11,5 +11,8 @@ chunked prefill (K1) → decode), one GRPO training step
 (`rl.trainer.GRPOTrainer.step_batch`), quantized rollouts (int8/int4
 weights, int8 KV), and continuous-batching serving over a paged KV pool or
 contiguous slots (`sampler.paged.PagedEngine`, `sampler.continuous.
-ContinuousEngine`, `sampler.text_engine.TextEngine`).
+ContinuousEngine`, `sampler.text_engine.TextEngine`), and the host input path
+that feeds them from video files (`video/`: the FFmpeg decoder and the
+bicubic resize, built with g++ at first use; `models.processor`; `data/`;
+`GRPOTrainer.prepare_requests`).
 """

@@ -14,16 +14,23 @@ per `step_batch` (the weight_sync phase); the loss and the reference forward
 stay bf16 over the unquantized tree. A quantized base is trainable only
 through LoRA, as in JAX (ValueError).
 
+The host input path (`prepare_requests`) turns dataset examples into engine
+Requests: the injected `video_loader` decodes and resizes the video (or an
+offline-preprocessed `video.npz` is read), the processor renders the chat
+template, tokenizes and patchifies, and the patches are staged on the
+trainer's device in its dtype. It writes no trainer state, so a prefetch
+thread may run it one batch ahead.
+
 Not ported yet, each raising NotImplementedError where it is asked for: the
-host input path (`prepare_requests`: video decode, chat template, tokenizer;
-ROADMAP A4), the full-row loss (`shared_prefix_loss=False`, A7), LoRA (A8),
-the training loop around `step_batch`, remat, checkpoints and optimizer
-offload (A9), and device meshes and context parallelism (A13).
+full-row loss (`shared_prefix_loss=False`, ROADMAP A7), LoRA (A8), the
+training loop around `step_batch`, remat, checkpoints and optimizer offload
+(A9), and device meshes and context parallelism (A13).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
@@ -34,7 +41,7 @@ from ..device import resolve_device
 from ..models.qwen25vl import Qwen25VLConfig
 from ..models.qwen25vl.model import vision_signature
 from ..ops.quant import is_quantized
-from ..sampler import Engine, SamplingParams
+from ..sampler import Engine, Request, SamplingParams
 from ..utils.profiling import PhaseTimers
 from .grpo import (
     GRPOHyperParams,
@@ -46,6 +53,41 @@ from .grpo import (
 )
 from .optim import AdamWMultiSteps
 from .rollout import build_grpo_split_batch
+
+SYSTEM_PROMPT = "You are a video analysis expert."
+
+# Prompt templates v1/v2/v3 (timer1_trainer.py:63-67, timer1_trainer_ft.py:61-85)
+QUESTION_TEMPLATE_TG_V1 = """To accurately pinpoint the event "[EVENT]" in the video, determine the precise time period of the event.
+
+Output your thought process within the <think> </think> tags, including analysis with either specific time ranges (xx.xx to xx.xx) in <timestep> </timestep> tags.
+
+Then, provide the start and end times (in seconds, precise to two decimal places) in the format "start time to end time" within the <answer> </answer> tags. For example: "12.54 to 17.83"."""
+
+QUESTION_TEMPLATE_TG_V2 = """To accurately pinpoint the event "[EVENT]" in the video, determine the precise time period of the event.
+
+Provide the start and end times (in seconds, precise to two decimal places) in the format "start time to end time" within the <answer> </answer> tags. For example: "12.54 to 17.83"."""
+
+QUESTION_TEMPLATE_TG_V3 = """Carefully analyze the video content to determine the precise time period during which "[EVENT]" occurs.  Within the `<think>` tags, provide a detailed description of your thought process, following the format below:
+```
+<think>
+Step-by-step Analysis:
+<timestep>Time period 1 (start time to end time)</timestep>: Describe the video content within this time period and determine if it is related to "[EVENT]".
+<timestep>Time period 2 (start time to end time)</timestep>: Describe the video content within this time period and determine if it is related to "[EVENT]".
+Based on the above analysis, state the precise time period during which "[EVENT]" occurs.
+</think>
+```
+Finally, in the `<answer>` tags, provide the start and end times of "[EVENT]" in the format "start time to end time" (in seconds, precise to two decimal places). For example: "12.54 to 17.83".
+```
+<answer>
+start time to end time
+</answer>
+```"""
+
+PROMPT_TEMPLATES = {
+    "v1": QUESTION_TEMPLATE_TG_V1,
+    "v2": QUESTION_TEMPLATE_TG_V2,
+    "v3": QUESTION_TEMPLATE_TG_V3,
+}
 
 
 @dataclass
@@ -96,6 +138,28 @@ class TrainConfig:
     offload_optimizer: bool = False
 
 
+def make_conversation_video(example: dict, prompt_type: str, total_pixels: int, min_pixels: int):
+    """The upstream conversation (timer1_trainer.py:490-510,
+    timer1_trainer_ft.py:511-535) with prompt template v1/v2/v3."""
+    prompt_text = PROMPT_TEMPLATES[prompt_type].replace("[EVENT]", example["problem"])
+    return [
+        {
+            "role": "user",
+            "content": [
+                {"type": "text", "text": prompt_text},
+                {
+                    "type": "video",
+                    "video": example["video_path"],
+                    "video_start": example.get("video_start"),
+                    "video_end": example.get("video_end"),
+                    "total_pixels": total_pixels,
+                    "min_pixels": min_pixels,
+                },
+            ],
+        }
+    ]
+
+
 def _unported(config: TrainConfig, mesh) -> Optional[str]:
     if mesh is not None or config.context_parallel_size > 1:
         return "device meshes and context parallelism are not ported yet (ROADMAP A13)"
@@ -109,9 +173,12 @@ def _unported(config: TrainConfig, mesh) -> Optional[str]:
 
 
 class GRPOTrainer:
-    """Single-device GRPO trainer. `processor` is anything with
-    `batch_decode(list of token lists, skip_special_tokens=True)`; `step_batch`
-    takes pre-built engine Requests (the host input path is ROADMAP A4).
+    """Single-device GRPO trainer. `processor` is a `Qwen25VLProcessor` (or
+    anything with its `apply_chat_template`, `__call__` and `batch_decode`);
+    `video_loader(ele: dict) -> (frames TCHW float, sample_fps)` decodes an
+    example's video (`video.pipeline.video_loader`, or a fake in tests).
+    `step_batch` takes the examples' engine Requests, or builds them with
+    `prepare_requests` when given none.
 
     Full-parameter training updates `params` in place; the engine holds the
     same tensors, so the rollouts sample from the live weights with no copy
@@ -128,6 +195,7 @@ class GRPOTrainer:
         reward_funcs: Sequence[Callable],
         metric_funcs: Sequence[Callable] = (),
         config: Optional[TrainConfig] = None,
+        video_loader: Optional[Callable] = None,
         ref_params: Optional[dict] = None,
         dtype=torch.bfloat16,
         mesh=None,
@@ -149,6 +217,7 @@ class GRPOTrainer:
         self.reward_funcs = list(reward_funcs)
         self.metric_funcs = list(metric_funcs)
         self.c = config
+        self.video_loader = video_loader
         self.dtype = dtype
         self.params = params
         self.ref_params = ref_params if config.beta != 0.0 else None
@@ -193,15 +262,67 @@ class GRPOTrainer:
         self._metrics.clear()
         return out
 
+    def _load_frames(self, example: dict):
+        """Video frames: offline-preprocessed arrays when available
+        (`preprocessed_path/video.npz`, the fine-tuning recipe's), else a
+        live decode and budgeted resize by `video_loader`."""
+        c = self.c
+        pp = example.get("preprocessed_path") or ""
+        if pp and os.path.exists(os.path.join(pp, "video.npz")):
+            with np.load(os.path.join(pp, "video.npz")) as z:
+                return z["video"].astype(np.float32), float(z["fps"])
+        if self.video_loader is None:
+            raise ValueError("GRPOTrainer needs a video_loader to decode the example's video")
+        ele = {
+            "video": example["video_path"],
+            "total_pixels": c.total_pixels,
+            "min_pixels": c.min_pixels,
+        }
+        if example.get("video_start") is not None:
+            ele["video_start"] = example["video_start"]
+        if example.get("video_end") is not None:
+            ele["video_end"] = example["video_end"]
+        return self.video_loader(ele)
+
+    def _stage(self, patches: np.ndarray) -> torch.Tensor:
+        """The patches on the trainer's device in its dtype. On the card the
+        f32 rows go from pinned memory without blocking the host and are cast
+        there, both on the device's default stream: the stream that the
+        engine and the loss launch on, so every later use is ordered after
+        the copy, whichever thread called this."""
+        host = torch.from_numpy(patches)
+        if self.device.type != "cuda":
+            return host.to(self.dtype)
+        with torch.cuda.stream(torch.cuda.default_stream(self.device)):
+            return host.pin_memory().to(self.device, non_blocking=True).to(self.dtype)
+
     def prepare_requests(self, examples: Sequence[dict]) -> list:
-        raise NotImplementedError(
-            "the host input path (video decode, chat template, tokenizer) is not ported yet (ROADMAP A4)"
-        )
+        """Host preprocessing for a batch of examples: video decode, budgeted
+        resize, chat template, tokenizer and patchify → engine Requests, their
+        patches staged on the trainer's device in its dtype (so the engine's
+        and the loss batch's moves to the device have nothing left to copy).
+
+        It writes no trainer state, so it may run on a prefetch thread while
+        the device computes the previous step, and its result be passed to
+        `step_batch` as `requests`."""
+        c = self.c
+        requests = []
+        for example in examples:
+            frames, sample_fps = self._load_frames(example)
+            conv = make_conversation_video(example, c.prompt_type, c.total_pixels, c.min_pixels)
+            prompt_text = self.processor.apply_chat_template(conv, add_generation_prompt=True)
+            proc = self.processor(text=[prompt_text], videos=[np.asarray(frames)], fps=[sample_fps])
+            prompt_ids = proc.input_ids[0][proc.attention_mask[0] == 1].tolist()
+            grid = tuple(int(x) for x in proc.video_grid_thw[0])
+            requests.append(Request(prompt_ids, self._stage(proc.pixel_values_videos), grid,
+                                    proc.second_per_grid_ts[0]))
+        return requests
 
     def step_batch(self, examples: Sequence[dict], requests: Optional[list] = None) -> dict:
         """One optimizer micro-step on P examples (P·G rollout rows, advantages
         normalised within each example's group). `requests` are the examples'
-        engine Requests."""
+        engine Requests (`prepare_requests`' output, perhaps from a prefetch
+        thread); None builds them here, in the host_preproc phase."""
         c = self.c
         G = c.num_generations
         with self.timers.phase("weight_sync"):  # a re-quantization pass with rollout_quantization

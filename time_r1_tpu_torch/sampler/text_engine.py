@@ -10,8 +10,8 @@ or `PagedEngine`):
 - `extract_timestamps` (the last two numbers of a response).
 
 `processor` is any object with `.decode(ids, skip_special_tokens=...)` and
-`.tokenizer.encode(s, add_special_tokens=False)`; the port has no processor
-of its own yet (ROADMAP A4).
+`.tokenizer.encode(s, add_special_tokens=False)`, such as the port's
+`models.processor.Qwen25VLProcessor`.
 """
 
 from __future__ import annotations
