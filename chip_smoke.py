@@ -52,6 +52,15 @@ Phases (any failed check raises and the exit code is non-zero):
    text requests through 2 slots): equal greedy tokens card against CPU for
    PagedEngine (P1), PagedEngine with int8 KV pages (P2) and
    ContinuousEngine, and paged against the bucket Engine on the card;
+3e. the captured decode at reduced depth in bf16: replay against the eager
+   loop (the loop functions' capture=False, `eager_decode` for PagedEngine)
+   for Engine at G = 1, the G-way decode in bf16 (D2), over int8 weights and
+   int8 KV (D2, Q2) and over int4 weights and int8 KV (D2, Q1), PagedEngine
+   with bf16 pages (P1) and with int8 weights and pages (P2, Q2): greedy
+   tokens and the KV written bit-equal, two sampled (T = 1.0) captured runs
+   equal (their equality with the eager draws reported), and one replayed
+   step's launches of each kernel by name (torch.profiler) equal to its
+   per-layer count x 2 layers;
 4. the serving path at full size: Qwen2.5-VL-3B in bf16 with seeded random
    weights, two video requests, greedy decode of 128 tokens, with K1-K3's
    launch counts read around that one generate() call (exactly 36 K1, 28 K2
@@ -91,6 +100,14 @@ Phases (any failed check raises and the exit code is non-zero):
    thread and held bit-equal against a serial call; launch counts as in
    phase 5 (`step_batch_tc_launches`), all on the tensor cores.
 
+From phase 3 on, every `Engine` and `PagedEngine` decode on the card is a
+captured CUDA graph replayed once a step (`time_r1_tpu_torch/sampler/graph.py`;
+ContinuousEngine stays eager), and the launch checks read the wrappers'
+counters, which each replay advances by what its capture recorded. Phases 4,
+5, 6 and 7 (a), (b) also time their decode eagerly and captured in turns;
+phase 5 profiles 16 steady rollout steps of each (the device's idle share,
+D2's launches by name).
+
 The last three lines are the card's name and power limit (nvidia-smi), the
 kernels JSON line and the result JSON line. Without a CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
@@ -103,6 +120,7 @@ import os
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from dataclasses import replace
 
 import numpy as np
@@ -1104,9 +1122,14 @@ def d1_args(x):
     return x["q"], x["kp"], x["vp"], x["kp_s"], x["vp_s"], x["bias"]
 
 
-def d2_args(x, own_len):
+def d2_args(x, own_len: int):
+    """D2's arguments, the suffix length as the decode loop hands it over: a
+    (1,) int32 in device memory."""
+    import torch
+
+    own = torch.full((1,), own_len, dtype=torch.int32, device=x["q"].device)
     return (x["q"], x["kp"], x["vp"], x["kp_s"], x["vp_s"], x["bias"], x["ko"], x["vo"], x["ko_s"], x["vo_s"],
-            own_len, x["kn"], x["vn"])
+            own, x["kn"], x["vn"])
 
 
 # bf16 D2 edge cases (the tensor-core kernel): (P, R, H, Hkv, D, Lp, Lo, left
@@ -1971,6 +1994,7 @@ def phase_full_size() -> dict:
         raise AssertionError(f"bad last-position logits: shape {logits.shape}")
     log(f"[full] last-position logits finite; argmax {logits.argmax(-1).tolist()}, "
         f"first generated {[o[0] for o in out]}")
+    decode_both_ways("full", lambda: (eng.generate(reqs, sp), eng.timings)[1])
     return launches
 
 
@@ -2029,6 +2053,42 @@ class IdsProcessor:
         return [" ".join(str(int(t)) for t in s) for s in seqs]
 
 
+def rollout_sampling(config, cfg):
+    """`step_batch`'s rollout SamplingParams (G rows at the configured
+    temperature and length), with no stop id, so every row runs the whole
+    budget, and a fixed seed."""
+    from time_r1_tpu_torch.sampler import SamplingParams
+
+    return SamplingParams(temperature=config.temperature, max_new_tokens=config.max_completion_length,
+                          stop_token_ids=(), num_return_sequences=config.num_generations, seed=0)
+
+
+def decode_windows(eng, req, config, cfg) -> dict:
+    """Phase 5's rollout decode after the two `step_batch` calls: its ms/step
+    eager and captured in turns, then the device's idle share over 16 steady
+    decode steps (steps 32-47, one host-check segment) of each, by
+    torch.profiler, with D2's launches by name there (36 a step)."""
+    sp = rollout_sampling(config, cfg)
+    out = {"in_turns": decode_both_ways("train rollout", lambda: (eng.generate([req], sp), eng.timings)[1])}
+    L = cfg.text.num_hidden_layers
+    for mode in ("eager", "captured"):
+        with StepWindow(first=32, count=16) as win:
+            if mode == "eager":
+                with eager_decode():
+                    eng.generate([req], replace(sp, max_new_tokens=64))
+            else:
+                eng.generate([req], replace(sp, max_new_tokens=64))
+        st = win.stats()
+        d2 = win.kernels("decode_full_tc")
+        log(f"[train] rollout decode, 16 steady steps {mode}: device span {st['span_ms']:.2f} ms, busy "
+            f"{st['busy_ms']:.2f} ms, idle share {st['idle_share']:.4f}, {st['device_events']} device events, "
+            f"{d2} D2 launches by name; most device time: {win.top(8)}")
+        if d2 != 16 * L:
+            raise AssertionError(f"rollout window ({mode}): {d2} D2 launches by name, want {16 * L}")
+        out[mode] = st
+    return out
+
+
 def phase_train_full_size() -> dict:
     import torch
 
@@ -2082,6 +2142,7 @@ def phase_train_full_size() -> dict:
                              "int4_matmul": 0, "fused_mlp_int8": 0})
         check_tc_route(f"train step_batch {call}", launches, step_batch_tc_launches(cfg, tm["decode_steps"]),
                        tensor_cores=True)
+    decode_windows(trainer.engine, req, config, cfg)
     changed = total_elems = 0
     for p, b in zip(trainable_leaves(params, config.fix_vit), before):
         changed += int((p.detach().cpu() != b).sum())
@@ -2152,6 +2213,8 @@ def phase_quant_full_size() -> dict:
                        tensor_cores=True)
         out = {k: launches[k] for k in ("shared_prefix_decode_attention", "shared_prefix_decode_full",
                                         "fused_mlp_int8")}
+    decode_both_ways("quant int8 rollout", lambda: (trainer.engine.generate([req], rollout_sampling(config, cfg)),
+                                                    trainer.engine.timings)[1])
     del trainer, ref
     gc.collect()
     torch.cuda.empty_cache()
@@ -2182,6 +2245,7 @@ def phase_quant_full_size() -> dict:
         "int4_matmul": 4 * L * tm["decode_steps"]}, tensor_cores=True)
     if len(rows) != 8 or not all(len(r) == 200 for r in rows):
         raise AssertionError(f"int4 generate: rows of {[len(r) for r in rows]} tokens")
+    decode_both_ways("quant int4 generate", lambda: (eng.generate([req], sp), eng.timings)[1])
     out["int4_matmul"], out["int4_matmul_tc"] = launches["int4_matmul"], launches["int4_matmul_tc"]
     return out
 
@@ -2334,6 +2398,251 @@ def phase_reduced_serving() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the captured decode (phase 3e) and its tools for phases 4-7
+
+
+@contextmanager
+def eager_decode():
+    """Every decode loop run inside runs eagerly: the loops' own capture
+    argument (`StepGraph(..., capture=False)`, which `decode_loop(...,
+    capture=False)` also reaches) forced by a patch, so that the entry points
+    a user calls can be held and timed against their captured runs. No entry
+    point has such an option."""
+    from time_r1_tpu_torch.sampler import graph
+
+    init = graph.StepGraph.__init__
+
+    def eager_init(self, step, device, generator=None, capture=True):
+        init(self, step, device, generator, capture=False)
+
+    graph.StepGraph.__init__ = eager_init
+    try:
+        yield
+    finally:
+        graph.StepGraph.__init__ = init
+
+
+class StepWindow:
+    """torch.profiler over decode steps [first, first + count) of the first
+    loop run inside (steps as its `StepGraph` counts them, the eager first
+    step included), synchronized at both ends: the device's kernels by name,
+    their busy time (the union of every device event's interval) and the
+    device's idle share over the span from the first event's start to the
+    last one's end."""
+
+    def __init__(self, first: int, count: int):
+        self.first, self.count = first, count
+        self.prof = None
+        self.events = None
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from time_r1_tpu_torch.sampler import graph
+
+        self.run = run = graph.StepGraph.run
+        win = self
+
+        def run_windowed(g, n):
+            for _ in range(n):
+                if g.steps == win.first and win.prof is None:
+                    torch.cuda.synchronize()
+                    win.prof = profile(activities=[ProfilerActivity.CUDA])
+                    win.prof.start()
+                run(g, 1)
+                if g.steps == win.first + win.count and win.prof is not None and win.events is None:
+                    torch.cuda.synchronize()
+                    win.prof.stop()
+                    win.events = [(e.name, e.time_range.start, e.time_range.end) for e in win.prof.events()
+                                  if e.device_type.name == "CUDA"]
+
+        graph.StepGraph.run = run_windowed
+        return self
+
+    def __exit__(self, *exc):
+        from time_r1_tpu_torch.sampler import graph
+
+        graph.StepGraph.run = self.run
+        if exc[0] is None and self.events is None:
+            raise AssertionError(f"the decode never reached step {self.first + self.count}")
+
+    def kernels(self, name: str) -> int:
+        """Device events whose name holds `name`."""
+        return sum(name in n for n, _, _ in self.events)
+
+    def top(self, n: int) -> list:
+        """The n event names that took the most device time: (name cut to 60
+        characters, events, ms)."""
+        by = {}
+        for name, a, b in self.events:
+            count, us = by.get(name, (0, 0.0))
+            by[name] = (count + 1, us + b - a)
+        ranked = sorted(by.items(), key=lambda kv: -kv[1][1])[:n]
+        return [(name[:60], count, round(us / 1e3, 3)) for name, (count, us) in ranked]
+
+    def stats(self) -> dict:
+        spans = sorted((a, b) for _, a, b in self.events)
+        if not spans:
+            raise AssertionError("the profiler saw no device work in the window")
+        busy, end = 0.0, spans[0][0]
+        for a, b in spans:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        span = end - spans[0][0]
+        return dict(steps=self.count, span_ms=span / 1e3, busy_ms=busy / 1e3, idle_share=1.0 - busy / span,
+                    device_events=len(spans))
+
+
+def decode_both_ways(tag: str, run) -> dict:
+    """Time one call `run()` (a generate; it returns the engine's timings)
+    eagerly (`eager_decode`) and captured, in turns (eager, captured), in one
+    process: decode ms/step and the call's wall seconds for each."""
+    import torch
+
+    out = {}
+    for mode in ("eager", "captured"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "eager":
+            with eager_decode():
+                tm = run()
+        else:
+            tm = run()
+        torch.cuda.synchronize()
+        out[mode] = dict(decode_ms_per_step=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1),
+                         decode_steps=tm["decode_steps"], wall_s=time.perf_counter() - t0)
+    e, c = out["eager"], out["captured"]
+    log(f"[{tag}] decode ms/step in turns: eager {e['decode_ms_per_step']:.2f}, captured "
+        f"{c['decode_ms_per_step']:.2f} ({e['decode_ms_per_step'] / c['decode_ms_per_step']:.2f}x) over "
+        f"{c['decode_steps']} steps; wall {e['wall_s']:.2f} / {c['wall_s']:.2f} s")
+    return out
+
+
+def engine_decode(eng, reqs, sp, capture: bool):
+    """`Engine.generate`'s prefill and decode, with the decode loop's own
+    capture argument: (tokens (rows, max_new) on the host, the decode's KV
+    buffers after the loop, decode steps)."""
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import suffix_cache_zeros
+    from time_r1_tpu_torch.ops.attention import NEG_INF
+    from time_r1_tpu_torch.sampler.engine import _round_up, decode_loop, decode_loop_shared
+
+    G, dev = sp.num_return_sequences, eng.device
+    gen = torch.Generator(device=dev).manual_seed(sp.seed if sp.seed is not None else 0)
+    with torch.no_grad():
+        if G > 1:
+            ids, mask, pos_ids, start1, vis, S, _ = eng._pack(reqs, extra_len=0)
+            first1, prefix, _ = eng._prefill(ids, mask, pos_ids, vis, S, S)
+            prefix = eng._maybe_quant_cache(prefix)
+            bias = torch.where(torch.from_numpy(mask[:, :S] > 0).to(dev), 0.0, NEG_INF).float()
+            cache = suffix_cache_zeros(eng.cfg.text, len(reqs) * G, _round_up(sp.max_new_tokens, 128),
+                                       dtype=eng.dtype, device=dev, quant=eng.kv_cache_quant)
+            tokens, steps = decode_loop_shared(eng.params, eng.cfg, prefix, cache, first1.repeat_interleave(G, dim=0),
+                                               torch.from_numpy(np.repeat(start1, G)).to(dev).long(), bias, sp, gen,
+                                               capture=capture)
+        else:
+            ids, mask, pos_ids, start, vis, S, max_len = eng._pack(reqs, extra_len=sp.max_new_tokens)
+            first, cache, mask_t = eng._prefill(ids, mask, pos_ids, vis, S, max_len)
+            cache = eng._maybe_quant_cache(cache)
+            tokens, steps = decode_loop(eng.params, eng.cfg, cache, first, torch.from_numpy(start).to(dev).long(),
+                                        mask_t, sp, gen, capture=capture)
+    buffers = [t for t in (cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None]
+    return tokens.cpu(), buffers, steps
+
+
+# Phase 3e: (name, G, weight quantization, int8 KV, the kernels of its decode
+# step and their launches a layer)
+CAPTURED_ENGINE_CASES = (
+    ("Engine G = 1, bf16", 1, None, False, {}),
+    ("G-way bf16", 8, None, False, {"decode_full_tc": 1}),
+    ("G-way int8 weights, int8 KV", 8, "int8", True, {"decode_full_tc": 1, "fused_mlp_tc": 1}),
+    ("G-way int4 weights, int8 KV", 8, "int4", True, {"decode_full_tc": 1, "int4_mm_tc": 4}),
+)
+CAPTURED_PAGED_CASES = (
+    ("PagedEngine, bf16 pages", None, False, {"paged_tc": 1}),
+    ("PagedEngine, int8 weights, int8 pages", "int8", True, {"paged_tc": 1, "fused_mlp_tc": 1}),
+)
+
+
+def phase_captured_decode() -> dict:
+    """Phase 3e: the captured decode at reduced depth (3B widths, 2 layers, 2
+    ViT blocks, bf16, seeded random weights), held against the eager loop in
+    six configurations: `Engine` at G = 1, the G-way decode in bf16 (D2),
+    over int8 weights and int8 KV (D2, Q2) and over int4 weights and int8 KV
+    (D2, Q1) through the loop functions' `capture` argument, and
+    `PagedEngine` with bf16 pages (P1) and with int8 weights and int8 pages
+    (P2, Q2) through `eager_decode`. Greedy, replayed tokens and the KV
+    written must be bit-equal to the eager loop's; sampled at T = 1.0 two
+    captured runs must be, and whether they equal the eager draws is
+    reported. One replayed step is profiled: its launches of each kernel,
+    by name, must be the step's per-layer count x 2 layers."""
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.sampler import Engine, PagedEngine, SamplingParams
+
+    cfg = reduced_config()
+    L = cfg.text.num_hidden_layers
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    rng = np.random.default_rng(2)
+    video = video_request(cfg, np.random.default_rng(1), frames=8, height=224, width=392)
+    texts = [text_request(cfg, rng, n) for n in (37, 150, 290)]
+    out = {}
+
+    def hold(name, step_kernels, run, greedy):
+        """run(sp, mode) -> (tokens as lists, the KV written), mode "eager"
+        or "captured"."""
+        (te, be), (tc, bc) = run(greedy, "eager"), run(greedy, "captured")
+        same = te == tc and all(torch.equal(a, b) for a, b in zip(be, bc))
+        sampled = replace(greedy, temperature=1.0, seed=5)
+        draws = [run(sampled, mode)[0] for mode in ("eager", "captured", "captured")]
+        sampled_same, sampled_eager = draws[1] == draws[2], draws[0] == draws[1]
+        with StepWindow(first=3, count=1) as win:
+            run(greedy, "captured")
+        per_step = {k: win.kernels(k) for k in step_kernels}
+        log(f"[captured] {name}: greedy replay == eager (tokens and KV bit-equal): {same}; sampled T = 1.0: "
+            f"two captured runs equal {sampled_same}, captured == eager {sampled_eager}; one replayed step: "
+            f"{per_step} launches by name, {len(win.events)} device events")
+        if not same:
+            raise AssertionError(f"{name}: replayed greedy tokens or KV differ from the eager loop's")
+        if not sampled_same:
+            raise AssertionError(f"{name}: two captured sampled runs differ")
+        want = {k: n * L for k, n in step_kernels.items()}
+        if per_step != want:
+            raise AssertionError(f"{name}: one replayed step launched {per_step}, want {want}")
+        out[name] = dict(greedy_equal=same, sampled_captured_equal=sampled_same, sampled_equal_eager=sampled_eager,
+                         step_kernels=per_step, step_device_events=len(win.events))
+
+    for name, G, quant, kvq, step_kernels in CAPTURED_ENGINE_CASES:
+        eng = Engine(params, cfg, dtype=torch.bfloat16, device="cuda", quantization=quant, kv_cache_quant=kvq)
+
+        def run_engine(sp, mode):
+            tokens, kv, _ = engine_decode(eng, [video], sp, capture=mode == "captured")
+            return tokens.tolist(), kv
+
+        hold(name, step_kernels, run_engine, SamplingParams(max_new_tokens=24, stop_token_ids=(),
+                                                            num_return_sequences=G))
+        del eng
+    for name, quant, kvq, step_kernels in CAPTURED_PAGED_CASES:
+        eng = PagedEngine(params, cfg, max_slots=2, max_len=1024, page_size=128, segment=16,
+                          prefill_chunk_tokens=256, dtype=torch.bfloat16, quantization=quant, kv_cache_quant=kvq,
+                          device="cuda")
+
+        def run_paged(sp, mode):
+            if mode == "eager":
+                with eager_decode():
+                    return eng.generate([video] + texts, sp), []
+            return eng.generate([video] + texts, sp), []
+
+        hold(name, step_kernels, run_paged, SamplingParams(max_new_tokens=24, stop_token_ids=()))
+        del eng
+    return out
+
+
 LENGTH_MIX = (200, 450, 900, 1800)  # scripts/bench_serving.py:38
 
 
@@ -2433,6 +2742,9 @@ def phase_serving_full_size() -> dict:
         result[tag] = dict(launches=launches, wall_s=wall, tok_s=n_gen / wall, prefill_s=tm["prefill_s"],
                            vision_s=tm["vision_s"], decode_ms_per_step=tm["decode_s"] * 1e3 / tm["decode_steps"],
                            segments=tm["segments"], interleaved_segments=tm["interleaved_segments"], peak_gib=peak)
+        if tag in ("a", "b"):  # the paged segments, captured; (c) stays eager
+            result[tag]["in_turns"] = decode_both_ways(f"serve ({tag})", lambda: (eng.generate(reqs, sp),
+                                                                                 eng.timings)[1])
         del eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -2837,6 +3149,7 @@ def main() -> int:
     phase_reduced_train()
     phase_reduced_quant()
     phase_reduced_serving()
+    phase_captured_decode()
     launches = phase_full_size()  # K1-K3: the serving path
     train_launches = phase_train_full_size()  # B1, B2, S1, S2 (and D1/D2 in the rollout): the training path
     launches.update({k: v for k, v in train_launches.items() if k not in SERVING_KEYS})

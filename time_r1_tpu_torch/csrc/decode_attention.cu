@@ -77,12 +77,13 @@ struct DecodeParams {
   float* m_out;       // (P, Hkv, N)
   float* l_out;
   int* ticket;        // tensor-core D2: (P, Hkv) arrival counts, zero between launches
+  const int* own_len; // D2: the live suffix length, uniform across the rows, in device memory
   long long kv_sp, kv_sh, kv_st;
   long long s_sp, s_sh, s_st;
   long long own_sb, own_sh, own_st;
   long long os_sb, os_sh, os_st;
   long long n_sb, n_sh;
-  int P, Hkv, N, Lp, R, G, nchunk, own_len;
+  int P, Hkv, N, Lp, R, G, nchunk;
   int ctiles;         // tensor-core D2: 64-key tiles per prefix chunk
   float scale;
 };
@@ -318,6 +319,7 @@ __global__ void __launch_bounds__(NTH) decode_tail(const DecodeParams p) {
   const int r = b - pp * p.R;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int own_len = *p.own_len;  // device data: a captured step reads each replay's length
   const long long head = (long long)pp * p.Hkv + h;
   const T* qg = static_cast<const T*>(p.q) + head * p.N * D;
   T* og = static_cast<T*>(p.o) + head * p.N * D;
@@ -352,8 +354,8 @@ __global__ void __launch_bounds__(NTH) decode_tail(const DecodeParams p) {
     }
     __syncwarp();
 
-    for (int t0 = 0; t0 < p.own_len; t0 += CH) {
-      const int nk = min(CH, p.own_len - t0);
+    for (int t0 = 0; t0 < own_len; t0 += CH) {
+      const int nk = min(CH, own_len - t0);
       __syncthreads();  // the previous tile is consumed
       for (int idx = threadIdx.x; idx < CH * D; idx += NTH) {
         const int c = idx / D;
@@ -634,7 +636,7 @@ __global__ void __launch_bounds__(DEC_WGS * WG, 1) decode_full_tc(const __grid_c
       }
       kn = static_cast<const bf16*>(p.kn) + b * p.n_sb + h * p.n_sh;
       vn = static_cast<const bf16*>(p.vn) + b * p.n_sb + h * p.n_sh;
-      n_cache = p.own_len;
+      n_cache = *p.own_len;
       row_begin = r * p.G;
       row_end = row_begin + p.G;
       slot = p.nchunk;

@@ -46,12 +46,32 @@ from .config import TextConfig
 
 @dataclass
 class KVCache:
+    """A static KV cache. Its filled length, uniform across the batch, is kept
+    in two forms:
+
+    - `length`, a host int: what a prefill chunk reads, since K1's q_offset
+      and the flash branch's 128-alignment test are host values (JAX's static
+      `flash_q_offset`);
+    - `dev_length`, a (1,) int32 on the cache's device, or None: set by a
+      decode loop (`with_device_length`), as JAX's `KVCache.length` is a
+      device int32. A cache that has it takes one-token steps (any chunk
+      without the flash branch) that read the length from it, write at it
+      through index ops and advance it in place, so that a step captured as a
+      CUDA graph reads the length as data on every replay. Its `length` then
+      stays the host value the loop began from."""
+
     k: torch.Tensor  # (L, B, max_len, Hkv, hd), bf16/f32, or int8 in the decode form
     v: torch.Tensor  # (L, B, max_len, Hkv, hd)
-    length: int = 0  # filled prefix length, uniform across the batch; a host int so
-    #                  that a decode step never waits on the device to read it
+    length: int = 0
     k_scale: Optional[torch.Tensor] = None  # int8 form only: (L, B, max_len, Hkv) f32
     v_scale: Optional[torch.Tensor] = None
+    dev_length: Optional[torch.Tensor] = None
+
+    def with_device_length(self) -> "KVCache":
+        """The same buffers with `dev_length` set to the host length: the form
+        a decode loop steps."""
+        return dataclasses.replace(
+            self, dev_length=torch.full((1,), self.length, dtype=torch.int32, device=self.k.device))
 
     @staticmethod
     def zeros(cfg: TextConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda",
@@ -80,14 +100,27 @@ def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * scale.float()).to(x.dtype)
 
 
+_AXIS_MAPS: dict = {}  # (mrope_section, device) -> the (half,) axis of each rotary channel
+
+
+def _axis_map(sections, device: torch.device) -> torch.Tensor:
+    """The (t|h|w) axis of each of the half-dim's channels, built once per
+    (mrope_section, device): a decode step makes no host-to-device copy,
+    which stream capture would refuse."""
+    key = (tuple(sections), device)
+    if key not in _AXIS_MAPS:
+        sec = [axis for axis, n in enumerate(sections) for _ in range(n)]
+        _AXIS_MAPS[key] = torch.tensor(sec, dtype=torch.long, device=device)
+    return _AXIS_MAPS[key]
+
+
 def mrope_cos_sin(cfg: TextConfig, position_ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """cos/sin (B, S, head_dim) f32 from 3D position ids (3, B, S). Channel j of
     the half-dim uses the (t|h|w) axis given by mrope_section."""
     half = cfg.head_dim // 2
     device = position_ids.device
     inv_freq = 1.0 / (cfg.rope_theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half))
-    sec = [axis for axis, n in enumerate(cfg.mrope_section) for _ in range(n)]
-    axis_map = torch.tensor(sec, dtype=torch.long, device=device)
+    axis_map = _axis_map(cfg.mrope_section, device)
     pos_sel = position_ids.float().index_select(0, axis_map)  # (half, B, S)
     freqs = pos_sel.permute(1, 2, 0) * inv_freq
     emb = torch.cat([freqs, freqs], dim=-1)
@@ -129,7 +162,10 @@ def decoder_forward(
     takes the flash branch when it is eligible and the cache length and
     buffer are 128-aligned, which a prefill chunk is and a decode step
     (S = 1) is not; JAX needs a static `flash_q_offset` for this, the port
-    reads the host-int `cache.length`.
+    reads the host-int `cache.length`. A cache with a device length (a decode
+    loop's, `KVCache.with_device_length`) never takes it: its bias, padding
+    gather and K/V write read `cache.dev_length` on the device, which then
+    advances in place.
 
     An int8 cache (`KVCache.k_scale` set) never takes the flash branch: the
     chunk attends [int8 cache | itself] through `mha_cached_q8` and is then
@@ -152,19 +188,24 @@ def decoder_forward(
         return torch.where(allowed, 0.0, NEG_INF).float()
 
     quant_kv = cache is not None and cache.k.dtype == torch.int8
-    fills = cache is not None and not quant_kv and cache.length == 0 and cache.k.shape[2] == S
+    on_device = cache is not None and cache.dev_length is not None
+    fills = (cache is not None and not quant_kv and not on_device and cache.length == 0
+             and cache.k.shape[2] == S)
     in_place = cache is not None and not fills
     if in_place:
-        L0 = cache.length
+        L0 = cache.dev_length if on_device else cache.length
         kv_len = cache.k.shape[2]
         flash = use_flash if use_flash is not None else (
             not quant_kv
+            and not on_device
             and _flash_eligible(cfg, hidden, S)
             and kv_len % 128 == 0
             and L0 % 128 == 0
         )
         if flash and quant_kv:
             raise ValueError("an int8 KV cache has no flash branch")
+        if flash and on_device:
+            raise ValueError("the flash branch needs the host length: a cache with a device length has none")
         if not flash:
             kv_pos = torch.arange(kv_len, device=device)[None, :]
             bias_old = where_allowed(kv_pos < L0)[None, None]  # (1, 1, 1, kv_len)
@@ -173,7 +214,7 @@ def decoder_forward(
             bias_new = where_allowed(j_pos <= i_pos)[None, None]
             if attention_mask is not None:
                 bias_old = bias_old + where_allowed(attention_mask > 0)[:, None, None, :]
-                chunk_pad = attention_mask[:, L0:L0 + S]
+                chunk_pad = attention_mask.index_select(1, L0 + torch.arange(S, device=device))
                 bias_new = bias_new + where_allowed(chunk_pad > 0)[:, None, None, :]
     else:
         flash = use_flash if use_flash is not None else _flash_eligible(cfg, hidden, S)
@@ -211,8 +252,8 @@ def decoder_forward(
                                  k, v, bias_old, bias_new)
             _write_q8(cache, li, L0, k, v)
         elif in_place:
-            cache.k[li, :, L0:L0 + S] = k.to(cache.k.dtype)
-            cache.v[li, :, L0:L0 + S] = v.to(cache.v.dtype)
+            _write_at(cache.k, li, L0, k.to(cache.k.dtype))
+            _write_at(cache.v, li, L0, v.to(cache.v.dtype))
             layer_k, layer_v = cache.k[li].to(q.dtype), cache.v[li].to(q.dtype)
             if flash:
                 attn = flash_attention(q, layer_k, layer_v, kv_bias, True, None, L0)
@@ -231,20 +272,36 @@ def decoder_forward(
         ks, vs = zip(*layer_kv)
         new_cache = KVCache(torch.stack(ks).to(cache.k.dtype), torch.stack(vs).to(cache.v.dtype), S)
     else:
-        new_cache = None if cache is None else dataclasses.replace(cache, length=cache.length + S)
+        new_cache = None if cache is None else _advance(cache, S)
     return hidden, new_cache
 
 
-def _write_q8(cache: KVCache, li: int, at: int, k: torch.Tensor, v: torch.Tensor) -> None:
+def _advance(cache: KVCache, S: int) -> KVCache:
+    """The cache after a chunk of S tokens was written: a device length
+    advances in place (the same cache comes back), a host length in a new
+    KVCache over the same buffers."""
+    if cache.dev_length is not None:
+        cache.dev_length.add_(S)
+        return cache
+    return dataclasses.replace(cache, length=cache.length + S)
+
+
+def _write_at(buf: torch.Tensor, li: int, at, x: torch.Tensor) -> None:
+    """buf[li, :, at:at + S] = x for a chunk x (B, S, ...), at a host int or
+    at a (1,) device position, which nothing reads back."""
+    buf[li].index_copy_(1, at + torch.arange(x.shape[1], device=x.device), x)
+
+
+def _write_q8(cache: KVCache, li: int, at, k: torch.Tensor, v: torch.Tensor) -> None:
     """Quantize a chunk's K/V (B, S, Hkv, hd) and write them, with their
-    scales, into layer li of an int8 cache at positions [at, at + S)."""
-    S = k.shape[1]
+    scales, into layer li of an int8 cache at positions [at, at + S) (a host
+    int or a (1,) device position)."""
     k8, ks = quantize_kv(k)
     v8, vs = quantize_kv(v)
-    cache.k[li, :, at:at + S] = k8
-    cache.v[li, :, at:at + S] = v8
-    cache.k_scale[li, :, at:at + S] = ks
-    cache.v_scale[li, :, at:at + S] = vs
+    _write_at(cache.k, li, at, k8)
+    _write_at(cache.v, li, at, v8)
+    _write_at(cache.k_scale, li, at, ks)
+    _write_at(cache.v_scale, li, at, vs)
 
 
 def suffix_cache_zeros(cfg: TextConfig, batch: int, max_new: int, dtype=torch.bfloat16,
@@ -254,11 +311,13 @@ def suffix_cache_zeros(cfg: TextConfig, batch: int, max_new: int, dtype=torch.bf
     return KVCache.zeros(cfg, batch, max_new, dtype=dtype, device=device, quant=quant)
 
 
-def decode_step_attention(q, kp, vp, kps, vps, ko, vo, kos, vos, own_len: int, k, v,
+def decode_step_attention(q, kp, vp, kps, vps, ko, vo, kos, vos, own_len, k, v,
                           prefix_bias) -> torch.Tensor:
     """One decode step's attention (S = 1) through D2: q (B, 1, H, hd) and the
     new K/V (B, 1, Hkv, hd), the caches in the port's token-major layout
-    ((P, Lp, Hkv, hd) prefix, (B, Lo, Hkv, hd) suffix, scales without hd).
+    ((P, Lp, Hkv, hd) prefix, (B, Lo, Hkv, hd) suffix, scales without hd), the
+    suffix's live length `own_len` a (1,) int32 on the device (a host int on
+    the CPU).
     The caches go to the kernel as head-major views, read through their
     strides: nothing is transposed, per step or per session. Only q and the
     (B, 1, H, hd) output are regrouped, into D2's (P, Hkv, R·G, hd) rows."""
@@ -298,9 +357,11 @@ def shared_decode_forward(
     Lp % 128 == 0, else `mha_shared_prefix`.
 
     With a suffix it is one decode step: the new K/V are written into the
-    suffix buffers in place at the host-int `suffix.length` (quantized, with
-    their scales, when the caches are int8), and the returned KVCache shares
-    them with length + S. On CUDA tensors a one-token step runs D2
+    suffix buffers in place at its length (quantized, with their scales, when
+    the caches are int8), and the returned KVCache shares them with length +
+    S. The length is `suffix.dev_length` where it is set (a decode loop's,
+    advanced in place), else the host-int `suffix.length`. On CUDA tensors a
+    one-token step runs D2, which reads the length from device memory,
     (`decode_step_attention`) at any prefix length, the route the JAX package
     takes with `prefix_head_major` (which also needs a 128-divisible prefix,
     for its TPU blocks); otherwise `mha_shared_prefix`."""
@@ -316,7 +377,7 @@ def shared_decode_forward(
     bias_new = torch.where(i_pos[None, :] <= i_pos[:, None], 0.0, NEG_INF).float()[None, None]
     bias_own = None
     if suffix is not None:
-        L0 = suffix.length
+        L0 = suffix.length if suffix.dev_length is None else suffix.dev_length
         own_valid = torch.arange(suffix.k.shape[2], device=device) < L0
         bias_own = torch.where(own_valid, 0.0, NEG_INF).float()[None, None, None]
     flash = use_flash if use_flash is not None else (
@@ -326,6 +387,8 @@ def shared_decode_forward(
         raise ValueError("the S1 branch is the loss chunk: it takes no suffix cache")
     quant = suffix is not None and suffix.k.dtype == torch.int8
     d2 = suffix is not None and S == 1 and hidden.is_cuda
+    if d2 and isinstance(L0, int):  # D2 reads the length from device memory
+        L0 = torch.full((1,), L0, dtype=torch.int32, device=device)
 
     x = hidden
     for li, lp in enumerate(params["layers"]):
@@ -357,14 +420,13 @@ def shared_decode_forward(
             if quant:
                 _write_q8(suffix, li, L0, k, v)
             else:
-                suffix.k[li, :, L0:L0 + S] = k.to(suffix.k.dtype)
-                suffix.v[li, :, L0:L0 + S] = v.to(suffix.v.dtype)
+                _write_at(suffix.k, li, L0, k.to(suffix.k.dtype))
+                _write_at(suffix.v, li, L0, v.to(suffix.v.dtype))
         x = x + qmatmul(attn.reshape(B, S, nh * hd).to(x.dtype), lp["o_w"])
         x = x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp)
 
     hidden = _rms_norm(x, params["norm"], eps)
-    new_suffix = None if suffix is None else dataclasses.replace(suffix, length=suffix.length + S)
-    return hidden, new_suffix
+    return hidden, None if suffix is None else _advance(suffix, S)
 
 
 def lm_logits(params: dict, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tensor:

@@ -12,9 +12,14 @@ The functions keep the JAX package's head-major layouts: q (P, Hkv, N, hd)
 with N = R·G grouped rows, the prefix (P, Hkv, Lp, hd), the suffix
 (B, Hkv, Lo, hd), scales without hd. The caches may be strided views (the
 port passes `cache.transpose(1, 2)` of its token-major caches, read in place
-by the kernels). D2 takes the own suffix's live length as a host int
-(`own_len`, uniform across the rows) where the JAX kernel takes the (Lo,)
-validity bias it is made from.
+by the kernels). D2 takes the own suffix's live length, uniform across the
+rows, where the JAX kernel takes the (Lo,) validity bias it is made from:
+`own_len`, a (1,) int32 tensor on the card that both D2 routes read from
+device memory, so that a decode step captured as a CUDA graph reads each
+replay's length (`sampler/graph.py`); the plain versions also take a host
+int. The wrapper cannot check a device length against Lo without a sync:
+the decode loop does, once, at its setup (`sampler/engine.py`,
+`decode_loop_shared`: the suffix holds max_new_tokens positions).
 
 Given CUDA tensors a wrapper launches its kernel (or raises) and adds one to
 its `.launches`. D2 in bf16 (bf16 or int8 caches) is one launch of the
@@ -47,11 +52,11 @@ class _Params(ctypes.Structure):
 
     _fields_ = [(n, _P) for n in (
         "q", "kp", "vp", "ksp", "vsp", "bias", "ko", "vo", "kso", "vso", "kn", "vn", "o",
-        "acc_part", "m_part", "l_part", "acc_out", "m_out", "l_out", "ticket",
+        "acc_part", "m_part", "l_part", "acc_out", "m_out", "l_out", "ticket", "own_len",
     )] + [(n, _L) for n in (
         "kv_sp", "kv_sh", "kv_st", "s_sp", "s_sh", "s_st", "own_sb", "own_sh", "own_st",
         "os_sb", "os_sh", "os_st", "n_sb", "n_sh",
-    )] + [(n, _I) for n in ("P", "Hkv", "N", "Lp", "R", "G", "nchunk", "own_len", "ctiles")] + [("scale", ctypes.c_float)]
+    )] + [(n, _I) for n in ("P", "Hkv", "N", "Lp", "R", "G", "nchunk", "ctiles")] + [("scale", ctypes.c_float)]
 
 
 # ---------------------------------------------------------------------------
@@ -108,13 +113,14 @@ def _fold_tail(acc, m, l, q_rows, k_own, v_own, ks_own, vs_own, own_valid, k_new
 
 
 def shared_prefix_decode_full_plain(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own,
-                                    own_len: int, k_new, v_new) -> torch.Tensor:
-    """The normalised (P, Hkv, N, hd) context in q's dtype."""
+                                    own_len, k_new, v_new) -> torch.Tensor:
+    """The normalised (P, Hkv, N, hd) context in q's dtype; own_len a host
+    int or a (1,) tensor on q's device."""
     P, Hkv, N, hd = q.shape
     R = k_own.shape[0] // P
     acc, m, l = shared_prefix_decode_attention_plain(q, k_pref, v_pref, ks, vs, bias)
     q_rows = _rows(q.float(), P, R) * hd**-0.5
-    own_valid = torch.arange(k_own.shape[2], device=q.device)[None] < int(own_len)
+    own_valid = torch.arange(k_own.shape[2], device=q.device)[None] < own_len
     out = _fold_tail(_rows(acc, P, R), _rows(m, P, R), _rows(l, P, R), q_rows,
                      k_own, v_own, ks_own, vs_own, own_valid, k_new, v_new)
     return out.reshape(P, R, Hkv, N // R, hd).transpose(1, 2).reshape(P, Hkv, N, hd).to(q.dtype)
@@ -280,11 +286,11 @@ def _full_params(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own, 
     if quant:
         prm.kso, prm.vso = ks_own.data_ptr(), vs_own.data_ptr()
         prm.os_sb, prm.os_sh, prm.os_st = ks_own.stride()
-    prm.R, prm.G, prm.own_len = B // P, N // (B // P), own_len
+    prm.R, prm.G, prm.own_len = B // P, N // (B // P), own_len.data_ptr()
     return prm
 
 
-def full_tc_params(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own, own_len: int, k_new, v_new,
+def full_tc_params(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own, own_len, k_new, v_new,
                    ctiles: int) -> tuple[_Params, torch.Tensor]:
     """The tensor-core D2's launch arguments on checked bf16 operands,
     `ctiles` 64-key tiles per prefix block, and its output (not yet
@@ -304,7 +310,7 @@ def full_tc_params(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own
     return prm, out
 
 
-def launch_full_tc(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own, own_len: int, k_new, v_new,
+def launch_full_tc(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own, own_len, k_new, v_new,
                    ctiles: int) -> torch.Tensor:
     """The tensor-core D2 kernel on checked bf16 operands, `ctiles` 64-key
     tiles per prefix block."""
@@ -317,11 +323,14 @@ def launch_full_tc(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own
 
 
 def shared_prefix_decode_full(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own,
-                              own_len: int, k_new, v_new) -> torch.Tensor:
+                              own_len, k_new, v_new) -> torch.Tensor:
     """D2: the normalised (P, Hkv, N, hd) context in q's dtype. CUDA tensors
     launch a kernel: bf16 the tensor-core one (one launch; also counted in
     `.tc_launches`), f32 the FMA split pass and tail (two launches, one
-    count). CPU tensors run the plain version."""
+    count); own_len is then a (1,) int32 CUDA tensor, read by the kernels
+    from device memory and not range-checked here (0 <= own_len <= Lo is the
+    caller's: the decode loop checks it at its setup). CPU tensors run the
+    plain version."""
     if not q.is_cuda:
         return shared_prefix_decode_full_plain(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_own, vs_own,
                                                own_len, k_new, v_new)
@@ -330,14 +339,15 @@ def shared_prefix_decode_full(q, k_pref, v_pref, ks, vs, bias, k_own, v_own, ks_
     P, Hkv, N, hd = q.shape
     B, _, Lo, _ = k_own.shape
     R = B // P
-    own_len = int(own_len)
     kernels.require(B == P * R and N % R == 0, name, f"B={B} rows over P={P} prompts, N={N}")
     kernels.require(k_own.dtype == k_pref.dtype and v_own.dtype == k_own.dtype, name,
                     "the suffix must have the prefix's dtype")
     kernels.require(k_own.shape == (B, Hkv, Lo, hd) and v_own.shape == k_own.shape
                     and v_own.stride() == k_own.stride() and k_own.stride(-1) == 1, name,
                     "suffix K/V must be (B, Hkv, Lo, hd) with equal strides and a contiguous last axis")
-    kernels.require(0 <= own_len <= Lo, name, f"own_len {own_len} of {Lo}")
+    kernels.require(isinstance(own_len, torch.Tensor) and own_len.dtype == torch.int32
+                    and own_len.shape == (1,) and own_len.device == q.device, name,
+                    "own_len must be a (1,) int32 tensor on q's device")
     kernels.require((ks_own is not None) == quant and (vs_own is not None) == quant, name,
                     "scales go with int8 caches")
     if quant:

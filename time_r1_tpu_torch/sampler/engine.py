@@ -4,9 +4,15 @@
 - CHUNKED PREFILL: prompts stream through the decoder in chunks of up to
   `prefill_chunk_tokens` (the reference's max_num_batched_tokens = 8192)
   writing into the static KV cache; each chunk's attention is K1 on the card;
-- a Python decode loop with early exit once every row has hit a stop token;
-  greedy / temperature / top-k / top-p / repetition-penalty sampling on the
-  device;
+- the decode as one device program, as JAX's `lax.while_loop`: the loop's
+  state (tokens, last tokens, done flags, step counter, the cache's length,
+  repetition counts) lives on the device and a step updates it in place; on
+  the card the step is captured once as a CUDA graph and replayed
+  (`sampler/graph.py`), and the host reads the done flags once per segment
+  of `DECODE_SEGMENT` steps, stopping at the first segment boundary after
+  every row has hit a stop token (the steps after that write the pad id, as
+  JAX's body does); greedy / temperature / top-k / top-p /
+  repetition-penalty sampling on the device;
 - G-way grouped rollouts (`num_return_sequences > 1`, the GRPO shape): each
   unique prompt is prefilled once and its KV stored once; the G rows decode
   against [shared prefix | own suffix] (`decode_loop_shared`), each step's
@@ -47,9 +53,11 @@ from ..models.qwen25vl.model import (
 )
 from ..models.qwen25vl.vision import vision_blocks_forward, vision_merge_forward
 from ..ops.quant import QBITS, embed_lookup, quantize_kv_cache, quantize_params
+from .graph import StepGraph
 from .params import SamplingParams
 
 PREFILL_CHUNK = 8192  # max_num_batched_tokens parity
+DECODE_SEGMENT = 16  # decode steps between two host reads of the done flags
 
 
 @dataclass
@@ -126,6 +134,12 @@ def prefill_chunk(
     return lm_logits(params["text"], cfg.text, hidden[:, -1:]), cache
 
 
+def is_stop(tokens: torch.Tensor, stop_ids: torch.Tensor) -> torch.Tensor:
+    """(B,) bool: tokens among stop_ids, by one broadcast compare (torch.isin
+    may sort and read back a size, which a captured step cannot)."""
+    return (tokens[:, None] == stop_ids[None, :]).any(-1)
+
+
 def _run_decode_loop(
     cfg: Qwen25VLConfig,
     first_logits: torch.Tensor,  # (B, V) logits at the last prompt position
@@ -133,40 +147,59 @@ def _run_decode_loop(
     sp: SamplingParams,
     generator: Optional[torch.Generator],
     step_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],  # (last (B,), pos3) → logits (B, V)
+    capture: bool,
 ) -> tuple[torch.Tensor, int]:
     """The sample/stop/repetition bookkeeping both decode loops share; the
-    cache layout lives in `step_fn`. Returns (tokens (B, max_new), number of
-    decode steps run).
+    cache layout lives in `step_fn`, which must update its cache in place.
+    Returns (tokens (B, max_new), number of decode steps run).
+
+    The state (last, done, tokens, counts, the step counter) lives on the
+    device and the step (`body`) writes it in place, the token at the device
+    step through `index_copy_`: it is the step a `StepGraph` captures. The
+    host checks `done.all()` before each segment of up to DECODE_SEGMENT
+    steps and counts the steps itself (one a step), so no step writes past
+    max_new_tokens, as JAX's `cond`; the steps that run after every row is
+    done write the pad id, as JAX's body does, so the tokens are those of
+    JAX's `while_loop`, which stops at once.
 
     Position convention: `last` is generated token step-1 (0-based), which
     sits at rope position start_pos + step - 1 on all three mrope axes."""
     B, V = first_logits.shape
     device = first_logits.device
     max_new = sp.max_new_tokens
+    pad = cfg.pad_token_id
     stop_ids = torch.tensor(sp.stop_token_ids, dtype=torch.long, device=device)
     track_counts = sp.repetition_penalty != 1.0
-    rows = torch.arange(B, device=device)
 
     last = sample_tokens(first_logits, generator, sp)
     counts = torch.zeros((B, V if track_counts else 1), dtype=torch.int32, device=device)
     if track_counts:
-        counts.index_put_((rows, last), torch.ones(B, dtype=torch.int32, device=device), accumulate=True)
-    tokens = torch.full((B, max_new), cfg.pad_token_id, dtype=torch.long, device=device)
+        counts.scatter_add_(1, last[:, None], torch.ones((B, 1), dtype=torch.int32, device=device))
+    tokens = torch.full((B, max_new), pad, dtype=torch.long, device=device)
     tokens[:, 0] = last
-    done = torch.isin(last, stop_ids)
-    step = 1
-    while step < max_new and not bool(done.all()):
+    done = is_stop(last, stop_ids)
+    step = torch.ones((1,), dtype=torch.long, device=device)
+
+    def body():
         pos3 = (start_pos + step - 1)[None, :, None].expand(3, B, 1)
         logits = step_fn(last, pos3)
         nxt = sample_tokens(logits, generator, sp, counts if track_counts else None)
-        nxt = torch.where(done, cfg.pad_token_id, nxt)
+        nxt = torch.where(done, pad, nxt)
         if track_counts:
-            counts.index_put_((rows, nxt), (~done).int(), accumulate=True)
-        tokens[:, step] = nxt
-        done = done | torch.isin(nxt, stop_ids)
-        last = nxt
-        step += 1
-    return tokens, step - 1
+            counts.scatter_add_(1, nxt[:, None], (~done).int()[:, None])
+        tokens.index_copy_(1, step, nxt[:, None])
+        done.logical_or_(is_stop(nxt, stop_ids))
+        last.copy_(nxt)
+        step.add_(1)
+
+    graph = StepGraph(body, device, generator, capture)
+    n = 1  # the host's count of the device step
+    while n < max_new and not bool(done.all()):
+        k = min(DECODE_SEGMENT, max_new - n)
+        graph.run(k)
+        n += k
+    graph.close()
+    return tokens, n - 1
 
 
 def decode_loop(
@@ -178,16 +211,23 @@ def decode_loop(
     mask: torch.Tensor,  # (B, max_len)
     sp: SamplingParams,
     generator: Optional[torch.Generator],
+    capture: bool = True,
 ) -> tuple[torch.Tensor, int]:
     """Sample + decode up to sp.max_new_tokens over the full per-row cache;
-    returns (tokens (B, max_new), number of decode steps run)."""
+    returns (tokens (B, max_new), number of decode steps run). Each step
+    writes at the cache's device length. On the card the step is a captured
+    CUDA graph unless capture=False (the eager loop, for holding replay
+    against it); on the CPU it runs eagerly."""
+    if cache.length + sp.max_new_tokens - 1 > cache.k.shape[2]:
+        raise ValueError(f"a cache of {cache.k.shape[2]} positions holds {cache.length} and cannot take "
+                         f"{sp.max_new_tokens - 1} decode steps")
+    cache = cache.with_device_length()
 
     def step_fn(last, pos3):
-        nonlocal cache
-        logits, cache = forward(params, cfg, last[:, None], pos3, attention_mask=mask, cache=cache)
+        logits, _ = forward(params, cfg, last[:, None], pos3, attention_mask=mask, cache=cache)
         return logits[:, -1]
 
-    return _run_decode_loop(cfg, first_logits, start_pos, sp, generator, step_fn)
+    return _run_decode_loop(cfg, first_logits, start_pos, sp, generator, step_fn, capture)
 
 
 def decode_loop_shared(
@@ -200,6 +240,7 @@ def decode_loop_shared(
     prefix_bias: torch.Tensor,  # (P, Lp) f32 additive (prompt padding)
     sp: SamplingParams,
     generator: Optional[torch.Generator],
+    capture: bool = True,
 ) -> tuple[torch.Tensor, int]:
     """decode_loop over the shared-prefix layout: the prompt KV is stored once
     per prompt and each rollout row keeps only its generated-suffix cache
@@ -207,14 +248,21 @@ def decode_loop_shared(
     semantics, over bf16 or int8 caches. On the card each step's attention is
     one D2 call per layer, reading the token-major caches through strides, so
     no relayout is made for the session (the JAX package transposes its caches
-    head-major here, behind an opt-in); on the CPU it is `mha_shared_prefix`."""
+    head-major here, behind an opt-in), and the suffix's live length from
+    device memory; on the CPU it is `mha_shared_prefix`. D2 cannot check that
+    length against the suffix without a sync, so it is checked here, once:
+    the suffix must hold max_new_tokens positions (the last step writes at
+    max_new_tokens - 2). `capture` as in `decode_loop`."""
+    if suffix.length + sp.max_new_tokens > suffix.k.shape[2]:
+        raise ValueError(f"a suffix cache of {suffix.k.shape[2]} positions holding {suffix.length} cannot take "
+                         f"{sp.max_new_tokens} tokens")
+    suffix = suffix.with_device_length()
 
     def step_fn(last, pos3):
-        nonlocal suffix
-        logits, suffix = forward_shared_decode(params, cfg, last[:, None], pos3, prefix, suffix, prefix_bias)
+        logits, _ = forward_shared_decode(params, cfg, last[:, None], pos3, prefix, suffix, prefix_bias)
         return logits[:, -1]
 
-    return _run_decode_loop(cfg, first_logits, start_pos, sp, generator, step_fn)
+    return _run_decode_loop(cfg, first_logits, start_pos, sp, generator, step_fn, capture)
 
 
 class Engine:

@@ -20,6 +20,10 @@ each decode step scatters the new token of every slot into its cell.
 - `paged_decode_segment` runs `segment` decode steps with no host sync: the
   last tokens, steps, done flags and the pool's lengths and page table stay
   device tensors, and the host reads tokens, steps and done once per segment.
+  The engine runs the same step through `PagedDecode`: static buffers that
+  the host fills with one copy before each segment, and on the card the step
+  captured once per `generate` as a CUDA graph and replayed `segment` times
+  (`sampler/graph.py`), as JAX's `lax.scan` is one device program.
   Each layer's attention over the page-resident prefix is P1 (P2 for an int8
   pool, `ops/paged_attention.py`) on the card, reading the pages in place
   through the page table, at any page size and length; the current token is
@@ -52,7 +56,8 @@ from ..models.qwen25vl.language import _rms_norm, lm_logits, mrope_cos_sin
 from ..ops.attention import rope
 from ..ops.paged_attention import combine_with_new_token, paged_prefix_attention, paged_prefix_attention_q8
 from ..ops.quant import QBITS, attn_qkv_proj, embed_lookup, mlp_proj, qmatmul, quantize_kv, quantize_params
-from .engine import Engine, _bucket, sample_tokens
+from .engine import Engine, _bucket, is_stop, sample_tokens
+from .graph import StepGraph
 from .params import SamplingParams
 
 
@@ -207,26 +212,69 @@ def _paged_one_step(params: dict, pool: PagedPool, cfg: Qwen25VLConfig, sp: Samp
     return torch.where(live, nxt, cfg.pad_token_id)
 
 
+class PagedDecode:
+    """The paged decode's state on the device and its one step, which a
+    `StepGraph` runs: eagerly on the CPU (and with capture=False), captured
+    once and replayed on the card.
+
+    `io` (6, slots) long holds, per slot, the last token, the rope position
+    of the first generated token, the steps run, the active flag, the step
+    budget and the done flag; `load` fills it from one host array before a
+    segment (the segment's one host-to-device copy) and zeroes the column
+    counter. A step reads and writes only `io`, `toks`, `col` and the pool's
+    storages in place (admissions write the pool's page table and lengths in
+    place too, so every replay reads the current ones)."""
+
+    def __init__(self, params: dict, pool: PagedPool, cfg: Qwen25VLConfig, sp: SamplingParams, segment: int,
+                 generator: Optional[torch.Generator], capture: bool = True):
+        slots = pool.page_table.shape[0]
+        dev = pool.k.device
+        self.io = io = torch.zeros((6, slots), dtype=torch.long, device=dev)
+        self.toks = toks = torch.zeros((slots, segment), dtype=torch.long, device=dev)
+        self.col = col = torch.zeros((1,), dtype=torch.long, device=dev)
+        self.segment = segment
+        stop_ids = torch.tensor(sp.stop_token_ids, dtype=torch.long, device=dev)
+        last, start_pos, steps, active, max_steps, done = io.unbind(0)
+
+        def body():  # reads no `self`: no reference cycle keeps the pool and the weights alive
+            # the live slots: active, not done and within their budget
+            live = (active != 0) & (done == 0) & (steps < max_steps)
+            nxt = _paged_one_step(params, pool, cfg, sp, last, start_pos, steps, live, generator)
+            done.bitwise_or_((live & is_stop(nxt, stop_ids)).long())
+            last.copy_(torch.where(live, nxt, last))
+            steps.add_(live.long())
+            toks.index_copy_(1, col, nxt[:, None])
+            col.add_(1)
+
+        self.graph = StepGraph(body, dev, generator, capture)
+
+    def load(self, host: torch.Tensor) -> None:
+        """Fill `io` from a (6, slots) host array (last, start_pos, steps,
+        active, max_steps, done)."""
+        self.io.copy_(host)
+        self.col.zero_()
+
+    def run(self) -> None:
+        """One segment: `segment` steps on the device, with no host sync. Every
+        step runs, even when no slot is live, as JAX's scan does."""
+        self.graph.run(self.segment)
+
+
 @torch.no_grad()
 def paged_decode_segment(params: dict, pool: PagedPool, cfg: Qwen25VLConfig, segment: int, sp: SamplingParams,
                          last: torch.Tensor, start_pos: torch.Tensor, steps: torch.Tensor, active: torch.Tensor,
                          max_steps: torch.Tensor, generator: Optional[torch.Generator]):
-    """`segment` decode steps on the device, with no host sync: each step's
-    live slots are the active ones not done and within their budget
-    (max_steps, per slot). Every step runs, even when no slot is live, as
-    JAX's scan does. Returns (tokens (slots, segment), last, steps, done),
-    device tensors; a dead row's token is the pad id."""
-    stop_ids = torch.tensor(sp.stop_token_ids, dtype=torch.long, device=last.device)
-    done = torch.isin(last, stop_ids) | ~active
-    toks = []
-    for _ in range(segment):
-        live = active & ~done & (steps < max_steps)
-        nxt = _paged_one_step(params, pool, cfg, sp, last, start_pos, steps, live, generator)
-        done = done | (live & torch.isin(nxt, stop_ids))
-        last = torch.where(live, nxt, last)
-        steps = steps + live.long()
-        toks.append(nxt)
-    return torch.stack(toks, dim=1), last, steps, done
+    """`segment` decode steps on the device, with no host sync, run eagerly:
+    each step's live slots are the active ones not done and within their
+    budget (max_steps, per slot). Every step runs, even when no slot is live,
+    as JAX's scan does. Returns (tokens (slots, segment), last, steps, done),
+    device tensors; a dead row's token is the pad id. `PagedEngine` runs the
+    same step through `PagedDecode`, captured on the card."""
+    dec = PagedDecode(params, pool, cfg, sp, segment, generator, capture=False)
+    done = is_stop(last, torch.tensor(sp.stop_token_ids, dtype=torch.long, device=last.device)) | ~active
+    dec.load(torch.stack([last, start_pos, steps, active.long(), max_steps, done.long()]))
+    dec.run()
+    return dec.toks, dec.io[0].clone(), dec.io[2].clone(), dec.io[5] != 0
 
 
 def row_generator(device: torch.device, seed: Optional[int], req_idx: int) -> torch.Generator:
@@ -381,6 +429,7 @@ class PagedEngine:
         steps = np.zeros((self.max_slots,), np.int64)
         last = np.zeros((self.max_slots,), np.int64)
         gen = torch.Generator(device=dev).manual_seed(sp.seed if sp.seed is not None else 0)
+        decoder = PagedDecode(self.params, pool, self.cfg, sp, self.segment, gen)
         admitting = False
 
         def retire(slot, idx):
@@ -400,19 +449,18 @@ class PagedEngine:
             max_steps = np.array([sp.max_new_tokens - len(slot_tokens[s]) + steps[s] if slot_req[s] is not None
                                   else 0 for s in range(self.max_slots)], np.int64)
             t0 = self._sync()
-            toks, last_d, steps_d, done_d = paged_decode_segment(
-                self.params, pool, self.cfg, self.segment, sp, torch.from_numpy(last).to(dev),
-                torch.from_numpy(start_pos).to(dev), torch.from_numpy(steps).to(dev),
-                torch.from_numpy(active).to(dev), torch.from_numpy(max_steps).to(dev), gen,
-            )
-            # the segment's one read to the host
-            host = torch.cat([toks, last_d[:, None], steps_d[:, None], done_d[:, None].long()], dim=1).cpu().numpy()
+            # done: the inactive slots (an active slot's last token is no stop id)
+            decoder.load(torch.from_numpy(np.stack([last, start_pos, steps, active, max_steps, ~active])))
+            decoder.run()
+            # the segment's one read to the host: the tokens, then io's rows
+            host = torch.cat([decoder.toks, decoder.io.t()], dim=1).cpu().numpy()
             self.timings["decode_s"] += time.perf_counter() - t0
             self.timings["segments"] += 1
             self.timings["decode_steps"] += self.segment
             self.timings["interleaved_segments"] += int(admitting)
-            toks, steps_old = host[:, :self.segment], steps
-            last, steps, done = host[:, -3].copy(), host[:, -2].copy(), host[:, -1] > 0
+            seg = self.segment
+            toks, steps_old = host[:, :seg], steps
+            last, steps, done = host[:, seg].copy(), host[:, seg + 2].copy(), host[:, seg + 5] > 0
             for slot in range(self.max_slots):
                 if not active[slot]:
                     continue
@@ -461,5 +509,6 @@ class PagedEngine:
                 for slot in range(self.max_slots):
                     if slot_req[slot] is not None:
                         retire(slot, slot_req[slot])
+        decoder.graph.close()
         return [results[i] for i in range(n_total)]
 
