@@ -98,7 +98,25 @@ Phases (any failed check raises and the exit code is non-zero):
    (8 frames at 364x644, 1196 video tokens, bucket 2048), prepare_requests
    inside host_preproc, the same requests prepared meanwhile on a worker
    thread and held bit-equal against a serial call; launch counts as in
-   phase 5 (`step_batch_tc_launches`), all on the tensor cores.
+   phase 5 (`step_batch_tc_launches`), all on the tensor cores;
+9. a GRPO run from the command line, once phase 8's model is freed (it
+   writes up to 26 GB under TMPDIR and refuses to start with less free):
+   (a) Qwen2.5-VL-3B's seeded weights through `save_hf_checkpoint` and
+   `load_checkpoint`, bit-equal, with a config.json that reads back as
+   qwen25vl_3b(); (b) `time_r1_tpu_torch.cli.train.main` on that checkpoint
+   with the CLI's defaults (remat "full", a reference copy), one epoch of 4
+   examples of phase 8's 4 s clip (`Qwen25VLProcessor.from_pretrained`
+   patched to StandInTokenizer, the decode to phase 8's frames): per
+   `step_batch` exactly 144 K1, 108 S1 (phase 5's 108 and 72, and the loss's
+   forward rerun in the backward), 36 B1, 72 B2, 36 + 36 S2, 28 K2, 4 K3
+   and 36 D2 a decode step, all on the tensor cores; the lr of each update
+   against the schedule, trainer_state.json, the epoch and final
+   checkpoints, the final one reloaded bit-equal; (e) remat off and on in
+   turns on that trainer; (c) at 3B widths and 2 decoder layers, a run
+   saved with --save_only_model false and resumed from its native
+   checkpoint (params, moments, accumulation, counts and global_step
+   bit-equal; stopped at resumed + quota); (d) phase 3b's split batch in
+   bf16 under each remat policy against none.
 
 From phase 3 on, every `Engine` and `PagedEngine` decode on the card is a
 captured CUDA graph replayed once a step (`time_r1_tpu_torch/sampler/graph.py`;
@@ -2067,22 +2085,25 @@ def decode_windows(eng, req, config, cfg) -> dict:
     """Phase 5's rollout decode after the two `step_batch` calls: its ms/step
     eager and captured in turns, then the device's idle share over 16 steady
     decode steps (steps 32-47, one host-check segment) of each, by
-    torch.profiler, with D2's launches by name there (36 a step)."""
+    torch.profiler (`settled_window`), with D2's launches by name there (36
+    a step)."""
     sp = rollout_sampling(config, cfg)
     out = {"in_turns": decode_both_ways("train rollout", lambda: (eng.generate([req], sp), eng.timings)[1])}
     L = cfg.text.num_hidden_layers
     for mode in ("eager", "captured"):
-        with StepWindow(first=32, count=16) as win:
+        def run(mode=mode):
             if mode == "eager":
                 with eager_decode():
                     eng.generate([req], replace(sp, max_new_tokens=64))
             else:
                 eng.generate([req], replace(sp, max_new_tokens=64))
+
+        win, seen = settled_window(run, first=32, count=16)
         st = win.stats()
         d2 = win.kernels("decode_full_tc")
         log(f"[train] rollout decode, 16 steady steps {mode}: device span {st['span_ms']:.2f} ms, busy "
-            f"{st['busy_ms']:.2f} ms, idle share {st['idle_share']:.4f}, {st['device_events']} device events, "
-            f"{d2} D2 launches by name; most device time: {win.top(8)}")
+            f"{st['busy_ms']:.2f} ms, idle share {st['idle_share']:.4f}, {st['device_events']} device events "
+            f"(windows' records {seen}), {d2} D2 launches by name; most device time: {win.top(8)}")
         if d2 != 16 * L:
             raise AssertionError(f"rollout window ({mode}): {d2} D2 launches by name, want {16 * L}")
         out[mode] = st
@@ -2423,17 +2444,34 @@ def eager_decode():
         graph.StepGraph.__init__ = init
 
 
+class WindowLost(AssertionError):
+    """The profiler lost a `StepWindow`'s marker kernel."""
+
+
 class StepWindow:
     """torch.profiler over decode steps [first, first + count) of the first
     loop run inside (steps as its `StepGraph` counts them, the eager first
-    step included), synchronized at both ends: the device's kernels by name,
-    their busy time (the union of every device event's interval) and the
-    device's idle share over the span from the first event's start to the
-    last one's end."""
+    step included): the device's kernels by name, their busy time (the union
+    of every device event's interval) and the device's idle share over the
+    span from the first event's start to the last one's end.
 
-    def __init__(self, first: int, count: int):
+    The profiler loses device records, most often the few nearest the moment
+    it starts or stops, now and then more (seen on the H100: up to ~390 of
+    ~31400), so it runs `margin` steps before and after the window, and the
+    window itself is cut out by two marker kernels (`torch.cuda._sleep`), each
+    launched on an idle device (synchronized) at one of its two step
+    boundaries: an event of the window starts at or after the first marker
+    and ends before the second one starts. A lost marker raises `WindowLost`
+    on exit; `settled_window` reads only a window that lost nothing."""
+
+    MARKER = "spin_kernel"
+
+    def __init__(self, first: int, count: int, margin: int = 2):
         self.first, self.count = first, count
+        self.start_at = max(first - margin, 2)  # after the loop's capture (at step 1)
+        self.stop_at = first + count + margin
         self.prof = None
+        self.marks = []
         self.events = None
 
     def __enter__(self):
@@ -2444,29 +2482,58 @@ class StepWindow:
 
         self.run = run = graph.StepGraph.run
         win = self
+        if self.start_at > self.first:
+            raise ValueError(f"a window from step {self.first} starts before the loop's capture")
+
+        def mark():
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            win.marks.append(True)
 
         def run_windowed(g, n):
             for _ in range(n):
-                if g.steps == win.first and win.prof is None:
+                if g.steps == win.start_at and win.prof is None:
                     torch.cuda.synchronize()
                     win.prof = profile(activities=[ProfilerActivity.CUDA])
                     win.prof.start()
+                if g.steps == win.first and win.prof is not None and not win.marks:
+                    mark()
                 run(g, 1)
-                if g.steps == win.first + win.count and win.prof is not None and win.events is None:
-                    torch.cuda.synchronize()
-                    win.prof.stop()
-                    win.events = [(e.name, e.time_range.start, e.time_range.end) for e in win.prof.events()
-                                  if e.device_type.name == "CUDA"]
+                if g.steps == win.first + win.count and len(win.marks) == 1:
+                    mark()
+                if g.steps == win.stop_at and len(win.marks) == 2 and win.events is None:
+                    win._stop()
 
         graph.StepGraph.run = run_windowed
         return self
+
+    def _stop(self):
+        import torch
+
+        torch.cuda.synchronize()
+        self.prof.stop()
+        events = [(e.name, e.time_range.start, e.time_range.end) for e in self.prof.events()
+                  if e.device_type.name == "CUDA"]
+        marks = sorted(a for n, a, _ in events if self.MARKER in n)
+        self.lost = None if len(marks) == 2 else f"the profiler saw {len(marks)} of the window's 2 marker kernels"
+        self.events = [] if self.lost else [
+            (n, a, b) for n, a, b in events if a >= marks[0] and b <= marks[1] and self.MARKER not in n]
 
     def __exit__(self, *exc):
         from time_r1_tpu_torch.sampler import graph
 
         graph.StepGraph.run = self.run
-        if exc[0] is None and self.events is None:
+        if self.prof is not None and self.events is None and (exc[0] is not None or len(self.marks) < 2):
+            self.prof.stop()
+            self.events = []
+        if exc[0] is not None:
+            return
+        if len(self.marks) < 2:
             raise AssertionError(f"the decode never reached step {self.first + self.count}")
+        if self.events is None:  # the loop ended inside the trailing margin
+            self._stop()
+        if self.lost:
+            raise WindowLost(self.lost)
 
     def kernels(self, name: str) -> int:
         """Device events whose name holds `name`."""
@@ -2494,6 +2561,30 @@ class StepWindow:
         span = end - spans[0][0]
         return dict(steps=self.count, span_ms=span / 1e3, busy_ms=busy / 1e3, idle_share=1.0 - busy / span,
                     device_events=len(spans))
+
+
+def settled_window(run, first: int, count: int, tries: int = 4) -> tuple:
+    """`run()` (one decode) under a `StepWindow` until two windows saw the
+    same number of device records; returns the later of those two and every
+    window's count (a lost marker as None). The profiler loses records now
+    and then (`StepWindow`), while a decode launches the same kernels on
+    every run: two windows that lost nothing agree, two that each lost some
+    almost never do. So a window's kernels by name are read only from a window
+    that lost nothing, and a kernel missing from every run is still missing
+    there."""
+    seen = []
+    for _ in range(tries):
+        try:
+            with StepWindow(first=first, count=count) as win:
+                run()
+        except WindowLost:
+            seen.append(None)
+            continue
+        n = len(win.events)
+        seen.append(n)
+        if seen.count(n) == 2:
+            return win, seen
+    raise AssertionError(f"no two of {tries} profiler windows saw the same device records: {seen}")
 
 
 def decode_both_ways(tag: str, run) -> dict:
@@ -2601,12 +2692,11 @@ def phase_captured_decode() -> dict:
         sampled = replace(greedy, temperature=1.0, seed=5)
         draws = [run(sampled, mode)[0] for mode in ("eager", "captured", "captured")]
         sampled_same, sampled_eager = draws[1] == draws[2], draws[0] == draws[1]
-        with StepWindow(first=3, count=1) as win:
-            run(greedy, "captured")
+        win, seen = settled_window(lambda: run(greedy, "captured"), first=3, count=1)
         per_step = {k: win.kernels(k) for k in step_kernels}
         log(f"[captured] {name}: greedy replay == eager (tokens and KV bit-equal): {same}; sampled T = 1.0: "
             f"two captured runs equal {sampled_same}, captured == eager {sampled_eager}; one replayed step: "
-            f"{per_step} launches by name, {len(win.events)} device events")
+            f"{per_step} launches by name, {len(win.events)} device events (windows' records {seen})")
         if not same:
             raise AssertionError(f"{name}: replayed greedy tokens or KV differ from the eager loop's")
         if not sampled_same:
@@ -3124,6 +3214,448 @@ def phase_input_path(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9
+PHASE9_BYTES = 26e9  # what phase 9 writes at its peak (three 3B checkpoints of 7.5 GB), with room
+CLI_CLIP = "clip_4s_30fps"  # phase 8's training clip: 8 frames at 364x644, bucket 2048
+
+
+def trees_equal(a, b) -> bool:
+    """Same paths, dtypes, shapes and bits."""
+    import torch
+
+    from time_r1_tpu_torch.utils.checkpoint import flatten
+
+    fa, fb = flatten(a), flatten(b)
+    return fa.keys() == fb.keys() and all(
+        fa[k].dtype == fb[k].dtype and fa[k].shape == fb[k].shape and torch.equal(fa[k], fb[k]) for k in fa)
+
+
+def write_dataset(root: str, name: str, n: int) -> str:
+    """A TimeRFT annotation file of n examples whose videos are placeholder
+    files (cli_stand_ins' loader stands in for their decode)."""
+    items = []
+    for i in range(n):
+        video = os.path.join(root, f"{name}_{i}.mp4")
+        with open(video, "wb") as f:
+            f.write(b"placeholder")
+        items.append({"video": video, "duration": 4.0, "timestamp": [0.5 + 0.25 * i, 2.5 + 0.25 * i],
+                      "sentence": f"A person opens door number {i}."})
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(items, f)
+    return path
+
+
+@contextmanager
+def cli_stand_ins(cfg):
+    """What `cli.train.main` cannot have without a real checkpoint and video,
+    patched for the block: the processor's tokenizer (StandInTokenizer, as the CPU tests
+    patch `from_pretrained` with the tiny tokenizer), the video decode (phase
+    8's seeded frames of CLI_CLIP), and a reward that varies across a group
+    (random weights score 0 on the timestamp and format rewards). The
+    trainer's phase timers sync, so that they are device times."""
+    from time_r1_tpu_torch.cli import train as cli
+    from time_r1_tpu_torch.models.processor import Qwen25VLProcessor
+    from time_r1_tpu_torch.utils.rewards import REWARD_FUNCS_REGISTRY
+
+    loader = FrameLoader()
+    saved = (Qwen25VLProcessor.__dict__["from_pretrained"], cli.video_loader, os.environ.get("TIMER1_SYNC_TIMERS"))
+    Qwen25VLProcessor.from_pretrained = classmethod(lambda cls, path, **kw: cls(
+        StandInTokenizer(cfg), pad_token_id=cfg.pad_token_id, eos_token_id=cfg.eos_token_id))
+    cli.video_loader = lambda ele: loader({**ele, "video": CLI_CLIP})
+    REWARD_FUNCS_REGISTRY["char_parity"] = char_parity_reward
+    os.environ["TIMER1_SYNC_TIMERS"] = "1"
+    try:
+        yield cli
+    finally:
+        Qwen25VLProcessor.from_pretrained, cli.video_loader = saved[0], saved[1]
+        del REWARD_FUNCS_REGISTRY["char_parity"]
+        if saved[2] is None:
+            os.environ.pop("TIMER1_SYNC_TIMERS", None)
+        else:
+            os.environ["TIMER1_SYNC_TIMERS"] = saved[2]
+
+
+@contextmanager
+def gc_timed(times: list):
+    """Append each of Python's garbage-collector passes in the block to
+    `times` as (generation, ms)."""
+    import gc
+
+    start = []
+
+    def callback(phase, info):
+        if phase == "start":
+            start.append(time.perf_counter())
+        elif start:
+            times.append((info["generation"], (time.perf_counter() - start.pop()) * 1e3))
+
+    gc.callbacks.append(callback)
+    try:
+        yield times
+    finally:
+        gc.callbacks.remove(callback)
+
+
+@contextmanager
+def patched(cls, name: str, wrap):
+    """cls.name replaced by wrap(original) for the block."""
+    original = getattr(cls, name)
+    setattr(cls, name, wrap(original))
+    try:
+        yield
+    finally:
+        setattr(cls, name, original)
+
+
+def cli_args(cli, model: str, out: str, data: str, *extra):
+    """The CLI's defaults (G = 8, 200 tokens, accumulation 2, remat "full",
+    report_to tensorboard) for one epoch with half of it warmup, a save
+    cadence that writes only the epoch's and the final directories, and the
+    stand-in reward beside the recipe's two."""
+    return cli.get_args(["--model_name_or_path", model, "--output_dir", out, "--train_data_path", data,
+                         "--reward_funcs", "iou", "format", "char_parity", "--num_train_epochs", "1",
+                         "--warmup_ratio", "0.5", "--save_steps", "1000", *extra])
+
+
+def remat_step_launches(cfg, decode_steps: int) -> dict:
+    """One bf16 `step_batch` under remat: phase 5's launches, and the loss's
+    prompt forward (K1) and completion chunk (S1) once more a layer, rerun
+    inside the backward."""
+    layers = cfg.text.num_hidden_layers
+    base = step_batch_tc_launches(cfg, decode_steps)
+    return base | {"flash_attention": base["flash_attention"] + layers,
+                   "shared_prefix_fwd": base["shared_prefix_fwd"] + layers}
+
+
+def dir_bytes(path: str) -> int:
+    """The bytes of the files directly in `path` (one checkpoint's)."""
+    return sum(e.stat().st_size for e in os.scandir(path) if e.is_file())
+
+
+def cli_hf_checkpoint(cfg, path: str) -> tuple:
+    """(a): seeded weights through save_hf_checkpoint, with a config.json
+    that from_hf_dict reads back as `cfg`, then load_checkpoint onto the
+    card: bit-equal. Returns (bytes, write s, read s)."""
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.models.qwen25vl.convert import config_to_hf_dict, load_checkpoint, save_hf_checkpoint
+
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nbytes = save_hf_checkpoint(path, params, cfg)
+    write_s = time.perf_counter() - t0
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config_to_hf_dict(cfg), f)
+    t0 = time.perf_counter()
+    back, back_cfg = load_checkpoint(path)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    if back_cfg != cfg:
+        raise AssertionError("(a): config.json does not read back as the config written")
+    if not trees_equal(back, params):
+        raise AssertionError("(a): load_checkpoint of the HF checkpoint differs from the weights saved")
+    return nbytes, write_s, read_s
+
+
+def phase_cli_train(card: str) -> dict:
+    """Phase 9: a GRPO run from the command line, after phase 8 freed its
+    model. (a) Qwen2.5-VL-3B (bf16, seeded weights) through
+    save_hf_checkpoint and load_checkpoint, bit-equal; (b) `cli.train.main`
+    on that checkpoint with the CLI's defaults (remat "full"), one epoch of
+    4 examples (4 step_batch calls, 2 updates, warmup half of them): every
+    step's launches, the lr of each update against the schedule,
+    trainer_state.json, the directories of the save cadence, and the final
+    checkpoint reloaded bit-equal, then (e) remat off and on in turns on the
+    same trainer (`remat_in_turns`); (c) at 3B widths and 2 decoder layers,
+    a run saved with --save_only_model false and resumed (`cli_resume`);
+    (d) the remat policies at that depth (`remat_parity`). Returns (b)'s
+    launches, summed over the main() call."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
+    from time_r1_tpu_torch.rl import GRPOTrainer
+    from time_r1_tpu_torch.utils.checkpoint import load_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="timer1_phase9_")
+    free = shutil.disk_usage(root).free
+    log(f"[cli] {root}: {free / 1e9:.1f} GB free; phase 9 writes up to {PHASE9_BYTES / 1e9:.0f} GB")
+    if free < PHASE9_BYTES:
+        shutil.rmtree(root, ignore_errors=True)
+        raise AssertionError(f"phase 9 needs {PHASE9_BYTES / 1e9:.0f} GB under {root}, which has "
+                             f"{free / 1e9:.1f} GB free: point TMPDIR at a larger disk")
+    cfg = Qwen25VLConfig.qwen25vl_3b()
+    L = cfg.text.num_hidden_layers
+    result = {"card": card}
+    try:
+        # (a) the HF loader
+        hf = os.path.join(root, "hf")
+        nbytes, write_s, read_s = cli_hf_checkpoint(cfg, hf)
+        result["hf"] = dict(gb=nbytes / 1e9, write_s=write_s, read_s=read_s)
+        log(f"[cli] (a) save_hf_checkpoint of the 3B: {nbytes / 1e9:.3f} GB in {write_s:.2f} s "
+            f"({nbytes / 1e9 / write_s:.2f} GB/s); load_checkpoint onto the card {read_s:.2f} s "
+            f"({nbytes / 1e9 / read_s:.2f} GB/s); bit-equal, config.json read back as qwen25vl_3b(); {card}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the real entry point
+        steps, saves, phases_seen = [], [], {}
+
+        def timed_step(original):
+            def step_batch(self, examples, requests=None):
+                # phases since the last call returned: train()'s host_preproc_wait for this batch, then this call's
+                phases0 = dict(phases_seen)
+                before = read_launches()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = original(self, examples, requests=requests)
+                torch.cuda.synchronize()
+                after = read_launches()
+                tm = self.engine.timings
+                steps.append(dict(
+                    step_s=time.perf_counter() - t0, loss=out["loss"],
+                    launches={k: after[k] - before[k] for k in after}, decode_steps=tm["decode_steps"],
+                    decode_ms_per_step=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1),
+                    phases_ms={k: round((v - phases0.get(k, 0.0)) * 1e3, 1) for k, v in self.timers.totals.items()},
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30))
+                phases_seen.update(self.timers.totals)
+                return out
+            return step_batch
+
+        def timed_save(original):
+            def save_checkpoint(self, path):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                original(self, path)
+                saves.append(dict(dir=os.path.basename(path), gb=dir_bytes(path) / 1e9, s=time.perf_counter() - t0))
+            return save_checkpoint
+
+        out = os.path.join(root, "run")
+        data = write_dataset(root, "train", 4)
+        with cli_stand_ins(cfg) as cli, patched(GRPOTrainer, "step_batch", timed_step), \
+                patched(GRPOTrainer, "save_checkpoint", timed_save), gc_timed([]) as gc_passes:
+            args = cli_args(cli, hf, out, data)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            trainer = cli.main(args)
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+            launches = read_launches()
+        for i, st in enumerate(steps, start=1):
+            log(f"[cli] (b) step_batch {i}: {st['step_s']:.2f} s, loss {st['loss']:.6f}; phases (ms, synced) "
+                f"{st['phases_ms']}; decode {st['decode_ms_per_step']:.2f} ms/step over {st['decode_steps']} "
+                f"steps; peak {st['peak_gib']:.2f} GiB allocated under remat; {card}")
+            log(f"[cli] (b) step_batch {i}: launches {st['launches']}")
+            check_step_launches(f"cli step_batch {i}", st["launches"], st["decode_steps"], L,
+                                {"shared_prefix_decode_full": 1, "shared_prefix_decode_attention": 0,
+                                 "int4_matmul": 0, "fused_mlp_int8": 0})
+            check_tc_route(f"cli step_batch {i}", st["launches"], remat_step_launches(cfg, st["decode_steps"]),
+                           tensor_cores=True)
+        for sv in saves:
+            log(f"[cli] (b) save_checkpoint {sv['dir']}: {sv['gb']:.3f} GB in {sv['s']:.2f} s "
+                f"({sv['gb'] / sv['s']:.2f} GB/s); {card}")
+        want_lrs = [0.0, float(np.float32(args.learning_rate))]  # 2 updates; warmup int(2 * 0.5) = 1 of them
+        ckpt_dirs = sorted(d for d in os.listdir(out) if d.startswith(("checkpoint-", "epoch-")))
+        with open(os.path.join(out, "trainer_state.json")) as f:
+            state = json.load(f)
+        summary = trainer.timers.summary()
+        wait = summary.get("host_preproc_wait", {})
+        gc_ms = {g: round(sum(ms for gen, ms in gc_passes if gen == g), 1) for g in (0, 1, 2)}
+        log(f"[cli] (b) Python's garbage collector during main(): {len(gc_passes)} passes, ms by generation "
+            f"{gc_ms}")
+        log(f"[cli] (b) main(): {main_s:.2f} s; {len(steps)} step_batch calls; lr per update "
+            f"{trainer.optimizer.lrs} (want {want_lrs}); trainer_state {state}; checkpoint directories {ckpt_dirs}; "
+            f"host_preproc_wait {wait} (phase 8's host_preproc: 110-145 ms a step); timers {summary}; {card}")
+        if len(steps) != 4 or trainer.global_step != 4 or state != {"global_step": 4}:
+            raise AssertionError(f"(b): {len(steps)} step_batch calls, global_step {trainer.global_step}, "
+                                 f"trainer_state {state}; want 4")
+        if trainer.optimizer.lrs != want_lrs or trainer.opt_state.count != 2:
+            raise AssertionError(f"(b): lr per update {trainer.optimizer.lrs}, want {want_lrs}")
+        if ckpt_dirs != ["epoch-1"] or [sv["dir"] for sv in saves] != ["epoch-1", "run"]:
+            raise AssertionError(f"(b): checkpoints {ckpt_dirs}, saves {[sv['dir'] for sv in saves]}")
+        if trainer.hp.gradient_checkpointing != "full" or not all(np.isfinite(st["loss"]) for st in steps):
+            raise AssertionError("(b): remat is not the CLI's default, or a loss is not finite")
+        if not trees_equal(load_params(out, device="cuda"), trainer.params):
+            raise AssertionError("(b): the final checkpoint does not reload bit-equal to the trained weights")
+        log("[cli] (b) the final checkpoint reloads bit-equal to the trained weights")
+        for name in TRAIN_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError(f"(b): {name} was not launched by main()")
+        result["main"] = dict(main_s=main_s, steps=[{k: v for k, v in st.items() if k != "launches"} for st in steps],
+                              saves=saves, host_preproc_wait=wait, lrs=trainer.optimizer.lrs, gc_ms=gc_ms)
+        result["turns"] = remat_in_turns(trainer, cli.load_json_dataset_tg(data)[:1], card)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.rmtree(hf, ignore_errors=True)
+
+        result["resume"] = cli_resume(root, card)
+        result["remat"] = remat_parity(card)
+        log(f"[cli] summary on {card}: {json.dumps(result)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def remat_in_turns(trainer, examples, card: str) -> list:
+    """(e) Remat's cost at full size, in one process: four more step_batch
+    calls of (b)'s trainer with remat off, "full", "full", off (so that each
+    setting takes one accumulating call and one that updates), with the
+    train step rebuilt for each (a harness patch: the trainer keeps its
+    policy for its life); train_step ms, the peak, and Python's garbage
+    collector's ms in each."""
+    import torch
+
+    from time_r1_tpu_torch.rl.grpo import make_train_step
+    from time_r1_tpu_torch.utils.profiling import PhaseTimers
+
+    out = []
+    for remat in (False, "full", "full", False):
+        trainer.hp = replace(trainer.hp, gradient_checkpointing=remat)
+        trainer._train_step = make_train_step(trainer.cfg, trainer.hp, trainer.optimizer)
+        trainer.timers = PhaseTimers(sync=True)
+        updates = trainer.opt_state.count
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with gc_timed([]) as passes:
+            t0 = time.perf_counter()
+            trainer.step_batch(examples)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+        row = dict(remat=remat, update=trainer.opt_state.count > updates, step_s=step_s,
+                   train_step_ms=trainer.timers.summary()["train_step"]["total_s"] * 1e3,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30, gc_ms=sum(ms for _, ms in passes))
+        out.append(row)
+        log(f"[cli] (e) remat {remat}: {row}; {card}")
+    return out
+
+
+def cli_resume(root: str, card: str) -> dict:
+    """(c) at 3B widths and 2 decoder layers: a run of 3 examples saved with
+    --save_only_model false (its accumulation window left open), then main()
+    from that native checkpoint with --resume_from_checkpoint: the params,
+    the optimizer state (moments, accumulation, counts) and global_step
+    restored bit-equal before train() runs, and the run stopped at resumed +
+    3 micro-steps."""
+    import torch
+
+    from time_r1_tpu_torch.rl import GRPOTrainer
+
+    cfg = reduced_config()
+    hf = os.path.join(root, "hf_2l")
+    cli_hf_checkpoint(cfg, hf)
+    data = write_dataset(root, "resume", 3)
+    first_out, second_out = os.path.join(root, "first"), os.path.join(root, "second")
+    held, restored = {}, {}
+
+    def checked_restore(original):
+        def load_checkpoint_state(self, path):
+            original(self, path)
+            restored.update(params=trees_equal(self.params, held["params"]),
+                            opt=trees_equal(self.opt_state.tree(), held["opt"]), global_step=self.global_step)
+        return load_checkpoint_state
+
+    with cli_stand_ins(cfg) as cli:
+        first = cli.main(cli_args(cli, hf, first_out, data, "--save_only_model", "false"))
+        held.update(params=first.params, opt=first.opt_state.tree())
+        with patched(GRPOTrainer, "load_checkpoint_state", checked_restore):
+            t0 = time.perf_counter()
+            second = cli.main(cli_args(cli, first_out, second_out, data, "--resume_from_checkpoint", first_out))
+            torch.cuda.synchronize()
+            resumed_s = time.perf_counter() - t0
+    out = dict(first=dict(global_step=first.global_step, updates=first.opt_state.count,
+                          mini_step=first.opt_state.mini_step),
+               restored=restored, final_step=second.global_step, updates=second.opt_state.count,
+               resumed_main_s=resumed_s)
+    log(f"[cli] (c) resumed from the first run's final checkpoint: {out}; {card}")
+    if restored != {"params": True, "opt": True, "global_step": 3} or first.opt_state.mini_step != 1:
+        raise AssertionError(f"(c): the state was not restored bit-equal: {restored}")
+    if second.global_step != 6 or second.opt_state.count != 3:
+        raise AssertionError(f"(c): the resumed run stopped at {second.global_step} after "
+                             f"{second.opt_state.count} updates, want 6 and 3")
+    return out
+
+
+def remat_parity(card: str) -> dict:
+    """(d) at 3B widths and 2 decoder layers, bf16 on the tensor cores: phase
+    3b's split batch (4 fixed completions, fixed advantages, a reference
+    copy) through grpo_loss and its gradients under each remat policy, each
+    against no remat within phase 3b's tolerance (bit-equal expected: the
+    kernels and cuBLAS are deterministic); K1 and S1 rerun once a layer
+    under remat; the bytes the forward leaves allocated for the backward,
+    and the peak above them."""
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.rl import GRPOHyperParams, build_grpo_split_batch, grpo_loss
+    from time_r1_tpu_torch.rl.grpo import compute_ref_logps, precompute_frozen_vision, trainable_leaves
+
+    cfg = reduced_config()
+    L = cfg.text.num_hidden_layers
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    ref = to_device(params, torch.device("cuda"), scale=0.98)
+    req = video_request(cfg, np.random.default_rng(1), frames=8, height=224, width=392)
+    rng = np.random.default_rng(2)
+    comps = [rng.integers(0, 151000, n).tolist() + ([cfg.eos_token_id] if i % 2 == 0 else [])
+             for i, n in enumerate((20, 57, 101, 127))]
+    group = {"prompt_ids": req.input_ids, "completions": comps,
+             "advantages": np.array([1.0, -0.5, 0.25, -0.75], np.float32),
+             "patches": req.patches, "grid_thw": req.grid_thw, "second_per_grid_t": 1.0}
+    batch = build_grpo_split_batch(cfg, [group], dtype=torch.bfloat16, device=torch.device("cuda"))
+    batch = precompute_frozen_vision(params, cfg, batch)
+    batch = batch._replace(ref_logps=compute_ref_logps(ref, cfg, GRPOHyperParams(num_generations=4), batch))
+    leaves = trainable_leaves(params, True)
+    for p in leaves:
+        p.requires_grad_(True)
+    out, want = {}, None
+    for remat in (False, "full", "dots", "dots_small"):
+        hp = GRPOHyperParams(num_generations=4, beta=0.04, gradient_checkpointing=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        reset_launches()
+        loss, _ = grpo_loss(params, cfg, hp, batch)
+        residual = torch.cuda.memory_allocated() - m0
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        torch.cuda.synchronize()
+        rerun = L if remat else 0
+        check_tc_route(f"remat {remat}", read_launches(),
+                       {"flash_attention": L + rerun, "shared_prefix_fwd": L + rerun, "flash_bwd_dq": L,
+                        "flash_bwd_dkv": 2 * L, "shared_prefix_bwd": L, "shared_prefix_bwd_dkv": L},
+                       tensor_cores=True)
+        row = dict(loss=loss.detach().item(), residual_mib=residual / 2**20,
+                   peak_above_mib=(torch.cuda.max_memory_allocated() - m0) / 2**20)
+        if want is None:
+            want = (row["loss"], grads)
+        else:
+            worst, same = 0.0, 0
+            for g, w in zip(grads, want[1]):
+                scale = w.float().abs().max().item()
+                worst = max(worst, (g.float() - w.float()).abs().max().item() / scale if scale > 0 else 0.0)
+                same += int(torch.equal(g, w))
+            row.update(loss_err=abs(row["loss"] - want[0]) / max(abs(want[0]), 1e-30), worst_grad=worst,
+                       bit_equal_leaves=f"{same}/{len(grads)}")
+            if not (row["loss_err"] <= TRAIN_TOL and worst <= TRAIN_TOL):
+                raise AssertionError(f"(d) remat {remat}: loss {row['loss_err']:.3e}, worst gradient leaf "
+                                     f"{worst:.3e} against no remat (tol {TRAIN_TOL})")
+        out[str(remat)] = row
+        log(f"[cli] (d) remat {remat}: {row}; {card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     # the training phase holds ~60 GB of live tensors of many sizes
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -3156,6 +3688,7 @@ def main() -> int:
     quant_launches = phase_quant_full_size()  # D1, D2, Q2 (int8 step_batch), Q1 (int4 generate)
     serve = phase_serving_full_size()  # P1 (a), P2 (b): continuous-batching serving
     input_launches = phase_input_path(card)  # K1-K3, B1, B2, S1, S2, D2 from frames the processor made
+    cli_launches = phase_cli_train(card)  # the same kernels from `cli.train.main`, K1 and S1 rerun under remat
     for tag, name in zip("ab", PAGED_KERNELS):
         quant_launches[name] = serve[tag]["launches"][name]
         quant_launches[f"{name}_tc"] = serve[tag]["launches"][f"{name}_tc"]
@@ -3221,6 +3754,7 @@ def main() -> int:
             k["on_main_path"] = False
         if k["name"] in TRAIN_KERNELS:  # phase 8's second step_batch, from video frames
             k["launches_from_frames"] = input_launches[k["name"]]
+            k["launches_cli_train"] = cli_launches[k["name"]]  # phase 9's main(): 4 step_batch calls
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 """Where a captured decode step's device time goes, at full size on the card:
 Qwen2.5-VL-3B in bf16 with seeded random weights, 16 steady decode steps
 (steps 32-47, one host-check segment) of four decodes, each captured, under
-torch.profiler (`chip_smoke.StepWindow`):
+torch.profiler (`chip_smoke.settled_window`):
 
 - the G-way rollout (phase 5's request, G = 8, bf16: D2);
 - the same over int8 weights and int8 KV (phase 6's rollout: D2, Q2);
@@ -36,7 +36,7 @@ import torch  # noqa: E402
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke  # noqa: E402
-from chip_smoke import StepWindow, log, text_request, video_request  # noqa: E402
+from chip_smoke import log, settled_window, text_request, video_request  # noqa: E402
 
 
 HAND_WRITTEN = ("t1::", "fused_mlp_tc", "int4_mm_tc")
@@ -50,10 +50,10 @@ def kind(name: str) -> str:
 
 
 def profile(tag: str, run) -> dict:
-    """run() once to warm up, then once inside a 16-step window."""
+    """run() once to warm up, then inside 16-step windows until two agree
+    (`settled_window`)."""
     run()
-    with StepWindow(first=32, count=16) as win:
-        run()
+    win, _ = settled_window(run, first=32, count=16)
     st = win.stats()
     by = {}
     for name, a, b in win.events:

@@ -106,10 +106,15 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'time_r1_tpu')]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    count, names = out.stdout.strip().split("\n")
+    assert int(count) >= 15
+    walked = set(names.split())
+    assert {"time_r1_tpu_torch.cli.train", "time_r1_tpu_torch.utils.checkpoint", "time_r1_tpu_torch.utils.logging_sinks",
+            "time_r1_tpu_torch.utils.safetensors_io"} <= walked
 
 
 def test_port_sources_never_name_the_jax_package():

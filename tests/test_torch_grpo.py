@@ -5,6 +5,14 @@ every parameter gradient (with video, beta ∈ {0, 0.04}, PPO-clip and vanilla
 GRPO, fix_vit on and off), the choice of the vision kernels by fix_vit, the
 frozen-ViT precompute, and the tied head's f32 accumulator in bf16.
 
+The remat policies of gradient_checkpointing (True, "full", "dots",
+"dots_small") give the loss and every gradient of no remat, within the
+tolerances of the JAX package's `test_grpo.py::test_remat_policy_matches_full`
+(loss rtol 1e-6 / atol 1e-7, gradients rtol 5e-5 / atol 5e-6), and JAX's
+under the same policy within the split-loss tolerances below; the products
+each policy keeps are counted, and the residuals that autograd saves
+outside the checkpointed layers are measured with saved-tensor hooks.
+
 Tolerances are the JAX package's own for its split-loss test
 (tests/test_grpo.py): loss 2e-5, metrics 2e-4, gradients 5e-4 — f32 sums in
 another order through two decoder layers, the vision merger and the head."""
@@ -180,8 +188,6 @@ def test_precompute_frozen_vision_matches_jax(params):
 def test_unported_loss_options_raise(params):
     _, tp = params
     _, tb = _batches(_mk_groups(False, G=3, P=1), 3)
-    with pytest.raises(NotImplementedError, match="A9"):
-        grpo_loss(tp, CFG, GRPOHyperParams(num_generations=3, gradient_checkpointing=True), tb)
     with pytest.raises(NotImplementedError, match="A7"):
         grpo_loss(tp, CFG, GRPOHyperParams(num_generations=3), tuple(tb))
 
@@ -238,3 +244,102 @@ def test_bf16_head_grads_keep_the_f32_cotangent():
         assert scale > 0, name
         ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
         assert np.abs(got - want).max() <= ulp, (name, np.abs(got - want).max(), ulp)
+
+
+REMATS = [True, "full", "dots", "dots_small"]
+
+
+def _loss_and_grads(tp, tb, remat, fix_vit=True):
+    hp = GRPOHyperParams(num_generations=3, beta=0.0, fix_vit=fix_vit, gradient_checkpointing=remat)
+    loss, _, grads = grpo_value_and_grad(tp, CFG, hp, tb)
+    return float(loss), grads
+
+
+@pytest.fixture(scope="module")
+def no_remat(params):
+    _, tp = params
+    _, tb = _batches(_mk_groups(True, G=3, P=2), 3)
+    return tb, _loss_and_grads(tp, tb, False)
+
+
+@pytest.mark.parametrize("remat", REMATS)
+def test_remat_policy_matches_no_remat(params, no_remat, remat):
+    """Checkpointing changes what the backward recomputes, not the math."""
+    _, tp = params
+    tb, (want_loss, want_grads) = no_remat
+    loss, grads = _loss_and_grads(tp, tb, remat)
+    np.testing.assert_allclose(loss, want_loss, rtol=1e-6, atol=1e-7)
+    for i, (g, w) in enumerate(zip(grads, want_grads)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=5e-5, atol=5e-6, err_msg=str(i))
+
+
+@pytest.mark.parametrize("remat", ["full", "dots", "dots_small"])
+def test_remat_policy_matches_jax(params, remat):
+    """The port and JAX under the same policy, with fix_vit off so that the
+    whole tower trains as well."""
+    jp, tp = params
+    groups = _mk_groups(True, G=3, P=2)
+    jb, tb = _batches(groups, 3)
+    jhp = JaxHyperParams(num_generations=3, beta=0.0, fix_vit=False, gradient_checkpointing=remat)
+    jloss, jgrads = jax.value_and_grad(lambda p: jax_grpo_loss(p, JCFG, jhp, jb)[0])(jp)
+    loss, grads = _loss_and_grads(tp, tb, remat, fix_vit=False)
+    np.testing.assert_allclose(loss, float(jloss), rtol=2e-5, atol=2e-6)
+    got = _grad_tree(tp, grads, fix_vit=False)
+    for (path, want), (_, g) in zip(jax.tree_util.tree_flatten_with_path(jgrads)[0],
+                                     jax.tree_util.tree_flatten_with_path(got)[0]):
+        np.testing.assert_allclose(g, np.asarray(want), rtol=5e-4, atol=5e-5, err_msg=jax.tree_util.keystr(path))
+
+
+def test_remat_policies_keep_the_named_products(params, monkeypatch):
+    """What each policy keeps, counted in its own decisions (first forward,
+    not the recompute): "dots" keeps every projection product, "dots_small"
+    all but the gate/up one, "full" none; the bytes "dots" keeps beyond
+    "dots_small" are exactly the gate/up products of the prompt forward and
+    the completion chunk. Saved-tensor hooks measure what autograd holds
+    outside the checkpointed layers: under any policy less than without
+    remat."""
+    from time_r1_tpu_torch.models.qwen25vl import language
+
+    _, tp = params
+    _, tb = _batches(_mk_groups(True, G=3, P=2), 3)
+    kept: dict = {}
+    keep_named = language._keep_named
+
+    def counting(names):
+        policy = keep_named(names)
+
+        def count(ctx, op, *args, **kwargs):
+            decision = policy(ctx, op, *args, **kwargs)
+            if decision == torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+                a, b = args[-2], args[-1]
+                name = language.current_proj_name()
+                kept[name] = kept.get(name, 0) + a.shape[0] * b.shape[1] * a.element_size()
+            return decision
+
+        return count
+
+    monkeypatch.setattr(language, "_keep_named", counting)
+
+    def saved_bytes(remat):
+        kept.clear()
+        seen = {}
+
+        def pack(t):
+            seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            _loss_and_grads(tp, tb, remat)
+        return sum(seen.values()), dict(kept)
+
+    outside_none, kept_none = saved_bytes(False)
+    outside_full, kept_full = saved_bytes("full")
+    _, kept_dots = saved_bytes("dots")
+    _, kept_small = saved_bytes("dots_small")
+    assert kept_none == {} and kept_full == {}
+    assert set(kept_dots) == {"qkv_proj", "attn_proj", "mlp_gu", "mlp_down"}
+    assert set(kept_small) == {"qkv_proj", "attn_proj", "mlp_down"}
+    assert all(kept_small[k] == kept_dots[k] for k in kept_small)
+    rows = tb.prompt_ids.numel() + tb.comp_ids.numel()  # prompt forward + completion chunk
+    assert kept_dots["mlp_gu"] == CFG.text.num_hidden_layers * rows * 2 * CFG.text.intermediate_size * 4
+    assert 0 < outside_full < outside_none

@@ -185,7 +185,7 @@ def test_unpatched_cpu_run_completes():
 
 @pytest.mark.parametrize("option", [
     dict(use_peft=True), dict(context_parallel_size=2),
-    dict(offload_optimizer=True), dict(shared_prefix_loss=False), dict(gradient_checkpointing=True),
+    dict(offload_optimizer=True), dict(shared_prefix_loss=False),
 ])
 def test_unported_options_raise(option):
     tp = port_params(jax_params())
@@ -198,7 +198,8 @@ def test_prepare_requests_and_mesh_raise():
     """prepare_requests needs a video_loader for an example that has no
     preprocessed video; a mesh is not ported (A13)."""
     tp = port_params(jax_params())
-    tr = GRPOTrainer(tp, CFG, Processor(), [spread_reward], dtype=torch.float32, device="cpu")
+    tr = GRPOTrainer(tp, CFG, Processor(), [spread_reward], config=TrainConfig(report_to="none"),
+                     dtype=torch.float32, device="cpu")
     with pytest.raises(ValueError, match="video_loader"):
         tr.prepare_requests([dict(EXAMPLE, video_path="clip.mp4")])
     with pytest.raises(NotImplementedError, match="A13"):

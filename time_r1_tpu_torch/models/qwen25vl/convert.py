@@ -1,4 +1,5 @@
-"""Parameters of the port: bridge from/to the JAX param tree, and random init.
+"""Parameters of the port: HF checkpoints, the port's native checkpoints, the
+bridge from/to the JAX param tree, and random init.
 
 The port keeps plain dicts of tensors in torch's layout: linear weights are
 (out, in) and every layer has its own dict in a list. The JAX tree stores
@@ -21,16 +22,28 @@ q/k/v and gate/up. The quantized embedding keeps its (V, H) layout; JAX's
 int4 row marker `_row4` is dropped (the port packs every weight along its
 last axis) and restored on the way back.
 
-HF safetensors loading comes with the CLI slice of the port.
+HF checkpoints (`load_checkpoint`, `save_hf_checkpoint`) map straight into
+this tree: torch's Linear layout is HF's, so only the names change (both HF
+naming eras are read, the old one is written) and the Conv3d patch embed is
+flattened. The port's own native checkpoint (what the trainer writes:
+`timer1_config.json` beside `params.safetensors`, `utils/checkpoint.py`)
+loads through the same `load_checkpoint`.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Callable, Dict
 
 import numpy as np
 import torch
 
 from ...device import resolve_device
-from .config import Qwen25VLConfig
+from ...ops.quant import is_quantized
+from ...utils.safetensors_io import read_safetensors, write_safetensors
+from .config import Qwen25VLConfig, TextConfig, VisionConfig
 
 # (path in the JAX tree, key in the port, stored transposed in JAX)
 _VISION_BLOCK = [
@@ -230,3 +243,217 @@ def init_params(cfg: Qwen25VLConfig, seed: int = 0, device="cuda", dtype=torch.b
     if not t.tie_word_embeddings:
         text["lm_head"] = nrm(t.vocab_size, H)
     return {"visual": visual, "text": text}
+
+
+# ---------------------------------------------------------------------------
+# HF checkpoints (port of `time_r1_tpu/models/qwen25vl/convert.py:38-278`)
+
+HF_INDEX = "model.safetensors.index.json"
+
+
+def load_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of a checkpoint directory: the shards that
+    `model.safetensors.index.json` names, or, without an index, every
+    `*.safetensors` file. CPU tensors over copy-on-write mappings of the files
+    (`utils/safetensors_io.py`)."""
+    index = os.path.join(path, HF_INDEX)
+    if os.path.exists(index):
+        with open(index) as f:
+            files = sorted(set(json.load(f)["weight_map"].values()))
+    else:
+        files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    out: Dict[str, torch.Tensor] = {}
+    for name in files:
+        out.update(read_safetensors(os.path.join(path, name)))
+    return out
+
+
+def _strip_prefixes(sd: Dict) -> Dict:
+    """Normalize the two HF naming eras:
+    old: visual.* / model.* / lm_head.*
+    new (>=4.52): model.visual.* / model.language_model.* / lm_head.*
+    → canonical: visual.* / model.* / lm_head.*"""
+    out = {}
+    for k, v in sd.items():
+        nk = k
+        if nk.startswith("model.visual."):
+            nk = nk[len("model."):]
+        elif nk.startswith("model.language_model."):
+            nk = "model." + nk[len("model.language_model."):]
+        elif nk.startswith("language_model.model."):
+            nk = "model." + nk[len("language_model.model."):]
+        out[nk] = v
+    return out
+
+
+# (HF name under visual.blocks.{i}. / model.layers.{i}., key in the port)
+_HF_VISION_BLOCK = [
+    ("norm1.weight", "norm1"), ("norm2.weight", "norm2"),
+    ("attn.qkv.weight", "qkv_w"), ("attn.qkv.bias", "qkv_b"),
+    ("attn.proj.weight", "proj_w"), ("attn.proj.bias", "proj_b"),
+    ("mlp.gate_proj.weight", "gate_w"), ("mlp.gate_proj.bias", "gate_b"),
+    ("mlp.up_proj.weight", "up_w"), ("mlp.up_proj.bias", "up_b"),
+    ("mlp.down_proj.weight", "down_w"), ("mlp.down_proj.bias", "down_b"),
+]
+_HF_MERGER = [
+    ("visual.merger.ln_q.weight", "ln_q"),
+    ("visual.merger.mlp.0.weight", "fc1_w"), ("visual.merger.mlp.0.bias", "fc1_b"),
+    ("visual.merger.mlp.2.weight", "fc2_w"), ("visual.merger.mlp.2.bias", "fc2_b"),
+]
+_HF_TEXT_LAYER = [
+    ("input_layernorm.weight", "input_layernorm"),
+    ("post_attention_layernorm.weight", "post_attention_layernorm"),
+    ("self_attn.q_proj.weight", "q_w"), ("self_attn.q_proj.bias", "q_b"),
+    ("self_attn.k_proj.weight", "k_w"), ("self_attn.k_proj.bias", "k_b"),
+    ("self_attn.v_proj.weight", "v_w"), ("self_attn.v_proj.bias", "v_b"),
+    ("self_attn.o_proj.weight", "o_w"),
+    ("mlp.gate_proj.weight", "gate_w"), ("mlp.up_proj.weight", "up_w"), ("mlp.down_proj.weight", "down_w"),
+]
+
+
+def convert_state_dict(sd: Dict, cfg: Qwen25VLConfig, dtype=torch.bfloat16, device="cuda") -> dict:
+    """The port's params from an HF state dict (torch tensors or numpy
+    arrays, either naming era), cast to `dtype` on `device`. Each tensor is
+    moved once, from wherever it lies (a mapped file) to its place."""
+    device = resolve_device(device)
+    sd = _strip_prefixes(sd)
+
+    def T(key: str, fn: Callable = lambda x: x) -> torch.Tensor:
+        x = sd[key]
+        x = torch.from_numpy(np.asarray(x)) if not isinstance(x, torch.Tensor) else x
+        return fn(x).to(device=device, dtype=dtype, copy=True)
+
+    v, t = cfg.vision, cfg.text
+    visual = {
+        "patch_embed": T("visual.patch_embed.proj.weight", lambda x: x.reshape(v.hidden_size, -1)),
+        "blocks": [{key: T(f"visual.blocks.{i}.{name}") for name, key in _HF_VISION_BLOCK}
+                   for i in range(v.depth)],
+        "merger": {key: T(name) for name, key in _HF_MERGER},
+    }
+    text = {
+        "embed_tokens": T("model.embed_tokens.weight"),
+        "layers": [{key: T(f"model.layers.{i}.{name}") for name, key in _HF_TEXT_LAYER}
+                   for i in range(t.num_hidden_layers)],
+        "norm": T("model.norm.weight"),
+    }
+    if not t.tie_word_embeddings:
+        text["lm_head"] = T("lm_head.weight" if "lm_head.weight" in sd else "model.embed_tokens.weight")
+    return {"visual": visual, "text": text}
+
+
+def export_state_dict(params: dict, cfg: Qwen25VLConfig) -> Dict[str, torch.Tensor]:
+    """Inverse of convert_state_dict: the port's params → an HF state dict
+    (old-era names: visual.* / model.* / lm_head.*) of views of the params,
+    in their dtype and on their device. A tied head writes no lm_head."""
+    v, t = cfg.vision, cfg.text
+    vis, txt = params["visual"], params["text"]
+    for leaf in (txt["layers"][0].get("q_w"), txt["embed_tokens"]):
+        if leaf is None or is_quantized(leaf):
+            raise ValueError("export_state_dict takes unquantized, unfused params (q_w/k_w/v_w, gate_w/up_w)")
+    out: Dict[str, torch.Tensor] = {
+        "visual.patch_embed.proj.weight": vis["patch_embed"].reshape(
+            v.hidden_size, v.in_channels, v.temporal_patch_size, v.patch_size, v.patch_size),
+    }
+    for i, bp in enumerate(vis["blocks"]):
+        out.update({f"visual.blocks.{i}.{name}": bp[key] for name, key in _HF_VISION_BLOCK})
+    out.update({name: vis["merger"][key] for name, key in _HF_MERGER})
+    out["model.embed_tokens.weight"] = txt["embed_tokens"]
+    for i, lp in enumerate(txt["layers"]):
+        out.update({f"model.layers.{i}.{name}": lp[key] for name, key in _HF_TEXT_LAYER})
+    out["model.norm.weight"] = txt["norm"]
+    if not t.tie_word_embeddings and "lm_head" in txt:
+        out["lm_head.weight"] = txt["lm_head"]
+    return out
+
+
+def save_hf_checkpoint(path: str, params: dict, cfg: Qwen25VLConfig) -> int:
+    """Write an HF-compatible `model.safetensors` (bf16, metadata format
+    "pt", as transformers expects) into `path`; returns the bytes written.
+    One tensor at a time crosses to the host."""
+    os.makedirs(path, exist_ok=True)
+    return write_safetensors(os.path.join(path, "model.safetensors"), export_state_dict(params, cfg),
+                             {"format": "pt"}, dtype=torch.bfloat16)
+
+
+def config_to_plain_dict(cfg: Qwen25VLConfig) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def config_from_plain_dict(d: dict) -> Qwen25VLConfig:
+    d = dict(d)
+    vd = dict(d.pop("vision"))
+    vd["fullatt_block_indexes"] = tuple(vd["fullatt_block_indexes"])
+    td = dict(d.pop("text"))
+    td["mrope_section"] = tuple(td["mrope_section"])
+    d["stop_token_ids"] = tuple(d.get("stop_token_ids", (151645, 151643)))
+    return Qwen25VLConfig(vision=VisionConfig(**vd), text=TextConfig(**td), **d)
+
+
+def config_to_hf_dict(cfg: Qwen25VLConfig) -> dict:
+    """An HF `config.json` dict (old-era layout: text fields at the top level)
+    that `Qwen25VLConfig.from_hf_dict` reads back as `cfg`, but for the
+    fields HF's config does not carry (stop_token_ids, the vision norm's
+    eps) and a pad id of 0, which from_hf_dict reads as 151643."""
+    v, t = cfg.vision, cfg.text
+    return {
+        "architectures": ["Qwen2_5_VLForConditionalGeneration"],
+        "model_type": "qwen2_5_vl",
+        "torch_dtype": "bfloat16",
+        "vocab_size": t.vocab_size,
+        "hidden_size": t.hidden_size,
+        "intermediate_size": t.intermediate_size,
+        "num_hidden_layers": t.num_hidden_layers,
+        "num_attention_heads": t.num_attention_heads,
+        "num_key_value_heads": t.num_key_value_heads,
+        "rms_norm_eps": t.rms_norm_eps,
+        "rope_theta": t.rope_theta,
+        "rope_scaling": {"type": "mrope", "mrope_section": list(t.mrope_section)},
+        "tie_word_embeddings": t.tie_word_embeddings,
+        "max_position_embeddings": t.max_position_embeddings,
+        "use_sliding_window": t.use_sliding_window,
+        "sliding_window": t.sliding_window,
+        "max_window_layers": t.max_window_layers,
+        "hidden_act": "silu",
+        "vision_config": {
+            "depth": v.depth, "hidden_size": v.hidden_size, "intermediate_size": v.intermediate_size,
+            "num_heads": v.num_heads, "in_channels": v.in_channels, "patch_size": v.patch_size,
+            "spatial_merge_size": v.spatial_merge_size, "temporal_patch_size": v.temporal_patch_size,
+            "tokens_per_second": v.tokens_per_second, "window_size": v.window_size,
+            "fullatt_block_indexes": list(v.fullatt_block_indexes), "out_hidden_size": v.out_hidden_size,
+            "hidden_act": "silu",
+        },
+        "image_token_id": cfg.image_token_id,
+        "video_token_id": cfg.video_token_id,
+        "vision_start_token_id": cfg.vision_start_token_id,
+        "vision_end_token_id": cfg.vision_end_token_id,
+        "bos_token_id": cfg.bos_token_id,
+        "eos_token_id": cfg.eos_token_id,
+        "pad_token_id": cfg.pad_token_id,
+    }
+
+
+NATIVE_CONFIG = "timer1_config.json"
+
+
+def load_checkpoint(path: str, dtype=torch.bfloat16, device="cuda") -> tuple[dict, Qwen25VLConfig]:
+    """A Qwen2.5-VL checkpoint directory → (params on `device`, config).
+
+    Either format:
+    - HF: config.json + *.safetensors (the published checkpoints);
+    - native: timer1_config.json + params.safetensors (what the port's
+      trainer writes, `utils/checkpoint.py`). Quantized {q8|q4, s} dicts keep
+      their dtypes; every other leaf is cast to `dtype`.
+    A JAX package's native checkpoint (an orbax `params/` directory) is
+    refused with an error that names it."""
+    from ...utils.checkpoint import is_native_checkpoint, load_params, refuse_orbax
+
+    device = resolve_device(device)
+    if os.path.exists(os.path.join(path, NATIVE_CONFIG)):
+        refuse_orbax(path)
+        if is_native_checkpoint(path):
+            with open(os.path.join(path, NATIVE_CONFIG)) as f:
+                cfg = config_from_plain_dict(json.load(f))
+            return load_params(path, device=device, dtype=dtype), cfg
+    with open(os.path.join(path, "config.json")) as f:
+        cfg = Qwen25VLConfig.from_hf_dict(json.load(f))
+    return convert_state_dict(load_safetensors_dir(path), cfg, dtype, device), cfg

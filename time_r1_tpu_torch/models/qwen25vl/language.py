@@ -25,23 +25,72 @@ loop over the layers where JAX scans.
   `quantize_kv` and writes it in place. Weights may be quantized dicts
   (`ops/quant.py`) anywhere a projection, the embedding or the head is read.
 
-LoRA, remat policies and context parallelism are not ported yet.
+- Remat (`remat`, the trainer's gradient_checkpointing): in the GRPO loss's
+  differentiated forwards (the prompt forward and the completion chunk) each
+  decoder layer is one `torch.utils.checkpoint` unit, as JAX wraps each
+  scanned layer in `jax.checkpoint` (`REMAT_POLICIES`, `_layer_remat`).
+
+LoRA and context parallelism are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from functools import partial
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ...device import resolve_device
 from ...ops.attention import NEG_INF, mha_cached, mha_cached_q8, mha_reference, mha_shared_prefix, rope
 from ...ops.decode_attention import shared_prefix_decode_full
 from ...ops.flash_attention import flash_attention, flash_attention_shared_prefix
-from ...ops.quant import attn_qkv_proj, head_logits, mlp_proj, qmatmul, quantize_kv
+from ...ops.quant import attn_qkv_proj, current_proj_name, head_logits, mlp_proj, proj_name, qmatmul, quantize_kv
 from .config import TextConfig
+
+# Selective gradient checkpointing, as JAX's: each decoder layer is one
+# checkpointed unit, and a policy names the projection outputs it keeps as
+# backward residuals (`ops/quant.py::proj_name` plays JAX's checkpoint_name).
+# "full" keeps only the layer inputs (the backward reruns the whole layer);
+# "dots" keeps every projection product, so the backward reruns only the
+# norms, rope, silu and the attention forward; "dots_small" drops the wide
+# (B, S, 2·inter) gate/up products, ~3/4 of "dots"' residual bytes.
+REMAT_POLICIES = {
+    "dots": ("qkv_proj", "attn_proj", "mlp_gu", "mlp_down"),
+    "dots_small": ("qkv_proj", "attn_proj", "mlp_down"),
+}
+# the products a policy keeps: a projection's matmul (its bias add, views and
+# casts are rerun)
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
+
+
+def _keep_named(names: tuple):
+    """A selective-checkpoint policy: keep the products made under `names`
+    (keyed on the projection's name and the op, so "dots_small" tells the
+    gate/up product from the others), rerun everything else."""
+
+    def policy(ctx, op, *args, **kwargs):
+        if op in _PRODUCTS and current_proj_name() in names:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+def _layer_remat(layer, remat):
+    """remat: False → the plain layer; True/"full" → the layer under
+    torch.utils.checkpoint; a REMAT_POLICIES key → the same with that
+    policy. Without autograd (the reference forward) the plain layer. The
+    kernels in the layer (K1 or S1) rerun in the backward: their launch
+    counters count them twice."""
+    if not remat or not torch.is_grad_enabled():
+        return layer
+    if remat is True or remat == "full":
+        return partial(checkpoint, layer, use_reentrant=False)
+    context_fn = partial(create_selective_checkpoint_contexts, _keep_named(REMAT_POLICIES[remat]))
+    return partial(checkpoint, layer, use_reentrant=False, context_fn=context_fn)
 
 
 @dataclass
@@ -153,6 +202,7 @@ def decoder_forward(
     attention_mask: Optional[torch.Tensor] = None,  # (B, S) or, with a cache, (B, max_len)
     cache: Optional[KVCache] = None,
     use_flash: Optional[bool] = None,  # force (True) or deny (False) the flash branch
+    remat=False,  # gradient checkpointing per layer: False, True/"full", "dots", "dots_small"
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Run all decoder layers; returns (hidden (B, S, hid), updated cache).
 
@@ -238,15 +288,12 @@ def decoder_forward(
             kv_bias = torch.zeros((B, kv_len), dtype=torch.float32, device=device)
 
     sliding = _sliding_flags(cfg)
-    x = hidden
-    layer_kv = []
-    for li, lp in enumerate(params["layers"]):
+
+    def layer(x, lp, li):
         h = _rms_norm(x, lp["input_layernorm"], eps)
         q, k, v = attn_qkv_proj(h, lp, nh, nkv, hd)
         q = rope(q, cos_b, sin_b).to(x.dtype)
         k = rope(k, cos_b, sin_b).to(x.dtype)
-        if fills:
-            layer_kv.append((k, v))
         if quant_kv:
             attn = mha_cached_q8(q, cache.k[li], cache.v[li], cache.k_scale[li], cache.v_scale[li],
                                  k, v, bias_old, bias_new)
@@ -263,9 +310,21 @@ def decoder_forward(
             attn = flash_attention(q, k.contiguous(), v.contiguous(), kv_bias, True, None, 0)
         else:
             attn = mha_reference(q, k, v, bias=window_bias if sliding[li] else bias)
-        a = qmatmul(attn.reshape(B, S, nh * hd).to(x.dtype), lp["o_w"])
+        with proj_name("attn_proj"):
+            a = qmatmul(attn.reshape(B, S, nh * hd).to(x.dtype), lp["o_w"])
         x = x + a
         x = x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp)
+        return x, k, v
+
+    if remat and in_place and torch.is_grad_enabled():
+        raise ValueError("remat takes a forward that writes no cache in place (no cache, or one it fills)")
+    layer_fn = _layer_remat(layer, remat)
+    x = hidden
+    layer_kv = []
+    for li, lp in enumerate(params["layers"]):
+        x, k, v = layer_fn(x, lp, li)
+        if fills:
+            layer_kv.append((k, v))
 
     hidden = _rms_norm(x, params["norm"], eps)
     if fills:
@@ -345,6 +404,7 @@ def shared_decode_forward(
     suffix: Optional[KVCache],  # (L, B, max_new, Hkv, hd) per-row generated tokens, or None
     prefix_bias: torch.Tensor,  # (P, Lp) f32 additive (0 valid / NEG_INF pad)
     use_flash: Optional[bool] = None,  # force (True) or deny (False) the S1 branch
+    remat=False,  # gradient checkpointing per layer (the loss chunk only), as decoder_forward
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Decoder layers over rows that share their prompt's KV
     (`time_r1_tpu/models/qwen25vl/language.py:448`). Each layer attends
@@ -390,8 +450,7 @@ def shared_decode_forward(
     if d2 and isinstance(L0, int):  # D2 reads the length from device memory
         L0 = torch.full((1,), L0, dtype=torch.int32, device=device)
 
-    x = hidden
-    for li, lp in enumerate(params["layers"]):
+    def layer(x, lp, li):
         h = _rms_norm(x, lp["input_layernorm"], eps)
         q, k, v = attn_qkv_proj(h, lp, nh, nkv, hd)
         q = rope(q, cos_b, sin_b).to(x.dtype)
@@ -422,8 +481,16 @@ def shared_decode_forward(
             else:
                 _write_at(suffix.k, li, L0, k.to(suffix.k.dtype))
                 _write_at(suffix.v, li, L0, v.to(suffix.v.dtype))
-        x = x + qmatmul(attn.reshape(B, S, nh * hd).to(x.dtype), lp["o_w"])
-        x = x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp)
+        with proj_name("attn_proj"):
+            x = x + qmatmul(attn.reshape(B, S, nh * hd).to(x.dtype), lp["o_w"])
+        return x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp)
+
+    if remat and suffix is not None and torch.is_grad_enabled():
+        raise ValueError("remat takes the loss chunk (suffix=None): a decode step writes its suffix in place")
+    layer_fn = _layer_remat(layer, remat)
+    x = hidden
+    for li, lp in enumerate(params["layers"]):
+        x = layer_fn(x, lp, li)
 
     hidden = _rms_norm(x, params["norm"], eps)
     return hidden, None if suffix is None else _advance(suffix, S)

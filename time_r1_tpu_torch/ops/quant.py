@@ -26,6 +26,7 @@ take the unfused path, as JAX does off the TPU.
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +35,38 @@ from .fused_mlp import fused_mlp_eligible, fused_mlp_int8
 from .int4_matmul import int4_matmul
 
 QBITS = {"int8": 8, "int4": 4}  # Engine(quantization=...) names; an unknown name is a KeyError
+
+
+class _ProjName(threading.local):
+    value = None
+
+
+_PROJ_NAME = _ProjName()
+
+
+class proj_name:
+    """Names the products computed inside it ("qkv_proj", "attn_proj",
+    "mlp_gu", "mlp_down"), as JAX's `checkpoint_name` tags the projection
+    outputs: the selective remat policies
+    (`models/qwen25vl/language.py::REMAT_POLICIES`) save the products made
+    under the names they list. Outside a checkpointed layer it changes
+    nothing."""
+
+    __slots__ = ("name", "prev")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.prev, _PROJ_NAME.value = _PROJ_NAME.value, self.name
+
+    def __exit__(self, *exc):
+        _PROJ_NAME.value = self.prev
+
+
+def current_proj_name():
+    """The projection being computed on this thread (None outside one)."""
+    return _PROJ_NAME.value
 
 
 def is_quantized(w) -> bool:
@@ -177,13 +210,14 @@ def attn_qkv_proj(h: torch.Tensor, attn: dict, nh: int, nkv: int, hd: int):
     """q/k/v projections from fused ("qkv") or separate layer params:
     (B, S, hid) → (B,S,nh,hd), (B,S,nkv,hd), (B,S,nkv,hd)."""
     B, S = h.shape[:2]
-    if "qkv" in attn:
-        qkv = qmatmul(h, attn["qkv"]) + attn["qkv_b"]
-        q, k, v = qkv.split([nh * hd, nkv * hd, nkv * hd], dim=-1)
-    else:
-        q = qmatmul(h, attn["q_w"], attn["q_b"])
-        k = qmatmul(h, attn["k_w"], attn["k_b"])
-        v = qmatmul(h, attn["v_w"], attn["v_b"])
+    with proj_name("qkv_proj"):
+        if "qkv" in attn:
+            qkv = qmatmul(h, attn["qkv"]) + attn["qkv_b"]
+            q, k, v = qkv.split([nh * hd, nkv * hd, nkv * hd], dim=-1)
+        else:
+            q = qmatmul(h, attn["q_w"], attn["q_b"])
+            k = qmatmul(h, attn["k_w"], attn["k_b"])
+            v = qmatmul(h, attn["v_w"], attn["v_b"])
     return q.reshape(B, S, nh, hd), k.reshape(B, S, nkv, hd), v.reshape(B, S, nkv, hd)
 
 
@@ -203,11 +237,14 @@ def mlp_proj(h: torch.Tensor, mlp: dict) -> torch.Tensor:
         out = fused_mlp_int8(h.reshape(B * S, hid), mlp["gu"]["q8"], mlp["gu"]["s"],
                              mlp["down_w"]["q8"], mlp["down_w"]["s"])
         return out.reshape(B, S, hid)
-    if "gu" in mlp:
-        gate, up = qmatmul(h, mlp["gu"]).chunk(2, dim=-1)
-    else:
-        gate, up = qmatmul(h, mlp["gate_w"]), qmatmul(h, mlp["up_w"])
-    return qmatmul(F.silu(gate) * up, mlp["down_w"])
+    with proj_name("mlp_gu"):
+        if "gu" in mlp:
+            gate, up = qmatmul(h, mlp["gu"]).chunk(2, dim=-1)
+        else:
+            gate, up = qmatmul(h, mlp["gate_w"]), qmatmul(h, mlp["up_w"])
+    act = F.silu(gate) * up
+    with proj_name("mlp_down"):
+        return qmatmul(act, mlp["down_w"])
 
 
 @torch.no_grad()

@@ -15,8 +15,12 @@ Only the split batch (`GRPOSplitBatch`, the trainer's default) is ported: the
 prompt runs once per prompt through the differentiable prompt forward (K1
 forward, B1/B2 backward on the card) and each rollout row runs only its
 completion chunk over the shared prefix (S1 forward, S2 + B2 backward). The
-full-row `GRPOBatch` (ROADMAP A7) and the remat policies of
-`gradient_checkpointing` (ROADMAP A9) raise NotImplementedError.
+full-row `GRPOBatch` (ROADMAP A7) raises NotImplementedError.
+
+`gradient_checkpointing` (False, True/"full", "dots", "dots_small") makes
+each decoder layer of both differentiated forwards one checkpointed unit
+(`models/qwen25vl/language.py::REMAT_POLICIES`): the backward reruns the
+layer's K1 or S1 forward.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ class GRPOHyperParams:
     use_grpo: bool = False  # False → PPO-clip (the reference's default path)
     logp_chunk: int = 128  # sequence chunk of the log-softmax
     fix_vit: bool = True  # freeze the ViT except the merger
-    gradient_checkpointing: object = False  # remat policies: not ported (ROADMAP A9)
+    gradient_checkpointing: object = False  # remat per decoder layer: False, True/"full", "dots", "dots_small"
 
 
 class GRPOSplitBatch(NamedTuple):
@@ -123,11 +127,13 @@ def _split_logps_entropy(
     P, Lp, _ = embeds.shape
     B = batch.comp_ids.shape[0]
     cache = KVCache.zeros(cfg.text, P, Lp, dtype=embeds.dtype, device=embeds.device)
+    remat = hp.gradient_checkpointing
     hidden_p, prefix = decoder_forward(text, cfg.text, embeds, batch.prompt_pos,
-                                       attention_mask=batch.prompt_mask, cache=cache)
+                                       attention_mask=batch.prompt_mask, cache=cache, remat=remat)
     embeds_c = embed_lookup(text["embed_tokens"], batch.comp_ids)
     prefix_bias = torch.where(batch.prompt_mask > 0, 0.0, NEG_INF).float()
-    hidden_c, _ = shared_decode_forward(text, cfg.text, embeds_c, batch.comp_pos, prefix, None, prefix_bias)
+    hidden_c, _ = shared_decode_forward(text, cfg.text, embeds_c, batch.comp_pos, prefix, None, prefix_bias,
+                                        remat=remat)
     h_last = hidden_p[:, -1:].repeat_interleave(B // P, dim=0)  # (B, 1, H), shared within a group
     h_pred = torch.cat([h_last, hidden_c[:, :-1]], dim=1)  # (B, Lc, H)
     return per_token_logps_entropy(params, cfg, h_pred, batch.comp_ids, hp.logp_chunk)
@@ -170,11 +176,9 @@ def per_token_logps_entropy(
     return torch.cat(logps, dim=1), torch.cat(ents, dim=1)
 
 
-def _require_split(batch, hp: GRPOHyperParams) -> None:
+def _require_split(batch) -> None:
     if not isinstance(batch, GRPOSplitBatch):
         raise NotImplementedError("the full-row GRPOBatch loss is not ported yet (ROADMAP A7)")
-    if hp.gradient_checkpointing:
-        raise NotImplementedError("gradient_checkpointing (remat policies) is not ported yet (ROADMAP A9)")
 
 
 @torch.no_grad()
@@ -184,7 +188,7 @@ def compute_ref_logps(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, ba
     (K2/K3 on the card) whatever fix_vit says; with fix_vit the batch's
     `vision_hidden` (the policy's frozen blocks, equal to the reference's) is
     reused."""
-    _require_split(batch, hp)
+    _require_split(batch)
     batch = precompute_frozen_vision(params, cfg, batch)
     logps, _ = _split_logps_entropy(params, cfg, hp, batch, fix_vit=hp.fix_vit)
     return logps
@@ -194,7 +198,7 @@ def grpo_loss(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch: GRP
               ) -> tuple[torch.Tensor, dict]:
     """Loss and metrics (0-d tensors, without a graph) for one split batch;
     differentiable in every parameter that requires grad."""
-    _require_split(batch, hp)
+    _require_split(batch)
     logps, entropy = _split_logps_entropy(params, cfg, hp, batch, fix_vit=hp.fix_vit)
     comp_mask = batch.comp_mask.float()  # every chunk position predicts a completion token
     comp_len = batch.comp_mask.sum(dim=1).float()

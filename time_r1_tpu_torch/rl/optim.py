@@ -9,7 +9,13 @@ written out for lists of torch tensors.
   parameter's dtype, as optax keeps them;
 - MultiSteps: the micro-step gradients are averaged (a running mean, in the
   parameter dtype) and the inner chain runs on the k-th micro-step; the
-  updates in between are zero.
+  updates in between are zero;
+- the learning rate: a float, or a schedule (optax's `linear_schedule` and
+  `join_schedules`, computed in f32 as optax computes them) read at the
+  count of updates applied so far, so update n (1-based) takes schedule(n-1)
+  and only applied updates advance it; the rate is rounded to the
+  parameter's dtype before the product, as optax rounds a rate or a
+  schedule's value.
 
 Parameters are updated in place, so whatever else holds them (the rollout
 engine) sees the new weights without a copy.
@@ -18,9 +24,40 @@ engine) sees the new weights without a copy.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional, Sequence, Union
 
+import numpy as np
 import torch
+
+Schedule = Callable[[int], float]
+
+
+def linear_schedule(init_value: float, end_value: float, transition_steps: int) -> Schedule:
+    """optax.linear_schedule (transition_begin 0): init + (end - init) · t/T,
+    held at end from t = T, in f32 as optax computes it; T <= 0 holds init."""
+    if transition_steps <= 0:
+        return lambda count: float(np.float32(init_value))
+
+    def schedule(count: int) -> float:
+        t = np.float32(min(max(int(count), 0), transition_steps))
+        frac = np.float32(1) - t / np.float32(transition_steps)
+        return float(np.float32(init_value - end_value) * frac + np.float32(end_value))
+
+    return schedule
+
+
+def join_schedules(schedules: Sequence[Schedule], boundaries: Sequence[int]) -> Schedule:
+    """optax.join_schedules: from each boundary on, the next schedule, handed
+    the count since that boundary."""
+
+    def schedule(count: int) -> float:
+        out = schedules[0](count)
+        for boundary, fn in zip(boundaries, schedules[1:]):
+            if count >= boundary:
+                out = fn(count - boundary)
+        return out
+
+    return schedule
 
 
 @dataclass
@@ -31,15 +68,43 @@ class OptState:
     nu: list = field(default_factory=list)
     acc: Optional[list] = None  # running mean of the micro-step gradients (k > 1)
 
+    def tree(self) -> dict:
+        """The state as a tree of tensors (the counts as 0-d int64), for a
+        checkpoint; `load_tree` takes it back."""
+        tree = {"count": torch.tensor(self.count), "mini_step": torch.tensor(self.mini_step),
+                "mu": self.mu, "nu": self.nu}
+        if self.acc is not None:
+            tree["acc"] = self.acc
+        return tree
+
+    def load_tree(self, tree: dict) -> None:
+        """Take the counts back from `tree` (its tensors are this state's own,
+        restored in place)."""
+        self.count, self.mini_step = int(tree["count"]), int(tree["mini_step"])
+
 
 class AdamWMultiSteps:
     """clip_by_global_norm(max_grad_norm) → adamw(...), applied every k
-    micro-steps to the mean of their gradients."""
+    micro-steps to the mean of their gradients.
 
-    def __init__(self, learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 weight_decay: float = 0.0, max_grad_norm: float = 1.0, every_k: int = 1):
+    `learning_rate` is a float or a schedule. A schedule reads the count of
+    updates since `schedule_start`, an update count of the state (the
+    trainer's `train()` starts its schedule at the count it holds, so that a
+    restored state keeps its moments and Adam's count while the schedule
+    starts over, as JAX's does). `lrs` holds the rate of every applied
+    update."""
+
+    def __init__(self, learning_rate: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 0.0, max_grad_norm: float = 1.0, every_k: int = 1,
+                 schedule_start: int = 0):
         self.lr, self.b1, self.b2, self.eps = learning_rate, b1, b2, eps
         self.weight_decay, self.max_grad_norm, self.every_k = weight_decay, max_grad_norm, every_k
+        self.schedule_start = schedule_start
+        self.lrs: list[float] = []
+
+    def lr_at(self, count: int) -> float:
+        """The rate of the update taken when `count` updates were applied."""
+        return self.lr(count - self.schedule_start) if callable(self.lr) else self.lr
 
     def init(self, params: list[torch.Tensor]) -> OptState:
         zeros = [torch.zeros_like(p, memory_format=torch.contiguous_format) for p in params]
@@ -63,6 +128,9 @@ class AdamWMultiSteps:
             grads = state.acc
         g_norm = float(torch.sqrt(sum(g.float().pow(2).sum() for g in grads)))
         scale = None if g_norm < self.max_grad_norm else self.max_grad_norm
+        lr = self.lr_at(state.count)
+        self.lrs.append(lr)
+        rates = {}  # -lr rounded to each update dtype, as optax rounds it
         state.count += 1
         bc1 = 1.0 - self.b1 ** state.count
         bc2 = 1.0 - self.b2 ** state.count
@@ -74,7 +142,9 @@ class AdamWMultiSteps:
             v.copy_((1 - self.b2) * (g * g) + self.b2 * v)
             u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
             u = u + self.weight_decay * p
-            p.add_(-self.lr * u)
+            if u.dtype not in rates:
+                rates[u.dtype] = float(torch.tensor(-lr, dtype=u.dtype))
+            p.add_(rates[u.dtype] * u)
         if state.acc is not None:
             for a in state.acc:
                 a.zero_()

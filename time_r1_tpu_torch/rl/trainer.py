@@ -18,19 +18,32 @@ The host input path (`prepare_requests`) turns dataset examples into engine
 Requests: the injected `video_loader` decodes and resizes the video (or an
 offline-preprocessed `video.npz` is read), the processor renders the chat
 template, tokenizes and patchifies, and the patches are staged on the
-trainer's device in its dtype. It writes no trainer state, so a prefetch
-thread may run it one batch ahead.
+trainer's device in its dtype. It writes no trainer state, so `train()`'s
+prefetch thread runs it one batch ahead.
+
+`train()` is the epoch loop around `step_batch`: the linear warmup-and-decay
+lr schedule (or a constant lr), the one-batch-ahead prefetch, logging to
+the metric sinks (`report_to`: tensorboard, wandb), the save cadence in
+optimizer steps and `max_steps`. Checkpoints (`save_checkpoint`,
+`load_checkpoint_state`) are the port's own format (`utils/checkpoint.py`).
+On resume the restored optimizer state survives `train()`: the moments,
+Adam's count and the accumulation carry on, and only the schedule starts
+over (JAX's `train()` re-initializes the state it restored; ROADMAP §C).
+`gradient_checkpointing` selects the remat policy of the loss's decoder
+layers (`remat_policy`).
 
 Not ported yet, each raising NotImplementedError where it is asked for: the
-full-row loss (`shared_prefix_loss=False`, ROADMAP A7), LoRA (A8), the
-training loop around `step_batch`, remat, checkpoints and optimizer offload
-(A9), and device meshes and context parallelism (A13).
+full-row loss (`shared_prefix_loss=False`, ROADMAP A7), LoRA (A8), optimizer
+offload (A9), and device meshes and context parallelism (A13).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import math
 import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
@@ -39,9 +52,12 @@ import torch
 
 from ..device import resolve_device
 from ..models.qwen25vl import Qwen25VLConfig
+from ..models.qwen25vl.convert import NATIVE_CONFIG, config_to_plain_dict
 from ..models.qwen25vl.model import vision_signature
 from ..ops.quant import is_quantized
 from ..sampler import Engine, Request, SamplingParams
+from ..utils.checkpoint import is_native_checkpoint, load_params_into, save_params
+from ..utils.logging_sinks import DebugRewardLog
 from ..utils.profiling import PhaseTimers
 from .grpo import (
     GRPOHyperParams,
@@ -51,7 +67,7 @@ from .grpo import (
     precompute_frozen_vision,
     trainable_leaves,
 )
-from .optim import AdamWMultiSteps
+from .optim import AdamWMultiSteps, join_schedules, linear_schedule
 from .rollout import build_grpo_split_batch
 
 SYSTEM_PROMPT = "You are a video analysis expert."
@@ -88,6 +104,21 @@ PROMPT_TEMPLATES = {
     "v2": QUESTION_TEMPLATE_TG_V2,
     "v3": QUESTION_TEMPLATE_TG_V3,
 }
+
+
+class _MultiSink:
+    """Fan metric logs out to every configured sink (tensorboard, wandb)."""
+
+    def __init__(self, sinks):
+        self.sinks = sinks
+
+    def log(self, metrics, step):
+        for s in self.sinks:
+            s.log(metrics, step)
+
+    def close(self):
+        for s in self.sinks:
+            s.close()
 
 
 @dataclass
@@ -167,8 +198,8 @@ def _unported(config: TrainConfig, mesh) -> Optional[str]:
         return "LoRA training is not ported yet (ROADMAP A8)"
     if not config.shared_prefix_loss:
         return "the full-row loss (shared_prefix_loss=False) is not ported yet (ROADMAP A7)"
-    if config.offload_optimizer or config.gradient_checkpointing:
-        return "optimizer offload and gradient checkpointing are not ported yet (ROADMAP A9)"
+    if config.offload_optimizer:
+        return "optimizer offload is not ported yet (ROADMAP A9)"
     return None
 
 
@@ -232,25 +263,56 @@ class GRPOTrainer:
             beta=config.beta,
             use_grpo=config.use_grpo,
             fix_vit=config.fix_vit,
+            gradient_checkpointing=(config.remat_policy or "full") if config.gradient_checkpointing else False,
         )
         # fix_vit: the rollout prefill keeps the frozen blocks' output and the
         # loss and ref forwards reuse it (one ViT-blocks pass per step)
         self.engine.capture_vision_hidden = config.fix_vit
+        self.opt_state = None
         self._setup_optimizer(config.learning_rate)
         self._metrics: dict[str, list] = {}
+        self.global_step = 0
         self._rng = np.random.default_rng(config.seed)
         self.timers = PhaseTimers()
+        # report_to is a comma list as in HF ("tensorboard,wandb"); a sink
+        # whose backend is missing is left out with a notice
+        self._tb = None
+        sinks = [s.strip() for s in (config.report_to or "none").split(",")]
+        sink_objs = []
+        logdir = config.logging_dir or os.path.join(config.output_dir, "tb")
+        if "tensorboard" in sinks:
+            try:
+                from ..utils.logging_sinks import TensorBoardSink
+
+                sink_objs.append(TensorBoardSink(logdir))
+            except Exception as e:  # tensorboard is optional
+                print(f"[trainer] tensorboard sink unavailable: {e}")
+        if "wandb" in sinks:
+            try:
+                from ..utils.logging_sinks import WandbSink
+
+                sink_objs.append(WandbSink(logdir, run_name=config.run_name))
+            except Exception as e:
+                print(f"[trainer] wandb sink unavailable: {e}")
+        if sink_objs:
+            self._tb = _MultiSink(sink_objs)
+        self._debug_log = DebugRewardLog()
 
     # ------------------------------------------------------------------
-    def _setup_optimizer(self, learning_rate: float) -> None:
-        """clip_by_global_norm + adamw, inside MultiSteps when accumulating."""
+    def _setup_optimizer(self, learning_rate) -> None:
+        """clip_by_global_norm + adamw, inside MultiSteps when accumulating,
+        with a fixed lr or a schedule. The first call makes the optimizer
+        state; a later one (train()'s schedule) keeps the state the trainer
+        holds and starts the schedule at its update count."""
         c = self.c
         self.optimizer = AdamWMultiSteps(
             learning_rate, b1=c.adam_beta1, b2=c.adam_beta2, eps=c.adam_epsilon,
             weight_decay=c.weight_decay, max_grad_norm=c.max_grad_norm,
             every_k=max(c.gradient_accumulation_steps, 1),
+            schedule_start=0 if self.opt_state is None else self.opt_state.count,
         )
-        self.opt_state = self.optimizer.init(trainable_leaves(self.params, self.hp.fix_vit))
+        if self.opt_state is None:
+            self.opt_state = self.optimizer.init(trainable_leaves(self.params, self.hp.fix_vit))
         self._train_step = make_train_step(self.cfg, self.hp, self.optimizer)
 
     # ------------------------------------------------------------------
@@ -362,6 +424,7 @@ class GRPOTrainer:
             self.params, self.opt_state, loss, metrics = self._train_step(self.params, self.opt_state, batch)
         for k, v in metrics.items():
             self._log_metric(k, float(v))
+        self.global_step += 1
         return {"loss": float(loss), "reward": float(rewards_all.mean())}
 
     def _score_rollouts(self, examples, requests, all_completions):
@@ -381,6 +444,10 @@ class GRPOTrainer:
                 out = fn(completions=completion_texts, **reward_kwargs)
                 rewards_per_func[:, i] = [0.0 if r is None else float(r) for r in out]
             rewards = rewards_per_func.sum(axis=1)
+            if self._debug_log.enabled:
+                for g in range(G):
+                    self._debug_log.log_reward(completion_texts[g], None, example.get("solution"),
+                                               float(rewards[g]))
             for i, fn in enumerate(self.reward_funcs):
                 self._log_metric(f"rewards/{fn.__name__}", rewards_per_func[:, i].mean())
             for fn in self.metric_funcs:
@@ -407,3 +474,113 @@ class GRPOTrainer:
     def _strip_stop(self, comp):
         # decode for rewards without the stop token (skip_special_tokens parity)
         return [t for t in comp if t != self.cfg.eos_token_id]
+
+    # ------------------------------------------------------------------
+    def train(self, dataset: Sequence[dict], log_fn: Optional[Callable] = None, max_steps: Optional[int] = None):
+        """The epoch loop, with per-epoch checkpoints and early stopping.
+
+        max_steps (in global_step units, i.e. micro-steps): a hard stop for a
+        resumed run, which trains exactly its quota (the reference recomputes
+        and enforces it from trainer_state.json, main.py:589-618).
+
+        The lr schedule (linear: a warmup over warmup_ratio of the updates,
+        then a decay to 0) counts the updates from this call on. It is built
+        without touching the optimizer state the trainer holds, so a restored
+        state keeps its moments and counts."""
+        c = self.c
+        micro_per_epoch = math.ceil(len(dataset) / max(int(c.per_device_train_batch_size), 1))
+        steps_per_epoch = math.ceil(micro_per_epoch / c.gradient_accumulation_steps)
+        n_epochs = 1 if c.is_early_stopping else int(math.ceil(c.num_train_epochs))
+        if c.lr_scheduler_type == "linear":
+            total_updates = max(steps_per_epoch * n_epochs, 1)
+            warmup = int(total_updates * c.warmup_ratio)
+            schedule = join_schedules(
+                [linear_schedule(0.0, c.learning_rate, max(warmup, 1)),
+                 linear_schedule(c.learning_rate, 0.0, max(total_updates - warmup, 1))],
+                boundaries=[warmup],
+            ) if warmup else linear_schedule(c.learning_rate, 0.0, total_updates)
+            self._setup_optimizer(schedule)
+        bs = max(int(c.per_device_train_batch_size), 1)
+        # one batch ahead: the host preprocessing (video decode, resize,
+        # template, patchify, staging) of batch k+1 runs on one worker thread
+        # while the device computes step k; in-order submission keeps the
+        # order, and a worker's exception reaches this thread at .result()
+        batches = [(epoch, dataset[i:i + bs]) for epoch in range(n_epochs) for i in range(0, len(dataset), bs)]
+        prefetch = ThreadPoolExecutor(max_workers=1)
+        try:
+            pending = prefetch.submit(self.prepare_requests, batches[0][1]) if batches else None
+            for bi, (epoch, examples) in enumerate(batches):
+                if max_steps is not None and self.global_step >= max_steps:
+                    return
+                with self.timers.phase("host_preproc_wait"):
+                    requests = pending.result()
+                if bi + 1 < len(batches):
+                    pending = prefetch.submit(self.prepare_requests, batches[bi + 1][1])
+                self.step_batch(examples, requests=requests)
+                if self.global_step % c.logging_steps == 0:
+                    logs = {"epoch": epoch, "step": self.global_step, **self.pop_metrics()}
+                    if self._tb is not None:
+                        self._tb.log(logs, self.global_step)
+                    (log_fn or print)(logs)
+                # the save cadence counts optimizer steps, as HF's Trainer
+                # does: with accumulation 2 and save_steps 50, micro-steps
+                # 100, 200, ...
+                accum = max(int(c.gradient_accumulation_steps), 1)
+                opt_step, in_window = divmod(self.global_step, accum)
+                if c.save_strategy == "steps" and in_window == 0 and opt_step % c.save_steps == 0:
+                    self.save_checkpoint(os.path.join(c.output_dir, f"checkpoint-{opt_step}"))
+                if bi + 1 == len(batches) or batches[bi + 1][0] != epoch:  # the epoch's last batch
+                    if c.save_strategy == "epoch":
+                        self.save_checkpoint(os.path.join(c.output_dir, f"checkpoint-{self.global_step}"))
+                    self.save_checkpoint(os.path.join(c.output_dir, f"epoch-{epoch + 1}"))
+        finally:
+            prefetch.shutdown(wait=False, cancel_futures=True)
+
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, path: str):
+        """params (and, with save_only_model False, the optimizer state),
+        trainer_state.json, the model config and a model card."""
+        os.makedirs(path, exist_ok=True)
+        save_params(path, self.params)
+        if not self.c.save_only_model:
+            # the full training state (HF --save_only_model false): a resume
+            # restores the moments and the accumulation and schedule counts
+            save_params(path, self.opt_state.tree(), name="opt_state")
+        with open(os.path.join(path, "trainer_state.json"), "w") as f:
+            json.dump({"global_step": self.global_step}, f)
+        with open(os.path.join(path, NATIVE_CONFIG), "w") as f:
+            json.dump(config_to_plain_dict(self.cfg), f)
+        self.save_model_card(path)
+
+    def load_checkpoint_state(self, path: str):
+        """Restore params, global_step and (when saved) the optimizer state,
+        in place: the engine and the optimizer hold the same tensors."""
+        if os.path.exists(os.path.join(path, "lora_adapters.npz")):
+            raise NotImplementedError(f"{path} holds LoRA adapters: LoRA training is not ported yet (ROADMAP A8)")
+        load_params_into(path, self.params)  # refuses an orbax directory, and a tree of another shape
+        self.engine.set_params(self.params)
+        state_path = os.path.join(path, "trainer_state.json")
+        if os.path.exists(state_path):
+            with open(state_path) as f:
+                self.global_step = json.load(f).get("global_step", self.global_step)
+        if is_native_checkpoint(path, "opt_state"):
+            tree = self.opt_state.tree()
+            load_params_into(path, tree, name="opt_state")
+            self.opt_state.load_tree(tree)
+
+    def save_model_card(self, path: str):
+        """A draft model card (timer1_trainer.py:795-857)."""
+        card = (
+            "# GRPO-trained Qwen2.5-VL (Time-R1 TPU)\n\n"
+            "Trained with Group Relative Policy Optimization "
+            "([DeepSeekMath](https://huggingface.co/papers/2402.03300)) on "
+            "temporal video grounding with verifiable tIoU/format rewards.\n\n"
+            f"- global_step: {self.global_step}\n"
+            f"- num_generations (G): {self.c.num_generations}\n"
+            f"- temperature: {self.c.temperature}\n"
+            f"- beta (KL): {self.c.beta}\n"
+            f"- loss: {'vanilla GRPO' if self.c.use_grpo else 'PPO-clip (eps=0.2)'}\n"
+            f"- reward_funcs: {[f.__name__ for f in self.reward_funcs]}\n"
+        )
+        with open(os.path.join(path, "README.md"), "w") as f:
+            f.write(card)
