@@ -61,6 +61,11 @@ Phases (any failed check raises and the exit code is non-zero):
    equal (their equality with the eager draws reported), and one replayed
    step's launches of each kernel by name (torch.profiler) equal to its
    per-layer count x 2 layers;
+3f. the evaluation entry point at reduced depth: `cli.evaluate.main` on the
+   card and on the CPU from one native checkpoint, f32, two items of phase
+   9's clip through Engine, PagedEngine and ContinuousEngine: equal jsonl
+   records (greedy output_text, pred, target, qid), K1-K3 and P1 on their
+   FMA kernels only;
 4. the serving path at full size: Qwen2.5-VL-3B in bf16 with seeded random
    weights, two video requests, greedy decode of 128 tokens, with K1-K3's
    launch counts read around that one generate() call (exactly 36 K1, 28 K2
@@ -116,7 +121,19 @@ Phases (any failed check raises and the exit code is non-zero):
    saved with --save_only_model false and resumed from its native
    checkpoint (params, moments, accumulation, counts and global_step
    bit-equal; stopped at resumed + quota); (d) phase 3b's split batch in
-   bf16 under each remat policy against none.
+   bf16 under each remat policy against none;
+10. the TimeRFT sample-filtering loop, once phase 9's model is freed (it
+   writes up to 32 GB under TMPDIR and deletes it): (a) one round of
+   `time_r1_tpu_torch.cli.train_sf.main` on Qwen2.5-VL-3B from a native
+   base checkpoint, the recipe's "0070_all", 4 examples of phase 9's clip
+   (train for one early-stopped epoch, the smallest checkpoint, its
+   self-eval through `cli.evaluate`, the difficulty merge, the filter):
+   each stage's wall seconds, the eval's vision ms, prefill ms, decode
+   ms/step and items/s, checkpoint load GB/s and the peak; per `step_batch`
+   phase 9's launches, per eval item exactly 28 K2, 4 K3 and 36 K1 a
+   prefill chunk, all on the tensor cores, summing to the round's; (b) two
+   rounds at 3B widths with 2 decoder layers and "random_sample": round 1
+   trains from round 0's smallest checkpoint on round 0's filtered json.
 
 From phase 3 on, every `Engine` and `PagedEngine` decode on the card is a
 captured CUDA graph replayed once a step (`time_r1_tpu_torch/sampler/graph.py`;
@@ -3232,14 +3249,15 @@ def trees_equal(a, b) -> bool:
 
 def write_dataset(root: str, name: str, n: int) -> str:
     """A TimeRFT annotation file of n examples whose videos are placeholder
-    files (cli_stand_ins' loader stands in for their decode)."""
+    files (cli_stand_ins' loader stands in for their decode), each with the
+    qid that the SF loop's self-eval keys on."""
     items = []
     for i in range(n):
         video = os.path.join(root, f"{name}_{i}.mp4")
         with open(video, "wb") as f:
             f.write(b"placeholder")
         items.append({"video": video, "duration": 4.0, "timestamp": [0.5 + 0.25 * i, 2.5 + 0.25 * i],
-                      "sentence": f"A person opens door number {i}."})
+                      "sentence": f"A person opens door number {i}.", "qid": f"{name}_{i}"})
     path = os.path.join(root, f"{name}.json")
     with open(path, "w") as f:
         json.dump(items, f)
@@ -3248,32 +3266,36 @@ def write_dataset(root: str, name: str, n: int) -> str:
 
 @contextmanager
 def cli_stand_ins(cfg):
-    """What `cli.train.main` cannot have without a real checkpoint and video,
-    patched for the block: the processor's tokenizer (StandInTokenizer, as the CPU tests
-    patch `from_pretrained` with the tiny tokenizer), the video decode (phase
-    8's seeded frames of CLI_CLIP), and a reward that varies across a group
-    (random weights score 0 on the timestamp and format rewards). The
-    trainer's phase timers sync, so that they are device times."""
+    """What `cli.train.main` and `cli.evaluate.main` cannot have without a
+    real checkpoint and video, patched for the block: the processor's
+    tokenizer (StandInTokenizer, as the CPU tests patch `from_pretrained`
+    with the tiny tokenizer), the video decode of the trainer and of
+    `EvalDataset` (phase 8's seeded frames of CLI_CLIP), and a reward that
+    varies across a group (random weights score 0 on the timestamp and
+    format rewards). The trainer's phase timers sync, so that they are
+    device times."""
     from time_r1_tpu_torch.cli import train as cli
+    from time_r1_tpu_torch.data import eval_dataset
     from time_r1_tpu_torch.models.processor import Qwen25VLProcessor
     from time_r1_tpu_torch.utils.rewards import REWARD_FUNCS_REGISTRY
 
     loader = FrameLoader()
-    saved = (Qwen25VLProcessor.__dict__["from_pretrained"], cli.video_loader, os.environ.get("TIMER1_SYNC_TIMERS"))
+    saved = (Qwen25VLProcessor.__dict__["from_pretrained"], cli.video_loader, eval_dataset.fetch_video,
+             os.environ.get("TIMER1_SYNC_TIMERS"))
     Qwen25VLProcessor.from_pretrained = classmethod(lambda cls, path, **kw: cls(
         StandInTokenizer(cfg), pad_token_id=cfg.pad_token_id, eos_token_id=cfg.eos_token_id))
-    cli.video_loader = lambda ele: loader({**ele, "video": CLI_CLIP})
+    cli.video_loader = eval_dataset.fetch_video = lambda ele: loader({**ele, "video": CLI_CLIP})
     REWARD_FUNCS_REGISTRY["char_parity"] = char_parity_reward
     os.environ["TIMER1_SYNC_TIMERS"] = "1"
     try:
         yield cli
     finally:
-        Qwen25VLProcessor.from_pretrained, cli.video_loader = saved[0], saved[1]
+        Qwen25VLProcessor.from_pretrained, cli.video_loader, eval_dataset.fetch_video = saved[:3]
         del REWARD_FUNCS_REGISTRY["char_parity"]
-        if saved[2] is None:
+        if saved[3] is None:
             os.environ.pop("TIMER1_SYNC_TIMERS", None)
         else:
-            os.environ["TIMER1_SYNC_TIMERS"] = saved[2]
+            os.environ["TIMER1_SYNC_TIMERS"] = saved[3]
 
 
 @contextmanager
@@ -3299,7 +3321,7 @@ def gc_timed(times: list):
 
 @contextmanager
 def patched(cls, name: str, wrap):
-    """cls.name replaced by wrap(original) for the block."""
+    """cls.name (a class's or a module's attribute) replaced by wrap(original) for the block."""
     original = getattr(cls, name)
     setattr(cls, name, wrap(original))
     try:
@@ -3656,6 +3678,351 @@ def remat_parity(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 3f and 10: the evaluation entry point and the TimeRFT sample-filtering loop
+EVAL_PIXELS = (256 * 28 * 28, 16 * 28 * 28)  # phase 3f's total and min pixels: 8 frames at 168x308, 264 video tokens
+PHASE10_BYTES = 32e9  # what phase 10 (a) writes at its peak (four 3B checkpoints of 7.5 GB), with room
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def native_checkpoint(path: str, params, cfg) -> int:
+    """A checkpoint in the port's native format (what its trainer writes);
+    returns the bytes written."""
+    from time_r1_tpu_torch.models.qwen25vl.convert import NATIVE_CONFIG, config_to_plain_dict
+    from time_r1_tpu_torch.utils.checkpoint import save_params
+
+    nbytes = save_params(path, params)
+    with open(os.path.join(path, NATIVE_CONFIG), "w") as f:
+        json.dump(config_to_plain_dict(cfg), f)
+    return nbytes
+
+
+def phase_reduced_eval() -> dict:
+    """Phase 3f: `cli.evaluate.main` at reduced depth (3B widths, 2 decoder
+    layers, 2 ViT blocks), f32, on the card and on the CPU from one native
+    checkpoint the port wrote (the engine built by the harness in f32; the
+    CLI's own load is bf16), over two items of CLI_CLIP at a small pixel
+    budget, through Engine, PagedEngine (--use_continuous_batching, two
+    slots) and ContinuousEngine (--kv_block_size 0). The jsonl records must
+    be equal, card against CPU (greedy output_text, pred, target, qid),
+    and the three engines' records equal to each other; on the card f32
+    runs K1-K3 (and P1) on their FMA kernels only."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from time_r1_tpu_torch.cli import evaluate
+    from time_r1_tpu_torch.models.processor import Qwen25VLProcessor
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.models.qwen25vl.convert import load_checkpoint
+    from time_r1_tpu_torch.sampler import Engine
+
+    cfg = reduced_config()
+    root = tempfile.mkdtemp(prefix="timer1_phase3f_")
+    modes = {
+        "Engine": ([], None),
+        "PagedEngine": (["--use_continuous_batching", "--batch_size", "2", "--max_model_len", "2048"],
+                        "paged_prefix_attention"),
+        "ContinuousEngine": (["--use_continuous_batching", "--batch_size", "2", "--max_model_len", "2048",
+                              "--kv_block_size", "0"], None),
+    }
+    out = {}
+    try:
+        ckpt = os.path.join(root, "ckpt")
+        native_checkpoint(ckpt, init_params(cfg, seed=0, device="cpu", dtype=torch.float32), cfg)
+        data = write_dataset(root, "eval", 2)
+        with cli_stand_ins(cfg):
+            for mode, (flags, paged) in modes.items():
+                recs = {}
+                for dev in ("cuda", "cpu"):
+                    params, _ = load_checkpoint(ckpt, dtype=torch.float32, device=dev)
+                    eng = Engine(params, cfg, dtype=torch.float32, device=dev)
+                    args = evaluate.get_args([
+                        "--model_base", ckpt, "--datasets", "tvgbench_filter", "--split", data,
+                        "--output_dir", os.path.join(root, f"{mode}_{dev}"), "--use_r1_thinking_prompt",
+                        "--max_new_tokens", "8", "--total_pixels", str(EVAL_PIXELS[0]),
+                        "--min_pixels", str(EVAL_PIXELS[1]), "--num_workers", "0", *flags])
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    recs[dev] = read_jsonl(evaluate.main(args, eng, Qwen25VLProcessor.from_pretrained(ckpt),
+                                                         device=dev))
+                    log(f"[eval-reduced] {mode} {dev}: {time.perf_counter() - t0:.1f} s, launches "
+                        f"{ {k: v for k, v in read_launches().items() if v} }")
+                    if dev == "cuda":
+                        want = {n: None for n in FWD_TC} | ({paged: None} if paged else {})
+                        check_tc_route(f"eval-reduced {mode}", read_launches(), want, tensor_cores=False)
+                log(f"[eval-reduced] {mode}: {[(r['qid'], r['output_text'][-24:], r['pred']) for r in recs['cuda']]}")
+                if recs["cuda"] != recs["cpu"] or [r["qid"] for r in recs["cuda"]] != ["eval_0", "eval_1"]:
+                    raise AssertionError(f"3f {mode}: the records differ, card {recs['cuda']} cpu {recs['cpu']}")
+                out[mode] = recs["cuda"]
+        if not out["Engine"] == out["PagedEngine"] == out["ContinuousEngine"]:
+            raise AssertionError(f"3f: the engines' records differ: {out}")
+        log("[eval-reduced] evaluate.main: card == cpu for Engine, PagedEngine and ContinuousEngine, "
+            "and the three engines agree")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def stage_timed(stages: dict, key: str, fn):
+    """fn with its wall seconds (synced) added to stages[key]."""
+    import torch
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.synchronize()
+            stages[key] = stages.get(key, 0.0) + time.perf_counter() - t0
+    return timed
+
+
+def eval_item_launches(cfg, prompt_len: int, chunk: int) -> dict:
+    """The tensor-core launches of one eval item through Engine (G = 1): K2
+    and K3 in its vision tower, K1 once a layer for each prefill chunk of its
+    bucket; the G = 1 decode runs none of the port's kernels."""
+    from time_r1_tpu_torch.sampler.engine import _bucket
+
+    return vision_tc_launches(cfg) | {"flash_attention": cfg.text.num_hidden_layers * -(-_bucket(prompt_len) // chunk)}
+
+
+def phase_sf_round(card: str) -> dict:
+    """Phase 10: the TimeRFT sample-filtering loop through
+    `cli.train_sf.main`, after phase 9 freed its model.
+    (a) one round at Qwen2.5-VL-3B's full width and depth (bf16, seeded
+    weights) from a native base checkpoint, the recipe's "0070_all", 4
+    examples of CLI_CLIP: train (cli.train's defaults, remat "full", one
+    early-stopped epoch: 4 step_batch calls), the round's smallest
+    checkpoint, its self-eval on the round's data (cli.evaluate through
+    Engine, 4 items, 128 greedy tokens), the difficulty merge and the
+    filter. Wall seconds per stage, the eval's vision and prefill ms,
+    decode ms/step and items/s, checkpoint load GB/s and the peak; exact
+    tensor-core launches per step_batch (phase 9's) and per eval item (K2
+    28, K3 4, K1 36 a prefill chunk), which must sum to the round's.
+    (b) two rounds at 3B widths with 2 decoder layers and "random_sample":
+    round 1 trains from round 0's smallest checkpoint on round 0's filtered
+    json. Writes up to 32 GB under TMPDIR, refuses to start with less free,
+    and deletes it all at the end. Returns (a)'s launches over the round."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from time_r1_tpu_torch.cli import calc_difficulty, evaluate, train_sf
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig, init_params
+    from time_r1_tpu_torch.rl import GRPOTrainer
+    from time_r1_tpu_torch.sampler import TextEngine
+    from time_r1_tpu_torch.sampler.engine import PREFILL_CHUNK  # evaluate's Engine prefills in chunks of this
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="timer1_phase10_")
+    free = shutil.disk_usage(root).free
+    log(f"[sf] {root}: {free / 1e9:.1f} GB free; phase 10 writes up to {PHASE10_BYTES / 1e9:.0f} GB")
+    if free < PHASE10_BYTES:
+        shutil.rmtree(root, ignore_errors=True)
+        raise AssertionError(f"phase 10 needs {PHASE10_BYTES / 1e9:.0f} GB under {root}, which has "
+                             f"{free / 1e9:.1f} GB free: point TMPDIR at a larger disk")
+    cfg = Qwen25VLConfig.qwen25vl_3b()
+    L = cfg.text.num_hidden_layers
+    result = {"card": card}
+    try:
+        base = os.path.join(root, "base")
+        t0 = time.perf_counter()
+        nbytes = native_checkpoint(base, init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16), cfg)
+        log(f"[sf] (a) the 3B native base: {nbytes / 1e9:.3f} GB written in {time.perf_counter() - t0:.2f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        data = write_dataset(root, "train", 4)
+        exp = os.path.join(root, "exp")
+        stages, steps, items, loads = {}, [], [], []
+
+        def timed_step(original):
+            def step_batch(self, examples, requests=None):
+                before = read_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = original(self, examples, requests=requests)
+                torch.cuda.synchronize()
+                after = read_launches()
+                steps.append(dict(launches={k: after[k] - before[k] for k in after}, s=time.perf_counter() - t0,
+                                  decode_steps=self.engine.timings["decode_steps"], loss=out["loss"]))
+                return out
+            return step_batch
+
+        class ItemTimed(TextEngine):
+            """evaluate's TextEngine, each generate (one item: batch size 1) with its launches and timings."""
+
+            def generate(self, requests, **kw):
+                before = read_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                texts = super().generate(requests, **kw)
+                torch.cuda.synchronize()
+                after = read_launches()
+                tm = self.engine.timings
+                items.append(dict(launches={k: after[k] - before[k] for k in after}, s=time.perf_counter() - t0,
+                                  prompt_len=len(requests[0].input_ids), vision_ms=tm["vision_s"] * 1e3,
+                                  prefill_ms=tm["prefill_s"] * 1e3, decode_steps=tm["decode_steps"],
+                                  decode_ms_per_step=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1)))
+                return texts
+
+        def timed_load(fn):
+            def load_checkpoint(path, *a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(path, *a, **kw)
+                torch.cuda.synchronize()
+                loads.append(dict(dir=os.path.basename(path), gb=dir_bytes(path) / 1e9, s=time.perf_counter() - t0))
+                return out
+            return load_checkpoint
+
+        sf_args = train_sf.get_args(["--model_name_or_path", base, "--exp_dir", exp, "--initial_data", data,
+                                     "--rounds", "1", "--k", "4", "--reward_funcs", "iou_v2", "format", "char_parity"])
+        def timed(key):
+            return lambda f: stage_timed(stages, key, f)
+
+        with cli_stand_ins(cfg) as cli, patched(GRPOTrainer, "step_batch", timed_step), \
+                patched(GRPOTrainer, "save_checkpoint", timed("save")), patched(cli, "main", timed("train")), \
+                patched(cli, "load_checkpoint", timed_load), patched(evaluate, "load_checkpoint", timed_load), \
+                patched(evaluate, "main", timed("evaluate")), patched(evaluate, "TextEngine", lambda _: ItemTimed), \
+                patched(calc_difficulty, "merge", timed("merge")), patched(train_sf, "process_data_file", timed("filter")):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            filtered = train_sf.main(sf_args)
+            torch.cuda.synchronize()
+            round_s = time.perf_counter() - t0
+            launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        stages["train"] -= stages["save"]  # train() saves inside cli.train.main: apart here
+        log(f"[sf] (a) train_sf.main, one round: {round_s:.2f} s; stages (s) "
+            f"{ {k: round(v, 2) for k, v in stages.items()} }; peak {peak:.2f} GiB allocated; {card}")
+        for ld in loads:
+            log(f"[sf] (a) load_checkpoint {ld['dir']}: {ld['gb']:.3f} GB in {ld['s']:.2f} s "
+                f"({ld['gb'] / ld['s']:.2f} GB/s); {card}")
+        for i, st in enumerate(steps, start=1):
+            log(f"[sf] (a) step_batch {i}: {st['s']:.2f} s, loss {st['loss']:.6f}, {st['decode_steps']} decode steps, "
+                f"launches { {k: v for k, v in st['launches'].items() if v} }; {card}")
+            check_step_launches(f"sf step_batch {i}", st["launches"], st["decode_steps"], L,
+                                {"shared_prefix_decode_full": 1, "shared_prefix_decode_attention": 0,
+                                 "int4_matmul": 0, "fused_mlp_int8": 0})
+            check_tc_route(f"sf step_batch {i}", st["launches"], remat_step_launches(cfg, st["decode_steps"]),
+                           tensor_cores=True)
+        for i, it in enumerate(items, start=1):
+            log(f"[sf] (a) eval item {i}: {it['prompt_len']} prompt tokens, vision {it['vision_ms']:.1f} ms, prefill "
+                f"{it['prefill_ms']:.1f} ms, decode {it['decode_ms_per_step']:.2f} ms/step over {it['decode_steps']} "
+                f"steps, {it['s']:.2f} s; launches { {k: v for k, v in it['launches'].items() if v} }; {card}")
+            want = eval_item_launches(cfg, it["prompt_len"], PREFILL_CHUNK)
+            check_tc_route(f"sf eval item {i}", it["launches"], want, tensor_cores=True)
+            others = {k: v for k, v in it["launches"].items() if v and k.removesuffix("_tc") not in want}
+            if others:
+                raise AssertionError(f"sf eval item {i}: kernels beyond K1-K3 launched: {others}")
+        summed = {k: sum(x["launches"][k] for x in steps + items) for k in launches}
+        if summed != launches:
+            raise AssertionError(f"(a): the round's launches {launches} are not its steps' and items' {summed}")
+        round_dir = os.path.join(exp, "round_0")
+        ckpt = train_sf.smallest_checkpoint(round_dir)
+        eval_dir = os.path.join(round_dir, "filtering_epoch0")
+        recs = read_jsonl(os.path.join(eval_dir, "tg_0_1.jsonl"))
+        with open(os.path.join(eval_dir, "train_v4_cloud.json")) as f:  # merge's path joins an absolute eval_dir
+            merged = json.load(f)
+        with open(filtered) as f:
+            kept = json.load(f)
+        saved = sorted(d for d in os.listdir(round_dir) if d.startswith(("checkpoint-", "epoch-")))
+        log(f"[sf] (a) checkpoints {saved}, the smallest {os.path.basename(ckpt)}; records {[(r['qid'], r['pred']) for r in recs]}; difficulties "
+            f"{[d['difficulty'] for d in merged]}; {len(kept)} kept by 0070_all in {os.path.basename(filtered)}")
+        if len(steps) != 4 or os.path.basename(ckpt) != "checkpoint-4" or len(items) != 4:
+            raise AssertionError(f"(a): {len(steps)} step_batch calls, checkpoint {ckpt}, {len(items)} eval items")
+        if [r["qid"] for r in recs] != [f"train_{i}" for i in range(4)] or \
+                not all(isinstance(r["pred"], list) and len(r["pred"]) == 2 for r in recs):
+            raise AssertionError(f"(a): self-eval records {recs}")
+        if [d["qid"] for d in merged] != [r["qid"] for r in recs] or \
+                not all(np.isfinite(d["difficulty"]) and 0 <= d["difficulty"] <= 100 for d in merged):
+            raise AssertionError(f"(a): merged annotations {merged}")
+        if not filtered.endswith("train_v4_cloud_0070_all.json") or \
+                sorted(d["qid"] for d in kept) != sorted(d["qid"] for d in merged if 0 < d["difficulty"] <= 70):
+            raise AssertionError(f"(a): the filter kept {kept}")
+        if not all(np.isfinite(st["loss"]) for st in steps):
+            raise AssertionError("(a): a loss is not finite")
+        for name in TRAIN_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError(f"(a): {name} was not launched by train_sf.main")
+        n_eval = len(items)
+        result["round"] = dict(round_s=round_s, stages=stages, peak_gib=peak, loads=loads,
+                               step_s=[st["s"] for st in steps], items=[
+            {k: v for k, v in it.items() if k != "launches"} for it in items],
+            items_per_s=n_eval / stages["evaluate"])
+        log(f"[sf] (a) evaluate: {n_eval} items in {stages['evaluate']:.2f} s ({n_eval / stages['evaluate']:.3f} "
+            f"items/s, the checkpoint's load included); {card}")
+        shutil.rmtree(exp, ignore_errors=True)
+        shutil.rmtree(base, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        result["handoff"] = sf_handoff(root, card)
+        log(f"[sf] summary on {card}: {json.dumps(result)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def sf_handoff(root: str, card: str) -> dict:
+    """(b) two SF rounds at 3B widths with 2 decoder layers (2 ViT blocks),
+    bf16, "random_sample", 2 examples: round 1 must train from round 0's
+    smallest checkpoint on round 0's filtered json, which carries the
+    difficulty and pred of round 0's self-eval (a spy on cli.train.get_args)."""
+    import torch
+
+    from time_r1_tpu_torch.cli import train_sf
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+
+    cfg = reduced_config()
+    base = os.path.join(root, "base_2l")
+    native_checkpoint(base, init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16), cfg)
+    data = write_dataset(root, "handoff", 2)
+    exp = os.path.join(root, "exp_2l")
+    consumed = []
+    def spied(real):
+        def get_args(argv=None):
+            args = real(argv)
+            consumed.append((args.train_data_path, args.model_name_or_path))
+            return args
+        return get_args
+
+    with cli_stand_ins(cfg) as cli:
+        with patched(cli, "get_args", spied):
+            t0 = time.perf_counter()
+            last = train_sf.main(train_sf.get_args([
+                "--model_name_or_path", base, "--exp_dir", exp, "--initial_data", data, "--rounds", "2", "--k", "2",
+                "--filter_task", "random_sample", "--eval_max_new_tokens", "16",
+                "--reward_funcs", "iou_v2", "format", "char_parity"]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    r0 = os.path.join(exp, "round_0")
+    ckpt0 = train_sf.smallest_checkpoint(r0)
+    with open(consumed[1][0]) as f:
+        data1 = json.load(f)
+    log(f"[sf] (b) two rounds at 2 layers: {wall:.2f} s; train got {consumed}; round 1's data "
+        f"{[(d['qid'], d['difficulty']) for d in data1]}; last filtered {os.path.basename(last)}; {card}")
+    if consumed[0] != (data, base) or consumed[1][1] != ckpt0 or not consumed[1][0].endswith("_random.json"):
+        raise AssertionError(f"(b): the rounds trained from {consumed}; round 0's smallest checkpoint is {ckpt0}")
+    if sorted(d["qid"] for d in data1) != ["handoff_0", "handoff_1"] or \
+            not all("difficulty" in d and "pred" in d for d in data1):
+        raise AssertionError(f"(b): round 1's data {data1}")
+    if not any(f.endswith(".jsonl") for f in os.listdir(os.path.join(exp, "round_1", "filtering_epoch1"))):
+        raise AssertionError("(b): round 1 left no self-eval")
+    return dict(wall_s=wall, consumed=consumed)
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     # the training phase holds ~60 GB of live tensors of many sizes
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -3682,6 +4049,7 @@ def main() -> int:
     phase_reduced_quant()
     phase_reduced_serving()
     phase_captured_decode()
+    phase_reduced_eval()
     launches = phase_full_size()  # K1-K3: the serving path
     train_launches = phase_train_full_size()  # B1, B2, S1, S2 (and D1/D2 in the rollout): the training path
     launches.update({k: v for k, v in train_launches.items() if k not in SERVING_KEYS})
@@ -3689,6 +4057,7 @@ def main() -> int:
     serve = phase_serving_full_size()  # P1 (a), P2 (b): continuous-batching serving
     input_launches = phase_input_path(card)  # K1-K3, B1, B2, S1, S2, D2 from frames the processor made
     cli_launches = phase_cli_train(card)  # the same kernels from `cli.train.main`, K1 and S1 rerun under remat
+    sf_launches = phase_sf_round(card)  # the same from `cli.train_sf.main`: a round's training and its self-eval
     for tag, name in zip("ab", PAGED_KERNELS):
         quant_launches[name] = serve[tag]["launches"][name]
         quant_launches[f"{name}_tc"] = serve[tag]["launches"][f"{name}_tc"]
@@ -3755,6 +4124,8 @@ def main() -> int:
         if k["name"] in TRAIN_KERNELS:  # phase 8's second step_batch, from video frames
             k["launches_from_frames"] = input_launches[k["name"]]
             k["launches_cli_train"] = cli_launches[k["name"]]  # phase 9's main(): 4 step_batch calls
+            k["launches_sf_round"] = sf_launches[k["name"]]  # phase 10 (a): 4 step_batch calls, 4 eval items
+    s2["launches_sf_round_dkv_prefix"] = sf_launches["shared_prefix_bwd_dkv"]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

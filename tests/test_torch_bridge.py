@@ -115,6 +115,9 @@ def test_port_imports_no_jax():
     walked = set(names.split())
     assert {"time_r1_tpu_torch.cli.train", "time_r1_tpu_torch.utils.checkpoint", "time_r1_tpu_torch.utils.logging_sinks",
             "time_r1_tpu_torch.utils.safetensors_io"} <= walked
+    assert {f"time_r1_tpu_torch.cli.{m}" for m in ("evaluate", "eval_all", "calc_difficulty", "process_data",
+                                                    "train_sf", "demo")} <= walked
+    assert {f"time_r1_tpu_torch.utils.{m}" for m in ("metrics", "parsing", "curriculum")} <= walked
 
 
 def test_port_sources_never_name_the_jax_package():

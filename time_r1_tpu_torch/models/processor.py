@@ -16,7 +16,8 @@ The HF AutoProcessor video branch as the upstream code uses it
 - `second_per_grid_ts = temporal_patch_size / fps`.
 
 The text tokenizer is any HF-compatible tokenizer (`from_pretrained` loads
-one with transformers' AutoTokenizer). When the tokenizer ships a chat
+one with transformers' AutoTokenizer; `save_pretrained` writes its files,
+which the trainer does into every checkpoint). When the tokenizer ships a chat
 template the processor defers to it; otherwise `render_chat_template`
 produces the canonical Qwen2-VL-family format.
 """
@@ -189,6 +190,13 @@ class Qwen25VLProcessor:
 
         tok = AutoTokenizer.from_pretrained(path, use_fast=True)
         return cls(tok, **kw)
+
+    def save_pretrained(self, path: str) -> None:
+        """Write the tokenizer's files into `path`, so that `from_pretrained(path)`
+        loads it back (HF's Trainer saves its processing class with every
+        checkpoint in the same way)."""
+        if hasattr(self.tokenizer, "save_pretrained"):  # a stand-in (tests/tiny_tokenizer.py) has no files
+            self.tokenizer.save_pretrained(path)
 
     def apply_chat_template(self, messages, add_generation_prompt: bool = True) -> str:
         tok = self.tokenizer

@@ -25,7 +25,8 @@ prefetch thread runs it one batch ahead.
 lr schedule (or a constant lr), the one-batch-ahead prefetch, logging to
 the metric sinks (`report_to`: tensorboard, wandb), the save cadence in
 optimizer steps and `max_steps`. Checkpoints (`save_checkpoint`,
-`load_checkpoint_state`) are the port's own format (`utils/checkpoint.py`).
+`load_checkpoint_state`) are the port's own format (`utils/checkpoint.py`),
+with the processor's tokenizer files beside the weights.
 On resume the restored optimizer state survives `train()`: the moments,
 Adam's count and the accumulation carry on, and only the schedule starts
 over (JAX's `train()` re-initializes the state it restored; ROADMAP §C).
@@ -539,9 +540,14 @@ class GRPOTrainer:
     # ------------------------------------------------------------------
     def save_checkpoint(self, path: str):
         """params (and, with save_only_model False, the optimizer state),
-        trainer_state.json, the model config and a model card."""
+        trainer_state.json, the model config, the processor's tokenizer files
+        and a model card. With the tokenizer beside the weights, the SF loop's
+        evaluate and its next round's train load the directory as a model
+        (the JAX package writes no tokenizer: ROADMAP §C)."""
         os.makedirs(path, exist_ok=True)
         save_params(path, self.params)
+        if hasattr(self.processor, "save_pretrained"):  # a processor of ids only (chip_smoke.py) has none
+            self.processor.save_pretrained(path)
         if not self.c.save_only_model:
             # the full training state (HF --save_only_model false): a resume
             # restores the moments and the accumulation and schedule counts
