@@ -35,7 +35,10 @@ Phases (any failed check raises and the exit code is non-zero):
    K1-K3, B1, B2, S1, S2 and D2 refuse f16 and head dim 96 (K1-K3, B1, B2,
    S1, S2 a misaligned q, K2 windows of 128 rows), Q1's f16 x, a w4 of the
    wrong width, f64 scales, a non-contiguous x and a misaligned bf16 x, and
-   Q2's inter % 16 != 0, M > 128 and a hid beyond its shared memory;
+   Q2's inter % 16 != 0, M > 128 and a hid beyond its shared memory; and
+   K1, B1, B2, S1 and S2 at the 7B's head layout (28 q heads over 4 kv
+   heads, G = 7) at phase 5's shapes, bf16, timed beside their bounds and
+   one SDPA call (`attention_7b_cases`);
 3. end-to-end agreement at reduced depth: Qwen2.5-VL-3B widths with 2 decoder
    layers and 2 vision blocks, one 8-frame video request in f32, card
    (kernels) against CPU (plain versions);
@@ -45,6 +48,10 @@ Phases (any failed check raises and the exit code is non-zero):
    tower trains; K2/K3 must not launch inside the differentiated call); in
    f32 K1-K3, B1, B2, S1 and S2 run the FMA kernels only (in phases 3, 3c
    and 3d K1-K3 as well, and D2 in 3c);
+3 (LoRA). the side-path forward (`Engine.set_lora_side`) against the merged
+   tree's and card against CPU, and phase 3b's split loss with the adapters
+   merged inside each remat-checkpointed layer: loss, metrics and every
+   adapter gradient, card against CPU (`phase_reduced_lora`);
 3c. the quantized G-way decode at reduced depth, int8 weights and int8 KV,
    then int4 weights: 16 teacher-forced steps, card (D2, Q2, Q1) against CPU
    (plain paths) on every step's logits, Q1 on its FMA kernel only;
@@ -55,12 +62,15 @@ Phases (any failed check raises and the exit code is non-zero):
 3e. the captured decode at reduced depth in bf16: replay against the eager
    loop (the loop functions' capture=False, `eager_decode` for PagedEngine)
    for Engine at G = 1, the G-way decode in bf16 (D2), over int8 weights and
-   int8 KV (D2, Q2) and over int4 weights and int8 KV (D2, Q1), PagedEngine
-   with bf16 pages (P1) and with int8 weights and pages (P2, Q2): greedy
-   tokens and the KV written bit-equal, two sampled (T = 1.0) captured runs
-   equal (their equality with the eager draws reported), and one replayed
-   step's launches of each kernel by name (torch.profiler) equal to its
-   per-layer count x 2 layers;
+   int8 KV (D2, Q2), over int4 weights and int8 KV (D2, Q1) and with LoRA
+   side adapters over an int8 fused base and int8 KV (D2, no Q2),
+   PagedEngine with bf16 pages (P1), with int8 weights and pages (P2, Q2)
+   and with side adapters over bf16 pages (P1): greedy tokens and the KV
+   written bit-equal, two sampled (T = 1.0) captured runs equal (their
+   equality with the eager draws reported), and one replayed step's
+   launches of each kernel by name (torch.profiler) equal to its per-layer
+   count x 2 layers; the two LoRA cases then take a second adapter set,
+   whose replay must equal its eager run and change the tokens;
 3f. the evaluation entry point at reduced depth: `cli.evaluate.main` on the
    card and on the CPU from one native checkpoint, f32, two items of phase
    9's clip through Engine, PagedEngine and ContinuousEngine: equal jsonl
@@ -133,7 +143,22 @@ Phases (any failed check raises and the exit code is non-zero):
    phase 9's launches, per eval item exactly 28 K2, 4 K3 and 36 K1 a
    prefill chunk, all on the tensor cores, summing to the round's; (b) two
    rounds at 3B widths with 2 decoder layers and "random_sample": round 1
-   trains from round 0's smallest checkpoint on round 0's filtered json.
+   trains from round 0's smallest checkpoint on round 0's filtered json;
+11. LoRA GRPO on Qwen2.5-VL-7B over an int8 base, once phase 10's model is
+   freed (it writes up to 40 GB under TMPDIR and deletes it): (a) seeded
+   bf16 7B weights through `save_hf_checkpoint`, then `cli.train.main` with
+   the JAX package's single-chip 7B flags (`LORA_7B_FLAGS`: --use_peft
+   --lora_r 16 --lora_alpha 32 --train_base_quantization int8
+   --rollout_quantization int8, remat, fix_vit, G = 8, 200 tokens,
+   accumulation 2) on 2 examples of phase 8's 4 s clip: the quantize pass
+   (seconds, peaks), per `step_batch` exactly K1 112, S1 84, B1 28, B2 56,
+   S2 28 + 28, K2 28, K3 4 and D2 28 a decode step, Q2 none (side adapters),
+   all on the tensor cores, the base bit-unchanged, an adapter moved, the
+   weight sync an adapter install under 50 ms, the saves (the int8 base and
+   `lora_adapters.npz`) reloaded equal; (b) at 2 layers a bf16 base with
+   int8 rollouts: the layer-at-a-time merge and quantize bit-equal to the
+   whole tree's, Q2 on it; (c) at 2 layers a LoRA run resumed from its
+   checkpoint equal bit for bit to an uninterrupted one.
 
 From phase 3 on, every `Engine` and `PagedEngine` decode on the card is a
 captured CUDA graph replayed once a step (`time_r1_tpu_torch/sampler/graph.py`;
@@ -306,6 +331,7 @@ def phase_kernels() -> dict:
     results = serving_attention_kernels(gen)
     fwd_tc_edge_cases(gen, results["flash_attention"], results["full_attention_rope"])
     results.update(phase_train_kernels())
+    attention_7b_cases(results)
     results.update(phase_decode_quant_kernels())
     results.update(phase_paged_kernels())
     return results
@@ -890,6 +916,128 @@ def phase_train_kernels() -> dict:
     sp_edge_cases(gen, results["shared_prefix_fwd"], bwd)
     head_backward_check(gen)
     return results
+
+
+# The 7B's attention layout (28 q heads over 4 kv heads: G = 7, head dim 128),
+# which only phase 11 runs, at phase 5's shapes: K1, B1 and B2 at one
+# 2048-token prompt with 134 left pad keys, S1 and S2 at 8 rows of 256
+# completion tokens over that prefix.
+ATTN_7B = dict(H=28, Hkv=4, D=128, S=2048, pad=134, R=8, Sc=256)
+
+
+def attention_7b_cases(results: dict) -> None:
+    """K1, B1, B2, S1 and S2 in bf16 (the tensor-core kernels) against their
+    plain versions (f32 on the same inputs) at ATTN_7B, at GRAD_TOL on max
+    |kernel - plain| / max |plain| per output; each timed beside its bound
+    and one SDPA call over the same keys and mask. Written to each kernel's
+    entry as "7B_G7"."""
+    import torch
+    import torch.nn.functional as F
+
+    from time_r1_tpu_torch.ops import flash_attention as fa
+    from time_r1_tpu_torch.ops.attention import NEG_INF
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    H, Hkv, D, S, pad, R, Sc = (ATTN_7B[k] for k in ("H", "Hkv", "D", "S", "pad", "R", "Sc"))
+    tol = GRAD_TOL["bfloat16"]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+    def rel_err(got, want) -> float:
+        got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
+        return max((a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
+                   for a, b in zip(got, want))
+
+    def sdpa(q, k, v, mask):
+        """(forward ms, forward + backward ms) of one SDPA call with the mask."""
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        g = torch.randn(qt.shape, generator=gen, device=dev).to(q.dtype)
+
+        def fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        def fwd_bwd():
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True).backward(g)
+
+        return cuda_ms(fwd), cuda_ms(fwd_bwd)
+
+    def record(name, got, want, run, flops, nbytes, library_ms, library_is):
+        err = rel_err(got, want)
+        ms = cuda_ms(run)
+        b_ms, b_by = bound(flops, nbytes)
+        row = dict(max_rel_err=err, tol=tol, ms=ms, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+                   tflops=flops / ms / 1e9, library_ms=library_ms, library_is=library_is)
+        results[name]["7B_G7"] = row
+        log(f"[kernels] {name} at the 7B's heads (H {H}, Hkv {Hkv}, G {H // Hkv}): max |kernel - plain| / max "
+            f"|plain| = {err:.3e} (tol {tol}); {ms:.4f} ms (bound {b_ms:.4f} by {b_by}, {row['tflops']:.1f} "
+            f"TFLOP/s, {100 * row['bound_share']:.1f}% of the bound, library {library_ms})")
+        if not np.isfinite(err) or err > tol:
+            raise AssertionError(f"{name} at the 7B's heads: {err} > {tol}")
+
+    # K1, B1, B2: the prompt forward and its backward
+    rows = torch.arange(S, device=dev)
+    bias = torch.where(rows[None] < pad, NEG_INF, 0.0).float()
+    q, k, v = randn(1, S, H, D), randn(1, S, Hkv, D), randn(1, S, Hkv, D)
+    do = (randn(1, S, H, D).float() * (rows >= pad)[None, :, None, None]).bfloat16()
+    up = (q.float(), k.float(), v.float())
+    out, lse = fa.flash_attention_plain(*up, bias, True, None, 0)
+    delta = (do.float() * out).sum(-1)
+    _, _, _, k1_flops, k1_bytes = k1_work(1, S, S, H, Hkv, D, True, 0, (pad,))
+    mask = torch.where((rows[None, :] <= rows[:, None]) & (rows[None, :] >= pad), 0.0, NEG_INF)
+    t_fwd, t_fb = sdpa(q, k, v, mask.to(torch.bfloat16)[None, None])
+    valid = (rows >= pad)[None]
+    got_out, got_lse = fa.flash_attention_fwd(q, k, v, bias, True, None, 0)
+    record("flash_attention", (got_out[valid], got_lse.transpose(1, 2)[valid]),
+           (out[valid], lse.transpose(1, 2)[valid]), lambda: fa.flash_attention_fwd(q, k, v, bias, True, None, 0),
+           k1_flops, k1_bytes, t_fwd, "SDPA forward, the same mask, GQA")
+    live = S - pad
+    pairs = live * (live + 1) // 2
+    io = live * H * D * 2 * 2 + live * Hkv * D * 2 * 2 + live * H * 4 * 2 + S * 4
+    args = (q, k, v, bias, do, lse, delta)
+    upargs = (*up, bias, do.float(), lse, delta)
+    record("flash_bwd_dq", fa.flash_bwd_dq(*args), fa.flash_bwd_dq_plain(*upargs), lambda: fa.flash_bwd_dq(*args),
+           6.0 * D * pairs * H, io + live * H * D * 2, t_fb - t_fwd,
+           "SDPA forward+backward minus forward: the whole of B1 + B2")
+    record("flash_bwd_dkv", fa.flash_bwd_dkv(*args), fa.flash_bwd_dkv_plain(*upargs),
+           lambda: fa.flash_bwd_dkv(*args), 8.0 * D * pairs * H, io + 2 * live * Hkv * D * 4, None,
+           "in flash_bwd_dq's row (one SDPA backward covers B1 + B2)")
+
+    # S1, S2: the split loss's completion chunk over the shared prefix
+    qc, ko, vo, doc = randn(R, Sc, H, D), randn(R, Sc, Hkv, D), randn(R, Sc, Hkv, D), randn(R, Sc, H, D)
+    fwd = (qc, k, v, ko, vo, bias)
+    upf = (qc.float(), *up[1:], ko.float(), vo.float(), bias)
+    out_c, lse_c = fa.shared_prefix_plain(*upf)
+    delta_c = (doc.float() * out_c).sum(-1)
+    i = torch.arange(Sc, device=dev)
+    cat_mask = torch.cat([bias.expand(Sc, -1), torch.where(i[None, :] <= i[:, None], 0.0, NEG_INF)], 1)
+    s_fwd, s_fb = sdpa(qc, torch.cat([k.expand(R, -1, -1, -1), ko], 1), torch.cat([v.expand(R, -1, -1, -1), vo], 1),
+                       cat_mask.to(torch.bfloat16)[None, None])
+    own_pairs, pre_pairs = Sc * (Sc + 1) // 2, Sc * live
+    rows_io = R * Sc * H * D * 2
+    keys_io = (live * Hkv * D * 2) * 2 + (R * Sc * Hkv * D * 2) * 2
+    record("shared_prefix_fwd", fa.shared_prefix_fwd(*fwd)[0], out_c, lambda: fa.shared_prefix_fwd(*fwd),
+           4.0 * D * (pre_pairs + own_pairs) * R * H, 2 * rows_io + keys_io + S * 4 + R * Sc * H * 4, s_fwd,
+           "SDPA over [prefix repeated 8x | own chunk] with the mask, GQA")
+
+    def s2():
+        return (fa.shared_prefix_bwd_dq(*fwd, doc, lse_c, delta_c),
+                *fa.shared_prefix_bwd_dkv(qc, k, v, bias, doc, lse_c, delta_c))
+
+    want = (fa.shared_prefix_bwd_dq_plain(*upf, doc.float(), lse_c, delta_c),
+            *fa.shared_prefix_bwd_dkv_plain(upf[0], upf[1], upf[2], bias, doc.float(), lse_c, delta_c))
+    record("shared_prefix_bwd", s2(), want, s2,
+           6.0 * D * (pre_pairs + own_pairs) * R * H + 8.0 * D * pre_pairs * R * H,
+           2 * (2 * rows_io + keys_io + R * Sc * H * 8) + rows_io + 2 * live * Hkv * D * 4, s_fb - s_fwd,
+           "SDPA forward+backward minus forward over [prefix repeated | own chunk]")
+    row = results["shared_prefix_bwd"]["7B_G7"]
+    row["ms_dq"] = cuda_ms(lambda: fa.shared_prefix_bwd_dq(*fwd, doc, lse_c, delta_c))
+    row["ms_dkv_prefix"] = cuda_ms(lambda: fa.shared_prefix_bwd_dkv(qc, k, v, bias, doc, lse_c, delta_c))
+    row["n_split_dkv_prefix"] = fa.bwd_dkv_split(H // Hkv, S, Hkv, 1, R)
+    log(f"[kernels] shared_prefix_bwd at the 7B's heads: dq {row['ms_dq']:.4f} ms, prefix dK/dV "
+        f"{row['ms_dkv_prefix']:.4f} ms (n_split {row['n_split_dkv_prefix']})")
 
 
 # B1/B2 edge cases (bf16, tensor-core kernels): (B, Sq, Skv, H, Hkv, D,
@@ -1920,6 +2068,100 @@ def phase_reduced_train() -> None:
             raise AssertionError(f"{tag}: card and CPU disagree")
 
 
+def seeded_adapters(params, cfg, seed: int, fused: bool = False):
+    """Decoder LoRA adapters (rank 16, alpha 32: the recipe's) over `params`,
+    with B drawn too (N(0, 0.02), from `seed`) so that they change the
+    function; (adapter tree, LoRAConfig)."""
+    import torch
+
+    from time_r1_tpu_torch.rl.lora import LoRAConfig, fused_splits_for, init_lora, lora_leaves
+
+    lcfg = LoRAConfig(rank=16, alpha=32.0)
+    lora = init_lora(params, lcfg, seed=seed, fused_splits=fused_splits_for(cfg.text) if fused else None)
+    lora.pop("visual", None)
+    leaves = lora_leaves(lora)
+    gen = torch.Generator(device=leaves[0].device).manual_seed(seed + 1000)
+    for b in leaves[1::2]:
+        b.copy_(torch.randn(b.shape, generator=gen, device=b.device) * 0.02)
+    return lora, lcfg
+
+
+def phase_reduced_lora() -> None:
+    """Phase 3 for LoRA, at reduced depth, f32, card (kernels) against CPU
+    (plain): (i) the side-path forward (`Engine.set_lora_side`: last-position
+    logits and 8 greedy tokens) against the merged tree's and across the two
+    devices; (ii) phase 3b's split loss with the decoder's adapters merged
+    inside each remat-checkpointed layer (`grpo_loss(..., lora=)`), its
+    metrics and every adapter gradient, card against CPU within TRAIN_TOL."""
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.rl import GRPOHyperParams, build_grpo_split_batch, grpo_loss
+    from time_r1_tpu_torch.rl.grpo import compute_ref_logps, precompute_frozen_vision
+    from time_r1_tpu_torch.rl.lora import lora_layers_tree, lora_leaves, merge_lora
+    from time_r1_tpu_torch.sampler import Engine, SamplingParams
+
+    cfg = reduced_config()
+    params_cpu = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    lora_cpu, lcfg = seeded_adapters(params_cpu, cfg, seed=3)
+    req = video_request(cfg, np.random.default_rng(1), frames=8, height=224, width=392)
+    sp = SamplingParams(max_new_tokens=8, stop_token_ids=())
+    out = {}
+    for device in ("cuda", "cpu"):
+        dev = torch.device(device)
+        params, lora = to_device(params_cpu, dev), to_device(lora_cpu, dev)
+        side = Engine(params, cfg, dtype=torch.float32, device=device)
+        side.set_lora_side(lora_layers_tree(lora)[0], lcfg.scaling)
+        merged = Engine(merge_lora(params, lora, lcfg), cfg, dtype=torch.float32, device=device)
+        base = Engine(params, cfg, dtype=torch.float32, device=device)
+        out[device] = dict(side=side.last_token_logits([req]), merged=merged.last_token_logits([req]),
+                           base=base.last_token_logits([req]), tokens=side.generate([req], sp)[0])
+    g, c = out["cuda"], out["cpu"]
+    errs = {"side vs merged (card)": float(np.abs(g["side"] - g["merged"]).max()),
+            "side vs merged (cpu)": float(np.abs(c["side"] - c["merged"]).max()),
+            "side card vs cpu": float(np.abs(g["side"] - c["side"]).max())}
+    moved = float(np.abs(c["side"] - c["base"]).max())
+    log(f"[lora-reduced] last-position logits: {errs} (tol {LOGIT_TOL}); the adapters move them by {moved:.3e}; "
+        f"greedy tokens card {g['tokens']} cpu {c['tokens']}")
+    if not all(np.isfinite(e) and e <= LOGIT_TOL for e in errs.values()) or moved <= 10 * LOGIT_TOL:
+        raise AssertionError(f"phase 3 LoRA: side-path logits disagree ({errs}) or the adapters do nothing ({moved})")
+    if g["tokens"] != c["tokens"]:
+        raise AssertionError(f"phase 3 LoRA: side-path greedy tokens differ, card {g['tokens']} cpu {c['tokens']}")
+
+    rng = np.random.default_rng(2)
+    comps = [rng.integers(0, 151000, n).tolist() + ([cfg.eos_token_id] if i % 2 == 0 else [])
+             for i, n in enumerate((20, 57, 101, 127))]
+    group = {"prompt_ids": req.input_ids, "completions": comps,
+             "advantages": np.array([1.0, -0.5, 0.25, -0.75], np.float32),
+             "patches": req.patches, "grid_thw": req.grid_thw, "second_per_grid_t": 1.0}
+    hp = GRPOHyperParams(num_generations=4, beta=0.04, fix_vit=True, gradient_checkpointing="full")
+    res = {}
+    for device in ("cuda", "cpu"):
+        dev = torch.device(device)
+        params, lora = to_device(params_cpu, dev), to_device(lora_cpu, dev)
+        t0 = time.perf_counter()
+        batch = precompute_frozen_vision(params, cfg, build_grpo_split_batch(cfg, [group], dtype=torch.float32,
+                                                                             device=dev))
+        batch = batch._replace(ref_logps=compute_ref_logps(params, cfg, hp, batch))  # the unmerged base
+        leaves = lora_leaves(lora)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, metrics = grpo_loss(params, cfg, hp, batch, lora=(lora_layers_tree(lora)[0], lcfg.scaling))
+        grads = torch.autograd.grad(loss, leaves)
+        res[device] = (loss.item(), {k: float(v) for k, v in metrics.items()}, [x.cpu() for x in grads])
+        log(f"[lora-reduced] {device}: in-layer merged loss {loss.item():.6f}, metrics {res[device][1]}, "
+            f"{len(leaves)} adapter leaves, {time.perf_counter() - t0:.1f} s")
+    (lg, mg, gg), (lc, mc, gc) = res["cuda"], res["cpu"]
+    worst = max((a - b).abs().max().item() / b.abs().max().item() for a, b in zip(gg, gc))
+    loss_err = abs(lg - lc) / max(abs(lc), 1e-30)
+    metric_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6) for k in mc)
+    zero = sum(int(b.abs().max().item() == 0) for b in gc)
+    log(f"[lora-reduced] card vs cpu: loss {loss_err:.3e}, metrics {metric_err:.3e}, worst adapter gradient "
+        f"{worst:.3e} of {len(gc)} ({zero} zero; max |Δ| / max |g|, tol {TRAIN_TOL}); kl {mc.get('kl')}")
+    if zero or not (np.isfinite(lg) and loss_err <= TRAIN_TOL and metric_err <= TRAIN_TOL and worst <= TRAIN_TOL):
+        raise AssertionError("phase 3 LoRA: the in-layer merged loss or its adapter gradients disagree")
+
+
 def kernel_wrappers():
     """Every kernel wrapper of the port, by the name its phase-2 entry has
     (S2's two kernels count apart)."""
@@ -2651,39 +2893,48 @@ def engine_decode(eng, reqs, sp, capture: bool):
                                        dtype=eng.dtype, device=dev, quant=eng.kv_cache_quant)
             tokens, steps = decode_loop_shared(eng.params, eng.cfg, prefix, cache, first1.repeat_interleave(G, dim=0),
                                                torch.from_numpy(np.repeat(start1, G)).to(dev).long(), bias, sp, gen,
-                                               capture=capture)
+                                               capture=capture, lora_side=eng.lora_side)
         else:
             ids, mask, pos_ids, start, vis, S, max_len = eng._pack(reqs, extra_len=sp.max_new_tokens)
             first, cache, mask_t = eng._prefill(ids, mask, pos_ids, vis, S, max_len)
             cache = eng._maybe_quant_cache(cache)
             tokens, steps = decode_loop(eng.params, eng.cfg, cache, first, torch.from_numpy(start).to(dev).long(),
-                                        mask_t, sp, gen, capture=capture)
+                                        mask_t, sp, gen, capture=capture, lora_side=eng.lora_side)
     buffers = [t for t in (cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None]
     return tokens.cpu(), buffers, steps
 
 
-# Phase 3e: (name, G, weight quantization, int8 KV, the kernels of its decode
-# step and their launches a layer)
+# Phase 3e: (name, G, weight quantization, int8 KV, side-path LoRA, the
+# kernels of its decode step and their launches a layer). "int8 base" is the
+# LoRA trainer's rollout: an int8 decode-fused tree handed to the engine
+# already quantized, with side adapters, under which Q2 does not run (0).
 CAPTURED_ENGINE_CASES = (
-    ("Engine G = 1, bf16", 1, None, False, {}),
-    ("G-way bf16", 8, None, False, {"decode_full_tc": 1}),
-    ("G-way int8 weights, int8 KV", 8, "int8", True, {"decode_full_tc": 1, "fused_mlp_tc": 1}),
-    ("G-way int4 weights, int8 KV", 8, "int4", True, {"decode_full_tc": 1, "int4_mm_tc": 4}),
+    ("Engine G = 1, bf16", 1, None, False, False, {}),
+    ("G-way bf16", 8, None, False, False, {"decode_full_tc": 1}),
+    ("G-way int8 weights, int8 KV", 8, "int8", True, False, {"decode_full_tc": 1, "fused_mlp_tc": 1}),
+    ("G-way int4 weights, int8 KV", 8, "int4", True, False, {"decode_full_tc": 1, "int4_mm_tc": 4}),
+    ("G-way LoRA side path, int8 base, int8 KV", 8, "int8 base", True, True,
+     {"decode_full_tc": 1, "fused_mlp_tc": 0}),
 )
 CAPTURED_PAGED_CASES = (
-    ("PagedEngine, bf16 pages", None, False, {"paged_tc": 1}),
-    ("PagedEngine, int8 weights, int8 pages", "int8", True, {"paged_tc": 1, "fused_mlp_tc": 1}),
+    ("PagedEngine, bf16 pages", None, False, False, {"paged_tc": 1}),
+    ("PagedEngine, int8 weights, int8 pages", "int8", True, False, {"paged_tc": 1, "fused_mlp_tc": 1}),
+    ("PagedEngine LoRA side path, bf16 pages", None, False, True, {"paged_tc": 1}),
 )
 
 
 def phase_captured_decode() -> dict:
     """Phase 3e: the captured decode at reduced depth (3B widths, 2 layers, 2
     ViT blocks, bf16, seeded random weights), held against the eager loop in
-    six configurations: `Engine` at G = 1, the G-way decode in bf16 (D2),
-    over int8 weights and int8 KV (D2, Q2) and over int4 weights and int8 KV
-    (D2, Q1) through the loop functions' `capture` argument, and
-    `PagedEngine` with bf16 pages (P1) and with int8 weights and int8 pages
-    (P2, Q2) through `eager_decode`. Greedy, replayed tokens and the KV
+    eight configurations: `Engine` at G = 1, the G-way decode in bf16 (D2),
+    over int8 weights and int8 KV (D2, Q2), over int4 weights and int8 KV
+    (D2, Q1) and with side-path LoRA over an int8 fused base and int8 KV
+    (D2, no Q2) through the loop functions' `capture` argument, and
+    `PagedEngine` with bf16 pages (P1), with int8 weights and int8 pages
+    (P2, Q2) and with side-path LoRA over bf16 pages (P1) through
+    `eager_decode`. The two LoRA configurations then take a second adapter
+    set: its replayed tokens must equal its eager run's and differ from the
+    first set's (a capture replayed with the old adapters would not). Greedy, replayed tokens and the KV
     written must be bit-equal to the eager loop's; sampled at T = 1.0 two
     captured runs must be, and whether they equal the eager draws is
     reported. One replayed step is profiled: its launches of each kernel,
@@ -2691,6 +2942,7 @@ def phase_captured_decode() -> dict:
     import torch
 
     from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.ops.quant import quantize_params
     from time_r1_tpu_torch.sampler import Engine, PagedEngine, SamplingParams
 
     cfg = reduced_config()
@@ -2701,9 +2953,10 @@ def phase_captured_decode() -> dict:
     texts = [text_request(cfg, rng, n) for n in (37, 150, 290)]
     out = {}
 
-    def hold(name, step_kernels, run, greedy):
+    def hold(name, step_kernels, run, greedy, lora=None):
         """run(sp, mode) -> (tokens as lists, the KV written), mode "eager"
-        or "captured"."""
+        or "captured". lora: (install(layers), (first set, second set)) of
+        an engine whose first set is installed."""
         (te, be), (tc, bc) = run(greedy, "eager"), run(greedy, "captured")
         same = te == tc and all(torch.equal(a, b) for a, b in zip(be, bc))
         sampled = replace(greedy, temperature=1.0, seed=5)
@@ -2716,28 +2969,53 @@ def phase_captured_decode() -> dict:
             f"{per_step} launches by name, {len(win.events)} device events (windows' records {seen})")
         if not same:
             raise AssertionError(f"{name}: replayed greedy tokens or KV differ from the eager loop's")
+        if lora is not None:  # a second adapter set, installed after the captures above
+            set_side, (first_set, second_set) = lora
+            set_side(second_set)
+            (t2e, _), (t2c, _) = run(greedy, "eager"), run(greedy, "captured")
+            set_side(first_set)
+            log(f"[captured] {name}: a second adapter set: replay == eager {t2c == t2e}, tokens changed "
+                f"{t2c != tc}")
+            if t2c != t2e or t2c == tc:
+                raise AssertionError(f"{name}: the second adapter set's replay differs from its eager run, or "
+                                     "it left the tokens as they were (a stale capture)")
+            out.setdefault(name, {})["second_set"] = dict(replay_equal_eager=t2c == t2e, changed=t2c != tc)
         if not sampled_same:
             raise AssertionError(f"{name}: two captured sampled runs differ")
         want = {k: n * L for k, n in step_kernels.items()}
         if per_step != want:
             raise AssertionError(f"{name}: one replayed step launched {per_step}, want {want}")
-        out[name] = dict(greedy_equal=same, sampled_captured_equal=sampled_same, sampled_equal_eager=sampled_eager,
-                         step_kernels=per_step, step_device_events=len(win.events))
+        out.setdefault(name, {}).update(
+            greedy_equal=same, sampled_captured_equal=sampled_same, sampled_equal_eager=sampled_eager,
+            step_kernels=per_step, step_device_events=len(win.events))
 
-    for name, G, quant, kvq, step_kernels in CAPTURED_ENGINE_CASES:
-        eng = Engine(params, cfg, dtype=torch.bfloat16, device="cuda", quantization=quant, kv_cache_quant=kvq)
+    def adapters(eng, base, fused):
+        """Two seeded adapter sets over `base`, the first installed on eng:
+        hold()'s `lora` argument."""
+        from time_r1_tpu_torch.rl.lora import lora_layers_tree
+
+        sets = [lora_layers_tree(seeded_adapters(base, cfg, seed, fused=fused)[0])[0] for seed in (11, 12)]
+        eng.set_lora_side(sets[0], 2.0)
+        return lambda layers: eng.set_lora_side(layers, 2.0), sets
+
+    for name, G, quant, kvq, side, step_kernels in CAPTURED_ENGINE_CASES:
+        base = quantize_params(params, bits=8, fuse=True) if quant == "int8 base" else params
+        eng = Engine(base, cfg, dtype=torch.bfloat16, device="cuda",
+                     quantization=None if quant == "int8 base" else quant, kv_cache_quant=kvq)
+        lora = adapters(eng, base, fused=quant == "int8 base") if side else None
 
         def run_engine(sp, mode):
             tokens, kv, _ = engine_decode(eng, [video], sp, capture=mode == "captured")
             return tokens.tolist(), kv
 
         hold(name, step_kernels, run_engine, SamplingParams(max_new_tokens=24, stop_token_ids=(),
-                                                            num_return_sequences=G))
-        del eng
-    for name, quant, kvq, step_kernels in CAPTURED_PAGED_CASES:
+                                                            num_return_sequences=G), lora)
+        del eng, base
+    for name, quant, kvq, side, step_kernels in CAPTURED_PAGED_CASES:
         eng = PagedEngine(params, cfg, max_slots=2, max_len=1024, page_size=128, segment=16,
                           prefill_chunk_tokens=256, dtype=torch.bfloat16, quantization=quant, kv_cache_quant=kvq,
                           device="cuda")
+        lora = adapters(eng, params, fused=False) if side else None
 
         def run_paged(sp, mode):
             if mode == "eager":
@@ -2745,7 +3023,7 @@ def phase_captured_decode() -> dict:
                     return eng.generate([video] + texts, sp), []
             return eng.generate([video] + texts, sp), []
 
-        hold(name, step_kernels, run_paged, SamplingParams(max_new_tokens=24, stop_token_ids=()))
+        hold(name, step_kernels, run_paged, SamplingParams(max_new_tokens=24, stop_token_ids=()), lora)
         del eng
     return out
 
@@ -4023,6 +4301,331 @@ def sf_handoff(root: str, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: LoRA GRPO on the 7B over an int8 base
+PHASE11_BYTES = 40e9  # the 7B's HF checkpoint (16.6 GB) and two int8-base saves (~9 GB each), with room
+# the JAX package's single-chip 7B recipe (README's "7B on one chip", scripts/posttrain/train_rl.sh's flags)
+LORA_7B_FLAGS = ("--use_peft", "true", "--lora_r", "16", "--lora_alpha", "32", "--train_base_quantization", "int8",
+                 "--rollout_quantization", "int8", "--gradient_checkpointing", "true", "--fix_vit", "true",
+                 "--num_generations", "8", "--max_completion_length", "200", "--gradient_accumulation_steps", "2",
+                 "--reward_funcs", "iou_v2", "format", "char_parity")
+
+
+def base_hash(params) -> str:
+    """sha256 of three leaves of an int8 fused base: the first layer's qkv
+    values, the middle layer's gu scales, the last layer's down values."""
+    import hashlib
+
+    import torch
+
+    layers = params["text"]["layers"]
+    h = hashlib.sha256()
+    for t in (layers[0]["qkv"]["q8"], layers[len(layers) // 2]["gu"]["s"], layers[-1]["down_w"]["q8"]):
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_lora_7b(card: str) -> dict:
+    """Phase 11, once phase 10's model is freed. (a) Qwen2.5-VL-7B (seeded
+    bf16 weights through save_hf_checkpoint) trained by `cli.train.main` with
+    LORA_7B_FLAGS on 2 examples of phase 8's 4 s clip: the base quantized
+    into the int8 fused layout one layer at a time (its seconds and the peaks
+    around it), 2 step_batch calls (one update) whose rollouts run over that
+    tree with side adapters: each call's launches against
+    `remat_step_launches` at 28 layers (D2 a layer a decode step, Q2 none),
+    all on the tensor cores; the base bit-unchanged (`base_hash`); an
+    adapter B moved off 0; the weight sync an adapter install (under 50 ms
+    from the second call on, Python's garbage-collector passes inside it
+    left out and reported);
+    the saves holding the int8 base and `lora_adapters.npz`, reloaded equal.
+    (b) `lora_route_b`, (c) `lora_resume`. Returns (a)'s launches, summed
+    over the main() call. Deletes what it wrote."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig, init_params
+    from time_r1_tpu_torch.models.qwen25vl.convert import (
+        LORA_FILE,
+        config_to_hf_dict,
+        load_lora_npz,
+        lora_from_jax,
+        save_hf_checkpoint,
+    )
+    from time_r1_tpu_torch.rl import GRPOTrainer
+    from time_r1_tpu_torch.rl.lora import lora_leaves
+    from time_r1_tpu_torch.utils.checkpoint import load_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="timer1_phase11_")
+    free = shutil.disk_usage(root).free
+    log(f"[lora] {root}: {free / 1e9:.1f} GB free; phase 11 writes up to {PHASE11_BYTES / 1e9:.0f} GB")
+    if free < PHASE11_BYTES:
+        shutil.rmtree(root, ignore_errors=True)
+        raise AssertionError(f"phase 11 needs {PHASE11_BYTES / 1e9:.0f} GB under {root}, which has "
+                             f"{free / 1e9:.1f} GB free: point TMPDIR at a larger disk")
+    cfg = Qwen25VLConfig.qwen25vl_7b()
+    L = cfg.text.num_hidden_layers
+    result = {"card": card}
+    try:
+        t_phase = time.perf_counter()
+        hf = os.path.join(root, "hf")
+        params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbytes = save_hf_checkpoint(hf, params, cfg)
+        with open(os.path.join(hf, "config.json"), "w") as f:
+            json.dump(config_to_hf_dict(cfg), f)
+        result["hf"] = dict(gb=nbytes / 1e9, write_s=time.perf_counter() - t0)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[lora] (a) the 7B's seeded HF checkpoint: {nbytes / 1e9:.3f} GB in {result['hf']['write_s']:.2f} s")
+
+        steps, saves, quant, hashes = [], [], {}, {}
+
+        def timed_quant(original):
+            def quantize_base_in_place(params, bits=8):
+                torch.cuda.synchronize()
+                quant["before_gib"] = torch.cuda.memory_allocated() / 2**30
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = original(params, bits=bits)
+                torch.cuda.synchronize()
+                quant.update(s=time.perf_counter() - t0, after_gib=torch.cuda.memory_allocated() / 2**30,
+                             peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                hashes["before"] = base_hash(out)
+                return out
+            return quantize_base_in_place
+
+        def timed_step(original):
+            def step_batch(self, examples, requests=None):
+                before = read_launches()
+                timers0 = dict(self.timers.totals)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = original(self, examples, requests=requests)
+                torch.cuda.synchronize()
+                after = read_launches()
+                tm = self.engine.timings
+                steps.append(dict(
+                    step_s=time.perf_counter() - t0, loss=out["loss"],
+                    launches={k: after[k] - before[k] for k in after}, decode_steps=tm["decode_steps"],
+                    decode_ms_per_step=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1),
+                    phases_ms={k: round((v - timers0.get(k, 0.0)) * 1e3, 1) for k, v in self.timers.totals.items()},
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    side_adapters=self.engine.lora_side is not None, shares_base=self.engine.params is self.params))
+                return out
+            return step_batch
+
+        def timed_save(original):
+            def save_checkpoint(self, path):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                original(self, path)
+                saves.append(dict(dir=os.path.basename(path), gb=dir_bytes(path) / 1e9, s=time.perf_counter() - t0,
+                                  lora_npz=os.path.exists(os.path.join(path, LORA_FILE))))
+            return save_checkpoint
+
+        syncs = []
+
+        def timed_sync(original):
+            def _sync_engine(self):
+                torch.cuda.synchronize()
+                with gc_timed([]) as passes:
+                    t0 = time.perf_counter()
+                    original(self)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+                syncs.append(dict(ms=ms, gc_ms=sum(p for _, p in passes)))
+            return _sync_engine
+
+        out = os.path.join(root, "run")
+        data = write_dataset(root, "train", 2)
+        with cli_stand_ins(cfg) as cli, patched(cli, "quantize_base_in_place", timed_quant), \
+                patched(GRPOTrainer, "step_batch", timed_step), patched(GRPOTrainer, "save_checkpoint", timed_save), \
+                patched(GRPOTrainer, "_sync_engine", timed_sync):
+            args = cli_args(cli, hf, out, data, *LORA_7B_FLAGS)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            trainer = cli.main(args)
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+            launches = read_launches()
+        hashes["after"] = base_hash(trainer.params)
+        log(f"[lora] (a) quantize_base_in_place: {quant['s']:.2f} s; allocated {quant['before_gib']:.2f} GiB before "
+            f"(the bf16 7B), {quant['after_gib']:.2f} GiB after (the int8 base), peak {quant['peak_gib']:.2f} GiB "
+            f"during; {card}")
+        for i, st in enumerate(steps, start=1):
+            log(f"[lora] (a) step_batch {i}: {st['step_s']:.2f} s, loss {st['loss']:.6f}; phases (ms, synced) "
+                f"{st['phases_ms']}; rollout decode {st['decode_ms_per_step']:.2f} ms/step over "
+                f"{st['decode_steps']} steps; peak {st['peak_gib']:.2f} GiB allocated; {card}")
+            log(f"[lora] (a) step_batch {i}: launches {st['launches']}")
+            check_step_launches(f"lora step_batch {i}", st["launches"], st["decode_steps"], L,
+                                {"shared_prefix_decode_full": 1, "shared_prefix_decode_attention": 0,
+                                 "int4_matmul": 0, "fused_mlp_int8": 0})
+            check_tc_route(f"lora step_batch {i}", st["launches"], remat_step_launches(cfg, st["decode_steps"]),
+                           tensor_cores=True)
+            # the install's own time: the sync's wall time less Python's garbage-collector passes inside it (a
+            # pass over the whole process's objects, up to ~80 ms in the whole script); from the second step
+            # on, when the install is a copy into the engine's adapters (the first allocates them)
+            sync = syncs[i - 1]
+            install_ms = sync["ms"] - sync["gc_ms"]
+            st.update(install_ms=install_ms, install_gc_ms=sync["gc_ms"])
+            log(f"[lora] (a) step_batch {i}: the weight sync {sync['ms']:.1f} ms, of which garbage collection "
+                f"{sync['gc_ms']:.1f} ms: the adapter install {install_ms:.1f} ms")
+            if (i > 1 and install_ms >= 50.0) or not (st["side_adapters"] and st["shares_base"]):
+                raise AssertionError(f"(a) step_batch {i}: adapter install {install_ms:.1f} ms, side adapters "
+                                     f"{st['side_adapters']}, the engine shares the base {st['shares_base']}: "
+                                     "want an adapter install under 50 ms over the base")
+        for sv in saves:
+            log(f"[lora] (a) save_checkpoint {sv['dir']}: {sv['gb']:.3f} GB in {sv['s']:.2f} s "
+                f"({sv['gb'] / sv['s']:.2f} GB/s), {LORA_FILE} beside it: {sv['lora_npz']}; {card}")
+        moved = sum(int(b.detach().abs().max().item() > 0) for b in lora_leaves(trainer.lora)[1::2])
+        n_b = len(lora_leaves(trainer.lora)) // 2
+        log(f"[lora] (a) main(): {main_s:.2f} s; base hash before {hashes['before'][:16]}, after "
+            f"{hashes['after'][:16]}; {moved} of {n_b} adapter B matrices moved off 0; "
+            f"{sum(t.numel() for t in lora_leaves(trainer.lora)) / 1e6:.1f} M adapter parameters; lr per update "
+            f"{trainer.optimizer.lrs}; {card}")
+        if len(steps) != 2 or trainer.global_step != 2 or trainer.opt_state.count != 1:
+            raise AssertionError(f"(a): {len(steps)} step_batch calls, global_step {trainer.global_step}, "
+                                 f"{trainer.opt_state.count} updates; want 2, 2, 1")
+        if hashes["before"] != hashes["after"] or moved == 0 or trainer.ref_params is not trainer.params:
+            raise AssertionError("(a): the base changed, no adapter moved, or the reference is not the base")
+        if [sv["dir"] for sv in saves] != ["epoch-1", "run"] or not all(sv["lora_npz"] for sv in saves):
+            raise AssertionError(f"(a): saves {saves}")
+        if not trees_equal(load_params(out, device="cuda"), trainer.params):
+            raise AssertionError("(a): the final checkpoint does not reload bit-equal to the int8 base")
+        back = lora_from_jax(load_lora_npz(os.path.join(out, LORA_FILE)), cfg, device="cuda")
+        if not trees_equal(back, {k: v for k, v in trainer.lora.items()}):
+            raise AssertionError(f"(a): {LORA_FILE} does not load back equal to the trained adapters")
+        log(f"[lora] (a) the final checkpoint reloads bit-equal: the int8 base, and the adapters from {LORA_FILE}")
+        for name in TRAIN_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError(f"(a): {name} was not launched by main()")
+        result["main"] = dict(main_s=main_s, quantize=quant, steps=[{k: v for k, v in st.items() if k != "launches"}
+                                                                   for st in steps], saves=saves,
+                              adapter_params_m=sum(t.numel() for t in lora_leaves(trainer.lora)) / 1e6,
+                              timers=trainer.timers.summary())
+        del trainer, back
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.rmtree(hf, ignore_errors=True)
+        result["route_b"] = lora_route_b(card)
+        result["resume"] = lora_resume(card)
+        result["phase_s"] = time.perf_counter() - t_phase
+        log(f"[lora] summary on {card}: {json.dumps(result)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def lora_route_b(card: str) -> dict:
+    """(b) at 3B widths and 2 decoder layers: a bf16 base, use_peft and int8
+    rollouts. One step_batch: its weight sync merges and quantizes one layer
+    at a time (`rl/lora.py::merge_quantize`), bit-equal to quantizing the
+    merged tree; the rollout runs Q2 on that int8 tree (a layer a decode
+    step) and D2 over int8 caches."""
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.ops.quant import quantize_params
+    from time_r1_tpu_torch.rl import GRPOTrainer, TrainConfig
+    from time_r1_tpu_torch.rl.lora import lora_leaves, merge_lora
+    from time_r1_tpu_torch.utils.profiling import PhaseTimers
+
+    cfg = reduced_config()
+    L = cfg.text.num_hidden_layers
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    config = TrainConfig(use_peft=True, lora_r=16, lora_alpha=32.0, rollout_quantization="int8", num_generations=8,
+                         max_completion_length=64, gradient_accumulation_steps=1, gradient_checkpointing=True,
+                         report_to="none", learning_rate=1e-4)
+    tr = GRPOTrainer(params, cfg, IdsProcessor(), [token_parity_reward], config=config, device="cuda")
+    tr.timers = PhaseTimers(sync=True)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    with torch.no_grad():
+        for b in lora_leaves(tr.lora)[1::2]:
+            b.copy_(torch.randn(b.shape, generator=gen, device="cuda") * 0.02)
+        want = quantize_params(merge_lora(params, tr.lora, tr.lora_cfg), bits=8)
+    req = video_request(cfg, np.random.default_rng(1), frames=8, height=224, width=392)
+    reset_launches()
+    info = tr.step_batch([{"problem": "a door opens", "solution": (1.0, 2.0)}], [req])
+    torch.cuda.synchronize()
+    launches, steps = read_launches(), tr.engine.timings["decode_steps"]
+    same = trees_equal(tr.engine.params, want)
+    out = dict(loss=info["loss"], weight_sync_ms=tr.timers.summary()["weight_sync"]["total_s"] * 1e3,
+               decode_steps=steps, fused_mlp_int8=launches["fused_mlp_int8"], merged_int8_bit_equal=same)
+    log(f"[lora] (b) bf16 base, int8 rollouts: {out}; {card}")
+    check_step_launches("lora route (b)", launches, steps, L, {"fused_mlp_int8": 1, "shared_prefix_decode_full": 1})
+    if not same:
+        raise AssertionError("(b): the engine's int8 tree differs from quantize_params(merge_lora(...))")
+    return out
+
+
+def lora_resume(card: str) -> dict:
+    """(c) at 3B widths and 2 decoder layers over an int8 fused base (the 7B
+    layout), LoRA with the optimizer state saved: 2 step_batch calls (one
+    update), save, a fresh trainer resumed from it for 2 more (a second
+    update) against one uninterrupted run of 4: adapters and optimizer state
+    bit-equal. The rollouts are fixed completions (the sampling's seeds come
+    from the trainer's own generator, which a resume starts over)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.ops.quant import quantize_params
+    from time_r1_tpu_torch.rl import GRPOTrainer, TrainConfig
+
+    cfg = reduced_config()
+    base = quantize_params(init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16), bits=8, fuse=True)
+    req = video_request(cfg, np.random.default_rng(1), frames=8, height=224, width=392)
+    rng = np.random.default_rng(2)
+    comps = [rng.integers(3, 151000, n).tolist() for n in (20, 57, 101, 127)]
+    example = {"problem": "a door opens", "solution": (1.0, 2.0)}
+
+    def trainer(out):
+        config = TrainConfig(use_peft=True, lora_r=16, lora_alpha=32.0, num_generations=4, max_completion_length=128,
+                             gradient_accumulation_steps=2, gradient_checkpointing=True, report_to="none",
+                             learning_rate=1e-4, save_only_model=False, output_dir=out)
+        tr = GRPOTrainer(base, cfg, IdsProcessor(), [token_parity_reward], config=config, device="cuda")
+        tr.engine.generate = lambda reqs, sp: [list(c) for c in comps]
+        return tr
+
+    root = tempfile.mkdtemp(prefix="timer1_phase11c_")
+    try:
+        whole = trainer(root)
+        for _ in range(4):
+            whole.step_batch([example], [req])
+        first = trainer(root)
+        for _ in range(2):
+            first.step_batch([example], [req])
+        first.save_checkpoint(os.path.join(root, "ck"))
+        resumed = trainer(root)
+        resumed.load_checkpoint_state(os.path.join(root, "ck"))
+        restored = trees_equal(resumed.lora, first.lora) and trees_equal(resumed.opt_state.tree(),
+                                                                         first.opt_state.tree())
+        for _ in range(2):
+            resumed.step_batch([example], [req])
+        torch.cuda.synchronize()
+        out = dict(restored=restored, updates=resumed.opt_state.count,
+                   adapters_equal=trees_equal(resumed.lora, whole.lora),
+                   opt_state_equal=trees_equal(resumed.opt_state.tree(), whole.opt_state.tree()))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[lora] (c) resumed LoRA run against an uninterrupted one: {out}; {card}")
+    if out != dict(restored=True, updates=2, adapters_equal=True, opt_state_equal=True):
+        raise AssertionError(f"(c): the resumed LoRA run is not the uninterrupted one bit for bit: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     # the training phase holds ~60 GB of live tensors of many sizes
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -4046,6 +4649,7 @@ def main() -> int:
     checks = phase_kernels()
     phase_reduced_depth()
     phase_reduced_train()
+    phase_reduced_lora()
     phase_reduced_quant()
     phase_reduced_serving()
     phase_captured_decode()
@@ -4058,6 +4662,7 @@ def main() -> int:
     input_launches = phase_input_path(card)  # K1-K3, B1, B2, S1, S2, D2 from frames the processor made
     cli_launches = phase_cli_train(card)  # the same kernels from `cli.train.main`, K1 and S1 rerun under remat
     sf_launches = phase_sf_round(card)  # the same from `cli.train_sf.main`: a round's training and its self-eval
+    lora_launches = phase_lora_7b(card)  # the same from `cli.train.main` on the 7B, LoRA over an int8 base
     for tag, name in zip("ab", PAGED_KERNELS):
         quant_launches[name] = serve[tag]["launches"][name]
         quant_launches[f"{name}_tc"] = serve[tag]["launches"][f"{name}_tc"]
@@ -4126,6 +4731,10 @@ def main() -> int:
             k["launches_cli_train"] = cli_launches[k["name"]]  # phase 9's main(): 4 step_batch calls
             k["launches_sf_round"] = sf_launches[k["name"]]  # phase 10 (a): 4 step_batch calls, 4 eval items
     s2["launches_sf_round_dkv_prefix"] = sf_launches["shared_prefix_bwd_dkv"]
+    for k in kernels:  # phase 11 (a): 2 step_batch calls of LoRA GRPO on the 7B (Q2: 0 under side adapters)
+        if k["name"] in TRAIN_KERNELS or k["name"] == "fused_mlp_int8":
+            k["launches_lora_7b"] = lora_launches[k["name"]]
+    s2["launches_lora_7b_dkv_prefix"] = lora_launches["shared_prefix_bwd_dkv"]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

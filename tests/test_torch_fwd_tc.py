@@ -100,6 +100,7 @@ FLASH_CASES = [
     (2, 128, 256, 4, 2, 64, True, 128, (130, 0)),  # a cached prefix: some rows see no key
     (1, 128, 128, 2, 1, 64, False, 0, (16,)),
     (1, 128, 256, 8, 2, 128, True, 128, (70,)),
+    (1, 128, 256, 14, 2, 128, True, 128, (40,)),  # G = 7: the 7B's 28 q heads over 4 kv heads
 ]
 
 

@@ -2,7 +2,7 @@
 (`time_r1_tpu/sampler/paged.py`) and the port's bucket Engine: the page
 allocator, `write_prompt` bit for bit, the decode step's scatter into the
 pool, and equal greedy tokens for mixed-length text, video, int8 KV pages,
-int8 weights and the chunked-prefill interleave."""
+int8 weights, the chunked-prefill interleave and side-path LoRA."""
 
 import numpy as np
 import pytest
@@ -223,10 +223,26 @@ def test_chunked_prefill_interleaves_decode(params):
     assert (1, 1024, False) in tm["admissions"]
 
 
-def test_side_path_lora_is_not_ported(params):
+def test_side_path_lora_matches_the_bucket_engine(params):
+    """Side-path LoRA on the paged engine: the admissions' prefill and the
+    paged decode steps add the adapters (B away from 0), as the bucket
+    Engine does with the same set (greedy tokens equal, and unequal to the
+    base's); tests/test_torch_lora_side.py holds both against JAX."""
+    from time_r1_tpu_torch.rl.lora import LoRAConfig, init_lora
+
+    lora = init_lora(params[1], LoRAConfig(rank=4, alpha=8.0), seed=7)["text"]["layers"]
+    for sl in lora:
+        for ab in sl.values():
+            ab["lora_b"].add_(0.03)
+    reqs = _text_requests((9, 21, 14), seed=3)
+    sp = SamplingParams(temperature=0.0, max_new_tokens=6, stop_token_ids=CFG.stop_token_ids)
     eng = PagedEngine(params[1], CFG, max_slots=2, max_len=128, page_size=16, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        eng.set_lora_side({}, 1.0)
+    eng.set_lora_side(lora, 2.0)
+    bucket = Engine(params[1], CFG, dtype=torch.float32, device="cpu")
+    bucket.set_lora_side(lora, 2.0)
+    got = eng.generate(reqs, sp)
+    assert got == bucket.generate(reqs, sp)
+    assert got != Engine(params[1], CFG, dtype=torch.float32, device="cpu").generate(reqs, sp)
 
 
 def test_entry_points_default_to_the_card():

@@ -102,7 +102,17 @@ def tc_backward(q, kp, vp, ko, vo, pb, do, lse, delta, scale):
 def test_tc_rounding_stays_within_the_kernels_tolerance(R):
     """(a): the emulated tensor-core S1 + S2 against JAX's kernels on the same
     bf16-valued inputs, forward and every gradient, at 1e-2 of max |JAX|."""
-    arrays = [_bf16(torch.from_numpy(a)).numpy() for a in _sp_inputs(R=R)[:5]] + [_sp_inputs(R=R)[5]]
+    _check_tc_rounding(R=R)
+
+
+def test_tc_rounding_at_the_7b_head_grouping():
+    """(a) at G = 7 (the 7B's 28 q heads over 4 kv heads), head dim 128."""
+    _check_tc_rounding(R=2, H=14, Hkv=2, D=128)
+
+
+def _check_tc_rounding(**shape):
+    inputs = _sp_inputs(**shape)
+    arrays = [_bf16(torch.from_numpy(a)).numpy() for a in inputs[:5]] + [inputs[5]]
     q, kp, vp, ko, vo, pb = arrays
     g = _bf16(torch.from_numpy(np.random.default_rng(3).normal(size=q.shape).astype(np.float32))).numpy()
 
@@ -133,6 +143,8 @@ def test_tc_rounding_stays_within_the_kernels_tolerance(R):
     (2, 256, 2, 1, 8),  # R·G cannot fill the card: the whole of it
     (4, 640, 2, 2, 4),
     (8, 128, 2, 1, 2),
+    (7, 2048, 4, 1, 8),  # the 7B's split loss: G = 7 over 4 kv heads
+    (7, 2048, 4, 1, 1),  # B2 at the 7B's prompt
 ])
 def test_dkv_split_divides_rows_times_heads_and_fills_the_card(G, Skv, Hkv, B, R):
     """(b): n_split divides R·G, and the grid has at least two blocks per SM

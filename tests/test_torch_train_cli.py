@@ -14,7 +14,11 @@ package's `cli/train.py`, on the CPU:
   trained weights; then from that native checkpoint with
   `--resume_from_checkpoint`, which restores params, optimizer state and
   global_step and stops at resumed + quota;
-- the options that are not ported are refused by name (A8, A13), and the
+- `--use_peft true` over a bf16 base and with `--train_base_quantization
+  int8 --rollout_quantization int8` (one load, the int8 fused base, the
+  adapters trained, the checkpoint with `lora_adapters.npz`), and
+  `--train_base_quantization` without `--use_peft` refused;
+- the options that are not ported are refused by name (A13), and the
   entry point runs on the card unless asked for the CPU."""
 
 import json
@@ -140,12 +144,54 @@ def test_main_from_hf_then_resume_from_native(tmp_path, clips, tiny_processor, c
 
 
 @pytest.mark.parametrize("flags,label", [
-    (["--use_peft", "true"], "A8"), (["--train_base_quantization", "int8"], "A8"),
     (["--tensor_parallel_size", "2"], "A13"), (["--context_parallel_size", "2"], "A13"),
 ])
 def test_unported_options_are_refused(tmp_path, flags, label):
     with pytest.raises(NotImplementedError, match=label):
         cli.main(cli.get_args([*REQUIRED, *flags]), device="cpu")
+
+
+def test_base_quantization_needs_peft():
+    """The JAX CLI's exit, before anything is loaded."""
+    with pytest.raises(SystemExit, match="--train_base_quantization requires --use_peft true"):
+        cli.main(cli.get_args([*REQUIRED, "--train_base_quantization", "int8"]), device="cpu")
+
+
+@pytest.mark.parametrize("quant", ["int8", ""], ids=["int8_base", "bf16_base"])
+def test_main_with_peft(tmp_path, clips, tiny_processor, monkeypatch, quant):
+    """`--use_peft true` (with `--train_base_quantization int8
+    --rollout_quantization int8`: the single-card 7B flags) at 2 layers: one
+    load (the base is the reference), the int8 base in the fused layout, the
+    adapters updated while the base stays as loaded, and a final checkpoint
+    of the int8 base (or the merged model) with `lora_adapters.npz`, both
+    reading back equal."""
+    from time_r1_tpu_torch.rl.lora import lora_leaves
+
+    loads = []
+    real_load = cli.load_checkpoint
+    monkeypatch.setattr(cli, "load_checkpoint", lambda *a, **kw: loads.append(a) or real_load(*a, **kw))
+    # rewards that vary within a group, so that the advantages and the adapters' gradients are not zero
+    monkeypatch.setitem(cli.REWARD_FUNCS_REGISTRY, "format", lambda completions, **kw: [
+        float(i) for i in range(len(completions))])
+    data = _annotations(tmp_path, clips)
+    extra = ["--use_peft", "true", "--lora_r", "4", "--lora_alpha", "8", "--beta", "0.04", "--warmup_ratio", "0"]
+    if quant:
+        extra += ["--train_base_quantization", "int8", "--rollout_quantization", "int8"]
+    tr = cli.main(_args(_hf_checkpoint(tmp_path / "hf"), tmp_path / "run", data, *extra), device="cpu")
+    assert len(loads) == 1 and tr.ref_params is tr.params and tr.lora_cfg.scaling == 2.0
+    lp = tr.params["text"]["layers"][0]
+    assert ("qkv" in lp and lp["qkv"]["q8"].dtype == torch.int8) == bool(quant)
+    assert tr.global_step == 3 and tr.opt_state.count == 1
+    assert any(float(b.detach().abs().max()) > 0 for b in lora_leaves(tr.lora)[1::2])  # B moved off 0
+    if quant:
+        assert tr.engine.params is tr.params and tr.engine.lora_side is not None
+    saved, _ = conv.load_checkpoint(str(tmp_path / "run"), dtype=torch.bfloat16, device="cpu")
+    for a, b in zip(jax.tree.leaves(saved), jax.tree.leaves(tr._policy_params())):
+        assert torch.equal(a, b)
+    got = conv.load_lora_npz(str(tmp_path / "run" / conv.LORA_FILE))
+    want = conv.lora_to_jax(tr.lora, tr.cfg)
+    assert sorted(got) == sorted(want)
+    assert all(np.array_equal(got[k][n], want[k][n]) for k in want for n in ("lora_a", "lora_b"))
 
 
 def test_main_runs_on_the_card_unless_asked(tmp_path, clips, tiny_processor):

@@ -184,8 +184,7 @@ def test_unpatched_cpu_run_completes():
 
 
 @pytest.mark.parametrize("option", [
-    dict(use_peft=True), dict(context_parallel_size=2),
-    dict(offload_optimizer=True), dict(shared_prefix_loss=False),
+    dict(context_parallel_size=2), dict(offload_optimizer=True), dict(shared_prefix_loss=False),
 ])
 def test_unported_options_raise(option):
     tp = port_params(jax_params())

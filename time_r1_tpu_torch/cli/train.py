@@ -10,10 +10,24 @@ over by changing only its launcher. The TimeRFT dataset loader
 (main.py:589-618) are reproduced here.
 
 The run is one process on one card: `load_checkpoint` (HF safetensors or the
-port's native format) for the policy and, with beta != 0, again for the
-reference; `GRPOTrainer`; `train()`; the final `save_checkpoint`. Not ported
-yet, each refused by name: --use_peft and --train_base_quantization (ROADMAP
-A8), --tensor_parallel_size > 1 and --context_parallel_size > 1 (A13).
+port's native format) for the policy and, with beta != 0 and no LoRA, again
+for the reference; `GRPOTrainer`; `train()`; the final `save_checkpoint`.
+
+LoRA (`--use_peft true --lora_r --lora_alpha`) trains adapters over the
+frozen base, which is then also the reference: no second load.
+`--train_base_quantization int8` (with --use_peft only) puts the loaded base
+into int8 in the decode-fused layout one layer at a time, each bf16 layer
+dropped once quantized, so the bf16 and int8 trees are never both whole on
+the card: the single-card 7B configuration, whose rollouts then run over the
+same tree with side-path adapters.
+
+    python -m time_r1_tpu_torch.cli.train --model_name_or_path Qwen2.5-VL-7B \
+        --output_dir OUT --train_data_path train.json --use_peft true \
+        --lora_r 16 --lora_alpha 32 --train_base_quantization int8 \
+        --rollout_quantization int8 --gradient_checkpointing true
+
+Not ported yet, refused by name: --tensor_parallel_size > 1 and
+--context_parallel_size > 1 (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -29,6 +43,7 @@ import torch
 
 from ..models.processor import Qwen25VLProcessor
 from ..models.qwen25vl.convert import load_checkpoint
+from ..ops.quant import quantize_layer, quantize_text_params
 from ..rl.trainer import GRPOTrainer, TrainConfig
 from ..utils.rewards import METRIC_FUNCS_REGISTRY, REWARD_FUNCS_REGISTRY
 from ..video.pipeline import video_loader
@@ -139,9 +154,10 @@ def get_args(argv=None):
         type=str,
         default="",
         choices=["", "int8"],
-        help="quantize the frozen LoRA base after load (the single-card 7B "
-        "training configuration); requires --use_peft true. Not ported yet "
-        "(ROADMAP A8).",
+        help="quantize the frozen LoRA base after load, in the decode-fused "
+        "qkv/gu layout, one layer at a time (the single-card 7B training "
+        "configuration: rollouts share the tree through side-path adapters); "
+        "requires --use_peft true",
     )
     p.add_argument("--attn_implementation", type=str, default="flash")
     p.add_argument("--dataset_name", type=str, default="xxx")
@@ -172,8 +188,6 @@ def get_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    if args.use_peft or args.train_base_quantization:
-        raise NotImplementedError("--use_peft and --train_base_quantization (LoRA) are not ported yet (ROADMAP A8)")
     if getattr(args, "tensor_parallel_size", 1) > 1 or getattr(args, "context_parallel_size", 1) > 1:
         raise NotImplementedError("--tensor_parallel_size / --context_parallel_size > 1 (a device mesh) are not "
                                   "ported yet (ROADMAP A13)")
@@ -183,21 +197,40 @@ def main(args, trainer: GRPOTrainer = None, device="cuda"):
     """Train as the recipe asks; returns the trainer. Runs on the card unless
     `device` says otherwise (the tests pass "cpu")."""
     _refuse_unported(args)
+    if args.train_base_quantization and not args.use_peft:
+        raise SystemExit("--train_base_quantization requires --use_peft true")
     set_global_seed(42)
     dataset = load_json_dataset_tg(args.train_data_path, args.is_curriculum_learning)
     return _run(args, trainer, dataset, device)
 
 
+@torch.no_grad()
+def quantize_base_in_place(params: dict, bits: int = 8) -> dict:
+    """The loaded base's text weights into their quantized, decode-fused form
+    (`ops/quant.py::quantize_params(fuse=True)`), in place: each layer is
+    quantized and its bf16 dict replaced, so that its memory is free before
+    the next layer is quantized; then the embedding and the untied head. The
+    vision tower stays as it is. Returns `params`."""
+    layers = params["text"]["layers"]
+    for i in range(len(layers)):
+        layers[i] = quantize_layer(layers[i], bits=bits, fuse=True)
+    params["text"] = quantize_text_params(params["text"], bits=bits)  # the layers are done: the embedding, the head
+    return params
+
+
 def _run(args, trainer, dataset, device="cuda"):
     if trainer is None:
         params, cfg = load_checkpoint(args.model_name_or_path, device=device)
+        if args.train_base_quantization:
+            quantize_base_in_place(params, bits=8)
         if args.slide_window:
             cfg = cfg.with_sliding_window(True, args.sliding_window_length, args.max_window_layers)
         processor = Qwen25VLProcessor.from_pretrained(args.model_name_or_path)
         ref_params = None
-        if args.beta != 0.0:
+        if args.beta != 0.0 and not args.use_peft:
             # the KL needs a frozen copy: a second load, whose mapped files
-            # are released once it is on the device
+            # are released once it is on the device. Under LoRA the unmerged
+            # base is the reference.
             ref_params, _ = load_checkpoint(args.model_name_or_path, device=device)
         config = TrainConfig(
             output_dir=args.output_dir,

@@ -28,6 +28,10 @@ naming eras are read, the old one is written) and the Conv3d patch embed is
 flattened. The port's own native checkpoint (what the trainer writes:
 `timer1_config.json` beside `params.safetensors`, `utils/checkpoint.py`)
 loads through the same `load_checkpoint`.
+
+LoRA adapters cross between the packages through `lora_from_jax` /
+`lora_to_jax`, and are stored as the JAX package stores them
+(`save_lora_npz`, `load_lora_npz`: `lora_adapters.npz`).
 """
 
 from __future__ import annotations
@@ -181,6 +185,79 @@ def params_to_jax(params: dict, cfg: Qwen25VLConfig) -> dict:
     if "lm_head" in txt:
         text["lm_head"] = {"kernel": N(txt["lm_head"], True)}
     return {"visual": visual, "text": text}
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters across the two packages. JAX keeps a flat dict keyed by the
+# weight's path in its tree, {"text/layers/self_attn/q_w": {"lora_a": (L, in,
+# r), "lora_b": (L, r, out)}, ...}; the port mirrors its own params
+# (`rl/lora.py`): per layer, lora_a (r, in) and lora_b (out, r).
+LORA_FILE = "lora_adapters.npz"
+
+
+def _lora_sections(cfg: Qwen25VLConfig) -> dict:
+    """(JAX path prefix) -> (port section, list key, layer count, {JAX
+    (module, name): port key})."""
+    text_keys = {(("self_attn" if k in _ATTN_KEYS else "mlp"), k): k for k in _ATTN_KEYS + _MLP_KEYS}
+    vision_keys = {path: key for path, key, tr in _VISION_BLOCK if tr}
+    return {"text/layers": ("text", "layers", cfg.text.num_hidden_layers, text_keys),
+            "visual/blocks": ("visual", "blocks", cfg.vision.depth, vision_keys)}
+
+
+def lora_from_jax(flat: dict, cfg: Qwen25VLConfig, device="cuda", dtype=torch.float32) -> dict:
+    """The JAX package's adapter dict (numpy leaves) → the port's adapter tree
+    on `device`: each layer's slice transposed."""
+    device = resolve_device(device)
+    out: dict = {}
+    for path, ab in flat.items():
+        parts = path.split("/")
+        prefix = "/".join(parts[:2])
+        if prefix not in _lora_sections(cfg) or len(parts) != 4:
+            raise KeyError(f"no adapter layout for {path!r}")
+        section, sub, n, keys = _lora_sections(cfg)[prefix]
+        layers = out.setdefault(section, {}).setdefault(sub, [{} for _ in range(n)])
+        a, b = np.asarray(ab["lora_a"], np.float32), np.asarray(ab["lora_b"], np.float32)
+        for i in range(n):
+            layers[i][keys[(parts[2], parts[3])]] = {
+                "lora_a": torch.tensor(a[i].T, device=device, dtype=dtype),
+                "lora_b": torch.tensor(b[i].T, device=device, dtype=dtype),
+            }
+    return out
+
+
+def lora_to_jax(lora: dict, cfg: Qwen25VLConfig) -> dict:
+    """The port's adapter tree → the JAX package's flat dict of stacked f32
+    numpy arrays (lora_a (L, in, r), lora_b (L, r, out))."""
+    flat = {}
+    for prefix, (section, sub, _, keys) in _lora_sections(cfg).items():
+        layers = lora.get(section, {}).get(sub)
+        if not layers:
+            continue
+        path_of = {key: f"{prefix}/{mod}/{name}" for (mod, name), key in keys.items()}
+        for key in layers[0]:
+            flat[path_of[key]] = {
+                n: np.stack([lp[key][n].detach().float().cpu().numpy().T for lp in layers])
+                for n in ("lora_a", "lora_b")
+            }
+    return flat
+
+
+def save_lora_npz(path: str, lora: dict, cfg: Qwen25VLConfig) -> None:
+    """Write the adapters as the JAX package writes them: `{path}::lora_a`
+    and `{path}::lora_b`, stacked f32 arrays, in one .npz (a file that either
+    package loads)."""
+    np.savez(path, **{f"{p}::{n}": v for p, ab in lora_to_jax(lora, cfg).items() for n, v in ab.items()})
+
+
+def load_lora_npz(path: str) -> dict:
+    """A `lora_adapters.npz` (written by either package) → the JAX package's
+    flat adapter dict of f32 numpy arrays."""
+    flat: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            p, n = key.split("::")
+            flat.setdefault(p, {})[n] = np.asarray(z[key], np.float32)
+    return flat
 
 
 def init_params(cfg: Qwen25VLConfig, seed: int = 0, device="cuda", dtype=torch.bfloat16) -> dict:

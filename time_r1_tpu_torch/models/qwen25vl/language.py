@@ -30,7 +30,15 @@ loop over the layers where JAX scans.
   decoder layer is one `torch.utils.checkpoint` unit, as JAX wraps each
   scanned layer in `jax.checkpoint` (`REMAT_POLICIES`, `_layer_remat`).
 
-LoRA and context parallelism are not ported yet.
+- LoRA: `lora=(per-layer adapters, scaling)` merges W + scaling·B@A inside
+  each layer function (`rl/lora.py::apply_layer_lora`), the unit that remat
+  checkpoints, so one layer's merged weights exist at a time and the
+  backward recomputes them (the loss over a frozen, perhaps int8, base);
+  `lora_side=` adds the adapters as side products at each projection
+  (`ops/quant.py::lora_delta`), over any base and cache (the rollouts'
+  decode). The two are refused together, and `lora` with an int8 cache.
+
+Context parallelism is not ported yet.
 """
 
 from __future__ import annotations
@@ -47,7 +55,7 @@ from ...device import resolve_device
 from ...ops.attention import NEG_INF, mha_cached, mha_cached_q8, mha_reference, mha_shared_prefix, rope
 from ...ops.decode_attention import shared_prefix_decode_full
 from ...ops.flash_attention import flash_attention, flash_attention_shared_prefix
-from ...ops.quant import attn_qkv_proj, current_proj_name, head_logits, mlp_proj, proj_name, qmatmul, quantize_kv
+from ...ops.quant import attn_out_proj, attn_qkv_proj, current_proj_name, head_logits, mlp_proj, quantize_kv
 from .config import TextConfig
 
 # Selective gradient checkpointing, as JAX's: each decoder layer is one
@@ -203,6 +211,8 @@ def decoder_forward(
     cache: Optional[KVCache] = None,
     use_flash: Optional[bool] = None,  # force (True) or deny (False) the flash branch
     remat=False,  # gradient checkpointing per layer: False, True/"full", "dots", "dots_small"
+    lora: Optional[tuple] = None,  # (per-layer adapters, scaling): merged inside each layer
+    lora_side: Optional[tuple] = None,  # (per-layer adapters, scaling): side products
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Run all decoder layers; returns (hidden (B, S, hid), updated cache).
 
@@ -288,10 +298,12 @@ def decoder_forward(
             kv_bias = torch.zeros((B, kv_len), dtype=torch.float32, device=device)
 
     sliding = _sliding_flags(cfg)
+    _check_lora(lora, lora_side, quant_kv)
 
     def layer(x, lp, li):
+        lp, side = _layer_adapters(lp, li, lora, lora_side)
         h = _rms_norm(x, lp["input_layernorm"], eps)
-        q, k, v = attn_qkv_proj(h, lp, nh, nkv, hd)
+        q, k, v = attn_qkv_proj(h, lp, nh, nkv, hd, lora=side)
         q = rope(q, cos_b, sin_b).to(x.dtype)
         k = rope(k, cos_b, sin_b).to(x.dtype)
         if quant_kv:
@@ -310,10 +322,8 @@ def decoder_forward(
             attn = flash_attention(q, k.contiguous(), v.contiguous(), kv_bias, True, None, 0)
         else:
             attn = mha_reference(q, k, v, bias=window_bias if sliding[li] else bias)
-        with proj_name("attn_proj"):
-            a = qmatmul(attn.reshape(B, S, nh * hd).to(x.dtype), lp["o_w"])
-        x = x + a
-        x = x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp)
+        x = x + attn_out_proj(attn.reshape(B, S, nh * hd).to(x.dtype), lp, side)
+        x = x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp, lora=side)
         return x, k, v
 
     if remat and in_place and torch.is_grad_enabled():
@@ -333,6 +343,28 @@ def decoder_forward(
     else:
         new_cache = None if cache is None else _advance(cache, S)
     return hidden, new_cache
+
+
+def _check_lora(lora, lora_side, quant_kv: bool) -> None:
+    """The JAX package's refusals: the in-layer merge is the loss path's (no
+    int8 cache), and adapters come one way at a time."""
+    if lora is not None and lora_side is not None:
+        raise ValueError("pass adapters as lora= or lora_side=, not both")
+    if lora is not None and quant_kv:
+        raise ValueError("the in-layer LoRA merge is the loss path's: it takes no int8 KV cache")
+
+
+def _layer_adapters(lp: dict, li: int, lora, lora_side) -> tuple[dict, Optional[tuple]]:
+    """Layer li's params with its adapters merged (lora), and its side
+    adapters (lora_side) as (slice, scaling) or None. The merge is built
+    here, outside every projection's name, so that no remat policy keeps it."""
+    if lora is not None:
+        from ...rl.lora import apply_layer_lora  # rl imports the models: a lazy import, as in JAX
+
+        return apply_layer_lora(lp, lora[0][li], lora[1]), None
+    if lora_side is not None:
+        return lp, (lora_side[0][li], lora_side[1])
+    return lp, None
 
 
 def _advance(cache: KVCache, S: int) -> KVCache:
@@ -405,6 +437,8 @@ def shared_decode_forward(
     prefix_bias: torch.Tensor,  # (P, Lp) f32 additive (0 valid / NEG_INF pad)
     use_flash: Optional[bool] = None,  # force (True) or deny (False) the S1 branch
     remat=False,  # gradient checkpointing per layer (the loss chunk only), as decoder_forward
+    lora: Optional[tuple] = None,  # the in-layer merge (the loss chunk only), as decoder_forward
+    lora_side: Optional[tuple] = None,  # side products, as decoder_forward
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Decoder layers over rows that share their prompt's KV
     (`time_r1_tpu/models/qwen25vl/language.py:448`). Each layer attends
@@ -450,9 +484,14 @@ def shared_decode_forward(
     if d2 and isinstance(L0, int):  # D2 reads the length from device memory
         L0 = torch.full((1,), L0, dtype=torch.int32, device=device)
 
+    _check_lora(lora, lora_side, quant)
+    if lora is not None and suffix is not None:
+        raise ValueError("the in-layer LoRA merge is the loss chunk's: it takes no suffix cache")
+
     def layer(x, lp, li):
+        lp, side = _layer_adapters(lp, li, lora, lora_side)
         h = _rms_norm(x, lp["input_layernorm"], eps)
-        q, k, v = attn_qkv_proj(h, lp, nh, nkv, hd)
+        q, k, v = attn_qkv_proj(h, lp, nh, nkv, hd, lora=side)
         q = rope(q, cos_b, sin_b).to(x.dtype)
         k = rope(k, cos_b, sin_b).to(x.dtype)
         kp, vp = prefix.k[li], prefix.v[li]
@@ -481,9 +520,8 @@ def shared_decode_forward(
             else:
                 _write_at(suffix.k, li, L0, k.to(suffix.k.dtype))
                 _write_at(suffix.v, li, L0, v.to(suffix.v.dtype))
-        with proj_name("attn_proj"):
-            x = x + qmatmul(attn.reshape(B, S, nh * hd).to(x.dtype), lp["o_w"])
-        return x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp)
+        x = x + attn_out_proj(attn.reshape(B, S, nh * hd).to(x.dtype), lp, side)
+        return x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp, lora=side)
 
     if remat and suffix is not None and torch.is_grad_enabled():
         raise ValueError("remat takes the loss chunk (suffix=None): a decode step writes its suffix in place")

@@ -3,7 +3,8 @@
 Port of `time_r1_tpu/models/qwen25vl/model.py`. The vision-token scatter is a
 cumsum gather + where (no boolean indexing), as in JAX. The text parameters
 may be quantized (`ops/quant.py`: the embedding lookup and the head read the
-int8 table) and the caches int8; both pass through to the decoder.
+int8 table) and the caches int8; both pass through to the decoder, as do
+side-path LoRA adapters (`lora_side`).
 """
 
 from __future__ import annotations
@@ -102,6 +103,7 @@ def forward(
     vision: Optional[VisionInputs] = None,
     cache: Optional[KVCache] = None,
     use_flash: Optional[bool] = None,
+    lora_side: Optional[tuple] = None,  # (per-layer adapters, scaling): language.decoder_forward
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Full forward → (logits (B, S, V) f32, updated KV cache)."""
     embeds = embed_lookup(params["text"]["embed_tokens"], input_ids, dtype=params["text"]["norm"].dtype)
@@ -110,7 +112,7 @@ def forward(
         embeds = merge_vision_embeddings(embeds, input_ids, feats, (cfg.video_token_id, cfg.image_token_id))
     hidden, new_cache = decoder_forward(
         params["text"], cfg.text, embeds, position_ids,
-        attention_mask=attention_mask, cache=cache, use_flash=use_flash,
+        attention_mask=attention_mask, cache=cache, use_flash=use_flash, lora_side=lora_side,
     )
     return lm_logits(params["text"], cfg.text, hidden), new_cache
 
@@ -123,11 +125,12 @@ def forward_shared_decode(
     prefix: KVCache,  # (L, P, Lp, ...) shared prompt prefixes
     suffix: KVCache,  # (L, B, max_new, ...) per-row generated suffix
     prefix_bias: torch.Tensor,  # (P, Lp) f32 additive
+    lora_side: Optional[tuple] = None,  # (per-layer adapters, scaling): language.decoder_forward
 ) -> tuple[torch.Tensor, KVCache]:
     """Decode-phase forward with the prompt KV shared across rollout rows
     (language.shared_decode_forward) → (logits (B, S, V) f32, new suffix)."""
     embeds = embed_lookup(params["text"]["embed_tokens"], input_ids, dtype=params["text"]["norm"].dtype)
     hidden, new_suffix = shared_decode_forward(
-        params["text"], cfg.text, embeds, position_ids, prefix, suffix, prefix_bias,
+        params["text"], cfg.text, embeds, position_ids, prefix, suffix, prefix_bias, lora_side=lora_side,
     )
     return lm_logits(params["text"], cfg.text, hidden), new_suffix

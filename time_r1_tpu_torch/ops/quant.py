@@ -109,6 +109,8 @@ def qmatmul(x: torch.Tensor, w, b=None) -> torch.Tensor:
     product rounds to x's dtype before the scale, then adds the bias, as the
     JAX package's `qmatmul(x, w) + b` does."""
     if not is_quantized(w):
+        if b is not None and b.dtype != x.dtype:  # the product rounds to x's dtype, then promotes, as in JAX
+            return F.linear(x, w) + b
         return F.linear(x, w, b)
     M = x.numel() // x.shape[-1]
     if "q4" in w and x.is_cuda and M <= 256:  # decode shapes: the nibbles unpack on chip
@@ -187,18 +189,39 @@ class _HeadF32(torch.autograd.Function):
         return dh, dw
 
 
+class _QuantHeadF32(torch.autograd.Function):
+    """logits = (hidden @ q.T) · s in f32 for a row-quantized (N, H) head: the
+    values contract in hidden's dtype, the row scales apply to the f32
+    logits. The head is frozen (an int8 LoRA base), so the backward gives
+    hidden's gradient only: (g · s) @ q with the f32 cotangent kept at f32
+    precision and accumulated in f32, as `_HeadF32` gives it, then rounded
+    to hidden's dtype. It saves the int8 values, not their cast."""
+
+    @staticmethod
+    def forward(ctx, hidden, qv, s):
+        ctx.save_for_backward(qv, s)
+        ctx.h_dtype, ctx.h_shape = hidden.dtype, hidden.shape
+        y = _mm_f32(hidden.reshape(-1, hidden.shape[-1]), qv.to(hidden.dtype).t()) * s.reshape(-1)
+        return y.reshape(*hidden.shape[:-1], qv.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        qv, s = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).float() * s.reshape(-1)
+        dh = _mm_f32_cotangent(g2, qv.to(ctx.h_dtype)).to(ctx.h_dtype).reshape(ctx.h_shape)
+        return dh, None, None
+
+
 def head_logits(hidden: torch.Tensor, w) -> torch.Tensor:
     """hidden @ w.T as f32 logits for an (N, H) matrix, read as it is (no
     transposed copy), with the f32 accumulator kept: the tied LM head, the
     untied one, and the loss chunks' logits. A row-quantized matrix (the
-    rollout engine's) contracts its values in hidden's dtype and applies the
-    row scales to the f32 logits, as the JAX package's quantized heads do; it
-    has no backward."""
+    rollout engine's, and an int8 LoRA base's in the loss) contracts its
+    values in hidden's dtype and applies the row scales to the f32 logits, as
+    the JAX package's quantized heads do; its backward reaches hidden only."""
     if not is_quantized(w):
         return _HeadF32.apply(hidden, w)
-    q = _qvalues(w).to(hidden.dtype)
-    y = _mm_f32(hidden.reshape(-1, hidden.shape[-1]), q.t()) * w["s"].reshape(-1)
-    return y.reshape(*hidden.shape[:-1], q.shape[0])
+    return _QuantHeadF32.apply(hidden, _qvalues(w), w["s"])
 
 
 def tied_head_logits(hidden: torch.Tensor, emb) -> torch.Tensor:
@@ -206,28 +229,97 @@ def tied_head_logits(hidden: torch.Tensor, emb) -> torch.Tensor:
     return head_logits(hidden, emb)
 
 
-def attn_qkv_proj(h: torch.Tensor, attn: dict, nh: int, nkv: int, hd: int):
+def lora_delta(h: torch.Tensor, sl: dict, scaling: float) -> torch.Tensor:
+    """scaling·(h @ A.T) @ B.T: the side product of one adapter (lora_a (r,
+    in), lora_b (out, r), `rl/lora.py`). The same math as h times the merged
+    W + scaling·B@A, with the base untouched: a rollout samples LoRA-adapted
+    over the trainer's own (int8) tree, with no merge and no second copy."""
+    return F.linear(F.linear(h, sl["lora_a"].to(h.dtype)), sl["lora_b"].to(h.dtype)) * scaling
+
+
+def _side(y: torch.Tensor, h: torch.Tensor, name: str, lora) -> torch.Tensor:
+    """y plus the side product of `name`'s adapter, if lora=(slice, scaling)
+    holds one."""
+    if lora is None or name not in lora[0]:
+        return y
+    return y + lora_delta(h, lora[0][name], lora[1])
+
+
+SIDE_GROUPS = {"qkv_side": ("q_w", "k_w", "v_w"), "gu_side": ("gate_w", "up_w")}
+
+
+def group_side_adapters(layers: list, dtype=None) -> list:
+    """The decoder's per-layer adapters in the grouped side layout: q/k/v
+    become one adapter ("qkv_side"), gate/up another ("gu_side"), whose
+    lora_a stacks the members' along r and whose lora_b holds theirs on its
+    block diagonal, so that its one side product (`lora_delta`) is the
+    members' side products concatenated along the output axis; o_w and
+    down_w (each its own input) stay as they are. dtype: cast the factors
+    (the engine's dtype)."""
+
+    def cast(t):  # a copy: the engine's adapters never alias the trainer's
+        return t.detach().to(dtype or t.dtype, copy=True)
+
+    out = []
+    for sl in layers:
+        grouped = {k: {n: cast(t) for n, t in v.items()} for k, v in sl.items()}
+        for gname, comps in SIDE_GROUPS.items():
+            if all(c in grouped for c in comps):
+                members = [grouped.pop(c) for c in comps]
+                grouped[gname] = {"lora_a": torch.cat([m["lora_a"] for m in members]),
+                                  "lora_b": torch.block_diag(*[m["lora_b"] for m in members])}
+        out.append(grouped)
+    return out
+
+
+def attn_qkv_proj(h: torch.Tensor, attn: dict, nh: int, nkv: int, hd: int, lora=None):
     """q/k/v projections from fused ("qkv") or separate layer params:
-    (B, S, hid) → (B,S,nh,hd), (B,S,nkv,hd), (B,S,nkv,hd)."""
+    (B, S, hid) → (B,S,nh,hd), (B,S,nkv,hd), (B,S,nkv,hd).
+
+    lora=(slice, scaling): one layer's side-path adapters (q_w/k_w/v_w, or
+    the grouped qkv_side), added from h to either base layout."""
     B, S = h.shape[:2]
+    grouped = lora[0].get("qkv_side") if lora is not None else None
     with proj_name("qkv_proj"):
         if "qkv" in attn:
             qkv = qmatmul(h, attn["qkv"]) + attn["qkv_b"]
+            if grouped is not None:
+                qkv = qkv + lora_delta(h, grouped, lora[1])
             q, k, v = qkv.split([nh * hd, nkv * hd, nkv * hd], dim=-1)
         else:
             q = qmatmul(h, attn["q_w"], attn["q_b"])
             k = qmatmul(h, attn["k_w"], attn["k_b"])
             v = qmatmul(h, attn["v_w"], attn["v_b"])
+            if grouped is not None:
+                dq, dk, dv = lora_delta(h, grouped, lora[1]).split([nh * hd, nkv * hd, nkv * hd], dim=-1)
+                q, k, v = q + dq, k + dk, v + dv
+    if grouped is None:
+        q, k, v = _side(q, h, "q_w", lora), _side(k, h, "k_w", lora), _side(v, h, "v_w", lora)
     return q.reshape(B, S, nh, hd), k.reshape(B, S, nkv, hd), v.reshape(B, S, nkv, hd)
 
 
-def mlp_proj(h: torch.Tensor, mlp: dict) -> torch.Tensor:
+def attn_out_proj(attn_flat: torch.Tensor, lp: dict, lora=None) -> torch.Tensor:
+    """The attention's output projection o_w, plus its side product."""
+    with proj_name("attn_proj"):
+        a = qmatmul(attn_flat, lp["o_w"])
+    return _side(a, attn_flat, "o_w", lora)
+
+
+def mlp_proj(h: torch.Tensor, mlp: dict, lora=None) -> torch.Tensor:
     """SwiGLU MLP, down(silu(gate(h)) * up(h)), from fused ("gu") or separate
-    layer params. On CUDA tensors the fused int8 layout at B·S <= 128 rows
-    (the decode step) runs Q2, JAX's route (`time_r1_tpu/ops/quant.py:298-317`)
-    without its TPU-only opt-in and its TPU block shapes."""
+    layer params.
+
+    On CUDA tensors the fused int8 layout at B·S <= 128 rows (the decode
+    step) runs Q2, JAX's route (`time_r1_tpu/ops/quant.py:298-317`) without
+    its TPU-only opt-in and its TPU block shapes. JAX takes that route only
+    without adapters, and so does the port: with lora=(slice, scaling)
+    (side-path adapters, present or not for this layer's MLP) the MLP is the
+    dequantize + `F.linear` products, the gate and up side products added
+    before the SiLU and down's after its product. That is JAX's semantics,
+    not a fallback: Q2 has no side inputs."""
     if (
-        "gu" in mlp
+        lora is None
+        and "gu" in mlp
         and h.is_cuda
         and h.ndim == 3
         and h.shape[0] * h.shape[1] <= 128
@@ -237,14 +329,52 @@ def mlp_proj(h: torch.Tensor, mlp: dict) -> torch.Tensor:
         out = fused_mlp_int8(h.reshape(B * S, hid), mlp["gu"]["q8"], mlp["gu"]["s"],
                              mlp["down_w"]["q8"], mlp["down_w"]["s"])
         return out.reshape(B, S, hid)
+    grouped = lora[0].get("gu_side") if lora is not None else None
     with proj_name("mlp_gu"):
         if "gu" in mlp:
-            gate, up = qmatmul(h, mlp["gu"]).chunk(2, dim=-1)
+            gu = qmatmul(h, mlp["gu"])
+            if grouped is not None:
+                gu = gu + lora_delta(h, grouped, lora[1])
+            gate, up = gu.chunk(2, dim=-1)
         else:
             gate, up = qmatmul(h, mlp["gate_w"]), qmatmul(h, mlp["up_w"])
+            if grouped is not None:
+                dg, du = lora_delta(h, grouped, lora[1]).chunk(2, dim=-1)
+                gate, up = gate + dg, up + du
+    if grouped is None:
+        gate, up = _side(gate, h, "gate_w", lora), _side(up, h, "up_w", lora)
     act = F.silu(gate) * up
     with proj_name("mlp_down"):
-        return qmatmul(act, mlp["down_w"])
+        y = qmatmul(act, mlp["down_w"])
+    return _side(y, act, "down_w", lora)
+
+
+@torch.no_grad()
+def quantize_layer(lp: dict, bits: int = 8, fuse: bool = True) -> dict:
+    """One decoder layer's projections quantized (`quantize_text_params`),
+    fused (qkv, qkv_b, gu) or not; a new dict, the norms and biases shared."""
+    lp = dict(lp)
+    if not fuse:
+        assert "qkv" not in lp and "gu" not in lp, (
+            "unfused quantization needs an unfused tree (got decode-fused params)"
+        )
+        for key in ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w"):
+            if not is_quantized(lp[key]):
+                lp[key] = quantize_weight(lp[key], bits=bits)
+        return lp
+    if "qkv" not in lp:
+        lp["qkv"] = quantize_weight(torch.cat([lp.pop("q_w"), lp.pop("k_w"), lp.pop("v_w")]), bits=bits)
+        lp["qkv_b"] = torch.cat([lp.pop("q_b"), lp.pop("k_b"), lp.pop("v_b")])
+    elif not is_quantized(lp["qkv"]):
+        lp["qkv"] = quantize_weight(lp["qkv"], bits=bits)
+    if "gu" not in lp:
+        lp["gu"] = quantize_weight(torch.cat([lp.pop("gate_w"), lp.pop("up_w")]), bits=bits)
+    elif not is_quantized(lp["gu"]):
+        lp["gu"] = quantize_weight(lp["gu"], bits=bits)
+    for key in ("o_w", "down_w"):
+        if not is_quantized(lp[key]):
+            lp[key] = quantize_weight(lp[key], bits=bits)
+    return lp
 
 
 @torch.no_grad()
@@ -258,31 +388,7 @@ def quantize_text_params(text: dict, bits: int = 8, fuse: bool = True) -> dict:
     axis before quantization ("qkv"/"qkv_b"/"gu"), fewer and wider products per
     layer; per-row scales make it bit-identical to quantizing them apart.
     fuse=False keeps the q_w/k_w/... names (a LoRA training base)."""
-    layers = []
-    for lp in text["layers"]:
-        lp = dict(lp)
-        if not fuse:
-            assert "qkv" not in lp and "gu" not in lp, (
-                "unfused quantization needs an unfused tree (got decode-fused params)"
-            )
-            for key in ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w"):
-                if not is_quantized(lp[key]):
-                    lp[key] = quantize_weight(lp[key], bits=bits)
-        else:
-            if "qkv" not in lp:
-                lp["qkv"] = quantize_weight(torch.cat([lp.pop("q_w"), lp.pop("k_w"), lp.pop("v_w")]), bits=bits)
-                lp["qkv_b"] = torch.cat([lp.pop("q_b"), lp.pop("k_b"), lp.pop("v_b")])
-            elif not is_quantized(lp["qkv"]):
-                lp["qkv"] = quantize_weight(lp["qkv"], bits=bits)
-            if "gu" not in lp:
-                lp["gu"] = quantize_weight(torch.cat([lp.pop("gate_w"), lp.pop("up_w")]), bits=bits)
-            elif not is_quantized(lp["gu"]):
-                lp["gu"] = quantize_weight(lp["gu"], bits=bits)
-            for key in ("o_w", "down_w"):
-                if not is_quantized(lp[key]):
-                    lp[key] = quantize_weight(lp[key], bits=bits)
-        layers.append(lp)
-    out = dict(text, layers=layers)
+    out = dict(text, layers=[quantize_layer(lp, bits=bits, fuse=fuse) for lp in text["layers"]])
     # the embedding and the head stay int8 at bits=4, as in the JAX package:
     # the row lookup and the (V, hidden) head have no int4 kernel
     if not is_quantized(text["embed_tokens"]):

@@ -17,6 +17,13 @@ forward, B1/B2 backward on the card) and each rollout row runs only its
 completion chunk over the shared prefix (S1 forward, S2 + B2 backward). The
 full-row `GRPOBatch` (ROADMAP A7) raises NotImplementedError.
 
+LoRA (`make_lora_train_step`): the base stays frozen and only the adapter
+tree (`rl/lora.py`) is differentiated and updated. The decoder's adapters
+merge inside each layer function (`lora=` of the loss functions), so one
+layer's merged weights exist at a time, also over an int8 base, whose
+quantized head carries the gradient into the hidden states
+(`ops/quant.py::head_logits`); other adapters (the ViT's) merge first.
+
 `gradient_checkpointing` (False, True/"full", "dots", "dots_small") makes
 each decoder layer of both differentiated forwards one checkpointed unit
 (`models/qwen25vl/language.py::REMAT_POLICIES`): the backward reruns the
@@ -108,6 +115,7 @@ def precompute_frozen_vision(params: dict, cfg: Qwen25VLConfig, batch: GRPOSplit
 
 def _split_logps_entropy(
     params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch: GRPOSplitBatch, fix_vit: bool = False,
+    lora: Optional[tuple] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Shared-prefix forward → per-token (logps, entropy), both (B, Lc) f32.
 
@@ -115,7 +123,9 @@ def _split_logps_entropy(
     which yields the prompt K/V prefix; the completion rows run as one causal
     chunk over it. Completion token 0 is predicted by the last prompt token's
     hidden state (column Lp-1, shared by the G rows of a group), token t ≥ 1 by
-    the chunk's position t-1. The prefix gradient sums over each prompt's rows."""
+    the chunk's position t-1. The prefix gradient sums over each prompt's rows.
+    lora=(per-layer decoder adapters, scaling): merged inside each layer of
+    both forwards (`language.decoder_forward`)."""
     text = params["text"]
     embeds = embed_lookup(text["embed_tokens"], batch.prompt_ids)
     if batch.vision is not None:
@@ -129,11 +139,11 @@ def _split_logps_entropy(
     cache = KVCache.zeros(cfg.text, P, Lp, dtype=embeds.dtype, device=embeds.device)
     remat = hp.gradient_checkpointing
     hidden_p, prefix = decoder_forward(text, cfg.text, embeds, batch.prompt_pos,
-                                       attention_mask=batch.prompt_mask, cache=cache, remat=remat)
+                                       attention_mask=batch.prompt_mask, cache=cache, remat=remat, lora=lora)
     embeds_c = embed_lookup(text["embed_tokens"], batch.comp_ids)
     prefix_bias = torch.where(batch.prompt_mask > 0, 0.0, NEG_INF).float()
     hidden_c, _ = shared_decode_forward(text, cfg.text, embeds_c, batch.comp_pos, prefix, None, prefix_bias,
-                                        remat=remat)
+                                        remat=remat, lora=lora)
     h_last = hidden_p[:, -1:].repeat_interleave(B // P, dim=0)  # (B, 1, H), shared within a group
     h_pred = torch.cat([h_last, hidden_c[:, :-1]], dim=1)  # (B, Lc, H)
     return per_token_logps_entropy(params, cfg, h_pred, batch.comp_ids, hp.logp_chunk)
@@ -182,24 +192,26 @@ def _require_split(batch) -> None:
 
 
 @torch.no_grad()
-def compute_ref_logps(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch: GRPOSplitBatch) -> torch.Tensor:
+def compute_ref_logps(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch: GRPOSplitBatch,
+                      lora: Optional[tuple] = None) -> torch.Tensor:
     """Per-token logps (B, Lc) under the reference weights, without a graph.
     Nothing is differentiated here, so the reference's ViT blocks run frozen
     (K2/K3 on the card) whatever fix_vit says; with fix_vit the batch's
     `vision_hidden` (the policy's frozen blocks, equal to the reference's) is
-    reused."""
+    reused. The LoRA trainer's reference is the unmerged base (lora None)."""
     _require_split(batch)
     batch = precompute_frozen_vision(params, cfg, batch)
-    logps, _ = _split_logps_entropy(params, cfg, hp, batch, fix_vit=hp.fix_vit)
+    logps, _ = _split_logps_entropy(params, cfg, hp, batch, fix_vit=hp.fix_vit, lora=lora)
     return logps
 
 
-def grpo_loss(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch: GRPOSplitBatch
-              ) -> tuple[torch.Tensor, dict]:
+def grpo_loss(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch: GRPOSplitBatch,
+              lora: Optional[tuple] = None) -> tuple[torch.Tensor, dict]:
     """Loss and metrics (0-d tensors, without a graph) for one split batch;
-    differentiable in every parameter that requires grad."""
+    differentiable in every parameter that requires grad, and in the
+    adapters of lora=(per-layer decoder adapters, scaling)."""
     _require_split(batch)
-    logps, entropy = _split_logps_entropy(params, cfg, hp, batch, fix_vit=hp.fix_vit)
+    logps, entropy = _split_logps_entropy(params, cfg, hp, batch, fix_vit=hp.fix_vit, lora=lora)
     comp_mask = batch.comp_mask.float()  # every chunk position predicts a completion token
     comp_len = batch.comp_mask.sum(dim=1).float()
     adv = batch.advantages[:, None].float()
@@ -288,5 +300,32 @@ def make_train_step(cfg: Qwen25VLConfig, hp: GRPOHyperParams, optimizer):
         optimizer.update(trainable_leaves(params, hp.fix_vit), grads, opt_state)
         metrics = dict(metrics, grad_norm=gnorm, loss=loss)
         return params, opt_state, loss, metrics
+
+    return train_step
+
+
+def make_lora_train_step(cfg: Qwen25VLConfig, hp: GRPOHyperParams, optimizer, lora_cfg):
+    """The LoRA train step: (base params, adapters, opt_state, batch) →
+    (adapters, opt_state, loss, metrics). Only the adapter leaves
+    (`rl/lora.py::lora_leaves`) get gradients and the clip and AdamW of
+    `optimizer`, in place; the base is never marked as requiring grad. The
+    decoder's adapters merge inside each layer; the rest (the ViT's, without
+    fix_vit) merge before the loss."""
+    from .lora import lora_layers_tree, lora_leaves, merge_lora
+
+    def train_step(base: dict, lora: dict, opt_state, batch: GRPOSplitBatch):
+        leaves = lora_leaves(lora)
+        for p in leaves:
+            p.requires_grad_(True)
+        dec, rest = lora_layers_tree(lora)
+        params = merge_lora(base, rest, lora_cfg) if rest else base
+        loss, metrics = grpo_loss(params, cfg, hp, batch,
+                                  lora=(dec, lora_cfg.scaling) if dec is not None else None)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        gnorm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+        optimizer.update(leaves, grads, opt_state)
+        metrics = dict(metrics, grad_norm=gnorm, loss=loss.detach())
+        return lora, opt_state, loss.detach(), metrics
 
     return train_step

@@ -14,6 +14,23 @@ per `step_batch` (the weight_sync phase); the loss and the reference forward
 stay bf16 over the unquantized tree. A quantized base is trainable only
 through LoRA, as in JAX (ValueError).
 
+LoRA (`use_peft`): the base is frozen and an adapter tree (`rl/lora.py`,
+seeded by `seed`) is trained, merged inside each decoder layer of the loss;
+with beta != 0 the unmerged base is the reference (`ref_params is params`).
+The base may be bf16 or int8 (`ops/quant.py::quantize_params`, fused or
+not; an int4 base has nothing to adapt: ValueError). The weight sync of each
+`step_batch` takes one of three routes: over an int8 base the engine shares
+the trainer's tree and gets the adapters as side products
+(`Engine.set_lora_side`, no merge and no copy); over a bf16 base with
+rollout_quantization the engine's int8 copy is made by merging and quantizing
+one layer at a time (`rl/lora.py::merge_quantize`); over a bf16 base without
+it the engine gets the merged tree. A LoRA checkpoint holds the merged model
+(over an int8 base: the base itself) and the adapters beside it in the JAX
+package's `lora_adapters.npz`. Over an int8 base the ViT must stay frozen
+(fix_vit): its adapters could not ride the side path, so the port refuses
+the combination when the trainer is built (the JAX package fails at its
+first step; ROADMAP §C).
+
 The host input path (`prepare_requests`) turns dataset examples into engine
 Requests: the injected `video_loader` decodes and resizes the video (or an
 offline-preprocessed `video.npz` is read), the processor renders the chat
@@ -34,8 +51,8 @@ over (JAX's `train()` re-initializes the state it restored; ROADMAP §C).
 layers (`remat_policy`).
 
 Not ported yet, each raising NotImplementedError where it is asked for: the
-full-row loss (`shared_prefix_loss=False`, ROADMAP A7), LoRA (A8), optimizer
-offload (A9), and device meshes and context parallelism (A13).
+full-row loss (`shared_prefix_loss=False`, ROADMAP A7), optimizer offload
+(A9), and device meshes and context parallelism (A13).
 """
 
 from __future__ import annotations
@@ -53,9 +70,16 @@ import torch
 
 from ..device import resolve_device
 from ..models.qwen25vl import Qwen25VLConfig
-from ..models.qwen25vl.convert import NATIVE_CONFIG, config_to_plain_dict
+from ..models.qwen25vl.convert import (
+    LORA_FILE,
+    NATIVE_CONFIG,
+    config_to_plain_dict,
+    load_lora_npz,
+    lora_from_jax,
+    save_lora_npz,
+)
 from ..models.qwen25vl.model import vision_signature
-from ..ops.quant import is_quantized
+from ..ops.quant import QBITS, is_quantized
 from ..sampler import Engine, Request, SamplingParams
 from ..utils.checkpoint import is_native_checkpoint, load_params_into, save_params
 from ..utils.logging_sinks import DebugRewardLog
@@ -64,10 +88,12 @@ from .grpo import (
     GRPOHyperParams,
     compute_group_advantages,
     compute_ref_logps,
+    make_lora_train_step,
     make_train_step,
     precompute_frozen_vision,
     trainable_leaves,
 )
+from .lora import LoRAConfig, fused_splits_for, init_lora, lora_layers_tree, lora_leaves, merge_lora, merge_quantize
 from .optim import AdamWMultiSteps, join_schedules, linear_schedule
 from .rollout import build_grpo_split_batch
 
@@ -195,8 +221,6 @@ def make_conversation_video(example: dict, prompt_type: str, total_pixels: int, 
 def _unported(config: TrainConfig, mesh) -> Optional[str]:
     if mesh is not None or config.context_parallel_size > 1:
         return "device meshes and context parallelism are not ported yet (ROADMAP A13)"
-    if config.use_peft:
-        return "LoRA training is not ported yet (ROADMAP A8)"
     if not config.shared_prefix_loss:
         return "the full-row loss (shared_prefix_loss=False) is not ported yet (ROADMAP A7)"
     if config.offload_optimizer:
@@ -217,7 +241,10 @@ class GRPOTrainer:
     (with rollout_quantization it holds a quantized copy, re-made at each
     weight sync).
     With beta ≠ 0, `ref_params` (a separate copy) gives the KL reference, as in
-    the JAX trainer, which likewise has no reference without one."""
+    the JAX trainer, which likewise has no reference without one; under LoRA
+    the frozen base is the reference.
+    With use_peft, `lora` holds the adapters the optimizer updates in place
+    and `params` stays as it was given."""
 
     def __init__(
         self,
@@ -235,10 +262,17 @@ class GRPOTrainer:
     ):
         config = dataclasses.replace(config) if config is not None else TrainConfig()
         lp = params["text"]["layers"][0]
-        if is_quantized(lp["qkv"] if "qkv" in lp else lp["q_w"]) and not config.use_peft:
+        self._fused_base = "qkv" in lp
+        self._quantized_base = is_quantized(lp["qkv"] if self._fused_base else lp["q_w"])
+        if self._quantized_base and not config.use_peft:
             raise ValueError(
                 "a quantized base is trainable via LoRA only (use_peft=True); "
                 "full-tree training needs bf16 params"
+            )
+        if self._quantized_base and not config.fix_vit:
+            raise ValueError(
+                "LoRA over a quantized base needs fix_vit=True: the rollouts carry the adapters as side "
+                "products in the decoder layers, where the ViT's adapters have no place"
             )
         why = _unported(config, mesh)
         if why:
@@ -252,12 +286,26 @@ class GRPOTrainer:
         self.video_loader = video_loader
         self.dtype = dtype
         self.params = params
+        self.lora = None
+        if config.use_peft:
+            self.lora_cfg = LoRAConfig(rank=config.lora_r, alpha=config.lora_alpha)
+            lora = init_lora(params, self.lora_cfg, seed=config.seed,
+                             fused_splits=fused_splits_for(cfg.text) if self._fused_base else None)
+            if config.fix_vit:
+                lora.pop("visual", None)
+            if not lora:
+                raise ValueError("use_peft=True found no adaptable weights in this base (an int4 base serves "
+                                 "only; train over int8 or bf16)")
+            self.lora = lora
+            if config.beta != 0.0 and ref_params is None:
+                ref_params = params  # the adapter-disable trick: the unmerged base is the reference
         self.ref_params = ref_params if config.beta != 0.0 else None
         # int8 KV rides with quantized weights, as in the JAX trainer: the
         # rollout samples through the quantized policy and the loss recomputes
-        # its log-probs in bf16
+        # its log-probs in bf16. A quantized base is already the rollout form:
+        # the engine shares it and is not asked to quantize it again.
         self.engine = Engine(params, cfg, dtype=dtype, device=self.device,
-                             quantization=config.rollout_quantization or None,
+                             quantization=(config.rollout_quantization or None) if not self._quantized_base else None,
                              kv_cache_quant=bool(config.rollout_quantization))
         self.hp = GRPOHyperParams(
             num_generations=config.num_generations,
@@ -312,6 +360,11 @@ class GRPOTrainer:
             every_k=max(c.gradient_accumulation_steps, 1),
             schedule_start=0 if self.opt_state is None else self.opt_state.count,
         )
+        if self.lora is not None:
+            if self.opt_state is None:
+                self.opt_state = self.optimizer.init(lora_leaves(self.lora))
+            self._train_step = make_lora_train_step(self.cfg, self.hp, self.optimizer, self.lora_cfg)
+            return
         if self.opt_state is None:
             self.opt_state = self.optimizer.init(trainable_leaves(self.params, self.hp.fix_vit))
         self._train_step = make_train_step(self.cfg, self.hp, self.optimizer)
@@ -388,8 +441,8 @@ class GRPOTrainer:
         thread); None builds them here, in the host_preproc phase."""
         c = self.c
         G = c.num_generations
-        with self.timers.phase("weight_sync"):  # a re-quantization pass with rollout_quantization
-            self.engine.set_params(self.params)
+        with self.timers.phase("weight_sync"):
+            self._sync_engine()
         if requests is None:
             with self.timers.phase("host_preproc"):
                 requests = self.prepare_requests(examples)
@@ -422,11 +475,45 @@ class GRPOTrainer:
                 batch = batch._replace(ref_logps=compute_ref_logps(self.ref_params, self.cfg, self.hp, batch))
 
         with self.timers.phase("train_step"):
-            self.params, self.opt_state, loss, metrics = self._train_step(self.params, self.opt_state, batch)
+            if self.lora is not None:
+                self.lora, self.opt_state, loss, metrics = self._train_step(self.params, self.lora, self.opt_state,
+                                                                           batch)
+            else:
+                self.params, self.opt_state, loss, metrics = self._train_step(self.params, self.opt_state, batch)
         for k, v in metrics.items():
             self._log_metric(k, float(v))
         self.global_step += 1
         return {"loss": float(loss), "reward": float(rewards_all.mean())}
+
+    def _sync_engine(self) -> None:
+        """The live policy into the engine, once a step_batch. Full-parameter:
+        the same tensors (a re-quantization pass with rollout_quantization).
+        LoRA over an int8 base: the adapters as side products, with no merge
+        and no copy; over a bf16 base with rollout_quantization: the old
+        quantized copy dropped, then a new one merged and quantized one layer
+        at a time; otherwise the merged tree."""
+        if self.lora is None:
+            self.engine.set_params(self.params)
+        elif self._quantized_base:
+            layers, rest = lora_layers_tree(self.lora)
+            assert not rest, "side-path adapters live in the decoder layers"
+            self.engine.set_lora_side(layers, self.lora_cfg.scaling)
+        elif self.c.rollout_quantization:
+            self.engine.params = None
+            self.engine.set_params(merge_quantize(self.params, self.lora, self.lora_cfg,
+                                                  bits=QBITS[self.c.rollout_quantization]), prequantized=True)
+        else:
+            self.engine.set_params(self._policy_params())
+
+    @torch.no_grad()
+    def _policy_params(self) -> dict:
+        """The current policy's weights: the params, or under LoRA the base
+        merged with the live adapters. Over an int8 base there is no merged
+        tree (that is what the base is for): the base itself, whose adapters
+        ride beside it."""
+        if self.lora is None or self._quantized_base:
+            return self.params
+        return merge_lora(self.params, self.lora, self.lora_cfg)
 
     def _score_rollouts(self, examples, requests, all_completions):
         """Host scoring of a step's P·G rollouts: decode the texts, run the
@@ -545,7 +632,11 @@ class GRPOTrainer:
         evaluate and its next round's train load the directory as a model
         (the JAX package writes no tokenizer: ROADMAP §C)."""
         os.makedirs(path, exist_ok=True)
-        save_params(path, self.params)
+        # a LoRA run saves the merged model (over an int8 base, the base) and
+        # the adapters beside it, in the JAX package's format
+        save_params(path, self._policy_params())
+        if self.lora is not None:
+            save_lora_npz(os.path.join(path, LORA_FILE), self.lora, self.cfg)
         if hasattr(self.processor, "save_pretrained"):  # a processor of ids only (chip_smoke.py) has none
             self.processor.save_pretrained(path)
         if not self.c.save_only_model:
@@ -560,16 +651,34 @@ class GRPOTrainer:
 
     def load_checkpoint_state(self, path: str):
         """Restore params, global_step and (when saved) the optimizer state,
-        in place: the engine and the optimizer hold the same tensors."""
-        if os.path.exists(os.path.join(path, "lora_adapters.npz")):
-            raise NotImplementedError(f"{path} holds LoRA adapters: LoRA training is not ported yet (ROADMAP A8)")
-        load_params_into(path, self.params)  # refuses an orbax directory, and a tree of another shape
-        self.engine.set_params(self.params)
+        in place: the engine and the optimizer hold the same tensors.
+
+        LoRA: a checkpoint with adapters restores them (and their optimizer
+        state) over the base this trainer was built with, which stays as it
+        is. Over an int8 base a checkpoint without adapters is refused. Over a
+        bf16 base, a checkpoint of merged weights only becomes the new base
+        under the trainer's own adapters (fresh at a resume), and its
+        optimizer state, if any, is skipped: it belongs to adapters that are
+        gone."""
+        restore_opt = True
+        if self.lora is not None:
+            lora_path = os.path.join(path, LORA_FILE)
+            if os.path.exists(lora_path):
+                _copy_tree(lora_from_jax(load_lora_npz(lora_path), self.cfg, device=self.device), self.lora)
+            elif self._quantized_base:
+                raise ValueError(f"a quantized-base resume needs {lora_path}: this checkpoint has no adapters; "
+                                 "pass it as --model_name_or_path to start a new run instead")
+            else:
+                load_params_into(path, self.params)
+                restore_opt = False
+        else:
+            load_params_into(path, self.params)  # refuses an orbax directory, and a tree of another shape
+        self._sync_engine()
         state_path = os.path.join(path, "trainer_state.json")
         if os.path.exists(state_path):
             with open(state_path) as f:
                 self.global_step = json.load(f).get("global_step", self.global_step)
-        if is_native_checkpoint(path, "opt_state"):
+        if restore_opt and is_native_checkpoint(path, "opt_state"):
             tree = self.opt_state.tree()
             load_params_into(path, tree, name="opt_state")
             self.opt_state.load_tree(tree)
@@ -590,3 +699,23 @@ class GRPOTrainer:
         )
         with open(os.path.join(path, "README.md"), "w") as f:
             f.write(card)
+
+
+@torch.no_grad()
+def _copy_tree(src, dst) -> None:
+    """Copy a tree of tensors into one of the same structure, in place (the
+    adapters that the optimizer state and the engine refer to)."""
+    if isinstance(dst, dict):
+        if set(src) != set(dst):
+            raise ValueError(f"adapters differ: {sorted(src)} against {sorted(dst)}")
+        for k in dst:
+            _copy_tree(src[k], dst[k])
+    elif isinstance(dst, list):
+        if len(src) != len(dst):
+            raise ValueError(f"adapters of {len(src)} layers against {len(dst)}")
+        for a, b in zip(src, dst):
+            _copy_tree(a, b)
+    else:
+        if src.shape != dst.shape:
+            raise ValueError(f"an adapter of shape {tuple(src.shape)} against {tuple(dst.shape)}")
+        dst.copy_(src)

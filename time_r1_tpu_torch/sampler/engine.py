@@ -22,12 +22,18 @@
   MLP runs Q2 at int8 and its projections Q1 at int4 on the card) and the
   int8 KV cache for the decode phase (`kv_cache_quant=True`: the prefill runs
   in the engine's dtype, then one pass quantizes the cache);
+- side-path LoRA (`set_lora_side`): adapters added as side products at every
+  projection of the prefill and the decode (`ops/quant.py::lora_delta`),
+  over the engine's own tree, which may be an int8 LoRA base: the GRPO
+  trainer's weight sync over such a base is this call, with no merge and no
+  copy;
 - stop ids kept in the output (include_stop_token), left-padded power-of-two
   prompt buckets.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
@@ -52,7 +58,7 @@ from ..models.qwen25vl.model import (
     vision_signature,
 )
 from ..models.qwen25vl.vision import vision_blocks_forward, vision_merge_forward
-from ..ops.quant import QBITS, embed_lookup, quantize_kv_cache, quantize_params
+from ..ops.quant import QBITS, embed_lookup, group_side_adapters, quantize_kv_cache, quantize_params
 from .graph import StepGraph
 from .params import SamplingParams
 
@@ -119,6 +125,7 @@ def prefill_chunk(
     mask: torch.Tensor,  # (B, max_len)
     feats: Optional[torch.Tensor],  # (U_pad, hidden) or None
     feat_offsets: Optional[torch.Tensor],  # (B,) absolute feature starts
+    lora_side: Optional[tuple] = None,  # (per-layer adapters, scaling), Engine.set_lora_side
 ) -> tuple[torch.Tensor, KVCache]:
     """One prompt chunk through the decoder, appending to the cache at
     `cache.length`; returns (logits at the chunk's last position (B, 1, V), cache)."""
@@ -129,7 +136,7 @@ def prefill_chunk(
         )
     hidden, cache = decoder_forward(
         params["text"], cfg.text, embeds, pos_ids,
-        attention_mask=mask, cache=cache,
+        attention_mask=mask, cache=cache, lora_side=lora_side,
     )
     return lm_logits(params["text"], cfg.text, hidden[:, -1:]), cache
 
@@ -212,19 +219,24 @@ def decode_loop(
     sp: SamplingParams,
     generator: Optional[torch.Generator],
     capture: bool = True,
+    lora_side: Optional[tuple] = None,
 ) -> tuple[torch.Tensor, int]:
     """Sample + decode up to sp.max_new_tokens over the full per-row cache;
     returns (tokens (B, max_new), number of decode steps run). Each step
     writes at the cache's device length. On the card the step is a captured
     CUDA graph unless capture=False (the eager loop, for holding replay
-    against it); on the CPU it runs eagerly."""
+    against it); on the CPU it runs eagerly. lora_side: side-path adapters,
+    read by every step (a capture records their tensors: the graph lives for
+    this call only, so adapters installed before the next call are the ones
+    it captures)."""
     if cache.length + sp.max_new_tokens - 1 > cache.k.shape[2]:
         raise ValueError(f"a cache of {cache.k.shape[2]} positions holds {cache.length} and cannot take "
                          f"{sp.max_new_tokens - 1} decode steps")
     cache = cache.with_device_length()
 
     def step_fn(last, pos3):
-        logits, _ = forward(params, cfg, last[:, None], pos3, attention_mask=mask, cache=cache)
+        logits, _ = forward(params, cfg, last[:, None], pos3, attention_mask=mask, cache=cache,
+                            lora_side=lora_side)
         return logits[:, -1]
 
     return _run_decode_loop(cfg, first_logits, start_pos, sp, generator, step_fn, capture)
@@ -241,6 +253,7 @@ def decode_loop_shared(
     sp: SamplingParams,
     generator: Optional[torch.Generator],
     capture: bool = True,
+    lora_side: Optional[tuple] = None,
 ) -> tuple[torch.Tensor, int]:
     """decode_loop over the shared-prefix layout: the prompt KV is stored once
     per prompt and each rollout row keeps only its generated-suffix cache
@@ -252,17 +265,26 @@ def decode_loop_shared(
     device memory; on the CPU it is `mha_shared_prefix`. D2 cannot check that
     length against the suffix without a sync, so it is checked here, once:
     the suffix must hold max_new_tokens positions (the last step writes at
-    max_new_tokens - 2). `capture` as in `decode_loop`."""
+    max_new_tokens - 2). `capture` and `lora_side` as in `decode_loop`."""
     if suffix.length + sp.max_new_tokens > suffix.k.shape[2]:
         raise ValueError(f"a suffix cache of {suffix.k.shape[2]} positions holding {suffix.length} cannot take "
                          f"{sp.max_new_tokens} tokens")
     suffix = suffix.with_device_length()
 
     def step_fn(last, pos3):
-        logits, _ = forward_shared_decode(params, cfg, last[:, None], pos3, prefix, suffix, prefix_bias)
+        logits, _ = forward_shared_decode(params, cfg, last[:, None], pos3, prefix, suffix, prefix_bias,
+                                          lora_side=lora_side)
         return logits[:, -1]
 
     return _run_decode_loop(cfg, first_logits, start_pos, sp, generator, step_fn, capture)
+
+
+def _same_layout(held: list, layers: list) -> bool:
+    """Whether per-layer adapters `layers` have the names and shapes of the
+    engine's `held` ones (the grouped layout never does)."""
+    return len(held) == len(layers) and all(
+        h.keys() == l.keys() and all(h[k][n].shape == t.shape for k, ab in l.items() for n, t in ab.items())
+        for h, l in zip(held, layers))
 
 
 class Engine:
@@ -285,6 +307,7 @@ class Engine:
         self.dtype = dtype
         self.quantization = quantization
         self.kv_cache_quant = kv_cache_quant
+        self.lora_side: Optional[tuple] = None  # (per-layer adapters, scaling), set_lora_side
         self.set_params(params)
         self.prefill_chunk_tokens = prefill_chunk_tokens
         # seconds of the last generate(): vision, prefill, decode, and decode steps
@@ -297,17 +320,47 @@ class Engine:
         self.captured_vision: Optional[tuple] = None
         self._last_vis_sig: Optional[tuple] = None
 
-    def set_params(self, params: dict) -> None:
+    def set_params(self, params: dict, prequantized: bool = False) -> None:
         """Swap in live policy weights (GRPO rollouts). Unquantized, the
         trainer updates its tree in place, so this hands over the same
         tensors: no copy. A quantized engine re-quantizes its own copy; the
         previous copy is dropped first so that its memory serves the new one.
-        An unknown `quantization` name is a KeyError, as the JAX package's
-        dict lookup."""
+        prequantized: `params` is already the quantized copy (the LoRA
+        trainer's merge-then-quantize). An unknown `quantization` name is a
+        KeyError, as the JAX package's dict lookup."""
         self.params = None
-        if self.quantization:
+        if self.quantization and not prequantized:
             params = quantize_params(params, bits=QBITS[self.quantization])
         self.params = params
+
+    @torch.no_grad()
+    def set_lora_side(self, layers: Optional[list], scaling: float = 1.0) -> None:
+        """Install (or, with None, clear) side-path adapters for every later
+        prefill and decode step: `layers` is the decoder's per-layer adapter
+        dicts (`rl/lora.py::lora_layers_tree`). The engine keeps its own copy
+        in its dtype, never the caller's tensors: a set of the installed
+        layout is copied into it in place (the GRPO weight sync: no
+        allocation), another layout replaces it. A decode graph lives for one
+        `generate` (`sampler/graph.py`), so the next one captures what is
+        installed then. With TIMER1_GROUP_SIDE_LORA=1 they take the grouped
+        layout (`ops/quant.py::group_side_adapters`, q/k/v and gate/up one
+        side product each), off by default as in the JAX package."""
+        if layers is None:
+            self.lora_side = None
+            return
+        if os.environ.get("TIMER1_GROUP_SIDE_LORA", "0") == "1":
+            self.lora_side = (group_side_adapters(layers, dtype=self.dtype), scaling)
+            return
+        held = self.lora_side[0] if self.lora_side is not None else None
+        if held is not None and _same_layout(held, layers):
+            for dst, src in zip(held, layers):
+                for k, ab in src.items():
+                    for n, t in ab.items():
+                        dst[k][n].copy_(t)
+            self.lora_side = (held, scaling)
+            return
+        self.lora_side = ([{k: {n: t.detach().to(self.dtype, copy=True) for n, t in ab.items()}
+                            for k, ab in sl.items()} for sl in layers], scaling)
 
     def _maybe_quant_cache(self, cache: KVCache) -> KVCache:
         """The prefill runs in the engine's dtype; with kv_cache_quant the
@@ -406,7 +459,7 @@ class Engine:
                 feat_off = torch.from_numpy(row_start + is_vis[:, :c0].sum(axis=1)).to(dev)
             logits, cache = prefill_chunk(
                 self.params, self.cfg, cache, ids_t[:, c0:c1], pos_t[:, :, c0:c1],
-                mask_t, feats, feat_off,
+                mask_t, feats, feat_off, lora_side=self.lora_side,
             )
         t2 = self._sync()
         self.timings = {"vision_s": t1 - t0, "prefill_s": t2 - t1 - in_callback}
@@ -436,6 +489,7 @@ class Engine:
             tokens, steps = decode_loop_shared(
                 self.params, self.cfg, prefix, suffix, first1.repeat_interleave(G, dim=0),
                 torch.from_numpy(np.repeat(start1, G)).to(self.device).long(), prefix_bias, sp, gen,
+                lora_side=self.lora_side,
             )
         else:
             ids, mask, pos_ids, start_pos, vis, S, max_len = self._pack(reqs, extra_len=sp.max_new_tokens)
@@ -445,6 +499,7 @@ class Engine:
             tokens, steps = decode_loop(
                 self.params, self.cfg, cache, first_logits,
                 torch.from_numpy(start_pos).to(self.device).long(), mask_t, sp, gen,
+                lora_side=self.lora_side,
             )
         tokens = tokens.cpu().numpy()
         self.timings.update(decode_s=time.perf_counter() - t0, decode_steps=steps)

@@ -36,7 +36,10 @@ each decode step scatters the new token of every slot into its cell.
   slots decode a segment between a long admission's prefill chunks and
   between bucket groups.
 
-Side-path LoRA (`set_lora_side`) is not ported yet (ROADMAP A8).
+Side-path LoRA (`set_lora_side`): one set of adapters for every request,
+prepared by the prefill engine (`Engine.set_lora_side`) and added as side
+products in the prefill and in every paged decode step (`decode_layers`),
+over bf16 or int8 pages.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ from ..models.qwen25vl import Qwen25VLConfig
 from ..models.qwen25vl.language import _rms_norm, lm_logits, mrope_cos_sin
 from ..ops.attention import rope
 from ..ops.paged_attention import combine_with_new_token, paged_prefix_attention, paged_prefix_attention_q8
-from ..ops.quant import QBITS, attn_qkv_proj, embed_lookup, mlp_proj, qmatmul, quantize_kv, quantize_params
+from ..ops.quant import QBITS, attn_out_proj, attn_qkv_proj, embed_lookup, mlp_proj, quantize_kv, quantize_params
 from .engine import Engine, _bucket, is_stop, sample_tokens
 from .graph import StepGraph
 from .params import SamplingParams
@@ -139,13 +142,15 @@ def write_prompt(pool: PagedPool, slot: int, prompt_pages, table_row, k_seq: tor
 
 
 def decode_layers(params: dict, cfg: Qwen25VLConfig, last: torch.Tensor, pos: torch.Tensor,
-                  attend: Callable) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                  attend: Callable, lora_side: Optional[tuple] = None
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One token per row (last (rows,), rope position pos (rows,)) through
     every decoder layer and the head: the decode step that the paged and the
     slot engines share, each with its own attention. attend(li, q, k, v)
     takes layer li's post-rope q (rows, 1, H, hd) and new k, v (rows, 1, Hkv,
-    hd) and returns the context (rows, ...) with H·hd values a row. Returns
-    (f32 logits (rows, V), new K and V (L, rows, Hkv, hd))."""
+    hd) and returns the context (rows, ...) with H·hd values a row.
+    lora_side: (per-layer adapters, scaling), added as side products at every
+    projection. Returns (f32 logits (rows, V), new K and V (L, rows, Hkv, hd))."""
     tcfg = cfg.text
     nh, nkv, hd = tcfg.num_attention_heads, tcfg.num_key_value_heads, tcfg.head_dim
     eps = tcfg.rms_norm_eps
@@ -156,12 +161,13 @@ def decode_layers(params: dict, cfg: Qwen25VLConfig, last: torch.Tensor, pos: to
     x = embed_lookup(text["embed_tokens"], last[:, None], dtype=text["norm"].dtype)
     new_k, new_v = [], []
     for li, lp in enumerate(text["layers"]):
-        q, k, v = attn_qkv_proj(_rms_norm(x, lp["input_layernorm"], eps), lp, nh, nkv, hd)
+        side = None if lora_side is None else (lora_side[0][li], lora_side[1])
+        q, k, v = attn_qkv_proj(_rms_norm(x, lp["input_layernorm"], eps), lp, nh, nkv, hd, lora=side)
         q = rope(q, cos_b, sin_b).to(x.dtype)
         k = rope(k, cos_b, sin_b).to(x.dtype)
         attn = attend(li, q, k, v)
-        x = x + qmatmul(attn.reshape(rows, 1, nh * hd).to(x.dtype), lp["o_w"])
-        x = x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp)
+        x = x + attn_out_proj(attn.reshape(rows, 1, nh * hd).to(x.dtype), lp, side)
+        x = x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp, lora=side)
         new_k.append(k[:, 0])
         new_v.append(v[:, 0])
     logits = lm_logits(text, tcfg, _rms_norm(x, text["norm"], eps))[:, 0]
@@ -170,12 +176,12 @@ def decode_layers(params: dict, cfg: Qwen25VLConfig, last: torch.Tensor, pos: to
 
 def _paged_one_step(params: dict, pool: PagedPool, cfg: Qwen25VLConfig, sp: SamplingParams,
                     last: torch.Tensor, start_pos: torch.Tensor, steps: torch.Tensor, live: torch.Tensor,
-                    generator: Optional[torch.Generator]) -> torch.Tensor:
+                    generator: Optional[torch.Generator], lora_side: Optional[tuple] = None) -> torch.Tensor:
     """One decode step over the paged pool → next token per slot (slots,).
     last, start_pos, steps: (slots,) long; live: (slots,) bool. Updates the
     pool in place: the new K/V of every layer at each live slot's cell
     (lengths // P, lengths % P), dead slots into scratch page 0, and
-    lengths += live."""
+    lengths += live. lora_side: side-path adapters (`decode_layers`)."""
     tcfg = cfg.text
     nkv, hd = tcfg.num_key_value_heads, tcfg.head_dim
     G = tcfg.num_attention_heads // nkv
@@ -193,7 +199,7 @@ def _paged_one_step(params: dict, pool: PagedPool, cfg: Qwen25VLConfig, sp: Samp
             acc, m, l = paged_prefix_attention(qg, pool.k[li], pool.v[li], pool.page_table, pool.lengths, P)
         return combine_with_new_token(acc, m, l, qg, k[:, 0], v[:, 0])
 
-    logits, ks, vs = decode_layers(params, cfg, last, start_pos + steps, attend)
+    logits, ks, vs = decode_layers(params, cfg, last, start_pos + steps, attend, lora_side)
     # one scatter of every layer's new K/V: (L, slots, Hkv, hd) → the cells
     # (L, Hkv, page, offset); dead slots write into scratch page 0
     cell = pool.lengths.long()
@@ -223,10 +229,12 @@ class PagedDecode:
     segment (the segment's one host-to-device copy) and zeroes the column
     counter. A step reads and writes only `io`, `toks`, `col` and the pool's
     storages in place (admissions write the pool's page table and lengths in
-    place too, so every replay reads the current ones)."""
+    place too, so every replay reads the current ones). lora_side: the
+    engine's side-path adapters, which the capture records (one graph a
+    `generate`)."""
 
     def __init__(self, params: dict, pool: PagedPool, cfg: Qwen25VLConfig, sp: SamplingParams, segment: int,
-                 generator: Optional[torch.Generator], capture: bool = True):
+                 generator: Optional[torch.Generator], capture: bool = True, lora_side: Optional[tuple] = None):
         slots = pool.page_table.shape[0]
         dev = pool.k.device
         self.io = io = torch.zeros((6, slots), dtype=torch.long, device=dev)
@@ -239,7 +247,7 @@ class PagedDecode:
         def body():  # reads no `self`: no reference cycle keeps the pool and the weights alive
             # the live slots: active, not done and within their budget
             live = (active != 0) & (done == 0) & (steps < max_steps)
-            nxt = _paged_one_step(params, pool, cfg, sp, last, start_pos, steps, live, generator)
+            nxt = _paged_one_step(params, pool, cfg, sp, last, start_pos, steps, live, generator, lora_side)
             done.bitwise_or_((live & is_stop(nxt, stop_ids)).long())
             last.copy_(torch.where(live, nxt, last))
             steps.add_(live.long())
@@ -365,8 +373,15 @@ class PagedEngine:
         self._prefill_engine = Engine(params, cfg, dtype, prefill_chunk_tokens, device=self.device)
         self.timings: dict = {}
 
-    def set_lora_side(self, tree, scaling: float = 1.0) -> None:
-        raise NotImplementedError("side-path LoRA serving is not ported yet (ROADMAP A8)")
+    @property
+    def lora_side(self) -> Optional[tuple]:
+        return self._prefill_engine.lora_side
+
+    def set_lora_side(self, layers: Optional[list], scaling: float = 1.0) -> None:
+        """Install (or clear) one set of side-path adapters for every later
+        prefill and decode step, prepared by the prefill engine
+        (`Engine.set_lora_side`) and read from there by the decode."""
+        self._prefill_engine.set_lora_side(layers, scaling)
 
     def _sync(self) -> float:
         return self._prefill_engine._sync()
@@ -429,7 +444,7 @@ class PagedEngine:
         steps = np.zeros((self.max_slots,), np.int64)
         last = np.zeros((self.max_slots,), np.int64)
         gen = torch.Generator(device=dev).manual_seed(sp.seed if sp.seed is not None else 0)
-        decoder = PagedDecode(self.params, pool, self.cfg, sp, self.segment, gen)
+        decoder = PagedDecode(self.params, pool, self.cfg, sp, self.segment, gen, lora_side=self.lora_side)
         admitting = False
 
         def retire(slot, idx):
