@@ -38,7 +38,10 @@ Phases (any failed check raises and the exit code is non-zero):
    Q2's inter % 16 != 0, M > 128 and a hid beyond its shared memory; and
    K1, B1, B2, S1 and S2 at the 7B's head layout (28 q heads over 4 kv
    heads, G = 7) at phase 5's shapes, bf16, timed beside their bounds and
-   one SDPA call (`attention_7b_cases`);
+   one SDPA call (`attention_7b_cases`); and K1's forward and B1/B2 through
+   its autograd at the full-row loss's shape (8 rows of 4096 over 2 kv heads,
+   1982 left pad keys a row, masked keys after short completions), bf16 and
+   f32, against the plain version's autograd (`full_row_attention_cases`);
 3. end-to-end agreement at reduced depth: Qwen2.5-VL-3B widths with 2 decoder
    layers and 2 vision blocks, one 8-frame video request in f32, card
    (kernels) against CPU (plain versions);
@@ -158,7 +161,28 @@ Phases (any failed check raises and the exit code is non-zero):
    `lora_adapters.npz`) reloaded equal; (b) at 2 layers a bf16 base with
    int8 rollouts: the layer-at-a-time merge and quantize bit-equal to the
    whole tree's, Q2 on it; (c) at 2 layers a LoRA run resumed from its
-   checkpoint equal bit for bit to an uninterrupted one.
+   checkpoint equal bit for bit to an uninterrupted one;
+12. full-parameter GRPO on Qwen2.5-VL-7B with the optimizer state in
+   page-locked host memory, once phase 11's model is freed (it writes up to
+   26 GB under TMPDIR and deletes it): (a) seeded bf16 7B weights and a
+   reference copy under `GRPOTrainer` with offload_optimizer, remat, int8
+   rollouts, beta 0.04, G = 8, 200 tokens, accumulation 2, 4 step_batch
+   calls on 2 examples of phase 8's 4 s clip: MemAvailable above the state's
+   bytes plus 8 GiB before it is pinned, what PyTorch's pinned allocator
+   takes for one tree's bytes (in a process of its own), then every
+   offloaded leaf pinned
+   with exactly its bytes, the peak under 79 GiB, a decoder weight moved and
+   the ViT unchanged, per call exactly K1 112, S1 84, B1 28, B2 56, S2 28 +
+   28, K2 28, K3 4, D2 and Q2 28 a decode step, all on the tensor cores; each
+   update's streamed GB and GB/s; (b) at 2 layers of the 7B's widths, offload
+   on against off over 4 micro-steps, bit-equal, for full parameters and for
+   LoRA over the full-row loss; (c) the full-row loss
+   (shared_prefix_loss=False) on the 3B under remat: per call K1 144, B1 36,
+   B2 36, no S1 or S2, its train_step beside the split loss's on the same
+   request, and at 2 layers in f32 the two losses and their gradients
+   agreeing; (d) `cli.finetune.main` on the 3B (--beta 0.0 --use_grpo
+   false) from `video.npz` files that `cli.preprocess_videos` wrote, the
+   decoder never called, one update, a save.
 
 From phase 3 on, every `Engine` and `PagedEngine` decode on the card is a
 captured CUDA graph replayed once a step (`time_r1_tpu_torch/sampler/graph.py`;
@@ -169,7 +193,8 @@ phase 5 profiles 16 steady rollout steps of each (the device's idle share,
 D2's launches by name).
 
 The last three lines are the card's name and power limit (nvidia-smi), the
-kernels JSON line and the result JSON line. Without a CUDA device, or without
+kernels JSON line and the result JSON line; the line before them gives the
+script's total seconds. Without a CUDA device, or without
 the package beside it, the script exits non-zero and prints no result.
 """
 
@@ -332,6 +357,7 @@ def phase_kernels() -> dict:
     fwd_tc_edge_cases(gen, results["flash_attention"], results["full_attention_rope"])
     results.update(phase_train_kernels())
     attention_7b_cases(results)
+    full_row_attention_cases(gen, results)
     results.update(phase_decode_quant_kernels())
     results.update(phase_paged_kernels())
     return results
@@ -1038,6 +1064,93 @@ def attention_7b_cases(results: dict) -> None:
     row["n_split_dkv_prefix"] = fa.bwd_dkv_split(H // Hkv, S, Hkv, 1, R)
     log(f"[kernels] shared_prefix_bwd at the 7B's heads: dq {row['ms_dq']:.4f} ms, prefix dK/dV "
         f"{row['ms_dkv_prefix']:.4f} ms (n_split {row['n_split_dkv_prefix']})")
+
+
+# The full-row loss's attention (phase 12 (c)) at the 3B's heads: B·G = 8
+# rows of T = 4096 (the bucket of phase 4's first prompt, 1914 tokens, plus a
+# 200-token rollout). Every row is left-padded by T - prompt - max(comps) =
+# 1982 keys, so its first 1982 query rows see no key; a completion shorter
+# than the longest is followed by masked keys.
+FULL_ROW_ATTN = dict(B=8, T=4096, H=16, Hkv=2, D=128, prompt=1914, comps=(200, 200, 37, 151, 200, 1, 99, 180))
+
+
+def full_row_attention_cases(gen, results: dict, shape: dict = FULL_ROW_ATTN) -> None:
+    """K1's forward and its backward through `flash_attention`'s autograd
+    (B1's dq, B2's dk and dv) at the full-row loss's shape, in bf16 (the
+    tensor-core kernels) and f32 (FMA), against flash_attention_plain and its
+    autograd on the same inputs in f32, one row at a time, at GRAD_TOL on
+    max |kernel - plain| / max |plain|: out and lse on the rows that see a
+    key, every gradient whole (dO is zero on the rows that see none, as the
+    loss gives it). Every value must be finite. Each entry gets "full_row":
+    the errors and the bf16 times."""
+    import torch
+
+    from time_r1_tpu_torch.ops import flash_attention as fa
+    from time_r1_tpu_torch.ops.attention import NEG_INF
+
+    dev = gen.device
+    B, T, H, Hkv, D, P, comps = (shape[k] for k in ("B", "T", "H", "Hkv", "D", "prompt", "comps"))
+    lead = T - P - max(comps)
+    pos = torch.arange(T, device=dev)
+    ends = torch.tensor([lead + P + c for c in comps], device=dev)
+    bias = torch.where((pos[None] >= lead) & (pos[None] < ends[:, None]), 0.0, NEG_INF).float()
+    valid = (pos >= lead)[None].expand(B, T)  # causal: row i sees key `lead` from i = lead on
+    base = {n: torch.randn(s, generator=gen, device=dev) for n, s in (
+        ("q", (B, T, H, D)), ("k", (B, T, Hkv, D)), ("v", (B, T, Hkv, D)), ("do", (B, T, H, D)))}
+    base["do"] *= valid[:, :, None, None]
+    # (valid row i, live key j <= i) pairs per head: row b's live keys are [lead, end_b)
+    pairs = sum(int(torch.minimum(pos[lead:], ends[b] - 1).sub(lead - 1).sum()) for b in range(B))
+    entries = {n: results[n].setdefault("full_row", dict(shape=[B, T, H, Hkv, D], lead=lead, comps=list(comps)))
+               for n in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv")}
+    for dtype in (torch.bfloat16, torch.float32):
+        key = str(dtype).split(".")[-1]
+        q, k, v = (base[n].to(dtype).requires_grad_() for n in ("q", "k", "v"))
+        do = base["do"].to(dtype)
+        out, lse = fa.flash_attention_fwd(q.detach(), k.detach(), v.detach(), bias)
+        fa.flash_attention(q, k, v, bias).backward(do)
+        want = {n: [] for n in ("out", "lse", "dq", "dk", "dv")}
+        for b in range(B):
+            qb, kb, vb = (t.detach()[b:b + 1].float().requires_grad_() for t in (q, k, v))
+            ob, lb = fa.flash_attention_plain(qb, kb, vb, bias[b:b + 1])
+            ob.backward(do[b:b + 1].float())
+            for n, t in (("out", ob), ("lse", lb), ("dq", qb.grad), ("dk", kb.grad), ("dv", vb.grad)):
+                want[n].append(t.detach())
+        want = {n: torch.cat(t) for n, t in want.items()}
+        rows = {"out": valid[:, :, None, None].expand(B, T, H, D), "lse": valid[:, None, :].expand(B, H, T)}
+        got = {"out": out, "lse": lse, "dq": q.grad, "dk": k.grad, "dv": v.grad}
+        errs = {}
+        for n, g in got.items():
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"full-row {n} {key}: non-finite values")
+            g, w = g.float(), want[n].float()
+            if n in rows:
+                g, w = g[rows[n]], w[rows[n]]
+            diff = (g - w).abs().max().item()
+            errs[n] = (diff, diff / max(w.abs().max().item(), 1e-30))
+        torch.cuda.synchronize()
+        for name, outs in (("flash_attention", ("out", "lse")), ("flash_bwd_dq", ("dq",)),
+                           ("flash_bwd_dkv", ("dk", "dv"))):
+            err = max(errs[n][1] for n in outs)
+            entries[name][f"max_abs_err_{key}"] = max(errs[n][0] for n in outs)
+            entries[name][f"max_rel_err_{key}"] = err
+            log(f"[kernels] {name} full rows {key}: " + ", ".join(
+                f"{n} max |kernel - plain| {errs[n][0]:.3e}, / max |plain| {errs[n][1]:.3e}" for n in outs)
+                + f" (tol {GRAD_TOL[key]})")
+            if not err <= GRAD_TOL[key]:
+                raise AssertionError(f"{name} full rows {key}: max |kernel - plain| / max |plain| = {err} "
+                                     f"> {GRAD_TOL[key]}")
+        if dtype is torch.bfloat16:
+            qd, kd, vd = q.detach(), k.detach(), v.detach()
+            delta = (do.float() * out.float()).sum(-1)
+            for name, call, flops in (
+                    ("flash_attention", lambda: fa.flash_attention_fwd(qd, kd, vd, bias), 4.0 * D * pairs * H),
+                    ("flash_bwd_dq", lambda: fa.flash_bwd_dq(qd, kd, vd, bias, do, lse, delta), 6.0 * D * pairs * H),
+                    ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(qd, kd, vd, bias, do, lse, delta), 8.0 * D * pairs * H)):
+                ms = cuda_ms(call)
+                entries[name].update(ms=ms, tflops=flops / ms / 1e9, bound_share=flops / PEAK_BF16_FLOPS * 1e3 / ms)
+                log(f"[kernels] {name} full rows: {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s "
+                    f"({100 * entries[name]['bound_share']:.1f}% of the bf16 peak)")
+        del q, k, v, out, lse, want, got
 
 
 # B1/B2 edge cases (bf16, tensor-core kernels): (B, Sq, Skv, H, Hkv, D,
@@ -4625,8 +4738,537 @@ def lora_resume(card: str) -> dict:
     return out
 
 
+PHASE12_BYTES = 26e9  # (d): the 3B's input checkpoint and two saves of 7.5 GB each, with room
+MEM_ROOM = 8 * 2**30  # host memory (a) leaves free beside the pinned optimizer state
+
+
+def mem_available() -> int:
+    """MemAvailable of /proc/meminfo, in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise AssertionError("/proc/meminfo has no MemAvailable")
+
+
+# One tensor of n bytes from PyTorch's pinned allocator (pin_memory=True), in
+# a process of its own so that its cached block goes when the process does;
+# prints MemAvailable before and after it as JSON.
+PINNED_PROBE = """
+import json, sys, torch
+def available():
+    with open("/proc/meminfo") as f:
+        return next(int(line.split()[1]) * 1024 for line in f if line.startswith("MemAvailable:"))
+n = int(sys.argv[1])
+torch.cuda.init()
+before = available()
+t = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+print(json.dumps(dict(pinned=t.is_pinned(), before=before, after=available())))
+"""
+
+
+def pinned_allocator_probe(nbytes: int, card: str) -> dict:
+    """What PyTorch's pinned allocator takes from the host for one request of
+    `nbytes` (one optimizer tree of the 7B), against the next power of two:
+    the reason `HostArena` registers its own allocation instead."""
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", PINNED_PROBE, str(nbytes)], capture_output=True, text=True,
+                         timeout=300, check=True)
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    if not got["pinned"]:
+        raise AssertionError("pin_memory=True gave a tensor that is not pinned")
+    taken = got["before"] - got["after"]
+    res = dict(requested_gib=nbytes / 2**30, taken_gib=taken / 2**30, pow2_gib=2 ** (nbytes - 1).bit_length() / 2**30,
+               s=time.perf_counter() - t0)
+    log(f"[7b] PyTorch's pinned allocator, one pin_memory=True tensor of one tree's bytes: {res['requested_gib']:.2f} GiB "
+        f"asked, MemAvailable down {res['taken_gib']:.2f} GiB (the next power of two: {res['pow2_gib']:.0f} GiB), "
+        f"{res['s']:.1f} s with the process; {card}")
+    return res
+
+
+def offloaded_bytes(leaves, trees: int) -> int:
+    """The host bytes of `trees` optimizer trees over `leaves` under offload
+    (the leaves that `rl/optim.py::offloadable` selects)."""
+    from time_r1_tpu_torch.rl.optim import offloadable
+
+    return trees * sum(t.numel() * t.element_size() for t in leaves if offloadable(t))
+
+
+def check_host_state(tag: str, state, leaves) -> None:
+    """Every offloaded leaf of mu, nu and acc is a page-locked host view, and
+    the arenas hold exactly their bytes."""
+    trees = [n for n in ("mu", "nu", "acc") if getattr(state, n) is not None]
+    for n in trees:
+        for t, host in zip(getattr(state, n), state.offloaded):
+            if host and not (t.device.type == "cpu" and t.is_pinned()):
+                raise AssertionError(f"{tag}: an offloaded {n} leaf is on {t.device}, pinned {t.is_pinned()}")
+            if not host and t.device.type != "cuda":
+                raise AssertionError(f"{tag}: a small {n} leaf left the card")
+    want = offloaded_bytes(leaves, len(trees))
+    if state.host_bytes != want:
+        raise AssertionError(f"{tag}: {state.host_bytes} bytes in the host arenas, want {want}")
+
+
+def timed_updates(optimizer, updates: list):
+    """Wrap `optimizer.update` (the instance's) to time each call between two
+    device syncs and record the bytes it streamed."""
+    import torch
+
+    original = optimizer.update
+
+    def update(params, grads, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(params, grads, state)
+        state.wait()
+        torch.cuda.synchronize()
+        updates.append(dict(s=time.perf_counter() - t0, applied=out, **optimizer.last_stream))
+        return out
+
+    optimizer.update = update
+
+
+def full_row_step_launches(cfg, decode_steps: int) -> dict:
+    """One bf16 `step_batch` with the full-row loss under remat: K1 in the
+    rollout prefill, the full-row reference forward, the loss's forward and
+    its rerun in the backward; B1 and B2 once a layer; no S1 and no S2; D2
+    once a layer a decode step; K2 and K3 in the rollout's vision tower."""
+    layers = cfg.text.num_hidden_layers
+    return vision_tc_launches(cfg) | {
+        "flash_attention": 4 * layers, "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
+        "shared_prefix_decode_full": layers * decode_steps}
+
+
+NO_SPLIT = ("shared_prefix_fwd", "shared_prefix_bwd", "shared_prefix_bwd_dkv")  # S1, S2: the split loss only
+
+
+def phase_full_param_7b(card: str) -> dict:
+    """Phase 12, once phase 11's model is freed. (a) Full-parameter GRPO on
+    Qwen2.5-VL-7B (bf16, seeded weights, a reference copy) with the
+    optimizer state in page-locked host memory: `GRPOTrainer` with
+    offload_optimizer, remat, int8 rollouts, beta 0.04, fix_vit, G = 8, 200
+    tokens, accumulation 2, for 4 step_batch calls (2 updates) on 2 examples
+    of phase 8's 4 s clip (FrameLoader's seeded frames, the processor over
+    StandInTokenizer). Before the state is pinned, MemAvailable must exceed
+    its bytes plus 8 GiB, and `pinned_allocator_probe` measures one tree's
+    bytes from PyTorch's pinned allocator. After: every offloaded leaf pinned on the host with
+    exactly the offloaded bytes, the peak under 79 GiB, a decoder weight
+    moved and the ViT blocks bit-unchanged, and per call exactly
+    `remat_step_launches` at 28 layers with Q2 a layer a decode step, all on
+    the tensor cores. Prints each call's seconds and phases, each update's
+    streamed bytes and GB/s and share of train_step, the peak, and the
+    pinned GiB beside MemAvailable before and after. (b) `offload_bit_equal`,
+    (c) `full_row_3b`, (d) `finetune_3b`. Returns (a)'s launches, summed over
+    its 4 calls, and (c)'s full-row ones."""
+    import gc
+
+    import torch
+
+    from time_r1_tpu_torch.models.processor import Qwen25VLProcessor
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig, init_params
+    from time_r1_tpu_torch.rl import GRPOTrainer, TrainConfig
+    from time_r1_tpu_torch.rl.grpo import trainable_leaves
+    from time_r1_tpu_torch.utils.profiling import PhaseTimers
+    from time_r1_tpu_torch.utils.rewards import REWARD_FUNCS_REGISTRY
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = Qwen25VLConfig.qwen25vl_7b()
+    L = cfg.text.num_hidden_layers
+    config = TrainConfig(offload_optimizer=True, gradient_checkpointing=True, rollout_quantization="int8", beta=0.04,
+                         fix_vit=True, num_generations=8, max_completion_length=200, gradient_accumulation_steps=2,
+                         report_to="none")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    ref = to_device(params, torch.device("cuda"))
+    torch.cuda.synchronize()
+    leaves = trainable_leaves(params, config.fix_vit)
+    state_bytes = offloaded_bytes(leaves, 3)
+    avail0 = mem_available()
+    log(f"[7b] init_params 7B bf16 and its reference copy on the card: {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; {sum(t.numel() for t in leaves) / 1e9:.3f} B "
+        f"trainable parameters; the offloaded state {state_bytes / 2**30:.2f} GiB against MemAvailable "
+        f"{avail0 / 2**30:.2f} GiB; {card}")
+    if avail0 < state_bytes + MEM_ROOM:
+        raise AssertionError(f"(a): MemAvailable {avail0 / 2**30:.2f} GiB is less than the offloaded state "
+                             f"{state_bytes / 2**30:.2f} GiB plus {MEM_ROOM / 2**30:.0f} GiB")
+    probe = pinned_allocator_probe(state_bytes // 3, card)
+    avail0 = mem_available()
+    processor = Qwen25VLProcessor(StandInTokenizer(cfg), pad_token_id=cfg.pad_token_id, eos_token_id=cfg.eos_token_id)
+    rewards = [REWARD_FUNCS_REGISTRY["iou"], REWARD_FUNCS_REGISTRY["format"], char_parity_reward]
+    t0 = time.perf_counter()
+    trainer = GRPOTrainer(params, cfg, processor, rewards, config=config, video_loader=FrameLoader(), ref_params=ref,
+                          dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    avail1 = mem_available()
+    pinned = trainer.opt_state.host_bytes
+    log(f"[7b] GRPOTrainer(offload_optimizer=True) built in {build_s:.2f} s (the int8 rollout copy and the host "
+        f"arenas): {pinned / 2**30:.2f} GiB pinned; MemAvailable {avail0 / 2**30:.2f} -> {avail1 / 2**30:.2f} GiB "
+        f"(-{(avail0 - avail1) / 2**30:.2f}); {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on the card")
+    check_host_state("(a) built", trainer.opt_state, leaves)
+    q_w = params["text"]["layers"][0]["q_w"]
+    q_before = q_w.detach().clone()
+    vit = [t.detach().cpu() for name in ("patch_embed", "blocks") for t in tree_leaves(params["visual"][name])]
+    updates: list = []
+    timed_updates(trainer.optimizer, updates)
+    n, fps, _ = INPUT_CLIPS[CLI_CLIP][0]
+    examples = [{"problem": f"a person opens door number {i}", "solution": (0.5 + i, 2.5 + i), "durations": n / fps,
+                 "video_path": CLI_CLIP} for i in range(2)]
+    calls, total = [], {}
+    for call in range(4):
+        trainer.timers = PhaseTimers(sync=True)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        n_updates = len(updates)
+        t0 = time.perf_counter()
+        info = trainer.step_batch([examples[call % 2]])
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = read_launches()
+        metrics = trainer.pop_metrics()
+        tm = trainer.engine.timings
+        phases = {k: round(v["total_s"] * 1e3, 1) for k, v in trainer.timers.summary().items()}
+        st = dict(step_s=step_s, loss=info["loss"], phases_ms=phases, decode_steps=tm["decode_steps"],
+                  decode_ms_per_step=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1),
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30, grad_norm=metrics["grad_norm"],
+                  update=updates[n_updates] if len(updates) > n_updates else None)
+        calls.append(st)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        log(f"[7b] (a) step_batch {call + 1}: {step_s:.2f} s, loss {info['loss']:.6f}, grad_norm "
+            f"{metrics['grad_norm']:.4f}; phases (ms, synced) {phases}; rollout decode "
+            f"{st['decode_ms_per_step']:.2f} ms/step over {tm['decode_steps']} steps; peak {st['peak_gib']:.2f} GiB "
+            f"allocated; {card}")
+        up = st["update"]
+        if up is not None:
+            share = up["s"] * 1e3 / phases["train_step"]
+            log(f"[7b] (a) step_batch {call + 1}: the optimizer micro-step {up['s'] * 1e3:.1f} ms "
+                f"({'an update' if up['applied'] else 'accumulation only'}): {up['h2d_bytes'] / 1e9:.3f} GB in "
+                f"({up['h2d_bytes'] / 1e9 / up['s']:.2f} GB/s), {up['d2h_bytes'] / 1e9:.3f} GB out "
+                f"({up['d2h_bytes'] / 1e9 / up['s']:.2f} GB/s), {share:.3f} of train_step")
+        log(f"[7b] (a) step_batch {call + 1}: launches {launches}")
+        if not (np.isfinite(info["loss"]) and np.isfinite(metrics["grad_norm"]) and metrics["grad_norm"] > 0):
+            raise AssertionError(f"(a) step_batch {call + 1}: loss {info['loss']}, grad_norm {metrics['grad_norm']}")
+        check_step_launches(f"7b step_batch {call + 1}", launches, tm["decode_steps"], L,
+                            {"shared_prefix_decode_full": 1, "fused_mlp_int8": 1, "shared_prefix_decode_attention": 0,
+                             "int4_matmul": 0})
+        check_tc_route(f"7b step_batch {call + 1}", launches, remat_step_launches(cfg, tm["decode_steps"]),
+                       tensor_cores=True)
+    avail2 = mem_available()
+    check_host_state("(a) after 4 calls", trainer.opt_state, leaves)
+    peak = max(st["peak_gib"] for st in calls)
+    moved = not torch.equal(q_w, q_before)
+    vit_same = all(torch.equal(t.detach().cpu(), b) for t, b in zip(
+        (t for name in ("patch_embed", "blocks") for t in tree_leaves(params["visual"][name])), vit))
+    log(f"[7b] (a) after 4 step_batch calls ({trainer.opt_state.count} updates): peak {peak:.2f} GiB allocated; "
+        f"{pinned / 2**30:.2f} GiB pinned, MemAvailable {avail2 / 2**30:.2f} GiB (before the arenas "
+        f"{avail0 / 2**30:.2f}); layer 0's q_w moved: {moved}; ViT blocks and patch embed bit-unchanged: "
+        f"{vit_same}; {card}")
+    if trainer.opt_state.count != 2 or len(updates) != 4 or [u["applied"] for u in updates] != [False, True] * 2:
+        raise AssertionError(f"(a): {trainer.opt_state.count} updates over {len(updates)} micro-steps")
+    if peak >= 79.0 or not moved or not vit_same:
+        raise AssertionError(f"(a): peak {peak:.2f} GiB (want < 79), decoder weight moved {moved}, ViT unchanged "
+                             f"{vit_same}")
+    result = dict(card=card, build_s=build_s, pinned_gib=pinned / 2**30, state_gib=state_bytes / 2**30,
+                  pinned_allocator_probe=probe,
+                  mem_available_gib=[avail0 / 2**30, avail1 / 2**30, avail2 / 2**30], peak_gib=peak,
+                  calls=calls, timers=trainer.timers.summary())
+    del trainer, ref, params, q_w, q_before, vit, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["mem_available_freed_gib"] = mem_available() / 2**30
+    result["bit_equal"] = offload_bit_equal(card)
+    full_row, result["full_row"] = full_row_3b(card)
+    result["finetune"] = finetune_3b(card)
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"[7b] summary on {card}: {json.dumps(result)}")
+    return {"full_param_7b": total, "full_row_3b": full_row}
+
+
+def tree_leaves(tree) -> list:
+    from time_r1_tpu_torch.utils.checkpoint import flatten
+
+    return list(flatten(tree).values())
+
+
+def cpu_leaves(tree) -> list:
+    return [t.detach().cpu() for t in tree_leaves(tree)]
+
+
+def offload_bit_equal(card: str) -> dict:
+    """(b) Qwen2.5-VL-7B's widths at 2 decoder layers and 2 vision blocks,
+    bf16: for full parameters, and for LoRA (rank 16) over the full-row loss,
+    two trainers from the same weights, offload_optimizer on and off, on the
+    same batch (fixed completions), 4 step_batch calls (2 updates at
+    accumulation 2, lr 1e-4 so that the bf16 weights move): the trained
+    tensors, moments, accumulation and counts bit-equal, the offloaded
+    leaves pinned."""
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig, init_params
+    from time_r1_tpu_torch.rl import GRPOTrainer, TrainConfig
+    from time_r1_tpu_torch.rl.grpo import trainable_leaves
+    from time_r1_tpu_torch.rl.lora import lora_leaves
+
+    base = Qwen25VLConfig.qwen25vl_7b()
+    cfg = replace(base, vision=replace(base.vision, depth=2, fullatt_block_indexes=(1,)),
+                  text=replace(base.text, num_hidden_layers=2))
+    req = video_request(cfg, np.random.default_rng(1), frames=8, height=224, width=392)
+    rng = np.random.default_rng(2)
+    comps = [rng.integers(3, 151000, n).tolist() for n in (20, 57, 101, 127)]
+    example = {"problem": "a door opens", "solution": (1.0, 2.0)}
+    params0 = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    results = {}
+    for tag, extra in (("full parameters", {}),
+                       ("LoRA, full rows", dict(use_peft=True, lora_r=16, lora_alpha=32.0, shared_prefix_loss=False))):
+        trainers = {}
+        for offload in (True, False):
+            config = TrainConfig(offload_optimizer=offload, num_generations=4, max_completion_length=128, beta=0.0,
+                                 gradient_accumulation_steps=2, gradient_checkpointing=True, learning_rate=1e-4,
+                                 report_to="none", **extra)
+            tr = GRPOTrainer(to_device(params0, torch.device("cuda")), cfg, IdsProcessor(), [token_parity_reward],
+                             config=config, dtype=torch.bfloat16, device="cuda")
+            tr.engine.generate = lambda reqs, sp: [list(c) for c in comps]
+            trainers[offload] = tr
+        updates: list = []
+        timed_updates(trainers[True].optimizer, updates)
+        for _ in range(4):
+            for tr in trainers.values():
+                tr.step_batch([example], [req])
+        on, off = trainers[True], trainers[False]
+        lora = on.lora is not None
+        trained = (lambda tr: tr.lora) if lora else (lambda tr: tr.params)
+        check_host_state(f"(b) {tag}", on.opt_state, lora_leaves(on.lora) if lora else trainable_leaves(on.params, True))
+        moved = (any(float(b.detach().abs().max()) > 0 for b in lora_leaves(on.lora)[1::2]) if lora else
+                 not all(torch.equal(a, b) for a, b in zip(tree_leaves(on.params), tree_leaves(params0))))
+        out = dict(trained_equal=all(torch.equal(a, b) for a, b in zip(cpu_leaves(trained(on)), cpu_leaves(trained(off)))),
+                   state_equal=all(torch.equal(a, b) for a, b in zip(cpu_leaves(on.opt_state.tree()),
+                                                                     cpu_leaves(off.opt_state.tree()))),
+                   updates=on.opt_state.count, moved=moved, host_gib=on.opt_state.host_bytes / 2**30,
+                   update_ms=[round(u["s"] * 1e3, 1) for u in updates])
+        log(f"[7b] (b) {tag}, 2 layers at the 7B's widths, offload on against off over 4 micro-steps: {out}; {card}")
+        if not (out["trained_equal"] and out["state_equal"] and out["updates"] == 2 and moved):
+            raise AssertionError(f"(b) {tag}: the offloaded run is not the device-resident one bit for bit: {out}")
+        results[tag] = out
+        del trainers, on, off
+    return results
+
+
+def full_row_3b(card: str) -> tuple:
+    """(c) The full-row loss (shared_prefix_loss=False) on Qwen2.5-VL-3B at
+    full width and depth: phase 5's trainer (a reference copy, G = 8, 200
+    tokens, accumulation 2) under remat "full", on phase 4's first request,
+    two step_batch calls: each exactly `full_row_step_launches` (K1, B1, B2,
+    D2, K2, K3) on the tensor cores and no S1 or S2; then two calls of the
+    same trainer with the split loss, for train_step side by side. Then at 2
+    layers in f32, the full-row and split losses and gradients on the same
+    rollouts agree within tests/test_torch_full_row.py's tolerances. Returns
+    (the first full-row call's launches, the numbers)."""
+    import gc
+
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig, init_params
+    from time_r1_tpu_torch.rl import GRPOTrainer, TrainConfig
+    from time_r1_tpu_torch.utils.profiling import PhaseTimers
+    from time_r1_tpu_torch.utils.rewards import REWARD_FUNCS_REGISTRY
+
+    cfg = Qwen25VLConfig.qwen25vl_3b()
+    L = cfg.text.num_hidden_layers
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    ref = to_device(params, torch.device("cuda"))
+    req = video_request(cfg, np.random.default_rng(0), 32, 224, 392)  # phase 4's first request
+    config = TrainConfig(shared_prefix_loss=False, gradient_checkpointing=True, report_to="none")
+    rewards = [REWARD_FUNCS_REGISTRY["iou"], REWARD_FUNCS_REGISTRY["format"], token_parity_reward]
+    trainer = GRPOTrainer(params, cfg, IdsProcessor(), rewards, config=config, ref_params=ref, dtype=torch.bfloat16,
+                          device="cuda")
+    example = {"problem": "a person opens a door", "solution": (2.0, 9.5), "durations": 32.0}
+    calls, first = [], None
+    for call, split in enumerate((False, False, True, True)):
+        trainer.c.shared_prefix_loss = split
+        trainer.timers = PhaseTimers(sync=True)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        info = trainer.step_batch([example], [req])
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = read_launches()
+        metrics = trainer.pop_metrics()
+        tm = trainer.engine.timings
+        phases = {k: round(v["total_s"] * 1e3, 1) for k, v in trainer.timers.summary().items()}
+        loss_name = "split" if split else "full-row"
+        calls.append(dict(loss=loss_name, step_s=step_s, train_step_ms=phases["train_step"],
+                          ref_logps_ms=phases.get("ref_logps"), peak_gib=torch.cuda.max_memory_allocated() / 2**30))
+        log(f"[7b] (c) 3B step_batch {call + 1}, {loss_name} loss: {step_s:.2f} s; phases (ms, synced) {phases}; "
+            f"peak {calls[-1]['peak_gib']:.2f} GiB; loss {info['loss']:.6f}, grad_norm {metrics['grad_norm']:.4f}; "
+            f"{card}")
+        log(f"[7b] (c) 3B step_batch {call + 1}: launches {launches}")
+        if not (np.isfinite(info["loss"]) and np.isfinite(metrics["grad_norm"]) and metrics["grad_norm"] > 0):
+            raise AssertionError(f"(c) step_batch {call + 1}: loss {info['loss']}, grad_norm {metrics['grad_norm']}")
+        if split:
+            check_tc_route(f"3b split step_batch {call + 1}", launches, remat_step_launches(cfg, tm["decode_steps"]),
+                           tensor_cores=True)
+            continue
+        check_step_launches(f"3b full-row step_batch {call + 1}", launches, 1, 1, {n: 0 for n in NO_SPLIT})
+        check_tc_route(f"3b full-row step_batch {call + 1}", launches, full_row_step_launches(cfg, tm["decode_steps"]),
+                       tensor_cores=True)
+        first = first or launches
+    full = [c["train_step_ms"] for c in calls if c["loss"] == "full-row"]
+    split = [c["train_step_ms"] for c in calls if c["loss"] == "split"]
+    log(f"[7b] (c) 3B train_step under remat 'full': full-row {full} ms, split {split} ms on the same request; "
+        f"ratio of the second calls {full[1] / split[1]:.2f}; {card}")
+    del trainer, ref, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return first, dict(calls=calls, agreement=full_row_agreement(card))
+
+
+def full_row_agreement(card: str) -> dict:
+    """(c) at 3B widths and 2 decoder layers, f32 on the card (K1, B1, B2 on
+    their FMA kernels): the full-row and split losses, metrics and every
+    gradient on the same rollouts, within the CPU test's tolerances (loss
+    rtol 2e-5 / atol 2e-6, metrics 2e-4 / 2e-5, gradients 5e-4 / 5e-5)."""
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.rl import GRPOHyperParams, build_grpo_batch_groups, build_grpo_split_batch
+    from time_r1_tpu_torch.rl.grpo import compute_ref_logps, grpo_value_and_grad, precompute_frozen_vision
+
+    cfg = reduced_config()
+    dev = torch.device("cuda")
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    ref = to_device(params, dev, scale=0.98)
+    req = video_request(cfg, np.random.default_rng(1), frames=8, height=224, width=392)
+    rng = np.random.default_rng(2)
+    eos = cfg.eos_token_id
+    comps = [rng.integers(0, 151000, n).tolist() + ([eos] if i % 2 == 0 else []) for i, n in enumerate((20, 57, 101, 127))]
+    group = {"prompt_ids": req.input_ids, "completions": comps,
+             "advantages": np.array([1.0, -0.5, 0.25, -0.75], np.float32),
+             "patches": req.patches, "grid_thw": req.grid_thw, "second_per_grid_t": 1.0}
+    hp = GRPOHyperParams(num_generations=4, beta=0.04, fix_vit=True)
+    out = {}
+    for name, build in (("full", build_grpo_batch_groups), ("split", build_grpo_split_batch)):
+        batch = precompute_frozen_vision(params, cfg, build(cfg, [group], dtype=torch.float32, device=dev))
+        batch = batch._replace(ref_logps=compute_ref_logps(ref, cfg, hp, batch))
+        reset_launches()
+        loss, metrics, grads = grpo_value_and_grad(params, cfg, hp, batch)
+        launches = read_launches()
+        if name == "full":
+            check_step_launches("(c) f32 full-row loss", launches, 1, 1, {n: 0 for n in NO_SPLIT})
+            check_tc_route("(c) f32 full-row loss", launches, {"flash_attention": None, "flash_bwd_dq": None,
+                                                               "flash_bwd_dkv": None}, tensor_cores=False)
+        out[name] = (float(loss), {k: float(v) for k, v in metrics.items()}, [g.cpu() for g in grads])
+    (lf, mf, gf), (ls, ms, gs) = out["full"], out["split"]
+    np.testing.assert_allclose(ls, lf, rtol=2e-5, atol=2e-6)
+    for k in mf:
+        np.testing.assert_allclose(ms[k], mf[k], rtol=2e-4, atol=2e-5, err_msg=k)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(gs, gf)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=5e-4, atol=5e-5, err_msg=f"gradient leaf {i}")
+        worst = max(worst, float((a - b).abs().max()))
+    res = dict(loss_full=lf, loss_split=ls, worst_grad_abs_diff=worst, leaves=len(gf))
+    log(f"[7b] (c) 2 layers, f32 on the card: full-row against split {res}; {card}")
+    return res
+
+
+def finetune_3b(card: str) -> dict:
+    """(d) `cli.finetune.main` on Qwen2.5-VL-3B at full width and depth (a
+    native checkpoint of seeded weights) with the recipe's --beta 0.0
+    --use_grpo false over a 2-item Charades-format json, whose video.npz
+    files `cli.preprocess_videos.main` writes from phase 8's seeded frames
+    (fetch_video patched to FrameLoader on CLI_CLIP). While main runs, the
+    decode raises: the trainer must read the npz files. Checks one update, a
+    final save that reloads equal, and no reference copy. Deletes what it
+    wrote."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from time_r1_tpu_torch.cli import finetune
+    from time_r1_tpu_torch.cli import preprocess_videos
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig, init_params
+    from time_r1_tpu_torch.utils.checkpoint import load_params
+    from time_r1_tpu_torch.video import pipeline
+
+    cfg = Qwen25VLConfig.qwen25vl_3b()
+    root = tempfile.mkdtemp(prefix="timer1_phase12_")
+    free = shutil.disk_usage(root).free
+    log(f"[7b] (d) {root}: {free / 1e9:.1f} GB free; (d) writes up to {PHASE12_BYTES / 1e9:.0f} GB")
+    try:
+        if free < PHASE12_BYTES:
+            raise AssertionError(f"(d) needs {PHASE12_BYTES / 1e9:.0f} GB under {root}, which has {free / 1e9:.1f} GB "
+                                 "free: point TMPDIR at a larger disk")
+        model = os.path.join(root, "base")
+        params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+        native_checkpoint(model, params, cfg)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        videos, pre = os.path.join(root, "videos"), os.path.join(root, "preprocessed")
+        os.makedirs(videos)
+        data = {}
+        for i in range(2):
+            with open(os.path.join(videos, f"clip{i}.mp4"), "wb") as f:
+                f.write(b"placeholder")
+            data[f"clip{i}"] = {"duration": 4.0, "timestamps": [[0.5 + i, 2.5 + i]],
+                                "sentences": [f"A person opens door number {i}."]}
+        ann = os.path.join(root, "charades.json")
+        with open(ann, "w") as f:
+            json.dump(data, f)
+        loader = FrameLoader()
+        with patched(pipeline, "fetch_video", lambda original: lambda ele: loader({**ele, "video": CLI_CLIP})):
+            t0 = time.perf_counter()
+            preprocess_videos.main(["--train_data_path", ann, "--video_folder", videos, "--output_dir", pre,
+                                    "--num_workers", "1"])
+            pre_s = time.perf_counter() - t0
+        npz = {v: np.load(os.path.join(pre, v, "video.npz"))["video"].shape for v in data}
+        log(f"[7b] (d) preprocess_videos: {pre_s:.2f} s for {len(npz)} videos, frames {npz}")
+        if sorted(npz) != sorted(data) or any(s != (8, 3, 364, 644) for s in npz.values()):
+            raise AssertionError(f"(d): video.npz frames {npz}, want (8, 3, 364, 644) for each of {sorted(data)}")
+
+        def no_decode(original):
+            def decode(*args, **kwargs):
+                raise AssertionError("(d): the decoder ran: the trainer did not read video.npz")
+            return decode
+
+        out = os.path.join(root, "run")
+        with cli_stand_ins(cfg), patched(pipeline, "fetch_video", no_decode), \
+                patched(finetune, "video_loader", no_decode):
+            reset_launches()
+            t0 = time.perf_counter()
+            trainer = finetune.main(["--model_name_or_path", model, "--output_dir", out, "--train_data_path", ann,
+                                     "--video_folder", videos, "--preprocessed_data_path", pre, "--beta", "0.0",
+                                     "--use_grpo", "false", "--num_train_epochs", "1", "--save_steps", "1000",
+                                     "--reward_funcs", "iou", "format", "char_parity"])
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+            launches = read_launches()
+        res = dict(main_s=main_s, preprocess_s=pre_s, global_step=trainer.global_step, updates=trainer.opt_state.count,
+                   ref_params=trainer.ref_params is not None, saved=sorted(os.listdir(out)),
+                   timers=trainer.timers.summary())
+        same = trees_equal(load_params(out, device="cuda"), trainer.params)
+        log(f"[7b] (d) cli.finetune.main: {res}; final checkpoint reloads bit-equal: {same}; launches {launches}; "
+            f"{card}")
+        if (trainer.global_step, trainer.opt_state.count, res["ref_params"], same) != (2, 1, False, True):
+            raise AssertionError(f"(d): {res}, reload equal {same}: want 2 steps, 1 update, no reference copy")
+        for name in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "shared_prefix_fwd", "shared_prefix_bwd"):
+            if launches[name] <= 0:
+                raise AssertionError(f"(d): {name} was not launched by main()")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
 # ---------------------------------------------------------------------------
 def main() -> int:
+    t_start = time.perf_counter()
     # the training phase holds ~60 GB of live tensors of many sizes
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
@@ -4663,6 +5305,7 @@ def main() -> int:
     cli_launches = phase_cli_train(card)  # the same kernels from `cli.train.main`, K1 and S1 rerun under remat
     sf_launches = phase_sf_round(card)  # the same from `cli.train_sf.main`: a round's training and its self-eval
     lora_launches = phase_lora_7b(card)  # the same from `cli.train.main` on the 7B, LoRA over an int8 base
+    full_param = phase_full_param_7b(card)  # the 7B's full parameters with the state offloaded; the full-row loss
     for tag, name in zip("ab", PAGED_KERNELS):
         quant_launches[name] = serve[tag]["launches"][name]
         quant_launches[f"{name}_tc"] = serve[tag]["launches"][f"{name}_tc"]
@@ -4735,6 +5378,13 @@ def main() -> int:
         if k["name"] in TRAIN_KERNELS or k["name"] == "fused_mlp_int8":
             k["launches_lora_7b"] = lora_launches[k["name"]]
     s2["launches_lora_7b_dkv_prefix"] = lora_launches["shared_prefix_bwd_dkv"]
+    for k in kernels:  # phase 12: (a) 4 step_batch calls of the 7B's full parameters, (c) one full-row 3B call
+        if k["name"] in TRAIN_KERNELS or k["name"] == "fused_mlp_int8":
+            k["launches_full_param_7b"] = full_param["full_param_7b"][k["name"]]
+            k["launches_full_row_3b"] = full_param["full_row_3b"][k["name"]]
+    s2["launches_full_param_7b_dkv_prefix"] = full_param["full_param_7b"]["shared_prefix_bwd_dkv"]
+    s2["launches_full_row_3b_dkv_prefix"] = full_param["full_row_3b"]["shared_prefix_bwd_dkv"]
+    log(f"[env] chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -185,13 +185,6 @@ def test_precompute_frozen_vision_matches_jax(params):
                                rtol=1e-6, atol=1e-7)
 
 
-def test_unported_loss_options_raise(params):
-    _, tp = params
-    _, tb = _batches(_mk_groups(False, G=3, P=1), 3)
-    with pytest.raises(NotImplementedError, match="A7"):
-        grpo_loss(tp, CFG, GRPOHyperParams(num_generations=3), tuple(tb))
-
-
 def test_bf16_head_logits_keep_the_f32_accumulator():
     """In bf16 the head returns the f32 accumulation of the bf16 products, as
     JAX's `preferred_element_type=jnp.float32` does: the two agree to f32

@@ -18,7 +18,7 @@ config):
   prepared on worker threads, and `step_batch(examples)` with no requests
   equal to `step_batch(examples, prepare_requests(examples))` on a second
   trainer with the same seed;
-- the options that are not ported raise NotImplementedError.
+- the options that are not ported (A13) raise NotImplementedError.
 
 Tolerances: the optimizer 1e-6 (f32, the same formulas); the trainers'
 metrics 2e-4 as in tests/test_torch_grpo.py; the parameter update after one
@@ -183,9 +183,7 @@ def test_unpatched_cpu_run_completes():
     assert float((tp["text"]["layers"][0]["q_w"] - w0).abs().max()) > 0
 
 
-@pytest.mark.parametrize("option", [
-    dict(context_parallel_size=2), dict(offload_optimizer=True), dict(shared_prefix_loss=False),
-])
+@pytest.mark.parametrize("option", [dict(context_parallel_size=2)])
 def test_unported_options_raise(option):
     tp = port_params(jax_params())
     with pytest.raises(NotImplementedError, match="ROADMAP A"):

@@ -11,11 +11,14 @@ Semantics are the JAX package's:
   batch mean); use_grpo=False is PPO-clip with ε = 0.2 and a global token
   mean. Both use the ratio exp(logp − stop_grad(logp)).
 
-Only the split batch (`GRPOSplitBatch`, the trainer's default) is ported: the
-prompt runs once per prompt through the differentiable prompt forward (K1
-forward, B1/B2 backward on the card) and each rollout row runs only its
-completion chunk over the shared prefix (S1 forward, S2 + B2 backward). The
-full-row `GRPOBatch` (ROADMAP A7) raises NotImplementedError.
+Two batch layouts. The split batch (`GRPOSplitBatch`, the trainer's default)
+runs the prompt once per prompt through the differentiable prompt forward (K1
+forward, B1/B2 backward on the card) and each rollout row only its completion
+chunk over the shared prefix (S1 forward, S2 + B2 backward). The full-row
+batch (`GRPOBatch`, `shared_prefix_loss=False`) runs every row's prompt and
+completion through the decoder with the padding mask as K1's key bias (B1/B2
+backward) and reads the log-probs of tokens 1.. from positions ..T-2; both
+give the same loss and gradients.
 
 LoRA (`make_lora_train_step`): the base stays frozen and only the adapter
 tree (`rl/lora.py`) is differentiated and updated. The decoder's adapters
@@ -58,6 +61,22 @@ class GRPOHyperParams:
     gradient_checkpointing: object = False  # remat per decoder layer: False, True/"full", "dots", "dots_small"
 
 
+class GRPOBatch(NamedTuple):
+    """Full-row train batch (B = prompts·G rows, group-major): each row is its
+    prompt, left-padded so that a group's prompts end together, followed by
+    one completion."""
+
+    input_ids: torch.Tensor  # (B, T) prompt + completion
+    position_ids: torch.Tensor  # (3, B, T)
+    attention_mask: torch.Tensor  # (B, T) 1 for real tokens
+    completion_mask: torch.Tensor  # (B, T) 1 on completion tokens up to and including the first EOS
+    advantages: torch.Tensor  # (B,) f32
+    vision: Optional[VisionInputs]  # the unique videos' patches, one copy per video
+    ref_logps: Optional[torch.Tensor]  # (B, T-1) or None
+    feat_offsets: Optional[torch.Tensor] = None  # (B,) first feature row per row (0 for text-only rows)
+    vision_hidden: Optional[torch.Tensor] = None  # fix_vit: pre-merger hidden states
+
+
 class GRPOSplitBatch(NamedTuple):
     """Shared-prefix train batch: prompts and completions split, so the loss
     runs each prompt once (P rows) and only the completion chunk per rollout
@@ -84,7 +103,7 @@ def compute_group_advantages(rewards: np.ndarray, num_generations: int) -> np.nd
     return ((r - mean) / (std + 1e-4)).reshape(-1)
 
 
-def _vision_feats(params: dict, cfg: Qwen25VLConfig, batch: GRPOSplitBatch, fix_vit: bool) -> torch.Tensor:
+def _vision_feats(params: dict, cfg: Qwen25VLConfig, batch, fix_vit: bool) -> torch.Tensor:
     """Merged vision features for the loss. With `vision_hidden` (the frozen
     blocks' output, precomputed or captured by the rollout) only the trainable
     merger runs here. Otherwise fix_vit runs the blocks without a graph (they
@@ -100,7 +119,7 @@ def _vision_feats(params: dict, cfg: Qwen25VLConfig, batch: GRPOSplitBatch, fix_
                           v.full_gather, v.full_inverse, v.reverse, use_window_kernel=fix_vit)
 
 
-def precompute_frozen_vision(params: dict, cfg: Qwen25VLConfig, batch: GRPOSplitBatch) -> GRPOSplitBatch:
+def precompute_frozen_vision(params: dict, cfg: Qwen25VLConfig, batch):
     """fix_vit: run the frozen ViT blocks once, without a graph (K2/K3 on the
     card), and attach their output to the batch; the policy and ref forwards
     then run only the merger."""
@@ -111,6 +130,30 @@ def precompute_frozen_vision(params: dict, cfg: Qwen25VLConfig, batch: GRPOSplit
         x = vision_blocks_forward(params["visual"], cfg.vision, v.patches, v.perm, v.pos_hw,
                                   v.key_valid, v.full_gather, v.full_inverse, use_window_kernel=True)
     return batch._replace(vision_hidden=x)
+
+
+def _merged_embeds(params: dict, cfg: Qwen25VLConfig, batch, ids: torch.Tensor, fix_vit: bool) -> torch.Tensor:
+    """The token embeddings of `ids` with the batch's vision features merged
+    at its vision tokens, from each row's feature offset."""
+    embeds = embed_lookup(params["text"]["embed_tokens"], ids)
+    if batch.vision is None:
+        return embeds
+    feats = _vision_feats(params, cfg, batch, fix_vit)
+    return merge_vision_embeddings(
+        embeds, ids, feats, (cfg.video_token_id, cfg.image_token_id),
+        feature_offset=batch.feat_offsets if batch.feat_offsets is not None else 0,
+    )
+
+
+def _hidden_states(params: dict, cfg: Qwen25VLConfig, batch: GRPOBatch, remat=False, fix_vit: bool = False,
+                   lora: Optional[tuple] = None) -> torch.Tensor:
+    """Full rows: embed, merge the vision features, run the decoder over the
+    rows with the padding mask (K1 on the card, B1/B2 in its backward) → the
+    final hidden states (B, T, H)."""
+    embeds = _merged_embeds(params, cfg, batch, batch.input_ids, fix_vit)
+    hidden, _ = decoder_forward(params["text"], cfg.text, embeds, batch.position_ids,
+                                attention_mask=batch.attention_mask, remat=remat, lora=lora)
+    return hidden
 
 
 def _split_logps_entropy(
@@ -127,13 +170,7 @@ def _split_logps_entropy(
     lora=(per-layer decoder adapters, scaling): merged inside each layer of
     both forwards (`language.decoder_forward`)."""
     text = params["text"]
-    embeds = embed_lookup(text["embed_tokens"], batch.prompt_ids)
-    if batch.vision is not None:
-        feats = _vision_feats(params, cfg, batch, fix_vit)
-        embeds = merge_vision_embeddings(
-            embeds, batch.prompt_ids, feats, (cfg.video_token_id, cfg.image_token_id),
-            feature_offset=batch.feat_offsets if batch.feat_offsets is not None else 0,
-        )
+    embeds = _merged_embeds(params, cfg, batch, batch.prompt_ids, fix_vit)
     P, Lp, _ = embeds.shape
     B = batch.comp_ids.shape[0]
     cache = KVCache.zeros(cfg.text, P, Lp, dtype=embeds.dtype, device=embeds.device)
@@ -186,34 +223,42 @@ def per_token_logps_entropy(
     return torch.cat(logps, dim=1), torch.cat(ents, dim=1)
 
 
-def _require_split(batch) -> None:
-    if not isinstance(batch, GRPOSplitBatch):
-        raise NotImplementedError("the full-row GRPOBatch loss is not ported yet (ROADMAP A7)")
+def _logps_entropy(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch,
+                   lora: Optional[tuple] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token (logps, entropy), f32: (B, Lc) over a split batch's
+    completion chunks, (B, T-1) over full rows (token t predicted at t-1)."""
+    if isinstance(batch, GRPOSplitBatch):
+        return _split_logps_entropy(params, cfg, hp, batch, fix_vit=hp.fix_vit, lora=lora)
+    hidden = _hidden_states(params, cfg, batch, remat=hp.gradient_checkpointing, fix_vit=hp.fix_vit, lora=lora)
+    return per_token_logps_entropy(params, cfg, hidden[:, :-1], batch.input_ids[:, 1:], hp.logp_chunk)
 
 
 @torch.no_grad()
-def compute_ref_logps(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch: GRPOSplitBatch,
+def compute_ref_logps(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch,
                       lora: Optional[tuple] = None) -> torch.Tensor:
-    """Per-token logps (B, Lc) under the reference weights, without a graph.
-    Nothing is differentiated here, so the reference's ViT blocks run frozen
-    (K2/K3 on the card) whatever fix_vit says; with fix_vit the batch's
-    `vision_hidden` (the policy's frozen blocks, equal to the reference's) is
-    reused. The LoRA trainer's reference is the unmerged base (lora None)."""
-    _require_split(batch)
+    """Per-token logps under the reference weights, without a graph: (B, Lc)
+    for a split batch, (B, T-1) for full rows. Nothing is differentiated
+    here, so the reference's ViT blocks run frozen (K2/K3 on the card)
+    whatever fix_vit says; with fix_vit the batch's `vision_hidden` (the
+    policy's frozen blocks, equal to the reference's) is reused. The LoRA
+    trainer's reference is the unmerged base (lora None)."""
     batch = precompute_frozen_vision(params, cfg, batch)
-    logps, _ = _split_logps_entropy(params, cfg, hp, batch, fix_vit=hp.fix_vit, lora=lora)
+    logps, _ = _logps_entropy(params, cfg, hp, batch, lora=lora)
     return logps
 
 
-def grpo_loss(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch: GRPOSplitBatch,
+def grpo_loss(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch,
               lora: Optional[tuple] = None) -> tuple[torch.Tensor, dict]:
-    """Loss and metrics (0-d tensors, without a graph) for one split batch;
-    differentiable in every parameter that requires grad, and in the
-    adapters of lora=(per-layer decoder adapters, scaling)."""
-    _require_split(batch)
-    logps, entropy = _split_logps_entropy(params, cfg, hp, batch, fix_vit=hp.fix_vit, lora=lora)
-    comp_mask = batch.comp_mask.float()  # every chunk position predicts a completion token
-    comp_len = batch.comp_mask.sum(dim=1).float()
+    """Loss and metrics (0-d tensors, without a graph) for one split or
+    full-row batch; differentiable in every parameter that requires grad,
+    and in the adapters of lora=(per-layer decoder adapters, scaling)."""
+    logps, entropy = _logps_entropy(params, cfg, hp, batch, lora=lora)
+    if isinstance(batch, GRPOSplitBatch):
+        comp_mask = batch.comp_mask.float()  # every chunk position predicts a completion token
+        comp_len = batch.comp_mask.sum(dim=1).float()
+    else:
+        comp_mask = batch.completion_mask[:, 1:].float()  # token t is predicted at t-1
+        comp_len = batch.completion_mask.sum(dim=1).float()
     adv = batch.advantages[:, None].float()
 
     coef_1 = torch.exp(logps - logps.detach())
@@ -273,7 +318,7 @@ def trainable_leaves(params: dict, fix_vit: bool) -> list[torch.Tensor]:
     return _leaves({"visual": visual, "text": params["text"]})
 
 
-def grpo_value_and_grad(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch: GRPOSplitBatch
+def grpo_value_and_grad(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch
                         ) -> tuple[torch.Tensor, dict, list[torch.Tensor]]:
     """(loss, metrics, grads) with one grad per `trainable_leaves(params,
     hp.fix_vit)` entry (zeros where the loss does not reach a leaf). Marks
@@ -294,7 +339,7 @@ def make_train_step(cfg: Qwen25VLConfig, hp: GRPOHyperParams, optimizer):
     weights with no copy. grad_norm is taken over the micro-step gradients
     after the frozen leaves are left out, as JAX takes it after zeroing them."""
 
-    def train_step(params: dict, opt_state, batch: GRPOSplitBatch):
+    def train_step(params: dict, opt_state, batch):
         loss, metrics, grads = grpo_value_and_grad(params, cfg, hp, batch)
         gnorm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
         optimizer.update(trainable_leaves(params, hp.fix_vit), grads, opt_state)
@@ -313,7 +358,7 @@ def make_lora_train_step(cfg: Qwen25VLConfig, hp: GRPOHyperParams, optimizer, lo
     fix_vit) merge before the loss."""
     from .lora import lora_layers_tree, lora_leaves, merge_lora
 
-    def train_step(base: dict, lora: dict, opt_state, batch: GRPOSplitBatch):
+    def train_step(base: dict, lora: dict, opt_state, batch):
         leaves = lora_leaves(lora)
         for p in leaves:
             p.requires_grad_(True)

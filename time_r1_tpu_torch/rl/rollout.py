@@ -1,21 +1,21 @@
-"""Rollout post-processing: engine outputs → the split-batch GRPO loss batch.
+"""Rollout post-processing: engine outputs → the GRPO loss batches.
 
-Port of `build_grpo_split_batch` and its helpers from
-`time_r1_tpu/rl/rollout.py` (`:193-280`). The arrays are built on the host
-with numpy, exactly as the JAX package builds them, and handed to the
-trainer's device as tensors. The full-row `GRPOBatch` builder is not ported
-(ROADMAP A7): the default loss is the split batch.
+Port of `time_r1_tpu/rl/rollout.py`: `build_grpo_split_batch` (the shared-
+prefix layout, the trainer's default) and `build_grpo_batch` /
+`build_grpo_batch_groups` (full rows, `shared_prefix_loss=False`). The
+arrays are built on the host with numpy, exactly as the JAX package builds
+them, and handed to the trainer's device as tensors.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..models.qwen25vl import Qwen25VLConfig, VisionInputs, get_rope_index, prepare_vision_inputs
-from .grpo import GRPOSplitBatch
+from .grpo import GRPOBatch, GRPOSplitBatch
 
 
 def _bucket(n: int, minimum: int = 128) -> int:
@@ -44,6 +44,122 @@ def _pack_vision(cfg: Qwen25VLConfig, grids: list, patch_list: list, dtype, devi
     pad_patches = ((_bucket(patches.shape[0], 256) + unit - 1) // unit) * unit
     prep = prepare_vision_inputs(grids, cfg.vision, pad_patches_to=pad_patches)
     return VisionInputs.build(prep, patches)
+
+
+def _on(device: torch.device, a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def build_grpo_batch(
+    cfg: Qwen25VLConfig,
+    prompt_ids: Sequence[int],
+    completions: Sequence[Sequence[int]],
+    advantages: np.ndarray,
+    patches=None,
+    grid_thw: Optional[tuple] = None,
+    second_per_grid_t: float = 1.0,
+    pad_to: Optional[int] = None,
+    dtype=torch.bfloat16,
+    device="cuda",
+) -> GRPOBatch:
+    """The (G, T) full-row batch of one prompt's rollout group: G completion
+    token lists, their advantages (G,), and the prompt's video (patches,
+    grid_thw, second_per_grid_t) if it has one."""
+    group = {"prompt_ids": prompt_ids, "completions": completions, "advantages": advantages, "patches": patches,
+             "grid_thw": grid_thw, "second_per_grid_t": second_per_grid_t}
+    return build_grpo_batch_groups(cfg, [group], pad_to=pad_to, dtype=dtype, device=device)
+
+
+def build_grpo_batch_groups(
+    cfg: Qwen25VLConfig,
+    groups: Sequence[dict],
+    pad_to: Optional[int] = None,
+    dtype=torch.bfloat16,
+    pad_multiple: Optional[int] = None,
+    device="cuda",
+) -> GRPOBatch:
+    """Full-row batch of P prompt groups × G rollouts → (P·G, T) rows,
+    group-major. Each group dict carries prompt_ids, completions (G lists),
+    advantages (G,), and optional patches / grid_thw / second_per_grid_t.
+
+    T is `pad_to`, or the power-of-two bucket of the longest prompt plus its
+    group's longest completion, rounded up to `pad_multiple`. Each group's
+    prompts are left-padded so that they end where the group's completions
+    begin; the completion mask covers each completion up to and including
+    its first EOS. Every row gets a feature offset (its video's first
+    feature row; 0 for a text-only row), so a batch that mixes video and
+    text-only groups keeps `feat_offsets` row-aligned, and each video enters
+    the batch once."""
+    device = torch.device(device)
+    if len(groups) < 1:
+        raise ValueError("build_grpo_batch_groups needs at least one group")
+    need = max(len(g["prompt_ids"]) + max((len(c) for c in g["completions"]), default=1) for g in groups)
+    T = pad_to or _bucket(need)
+    if pad_multiple:
+        T = -(-T // pad_multiple) * pad_multiple
+    if T < need:
+        raise ValueError(f"pad_to={T} is shorter than the longest row ({need} tokens)")
+
+    rows_ids, rows_attn, rows_comp, rows_adv = [], [], [], []
+    row_grids, row_spgs, row_feat_starts = [], [], []  # per row: the rope takes one grid a row
+    vis_grids, patch_list = [], []  # per group: each video once
+    feat_cursor = 0
+    for g in groups:
+        prompt_ids = list(g["prompt_ids"])
+        P = len(prompt_ids)
+        completions = g["completions"]
+        lead = T - (P + max((len(c) for c in completions), default=1))
+        has_video = g.get("grid_thw") is not None
+        group_start = 0
+        if has_video:
+            grid = tuple(int(x) for x in g["grid_thw"])
+            vis_grids.append(grid)
+            patch_list.append(g["patches"])
+            group_start = feat_cursor
+            feat_cursor += (grid[0] * grid[1] * grid[2]) // cfg.vision.merge_unit
+        for comp in completions:
+            ids = np.full((T,), cfg.pad_token_id, np.int64)
+            attn = np.zeros((T,), np.int64)
+            comp_mask = np.zeros((T,), np.int64)
+            ids[lead:lead + P] = prompt_ids
+            attn[lead:lead + P] = 1
+            L = len(comp)
+            ids[lead + P:lead + P + L] = comp
+            eos_pos = next((i for i, t in enumerate(comp) if t == cfg.eos_token_id), None)
+            comp_mask[lead + P:lead + P + (L if eos_pos is None else eos_pos + 1)] = 1
+            attn[lead + P:lead + P + L] = 1
+            rows_ids.append(ids)
+            rows_attn.append(attn)
+            rows_comp.append(comp_mask)
+            if has_video:
+                row_grids.append(grid)
+                row_spgs.append(float(g.get("second_per_grid_t", 1.0)))
+            row_feat_starts.append(group_start)
+        rows_adv.append(np.asarray(g["advantages"], np.float32))
+
+    ids = np.stack(rows_ids)
+    attn = np.stack(rows_attn)
+    pos_ids, _ = get_rope_index(
+        cfg,
+        ids,
+        video_grid_thw=np.array(row_grids, np.int64) if row_grids else None,
+        second_per_grid_ts=row_spgs if row_spgs else None,
+        attention_mask=attn,
+    )
+    vis, feat_offsets = None, None
+    if patch_list:
+        vis = _pack_vision(cfg, vis_grids, patch_list, dtype, device)
+        feat_offsets = torch.tensor(row_feat_starts, dtype=torch.long, device=device)
+    return GRPOBatch(
+        input_ids=_on(device, ids),
+        position_ids=_on(device, np.asarray(pos_ids)),
+        attention_mask=_on(device, attn),
+        completion_mask=_on(device, np.stack(rows_comp)),
+        advantages=_on(device, np.concatenate(rows_adv)).float(),
+        vision=vis,
+        ref_logps=None,
+        feat_offsets=feat_offsets,
+    )
 
 
 def build_grpo_split_batch(
@@ -119,17 +235,14 @@ def build_grpo_split_batch(
         vis = _pack_vision(cfg, grids, patch_list, dtype, device)
         feat_offsets = torch.tensor(feat_starts, dtype=torch.long, device=device)
 
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
     return GRPOSplitBatch(
-        prompt_ids=t(ids_p),
-        prompt_pos=t(pos_p),
-        prompt_mask=t(mask_p),
-        comp_ids=t(np.stack(comp_rows)),
-        comp_pos=t(comp_pos),
-        comp_mask=t(np.stack(comp_mask_rows)),
-        advantages=t(np.concatenate(advs)).float(),
+        prompt_ids=_on(device, ids_p),
+        prompt_pos=_on(device, pos_p),
+        prompt_mask=_on(device, mask_p),
+        comp_ids=_on(device, np.stack(comp_rows)),
+        comp_pos=_on(device, comp_pos),
+        comp_mask=_on(device, np.stack(comp_mask_rows)),
+        advantages=_on(device, np.concatenate(advs)).float(),
         vision=vis,
         ref_logps=None,
         feat_offsets=feat_offsets,

@@ -2,10 +2,19 @@
 
 One `step_batch` is the job the system exists for: G-way rollouts with the
 live policy weights (`Engine.generate`, num_return_sequences = G), host
-rewards and group advantages, the split-batch loss batch, the frozen ViT's
-hidden states taken from the rollout's prefill (fix_vit), the reference
-log-probs, then forward, backward and the optimizer micro-step
-(clip + AdamW inside MultiSteps, `rl/optim.py`).
+rewards and group advantages, the loss batch (the split batch, or full rows
+with `shared_prefix_loss=False`), the frozen ViT's hidden states taken from
+the rollout's prefill (fix_vit), the reference log-probs, then forward,
+backward and the optimizer micro-step (clip + AdamW inside MultiSteps,
+`rl/optim.py`).
+
+`offload_optimizer` keeps the optimizer state's moments and accumulation in
+page-locked host memory between steps (one arena per tree) and streams them
+through the card a leaf at a time in the update, bit-equal to the
+device-resident state, for full-parameter and LoRA training alike: what lets
+the 7B train all its parameters on one 80 GB card. A failure to place the
+state raises (the JAX trainer falls back to a device-resident state;
+ROADMAP §C).
 
 Quantized rollouts (`rollout_quantization="int8" | "int4"`) follow the JAX
 trainer's full-parameter branch: the engine keeps an int8/int4 copy of the
@@ -50,9 +59,8 @@ over (JAX's `train()` re-initializes the state it restored; ROADMAP §C).
 `gradient_checkpointing` selects the remat policy of the loss's decoder
 layers (`remat_policy`).
 
-Not ported yet, each raising NotImplementedError where it is asked for: the
-full-row loss (`shared_prefix_loss=False`, ROADMAP A7), optimizer offload
-(A9), and device meshes and context parallelism (A13).
+Not ported yet, raising NotImplementedError where they are asked for: device
+meshes and context parallelism (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -95,7 +103,7 @@ from .grpo import (
 )
 from .lora import LoRAConfig, fused_splits_for, init_lora, lora_layers_tree, lora_leaves, merge_lora, merge_quantize
 from .optim import AdamWMultiSteps, join_schedules, linear_schedule
-from .rollout import build_grpo_split_batch
+from .rollout import build_grpo_batch_groups, build_grpo_split_batch
 
 SYSTEM_PROMPT = "You are a video analysis expert."
 
@@ -221,10 +229,6 @@ def make_conversation_video(example: dict, prompt_type: str, total_pixels: int, 
 def _unported(config: TrainConfig, mesh) -> Optional[str]:
     if mesh is not None or config.context_parallel_size > 1:
         return "device meshes and context parallelism are not ported yet (ROADMAP A13)"
-    if not config.shared_prefix_loss:
-        return "the full-row loss (shared_prefix_loss=False) is not ported yet (ROADMAP A7)"
-    if config.offload_optimizer:
-        return "optimizer offload is not ported yet (ROADMAP A9)"
     return None
 
 
@@ -351,8 +355,9 @@ class GRPOTrainer:
     def _setup_optimizer(self, learning_rate) -> None:
         """clip_by_global_norm + adamw, inside MultiSteps when accumulating,
         with a fixed lr or a schedule. The first call makes the optimizer
-        state; a later one (train()'s schedule) keeps the state the trainer
-        holds and starts the schedule at its update count."""
+        state (in host memory with offload_optimizer); a later one (train()'s
+        schedule) keeps the state the trainer holds and starts the schedule at
+        its update count."""
         c = self.c
         self.optimizer = AdamWMultiSteps(
             learning_rate, b1=c.adam_beta1, b2=c.adam_beta2, eps=c.adam_epsilon,
@@ -362,11 +367,12 @@ class GRPOTrainer:
         )
         if self.lora is not None:
             if self.opt_state is None:
-                self.opt_state = self.optimizer.init(lora_leaves(self.lora))
+                self.opt_state = self.optimizer.init(lora_leaves(self.lora), offload=c.offload_optimizer)
             self._train_step = make_lora_train_step(self.cfg, self.hp, self.optimizer, self.lora_cfg)
             return
         if self.opt_state is None:
-            self.opt_state = self.optimizer.init(trainable_leaves(self.params, self.hp.fix_vit))
+            self.opt_state = self.optimizer.init(trainable_leaves(self.params, self.hp.fix_vit),
+                                                 offload=c.offload_optimizer)
         self._train_step = make_train_step(self.cfg, self.hp, self.optimizer)
 
     # ------------------------------------------------------------------
@@ -374,6 +380,7 @@ class GRPOTrainer:
         self._metrics.setdefault(key, []).append(float(value))
 
     def pop_metrics(self) -> dict:
+        self.opt_state.wait()  # offload: the update's copies into host memory have landed
         out = {k: sum(v) / len(v) for k, v in self._metrics.items() if v}
         self._metrics.clear()
         return out
@@ -461,7 +468,10 @@ class GRPOTrainer:
             groups, rewards_all = self._score_rollouts(examples, requests, all_completions)
 
         with self.timers.phase("batch_build"):
-            batch = build_grpo_split_batch(self.cfg, groups, dtype=self.dtype, device=self.device)
+            if c.shared_prefix_loss:
+                batch = build_grpo_split_batch(self.cfg, groups, dtype=self.dtype, device=self.device)
+            else:
+                batch = build_grpo_batch_groups(self.cfg, groups, dtype=self.dtype, device=self.device)
         if self.hp.fix_vit and batch.vision is not None:
             with self.timers.phase("vision_frozen"):
                 cap = self.engine.captured_vision
@@ -632,6 +642,7 @@ class GRPOTrainer:
         evaluate and its next round's train load the directory as a model
         (the JAX package writes no tokenizer: ROADMAP §C)."""
         os.makedirs(path, exist_ok=True)
+        self.opt_state.wait()
         # a LoRA run saves the merged model (over an int8 base, the base) and
         # the adapters beside it, in the JAX package's format
         save_params(path, self._policy_params())
@@ -660,6 +671,7 @@ class GRPOTrainer:
         under the trainer's own adapters (fresh at a resume), and its
         optimizer state, if any, is skipped: it belongs to adapters that are
         gone."""
+        self.opt_state.wait()  # offload: no copy of the last update may land over the restored state
         restore_opt = True
         if self.lora is not None:
             lora_path = os.path.join(path, LORA_FILE)
