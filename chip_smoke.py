@@ -182,7 +182,32 @@ Phases (any failed check raises and the exit code is non-zero):
    request, and at 2 layers in f32 the two losses and their gradients
    agreeing; (d) `cli.finetune.main` on the 3B (--beta 0.0 --use_grpo
    false) from `video.npz` files that `cli.preprocess_videos` wrote, the
-   decoder never called, one update, a save.
+   decoder never called, one update, a save;
+13. data and context parallelism (`time_r1_tpu_torch/parallel/`), the ranks
+   processes over gloo on the first card, started from torchrun's
+   environment variables after this process built the kernels, a rank that
+   fails or hangs failing the phase (`spawn_ranks`, `parallel_rank`): (a)
+   ring attention over 2 and 4 ranks, contiguous and zig-zag causal and
+   contiguous non-causal, bf16 and f32, at phase 2's full-row shape and at
+   the 7B's heads (28 over 4), each rank's out, lse, dq, dk and dv against
+   one call's K1 and B1/B2 over the whole sequence (bf16 at GRAD_TOL, f32 at
+   1e-5 of max |one call|), K1, B1 and B2 launched exactly r + 1 (contiguous
+   causal), n (non-causal) or 2n + 1 (zig-zag) times a rank, on the tensor
+   cores in bf16, and in bf16 the ring's fwd+bwd time on each rank beside
+   one call's and the bytes staged through host memory; (b) the
+   context-parallel GRPO loss of Qwen2.5-VL-3B over 2 ranks (zig-zag, remat
+   "full", phase 12 (c)'s request with 8 fixed completions, full rows
+   padded to 512): one process's loss and gradients first, freed before the
+   ranks start; the ranks' loss, metrics and every gradient against them at
+   full depth in bf16 and at 2 layers in f32, K1 15 and B1, B2 5 a layer on
+   each rank, each rank's peak; (c) at 4 decoder layers of the 3B, a
+   data-parallel `step_batch` on each of 2 ranks (its own example of phase
+   8's clip, its own rollouts) against one process's over both examples with
+   the ranks' completions replayed (loss, gathered metrics, the update), then
+   `cli.train.main` with --context_parallel_size 2 for 2 steps and its
+   saves (B1 and B2 5 a layer a step on each rank). Where the machine shows
+   two cards or more, (a) (over as many ranks as cards, up to 4) and (c) run
+   again over NCCL, a card a rank, nothing staged.
 
 From phase 3 on, every `Engine` and `PagedEngine` decode on the card is a
 captured CUDA graph replayed once a step (`time_r1_tpu_torch/sampler/graph.py`;
@@ -191,6 +216,9 @@ counters, which each replay advances by what its capture recorded. Phases 4,
 5, 6 and 7 (a), (b) also time their decode eagerly and captured in turns;
 phase 5 profiles 16 steady rollout steps of each (the device's idle share,
 D2's launches by name).
+
+The kernels' entries for K1, B1 and B2 also give phase 13 (b)'s launches
+on each rank of the 3B's context-parallel loss step.
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 kernels JSON line and the result JSON line; the line before them gives the
@@ -5267,6 +5295,695 @@ def finetune_3b(card: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# phase 13
+RING_SHAPES = {"3b": FULL_ROW_ATTN, "7b_heads": dict(FULL_ROW_ATTN, H=28, Hkv=4)}
+RING_LAYOUTS = (("contiguous", True), ("zigzag", True), ("contiguous", False))
+RING_TOL = {"bfloat16": GRAD_TOL["bfloat16"], "float32": 1e-5}  # max |ring - one call| / max |one call|
+RING_SIZES = (2, 4)
+PARALLEL_TIMEOUT = 300  # s: the parent's wait for one spawn of ranks (each takes 35-90 s)
+CP_LAYOUT = "zigzag"  # the CLI's default --context_parallel_layout
+CP_MULTIPLE = 2 * 2 * 128  # zig-zag over 2 ranks: trainer.py:647-649
+DP_LAYERS = 4  # (c)'s decoder depth at 3B widths: two trainers share the card (one 3B trainer: 39.70 GiB)
+# (b) bf16 at full depth: loss and metrics within 2e-2 of the one-process values (1e-3 absolute floor);
+# per gradient leaf ||ring - one|| / ||one|| under 0.25, over all leaves under 5e-2
+CP_BF16_TOL = dict(loss=2e-2, metric=2e-2, floor=1e-3, leaf=0.25, whole=5e-2)
+# (c) bf16 at DP_LAYERS: loss, gathered metrics and grad_norm within 2e-2 of one process's (1e-3 absolute
+# floor); the update ||(w_dp - w0) - (w_one - w0)|| / ||w_one - w0|| under 5e-2
+DP_TOL = dict(rel=2e-2, floor=1e-3, update=5e-2)
+
+
+def ring_launches(layout: str, causal: bool, n: int, r: int) -> int:
+    """K1 launches of one ring forward on rank r of n, and B1's and B2's in
+    its backward: a skipped block launches nothing."""
+    if layout == "zigzag":
+        return 2 * n + 1
+    return r + 1 if causal else n
+
+
+def spawn_ranks(job: str, world: int, args: dict, card: str, nccl: bool = False) -> list:
+    """Run `parallel_rank(job)` in `world` processes with torchrun's
+    environment (127.0.0.1, a free port): over gloo with the ranks all on
+    the first card, or with `nccl` a card a rank (the machine shows `world`
+    cards at least). Waits PARALLEL_TIMEOUT s at most; a rank that fails or
+    hangs is an error (the others are killed). Prints every rank's log,
+    returns each rank's result."""
+    import shutil
+    import socket
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix=f"timer1_phase13_{job}_")
+    with open(os.path.join(root, "args.json"), "w") as f:
+        json.dump(args, f)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    first_card = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        if not nccl:
+            env["CUDA_VISIBLE_DEVICES"] = first_card
+        code = f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; sys.exit(chip_smoke.parallel_rank({job!r}, {root!r}))"
+        logf = open(os.path.join(root, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen([sys.executable, "-c", code], env=env, stdout=logf, stderr=subprocess.STDOUT,
+                                       cwd=here), logf))
+    failed = None
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(PARALLEL_TIMEOUT - (time.perf_counter() - t0), 1.0))
+    except subprocess.TimeoutExpired:
+        failed = f"a rank did not finish in {PARALLEL_TIMEOUT} s"
+    finally:
+        for p, logf in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            logf.close()
+    for r in range(world):
+        with open(os.path.join(root, f"rank{r}.log")) as f:
+            for line in f.read().splitlines():
+                log(f"[parallel {job} rank {r}] {line}")
+    codes = [p.returncode for p, _ in procs]
+    route = "nccl, a card a rank" if nccl else "gloo on one card"
+    log(f"[parallel] {job}: {world} ranks over {route}, exit codes {codes}, {time.perf_counter() - t0:.1f} s; {card}")
+    try:
+        if failed or any(codes):
+            raise AssertionError(f"phase 13 {job}: {failed or f'exit codes {codes}'}")
+        out = []
+        for r in range(world):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                out.append(json.load(f))
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def parallel_rank(job: str, root: str) -> int:
+    """A phase-13 rank: join the group from torchrun's environment, run the
+    job, write `rank<r>.json`; 1 on any failure (its traceback printed)."""
+    import traceback
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+    import torch.distributed as dist
+
+    from time_r1_tpu_torch.parallel import maybe_init_distributed
+
+    rank = int(os.environ["RANK"])
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = maybe_init_distributed("cuda")
+        log(f"rank {rank}/{dist.get_world_size()} on {dev} over {dist.get_backend()}; "
+            f"{torch.cuda.device_count()} card(s) visible")
+        with open(os.path.join(root, "args.json")) as f:
+            args = json.load(f)
+        result = {"ring": ring_job, "cp_loss": cp_loss_job, "dp": dp_job}[job](args)
+        with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+        dist.barrier()
+        dist.destroy_process_group()
+        return 0
+    except Exception:
+        traceback.print_exc()
+        sys.stdout.flush()
+        return 1
+
+
+def _rel(got, want) -> float:
+    """max |got - want| / max |want|; 0 over no elements (a shard of pad rows only)."""
+    if want.numel() == 0:
+        return 0.0
+    return (got.float() - want.float()).abs().max().item() / max(want.float().abs().max().item(), 1e-30)
+
+
+def ring_job(args: dict) -> dict:
+    """(a) on each rank: for each shape, dtype and layout, the ring over 2
+    ranks (the first two) and over 4 against one process's K1 and, through
+    its autograd, B1/B2 over the whole sequence: this rank's out and lse (on
+    the rows that see a key) and dq, dk, dv, the launches of the ring's
+    forward and backward, and in bf16 the ring's fwd+bwd time on every rank
+    of the group against the one call's on rank 0 alone, and the bytes
+    staged through host memory."""
+    import torch
+    import torch.distributed as dist
+
+    from time_r1_tpu_torch.ops import flash_attention as fa
+    from time_r1_tpu_torch.ops.attention import NEG_INF
+    from time_r1_tpu_torch.parallel import ContextParallel, comm
+    from time_r1_tpu_torch.parallel import ring_attention as ra
+
+    rank = dist.get_rank()
+    sizes = args["sizes"]
+    groups = {n: dist.new_group(list(range(n))) for n in sizes}
+    dev = torch.device("cuda")
+    cases = []
+    for shape_name, shape in RING_SHAPES.items():
+        B, T, H, Hkv, D, P, comps = (shape[k] for k in ("B", "T", "H", "Hkv", "D", "prompt", "comps"))
+        lead = T - P - max(comps)
+        pos = torch.arange(T, device=dev)
+        ends = torch.tensor([lead + P + c for c in comps], device=dev)
+        bias = torch.where((pos[None] >= lead) & (pos[None] < ends[:, None]), 0.0, NEG_INF).float()
+        valid = (pos >= lead)[None].expand(B, T)
+        gen = torch.Generator(device=dev).manual_seed(13)  # the same inputs on every rank
+        base = {n: torch.randn(s, generator=gen, device=dev) for n, s in (
+            ("q", (B, T, H, D)), ("k", (B, T, Hkv, D)), ("v", (B, T, Hkv, D)), ("do", (B, T, H, D)))}
+        base["do"] *= valid[:, :, None, None]
+        for dtype in (torch.bfloat16, torch.float32):
+            key = str(dtype).split(".")[-1]
+            q, k, v, do = (base[n].to(dtype) for n in ("q", "k", "v", "do"))
+            for causal in (True, False):
+                ref = {}
+                ref["out"], ref["lse"] = fa.flash_attention_fwd(q, k, v, bias, causal)
+                qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+                fa.flash_attention(qg, kg, vg, bias, causal).backward(do)
+                ref.update(dq=qg.grad, dk=kg.grad, dv=vg.grad)
+                one_ms = None
+                if dtype is torch.bfloat16:
+                    dist.barrier()
+                    if rank == 0:  # alone on the card
+                        def one_call():
+                            a, b_, c = (t.detach().requires_grad_() for t in (q, k, v))
+                            fa.flash_attention(a, b_, c, bias, causal).backward(do)
+                        one_ms = cuda_ms(one_call, iters=3, queued=False)
+                    dist.barrier()
+                for layout, lay_causal in RING_LAYOUTS:
+                    if lay_causal != causal:
+                        continue
+                    for n in sizes:
+                        if rank >= n:
+                            dist.barrier()
+                            continue
+                        cp = ContextParallel(groups[n], layout)
+                        idx = cp.index(T, dev)
+                        ql, kl, vl, bl, dol = (t.index_select(1, idx).contiguous() for t in (q, k, v, bias, do))
+                        reset_launches()
+                        if layout == "zigzag":
+                            out, lse = ra._zz_fwd(ql, kl, vl, bl, cp.group, D ** -0.5)
+                        else:
+                            out, lse = ra._ring_fwd(ql, kl, vl, bl, cp.group, causal, D ** -0.5)
+                        torch.cuda.synchronize()
+                        fwd = read_launches()
+                        a, b_, c = (t.clone().requires_grad_() for t in (ql, kl, vl))
+                        o = (ra.ring_flash_attention_zigzag(a, b_, c, bl, cp.group) if layout == "zigzag"
+                             else ra.ring_flash_attention(a, b_, c, bl, cp.group, causal))
+                        torch.cuda.synchronize()
+                        reset_launches()
+                        o.backward(dol)
+                        torch.cuda.synchronize()
+                        bwd = read_launches()
+                        got = dict(out=out, lse=lse, dq=a.grad, dk=b_.grad, dv=c.grad)
+                        vrows = valid.index_select(1, idx)
+                        errs = {}
+                        for name, g in got.items():
+                            w = ref[name].index_select(2 if name == "lse" else 1, idx)
+                            if not torch.isfinite(g).all():
+                                raise AssertionError(f"ring {shape_name} {key} {layout} n={n}: {name} not finite")
+                            if name == "out":
+                                g, w = g[vrows], w[vrows]
+                            elif name == "lse":
+                                m = vrows[:, None, :].expand_as(g)
+                                g, w = g[m], w[m]
+                            errs[name] = _rel(g, w)
+                        want = ring_launches(layout, causal, n, rank)
+                        counts = {"flash_attention": fwd["flash_attention"], "flash_attention_tc": fwd["flash_attention_tc"],
+                                  **{f: bwd[f] for f in ("flash_bwd_dq", "flash_bwd_dq_tc", "flash_bwd_dkv",
+                                                          "flash_bwd_dkv_tc")}}
+                        tc = dtype is torch.bfloat16
+                        for f in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv"):
+                            if counts[f] != want or counts[f"{f}_tc"] != (want if tc else 0):
+                                raise AssertionError(f"ring {shape_name} {key} {layout} n={n} rank {rank}: {f} ran "
+                                                     f"{counts[f]} launches ({counts[f + '_tc']} tensor-core), want "
+                                                     f"{want} {'tensor-core' if tc else 'FMA'}")
+                        worst = max(errs.values())
+                        if not worst <= RING_TOL[key]:
+                            raise AssertionError(f"ring {shape_name} {key} {layout} n={n} rank {rank}: "
+                                                 f"max |ring - one call| / max |one call| {errs} > {RING_TOL[key]}")
+                        case = dict(shape=shape_name, dtype=key, layout=layout, causal=causal, n=n, rank=rank,
+                                    errs=errs, launches=want, one_ms=one_ms)
+                        if tc:
+                            a, b_, c = (t.detach().requires_grad_() for t in (ql, kl, vl))
+                            staged0 = comm.staged_bytes
+                            dist.barrier(group=groups[n])
+                            t0 = time.perf_counter()
+                            for _ in range(3):
+                                o = (ra.ring_flash_attention_zigzag(a, b_, c, bl, cp.group) if layout == "zigzag"
+                                     else ra.ring_flash_attention(a, b_, c, bl, cp.group, causal))
+                                o.backward(dol)
+                            torch.cuda.synchronize()
+                            case["ring_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+                            case["staged_mb"] = (comm.staged_bytes - staged0) / 3 / 2**20
+                        log(f"ring {shape_name} {key} {layout} {'causal' if causal else 'non-causal'} n={n}: "
+                            f"errs {', '.join(f'{k_} {e:.2e}' for k_, e in errs.items())} (tol {RING_TOL[key]}); "
+                            f"K1/B1/B2 {want} launches each" + (" on the tensor cores" if tc else " (FMA)")
+                            + (f"; fwd+bwd {case['ring_ms']:.2f} ms on this rank, {case['staged_mb']:.1f} MiB "
+                               f"staged" if tc else ""))
+                        cases.append(case)
+                        dist.barrier()
+                del ref, qg, kg, vg
+    return {"cases": cases}
+
+
+def cp_loss_groups(cfg):
+    """(b)'s rollout group: phase 12 (c)'s request (phase 4's first: 32
+    frames at 224x392, a 1914-token prompt) with G = 8 fixed completions of
+    FULL_ROW_ATTN's lengths (those short of 200 end in EOS) and seeded
+    advantages."""
+    rng = np.random.default_rng(1)
+    req = video_request(cfg, np.random.default_rng(0), 32, 224, 392)
+    comps = []
+    for n in FULL_ROW_ATTN["comps"]:
+        toks = rng.integers(3, 97, n).tolist()
+        comps.append(toks[:-1] + [cfg.eos_token_id] if n < 200 else toks)
+    return [{"prompt_ids": req.input_ids, "completions": comps, "advantages": rng.normal(size=8).astype(np.float32),
+             "patches": req.patches, "grid_thw": req.grid_thw, "second_per_grid_t": 1.0}]
+
+
+def cp_loss_cases():
+    """(b)'s two configurations: Qwen2.5-VL-3B at full depth in bf16 (the
+    tensor-core kernels), and at 2 decoder layers in f32 (FMA), where the
+    tolerances are tests/test_torch_sequence_parallel.py's."""
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
+
+    cfg = Qwen25VLConfig.qwen25vl_3b()
+    return {"bf16_full": (cfg, "bfloat16"),
+            "f32_2_layers": (replace(cfg, text=replace(cfg.text, num_hidden_layers=2)), "float32")}
+
+
+def cp_loss_setup(cfg, dtype_name: str, cp=None):
+    """Seeded weights (the same on every rank), the full-row batch padded to
+    CP_MULTIPLE, the reference log-probs (the policy's own weights: the KL
+    path runs, at 0) → (params, batch, hp)."""
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.rl import GRPOHyperParams, build_grpo_batch_groups
+    from time_r1_tpu_torch.rl.grpo import compute_ref_logps
+
+    dtype = getattr(torch, dtype_name)
+    params = init_params(cfg, seed=0, device="cuda", dtype=dtype)
+    batch = build_grpo_batch_groups(cfg, cp_loss_groups(cfg), dtype=dtype, pad_multiple=CP_MULTIPLE, device="cuda")
+    hp = GRPOHyperParams(num_generations=8, beta=0.04, fix_vit=True, gradient_checkpointing="full")
+    batch = batch._replace(ref_logps=compute_ref_logps(params, cfg, hp, batch, cp=cp))
+    return params, batch, hp
+
+
+def cp_loss_job(args: dict) -> dict:
+    """(b) on each rank: the CP loss and gradients (`grpo_value_and_grad`
+    with cp, remat "full") for each of cp_loss_cases, the launches against
+    the ring's formula (15 K1 a layer: the reference forward, the loss's and
+    its rerun under remat; 5 B1 and 5 B2 a layer), the peak; rank 0 holds
+    the loss, metrics and every gradient against the one-process values the
+    parent wrote."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from time_r1_tpu_torch.parallel import ContextParallel, comm, data_group, make_mesh
+    from time_r1_tpu_torch.rl.grpo import grpo_value_and_grad, trainable_leaves
+
+    rank = dist.get_rank()
+    cp = ContextParallel(data_group(make_mesh()), CP_LAYOUT)
+    out = {}
+    for tag, (cfg, dtype_name) in cp_loss_cases().items():
+        L = cfg.text.num_hidden_layers
+        torch.cuda.reset_peak_memory_stats()
+        staged0 = comm.staged_bytes
+        reset_launches()
+        t0 = time.perf_counter()
+        params, batch, hp = cp_loss_setup(cfg, dtype_name, cp)
+        loss, metrics, grads = grpo_value_and_grad(params, cfg, hp, batch, cp=cp)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = {"flash_attention": 3 * (2 * 2 + 1) * L, "flash_bwd_dq": (2 * 2 + 1) * L,
+                "flash_bwd_dkv": (2 * 2 + 1) * L}
+        check_tc_route(f"cp loss {tag} rank {rank}", launches, want, tensor_cores=dtype_name == "bfloat16")
+        res = dict(loss=float(loss), metrics={k: float(v) for k, v in metrics.items()}, peak_gib=peak,
+                   ref_and_step_s=step_s, staged_gb=(comm.staged_bytes - staged0) / 1e9,
+                   launches={k: launches[k] for k in want},
+                   checksum=float(sum(p.float().sum() for p in trainable_leaves(params, True)[:4])))
+        log(f"cp loss {tag}: loss {res['loss']:.6f}; reference forward and loss step {step_s:.2f} s; peak "
+            f"{peak:.2f} GiB on this rank; {res['staged_gb']:.2f} GB staged; launches {want} as the ring's formula")
+        if rank == 0:
+            ref = torch.load(args[tag], weights_only=False)
+            if abs(ref["checksum"] - res["checksum"]) > 0:
+                raise AssertionError(f"cp loss {tag}: the ranks' seeded weights differ from the parent's")
+            res["vs_one_process"] = cp_against_one(tag, dtype_name, res, grads, ref)
+        del params, batch, grads, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[tag] = res
+        dist.barrier()
+    return out
+
+
+def cp_against_one(tag: str, dtype_name: str, res: dict, grads, ref: dict) -> dict:
+    """(b): the CP loss, metrics and gradients against one process's."""
+    import torch
+
+    errs = {"loss": abs(res["loss"] - ref["loss"]) / max(abs(ref["loss"]), CP_BF16_TOL["floor"])}
+    for k, v in ref["metrics"].items():
+        errs[f"metric {k}"] = abs(res["metrics"][k] - v) / max(abs(v), CP_BF16_TOL["floor"])
+    leaf, num, den, worst = [], 0.0, 0.0, (0.0, -1)
+    close = True
+    for i, (g, w) in enumerate(zip(grads, ref["grads"])):
+        g, w = g.float(), w.to(g.device).float()
+        d = (g - w).norm().item()
+        n = w.norm().item()
+        num, den = num + d * d, den + n * n
+        e = d / max(n, 1e-30)
+        leaf.append(e)
+        worst = max(worst, (e, i))
+        if dtype_name == "float32":
+            close &= bool(torch.allclose(g, w, rtol=8e-4, atol=8e-5))
+    whole = (num / max(den, 1e-30)) ** 0.5
+    log(f"cp loss {tag} against one process: loss {res['loss']:.6f} vs {ref['loss']:.6f}; relative errors "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} }; gradients ||ring - one|| / ||one|| over all leaves "
+        f"{whole:.3e}, worst leaf {worst[0]:.3e} (#{worst[1]} of {len(leaf)}); one process's peak "
+        f"{ref['peak_gib']:.2f} GiB")
+    if dtype_name == "float32":
+        ok = (abs(res["loss"] - ref["loss"]) <= 3e-6 + 3e-5 * abs(ref["loss"]) and close
+              and all(abs(res["metrics"][k] - v) <= 3e-5 + 3e-4 * abs(v) for k, v in ref["metrics"].items()))
+    else:
+        t = CP_BF16_TOL
+        ok = (errs["loss"] <= t["loss"] and all(v <= t["metric"] for k, v in errs.items() if k != "loss")
+              and worst[0] <= t["leaf"] and whole <= t["whole"])
+    if not ok:
+        raise AssertionError(f"cp loss {tag}: the ring's loss/metrics/gradients disagree with one process's: "
+                             f"{errs}, whole {whole}, worst leaf {worst}")
+    return dict(errs=errs, grad_rel_whole=whole, grad_rel_worst_leaf=worst[0])
+
+
+def cp_loss_reference(card: str) -> tuple:
+    """(b) first, in this process: the one-process full-row loss and
+    gradients of each cp_loss_cases configuration (no cp), to host memory
+    and a file each; the card is freed before the ranks start. Returns
+    ({tag: file}, root, {tag: one-process numbers})."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from time_r1_tpu_torch.rl.grpo import grpo_value_and_grad, trainable_leaves
+
+    root = tempfile.mkdtemp(prefix="timer1_phase13_ref_")
+    files, numbers = {}, {}
+    for tag, (cfg, dtype_name) in cp_loss_cases().items():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, batch, hp = cp_loss_setup(cfg, dtype_name)
+        loss, metrics, grads = grpo_value_and_grad(params, cfg, hp, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ref = dict(loss=float(loss), metrics={k: float(v) for k, v in metrics.items()}, peak_gib=peak,
+                   grads=[g.cpu() for g in grads],
+                   checksum=float(sum(p.float().sum() for p in trainable_leaves(params, True)[:4])))
+        files[tag] = os.path.join(root, f"{tag}.pt")
+        torch.save(ref, files[tag])
+        numbers[tag] = dict(loss=ref["loss"], peak_gib=peak, ref_and_step_s=step_s, T=int(batch.input_ids.shape[1]))
+        log(f"[parallel] (b) one process, {tag}: full rows of {batch.input_ids.shape[1]} tokens, loss "
+            f"{ref['loss']:.6f}; reference forward and loss step {step_s:.2f} s; peak {peak:.2f} GiB; {card}")
+        del params, batch, grads, loss, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    return files, root, numbers
+
+
+def dp_trainer(cfg, mesh, out_dir: str, **kw):
+    """(c)'s trainer: seeded bf16 weights at cfg's depth and a reference
+    copy, phase 8's clip through FrameLoader and the stand-in processor, the
+    default TrainConfig but for one update a step_batch and lr 1e-3 (an
+    AdamW step that moves bf16 weights)."""
+    import torch
+
+    from time_r1_tpu_torch.models.processor import Qwen25VLProcessor
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.rl import GRPOTrainer, TrainConfig
+    from time_r1_tpu_torch.utils.rewards import REWARD_FUNCS_REGISTRY
+
+    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    ref = to_device(params, torch.device("cuda"))
+    loader = FrameLoader()
+    config = TrainConfig(gradient_accumulation_steps=1, learning_rate=1e-3, report_to="none", output_dir=out_dir,
+                         **kw)
+    processor = Qwen25VLProcessor(StandInTokenizer(cfg), pad_token_id=cfg.pad_token_id, eos_token_id=cfg.eos_token_id)
+    rewards = [REWARD_FUNCS_REGISTRY["iou"], REWARD_FUNCS_REGISTRY["format"], char_parity_reward]
+    return GRPOTrainer(params, cfg, processor, rewards, config=config, ref_params=ref, dtype=torch.bfloat16,
+                       video_loader=lambda ele: loader({**ele, "video": CLI_CLIP}), mesh=mesh, device="cuda")
+
+
+DP_EXAMPLES = [{"problem": f"a person opens door number {i}", "solution": (0.5 + i, 2.5 + i), "durations": 4.0,
+                "video_path": f"{CLI_CLIP}_{i}.mp4"} for i in range(2)]
+
+
+def dp_job(args: dict) -> dict:
+    """(c) on each rank: a data-parallel step_batch on this rank's example
+    of phase 8's clip (its own rollouts), then on rank 0 one process's
+    step_batch over both examples with the ranks' completions replayed,
+    against which the DP loss, gathered metrics and update are held; then
+    `cli.train.main` with --context_parallel_size 2 for 2 step_batch calls
+    and its saves."""
+    import gc
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
+    from time_r1_tpu_torch.parallel import comm, make_mesh
+    from time_r1_tpu_torch.rl.grpo import trainable_leaves
+
+    rank = dist.get_rank()
+    base = Qwen25VLConfig.qwen25vl_3b()
+    cfg = replace(base, text=replace(base.text, num_hidden_layers=DP_LAYERS))
+    mesh = make_mesh()
+    root = tempfile.mkdtemp(prefix=f"timer1_phase13_dp{rank}_")
+    out = {"layers": DP_LAYERS}
+    tr = dp_trainer(cfg, mesh, root)
+    w0 = [p.detach().clone() for p in trainable_leaves(tr.params, True)]
+    recorded = []
+    generate = tr.engine.generate
+
+    def record(requests, sp):
+        comps = generate(requests, sp)
+        recorded.append(comps)
+        return comps
+
+    tr.engine.generate = record
+    torch.cuda.reset_peak_memory_stats()
+    staged0 = comm.staged_bytes
+    reset_launches()
+    t0 = time.perf_counter()
+    info = tr.step_batch([DP_EXAMPLES[rank]])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = read_launches()
+    metrics = tr.pop_metrics()
+    decode_steps = tr.engine.timings["decode_steps"]
+    # under a mesh the rollout's ViT pass is not captured (as in JAX): the frozen blocks run again for the loss
+    want = step_batch_tc_launches(cfg, decode_steps) | {k: 2 * v for k, v in vision_tc_launches(cfg).items()}
+    check_tc_route(f"dp step_batch rank {rank}", launches, want, tensor_cores=True)
+    out["dp"] = dict(loss=info["loss"], metrics=metrics, step_s=step_s, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                     staged_gb=(comm.staged_bytes - staged0) / 1e9)
+    log(f"dp step_batch on example {rank}: {step_s:.2f} s, loss {info['loss']:.6f}, gathered metrics {metrics}; "
+        f"peak {out['dp']['peak_gib']:.2f} GiB on this rank; {out['dp']['staged_gb']:.2f} GB staged")
+    moved = [p.detach() - w for p, w in zip(trainable_leaves(tr.params, True), w0)]
+    all_comps = [None] * dist.get_world_size()
+    dist.all_gather_object(all_comps, recorded[0])
+    digest = float(sum(p.detach().float().sum() for p in trainable_leaves(tr.params, True)))
+    digests = [None] * dist.get_world_size()
+    dist.all_gather_object(digests, digest)
+    if len(set(digests)) != 1:
+        raise AssertionError(f"dp: the ranks' weights differ after the step ({digests})")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        one = dp_trainer(cfg, None, root)
+        replay = [c for comps in all_comps for c in comps]
+        one.engine.generate = lambda requests, sp: [list(c) for c in replay]
+        one_info = one.step_batch(DP_EXAMPLES)
+        one_metrics = one.pop_metrics()
+        upd = [p.detach() - w for p, w in zip(trainable_leaves(one.params, True), w0)]
+        num = sum(((a.float() - b.float()) ** 2).sum().item() for a, b in zip(moved, upd))
+        den = sum((b.float() ** 2).sum().item() for b in upd)
+        update_err = (num / max(den, 1e-30)) ** 0.5
+        rel = {k: abs(metrics[k] - v) / max(abs(v), DP_TOL["floor"]) for k, v in one_metrics.items()}
+        rel["loss"] = abs(info["loss"] - one_info["loss"]) / max(abs(one_info["loss"]), DP_TOL["floor"])
+        log(f"dp against one process over both examples: loss {info['loss']:.6f} vs {one_info['loss']:.6f}; "
+            f"relative errors {({k: f'{v:.2e}' for k, v in rel.items()})}; update ||dp - one|| / ||one|| "
+            f"{update_err:.3e} (||one|| {den ** 0.5:.4f})")
+        if set(one_metrics) != set(metrics) or max(rel.values()) > DP_TOL["rel"] or update_err > DP_TOL["update"]:
+            raise AssertionError(f"dp: against one process {rel}, update {update_err}")
+        out["vs_one_process"] = dict(rel=rel, update_err=update_err)
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+    del moved, w0
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out["cli"] = cp_cli_run(cfg, args, rank)
+    return out
+
+
+def cp_cli_run(cfg, args: dict, rank: int) -> dict:
+    """(c): `cli.train.main` with --context_parallel_size 2 at (c)'s depth
+    from the HF checkpoint the parent wrote, 2 examples of phase 8's clip
+    (2 step_batch calls, one update, the epoch's save and the final one):
+    per step on each rank exactly 5 B1 and 5 B2 a layer (zig-zag over 2
+    ranks), and on rank 1, which does not roll out, 15 K1 a layer; the
+    ranks' weights equal; trainer_state.json written once."""
+    import torch
+    import torch.distributed as dist
+
+    from time_r1_tpu_torch.rl import GRPOTrainer
+    from time_r1_tpu_torch.rl.grpo import trainable_leaves
+
+    L = cfg.text.num_hidden_layers
+    steps = []
+
+    def counted(original):
+        def step_batch(self, examples, requests=None):
+            reset_launches()
+            t0 = time.perf_counter()
+            res = original(self, examples, requests=requests)
+            torch.cuda.synchronize()
+            steps.append(dict(s=time.perf_counter() - t0, loss=res["loss"], launches=read_launches()))
+            return res
+        return step_batch
+
+    torch.cuda.reset_peak_memory_stats()
+    with cli_stand_ins(cfg) as cli, patched(GRPOTrainer, "step_batch", counted):
+        trainer = cli.main(cli_args(cli, args["hf"], args["out"], args["data"], "--context_parallel_size", "2"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, st in enumerate(steps, start=1):
+        want = {"flash_bwd_dq": 5 * L, "flash_bwd_dkv": 5 * L} | ({"flash_attention": 15 * L} if rank == 1 else {})
+        check_tc_route(f"cli cp step_batch {i} rank {rank}", st["launches"], want, tensor_cores=True)
+        log(f"cli --context_parallel_size 2 step_batch {i}: {st['s']:.2f} s, loss {st['loss']:.6f}")
+    digest = float(sum(p.detach().float().sum() for p in trainable_leaves(trainer.params, True)))
+    digests = [None] * dist.get_world_size()
+    dist.all_gather_object(digests, digest)
+    if len(steps) != 2 or trainer.global_step != 2 or len(set(digests)) != 1 or trainer._cp is None:
+        raise AssertionError(f"cli cp: {len(steps)} steps, global_step {trainer.global_step}, digests {digests}")
+    with open(os.path.join(args["out"], "trainer_state.json")) as f:
+        if json.load(f) != {"global_step": 2}:
+            raise AssertionError("cli cp: trainer_state.json is not global_step 2")
+    log(f"cli --context_parallel_size 2: 2 step_batch calls, the ranks' weights equal, trainer_state.json "
+        f"written; peak {peak:.2f} GiB on this rank")
+    return dict(step_s=[st["s"] for st in steps], peak_gib=peak)
+
+
+def phase_parallel(card: str, parts: str = "abc") -> dict:
+    """Phase 13: data parallelism over processes and context parallelism, as
+    2 or 4 ranks over gloo on the first card; where the machine shows two
+    cards or more, (a) and (c) run again over NCCL, a card a rank. (a) ring
+    attention (`ring_job`); (b) the CP GRPO loss and gradients at
+    Qwen2.5-VL-3B full width and depth under remat over 2 ranks, against one
+    process's, which runs first and is freed before the ranks start
+    (`cp_loss_reference`, `cp_loss_job`); (c) data parallelism over 2 ranks
+    against one process, then `cli.train.main` with --context_parallel_size
+    2 (`dp_job`). `parts` picks among a, b and c. Returns (b)'s K1, B1 and B2
+    launches on rank 0 of the 3B's loss step."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    log(f"[parallel] the machine shows {cards} card(s): the ranks run over gloo on the first"
+        + (", then (a) and (c) again over NCCL, a card a rank" if cards >= 2 else "") + f"; {card}")
+    result = {}
+    if "a" in parts:
+        ring_phase(card, RING_SIZES, nccl=False)
+    t_a = time.perf_counter()
+    if "b" in parts:
+        result["cp_loss_3b_per_rank"] = cp_loss_phase(card)
+    t_b = time.perf_counter()
+    if "c" in parts:
+        dp_phase(card, nccl=False)
+    t_c = time.perf_counter()
+    if cards >= 2:
+        if "a" in parts:
+            ring_phase(card, tuple(n for n in RING_SIZES if n <= cards), nccl=True)
+        if "c" in parts:
+            dp_phase(card, nccl=True)
+    log(f"[parallel] phase 13: (a) {t_a - t0:.1f} s, (b) {t_b - t_a:.1f} s, (c) {t_c - t_b:.1f} s"
+        + (f", over NCCL {time.perf_counter() - t_c:.1f} s" if cards >= 2 else "") + f"; {card}")
+    return result
+
+
+def ring_phase(card: str, sizes: tuple, nccl: bool) -> None:
+    """(a): max(sizes) ranks, each case over the first n of them."""
+    ring = spawn_ranks("ring", max(sizes), {"sizes": list(sizes)}, card, nccl)
+    cases = [c for r in ring for c in r["cases"]]
+    for c in cases:
+        if c["rank"] == 0 and c.get("ring_ms") is not None:
+            peers = [x["ring_ms"] for x in cases if x["rank"] != 0 and all(
+                x[k] == c[k] for k in ("shape", "dtype", "layout", "causal", "n"))]
+            log(f"[parallel] (a) {c['shape']} {c['layout']} {'causal' if c['causal'] else 'non-causal'} n={c['n']}: "
+                f"ring fwd+bwd {[round(x, 2) for x in [c['ring_ms'], *peers]]} ms by rank against one call's "
+                f"{c['one_ms']:.2f} ms; {c['staged_mb']:.1f} MiB staged on rank 0; "
+                f"{'nccl' if nccl else 'gloo'}; {card}")
+
+
+def cp_loss_phase(card: str) -> dict:
+    """(b): the one-process reference first, then 2 ranks; returns rank 0's
+    K1, B1 and B2 launches of the 3B's loss step."""
+    import shutil
+
+    files, ref_root, one = cp_loss_reference(card)
+    try:
+        cp = spawn_ranks("cp_loss", 2, files, card)
+    finally:
+        shutil.rmtree(ref_root, ignore_errors=True)
+    for tag in files:
+        log(f"[parallel] (b) {tag}: peak {[round(r[tag]['peak_gib'], 2) for r in cp]} GiB by rank against one "
+            f"process's {one[tag]['peak_gib']:.2f} GiB (phase 12 (c)'s whole step_batch: 43.16 GiB); reference "
+            f"forward and loss step {[round(r[tag]['ref_and_step_s'], 2) for r in cp]} s by rank against "
+            f"{one[tag]['ref_and_step_s']:.2f} s; {card}")
+    return cp[0]["bf16_full"]["launches"]
+
+
+def dp_phase(card: str, nccl: bool) -> None:
+    """(c): the HF checkpoint and dataset of the CLI run, then 2 ranks."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
+
+    base = Qwen25VLConfig.qwen25vl_3b()
+    cfg = replace(base, text=replace(base.text, num_hidden_layers=DP_LAYERS))
+    root = tempfile.mkdtemp(prefix="timer1_phase13_cli_")
+    try:
+        hf = os.path.join(root, "hf")
+        cli_hf_checkpoint(cfg, hf)
+        gc.collect()
+        torch.cuda.empty_cache()
+        data = write_dataset(root, "train", 2)
+        dp = spawn_ranks("dp", 2, {"hf": hf, "data": data, "out": os.path.join(root, "run")}, card, nccl)
+        if sorted(d for d in os.listdir(os.path.join(root, "run")) if d.startswith("epoch-")) != ["epoch-1"]:
+            raise AssertionError("cli cp: no epoch-1 checkpoint")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[parallel] (c) dp step_batch at {DP_LAYERS} layers: peak {[round(r['dp']['peak_gib'], 2) for r in dp]} "
+        f"GiB by rank; cli cp peak {[round(r['cli']['peak_gib'], 2) for r in dp]} GiB; "
+        f"{'nccl' if nccl else 'gloo'}; {card}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # the training phase holds ~60 GB of live tensors of many sizes
@@ -5306,6 +6023,7 @@ def main() -> int:
     sf_launches = phase_sf_round(card)  # the same from `cli.train_sf.main`: a round's training and its self-eval
     lora_launches = phase_lora_7b(card)  # the same from `cli.train.main` on the 7B, LoRA over an int8 base
     full_param = phase_full_param_7b(card)  # the 7B's full parameters with the state offloaded; the full-row loss
+    parallel = phase_parallel(card)  # ranks over gloo: ring attention (K1, B1, B2), the CP loss, DP, the CLI
     for tag, name in zip("ab", PAGED_KERNELS):
         quant_launches[name] = serve[tag]["launches"][name]
         quant_launches[f"{name}_tc"] = serve[tag]["launches"][f"{name}_tc"]
@@ -5383,6 +6101,9 @@ def main() -> int:
             k["launches_full_param_7b"] = full_param["full_param_7b"][k["name"]]
             k["launches_full_row_3b"] = full_param["full_row_3b"][k["name"]]
     s2["launches_full_param_7b_dkv_prefix"] = full_param["full_param_7b"]["shared_prefix_bwd_dkv"]
+    for k in kernels:  # phase 13 (b): the 3B's CP loss step on each of 2 ranks, zig-zag (2n + 1 = 5 a layer)
+        if k["name"] in parallel["cp_loss_3b_per_rank"]:
+            k["launches_cp_loss_3b_per_rank"] = parallel["cp_loss_3b_per_rank"][k["name"]]
     s2["launches_full_row_3b_dkv_prefix"] = full_param["full_row_3b"]["shared_prefix_bwd_dkv"]
     log(f"[env] chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included")
     print(card, flush=True)

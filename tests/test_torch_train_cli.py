@@ -144,7 +144,7 @@ def test_main_from_hf_then_resume_from_native(tmp_path, clips, tiny_processor, c
 
 
 @pytest.mark.parametrize("flags,label", [
-    (["--tensor_parallel_size", "2"], "A13"), (["--context_parallel_size", "2"], "A13"),
+    (["--tensor_parallel_size", "2"], "A13"),
 ])
 def test_unported_options_are_refused(tmp_path, flags, label):
     with pytest.raises(NotImplementedError, match=label):

@@ -18,7 +18,8 @@ config):
   prepared on worker threads, and `step_batch(examples)` with no requests
   equal to `step_batch(examples, prepare_requests(examples))` on a second
   trainer with the same seed;
-- the options that are not ported (A13) raise NotImplementedError.
+- a mesh with model > 1 (not ported, A13) raises NotImplementedError, and
+  context parallelism without a mesh ValueError.
 
 Tolerances: the optimizer 1e-6 (f32, the same formulas); the trainers'
 metrics 2e-4 as in tests/test_torch_grpo.py; the parameter update after one
@@ -183,24 +184,36 @@ def test_unpatched_cpu_run_completes():
     assert float((tp["text"]["layers"][0]["q_w"] - w0).abs().max()) > 0
 
 
-@pytest.mark.parametrize("option", [dict(context_parallel_size=2)])
-def test_unported_options_raise(option):
+def test_context_parallel_needs_a_mesh():
+    """JAX's check (trainer.py:322-334): context_parallel_size > 1 without a
+    mesh is a ValueError."""
     tp = port_params(jax_params())
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        GRPOTrainer(tp, CFG, Processor(), [spread_reward], config=TrainConfig(**option), dtype=torch.float32,
-                    device="cpu")
+    with pytest.raises(ValueError, match="needs a device mesh"):
+        GRPOTrainer(tp, CFG, Processor(), [spread_reward], config=TrainConfig(context_parallel_size=2),
+                    dtype=torch.float32, device="cpu")
+
+
+class _ModelParallelMesh:
+    """A stand-in for a DeviceMesh of (data 1, model 2)."""
+
+    mesh_dim_names = ("data", "model")
+
+    def size(self, dim):
+        return (1, 2)[dim]
 
 
 def test_prepare_requests_and_mesh_raise():
     """prepare_requests needs a video_loader for an example that has no
-    preprocessed video; a mesh is not ported (A13)."""
+    preprocessed video; a mesh with model > 1 (tensor parallelism) is not
+    ported (A13)."""
     tp = port_params(jax_params())
     tr = GRPOTrainer(tp, CFG, Processor(), [spread_reward], config=TrainConfig(report_to="none"),
                      dtype=torch.float32, device="cpu")
     with pytest.raises(ValueError, match="video_loader"):
         tr.prepare_requests([dict(EXAMPLE, video_path="clip.mp4")])
     with pytest.raises(NotImplementedError, match="A13"):
-        GRPOTrainer(tp, CFG, Processor(), [spread_reward], dtype=torch.float32, device="cpu", mesh=object())
+        GRPOTrainer(tp, CFG, Processor(), [spread_reward], dtype=torch.float32, device="cpu",
+                    mesh=_ModelParallelMesh())
 
 
 def test_int8_rollouts_run_and_resync():

@@ -15,7 +15,8 @@ What differs from `cli/train.py`, as in the reference:
   --use_grpo false (PPO-clip) (scripts/finetune/run_charades.sh).
 
 The other flags are `cli/train.py`'s; --tensor_parallel_size > 1 is refused
-as there (ROADMAP A13). One process on one card.
+as there (ROADMAP A13). One process on one card, or the ranks of a torchrun
+launch with data parallelism, through `cli/train.py::build_train_mesh`.
 """
 
 from __future__ import annotations
@@ -87,10 +88,11 @@ def main(argv=None, device="cuda"):
     train._refuse_unported(args)
     random.seed(42)
     dataset = load_json_dataset(args.train_data_path, video_folder, preprocessed)
-    return _run(args, dataset, device)
+    mesh = train.build_train_mesh(args.tensor_parallel_size, device)
+    return _run(args, dataset, device, mesh)
 
 
-def _run(args, dataset, device="cuda"):
+def _run(args, dataset, device="cuda", mesh=None):
     params, cfg = load_checkpoint(args.model_name_or_path, device=device)
     processor = Qwen25VLProcessor.from_pretrained(args.model_name_or_path)
     ref_params = None
@@ -124,6 +126,7 @@ def _run(args, dataset, device="cuda"):
         video_loader=video_loader,
         ref_params=ref_params,
         dtype=torch.bfloat16,
+        mesh=mesh,
         device=device,
     )
     trainer.train(dataset)

@@ -9,9 +9,20 @@ over by changing only its launcher. The TimeRFT dataset loader
 (load_json_dataset_tg, main.py:431-494) and the resume max_steps arithmetic
 (main.py:589-618) are reproduced here.
 
-The run is one process on one card: `load_checkpoint` (HF safetensors or the
-port's native format) for the policy and, with beta != 0 and no LoRA, again
-for the reference; `GRPOTrainer`; `train()`; the final `save_checkpoint`.
+The run: `load_checkpoint` (HF safetensors or the port's native format) for
+the policy and, with beta != 0 and no LoRA, again for the reference;
+`GRPOTrainer`; `train()`; the final `save_checkpoint`. One process on one card,
+or the ranks of a torchrun launch (`build_train_mesh`): data parallelism over
+the ranks, each training its own shard of the dataset, or with
+--context_parallel_size N (N = the number of ranks) context parallelism, the
+ranks splitting each full row's sequence over ring attention:
+
+    torchrun --nproc_per_node 2 -m time_r1_tpu_torch.cli.train \
+        --model_name_or_path CKPT --output_dir OUT --train_data_path train.json \
+        [--context_parallel_size 2 --context_parallel_layout zigzag]
+
+Each rank takes its own card over NCCL when the machine has one for each, else
+they share the first card over gloo.
 
 LoRA (`--use_peft true --lora_r --lora_alpha`) trains adapters over the
 frozen base, which is then also the reference: no second load.
@@ -26,8 +37,7 @@ same tree with side-path adapters.
         --lora_r 16 --lora_alpha 32 --train_base_quantization int8 \
         --rollout_quantization int8 --gradient_checkpointing true
 
-Not ported yet, refused by name: --tensor_parallel_size > 1 and
---context_parallel_size > 1 (ROADMAP A13).
+Not ported yet, refused by name: --tensor_parallel_size > 1 (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -40,10 +50,12 @@ import random
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.processor import Qwen25VLProcessor
 from ..models.qwen25vl.convert import load_checkpoint
 from ..ops.quant import quantize_layer, quantize_text_params
+from ..parallel.mesh import make_mesh, maybe_init_distributed
 from ..rl.trainer import GRPOTrainer, TrainConfig
 from ..utils.rewards import METRIC_FUNCS_REGISTRY, REWARD_FUNCS_REGISTRY
 from ..video.pipeline import video_loader
@@ -175,7 +187,7 @@ def get_args(argv=None):
         type=int,
         default=1,
         help="shard the loss-forward sequence over the data axis via ring "
-        "attention; values above 1 are not ported yet (ROADMAP A13)",
+        "attention (must equal the number of ranks; uses the full-row batch layout)",
     )
     p.add_argument(
         "--context_parallel_layout",
@@ -188,20 +200,32 @@ def get_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    if getattr(args, "tensor_parallel_size", 1) > 1 or getattr(args, "context_parallel_size", 1) > 1:
-        raise NotImplementedError("--tensor_parallel_size / --context_parallel_size > 1 (a device mesh) are not "
-                                  "ported yet (ROADMAP A13)")
+    if getattr(args, "tensor_parallel_size", 1) > 1:
+        raise NotImplementedError("--tensor_parallel_size > 1 (tensor parallelism) is not ported yet (ROADMAP A13)")
+
+
+def build_train_mesh(tensor_parallel_size: int = 1, device="cuda"):
+    """The training mesh over every rank of a torchrun launch
+    (`parallel.maybe_init_distributed`, then `make_mesh`); None in one
+    process with tensor_parallel_size 1."""
+    maybe_init_distributed(device)
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if n == 1 and tensor_parallel_size <= 1:
+        return None
+    return make_mesh(model_parallel=max(tensor_parallel_size, 1))
 
 
 def main(args, trainer: GRPOTrainer = None, device="cuda"):
     """Train as the recipe asks; returns the trainer. Runs on the card unless
-    `device` says otherwise (the tests pass "cpu")."""
+    `device` says otherwise (the tests pass "cpu"); under torchrun, on this
+    rank's card (`build_train_mesh`)."""
     _refuse_unported(args)
     if args.train_base_quantization and not args.use_peft:
         raise SystemExit("--train_base_quantization requires --use_peft true")
     set_global_seed(42)
     dataset = load_json_dataset_tg(args.train_data_path, args.is_curriculum_learning)
-    return _run(args, trainer, dataset, device)
+    mesh = build_train_mesh(args.tensor_parallel_size, device) if trainer is None else None
+    return _run(args, trainer, dataset, device, mesh)
 
 
 @torch.no_grad()
@@ -218,7 +242,7 @@ def quantize_base_in_place(params: dict, bits: int = 8) -> dict:
     return params
 
 
-def _run(args, trainer, dataset, device="cuda"):
+def _run(args, trainer, dataset, device="cuda", mesh=None):
     if trainer is None:
         params, cfg = load_checkpoint(args.model_name_or_path, device=device)
         if args.train_base_quantization:
@@ -281,6 +305,7 @@ def _run(args, trainer, dataset, device="cuda"):
             video_loader=video_loader,
             ref_params=ref_params,
             dtype=torch.bfloat16,
+            mesh=mesh,
             device=device,
         )
 
@@ -297,10 +322,11 @@ def _run(args, trainer, dataset, device="cuda"):
             trainer.load_checkpoint_state(args.resume_from_checkpoint)
             resumed_global_step = trainer.global_step
             # global_step counts step_batch micro-steps of
-            # per_device_train_batch_size examples each: the quota is
-            # epochs · ceil(len / bs) more
+            # per_device_train_batch_size examples of this rank's shard each:
+            # the quota is epochs · ceil(shard / bs) more
+            n_local = math.ceil(len(dataset) / trainer.data_ranks)
             bs = max(int(trainer.c.per_device_train_batch_size), 1)
-            quota = math.ceil(trainer.c.num_train_epochs * math.ceil(len(dataset) / bs))
+            quota = math.ceil(trainer.c.num_train_epochs * math.ceil(n_local / bs))
             max_steps = resumed_global_step + quota
             print(f"Resuming from step {resumed_global_step}; will stop at {max_steps}")
 

@@ -38,7 +38,12 @@ loop over the layers where JAX scans.
   (`ops/quant.py::lora_delta`), over any base and cache (the rollouts'
   decode). The two are refused together, and `lora` with an int8 cache.
 
-Context parallelism is not ported yet.
+- Context parallelism (`cp=`, a `parallel/ring_attention.py::ContextParallel`):
+  the no-cache forward over this rank's shard of the sequence (contiguous, or
+  the zig-zag chunks), with attention on the ring over K1 (B1/B2 in its
+  backward) where JAX forces its flash kernel; no cache and no sliding window.
+  `parallel/ring_attention.py::sequence_parallel_decoder` shards, runs and
+  gathers.
 """
 
 from __future__ import annotations
@@ -213,8 +218,15 @@ def decoder_forward(
     remat=False,  # gradient checkpointing per layer: False, True/"full", "dots", "dots_small"
     lora: Optional[tuple] = None,  # (per-layer adapters, scaling): merged inside each layer
     lora_side: Optional[tuple] = None,  # (per-layer adapters, scaling): side products
+    cp=None,  # parallel.ContextParallel: the inputs are this rank's sequence shard
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Run all decoder layers; returns (hidden (B, S, hid), updated cache).
+
+    With cp, hidden, position_ids and attention_mask are this rank's shard of
+    the sequence in the group's layout (S local positions, a whole number of
+    flash blocks, zig-zag half-chunks too) and attention is causal ring
+    attention over the group (`ContextParallel.attention`); no cache and no
+    sliding window, as in JAX.
 
     With a cache, each layer writes its chunk K/V into the cache buffer in
     place before attending (JAX writes all layers once, after its scan); the
@@ -252,6 +264,16 @@ def decoder_forward(
     fills = (cache is not None and not quant_kv and not on_device and cache.length == 0
              and cache.k.shape[2] == S)
     in_place = cache is not None and not fills
+    if cp is not None:
+        if cache is not None:
+            raise ValueError("context parallelism covers the no-cache (training) forward only")
+        if cfg.use_sliding_window and cfg.sliding_window is not None:
+            raise ValueError("context parallelism takes no sliding window")
+        block = S // 2 if cp.layout == "zigzag" else S
+        if block % 128:
+            raise ValueError(f"a context-parallel shard of {S} positions is not a whole number of 128-row "
+                             "flash blocks: pad the sequence to the group's multiple")
+        use_flash = True  # ring attention rides K1
     if in_place:
         L0 = cache.dev_length if on_device else cache.length
         kv_len = cache.k.shape[2]
@@ -318,6 +340,8 @@ def decoder_forward(
                 attn = flash_attention(q, layer_k, layer_v, kv_bias, True, None, L0)
             else:
                 attn = mha_cached(q, layer_k, layer_v, k, v, bias_old, bias_new)
+        elif cp is not None:
+            attn = cp.attention(q, k, v, kv_bias)
         elif flash:
             attn = flash_attention(q, k.contiguous(), v.contiguous(), kv_bias, True, None, 0)
         else:

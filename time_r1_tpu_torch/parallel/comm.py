@@ -1,0 +1,115 @@
+"""Collectives over a process group: the port's counterparts of JAX's
+`lax.ppermute` (`ring_shift`), `lax.psum` (`all_reduce_sum`) and
+`multihost_utils.process_allgather` (`all_gather_vector`).
+
+Over NCCL they move the tensors where they lie. Over gloo a CUDA tensor is
+staged through a pinned host buffer on the way out and copied back to its
+device on the way in; `staged_bytes` counts the bytes those copies move
+between the card and host memory, both ways. The route follows from the group's backend and
+the tensor's device alone: nothing is retried on another, and a failed op
+raises.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.distributed as dist
+
+staged_bytes = 0  # bytes copied between the card and host memory for gloo, both ways
+
+_BUCKET_BYTES = 256 << 20  # all_reduce_sum reduces in flat buckets of at most this size
+
+
+def _stages(x: torch.Tensor, group) -> bool:
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _out(x: torch.Tensor, group) -> torch.Tensor:
+    """x as the collective takes it: a pinned host copy over gloo, else x."""
+    global staged_bytes
+    if not _stages(x, group):
+        return x
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x)
+    staged_bytes += x.numel() * x.element_size()
+    return host
+
+
+def _buffer(like: torch.Tensor, group) -> torch.Tensor:
+    """An empty receive buffer for a tensor like `like`: pinned host memory
+    over gloo, else on like's device."""
+    if _stages(like, group):
+        return torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+    return torch.empty_like(like, memory_format=torch.contiguous_format)
+
+
+def _global(group, rank: int) -> int:
+    return rank if group is None else dist.get_global_rank(group, rank)
+
+
+def ring_shift(tensors: Sequence[torch.Tensor], group=None) -> list[torch.Tensor]:
+    """Send each tensor to the group's next rank (r + 1 mod n) and return the
+    ones received from the previous rank (r − 1 mod n), on the senders'
+    device: one `batch_isend_irecv` for all of them."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    nxt, prv = _global(group, (r + 1) % n), _global(group, (r - 1) % n)
+    sends = [_out(t.contiguous(), group) for t in tensors]
+    recvs = [_buffer(t, group) for t in tensors]
+    ops = [dist.P2POp(dist.isend, s, nxt, group) for s in sends]
+    ops += [dist.P2POp(dist.irecv, b, prv, group) for b in recvs]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    global staged_bytes
+    out = []
+    for b, t in zip(recvs, tensors):
+        if b.device != t.device:
+            staged_bytes += b.numel() * b.element_size()
+            b = b.to(t.device)
+        out.append(b)
+    return out
+
+
+def all_reduce_sum(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Sum each tensor over the group, in place. The tensors go in flat
+    buckets of one dtype and device (at most `_BUCKET_BYTES` each), one
+    all_reduce a bucket, reduced in their own dtype."""
+    global staged_bytes
+    order: dict = {}
+    for t in tensors:
+        order.setdefault((t.dtype, t.device), []).append(t)
+    for ts in order.values():
+        i = 0
+        while i < len(ts):
+            j, nbytes = i, 0
+            while j < len(ts) and (j == i or nbytes + ts[j].numel() * ts[j].element_size() <= _BUCKET_BYTES):
+                nbytes += ts[j].numel() * ts[j].element_size()
+                j += 1
+            chunk = ts[i:j]
+            flat = torch.cat([t.reshape(-1) for t in chunk])
+            wire = _out(flat, group)
+            dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=group)
+            if wire is not flat:
+                flat.copy_(wire)
+                staged_bytes += flat.numel() * flat.element_size()
+            off = 0
+            for t in chunk:
+                t.copy_(flat[off:off + t.numel()].view_as(t))
+                off += t.numel()
+            i = j
+
+
+def all_gather_vector(x: torch.Tensor, group=None) -> torch.Tensor:
+    """(n, *x.shape): every rank's x stacked in group-rank order, on x's
+    device. Every rank passes the same shape and dtype."""
+    global staged_bytes
+    wire = _out(x.contiguous(), group)
+    parts = [torch.empty_like(wire) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, wire, group=group)
+    out = torch.stack(parts)
+    if wire is not x and x.is_cuda:
+        staged_bytes += out.numel() * out.element_size()
+        return out.to(x.device)
+    return out
+

@@ -1,0 +1,82 @@
+"""The process group and the training mesh (port of
+`time_r1_tpu/parallel/mesh.py`).
+
+The launcher is `torchrun`: `maybe_init_distributed` reads its environment
+(`RANK`, `WORLD_SIZE`, `LOCAL_RANK`, `LOCAL_WORLD_SIZE`, `MASTER_ADDR`,
+`MASTER_PORT`) where the JAX package reads `JAX_COORDINATOR_ADDRESS`. Each
+rank is one process. When the machine shows a card for every local rank, rank
+r takes `cuda:LOCAL_RANK` and the group runs over NCCL; when the ranks share
+fewer cards (two or four ranks on one card), every rank takes `cuda:0` and the
+group runs over gloo, whose collectives `comm.py` stages through pinned host
+memory. On the CPU the group is gloo.
+
+The mesh is a `DeviceMesh` with dims ("data", "model"), as JAX's. Only
+`model == 1` is ported: the data dim carries example-level data parallelism
+(each rank its own examples, gradients summed before the clip) or context
+parallelism (the ranks split one sequence, `ring_attention.py`).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
+
+def maybe_init_distributed(device="cuda") -> Optional[torch.device]:
+    """Join torchrun's process group; a no-op returning None without its
+    environment (one process). Returns this rank's device: `cuda:LOCAL_RANK`
+    when every local rank has a card (NCCL), else `cuda:0` shared by all ranks
+    (gloo), or the CPU (gloo) when `device` is the CPU. Sets the current CUDA
+    device before the group exists, as NCCL needs."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1 or "RANK" not in os.environ:
+        return None
+    rank = int(os.environ["RANK"])
+    local_rank = int(os.environ.get("LOCAL_RANK", rank))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if torch.device(device).type == "cuda":
+        own = torch.cuda.device_count() >= local_world
+        dev = torch.device("cuda", local_rank if own else 0)
+        torch.cuda.set_device(dev)
+        backend = "nccl" if own else "gloo"
+        note = "" if own else f" (the {local_world} local ranks share one card)"
+    else:
+        dev, backend, note = torch.device("cpu"), "gloo", ""
+    if not dist.is_initialized():
+        dist.init_process_group(backend, init_method="env://", world_size=world, rank=rank)
+        print(f"[dist] rank {rank}/{world} on {dev} over {backend}{note}", flush=True)
+    return dev
+
+
+def make_mesh(model_parallel: int = 1):
+    """The mesh over every rank of the process group: (data = world /
+    model_parallel, model = model_parallel). Only model_parallel 1 is ported.
+    Its device type is where the group's collectives run: "cuda" over NCCL,
+    "cpu" over gloo."""
+    if model_parallel > 1:
+        raise NotImplementedError(
+            f"model_parallel={model_parallel}: tensor parallelism is not ported yet (ROADMAP A13)")
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs a process group: launch with torchrun (maybe_init_distributed)")
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = dist.get_world_size()
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, (world // model_parallel, model_parallel),
+                            mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+
+
+def data_group(mesh):
+    """The process group of the mesh's data dim (refusing a model dim above
+    1), or None without a mesh."""
+    if mesh is None:
+        return None
+    if mesh.size(mesh.mesh_dim_names.index(MODEL_AXIS)) != 1:
+        raise NotImplementedError("a mesh with model > 1 (tensor parallelism) is not ported yet (ROADMAP A13)")
+    return mesh.get_group(DATA_AXIS)

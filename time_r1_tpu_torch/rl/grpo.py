@@ -27,6 +27,15 @@ layer's merged weights exist at a time, also over an int8 base, whose
 quantized head carries the gradient into the hidden states
 (`ops/quant.py::head_logits`); other adapters (the ViT's) merge first.
 
+Across ranks (`parallel/`): `group=` is the data-parallel group whose ranks
+each hold their own rows; `cp=` (a `parallel.ContextParallel`) splits the
+sequence of full rows that every rank of its group holds alike, the decoder on
+ring attention. Either way a rank's loss covers its own tokens over the
+GLOBAL normalizer (PPO-clip: the token count of the whole batch, `grpo.py:386`
+in JAX; GRPO: the row count, `:380`), so the gradients summed over the ranks
+(`grpo_value_and_grad`, before the clip) are the whole batch's, as are the
+metrics, which are reduced there too.
+
 `gradient_checkpointing` (False, True/"full", "dots", "dots_small") makes
 each decoder layer of both differentiated forwards one checkpointed unit
 (`models/qwen25vl/language.py::REMAT_POLICIES`): the backward reruns the
@@ -47,6 +56,7 @@ from ..models.qwen25vl.language import NEG_INF, KVCache, decoder_forward, shared
 from ..models.qwen25vl.model import merge_vision_embeddings
 from ..models.qwen25vl.vision import vision_blocks_forward, vision_forward, vision_merge_forward
 from ..ops.quant import embed_lookup, head_logits
+from ..parallel.comm import all_reduce_sum
 
 
 @dataclass(frozen=True)
@@ -146,14 +156,37 @@ def _merged_embeds(params: dict, cfg: Qwen25VLConfig, batch, ids: torch.Tensor, 
 
 
 def _hidden_states(params: dict, cfg: Qwen25VLConfig, batch: GRPOBatch, remat=False, fix_vit: bool = False,
-                   lora: Optional[tuple] = None) -> torch.Tensor:
+                   lora: Optional[tuple] = None, cp=None) -> torch.Tensor:
     """Full rows: embed, merge the vision features, run the decoder over the
     rows with the padding mask (K1 on the card, B1/B2 in its backward) → the
-    final hidden states (B, T, H)."""
+    final hidden states (B, T, H).
+
+    cp (a `parallel.ContextParallel`): the vision tower and the embed/merge
+    run whole on every rank; the decoder runs on this rank's positions
+    (`cp.index`) with ring attention, and the result is (B, T/n, H) at those
+    positions. T must divide by `cp.multiple` (the trainer pads to it)."""
+    if cp is not None and lora is not None:
+        raise ValueError("LoRA with the context-parallel loss is not plumbed, as in JAX: merge the adapters instead")
     embeds = _merged_embeds(params, cfg, batch, batch.input_ids, fix_vit)
-    hidden, _ = decoder_forward(params["text"], cfg.text, embeds, batch.position_ids,
-                                attention_mask=batch.attention_mask, remat=remat, lora=lora)
+    if cp is None:
+        hidden, _ = decoder_forward(params["text"], cfg.text, embeds, batch.position_ids,
+                                    attention_mask=batch.attention_mask, remat=remat, lora=lora)
+        return hidden
+    T = embeds.shape[1]
+    if T % cp.multiple:
+        raise ValueError(f"full rows of {T} tokens: the {cp.layout} layout over {cp.size} ranks needs a multiple "
+                         f"of {cp.multiple} (build_grpo_batch_groups' pad_multiple)")
+    idx = cp.index(T, embeds.device)
+    hidden, _ = decoder_forward(params["text"], cfg.text, embeds.index_select(1, idx),
+                                batch.position_ids.index_select(2, idx),
+                                attention_mask=batch.attention_mask.index_select(1, idx), remat=remat, cp=cp)
     return hidden
+
+
+def _by_position(x: torch.Tensor) -> torch.Tensor:
+    """(B, T-1) per-token values of positions 0..T-2 (token t+1 predicted at
+    t) as (B, T): position T-1 predicts nothing and gets 0."""
+    return torch.nn.functional.pad(x, (0, 1))
 
 
 def _split_logps_entropy(
@@ -224,35 +257,53 @@ def per_token_logps_entropy(
 
 
 def _logps_entropy(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch,
-                   lora: Optional[tuple] = None) -> tuple[torch.Tensor, torch.Tensor]:
+                   lora: Optional[tuple] = None, cp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-token (logps, entropy), f32: (B, Lc) over a split batch's
-    completion chunks, (B, T-1) over full rows (token t predicted at t-1)."""
+    completion chunks, (B, T-1) over full rows (token t predicted at t-1).
+    With cp, (B, T/n) at this rank's positions, the value at position t that
+    of token t+1 (0 at position T-1, which predicts nothing)."""
     if isinstance(batch, GRPOSplitBatch):
+        if cp is not None:
+            raise ValueError("context parallelism covers the full-row layout (shared_prefix_loss=False)")
         return _split_logps_entropy(params, cfg, hp, batch, fix_vit=hp.fix_vit, lora=lora)
-    hidden = _hidden_states(params, cfg, batch, remat=hp.gradient_checkpointing, fix_vit=hp.fix_vit, lora=lora)
-    return per_token_logps_entropy(params, cfg, hidden[:, :-1], batch.input_ids[:, 1:], hp.logp_chunk)
+    hidden = _hidden_states(params, cfg, batch, remat=hp.gradient_checkpointing, fix_vit=hp.fix_vit, lora=lora,
+                            cp=cp)
+    if cp is None:
+        return per_token_logps_entropy(params, cfg, hidden[:, :-1], batch.input_ids[:, 1:], hp.logp_chunk)
+    targets = cp.shard(_by_position(batch.input_ids[:, 1:]), 1)
+    return per_token_logps_entropy(params, cfg, hidden, targets, hp.logp_chunk)
 
 
 @torch.no_grad()
 def compute_ref_logps(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch,
-                      lora: Optional[tuple] = None) -> torch.Tensor:
+                      lora: Optional[tuple] = None, cp=None) -> torch.Tensor:
     """Per-token logps under the reference weights, without a graph: (B, Lc)
     for a split batch, (B, T-1) for full rows. Nothing is differentiated
     here, so the reference's ViT blocks run frozen (K2/K3 on the card)
     whatever fix_vit says; with fix_vit the batch's `vision_hidden` (the
     policy's frozen blocks, equal to the reference's) is reused. The LoRA
-    trainer's reference is the unmerged base (lora None)."""
+    trainer's reference is the unmerged base (lora None). With cp the group
+    runs the ring forward together and every rank gets the whole (B, T-1)."""
     batch = precompute_frozen_vision(params, cfg, batch)
-    logps, _ = _logps_entropy(params, cfg, hp, batch, lora=lora)
+    logps, _ = _logps_entropy(params, cfg, hp, batch, lora=lora, cp=cp)
+    if cp is not None:
+        logps = cp.gather(logps, 1)[:, :-1]
     return logps
 
 
 def grpo_loss(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch,
-              lora: Optional[tuple] = None) -> tuple[torch.Tensor, dict]:
+              lora: Optional[tuple] = None, cp=None, group=None) -> tuple[torch.Tensor, dict]:
     """Loss and metrics (0-d tensors, without a graph) for one split or
     full-row batch; differentiable in every parameter that requires grad,
-    and in the adapters of lora=(per-layer decoder adapters, scaling)."""
-    logps, entropy = _logps_entropy(params, cfg, hp, batch, lora=lora)
+    and in the adapters of lora=(per-layer decoder adapters, scaling).
+
+    Over ranks (`group`: data-parallel, each rank its own rows; `cp`: a
+    context-parallel group over full rows that every rank holds alike) the
+    loss is this rank's share: its tokens' sum over the global normalizer, so
+    that the sum over the ranks is the whole batch's loss. The metrics are
+    the whole batch's, reduced over the ranks here."""
+    logps, entropy = _logps_entropy(params, cfg, hp, batch, lora=lora, cp=cp)
+    ref_logps = batch.ref_logps
     if isinstance(batch, GRPOSplitBatch):
         comp_mask = batch.comp_mask.float()  # every chunk position predicts a completion token
         comp_len = batch.comp_mask.sum(dim=1).float()
@@ -260,28 +311,43 @@ def grpo_loss(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch,
         comp_mask = batch.completion_mask[:, 1:].float()  # token t is predicted at t-1
         comp_len = batch.completion_mask.sum(dim=1).float()
     adv = batch.advantages[:, None].float()
+    denom_seq = comp_mask.sum(dim=1).clamp_min(1.0)  # whole rows: every CP rank holds them
+    n_rows, n_tokens = float(comp_mask.shape[0]), comp_mask.sum()
+    reduce_over = None
+    if cp is not None:
+        reduce_over = cp.group
+        comp_mask = cp.shard(_by_position(comp_mask), 1)  # this rank's positions
+        if ref_logps is not None:
+            ref_logps = cp.shard(_by_position(ref_logps), 1)
+    elif group is not None:
+        reduce_over = group
+        counts = torch.stack([torch.tensor(n_rows, device=comp_mask.device), n_tokens])
+        all_reduce_sum([counts], group)
+        n_rows, n_tokens = counts[0], counts[1]
+
+    def row_mean(x):  # the mean over the whole batch's rows of per-row values
+        return x.mean() if reduce_over is None else x.sum() / n_rows
 
     coef_1 = torch.exp(logps - logps.detach())
     metrics = {}
     per_token_kl = None
-    if hp.beta != 0.0 and batch.ref_logps is not None:
-        delta = batch.ref_logps - logps
+    if hp.beta != 0.0 and ref_logps is not None:
+        delta = ref_logps - logps
         per_token_kl = torch.exp(delta) - delta - 1.0
 
-    denom_seq = comp_mask.sum(dim=1).clamp_min(1.0)
     if hp.use_grpo:
         per_token_loss = coef_1 * adv
         if per_token_kl is not None:
             per_token_loss = -(per_token_loss - hp.beta * per_token_kl)
         else:
             per_token_loss = -per_token_loss
-        loss = ((per_token_loss * comp_mask).sum(dim=1) / denom_seq).mean()
+        loss = row_mean((per_token_loss * comp_mask).sum(dim=1) / denom_seq)
     else:
         coef_2 = torch.clamp(coef_1, 1.0 - hp.epsilon_low, 1.0 + hp.epsilon_high)
         per_token_loss = -torch.minimum(coef_1 * adv, coef_2 * adv)
         if per_token_kl is not None:
             per_token_loss = per_token_loss + hp.beta * per_token_kl
-        denom = comp_mask.sum().clamp_min(1.0)
+        denom = n_tokens.clamp_min(1.0)
         loss = (per_token_loss * comp_mask).sum() / denom
         with torch.no_grad():
             c1 = coef_1.detach()
@@ -293,9 +359,17 @@ def grpo_loss(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch,
 
     with torch.no_grad():
         if per_token_kl is not None:
-            metrics["kl"] = ((per_token_kl.detach() * comp_mask).sum(dim=1) / denom_seq).mean()
-        metrics["completion_length"] = comp_len.mean()
-        metrics["generation_entropy"] = ((entropy * comp_mask).sum(dim=1) / denom_seq).mean()
+            metrics["kl"] = row_mean((per_token_kl.detach() * comp_mask).sum(dim=1) / denom_seq)
+        metrics["generation_entropy"] = row_mean((entropy * comp_mask).sum(dim=1) / denom_seq)
+        if cp is None:
+            metrics["completion_length"] = row_mean(comp_len)
+        if reduce_over is not None:  # each rank's share → the whole batch's
+            keys = sorted(metrics)
+            shares = torch.stack([metrics[k].float() for k in keys])
+            all_reduce_sum([shares], reduce_over)
+            metrics = dict(zip(keys, shares.unbind(0)))
+        if cp is not None:
+            metrics["completion_length"] = comp_len.mean()
     return loss, metrics
 
 
@@ -318,29 +392,43 @@ def trainable_leaves(params: dict, fix_vit: bool) -> list[torch.Tensor]:
     return _leaves({"visual": visual, "text": params["text"]})
 
 
-def grpo_value_and_grad(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch
+def grpo_value_and_grad(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch, cp=None, group=None
                         ) -> tuple[torch.Tensor, dict, list[torch.Tensor]]:
     """(loss, metrics, grads) with one grad per `trainable_leaves(params,
     hp.fix_vit)` entry (zeros where the loss does not reach a leaf). Marks
-    those leaves as requiring grad."""
+    those leaves as requiring grad. Over ranks (`cp` or `group`, as
+    `grpo_loss`) the gradients and the loss are summed over the group, so
+    every rank holds the whole batch's."""
     leaves = trainable_leaves(params, hp.fix_vit)
     for p in leaves:
         p.requires_grad_(True)
-    loss, metrics = grpo_loss(params, cfg, hp, batch)
+    loss, metrics = grpo_loss(params, cfg, hp, batch, cp=cp, group=group)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-    return loss.detach(), metrics, grads
+    loss = loss.detach().reshape(1)
+    _reduce(grads + [loss], cp, group)
+    return loss[0], metrics, grads
 
 
-def make_train_step(cfg: Qwen25VLConfig, hp: GRPOHyperParams, optimizer):
+def _reduce(tensors: list, cp, group) -> None:
+    """Sum the tensors over the ranks of the loss, in place: the
+    context-parallel group, the data-parallel group, or none."""
+    over = cp.group if cp is not None else group
+    if cp is not None or group is not None:
+        all_reduce_sum(tensors, over)
+
+
+def make_train_step(cfg: Qwen25VLConfig, hp: GRPOHyperParams, optimizer, cp=None, group=None):
     """The train step: (params, opt_state, batch) → (params, opt_state, loss,
     metrics). Parameters and optimizer state are updated in place (the same
     objects come back), so an engine holding `params` samples from the new
     weights with no copy. grad_norm is taken over the micro-step gradients
-    after the frozen leaves are left out, as JAX takes it after zeroing them."""
+    after the frozen leaves are left out, as JAX takes it after zeroing them,
+    and over ranks after the gradients are summed (the optimizer's clip
+    reads the same sums)."""
 
     def train_step(params: dict, opt_state, batch):
-        loss, metrics, grads = grpo_value_and_grad(params, cfg, hp, batch)
+        loss, metrics, grads = grpo_value_and_grad(params, cfg, hp, batch, cp=cp, group=group)
         gnorm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
         optimizer.update(trainable_leaves(params, hp.fix_vit), grads, opt_state)
         metrics = dict(metrics, grad_norm=gnorm, loss=loss)
@@ -349,13 +437,14 @@ def make_train_step(cfg: Qwen25VLConfig, hp: GRPOHyperParams, optimizer):
     return train_step
 
 
-def make_lora_train_step(cfg: Qwen25VLConfig, hp: GRPOHyperParams, optimizer, lora_cfg):
+def make_lora_train_step(cfg: Qwen25VLConfig, hp: GRPOHyperParams, optimizer, lora_cfg, group=None):
     """The LoRA train step: (base params, adapters, opt_state, batch) →
     (adapters, opt_state, loss, metrics). Only the adapter leaves
     (`rl/lora.py::lora_leaves`) get gradients and the clip and AdamW of
     `optimizer`, in place; the base is never marked as requiring grad. The
     decoder's adapters merge inside each layer; the rest (the ViT's, without
-    fix_vit) merge before the loss."""
+    fix_vit) merge before the loss. `group`: data parallelism, as
+    `make_train_step`'s."""
     from .lora import lora_layers_tree, lora_leaves, merge_lora
 
     def train_step(base: dict, lora: dict, opt_state, batch):
@@ -365,12 +454,14 @@ def make_lora_train_step(cfg: Qwen25VLConfig, hp: GRPOHyperParams, optimizer, lo
         dec, rest = lora_layers_tree(lora)
         params = merge_lora(base, rest, lora_cfg) if rest else base
         loss, metrics = grpo_loss(params, cfg, hp, batch,
-                                  lora=(dec, lora_cfg.scaling) if dec is not None else None)
+                                  lora=(dec, lora_cfg.scaling) if dec is not None else None, group=group)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        loss = loss.detach().reshape(1)
+        _reduce(grads + [loss], None, group)
         gnorm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
         optimizer.update(leaves, grads, opt_state)
-        metrics = dict(metrics, grad_norm=gnorm, loss=loss.detach())
-        return lora, opt_state, loss.detach(), metrics
+        metrics = dict(metrics, grad_norm=gnorm, loss=loss[0])
+        return lora, opt_state, loss[0], metrics
 
     return train_step

@@ -1,4 +1,5 @@
-"""GRPO trainer on one device (port of `time_r1_tpu/rl/trainer.py`).
+"""GRPO trainer (port of `time_r1_tpu/rl/trainer.py`), on one device or on
+the ranks of a process group.
 
 One `step_batch` is the job the system exists for: G-way rollouts with the
 live policy weights (`Engine.generate`, num_return_sequences = G), host
@@ -59,8 +60,32 @@ over (JAX's `train()` re-initializes the state it restored; ROADMAP §C).
 `gradient_checkpointing` selects the remat policy of the loss's decoder
 layers (`remat_policy`).
 
-Not ported yet, raising NotImplementedError where they are asked for: device
-meshes and context parallelism (ROADMAP A13).
+Across processes (`mesh`, a `parallel.make_mesh` DeviceMesh with model 1;
+torchrun launches one process a rank):
+- data parallelism: each rank trains its own shard of the dataset (padded to
+  a common length by modular repetition, so that no rank's shard runs out
+  first and hangs the others' collectives), rolls out its own examples with
+  the trainer's seed, and takes the loss over its own rows with the global
+  normalizer; the gradients are summed over the ranks before the clip
+  (`rl/grpo.py::grpo_value_and_grad`). JAX's `_global_vision` /
+  `_any_process_has_vision` exist because GSPMD assembles one global batch; a
+  rank that runs its own forward and sums gradients needs no union of videos,
+  and its loss, metrics and update equal the one-process step over the
+  concatenated groups (tests/test_torch_multiprocess_dp.py).
+- context parallelism (`context_parallel_size` = the mesh's data size, as in
+  JAX; full rows padded to the layout's multiple, `shared_prefix_loss` off):
+  the group trains one batch. Its first rank rolls out and scores and
+  broadcasts the groups; every rank builds the same batch, the reference
+  log-probs come from the ring forward of the whole group, and each rank's
+  loss covers its own positions.
+- without a mesh a trainer is a one-process trainer, whatever group its
+  process is in.
+- pop_metrics gathers the registry's keys with a presence mask (JAX's
+  `_gather_metrics`); only global rank 0 writes checkpoints, metric sinks and
+  trainer_state.json, with a barrier after each save; a resume reads the same
+  directory on every rank. The frozen ViT is never captured from the rollout
+  under a mesh, as in JAX.
+Not ported yet: a mesh with model > 1 (tensor parallelism, ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -75,6 +100,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..models.qwen25vl import Qwen25VLConfig
@@ -88,6 +114,9 @@ from ..models.qwen25vl.convert import (
 )
 from ..models.qwen25vl.model import vision_signature
 from ..ops.quant import QBITS, is_quantized
+from ..parallel.comm import all_gather_vector
+from ..parallel.mesh import data_group
+from ..parallel.ring_attention import ContextParallel
 from ..sampler import Engine, Request, SamplingParams
 from ..utils.checkpoint import is_native_checkpoint, load_params_into, save_params
 from ..utils.logging_sinks import DebugRewardLog
@@ -226,14 +255,8 @@ def make_conversation_video(example: dict, prompt_type: str, total_pixels: int, 
     ]
 
 
-def _unported(config: TrainConfig, mesh) -> Optional[str]:
-    if mesh is not None or config.context_parallel_size > 1:
-        return "device meshes and context parallelism are not ported yet (ROADMAP A13)"
-    return None
-
-
 class GRPOTrainer:
-    """Single-device GRPO trainer. `processor` is a `Qwen25VLProcessor` (or
+    """GRPO trainer. `processor` is a `Qwen25VLProcessor` (or
     anything with its `apply_chat_template`, `__call__` and `batch_decode`);
     `video_loader(ele: dict) -> (frames TCHW float, sample_fps)` decodes an
     example's video (`video.pipeline.video_loader`, or a fake in tests).
@@ -278,9 +301,26 @@ class GRPOTrainer:
                 "LoRA over a quantized base needs fix_vit=True: the rollouts carry the adapters as side "
                 "products in the decoder layers, where the ViT's adapters have no place"
             )
-        why = _unported(config, mesh)
-        if why:
-            raise NotImplementedError(why)
+        self.mesh = mesh
+        self._group = data_group(mesh)  # refuses model > 1 (A13)
+        self._ranks = 1 if self._group is None else dist.get_world_size(self._group)
+        self._cp = None
+        if config.context_parallel_size > 1:
+            if mesh is None:
+                raise ValueError("context_parallel_size > 1 needs a device mesh")
+            if self._ranks != config.context_parallel_size:
+                raise ValueError(f"context_parallel_size={config.context_parallel_size} must equal the mesh data "
+                                 f"axis ({self._ranks})")
+            if config.use_peft:
+                raise ValueError("LoRA with the context-parallel loss is not plumbed, as in JAX")
+            config.shared_prefix_loss = False  # CP splits the sequence of full rows
+            self._cp = ContextParallel(self._group, config.context_parallel_layout)
+        # the ranks that split the data: each rank under data parallelism, the
+        # whole group under context parallelism (its first rank rolls out)
+        self.data_ranks = 1 if self._cp is not None else self._ranks
+        self._data_rank = 0 if self._group is None or self._cp is not None else dist.get_rank(self._group)
+        self._rolls_out = self._cp is None or self._cp.rank == 0
+        self._writes = self._group is None or dist.get_rank() == 0  # under a mesh, global rank 0 writes
         self.device = resolve_device(device)
         self.cfg = cfg
         self.processor = processor
@@ -319,8 +359,9 @@ class GRPOTrainer:
             gradient_checkpointing=(config.remat_policy or "full") if config.gradient_checkpointing else False,
         )
         # fix_vit: the rollout prefill keeps the frozen blocks' output and the
-        # loss and ref forwards reuse it (one ViT-blocks pass per step)
-        self.engine.capture_vision_hidden = config.fix_vit
+        # loss and ref forwards reuse it (one ViT-blocks pass per step); not
+        # under a mesh, as in JAX
+        self.engine.capture_vision_hidden = config.fix_vit and mesh is None
         self.opt_state = None
         self._setup_optimizer(config.learning_rate)
         self._metrics: dict[str, list] = {}
@@ -333,6 +374,8 @@ class GRPOTrainer:
         sinks = [s.strip() for s in (config.report_to or "none").split(",")]
         sink_objs = []
         logdir = config.logging_dir or os.path.join(config.output_dir, "tb")
+        if not self._writes:  # one rank writes the logs
+            sinks = []
         if "tensorboard" in sinks:
             try:
                 from ..utils.logging_sinks import TensorBoardSink
@@ -368,12 +411,14 @@ class GRPOTrainer:
         if self.lora is not None:
             if self.opt_state is None:
                 self.opt_state = self.optimizer.init(lora_leaves(self.lora), offload=c.offload_optimizer)
-            self._train_step = make_lora_train_step(self.cfg, self.hp, self.optimizer, self.lora_cfg)
+            self._train_step = make_lora_train_step(self.cfg, self.hp, self.optimizer, self.lora_cfg,
+                                                    group=self._group)
             return
         if self.opt_state is None:
             self.opt_state = self.optimizer.init(trainable_leaves(self.params, self.hp.fix_vit),
                                                  offload=c.offload_optimizer)
-        self._train_step = make_train_step(self.cfg, self.hp, self.optimizer)
+        self._train_step = make_train_step(self.cfg, self.hp, self.optimizer, cp=self._cp,
+                                           group=None if self._cp is not None else self._group)
 
     # ------------------------------------------------------------------
     def _log_metric(self, key: str, value: float):
@@ -383,6 +428,42 @@ class GRPOTrainer:
         self.opt_state.wait()  # offload: the update's copies into host memory have landed
         out = {k: sum(v) / len(v) for k, v in self._metrics.items() if v}
         self._metrics.clear()
+        if self._ranks > 1:
+            out = self._gather_metrics(out)
+        return out
+
+    def _registry_keys(self) -> list[str]:
+        """Every metric key this configuration can log, the same list on every
+        rank (the gather iterates it, never a rank's own keys, which depend on
+        its data: a metric function may return nothing for a rank's rows)."""
+        keys = ([f"rewards/{fn.__name__}" for fn in self.reward_funcs]
+                + [f"metrics/{fn.__name__}" for fn in self.metric_funcs]
+                + ["reward", "reward_std", "completion_length", "generation_entropy", "grad_norm", "loss"])
+        if self.c.beta != 0.0:
+            keys.append("kl")
+        if not self.c.use_grpo:
+            keys += ["clip_ratio/low_mean", "clip_ratio/high_mean", "clip_ratio/region_mean"]
+        return sorted(set(keys))
+
+    def _gather_metrics(self, metrics: dict) -> dict:
+        """The mean over the ranks of each registry key, over the ranks that
+        logged it: a [values | presence] f32 vector in the registry's order is
+        gathered (JAX's `_gather_metrics`). Presence is a 0/1 mask, so a rank
+        whose metric went NaN poisons the mean instead of dropping out."""
+        keys = self._registry_keys()
+        vals = np.asarray([metrics.get(k, 0.0) for k in keys], np.float32)
+        present = np.asarray([float(k in metrics) for k in keys], np.float32)
+        vec = torch.from_numpy(np.concatenate([vals, present])).to(self.device)
+        gathered = all_gather_vector(vec, self._group).cpu().numpy()  # (ranks, 2K)
+        K = len(keys)
+        gv, gp = gathered[:, :K], gathered[:, K:]
+        out = {}
+        for i, k in enumerate(keys):
+            n = gp[:, i].sum()
+            if n:
+                out[k] = float((gv[:, i] * gp[:, i]).sum() / n)
+        for k, v in metrics.items():  # keys outside the registry stay this rank's
+            out.setdefault(k, v)
         return out
 
     def _load_frames(self, example: dict):
@@ -447,31 +528,19 @@ class GRPOTrainer:
         engine Requests (`prepare_requests`' output, perhaps from a prefetch
         thread); None builds them here, in the host_preproc phase."""
         c = self.c
-        G = c.num_generations
-        with self.timers.phase("weight_sync"):
-            self._sync_engine()
-        if requests is None:
-            with self.timers.phase("host_preproc"):
-                requests = self.prepare_requests(examples)
-
-        sp = SamplingParams(
-            temperature=c.temperature,
-            max_new_tokens=c.max_completion_length,
-            stop_token_ids=(self.cfg.eos_token_id,),
-            num_return_sequences=G,
-            seed=int(self._rng.integers(0, 2**31 - 1)),
-        )
-        with self.timers.phase("rollout"):
-            all_completions = self.engine.generate(requests, sp)  # row-major P·G
-
-        with self.timers.phase("rewards_host"):
-            groups, rewards_all = self._score_rollouts(examples, requests, all_completions)
+        groups = rewards_all = None
+        if self._rolls_out:
+            groups, rewards_all = self._roll_out(examples, requests)
+        if self._cp is not None:
+            with self.timers.phase("batch_broadcast"):
+                groups, rewards_all = self._broadcast_groups(groups, rewards_all)
 
         with self.timers.phase("batch_build"):
             if c.shared_prefix_loss:
                 batch = build_grpo_split_batch(self.cfg, groups, dtype=self.dtype, device=self.device)
             else:
-                batch = build_grpo_batch_groups(self.cfg, groups, dtype=self.dtype, device=self.device)
+                batch = build_grpo_batch_groups(self.cfg, groups, dtype=self.dtype, device=self.device,
+                                                pad_multiple=None if self._cp is None else self._cp.multiple)
         if self.hp.fix_vit and batch.vision is not None:
             with self.timers.phase("vision_frozen"):
                 cap = self.engine.captured_vision
@@ -482,7 +551,8 @@ class GRPOTrainer:
                     batch = precompute_frozen_vision(self.params, self.cfg, batch)
         if self.ref_params is not None:
             with self.timers.phase("ref_logps"):
-                batch = batch._replace(ref_logps=compute_ref_logps(self.ref_params, self.cfg, self.hp, batch))
+                batch = batch._replace(ref_logps=compute_ref_logps(self.ref_params, self.cfg, self.hp, batch,
+                                                                   cp=self._cp))
 
         with self.timers.phase("train_step"):
             if self.lora is not None:
@@ -494,6 +564,42 @@ class GRPOTrainer:
             self._log_metric(k, float(v))
         self.global_step += 1
         return {"loss": float(loss), "reward": float(rewards_all.mean())}
+
+    def _roll_out(self, examples, requests):
+        """Weight sync, host preprocessing (when `requests` is None), the
+        G-way rollouts and their scoring → (groups, rewards)."""
+        c = self.c
+        with self.timers.phase("weight_sync"):
+            self._sync_engine()
+        if requests is None:
+            with self.timers.phase("host_preproc"):
+                requests = self.prepare_requests(examples)
+        sp = SamplingParams(
+            temperature=c.temperature,
+            max_new_tokens=c.max_completion_length,
+            stop_token_ids=(self.cfg.eos_token_id,),
+            num_return_sequences=c.num_generations,
+            seed=int(self._rng.integers(0, 2**31 - 1)),
+        )
+        with self.timers.phase("rollout"):
+            all_completions = self.engine.generate(requests, sp)  # row-major P·G
+        with self.timers.phase("rewards_host"):
+            return self._score_rollouts(examples, requests, all_completions)
+
+    def _broadcast_groups(self, groups, rewards_all):
+        """Context parallelism: the first rank's scored groups and rewards to
+        every rank of the group, as host objects (patches as CPU tensors), so
+        that every rank builds the same batch."""
+        box = [None]
+        if self._rolls_out:
+            box = [([dict(g, patches=None if g["patches"] is None else torch.as_tensor(g["patches"]).cpu())
+                     for g in groups], rewards_all)]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(self._group, 0), group=self._group)
+        return box[0]
+
+    def _prepare(self, examples):
+        """prepare_requests on a rank that rolls out; None on the others."""
+        return self.prepare_requests(examples) if self._rolls_out else None
 
     def _sync_engine(self) -> None:
         """The live policy into the engine, once a step_batch. Full-parameter:
@@ -586,7 +692,15 @@ class GRPOTrainer:
         without touching the optimizer state the trainer holds, so a restored
         state keeps its moments and counts."""
         c = self.c
-        micro_per_epoch = math.ceil(len(dataset) / max(int(c.per_device_train_batch_size), 1))
+        # data parallelism: this rank's shard, every shard as long as the
+        # longest (HF DistributedSampler's wrap, by modular repetition so that
+        # a dataset smaller than the ranks still fills each shard): a rank
+        # whose shard ran out would leave the others' collectives hanging
+        shard = list(dataset)
+        if self.data_ranks > 1:
+            total = math.ceil(len(shard) / self.data_ranks) * self.data_ranks
+            shard = [shard[i % len(shard)] for i in range(total)][self._data_rank::self.data_ranks]
+        micro_per_epoch = math.ceil(len(shard) / max(int(c.per_device_train_batch_size), 1))
         steps_per_epoch = math.ceil(micro_per_epoch / c.gradient_accumulation_steps)
         n_epochs = 1 if c.is_early_stopping else int(math.ceil(c.num_train_epochs))
         if c.lr_scheduler_type == "linear":
@@ -603,17 +717,17 @@ class GRPOTrainer:
         # template, patchify, staging) of batch k+1 runs on one worker thread
         # while the device computes step k; in-order submission keeps the
         # order, and a worker's exception reaches this thread at .result()
-        batches = [(epoch, dataset[i:i + bs]) for epoch in range(n_epochs) for i in range(0, len(dataset), bs)]
+        batches = [(epoch, shard[i:i + bs]) for epoch in range(n_epochs) for i in range(0, len(shard), bs)]
         prefetch = ThreadPoolExecutor(max_workers=1)
         try:
-            pending = prefetch.submit(self.prepare_requests, batches[0][1]) if batches else None
+            pending = prefetch.submit(self._prepare, batches[0][1]) if batches else None
             for bi, (epoch, examples) in enumerate(batches):
                 if max_steps is not None and self.global_step >= max_steps:
                     return
                 with self.timers.phase("host_preproc_wait"):
                     requests = pending.result()
                 if bi + 1 < len(batches):
-                    pending = prefetch.submit(self.prepare_requests, batches[bi + 1][1])
+                    pending = prefetch.submit(self._prepare, batches[bi + 1][1])
                 self.step_batch(examples, requests=requests)
                 if self.global_step % c.logging_steps == 0:
                     logs = {"epoch": epoch, "step": self.global_step, **self.pop_metrics()}
@@ -640,9 +754,16 @@ class GRPOTrainer:
         trainer_state.json, the model config, the processor's tokenizer files
         and a model card. With the tokenizer beside the weights, the SF loop's
         evaluate and its next round's train load the directory as a model
-        (the JAX package writes no tokenizer: ROADMAP §C)."""
-        os.makedirs(path, exist_ok=True)
+        (the JAX package writes no tokenizer: ROADMAP §C). Over ranks, global
+        rank 0 writes and every rank of the group waits for it."""
         self.opt_state.wait()
+        if self._writes:  # one rank writes; the others wait at the barrier
+            self._write_checkpoint(path)
+        if self._ranks > 1:
+            dist.barrier(group=self._group)
+
+    def _write_checkpoint(self, path: str):
+        os.makedirs(path, exist_ok=True)
         # a LoRA run saves the merged model (over an int8 base, the base) and
         # the adapters beside it, in the JAX package's format
         save_params(path, self._policy_params())
