@@ -97,8 +97,8 @@ Phases (any failed check raises and the exit code is non-zero):
    per decode step, D2 on the tensor cores over the int8 caches), then one
    `Engine(quantization="int4", kv_cache_quant=True).generate` at G = 8, 200
    tokens (Q1 144 and D2 36 per step, all on the tensor cores);
-7. continuous-batching serving at full size, once phase 6's model is freed:
-   12 requests (phase 4's two videos, ten text prompts of 200-1800 tokens),
+7. continuous-batching serving at full width and SERVE_LAYERS (12) decoder
+   layers, once phase 6's model is freed: 12 requests (phase 4's two videos, ten text prompts of 200-1800 tokens),
    128 greedy tokens each, through 4 slots with 1024-token prefill chunks:
    PagedEngine (P1 on every decode step), PagedEngine with int8 weights and
    int8 KV pages (P2, Q2) and ContinuousEngine, every launch count checked;
@@ -119,9 +119,11 @@ Phases (any failed check raises and the exit code is non-zero):
    phase 5 (`step_batch_tc_launches`), all on the tensor cores;
 9. a GRPO run from the command line, once phase 8's model is freed (it
    writes up to 26 GB under TMPDIR and refuses to start with less free):
-   (a) Qwen2.5-VL-3B's seeded weights through `save_hf_checkpoint` and
-   `load_checkpoint`, bit-equal, with a config.json that reads back as
-   qwen25vl_3b(); (b) `time_r1_tpu_torch.cli.train.main` on that checkpoint
+   (a) Qwen2.5-VL-3B's seeded weights at CLI_LAYERS (18) decoder layers
+   (phases 10 and 12 (d) too; launch counts below are at 36: L / 36 of
+   them) through `save_hf_checkpoint` and `load_checkpoint`, bit-equal, with
+   a config.json that reads back as written; (b)
+   `time_r1_tpu_torch.cli.train.main` on that checkpoint
    with the CLI's defaults (remat "full", a reference copy), one epoch of 4
    examples of phase 8's 4 s clip (`Qwen25VLProcessor.from_pretrained`
    patched to StandInTokenizer, the decode to phase 8's frames): per
@@ -147,9 +149,10 @@ Phases (any failed check raises and the exit code is non-zero):
    prefill chunk, all on the tensor cores, summing to the round's; (b) two
    rounds at 3B widths with 2 decoder layers and "random_sample": round 1
    trains from round 0's smallest checkpoint on round 0's filtered json;
-11. LoRA GRPO on Qwen2.5-VL-7B over an int8 base, once phase 10's model is
-   freed (it writes up to 40 GB under TMPDIR and deletes it): (a) seeded
-   bf16 7B weights through `save_hf_checkpoint`, then `cli.train.main` with
+11. LoRA GRPO on Qwen2.5-VL-7B at LORA_7B_LAYERS (14) decoder layers (the
+   counts below are at 28: L / 28 of them) over an int8 base, once phase
+   10's model is freed (it writes up to 40 GB under TMPDIR and deletes it):
+   (a) seeded bf16 7B weights through `save_hf_checkpoint`, then `cli.train.main` with
    the JAX package's single-chip 7B flags (`LORA_7B_FLAGS`: --use_peft
    --lora_r 16 --lora_alpha 32 --train_base_quantization int8
    --rollout_quantization int8, remat, fix_vit, G = 8, 200 tokens,
@@ -199,15 +202,35 @@ Phases (any failed check raises and the exit code is non-zero):
    "full", phase 12 (c)'s request with 8 fixed completions, full rows
    padded to 512): one process's loss and gradients first, freed before the
    ranks start; the ranks' loss, metrics and every gradient against them at
-   full depth in bf16 and at 2 layers in f32, K1 15 and B1, B2 5 a layer on
-   each rank, each rank's peak; (c) at 4 decoder layers of the 3B, a
+   CP_LOSS_LAYERS in bf16 and at 2 layers in f32, K1 15 and B1, B2 5 a layer on
+   each rank, each rank's peak; (c) at DP_LAYERS decoder layers of the 3B, a
    data-parallel `step_batch` on each of 2 ranks (its own example of phase
-   8's clip, its own rollouts) against one process's over both examples with
+   8's clip, its own rollouts; the trainer FSDP over the two ranks, its
+   optimizer state offloaded to arenas that pin each rank's blocks only)
+   against one process's over both examples with
    the ranks' completions replayed (loss, gathered metrics, the update), then
    `cli.train.main` with --context_parallel_size 2 for 2 steps and its
    saves (B1 and B2 5 a layer a step on each rank). Where the machine shows
    two cards or more, (a) (over as many ranks as cards, up to 4) and (c) run
-   again over NCCL, a card a rank, nothing staged.
+   again over NCCL, a card a rank, nothing staged;
+14. sharded training (`parallel/sharding.py`, `fsdp.py`, `tensor.py`), 2
+   ranks over gloo on the first card, as phase 13's: (d) the 3B's split GRPO
+   loss step under remat "full" with a reference copy (beta 0.04), at
+   SHARDED_LAYERS decoder layers in bf16 and 2 in f32, as FSDP (mesh 2x1, a
+   group on each data rank) and as TP (1x2, 8 q over 1 kv head and 8 vision
+   heads a rank), against one process's (computed first): the loss, metrics
+   and every gradient gathered leaf by leaf (CP_BF16_TOL in bf16, the CPU
+   tests' f32 tolerances), K1 and S1 3, B1 1, B2 2, S2 1 + 1 a layer and
+   K2 28, K3 4 on each rank at its local heads, each rank's peak and the
+   bytes staged through host memory; (e) at STEP_LAYERS layers: a TP
+   `step_batch` with int8 rollouts (the gathered, quantized rollout copy
+   bit-equal to one process's engine; D2 and Q2 a layer a decode step on
+   model-rank 0 only; the ranks' rows, loss and weights equal) against one
+   process's with the completions replayed (the gradient, through the first
+   moments), and `cli.train.main --tensor_parallel_size 2` for 2 steps. Phase 2
+   first holds K1, B1, B2, S1 and S2 at 8 q over 1 kv head and 7 over 1,
+   and K2/K3 at 8 and 4 heads of 80. Where the machine shows two cards or
+   more, (d) and (e) run again over NCCL.
 
 From phase 3 on, every `Engine` and `PagedEngine` decode on the card is a
 captured CUDA graph replayed once a step (`time_r1_tpu_torch/sampler/graph.py`;
@@ -218,7 +241,9 @@ phase 5 profiles 16 steady rollout steps of each (the device's idle share,
 D2's launches by name).
 
 The kernels' entries for K1, B1 and B2 also give phase 13 (b)'s launches
-on each rank of the 3B's context-parallel loss step.
+on each rank of the 3B's context-parallel loss step, and those of K1-K3, B1,
+B2, S1 and S2 phase 14 (d)'s on rank 0 of each mesh
+(`launches_sharded_loss_per_rank`).
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 kernels JSON line and the result JSON line; the line before them gives the
@@ -228,6 +253,7 @@ the package beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -240,6 +266,7 @@ import numpy as np
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
+PEAK_F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores (the FMA kernels)
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # max |kernel - plain| on valid rows
 LOGIT_TOL = 2e-3  # phase 3: f32 last-position logits, card vs CPU
 
@@ -275,8 +302,10 @@ def cuda_ms(fn, iters: int = 10, queued: bool = True) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak_flops: float = None) -> tuple[float, str]:
+    """The larger of the operations' time at `peak_flops` (bf16's tensor-core
+    peak unless given) and the bytes' at the memory rate, in ms."""
+    t_ops, t_bytes = flops / (peak_flops or PEAK_BF16_FLOPS) * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -382,6 +411,7 @@ def phase_kernels() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = serving_attention_kernels(gen)
+    vision_local_head_cases(gen, results)
     fwd_tc_edge_cases(gen, results["flash_attention"], results["full_attention_rope"])
     results.update(phase_train_kernels())
     attention_7b_cases(results)
@@ -458,6 +488,64 @@ def serving_attention_kernels(gen) -> dict:
         full_inputs, full_bias == 0, flops=4.0 * (per_slice**2).sum().item() * nh * hd, nbytes=fbytes,
     )
     return results
+
+
+def vision_local_head_cases(gen, results: dict) -> None:
+    """K2 and K3 at phase 14's TP-local vision heads (TP_VISION_HEADS of dim
+    80, on the two phase-4 videos' layout) against their plain versions in
+    bf16 and f32, timed in bf16 beside their bound and one SDPA call; each
+    written to its kernel's entry as "tp_heads_<nh>"."""
+    import torch
+    import torch.nn.functional as F
+
+    from time_r1_tpu_torch.ops.attention import NEG_INF
+    from time_r1_tpu_torch.ops.vision_attention import (
+        full_attention_rope,
+        full_attention_rope_plain,
+        window_attention_rope,
+        window_attention_rope_plain,
+    )
+
+    dev = torch.device("cuda")
+    vcfg, prep, key_valid, cos, sin, key_bias = serving_vision_inputs()
+    hd = vcfg.head_dim
+    win = vcfg.window_patches**2 * vcfg.merge_unit
+    P = key_valid.shape[0]
+    per_win = key_valid.reshape(-1, win).sum(1).double()
+    live = key_valid.sum().item()
+    n_slices, S = prep.full_gather.shape
+    fg = torch.from_numpy(prep.full_gather).to(dev).long()
+    fgs = fg.clamp_min(0).reshape(-1)
+    full_bias = (key_bias[fgs].reshape(n_slices, S) + torch.where(fg < 0, NEG_INF, 0.0)).contiguous()
+    cos_f, sin_f = cos[fgs].reshape(n_slices, S, hd), sin[fgs].reshape(n_slices, S, hd)
+    per_slice = (full_bias == 0).sum(1).double()
+    live_f = (full_bias == 0).sum().item()
+    for nh in TP_VISION_HEADS:
+        def win_inputs(dtype, nh=nh):
+            return tuple(torch.randn(P, nh, hd, generator=gen, device=dev).to(dtype) for _ in range(3)) + (
+                cos, sin, key_bias, win)
+
+        def win_library(q, k, v, cos, sin, key_bias, win, nh=nh):
+            qt, kt, vt = (t.reshape(-1, win, nh, hd).transpose(1, 2) for t in (q, k, v))
+            mask = key_bias.reshape(-1, 1, 1, win).to(q.dtype)
+            return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        def full_inputs(dtype, nh=nh):
+            return tuple(torch.randn(n_slices, S, nh, hd, generator=gen, device=dev).to(dtype)
+                         for _ in range(3)) + (cos_f, sin_f, full_bias)
+
+        def full_library(q, k, v, cos, sin, bias):
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias[:, None, None, :].to(q.dtype))
+
+        results["window_attention_rope"][f"tp_heads_{nh}"] = check_kernel(
+            f"window_attention_rope at {nh} heads", window_attention_rope, window_attention_rope_plain, win_library,
+            win_inputs, key_valid, flops=4.0 * (per_win**2).sum().item() * nh * hd,
+            nbytes=4 * live * nh * hd * 2 + 2 * live * hd * 4 + P * 4)
+        results["full_attention_rope"][f"tp_heads_{nh}"] = check_kernel(
+            f"full_attention_rope at {nh} heads", full_attention_rope, full_attention_rope_plain, full_library,
+            full_inputs, full_bias == 0, flops=4.0 * (per_slice**2).sum().item() * nh * hd,
+            nbytes=4 * live_f * nh * hd * 2 + 2 * live_f * hd * 4 + n_slices * S * 4)
 
 
 def serving_vision_inputs():
@@ -582,7 +670,7 @@ def k2_tc_edge_cases(gen, entry: dict) -> None:
             raise AssertionError(f"window_attention_rope took {what}")
 
 
-def k1_work(B, Sq, Skv, H, Hkv, D, causal, q_offset, pads):
+def k1_work(B, Sq, Skv, H, Hkv, D, causal, q_offset, pads, elt: int = 2):
     """K1's inputs and work at one shape with left pad keys per batch entry:
     (kv_bias (B, Skv), valid (B, Sq): rows that see a real key, allowed (B,
     Sq, Skv): the (row, key) pairs of valid rows, the FLOPs of those pairs,
@@ -601,7 +689,7 @@ def k1_work(B, Sq, Skv, H, Hkv, D, causal, q_offset, pads):
     allowed = (keys[None, :] <= last[:, None])[None] & (kv_bias[:, None, :] == 0) & valid[:, :, None]
     live_q = valid.sum().item()
     live_kv = allowed.any(1).sum().item()
-    nbytes = (2 * live_q * H * D + 2 * live_kv * Hkv * D) * 2 + B * Skv * 4 + live_q * H * 4
+    nbytes = (2 * live_q * H * D + 2 * live_kv * Hkv * D) * elt + B * Skv * 4 + live_q * H * 4
     return kv_bias, valid, allowed, 4.0 * allowed.sum().item() * H * D, nbytes
 
 
@@ -980,11 +1068,23 @@ ATTN_7B = dict(H=28, Hkv=4, D=128, S=2048, pad=134, R=8, Sc=256)
 
 
 def attention_7b_cases(results: dict) -> None:
-    """K1, B1, B2, S1 and S2 in bf16 (the tensor-core kernels) against their
-    plain versions (f32 on the same inputs) at ATTN_7B, at GRAD_TOL on max
-    |kernel - plain| / max |plain| per output; each timed beside its bound
-    and one SDPA call over the same keys and mask. Written to each kernel's
-    entry as "7B_G7"."""
+    """K1, B1, B2, S1 and S2 at the 7B's heads (ATTN_7B, "7B_G7") in bf16,
+    then at phase 14's TP-local heads (TP_ATTN) in bf16 and f32
+    (`attention_head_cases`)."""
+    import torch
+
+    attention_head_cases(results, ATTN_7B, "7B_G7", torch.bfloat16)
+    for tag, shape in TP_ATTN.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            attention_head_cases(results, shape, tag if dtype is torch.bfloat16 else f"{tag}_f32", dtype)
+
+
+def attention_head_cases(results: dict, shape: dict, tag: str, dtype) -> None:
+    """K1, B1, B2, S1 and S2 in `dtype` (bf16: the tensor-core kernels; f32:
+    FMA) against their plain versions (f32 on the same inputs) at `shape`'s
+    heads, at GRAD_TOL on max |kernel - plain| / max |plain| per output; each
+    timed beside its bound and one SDPA call over the same keys and mask.
+    Written to each kernel's entry as `tag`."""
     import torch
     import torch.nn.functional as F
 
@@ -993,11 +1093,13 @@ def attention_7b_cases(results: dict) -> None:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
-    H, Hkv, D, S, pad, R, Sc = (ATTN_7B[k] for k in ("H", "Hkv", "D", "S", "pad", "R", "Sc"))
-    tol = GRAD_TOL["bfloat16"]
+    H, Hkv, D, S, pad, R, Sc = (shape[k] for k in ("H", "Hkv", "D", "S", "pad", "R", "Sc"))
+    key = str(dtype).split(".")[-1]
+    tol = GRAD_TOL[key]
+    elt = torch.finfo(dtype).bits // 8
 
     def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     def rel_err(got, want) -> float:
         got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
@@ -1021,27 +1123,27 @@ def attention_7b_cases(results: dict) -> None:
     def record(name, got, want, run, flops, nbytes, library_ms, library_is):
         err = rel_err(got, want)
         ms = cuda_ms(run)
-        b_ms, b_by = bound(flops, nbytes)
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS if dtype is torch.bfloat16 else PEAK_F32_FLOPS)
         row = dict(max_rel_err=err, tol=tol, ms=ms, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
                    tflops=flops / ms / 1e9, library_ms=library_ms, library_is=library_is)
-        results[name]["7B_G7"] = row
-        log(f"[kernels] {name} at the 7B's heads (H {H}, Hkv {Hkv}, G {H // Hkv}): max |kernel - plain| / max "
+        results[name][tag] = row
+        log(f"[kernels] {name} {tag} {key} (H {H}, Hkv {Hkv}, G {H // Hkv}): max |kernel - plain| / max "
             f"|plain| = {err:.3e} (tol {tol}); {ms:.4f} ms (bound {b_ms:.4f} by {b_by}, {row['tflops']:.1f} "
             f"TFLOP/s, {100 * row['bound_share']:.1f}% of the bound, library {library_ms})")
         if not np.isfinite(err) or err > tol:
-            raise AssertionError(f"{name} at the 7B's heads: {err} > {tol}")
+            raise AssertionError(f"{name} {tag} {key}: {err} > {tol}")
 
     # K1, B1, B2: the prompt forward and its backward
     rows = torch.arange(S, device=dev)
     bias = torch.where(rows[None] < pad, NEG_INF, 0.0).float()
     q, k, v = randn(1, S, H, D), randn(1, S, Hkv, D), randn(1, S, Hkv, D)
-    do = (randn(1, S, H, D).float() * (rows >= pad)[None, :, None, None]).bfloat16()
+    do = (randn(1, S, H, D).float() * (rows >= pad)[None, :, None, None]).to(dtype)
     up = (q.float(), k.float(), v.float())
     out, lse = fa.flash_attention_plain(*up, bias, True, None, 0)
     delta = (do.float() * out).sum(-1)
-    _, _, _, k1_flops, k1_bytes = k1_work(1, S, S, H, Hkv, D, True, 0, (pad,))
+    _, _, _, k1_flops, k1_bytes = k1_work(1, S, S, H, Hkv, D, True, 0, (pad,), elt)
     mask = torch.where((rows[None, :] <= rows[:, None]) & (rows[None, :] >= pad), 0.0, NEG_INF)
-    t_fwd, t_fb = sdpa(q, k, v, mask.to(torch.bfloat16)[None, None])
+    t_fwd, t_fb = sdpa(q, k, v, mask.to(dtype)[None, None])
     valid = (rows >= pad)[None]
     got_out, got_lse = fa.flash_attention_fwd(q, k, v, bias, True, None, 0)
     record("flash_attention", (got_out[valid], got_lse.transpose(1, 2)[valid]),
@@ -1049,11 +1151,11 @@ def attention_7b_cases(results: dict) -> None:
            k1_flops, k1_bytes, t_fwd, "SDPA forward, the same mask, GQA")
     live = S - pad
     pairs = live * (live + 1) // 2
-    io = live * H * D * 2 * 2 + live * Hkv * D * 2 * 2 + live * H * 4 * 2 + S * 4
+    io = live * H * D * elt * 2 + live * Hkv * D * elt * 2 + live * H * 4 * 2 + S * 4
     args = (q, k, v, bias, do, lse, delta)
     upargs = (*up, bias, do.float(), lse, delta)
     record("flash_bwd_dq", fa.flash_bwd_dq(*args), fa.flash_bwd_dq_plain(*upargs), lambda: fa.flash_bwd_dq(*args),
-           6.0 * D * pairs * H, io + live * H * D * 2, t_fb - t_fwd,
+           6.0 * D * pairs * H, io + live * H * D * elt, t_fb - t_fwd,
            "SDPA forward+backward minus forward: the whole of B1 + B2")
     record("flash_bwd_dkv", fa.flash_bwd_dkv(*args), fa.flash_bwd_dkv_plain(*upargs),
            lambda: fa.flash_bwd_dkv(*args), 8.0 * D * pairs * H, io + 2 * live * Hkv * D * 4, None,
@@ -1068,10 +1170,10 @@ def attention_7b_cases(results: dict) -> None:
     i = torch.arange(Sc, device=dev)
     cat_mask = torch.cat([bias.expand(Sc, -1), torch.where(i[None, :] <= i[:, None], 0.0, NEG_INF)], 1)
     s_fwd, s_fb = sdpa(qc, torch.cat([k.expand(R, -1, -1, -1), ko], 1), torch.cat([v.expand(R, -1, -1, -1), vo], 1),
-                       cat_mask.to(torch.bfloat16)[None, None])
+                       cat_mask.to(dtype)[None, None])
     own_pairs, pre_pairs = Sc * (Sc + 1) // 2, Sc * live
-    rows_io = R * Sc * H * D * 2
-    keys_io = (live * Hkv * D * 2) * 2 + (R * Sc * Hkv * D * 2) * 2
+    rows_io = R * Sc * H * D * elt
+    keys_io = (live * Hkv * D * elt) * 2 + (R * Sc * Hkv * D * elt) * 2
     record("shared_prefix_fwd", fa.shared_prefix_fwd(*fwd)[0], out_c, lambda: fa.shared_prefix_fwd(*fwd),
            4.0 * D * (pre_pairs + own_pairs) * R * H, 2 * rows_io + keys_io + S * 4 + R * Sc * H * 4, s_fwd,
            "SDPA over [prefix repeated 8x | own chunk] with the mask, GQA")
@@ -1086,11 +1188,11 @@ def attention_7b_cases(results: dict) -> None:
            6.0 * D * (pre_pairs + own_pairs) * R * H + 8.0 * D * pre_pairs * R * H,
            2 * (2 * rows_io + keys_io + R * Sc * H * 8) + rows_io + 2 * live * Hkv * D * 4, s_fb - s_fwd,
            "SDPA forward+backward minus forward over [prefix repeated | own chunk]")
-    row = results["shared_prefix_bwd"]["7B_G7"]
+    row = results["shared_prefix_bwd"][tag]
     row["ms_dq"] = cuda_ms(lambda: fa.shared_prefix_bwd_dq(*fwd, doc, lse_c, delta_c))
     row["ms_dkv_prefix"] = cuda_ms(lambda: fa.shared_prefix_bwd_dkv(qc, k, v, bias, doc, lse_c, delta_c))
     row["n_split_dkv_prefix"] = fa.bwd_dkv_split(H // Hkv, S, Hkv, 1, R)
-    log(f"[kernels] shared_prefix_bwd at the 7B's heads: dq {row['ms_dq']:.4f} ms, prefix dK/dV "
+    log(f"[kernels] shared_prefix_bwd {tag} {key}: dq {row['ms_dq']:.4f} ms, prefix dK/dV "
         f"{row['ms_dkv_prefix']:.4f} ms (n_split {row['n_split_dkv_prefix']})")
 
 
@@ -3172,6 +3274,9 @@ def phase_captured_decode() -> dict:
 LENGTH_MIX = (200, 450, 900, 1800)  # scripts/bench_serving.py:38
 
 
+SERVE_LAYERS = 12  # phase 7's decoder depth: its 36 layers took 100 s (eager turns, ContinuousEngine) of the limit
+
+
 def stream_requests(cfg):
     """Phase 7's stream: phase 4's two video requests, then ten text requests
     whose lengths cycle through LENGTH_MIX, shuffled and drawn from seed 0 as
@@ -3185,15 +3290,16 @@ def stream_requests(cfg):
 
 
 def phase_serving_full_size() -> dict:
-    """Phase 7: continuous-batching serving at full size, after phase 6 freed
-    its model. Qwen2.5-VL-3B in bf16 with seeded random weights; 12 requests
+    """Phase 7: continuous-batching serving at full width, after phase 6 freed
+    its model. Qwen2.5-VL-3B in bf16 with seeded random weights, its decoder
+    cut to SERVE_LAYERS layers (the script's time limit); 12 requests
     (stream_requests), greedy, 128 new tokens with no stop ids; 4 slots,
     max_len 4096, pages of 128, segments of 16, 1024-token prefill chunks.
     (a) PagedEngine with a bf16 pool (P1); (b) PagedEngine with int8
     weights and int8 KV pages, scripts/bench_serving.py's default (P2, Q2);
     (c) ContinuousEngine over the same stream. Launch counts are checked
-    exactly: P1/P2 36 x 16 x segments, K1 36 x the prefill chunks of the
-    admissions, K2/K3 28/4 per admission that holds a video, Q2 36 per step
+    exactly: P1/P2 L x 16 x segments, K1 L x the prefill chunks of the
+    admissions, K2/K3 28/4 per admission that holds a video, Q2 L per step
     in (b), D1/D2 and the training kernels 0."""
     import gc
 
@@ -3204,7 +3310,8 @@ def phase_serving_full_size() -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = Qwen25VLConfig.qwen25vl_3b()
+    base = Qwen25VLConfig.qwen25vl_3b()
+    cfg = replace(base, text=replace(base.text, num_hidden_layers=SERVE_LAYERS))
     L = cfg.text.num_hidden_layers
     n_full = len(cfg.vision.fullatt_block_indexes)
     n_window = cfg.vision.depth - n_full
@@ -3651,7 +3758,17 @@ def phase_input_path(card: str) -> dict:
 
 # ---------------------------------------------------------------------------
 # phase 9
-PHASE9_BYTES = 26e9  # what phase 9 writes at its peak (three 3B checkpoints of 7.5 GB), with room
+PHASE9_BYTES = 26e9  # what phase 9 writes at its peak (three 3B checkpoints of at most 7.5 GB), with room
+# The decoder depth of the CLI phases (9, 10 and 12 (d): the 3B; 11: the 7B), cut so that the script, its
+# phases 13 and 14 included, stays inside its time limit: their checks are of the entry points' plumbing, whose
+# work per layer is the same at any depth
+CLI_LAYERS = 18
+LORA_7B_LAYERS = 14
+
+
+def cut_depth(cfg, layers: int):
+    """cfg with its decoder cut to `layers` layers (full width)."""
+    return replace(cfg, text=replace(cfg.text, num_hidden_layers=layers))
 CLI_CLIP = "clip_4s_30fps"  # phase 8's training clip: 8 frames at 364x644, bucket 2048
 
 
@@ -3833,7 +3950,7 @@ def phase_cli_train(card: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
         raise AssertionError(f"phase 9 needs {PHASE9_BYTES / 1e9:.0f} GB under {root}, which has "
                              f"{free / 1e9:.1f} GB free: point TMPDIR at a larger disk")
-    cfg = Qwen25VLConfig.qwen25vl_3b()
+    cfg = cut_depth(Qwen25VLConfig.qwen25vl_3b(), CLI_LAYERS)
     L = cfg.text.num_hidden_layers
     result = {"card": card}
     try:
@@ -3843,7 +3960,7 @@ def phase_cli_train(card: str) -> dict:
         result["hf"] = dict(gb=nbytes / 1e9, write_s=write_s, read_s=read_s)
         log(f"[cli] (a) save_hf_checkpoint of the 3B: {nbytes / 1e9:.3f} GB in {write_s:.2f} s "
             f"({nbytes / 1e9 / write_s:.2f} GB/s); load_checkpoint onto the card {read_s:.2f} s "
-            f"({nbytes / 1e9 / read_s:.2f} GB/s); bit-equal, config.json read back as qwen25vl_3b(); {card}")
+            f"({nbytes / 1e9 / read_s:.2f} GB/s); bit-equal, config.json read back as written; {card}")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -4249,7 +4366,7 @@ def phase_sf_round(card: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
         raise AssertionError(f"phase 10 needs {PHASE10_BYTES / 1e9:.0f} GB under {root}, which has "
                              f"{free / 1e9:.1f} GB free: point TMPDIR at a larger disk")
-    cfg = Qwen25VLConfig.qwen25vl_3b()
+    cfg = cut_depth(Qwen25VLConfig.qwen25vl_3b(), CLI_LAYERS)
     L = cfg.text.num_hidden_layers
     result = {"card": card}
     try:
@@ -4507,7 +4624,7 @@ def phase_lora_7b(card: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
         raise AssertionError(f"phase 11 needs {PHASE11_BYTES / 1e9:.0f} GB under {root}, which has "
                              f"{free / 1e9:.1f} GB free: point TMPDIR at a larger disk")
-    cfg = Qwen25VLConfig.qwen25vl_7b()
+    cfg = cut_depth(Qwen25VLConfig.qwen25vl_7b(), LORA_7B_LAYERS)
     L = cfg.text.num_hidden_layers
     result = {"card": card}
     try:
@@ -5223,7 +5340,7 @@ def finetune_3b(card: str) -> dict:
     from time_r1_tpu_torch.utils.checkpoint import load_params
     from time_r1_tpu_torch.video import pipeline
 
-    cfg = Qwen25VLConfig.qwen25vl_3b()
+    cfg = cut_depth(Qwen25VLConfig.qwen25vl_3b(), CLI_LAYERS)
     root = tempfile.mkdtemp(prefix="timer1_phase12_")
     free = shutil.disk_usage(root).free
     log(f"[7b] (d) {root}: {free / 1e9:.1f} GB free; (d) writes up to {PHASE12_BYTES / 1e9:.0f} GB")
@@ -5304,8 +5421,9 @@ RING_SIZES = (2, 4)
 PARALLEL_TIMEOUT = 300  # s: the parent's wait for one spawn of ranks (each takes 35-90 s)
 CP_LAYOUT = "zigzag"  # the CLI's default --context_parallel_layout
 CP_MULTIPLE = 2 * 2 * 128  # zig-zag over 2 ranks: trainer.py:647-649
-DP_LAYERS = 4  # (c)'s decoder depth at 3B widths: two trainers share the card (one 3B trainer: 39.70 GiB)
-# (b) bf16 at full depth: loss and metrics within 2e-2 of the one-process values (1e-3 absolute floor);
+DP_LAYERS = 2  # (c)'s decoder depth at 3B widths: two trainers share the card, the time limit holds
+CP_LOSS_LAYERS = 4  # (b)'s bf16 depth (its 36 layers took 68 s of phase 13 and the script's time limit holds)
+# (b) bf16 at CP_LOSS_LAYERS: loss and metrics within 2e-2 of the one-process values (1e-3 absolute floor);
 # per gradient leaf ||ring - one|| / ||one|| under 0.25, over all leaves under 5e-2
 CP_BF16_TOL = dict(loss=2e-2, metric=2e-2, floor=1e-3, leaf=0.25, whole=5e-2)
 # (c) bf16 at DP_LAYERS: loss, gathered metrics and grad_norm within 2e-2 of one process's (1e-3 absolute
@@ -5321,11 +5439,12 @@ def ring_launches(layout: str, causal: bool, n: int, r: int) -> int:
     return r + 1 if causal else n
 
 
-def spawn_ranks(job: str, world: int, args: dict, card: str, nccl: bool = False) -> list:
+def spawn_ranks(job: str, world: int, args: dict, card: str, nccl: bool = False,
+                timeout: float = PARALLEL_TIMEOUT) -> list:
     """Run `parallel_rank(job)` in `world` processes with torchrun's
     environment (127.0.0.1, a free port): over gloo with the ranks all on
     the first card, or with `nccl` a card a rank (the machine shows `world`
-    cards at least). Waits PARALLEL_TIMEOUT s at most; a rank that fails or
+    cards at least). Waits `timeout` s at most; a rank that fails or
     hangs is an error (the others are killed). Prints every rank's log,
     returns each rank's result."""
     import shutil
@@ -5354,9 +5473,9 @@ def spawn_ranks(job: str, world: int, args: dict, card: str, nccl: bool = False)
     failed = None
     try:
         for p, _ in procs:
-            p.wait(timeout=max(PARALLEL_TIMEOUT - (time.perf_counter() - t0), 1.0))
+            p.wait(timeout=max(timeout - (time.perf_counter() - t0), 1.0))
     except subprocess.TimeoutExpired:
-        failed = f"a rank did not finish in {PARALLEL_TIMEOUT} s"
+        failed = f"a rank did not finish in {timeout} s"
     finally:
         for p, logf in procs:
             if p.poll() is None:
@@ -5372,7 +5491,7 @@ def spawn_ranks(job: str, world: int, args: dict, card: str, nccl: bool = False)
     log(f"[parallel] {job}: {world} ranks over {route}, exit codes {codes}, {time.perf_counter() - t0:.1f} s; {card}")
     try:
         if failed or any(codes):
-            raise AssertionError(f"phase 13 {job}: {failed or f'exit codes {codes}'}")
+            raise AssertionError(f"ranks of {job}: {failed or f'exit codes {codes}'}")
         out = []
         for r in range(world):
             with open(os.path.join(root, f"rank{r}.json")) as f:
@@ -5402,7 +5521,8 @@ def parallel_rank(job: str, root: str) -> int:
             f"{torch.cuda.device_count()} card(s) visible")
         with open(os.path.join(root, "args.json")) as f:
             args = json.load(f)
-        result = {"ring": ring_job, "cp_loss": cp_loss_job, "dp": dp_job}[job](args)
+        result = {"ring": ring_job, "cp_loss": cp_loss_job, "dp": dp_job, "sharded": sharded_job,
+                  "seven_b": seven_b_job}[job](args)
         with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
             json.dump(result, f)
         dist.barrier()
@@ -5564,13 +5684,13 @@ def cp_loss_groups(cfg):
 
 
 def cp_loss_cases():
-    """(b)'s two configurations: Qwen2.5-VL-3B at full depth in bf16 (the
-    tensor-core kernels), and at 2 decoder layers in f32 (FMA), where the
-    tolerances are tests/test_torch_sequence_parallel.py's."""
+    """(b)'s two configurations: Qwen2.5-VL-3B at CP_LOSS_LAYERS decoder
+    layers in bf16 (the tensor-core kernels), and at 2 in f32 (FMA), where
+    the tolerances are tests/test_torch_sequence_parallel.py's."""
     from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
 
     cfg = Qwen25VLConfig.qwen25vl_3b()
-    return {"bf16_full": (cfg, "bfloat16"),
+    return {"bf16": (replace(cfg, text=replace(cfg.text, num_hidden_layers=CP_LOSS_LAYERS)), "bfloat16"),
             "f32_2_layers": (replace(cfg, text=replace(cfg.text, num_hidden_layers=2)), "float32")}
 
 
@@ -5644,8 +5764,10 @@ def cp_loss_job(args: dict) -> dict:
     return out
 
 
-def cp_against_one(tag: str, dtype_name: str, res: dict, grads, ref: dict) -> dict:
-    """(b): the CP loss, metrics and gradients against one process's."""
+def cp_against_one(tag: str, dtype_name: str, res: dict, grads, ref: dict, what: str = "cp loss") -> dict:
+    """(b): the CP loss, metrics and gradients against one process's (and
+    phase 14 (d)'s sharded ones, `what` naming the run; `grads` may be a
+    generator of gathered gradients on the card)."""
     import torch
 
     errs = {"loss": abs(res["loss"] - ref["loss"]) / max(abs(ref["loss"]), CP_BF16_TOL["floor"])}
@@ -5664,8 +5786,8 @@ def cp_against_one(tag: str, dtype_name: str, res: dict, grads, ref: dict) -> di
         if dtype_name == "float32":
             close &= bool(torch.allclose(g, w, rtol=8e-4, atol=8e-5))
     whole = (num / max(den, 1e-30)) ** 0.5
-    log(f"cp loss {tag} against one process: loss {res['loss']:.6f} vs {ref['loss']:.6f}; relative errors "
-        f"{ {k: f'{v:.2e}' for k, v in errs.items()} }; gradients ||ring - one|| / ||one|| over all leaves "
+    log(f"{what} {tag} against one process: loss {res['loss']:.6f} vs {ref['loss']:.6f}; relative errors "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} }; gradients ||{what} - one|| / ||one|| over all leaves "
         f"{whole:.3e}, worst leaf {worst[0]:.3e} (#{worst[1]} of {len(leaf)}); one process's peak "
         f"{ref['peak_gib']:.2f} GiB")
     if dtype_name == "float32":
@@ -5676,7 +5798,7 @@ def cp_against_one(tag: str, dtype_name: str, res: dict, grads, ref: dict) -> di
         ok = (errs["loss"] <= t["loss"] and all(v <= t["metric"] for k, v in errs.items() if k != "loss")
               and worst[0] <= t["leaf"] and whole <= t["whole"])
     if not ok:
-        raise AssertionError(f"cp loss {tag}: the ring's loss/metrics/gradients disagree with one process's: "
+        raise AssertionError(f"{what} {tag}: the loss/metrics/gradients disagree with one process's: "
                              f"{errs}, whole {whole}, worst leaf {worst}")
     return dict(errs=errs, grad_rel_whole=whole, grad_rel_worst_leaf=worst[0])
 
@@ -5717,11 +5839,11 @@ def cp_loss_reference(card: str) -> tuple:
     return files, root, numbers
 
 
-def dp_trainer(cfg, mesh, out_dir: str, **kw):
+def dp_trainer(cfg, mesh, out_dir: str, extra_rewards=(), **kw):
     """(c)'s trainer: seeded bf16 weights at cfg's depth and a reference
     copy, phase 8's clip through FrameLoader and the stand-in processor, the
     default TrainConfig but for one update a step_batch and lr 1e-3 (an
-    AdamW step that moves bf16 weights)."""
+    AdamW step that moves bf16 weights); `extra_rewards` beside its three."""
     import torch
 
     from time_r1_tpu_torch.models.processor import Qwen25VLProcessor
@@ -5735,7 +5857,7 @@ def dp_trainer(cfg, mesh, out_dir: str, **kw):
     config = TrainConfig(gradient_accumulation_steps=1, learning_rate=1e-3, report_to="none", output_dir=out_dir,
                          **kw)
     processor = Qwen25VLProcessor(StandInTokenizer(cfg), pad_token_id=cfg.pad_token_id, eos_token_id=cfg.eos_token_id)
-    rewards = [REWARD_FUNCS_REGISTRY["iou"], REWARD_FUNCS_REGISTRY["format"], char_parity_reward]
+    rewards = [REWARD_FUNCS_REGISTRY["iou"], REWARD_FUNCS_REGISTRY["format"], char_parity_reward, *extra_rewards]
     return GRPOTrainer(params, cfg, processor, rewards, config=config, ref_params=ref, dtype=torch.bfloat16,
                        video_loader=lambda ele: loader({**ele, "video": CLI_CLIP}), mesh=mesh, device="cuda")
 
@@ -5746,7 +5868,9 @@ DP_EXAMPLES = [{"problem": f"a person opens door number {i}", "solution": (0.5 +
 
 def dp_job(args: dict) -> dict:
     """(c) on each rank: a data-parallel step_batch on this rank's example
-    of phase 8's clip (its own rollouts), then on rank 0 one process's
+    of phase 8's clip (its own rollouts; the trainer on the mesh is FSDP,
+    its optimizer state offloaded: the arenas pin this rank's blocks only),
+    then on rank 0 one process's
     step_batch over both examples with the ranks' completions replayed,
     against which the DP loss, gathered metrics and update are held; then
     `cli.train.main` with --context_parallel_size 2 for 2 step_batch calls
@@ -5767,8 +5891,9 @@ def dp_job(args: dict) -> dict:
     mesh = make_mesh()
     root = tempfile.mkdtemp(prefix=f"timer1_phase13_dp{rank}_")
     out = {"layers": DP_LAYERS}
-    tr = dp_trainer(cfg, mesh, root)
-    w0 = [p.detach().clone() for p in trainable_leaves(tr.params, True)]
+    tr = dp_trainer(cfg, mesh, root, offload_optimizer=True)
+    # the trainer holds its blocks (FSDP over the two ranks): the whole weights are gathered
+    w0 = [p.detach().clone() for p in trainable_leaves(tr.gathered_params(), True)]
     recorded = []
     generate = tr.engine.generate
 
@@ -5787,6 +5912,14 @@ def dp_job(args: dict) -> dict:
     step_s = time.perf_counter() - t0
     launches = read_launches()
     metrics = tr.pop_metrics()
+    blocks = trainable_leaves(tr.params, True)
+    want_host = 2 * sum(b.numel() * b.element_size() for b, n in zip(blocks, tr._whole_numels)
+                        if b.dim() >= 1 and n >= 1024)
+    whole_host = 2 * sum(n * b.element_size() for b, n in zip(blocks, tr._whole_numels) if b.dim() >= 1 and n >= 1024)
+    if tr.opt_state.host_bytes != want_host:
+        raise AssertionError(f"dp: {tr.opt_state.host_bytes} bytes pinned, want this rank's blocks' {want_host}")
+    log(f"dp (FSDP, offload_optimizer) rank {rank}: {want_host / 2**30:.3f} GiB pinned, the whole state's "
+        f"{whole_host / 2**30:.3f} GiB")
     decode_steps = tr.engine.timings["decode_steps"]
     # under a mesh the rollout's ViT pass is not captured (as in JAX): the frozen blocks run again for the loss
     want = step_batch_tc_launches(cfg, decode_steps) | {k: 2 * v for k, v in vision_tc_launches(cfg).items()}
@@ -5795,14 +5928,16 @@ def dp_job(args: dict) -> dict:
                      staged_gb=(comm.staged_bytes - staged0) / 1e9)
     log(f"dp step_batch on example {rank}: {step_s:.2f} s, loss {info['loss']:.6f}, gathered metrics {metrics}; "
         f"peak {out['dp']['peak_gib']:.2f} GiB on this rank; {out['dp']['staged_gb']:.2f} GB staged")
-    moved = [p.detach() - w for p, w in zip(trainable_leaves(tr.params, True), w0)]
+    whole = trainable_leaves(tr.gathered_params(), True)
+    moved = [p.detach() - w for p, w in zip(whole, w0)]
     all_comps = [None] * dist.get_world_size()
     dist.all_gather_object(all_comps, recorded[0])
-    digest = float(sum(p.detach().float().sum() for p in trainable_leaves(tr.params, True)))
+    digest = float(sum(p.detach().float().sum() for p in whole))
     digests = [None] * dist.get_world_size()
     dist.all_gather_object(digests, digest)
     if len(set(digests)) != 1:
         raise AssertionError(f"dp: the ranks' weights differ after the step ({digests})")
+    del whole
     del tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -5869,10 +6004,10 @@ def cp_cli_run(cfg, args: dict, rank: int) -> dict:
         want = {"flash_bwd_dq": 5 * L, "flash_bwd_dkv": 5 * L} | ({"flash_attention": 15 * L} if rank == 1 else {})
         check_tc_route(f"cli cp step_batch {i} rank {rank}", st["launches"], want, tensor_cores=True)
         log(f"cli --context_parallel_size 2 step_batch {i}: {st['s']:.2f} s, loss {st['loss']:.6f}")
-    digest = float(sum(p.detach().float().sum() for p in trainable_leaves(trainer.params, True)))
+    digest = float(sum(p.detach().float().sum() for p in trainable_leaves(trainer.gathered_params(), True)))
     digests = [None] * dist.get_world_size()
     dist.all_gather_object(digests, digest)
-    if len(steps) != 2 or trainer.global_step != 2 or len(set(digests)) != 1 or trainer._cp is None:
+    if len(set(digests)) != 1 or len(steps) != 2 or trainer.global_step != 2 or trainer._cp is None:
         raise AssertionError(f"cli cp: {len(steps)} steps, global_step {trainer.global_step}, digests {digests}")
     with open(os.path.join(args["out"], "trainer_state.json")) as f:
         if json.load(f) != {"global_step": 2}:
@@ -5952,7 +6087,7 @@ def cp_loss_phase(card: str) -> dict:
             f"process's {one[tag]['peak_gib']:.2f} GiB (phase 12 (c)'s whole step_batch: 43.16 GiB); reference "
             f"forward and loss step {[round(r[tag]['ref_and_step_s'], 2) for r in cp]} s by rank against "
             f"{one[tag]['ref_and_step_s']:.2f} s; {card}")
-    return cp[0]["bf16_full"]["launches"]
+    return cp[0]["bf16"]["launches"]
 
 
 def dp_phase(card: str, nccl: bool) -> None:
@@ -5984,6 +6119,573 @@ def dp_phase(card: str, nccl: bool) -> None:
         f"{'nccl' if nccl else 'gloo'}; {card}")
 
 
+# Phase 14: sharded training (FSDP over "data", TP over "model"), 2 ranks over
+# gloo on the first card; (d) and (e) again over NCCL where the machine shows
+# several cards, and (f), the 7B over NCCL on 4 cards, from
+# scripts/check_parallel.py only.
+SHARDED_LAYERS = 4  # (d)'s bf16 depth (36, the 3B's full depth, costs FSDP 75 s a rank over gloo: PERF.md)
+SHARDED_MESHES = {"fsdp": 1, "tp": 2}  # (d): the model dim of each 2-rank mesh (2x1, 1x2)
+STEP_LAYERS = 2  # (e)'s decoder depth at 3B widths (two trainers share the card, the time limit holds)
+SEVEN_B_TPS = (1, 2, 4)  # (f): 4x1, 2x2, 1x4 over 4 cards
+SHARDED_TIMEOUT = 600  # s: the parent's wait for one spawn of phase 14's ranks
+# K1, B1, B2, S1, S2 at the TP-local heads of phase 14's meshes: the 3B's 16
+# q over 2 kv heads at tp 2, the 7B's 28 over 4 at tp 4 (one kv head a rank)
+TP_ATTN = {"3B_tp2_G8": dict(ATTN_7B, H=8, Hkv=1), "7B_tp4_G7": dict(ATTN_7B, H=7, Hkv=1)}
+TP_VISION_HEADS = (8, 4)  # K2, K3: the vision tower's 16 heads of 80 at tp 2 and 4
+
+
+def rel_norm(got, want) -> float:
+    """||got - want|| / ||want|| over lists of tensors (on any devices)."""
+    num = sum(((a.float().to(b.device) - b.float()) ** 2).sum().item() for a, b in zip(got, want))
+    den = sum((b.float() ** 2).sum().item() for b in want)
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def row_spread_reward(completions, **kwargs):
+    """A stand-in reward that differs on every row of a group (its index), so
+    that the advantages are never all zero whatever the rollouts sampled."""
+    return [float(i) for i in range(len(completions))]
+
+
+def sharded_loss_groups(cfg):
+    """(d)'s two rollout groups: phase 13 (b)'s (phase 12 (c)'s request with
+    FULL_ROW_ATTN's completions) and a second one from other seeds (phase 4's
+    second video request's frames, the same completion lengths)."""
+    first = cp_loss_groups(cfg)[0]
+    rng = np.random.default_rng(2)
+    req = video_request(cfg, np.random.default_rng(3), 32, 224, 392)
+    comps = []
+    for n in FULL_ROW_ATTN["comps"][::-1]:
+        toks = rng.integers(3, 97, n).tolist()
+        comps.append(toks[:-1] + [cfg.eos_token_id] if n < 200 else toks)
+    return [first, {"prompt_ids": req.input_ids, "completions": comps,
+                    "advantages": rng.normal(size=8).astype(np.float32), "patches": req.patches,
+                    "grid_thw": req.grid_thw, "second_per_grid_t": 1.0}]
+
+
+def sharded_loss_cases():
+    """(d)'s configurations: Qwen2.5-VL-3B at SHARDED_LAYERS in bf16 (the
+    tensor-core kernels), and at 2 decoder layers and 4 vision blocks (the
+    last a full-attention one) in f32 (FMA)."""
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
+
+    cfg = Qwen25VLConfig.qwen25vl_3b()
+    small = replace(cfg, text=replace(cfg.text, num_hidden_layers=2),
+                    vision=replace(cfg.vision, depth=4, fullatt_block_indexes=(3,)))
+    return {"bf16": (replace(cfg, text=replace(cfg.text, num_hidden_layers=SHARDED_LAYERS)), "bfloat16"),
+            "f32_2_layers": (small, "float32")}
+
+
+def sharded_loss_step(cfg, dtype_name: str, groups, shard=None, group=None) -> tuple:
+    """Seeded weights and a reference copy (the same weights: the KL path
+    runs, at 0), as this rank's blocks under `shard`; the split batch of
+    `groups`; the frozen ViT's pass, the reference log-probs and
+    `grpo_value_and_grad` under remat "full" → (loss, metrics, grads, seconds,
+    checksum of the first leaves)."""
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.rl import GRPOHyperParams, build_grpo_split_batch
+    from time_r1_tpu_torch.rl.grpo import compute_ref_logps, grpo_value_and_grad, precompute_frozen_vision
+
+    dtype = getattr(torch, dtype_name)
+    trees = []
+    for _ in range(2):  # the policy, then its reference copy: each sharded before the next is made
+        tree = init_params(cfg, seed=0, device="cuda", dtype=dtype)
+        trees.append(tree if shard is None else shard.shard(tree))
+        del tree
+    params, ref = trees
+    hp = GRPOHyperParams(num_generations=8, beta=0.04, fix_vit=True, gradient_checkpointing="full")
+    batch = build_grpo_split_batch(cfg, groups, dtype=dtype, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = precompute_frozen_vision(params, cfg, batch, shard)
+    batch = batch._replace(ref_logps=compute_ref_logps(ref, cfg, hp, batch, shard=shard))
+    loss, metrics, grads = grpo_value_and_grad(params, cfg, hp, batch, group=group, shard=shard)
+    torch.cuda.synchronize()
+    return loss, metrics, grads, time.perf_counter() - t0
+
+
+def sharded_loss_launches(cfg) -> dict:
+    """(d)'s launches a rank, at its local heads: K1 and S1 in the reference
+    forward, the loss and its rerun under remat; B1 once and B2 twice (the
+    prompt, the own chunk), S2's two kernels once, a layer; K2/K3 in the
+    frozen ViT's one pass."""
+    L = cfg.text.num_hidden_layers
+    return vision_tc_launches(cfg) | {
+        "flash_attention": 3 * L, "shared_prefix_fwd": 3 * L, "flash_bwd_dq": L, "flash_bwd_dkv": 2 * L,
+        "shared_prefix_bwd": L, "shared_prefix_bwd_dkv": L}
+
+
+def sharded_loss_reference(card: str) -> tuple:
+    """(d) first, in this process: one process's loss step for each case over
+    the groups each mesh trains (FSDP: both groups, a data rank each; TP:
+    the first, on both ranks), to a file each; the card is freed before the
+    ranks start. Returns ({key: file}, root, {key: numbers})."""
+    import gc
+    import tempfile
+
+    import torch
+
+    root = tempfile.mkdtemp(prefix="timer1_phase14_ref_")
+    files, numbers = {}, {}
+    for tag, (cfg, dtype_name) in sharded_loss_cases().items():
+        groups = sharded_loss_groups(cfg)
+        for mesh, tp in SHARDED_MESHES.items():
+            torch.cuda.reset_peak_memory_stats()
+            loss, metrics, grads, step_s = sharded_loss_step(cfg, dtype_name, groups if tp == 1 else groups[:1])
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            ref = dict(loss=float(loss), metrics={k: float(v) for k, v in metrics.items()}, peak_gib=peak,
+                       grads=[g.cpu() for g in grads])
+            key = f"{mesh}_{tag}"
+            files[key] = os.path.join(root, f"{key}.pt")
+            torch.save(ref, files[key])
+            numbers[key] = dict(loss=ref["loss"], peak_gib=peak, step_s=step_s)
+            log(f"[sharded] (d) one process, {key}: loss {ref['loss']:.6f}; frozen ViT, reference forward and "
+                f"loss step {step_s:.2f} s; peak {peak:.2f} GiB; {card}")
+            del loss, grads, ref
+            gc.collect()
+            torch.cuda.empty_cache()
+    return files, root, numbers
+
+
+def sharded_loss_job(args: dict) -> dict:
+    """(d) on each of 2 ranks, on each mesh of SHARDED_MESHES in turn (FSDP
+    2x1, TP 1x2): the 3B's split loss step over this rank's blocks (FSDP: its
+    data rank's group; TP: the first group on both), its launches against the
+    formula at the local heads on the tensor cores (bf16) or FMA (f32), the
+    peak, the bytes staged through host memory; then the gradients gathered
+    leaf by leaf and, on rank 0, held with the loss and metrics against the
+    one-process file at CP_BF16_TOL (bf16) or the CPU tests' f32 tolerances."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.parallel import comm, fsdp, make_mesh
+    from time_r1_tpu_torch.parallel.fsdp import gather_whole
+    from time_r1_tpu_torch.parallel.sharding import ShardContext
+    from time_r1_tpu_torch.rl.grpo import trainable_leaves
+
+    rank = dist.get_rank()
+    out = {}
+    for (mesh_name, tp), (tag, (cfg, dtype_name)) in itertools.product(SHARDED_MESHES.items(),
+                                                                       sharded_loss_cases().items()):
+        mesh = make_mesh(tp)
+        shard = ShardContext.build(mesh, init_params(cfg, device="meta", dtype=getattr(torch, dtype_name)))
+        groups = sharded_loss_groups(cfg)
+        groups = [groups[shard.data_rank]] if tp == 1 else groups[:1]
+        torch.cuda.reset_peak_memory_stats()
+        staged0 = comm.staged_bytes
+        fsdp.layer_gathers = 0
+        reset_launches()
+        loss, metrics, grads, step_s = sharded_loss_step(cfg, dtype_name, groups, shard,
+                                                         group=mesh.get_group("data") if shard.dp > 1 else None)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        staged = (comm.staged_bytes - staged0) / 1e9
+        key = f"{mesh_name}_{tag}"
+        check_tc_route(f"sharded loss {key} rank {rank}", launches, sharded_loss_launches(cfg),
+                       tensor_cores=dtype_name == "bfloat16")
+        res = dict(loss=float(loss), metrics={k: float(v) for k, v in metrics.items()}, peak_gib=peak,
+                   step_s=step_s, staged_gb=staged, layer_gathers=fsdp.layer_gathers,
+                   launches={k: launches[k] for k in sharded_loss_launches(cfg)},
+                   grad_block_gib=sum(g.numel() * g.element_size() for g in grads) / 2**30)
+        log(f"sharded loss {key}: loss {res['loss']:.6f}; frozen ViT, reference forward and loss step {step_s:.2f} s; "
+            f"peak {peak:.2f} GiB on this rank; {staged:.2f} GB staged; {fsdp.layer_gathers} layer gathers; "
+            f"gradient blocks {res['grad_block_gib']:.2f} GiB; launches as the formula at "
+            f"{cfg.text.num_attention_heads // tp} q over {cfg.text.num_key_value_heads // tp} kv heads")
+        specs = trainable_leaves(shard.specs, True)
+        gathered = (gather_whole(g, s, shard) for g, s in zip(grads, specs))
+        if rank == 0:
+            ref = torch.load(args[key], weights_only=False)
+            res["vs_one_process"] = cp_against_one(key, dtype_name, res, gathered, ref, what="sharded loss")
+            res["one_peak_gib"] = ref["peak_gib"]
+            del ref
+        else:
+            for _ in gathered:
+                pass
+        del grads, loss, gathered
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[key] = res
+        dist.barrier()
+    return out
+
+
+def sharded_step_job(args: dict) -> dict:
+    """(e) on each of 2 ranks, at STEP_LAYERS of the 3B (FSDP with
+    offload_optimizer is phase 13 (c)'s data-parallel trainer): (1) `step_batch` on a
+    1x2 mesh with int8 rollouts (model-rank 0 rolls out over the gathered,
+    quantized copy: D2 and Q2 a layer a decode step there and none on rank
+    1), the loss equal and the rows bit-equal on both ranks, then on rank 0
+    one process's `step_batch` with the completions replayed, against which
+    the loss, the metrics and the update are held (DP_TOL); (2)
+    `cli.train.main --tensor_parallel_size 2` for 2 step_batch calls."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
+    from time_r1_tpu_torch.parallel import comm, make_mesh
+    from time_r1_tpu_torch.rl.grpo import trainable_leaves
+    from time_r1_tpu_torch.utils.checkpoint import flatten
+    from time_r1_tpu_torch.utils.profiling import PhaseTimers
+
+    rank = dist.get_rank()
+    base = Qwen25VLConfig.qwen25vl_3b()
+    cfg = replace(base, text=replace(base.text, num_hidden_layers=STEP_LAYERS))
+    L = STEP_LAYERS
+    root = tempfile.mkdtemp(prefix=f"timer1_phase14_step{rank}_")
+    out = {"layers": L}
+
+    def digest(tr) -> float:
+        whole = tr.gathered_params()
+        return float(sum(p.detach().float().sum() for p in trainable_leaves(whole, True)))
+
+    # (1) TP 1x2 with int8 rollouts
+    mesh = make_mesh(2)
+    tr = dp_trainer(cfg, mesh, root, extra_rewards=(row_spread_reward,), rollout_quantization="int8")
+    tr.timers = PhaseTimers(sync=True)
+    whole0 = tr.gathered_params(keep=rank == 0)  # every rank takes part in the gather; rank 0 keeps it
+    # cloned: a leaf whole on every rank comes back as the trainer's own tensor, which the update moves
+    w0 = [p.detach().clone() for p in trainable_leaves(whole0, True)] if rank == 0 else None
+    del whole0
+    recorded, rows, copy_digest = [], [], []
+    if tr._rolls_out:
+        generate = tr.engine.generate
+
+        def record(requests, sp):
+            # the gathered, quantized rollout copy as the rollout reads it (its
+            # replicated leaves are the trainer's own, which the update moves)
+            copy_digest.extend(float(t.float().sum()) for t in flatten(tr.engine.params).values())
+            recorded.append(generate(requests, sp))
+            return recorded[-1]
+
+        tr.engine.generate = record
+    from time_r1_tpu_torch.rl import trainer as trainer_mod
+
+    build = trainer_mod.build_grpo_split_batch
+    trainer_mod.build_grpo_split_batch = lambda *a, **kw: rows.append(build(*a, **kw)) or rows[-1]
+    torch.cuda.reset_peak_memory_stats()
+    staged0 = comm.staged_bytes
+    reset_launches()
+    t0 = time.perf_counter()
+    info = tr.step_batch([DP_EXAMPLES[0]])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    trainer_mod.build_grpo_split_batch = build
+    launches = read_launches()
+    if tr._rolls_out:
+        comps = recorded[0]
+        log(f"tp step_batch rank {rank}: {len(comps)} rollouts of {[len(c) for c in comps]} tokens, "
+            f"{len({t for c in comps for t in c})} distinct ids")
+    metrics = tr.pop_metrics()
+    phases = {k: round(v["total_s"] * 1e3, 1) for k, v in tr.timers.summary().items()}
+    decode_steps = tr.engine.timings["decode_steps"] if tr._rolls_out else 0
+    steps = [None, None]
+    dist.all_gather_object(steps, decode_steps)
+    n_steps = steps[0]
+    rollout = step_batch_tc_launches(cfg, n_steps) | {k: 2 * v for k, v in vision_tc_launches(cfg).items()}
+    if tr._rolls_out:
+        want = rollout
+        check_step_launches(f"tp step_batch rank {rank}", launches, n_steps, L,
+                            {"shared_prefix_decode_full": 1, "fused_mlp_int8": 1})
+    else:  # no rollout: the ref forward and the loss only; the frozen ViT once
+        want = sharded_loss_launches(cfg) | {"flash_attention": 2 * L, "shared_prefix_fwd": 2 * L}
+        if launches["shared_prefix_decode_full"] or launches["fused_mlp_int8"]:
+            raise AssertionError(f"tp step_batch rank {rank}: a rank that does not roll out ran D2/Q2")
+    check_tc_route(f"tp step_batch rank {rank}", launches, want, tensor_cores=True)
+    batch = rows[0]
+    row_digest = [float(t.float().sum()) for t in (batch.prompt_ids, batch.comp_ids, batch.comp_mask,
+                                                   batch.advantages)]
+    losses, digests = [None, None], [None, None]
+    dist.all_gather_object(losses, (info["loss"], row_digest))
+    dist.all_gather_object(digests, digest(tr))
+    if losses[0] != losses[1] or digests[0] != digests[1]:
+        raise AssertionError(f"tp step_batch: the ranks differ (loss and rows {losses}, weights {digests})")
+    out["tp_int8"] = dict(step_s=step_s, loss=info["loss"], metrics=metrics, phases_ms=phases,
+                          weight_sync_ms=phases.get("weight_sync"), decode_steps=n_steps,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                          staged_gb=(comm.staged_bytes - staged0) / 1e9, rolls_out=tr._rolls_out)
+    log(f"tp step_batch (1x2, int8 rollouts) rank {rank}: {step_s:.2f} s, loss {info['loss']:.6f}, phases (ms) "
+        f"{phases}; peak {out['tp_int8']['peak_gib']:.2f} GiB; {out['tp_int8']['staged_gb']:.2f} GB staged; "
+        f"{n_steps} decode steps; the ranks' loss, rows and weights equal")
+    moved = None
+    if rank == 0:
+        moved = [p.detach() - w for p, w in zip(trainable_leaves(tr.gathered_params(), True), w0)]
+    else:
+        tr.gathered_params(keep=False)
+    # the first moments, (1 - b1) times the clipped gradient: the step's gradient, gathered to rank 0's host
+    mu = tr._gathered_opt_tree(keep=rank == 0)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        one = dp_trainer(cfg, None, root, extra_rewards=(row_spread_reward,), rollout_quantization="int8")
+        one_copy = [float(t.float().sum()) for t in flatten(one.engine.params).values()]
+        if one_copy != copy_digest:
+            raise AssertionError("tp step_batch: the gathered int8 rollout copy differs from one process's")
+        replay = [list(c) for c in recorded[0]]
+        one.engine.generate = lambda requests, sp: [list(c) for c in replay]
+        one_info = one.step_batch([DP_EXAMPLES[0]])
+        one_metrics = one.pop_metrics()
+        upd = [p.detach() - w for p, w in zip(trainable_leaves(one.params, True), w0)]
+        update_err = rel_norm(moved, upd)
+        grad_err = rel_norm(mu["mu"], one.opt_state.mu)
+        rel = {k: abs(metrics[k] - v) / max(abs(v), DP_TOL["floor"]) for k, v in one_metrics.items()}
+        rel["loss"] = abs(info["loss"] - one_info["loss"]) / max(abs(one_info["loss"]), DP_TOL["floor"])
+        log(f"tp step_batch against one process: loss {info['loss']:.6f} vs {one_info['loss']:.6f}; relative "
+            f"errors {({k: f'{v:.2e}' for k, v in rel.items()})}; gradient (the first moments) ||tp - one|| / "
+            f"||one|| {grad_err:.3e}; update {update_err:.3e} (Adam's first step moves a weight by the sign of "
+            f"its gradient, so the weights whose gradient is within bf16 noise of 0 may move either way)")
+        if set(one_metrics) != set(metrics) or max(rel.values()) > DP_TOL["rel"] or grad_err > CP_BF16_TOL["whole"]:
+            raise AssertionError(f"tp step_batch: against one process {rel}, gradient {grad_err}")
+        out["tp_int8"]["vs_one_process"] = dict(rel=rel, grad_err=grad_err, update_err=update_err)
+        del one, upd, moved, w0, mu
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    # (2) the CLI with --tensor_parallel_size 2
+    out["cli"] = tp_cli_run(cfg, args, rank)
+
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def tp_cli_run(cfg, args: dict, rank: int) -> dict:
+    """(e): `cli.train.main --tensor_parallel_size 2` at (e)'s depth from the
+    HF checkpoint the parent wrote, 2 examples of phase 8's clip (2
+    step_batch calls, one update, the epoch's save and the final one): per
+    step on rank 0 remat_step_launches (the rollout's ViT twice: under a mesh
+    nothing is captured), on rank 1 the loss's alone; the ranks' weights
+    equal; trainer_state.json written once."""
+    import torch
+    import torch.distributed as dist
+
+    from time_r1_tpu_torch.rl import GRPOTrainer
+    from time_r1_tpu_torch.rl.grpo import trainable_leaves
+
+    L = cfg.text.num_hidden_layers
+    steps = []
+
+    def counted(original):
+        def step_batch(self, examples, requests=None):
+            reset_launches()
+            t0 = time.perf_counter()
+            res = original(self, examples, requests=requests)
+            torch.cuda.synchronize()
+            steps.append(dict(s=time.perf_counter() - t0, loss=res["loss"], launches=read_launches(),
+                              decode_steps=self.engine.timings.get("decode_steps", 0) if self._rolls_out else 0))
+            return res
+        return step_batch
+
+    torch.cuda.reset_peak_memory_stats()
+    with cli_stand_ins(cfg) as cli, patched(GRPOTrainer, "step_batch", counted):
+        trainer = cli.main(cli_args(cli, args["hf"], args["out"], args["data"], "--tensor_parallel_size", "2"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, st in enumerate(steps, start=1):
+        if rank == 0:
+            want = remat_step_launches(cfg, st["decode_steps"]) | {
+                k: 2 * v for k, v in vision_tc_launches(cfg).items()}
+        else:
+            want = sharded_loss_launches(cfg)
+        check_tc_route(f"cli tp step_batch {i} rank {rank}", st["launches"], want, tensor_cores=True)
+        log(f"cli --tensor_parallel_size 2 step_batch {i}: {st['s']:.2f} s, loss {st['loss']:.6f}")
+    whole = trainer.gathered_params()
+    digest = float(sum(p.detach().float().sum() for p in trainable_leaves(whole, True)))
+    digests = [None] * dist.get_world_size()
+    dist.all_gather_object(digests, digest)
+    if len(steps) != 2 or trainer.global_step != 2 or len(set(digests)) != 1 or trainer.tp != 2:
+        raise AssertionError(f"cli tp: {len(steps)} steps, global_step {trainer.global_step}, digests {digests}")
+    with open(os.path.join(args["out"], "trainer_state.json")) as f:
+        if json.load(f) != {"global_step": 2}:
+            raise AssertionError("cli tp: trainer_state.json is not global_step 2")
+    log(f"cli --tensor_parallel_size 2: 2 step_batch calls, the ranks' weights equal, trainer_state.json written; "
+        f"peak {peak:.2f} GiB on this rank")
+    return dict(step_s=[st["s"] for st in steps], peak_gib=peak)
+
+
+def seven_b_job(args: dict) -> dict:
+    """(f) on each of 4 ranks, a card a rank (NCCL): Qwen2.5-VL-7B's full
+    parameters with phase 12 (a)'s configuration but the optimizer state on
+    the card (remat, int8 rollouts, beta 0.04 against a reference copy,
+    fix_vit, G = 8, 200 tokens, accumulation 2), on each mesh of SEVEN_B_TPS
+    in turn: 2 step_batch calls (one update) over phase 8's clip, each data
+    rank its own example; the peak per rank, the seconds of each call and its
+    weight_sync (the gather and quantization of the rollout copy)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from time_r1_tpu_torch.models.processor import Qwen25VLProcessor
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig, init_params
+    from time_r1_tpu_torch.parallel import comm, make_mesh
+    from time_r1_tpu_torch.rl import GRPOTrainer, TrainConfig
+    from time_r1_tpu_torch.utils.profiling import PhaseTimers
+    from time_r1_tpu_torch.utils.rewards import REWARD_FUNCS_REGISTRY
+
+    rank = dist.get_rank()
+    cfg = Qwen25VLConfig.qwen25vl_7b()
+    n, fps, _ = INPUT_CLIPS[CLI_CLIP][0]
+    examples = [{"problem": f"a person opens door number {i}", "solution": (0.5 + i, 2.5 + i), "durations": n / fps,
+                 "video_path": CLI_CLIP} for i in range(2)]
+    out = {}
+    for tp in args["tps"]:
+        mesh = make_mesh(tp)
+        d = mesh.get_local_rank("data")
+        config = TrainConfig(gradient_checkpointing=True, rollout_quantization="int8", beta=0.04, fix_vit=True,
+                             num_generations=8, max_completion_length=200, gradient_accumulation_steps=2,
+                             report_to="none")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+        ref = to_device(params, torch.device("cuda"))
+        processor = Qwen25VLProcessor(StandInTokenizer(cfg), pad_token_id=cfg.pad_token_id,
+                                      eos_token_id=cfg.eos_token_id)
+        rewards = [REWARD_FUNCS_REGISTRY["iou"], REWARD_FUNCS_REGISTRY["format"], char_parity_reward]
+        trainer = GRPOTrainer(params, cfg, processor, rewards, config=config, video_loader=FrameLoader(),
+                              ref_params=ref, dtype=torch.bfloat16, mesh=mesh, device="cuda")
+        del params, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        held = torch.cuda.memory_allocated() / 2**30
+        calls = []
+        for call in range(2):
+            trainer.timers = PhaseTimers(sync=True)
+            torch.cuda.reset_peak_memory_stats()
+            staged0 = comm.staged_bytes
+            t0 = time.perf_counter()
+            info = trainer.step_batch([examples[(d + call) % 2]])
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            metrics = trainer.pop_metrics()
+            phases = {k: round(v["total_s"] * 1e3, 1) for k, v in trainer.timers.summary().items()}
+            st = dict(step_s=step_s, loss=info["loss"], phases_ms=phases, weight_sync_ms=phases.get("weight_sync"),
+                      peak_gib=torch.cuda.max_memory_allocated() / 2**30, grad_norm=metrics.get("grad_norm"),
+                      staged_gb=(comm.staged_bytes - staged0) / 1e9)
+            calls.append(st)
+            log(f"[7b sharded] {mesh.size(0)}x{tp} step_batch {call + 1} rank {rank}: {step_s:.2f} s, loss "
+                f"{info['loss']:.6f}; phases (ms, synced) {phases}; peak {st['peak_gib']:.2f} GiB")
+            if not np.isfinite(info["loss"]):
+                raise AssertionError(f"7b sharded {mesh.size(0)}x{tp}: loss {info['loss']}")
+        out[f"{mesh.size(0)}x{tp}"] = dict(build_s=build_s, held_gib=held, calls=calls,
+                                          updates=trainer.opt_state.count)
+        if trainer.opt_state.count != 1:
+            raise AssertionError(f"7b sharded {mesh.size(0)}x{tp}: {trainer.opt_state.count} updates")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def sharded_job(args: dict) -> dict:
+    """Phase 14 on each of 2 ranks, in one spawn: (d) `sharded_loss_job`,
+    then (e) `sharded_step_job`, as args["parts"] asks."""
+    out = {}
+    if "d" in args["parts"]:
+        out["loss"] = sharded_loss_job(args)
+    if "e" in args["parts"]:
+        out["step"] = sharded_step_job(args)
+    return out
+
+
+def phase_sharded(card: str, parts: str = "de", nccl_only: bool = False) -> dict:
+    """Phase 14: sharded training, 2 ranks over gloo on the first card, (d)
+    and (e) in one spawn; where the machine shows several cards, again over
+    NCCL, a card a rank (nccl_only: NCCL only). (d) the 3B's split loss step
+    under remat with a reference copy, as FSDP (2x1) and as TP (1x2),
+    against one process's, which runs first (`sharded_loss_reference`,
+    `sharded_loss_job`); (e) `step_batch` over TP with int8 rollouts, `cli.train
+    --tensor_parallel_size 2` from an HF checkpoint written here, FSDP with
+    offload_optimizer (`sharded_step_job`); (f), only when asked and with 4
+    cards: the 7B's full parameters over NCCL on 4x1, 2x2 and 1x4
+    (`seven_b_job`). Returns (d)'s launches on rank 0 of each mesh."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    log(f"[sharded] the machine shows {cards} card(s): the ranks run over gloo on the first"
+        + (", then (d) and (e) again over NCCL, a card a rank" if cards >= 2 else "") + f"; {card}")
+    result = {}
+    routes = ([] if nccl_only and cards >= 2 else [False]) + ([True] if cards >= 2 else [])
+    de = "".join(p for p in parts if p in "de")
+    files, ref_root, one = sharded_loss_reference(card) if "d" in de else ({}, None, {})
+    root = tempfile.mkdtemp(prefix="timer1_phase14_cli_")
+    try:
+        args = dict(files, parts=de)
+        if "e" in de:
+            base = Qwen25VLConfig.qwen25vl_3b()
+            args["hf"] = os.path.join(root, "hf")
+            cli_hf_checkpoint(replace(base, text=replace(base.text, num_hidden_layers=STEP_LAYERS)), args["hf"])
+            args["data"] = write_dataset(root, "train", 2)
+            gc.collect()
+            torch.cuda.empty_cache()
+        for nccl in routes if de else ():
+            route = "nccl" if nccl else "gloo"
+            args["out"] = os.path.join(root, f"run_{route}")
+            ranks = spawn_ranks("sharded", 2, args, card, nccl, timeout=SHARDED_TIMEOUT)
+            for key in ranks[0].get("loss", {}):
+                res = [r["loss"][key] for r in ranks]
+                log(f"[sharded] (d) {key} over {route}: peak {[round(r['peak_gib'], 2) for r in res]} GiB by rank "
+                    f"against one process's {one[key]['peak_gib']:.2f}; step {[round(r['step_s'], 2) for r in res]} s "
+                    f"against {one[key]['step_s']:.2f}; {[round(r['staged_gb'], 2) for r in res]} GB staged; {card}")
+                result.setdefault(f"{key}_{route}", res[0]["launches"])
+            if "e" in de:
+                if sorted(d for d in os.listdir(args["out"]) if d.startswith("epoch-")) != ["epoch-1"]:
+                    raise AssertionError("cli tp: no epoch-1 checkpoint")
+                step = [r["step"] for r in ranks]
+                for part in ("tp_int8",):
+                    log(f"[sharded] (e) {part} at {STEP_LAYERS} layers over {route}: step "
+                        f"{[round(r[part]['step_s'], 2) for r in step]} s; peak "
+                        f"{[round(r[part]['peak_gib'], 2) for r in step]} GiB; "
+                        f"{[round(r[part]['staged_gb'], 2) for r in step]} GB staged by rank; {card}")
+                log(f"[sharded] (e) weight_sync {step[0]['tp_int8']['weight_sync_ms']} ms on rank 0; cli tp peak "
+                    f"{[round(r['cli']['peak_gib'], 2) for r in step]} GiB; {route}; {card}")
+        if "f" in parts:
+            if cards < 4:
+                raise AssertionError(f"(f) needs 4 cards, the machine shows {cards}")
+            ranks = spawn_ranks("seven_b", 4, {"tps": list(SEVEN_B_TPS)}, card, nccl=True, timeout=SHARDED_TIMEOUT)
+            for mesh in ranks[0]:
+                log(f"[sharded] (f) 7B {mesh} over nccl: build {[round(r[mesh]['build_s'], 1) for r in ranks]} s; "
+                    f"held after build {[round(r[mesh]['held_gib'], 2) for r in ranks]} GiB; step_batch "
+                    f"{[[round(c['step_s'], 2) for c in r[mesh]['calls']] for r in ranks]} s; weight_sync "
+                    f"{[[c['weight_sync_ms'] for c in r[mesh]['calls']] for r in ranks]} ms; peak "
+                    f"{[max(round(c['peak_gib'], 2) for c in r[mesh]['calls']) for r in ranks]} GiB by rank "
+                    f"(phase 12 (a) on one card: 60.54 GiB with 42.80 GiB pinned, 4.1-6.1 s); {card}")
+            result["seven_b"] = ranks[0]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if ref_root is not None:
+            shutil.rmtree(ref_root, ignore_errors=True)
+    log(f"[sharded] phase 14 ({parts}): {time.perf_counter() - t0:.1f} s; {card}")
+    return result
+
+def timed(phase, *args):
+    """phase(*args), its seconds logged."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"[env] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # the training phase holds ~60 GB of live tensors of many sizes
@@ -6004,26 +6706,23 @@ def main() -> int:
     card = card_line()
     log(f"[env] {card}")
 
-    phase_build()
-    checks = phase_kernels()
-    phase_reduced_depth()
-    phase_reduced_train()
-    phase_reduced_lora()
-    phase_reduced_quant()
-    phase_reduced_serving()
-    phase_captured_decode()
-    phase_reduced_eval()
-    launches = phase_full_size()  # K1-K3: the serving path
-    train_launches = phase_train_full_size()  # B1, B2, S1, S2 (and D1/D2 in the rollout): the training path
+    timed(phase_build)
+    checks = timed(phase_kernels)
+    for phase in (phase_reduced_depth, phase_reduced_train, phase_reduced_lora, phase_reduced_quant,
+                  phase_reduced_serving, phase_captured_decode, phase_reduced_eval):
+        timed(phase)
+    launches = timed(phase_full_size)  # K1-K3: the serving path
+    train_launches = timed(phase_train_full_size)  # B1, B2, S1, S2 (and D1/D2 in the rollout): the training path
     launches.update({k: v for k, v in train_launches.items() if k not in SERVING_KEYS})
-    quant_launches = phase_quant_full_size()  # D1, D2, Q2 (int8 step_batch), Q1 (int4 generate)
-    serve = phase_serving_full_size()  # P1 (a), P2 (b): continuous-batching serving
-    input_launches = phase_input_path(card)  # K1-K3, B1, B2, S1, S2, D2 from frames the processor made
-    cli_launches = phase_cli_train(card)  # the same kernels from `cli.train.main`, K1 and S1 rerun under remat
-    sf_launches = phase_sf_round(card)  # the same from `cli.train_sf.main`: a round's training and its self-eval
-    lora_launches = phase_lora_7b(card)  # the same from `cli.train.main` on the 7B, LoRA over an int8 base
-    full_param = phase_full_param_7b(card)  # the 7B's full parameters with the state offloaded; the full-row loss
-    parallel = phase_parallel(card)  # ranks over gloo: ring attention (K1, B1, B2), the CP loss, DP, the CLI
+    quant_launches = timed(phase_quant_full_size)  # D1, D2, Q2 (int8 step_batch), Q1 (int4 generate)
+    serve = timed(phase_serving_full_size)  # P1 (a), P2 (b): continuous-batching serving
+    input_launches = timed(phase_input_path, card)  # K1-K3, B1, B2, S1, S2, D2 from frames the processor made
+    cli_launches = timed(phase_cli_train, card)  # the same kernels from `cli.train.main`, K1 and S1 rerun under remat
+    sf_launches = timed(phase_sf_round, card)  # the same from `cli.train_sf.main`: a round's training and self-eval
+    lora_launches = timed(phase_lora_7b, card)  # the same from `cli.train.main` on the 7B, LoRA over an int8 base
+    full_param = timed(phase_full_param_7b, card)  # the 7B's full parameters, the state offloaded; the full-row loss
+    parallel = timed(phase_parallel, card)  # ranks over gloo: ring attention (K1, B1, B2), the CP loss, DP, the CLI
+    sharded = timed(phase_sharded, card)  # ranks over gloo: FSDP and TP loss steps, step_batch over TP, the CLI
     for tag, name in zip("ab", PAGED_KERNELS):
         quant_launches[name] = serve[tag]["launches"][name]
         quant_launches[f"{name}_tc"] = serve[tag]["launches"][f"{name}_tc"]
@@ -6105,6 +6804,11 @@ def main() -> int:
         if k["name"] in parallel["cp_loss_3b_per_rank"]:
             k["launches_cp_loss_3b_per_rank"] = parallel["cp_loss_3b_per_rank"][k["name"]]
     s2["launches_full_row_3b_dkv_prefix"] = full_param["full_row_3b"]["shared_prefix_bwd_dkv"]
+    for k in kernels:  # phase 14 (d): the 3B's split loss step on each of 2 ranks, at the rank's local heads
+        for key, counts in sharded.items():
+            if k["name"] in counts:
+                k.setdefault("launches_sharded_loss_per_rank", {})[key] = counts[k["name"]]
+    s2["launches_sharded_loss_per_rank_dkv_prefix"] = {key: c["shared_prefix_bwd_dkv"] for key, c in sharded.items()}
     log(f"[env] chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

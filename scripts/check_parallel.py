@@ -1,14 +1,21 @@
 #!/usr/bin/env python3
-"""Quick check of data and context parallelism on one card: a kernel build,
-then `chip_smoke.py`'s phase 13 alone: (a) ring attention over 2 and 4 ranks
-against one process's K1/B1/B2, (b) the context-parallel GRPO loss and
-gradients of Qwen2.5-VL-3B over 2 ranks against one process's, (c) a
-data-parallel step_batch over 2 ranks against one process over both
-examples, then `cli.train.main` with --context_parallel_size 2. The ranks are
-processes over gloo, all on the first card. Given parts among a, b and c,
-only those run.
+"""Quick check of the port's parallelism on the card: a kernel build, then
+`chip_smoke.py`'s phase 13 ((a) ring attention over 2 and 4 ranks against
+one process's K1/B1/B2, (b) the context-parallel GRPO loss and gradients of
+Qwen2.5-VL-3B over 2 ranks against one process's, (c) a data-parallel
+step_batch over 2 ranks against one process over both examples, then
+`cli.train.main` with --context_parallel_size 2) and phase 14 ((d) the 3B's
+split loss step under remat as FSDP (2x1) and TP (1x2) against one process's,
+after phase 2's K1, B1, B2, S1, S2, K2 and K3 cases at the TP-local heads;
+(e) step_batch over TP with int8 rollouts, `cli.train.main
+--tensor_parallel_size 2` and FSDP with offload_optimizer; (f), asked for by
+name only and on 4 cards, Qwen2.5-VL-7B's full parameters over NCCL on 4x1,
+2x2 and 1x4 meshes). The ranks are processes over gloo, all on the first
+card; where the machine shows several cards, (a), (c), (d) and (e) run again
+over NCCL, a card a rank (with --nccl, phase 14 only over NCCL). Given
+parts among a-f, only those run; none runs a, b, c, d and e.
 
-    python3 scripts/check_parallel.py [a] [b] [c]
+    python3 scripts/check_parallel.py [--nccl] [a] [b] [c] [d] [e] [f]
 
 Writes up to 15 GB under the temporary directory (TMPDIR) and deletes it.
 Prints the card's name and power limit first. Needs a CUDA device and nvcc;
@@ -30,7 +37,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 
 
-def main(parts) -> int:
+def main(parts, nccl_only: bool = False) -> int:
     if not torch.cuda.is_available():
         print("check_parallel: no CUDA device", file=sys.stderr)
         return 2
@@ -38,14 +45,28 @@ def main(parts) -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = chip_smoke.card_line()
     chip_smoke.log(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; {card}")
+    parts = "".join(sorted(set(parts))) or "abcde"
     t0 = time.perf_counter()
     chip_smoke.phase_build()
-    chip_smoke.phase_parallel(card, "".join(sorted(set(parts))) or "abc")
+    if set(parts) & set("abc"):
+        chip_smoke.phase_parallel(card, "".join(p for p in parts if p in "abc"))
+    if set(parts) & set("def"):
+        if "d" in parts:  # phase 2's cases at the local heads before any rank runs them
+            results = {name: {} for name in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "shared_prefix_fwd",
+                                             "shared_prefix_bwd", "window_attention_rope", "full_attention_rope")}
+            for tag, shape in chip_smoke.TP_ATTN.items():
+                for dtype in (torch.bfloat16, torch.float32):
+                    chip_smoke.attention_head_cases(results, shape, tag if dtype is torch.bfloat16 else f"{tag}_f32",
+                                                    dtype)
+            chip_smoke.vision_local_head_cases(torch.Generator(device="cuda").manual_seed(0), results)
+        chip_smoke.phase_sharded(card, "".join(p for p in parts if p in "def"), nccl_only=nccl_only)
     chip_smoke.log(f"[env] check_parallel: {time.perf_counter() - t0:.1f} s")
     return 0
 
 
 if __name__ == "__main__":
-    parser = argparse.ArgumentParser(description="chip_smoke.py's phase 13, or parts a, b, c of it")
-    parser.add_argument("parts", nargs="*", choices=["a", "b", "c"])
-    sys.exit(main(parser.parse_args().parts))
+    parser = argparse.ArgumentParser(description="chip_smoke.py's phases 13 and 14, or parts a-f of them")
+    parser.add_argument("parts", nargs="*", choices=["a", "b", "c", "d", "e", "f"])
+    parser.add_argument("--nccl", action="store_true", help="phase 14 over NCCL only (several cards)")
+    args = parser.parse_args()
+    sys.exit(main(args.parts, args.nccl))

@@ -2,7 +2,9 @@
 (`test_torch_ring_attention.spawn_ranks`):
 
 - `GRPOTrainer(mesh=make_mesh(), context_parallel_size=2)` in both layouts
-  (the zig-zag one under remat): the first rank rolls out and broadcasts the
+  (the zig-zag one under remat), its parameters sharded over the two ranks
+  (FSDP, compared through `gathered_params`): the first rank rolls out and
+  broadcasts the
   scored groups, both ranks train the same full-row batch padded to the
   layout's multiple, the reference log-probs come from the ring forward;
   two `step_batch` calls (one optimizer update at accumulation 2) against
@@ -34,7 +36,7 @@ LAYOUTS = [("zigzag", True), ("contiguous", False)]  # (layout, gradient_checkpo
 
 def _steps(tr):
     infos = [tr.step_batch([EXAMPLES[0]]) for _ in range(2)]
-    return dict(losses=[i["loss"] for i in infos], metrics=tr.pop_metrics(), params=_leaf_list(tr.params))
+    return dict(losses=[i["loss"] for i in infos], metrics=tr.pop_metrics(), params=_leaf_list(tr.gathered_params()))
 
 
 def _worker(rank: int, world: int, workdir: str) -> None:
@@ -62,7 +64,7 @@ def _worker(rank: int, world: int, workdir: str) -> None:
     processor = cli.Qwen25VLProcessor(TinyTokenizer(), pad_token_id=cfg.pad_token_id, eos_token_id=cfg.eos_token_id)
     cli.Qwen25VLProcessor.from_pretrained = classmethod(lambda cls, path, **kw: processor)
     tr = cli.main(cli.get_args(payload["cli_argv"]), device="cpu")
-    out["cli"] = dict(params=_leaf_list(tr.params), steps=tr.global_step, cp=tr._cp.size,
+    out["cli"] = dict(params=_leaf_list(tr.gathered_params()), steps=tr.global_step, cp=tr._cp.size,
                       full_rows=not tr.c.shared_prefix_loss)
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     dist.destroy_process_group()

@@ -13,8 +13,8 @@
 - `cli.finetune.main` on the tiny config (HF checkpoint, `--beta 0.0
   --use_grpo false`, the recipe's flags) trains from the npz files with the
   decoder patched to raise: no reference copy, one update, a final
-  checkpoint that reloads equal to the trained weights; and it refuses
-  `--tensor_parallel_size 2` as `cli/train.py` does."""
+  checkpoint that reloads equal to the trained weights (its
+  `--tensor_parallel_size 2` run is in tests/test_torch_sharded_trainer.py)."""
 
 import json
 import os
@@ -150,9 +150,3 @@ def test_main_trains_from_the_npz_files(tmp_path, clips, tiny_processor, monkeyp
     for a, b in zip(jax.tree.leaves(saved), jax.tree.leaves(tr.params)):
         assert torch.equal(a, b.detach())
     assert sorted(d for d in os.listdir(out) if d.startswith("epoch")) == ["epoch-1"]
-
-
-def test_tensor_parallel_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="A13"):
-        finetune.main(["--model_name_or_path", "m", "--output_dir", str(tmp_path), "--train_data_path", "d.json",
-                       "--tensor_parallel_size", "2"], device="cpu")

@@ -17,7 +17,9 @@ concatenation):
 - the metric gather with keys present on one rank only (`m0 == m1`, reward
   1.5, `metrics/reward_timestep_pair` 0.25 from rank 0 only), through a
   `GRPOTrainer` on a `make_mesh` mesh;
-- `GRPOTrainer.train()` under data parallelism, with the optimizer state on
+- `GRPOTrainer.train()` under data parallelism (the trainer on a mesh
+  shards its parameters and optimizer state over the ranks, FSDP: they are
+  compared through `gathered_params`), with the optimizer state on
   the device and offloaded, against one process's `train()` over both
   examples (loss, metrics, weights; offload bit-equal to no offload), and a
   dataset of one example over two ranks (each rank's shard repeats it; the
@@ -202,7 +204,7 @@ def _worker(rank: int, world: int, workdir: str) -> None:
                       offload_optimizer=offload)
         logs = []
         tr.train(dataset, log_fn=logs.append)
-        out[name] = dict(logs=logs, params=_leaf_list(tr.params), steps=tr.global_step,
+        out[name] = dict(logs=logs, params=_leaf_list(tr.gathered_params()), steps=tr.global_step,
                          saved=sorted(os.listdir(run_dir)))
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
     dist.destroy_process_group()

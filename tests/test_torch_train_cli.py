@@ -18,8 +18,8 @@ package's `cli/train.py`, on the CPU:
   int8 --rollout_quantization int8` (one load, the int8 fused base, the
   adapters trained, the checkpoint with `lora_adapters.npz`), and
   `--train_base_quantization` without `--use_peft` refused;
-- the options that are not ported are refused by name (A13), and the
-  entry point runs on the card unless asked for the CPU."""
+- the entry point runs on the card unless asked for the CPU (its
+  `--tensor_parallel_size 2` run is in tests/test_torch_sharded_trainer.py)."""
 
 import json
 import os
@@ -141,14 +141,6 @@ def test_main_from_hf_then_resume_from_native(tmp_path, clips, tiny_processor, c
     assert resumed.global_step == 6 and resumed.opt_state.count == 3 and resumed.opt_state.mini_step == 0
     assert resumed.optimizer.lrs == [0.0, float(np.float32(first.c.learning_rate))]  # the schedule starts over
     assert json.loads((tmp_path / "run2" / "trainer_state.json").read_text()) == {"global_step": 6}
-
-
-@pytest.mark.parametrize("flags,label", [
-    (["--tensor_parallel_size", "2"], "A13"),
-])
-def test_unported_options_are_refused(tmp_path, flags, label):
-    with pytest.raises(NotImplementedError, match=label):
-        cli.main(cli.get_args([*REQUIRED, *flags]), device="cpu")
 
 
 def test_base_quantization_needs_peft():

@@ -18,8 +18,8 @@ config):
   prepared on worker threads, and `step_batch(examples)` with no requests
   equal to `step_batch(examples, prepare_requests(examples))` on a second
   trainer with the same seed;
-- a mesh with model > 1 (not ported, A13) raises NotImplementedError, and
-  context parallelism without a mesh ValueError.
+- a mesh whose model dim does not divide the kv heads (A13) raises
+  NotImplementedError, and context parallelism without a mesh ValueError.
 
 Tolerances: the optimizer 1e-6 (f32, the same formulas); the trainers'
 metrics 2e-4 as in tests/test_torch_grpo.py; the parameter update after one
@@ -194,18 +194,19 @@ def test_context_parallel_needs_a_mesh():
 
 
 class _ModelParallelMesh:
-    """A stand-in for a DeviceMesh of (data 1, model 2)."""
+    """A stand-in for a DeviceMesh of (data 1, model 4)."""
 
     mesh_dim_names = ("data", "model")
 
     def size(self, dim):
-        return (1, 2)[dim]
+        return (1, 4)[dim]
 
 
 def test_prepare_requests_and_mesh_raise():
     """prepare_requests needs a video_loader for an example that has no
-    preprocessed video; a mesh with model > 1 (tensor parallelism) is not
-    ported (A13)."""
+    preprocessed video; a model dim that does not divide the kv heads (the
+    tiny config's 2) is refused by name (A13: Megatron-style TP would need
+    kv-head replication)."""
     tp = port_params(jax_params())
     tr = GRPOTrainer(tp, CFG, Processor(), [spread_reward], config=TrainConfig(report_to="none"),
                      dtype=torch.float32, device="cpu")

@@ -14,9 +14,10 @@ What differs from `cli/train.py`, as in the reference:
 - the recipes run with --beta 0.0 (no reference copy, no KL) and
   --use_grpo false (PPO-clip) (scripts/finetune/run_charades.sh).
 
-The other flags are `cli/train.py`'s; --tensor_parallel_size > 1 is refused
-as there (ROADMAP A13). One process on one card, or the ranks of a torchrun
-launch with data parallelism, through `cli/train.py::build_train_mesh`.
+The other flags are `cli/train.py`'s. One process on one card, or the ranks
+of a torchrun launch sharded by the rule table (FSDP over the data axis, and
+with --tensor_parallel_size tp tensor parallelism over the model axis),
+through `cli/train.py::build_train_mesh`.
 """
 
 from __future__ import annotations
@@ -85,7 +86,6 @@ def main(argv=None, device="cuda"):
     if "--video_folder" in argv:
         video_folder = argv[argv.index("--video_folder") + 1]
     args = train.get_args(argv)
-    train._refuse_unported(args)
     random.seed(42)
     dataset = load_json_dataset(args.train_data_path, video_folder, preprocessed)
     mesh = train.build_train_mesh(args.tensor_parallel_size, device)
@@ -129,6 +129,7 @@ def _run(args, dataset, device="cuda", mesh=None):
         mesh=mesh,
         device=device,
     )
+    del params, ref_params  # the trainer holds its own (over a mesh, its blocks and the engine's copy)
     trainer.train(dataset)
     trainer.save_checkpoint(args.output_dir)
     return trainer

@@ -12,14 +12,18 @@ over by changing only its launcher. The TimeRFT dataset loader
 The run: `load_checkpoint` (HF safetensors or the port's native format) for
 the policy and, with beta != 0 and no LoRA, again for the reference;
 `GRPOTrainer`; `train()`; the final `save_checkpoint`. One process on one card,
-or the ranks of a torchrun launch (`build_train_mesh`): data parallelism over
-the ranks, each training its own shard of the dataset, or with
+or the ranks of a torchrun launch (`build_train_mesh`: a mesh of data = ranks
+/ tp by model = tp): the parameters, gradients and optimizer state sharded
+by the rule table (`parallel/sharding.py`), FSDP over the data axis, each data
+rank training its own shard of the dataset, and with --tensor_parallel_size
+tp tensor parallelism over the model axis (heads and MLP width split; the
+tp adjacent ranks of a model group train the same rows); or with
 --context_parallel_size N (N = the number of ranks) context parallelism, the
 ranks splitting each full row's sequence over ring attention:
 
-    torchrun --nproc_per_node 2 -m time_r1_tpu_torch.cli.train \
+    torchrun --nproc_per_node 4 -m time_r1_tpu_torch.cli.train \
         --model_name_or_path CKPT --output_dir OUT --train_data_path train.json \
-        [--context_parallel_size 2 --context_parallel_layout zigzag]
+        [--tensor_parallel_size 2 | --context_parallel_size 4 --context_parallel_layout zigzag]
 
 Each rank takes its own card over NCCL when the machine has one for each, else
 they share the first card over gloo.
@@ -37,7 +41,6 @@ same tree with side-path adapters.
         --lora_r 16 --lora_alpha 32 --train_base_quantization int8 \
         --rollout_quantization int8 --gradient_checkpointing true
 
-Not ported yet, refused by name: --tensor_parallel_size > 1 (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -179,8 +182,8 @@ def get_args(argv=None):
         "--tensor_parallel_size",
         type=int,
         default=1,
-        help="model-axis size of the training mesh; values above 1 are not "
-        "ported yet (ROADMAP A13)",
+        help="model-axis size of the training mesh; the data axis takes the "
+        "remaining ranks (FSDP over data, tensor parallelism over model)",
     )
     p.add_argument(
         "--context_parallel_size",
@@ -199,27 +202,25 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    if getattr(args, "tensor_parallel_size", 1) > 1:
-        raise NotImplementedError("--tensor_parallel_size > 1 (tensor parallelism) is not ported yet (ROADMAP A13)")
-
-
 def build_train_mesh(tensor_parallel_size: int = 1, device="cuda"):
     """The training mesh over every rank of a torchrun launch
-    (`parallel.maybe_init_distributed`, then `make_mesh`); None in one
-    process with tensor_parallel_size 1."""
+    (`parallel.maybe_init_distributed`, then `make_mesh`: data = ranks / tp,
+    model = tp), as JAX's `cli/train.py:167-184`; None in one process with
+    tensor_parallel_size 1. Raises when tp does not divide the ranks."""
     maybe_init_distributed(device)
     n = dist.get_world_size() if dist.is_initialized() else 1
-    if n == 1 and tensor_parallel_size <= 1:
+    tp = max(tensor_parallel_size, 1)
+    if n == 1 and tp <= 1:
         return None
-    return make_mesh(model_parallel=max(tensor_parallel_size, 1))
+    if n % tp:
+        raise ValueError(f"tensor_parallel_size={tensor_parallel_size} does not divide {n} ranks")
+    return make_mesh(model_parallel=tp)
 
 
 def main(args, trainer: GRPOTrainer = None, device="cuda"):
     """Train as the recipe asks; returns the trainer. Runs on the card unless
     `device` says otherwise (the tests pass "cpu"); under torchrun, on this
     rank's card (`build_train_mesh`)."""
-    _refuse_unported(args)
     if args.train_base_quantization and not args.use_peft:
         raise SystemExit("--train_base_quantization requires --use_peft true")
     set_global_seed(42)
@@ -308,6 +309,7 @@ def _run(args, trainer, dataset, device="cuda", mesh=None):
             mesh=mesh,
             device=device,
         )
+        del params, ref_params  # the trainer holds its own (over a mesh, its blocks and the engine's copy)
 
     # resume: recompute and enforce the max-steps target from
     # trainer_state.json (main.py:589-618, the SF loop's continuation: a

@@ -264,9 +264,10 @@ def init_params(cfg: Qwen25VLConfig, seed: int = 0, device="cuda", dtype=torch.b
     """Random weights drawn on `device` from a seeded torch.Generator, as the
     JAX init does: weights normal·0.02, norm scales 1, biases 0. (The numbers
     differ from the JAX init's: tests that compare the two packages bridge the
-    JAX tree with params_from_jax instead.)"""
+    JAX tree with params_from_jax instead.) On the `meta` device: the tree's
+    shapes and dtypes only (the sharding plan of a full-size model)."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
 
     def nrm(*shape) -> torch.Tensor:
         w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32) * 0.02

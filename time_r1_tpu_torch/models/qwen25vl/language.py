@@ -44,6 +44,15 @@ loop over the layers where JAX scans.
   backward) where JAX forces its flash kernel; no cache and no sliding window.
   `parallel/ring_attention.py::sequence_parallel_decoder` shards, runs and
   gathers.
+
+- Sharded (`shard=`, a `parallel/sharding.py::ShardContext` over the text
+  subtree): each layer function gathers its FSDP shards over "data" first
+  (`ShardContext.layer`), inside the unit remat checkpoints, so the backward
+  gathers again and no gathered weight is a residual; it then runs the
+  rank's heads (nh/tp q over nkv/tp kv, G unchanged) and MLP width, with
+  Megatron's identity/all-reduce pair around the column- and row-parallel
+  products (`ShardContext.enter` / `exit`). The final norm is whole on every
+  rank. The caches it fills hold the rank's kv heads.
 """
 
 from __future__ import annotations
@@ -219,6 +228,7 @@ def decoder_forward(
     lora: Optional[tuple] = None,  # (per-layer adapters, scaling): merged inside each layer
     lora_side: Optional[tuple] = None,  # (per-layer adapters, scaling): side products
     cp=None,  # parallel.ContextParallel: the inputs are this rank's sequence shard
+    shard=None,  # parallel.sharding.ShardContext over the text params: FSDP and TP layers
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Run all decoder layers; returns (hidden (B, S, hid), updated cache).
 
@@ -249,7 +259,7 @@ def decoder_forward(
     window); its cache is a new one stacked from the per-layer K/V, written
     nowhere in place, so the prompt forward of the loss is differentiable in
     them."""
-    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    nh, nkv, hd = _heads(cfg, shard)
     eps = cfg.rms_norm_eps
     B, S, _ = hidden.shape
     device = hidden.device
@@ -323,9 +333,11 @@ def decoder_forward(
     _check_lora(lora, lora_side, quant_kv)
 
     def layer(x, lp, li):
+        if shard is not None:
+            lp = shard.layer(lp, li, "layers")
         lp, side = _layer_adapters(lp, li, lora, lora_side)
         h = _rms_norm(x, lp["input_layernorm"], eps)
-        q, k, v = attn_qkv_proj(h, lp, nh, nkv, hd, lora=side)
+        q, k, v = attn_qkv_proj(h, lp, nh, nkv, hd, lora=side, tp=shard)
         q = rope(q, cos_b, sin_b).to(x.dtype)
         k = rope(k, cos_b, sin_b).to(x.dtype)
         if quant_kv:
@@ -346,8 +358,8 @@ def decoder_forward(
             attn = flash_attention(q, k.contiguous(), v.contiguous(), kv_bias, True, None, 0)
         else:
             attn = mha_reference(q, k, v, bias=window_bias if sliding[li] else bias)
-        x = x + attn_out_proj(attn.reshape(B, S, nh * hd).to(x.dtype), lp, side)
-        x = x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp, lora=side)
+        x = x + attn_out_proj(attn.reshape(B, S, nh * hd).to(x.dtype), lp, side, tp=shard)
+        x = x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp, lora=side, tp=shard)
         return x, k, v
 
     if remat and in_place and torch.is_grad_enabled():
@@ -367,6 +379,13 @@ def decoder_forward(
     else:
         new_cache = None if cache is None else _advance(cache, S)
     return hidden, new_cache
+
+
+def _heads(cfg: TextConfig, shard) -> tuple[int, int, int]:
+    """(q heads, kv heads, head dim) of this rank: all of them, or under a
+    model dim of tp its nh/tp and nkv/tp."""
+    tp = 1 if shard is None else shard.tp
+    return cfg.num_attention_heads // tp, cfg.num_key_value_heads // tp, cfg.head_dim
 
 
 def _check_lora(lora, lora_side, quant_kv: bool) -> None:
@@ -463,6 +482,7 @@ def shared_decode_forward(
     remat=False,  # gradient checkpointing per layer (the loss chunk only), as decoder_forward
     lora: Optional[tuple] = None,  # the in-layer merge (the loss chunk only), as decoder_forward
     lora_side: Optional[tuple] = None,  # side products, as decoder_forward
+    shard=None,  # parallel.sharding.ShardContext over the text params, as decoder_forward
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Decoder layers over rows that share their prompt's KV
     (`time_r1_tpu/models/qwen25vl/language.py:448`). Each layer attends
@@ -483,7 +503,7 @@ def shared_decode_forward(
     (`decode_step_attention`) at any prefix length, the route the JAX package
     takes with `prefix_head_major` (which also needs a 128-divisible prefix,
     for its TPU blocks); otherwise `mha_shared_prefix`."""
-    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    nh, nkv, hd = _heads(cfg, shard)
     eps = cfg.rms_norm_eps
     B, S, _ = hidden.shape
     device = hidden.device
@@ -513,9 +533,11 @@ def shared_decode_forward(
         raise ValueError("the in-layer LoRA merge is the loss chunk's: it takes no suffix cache")
 
     def layer(x, lp, li):
+        if shard is not None:
+            lp = shard.layer(lp, li, "layers")
         lp, side = _layer_adapters(lp, li, lora, lora_side)
         h = _rms_norm(x, lp["input_layernorm"], eps)
-        q, k, v = attn_qkv_proj(h, lp, nh, nkv, hd, lora=side)
+        q, k, v = attn_qkv_proj(h, lp, nh, nkv, hd, lora=side, tp=shard)
         q = rope(q, cos_b, sin_b).to(x.dtype)
         k = rope(k, cos_b, sin_b).to(x.dtype)
         kp, vp = prefix.k[li], prefix.v[li]
@@ -544,8 +566,8 @@ def shared_decode_forward(
             else:
                 _write_at(suffix.k, li, L0, k.to(suffix.k.dtype))
                 _write_at(suffix.v, li, L0, v.to(suffix.v.dtype))
-        x = x + attn_out_proj(attn.reshape(B, S, nh * hd).to(x.dtype), lp, side)
-        return x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp, lora=side)
+        x = x + attn_out_proj(attn.reshape(B, S, nh * hd).to(x.dtype), lp, side, tp=shard)
+        return x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp, lora=side, tp=shard)
 
     if remat and suffix is not None and torch.is_grad_enabled():
         raise ValueError("remat takes the loss chunk (suffix=None): a decode step writes its suffix in place")

@@ -5,6 +5,11 @@ cumsum gather + where (no boolean indexing), as in JAX. The text parameters
 may be quantized (`ops/quant.py`: the embedding lookup and the head read the
 int8 table) and the caches int8; both pass through to the decoder, as do
 side-path LoRA adapters (`lora_side`).
+
+Under a shard context (`text_ends`) the embedding and the LM head are
+gathered whole on every rank, so the lookup and the head run replicated over
+"model" where JAX's GSPMD computes the same logits vocab-parallel: the
+chunked log-softmax of the loss (`rl/grpo.py`) stays as it is.
 """
 
 from __future__ import annotations
@@ -47,6 +52,17 @@ class VisionInputs(NamedTuple):
             full_inverse=t(prep.full_inverse).long(),
             reverse=t(prep.reverse).long(),
         )
+
+
+def text_ends(text: dict, cfg, shard=None) -> tuple:
+    """(embedding, head) of the text params for the lookup and the logits:
+    the leaves as they are, or, under a ShardContext over the text params,
+    gathered whole on every rank (`parallel/fsdp.py::gather_whole`). A tied
+    head is the embedding itself, gathered once."""
+    emb = text["embed_tokens"] if shard is None else shard.whole(text["embed_tokens"], "embed_tokens")
+    if cfg.tie_word_embeddings:
+        return emb, emb
+    return emb, text["lm_head"] if shard is None else shard.whole(text["lm_head"], "lm_head")
 
 
 def merge_vision_embeddings(

@@ -17,6 +17,15 @@ runs without them, as JAX's jnp branch does: rope rounded to the input dtype,
 then a differentiable attention over the windows and the slices. Dead
 (padding) slots flow through as garbage but are never attention keys and are
 dropped by the final original-order gather.
+
+Sharded (`shard=`, a `parallel/sharding.py::ShardContext` over the visual
+params): the patch embed is gathered whole on every rank; each block and the
+merger gather their FSDP shards over "data" and run the rank's heads
+(num_heads/tp, through K2/K3 when frozen) and MLP width, with Megatron's
+identity/all-reduce pair around the column-parallel (qkv, gate/up, fc1) and
+row-parallel (proj, down, fc2) products; a row-parallel product's bias is
+added once, after the all-reduce. The fused qkv is split per head
+(`parallel/sharding.py`), so the rank's rows are its q | k | v.
 """
 
 from __future__ import annotations
@@ -182,17 +191,19 @@ def vision_blocks_forward(
     prep_full_gather: torch.Tensor,
     prep_full_inverse: torch.Tensor,
     use_window_kernel: bool = False,
+    shard=None,
 ) -> torch.Tensor:
     """Patch embed + the ViT blocks, in window-layout order; returns the
     pre-merger hidden states (P_pad, hidden_size). use_window_kernel routes
     the attention through K2/K3, which have no backward (a frozen tower);
-    without it the blocks are differentiable, as JAX's jnp branch."""
-    nh, hd = cfg.num_heads, cfg.head_dim
+    without it the blocks are differentiable, as JAX's jnp branch. shard: a
+    ShardContext over the visual params (see the module)."""
+    nh, hd = cfg.num_heads // (1 if shard is None else shard.tp), cfg.head_dim
     eps = cfg.rms_norm_eps
     win_patches = cfg.window_patches * cfg.window_patches * cfg.merge_unit
 
     perm = prep_perm.long().clamp(0, patches.shape[0] - 1)
-    w_embed = params["patch_embed"]
+    w_embed = params["patch_embed"] if shard is None else shard.whole(params["patch_embed"], "patch_embed")
     x = F.linear(patches.index_select(0, perm).to(w_embed.dtype), w_embed)
 
     cos, sin = vision_rope_tables(cfg, prep_pos_hw)  # (P, hd)
@@ -217,8 +228,16 @@ def vision_blocks_forward(
     def roped(t: torch.Tensor) -> torch.Tensor:  # JAX's rope(): f32, rounded to the input dtype
         return rope(t, cos[:, None, :], sin[:, None, :]).to(t.dtype)
 
+    def enter(t):
+        return t if shard is None else shard.enter(t)
+
+    def row_parallel(t, w, b):  # a row-parallel product: its bias once, after the all-reduce
+        return F.linear(t, w, b) if shard is None else shard.exit(F.linear(t, w)) + b
+
     for i, bp in enumerate(params["blocks"]):
-        h = _rms_norm(x, bp["norm1"], eps)
+        if shard is not None:
+            bp = shard.layer(bp, i, "blocks")
+        h = enter(_rms_norm(x, bp["norm1"], eps))
         q, k, v = (
             t.reshape(-1, nh, hd).contiguous()
             for t in F.linear(h, bp["qkv_w"], bp["qkv_b"]).chunk(3, dim=-1)
@@ -234,21 +253,27 @@ def vision_blocks_forward(
         else:
             out = _block_attention(windows(roped(q)), windows(roped(k)), windows(v), windows(key_bias), hd**-0.5)
             attn = out.reshape(-1, nh, hd)
-        x = x + F.linear(attn.reshape(-1, nh * hd), bp["proj_w"], bp["proj_b"])
-        h = _rms_norm(x, bp["norm2"], eps)
+        x = x + row_parallel(attn.reshape(-1, nh * hd), bp["proj_w"], bp["proj_b"])
+        h = enter(_rms_norm(x, bp["norm2"], eps))
         g = F.linear(h, bp["gate_w"], bp["gate_b"])
         u = F.linear(h, bp["up_w"], bp["up_b"])
-        x = x + F.linear(F.silu(g) * u, bp["down_w"], bp["down_b"])
+        x = x + row_parallel(F.silu(g) * u, bp["down_w"], bp["down_b"])
     return x
 
 
-def vision_merge_forward(params: dict, cfg: VisionConfig, x: torch.Tensor, prep_reverse: torch.Tensor) -> torch.Tensor:
+def vision_merge_forward(params: dict, cfg: VisionConfig, x: torch.Tensor, prep_reverse: torch.Tensor,
+                         shard=None) -> torch.Tensor:
     """Merger: RMSNorm → group 2x2 units → MLP (exact GELU) → gather back to
-    original merge-unit order."""
-    mp = params["merger"]
+    original merge-unit order. shard: a ShardContext over the visual params
+    (fc1 column-parallel, fc2 row-parallel)."""
+    mp = params["merger"] if shard is None else shard.layer(params["merger"], key="merger")
     h = _rms_norm(x, mp["ln_q"], cfg.rms_norm_eps).reshape(-1, cfg.hidden_size * cfg.merge_unit)
-    h = F.gelu(F.linear(h, mp["fc1_w"], mp["fc1_b"]))
-    h = F.linear(h, mp["fc2_w"], mp["fc2_b"])
+    if shard is None:
+        h = F.gelu(F.linear(h, mp["fc1_w"], mp["fc1_b"]))
+        h = F.linear(h, mp["fc2_w"], mp["fc2_b"])
+    else:
+        h = F.gelu(F.linear(shard.enter(h), mp["fc1_w"], mp["fc1_b"]))
+        h = shard.exit(F.linear(h, mp["fc2_w"])) + mp["fc2_b"]
     return h.index_select(0, prep_reverse.long())
 
 
@@ -263,11 +288,13 @@ def vision_forward(
     prep_full_inverse: torch.Tensor,
     prep_reverse: torch.Tensor,
     use_window_kernel: bool = False,
+    shard=None,
 ) -> torch.Tensor:
     """The vision tower; returns merged features (U_pad, out_hidden_size) in
-    original merge-unit order. use_window_kernel: see `vision_blocks_forward`."""
+    original merge-unit order. use_window_kernel, shard: see
+    `vision_blocks_forward`."""
     x = vision_blocks_forward(
         params, cfg, patches, prep_perm, prep_pos_hw, prep_key_valid,
-        prep_full_gather, prep_full_inverse, use_window_kernel=use_window_kernel,
+        prep_full_gather, prep_full_inverse, use_window_kernel=use_window_kernel, shard=shard,
     )
-    return vision_merge_forward(params, cfg, x, prep_reverse)
+    return vision_merge_forward(params, cfg, x, prep_reverse, shard=shard)

@@ -272,13 +272,18 @@ def group_side_adapters(layers: list, dtype=None) -> list:
     return out
 
 
-def attn_qkv_proj(h: torch.Tensor, attn: dict, nh: int, nkv: int, hd: int, lora=None):
+def attn_qkv_proj(h: torch.Tensor, attn: dict, nh: int, nkv: int, hd: int, lora=None, tp=None):
     """q/k/v projections from fused ("qkv") or separate layer params:
     (B, S, hid) → (B,S,nh,hd), (B,S,nkv,hd), (B,S,nkv,hd).
 
     lora=(slice, scaling): one layer's side-path adapters (q_w/k_w/v_w, or
-    the grouped qkv_side), added from h to either base layout."""
+    the grouped qkv_side), added from h to either base layout.
+    tp (a `parallel/sharding.py::ShardContext`): the weights are the rank's
+    column blocks and nh, nkv its local head counts; h enters the model group
+    (`ShardContext.enter`) and each bias is the rank's own block."""
     B, S = h.shape[:2]
+    if tp is not None:
+        h = tp.enter(h)
     grouped = lora[0].get("qkv_side") if lora is not None else None
     with proj_name("qkv_proj"):
         if "qkv" in attn:
@@ -298,14 +303,18 @@ def attn_qkv_proj(h: torch.Tensor, attn: dict, nh: int, nkv: int, hd: int, lora=
     return q.reshape(B, S, nh, hd), k.reshape(B, S, nkv, hd), v.reshape(B, S, nkv, hd)
 
 
-def attn_out_proj(attn_flat: torch.Tensor, lp: dict, lora=None) -> torch.Tensor:
-    """The attention's output projection o_w, plus its side product."""
+def attn_out_proj(attn_flat: torch.Tensor, lp: dict, lora=None, tp=None) -> torch.Tensor:
+    """The attention's output projection o_w, plus its side product. tp: the
+    rank's row block of o_w over its heads, the partial sums all-reduced over
+    the model group (`ShardContext.exit`)."""
     with proj_name("attn_proj"):
         a = qmatmul(attn_flat, lp["o_w"])
+    if tp is not None:
+        a = tp.exit(a)
     return _side(a, attn_flat, "o_w", lora)
 
 
-def mlp_proj(h: torch.Tensor, mlp: dict, lora=None) -> torch.Tensor:
+def mlp_proj(h: torch.Tensor, mlp: dict, lora=None, tp=None) -> torch.Tensor:
     """SwiGLU MLP, down(silu(gate(h)) * up(h)), from fused ("gu") or separate
     layer params.
 
@@ -316,9 +325,18 @@ def mlp_proj(h: torch.Tensor, mlp: dict, lora=None) -> torch.Tensor:
     (side-path adapters, present or not for this layer's MLP) the MLP is the
     dequantize + `F.linear` products, the gate and up side products added
     before the SiLU and down's after its product. That is JAX's semantics,
-    not a fallback: Q2 has no side inputs."""
+    not a fallback: Q2 has no side inputs.
+
+    tp (a `parallel/sharding.py::ShardContext`): gate/up are the rank's
+    column blocks of the width and down its row block; h enters the model
+    group and down's partial sums are all-reduced over it. A quantized tree
+    is never split over "model" (the trainer refuses it), so Q2 never sees
+    a shard."""
+    if tp is not None:
+        h = tp.enter(h)
     if (
-        lora is None
+        tp is None
+        and lora is None
         and "gu" in mlp
         and h.is_cuda
         and h.ndim == 3
@@ -346,6 +364,8 @@ def mlp_proj(h: torch.Tensor, mlp: dict, lora=None) -> torch.Tensor:
     act = F.silu(gate) * up
     with proj_name("mlp_down"):
         y = qmatmul(act, mlp["down_w"])
+    if tp is not None:
+        y = tp.exit(y)
     return _side(y, act, "down_w", lora)
 
 

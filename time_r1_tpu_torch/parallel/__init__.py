@@ -1,10 +1,21 @@
 """Parallelism of the port (port of `time_r1_tpu/parallel/`): the process
-group and its mesh (`mesh.py`), the collectives over a group (`comm.py`) and
-ring attention over K1, B1 and B2 (`ring_attention.py`). Data parallelism over
-processes and context parallelism are ported; FSDP, tensor parallelism and
-pipeline generate are not yet (ROADMAP A13)."""
+group and its (data, model) mesh (`mesh.py`), the collectives over a group
+(`comm.py`), the parameter rule table and the sharded trees
+(`sharding.py`), FSDP's gather-use-drop (`fsdp.py`), Megatron-style tensor
+parallelism (`tensor.py`) and ring attention over K1, B1 and B2
+(`ring_attention.py`). Pipeline generate, TP eval and the memory plan are
+not ported yet (ROADMAP A13)."""
 
-from .mesh import DATA_AXIS, MODEL_AXIS, data_group, make_mesh, maybe_init_distributed
+from .mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    data_group,
+    make_mesh,
+    maybe_init_distributed,
+    mesh_coordinate,
+    mesh_size,
+    model_group,
+)
 from .ring_attention import (
     ContextParallel,
     ring_attention_sharded,
@@ -15,14 +26,24 @@ from .ring_attention import (
     zigzag_indices,
     zigzag_inverse,
 )
+from .sharding import PARAM_RULES, ShardContext, gather_params, param_specs, shard_params, spec_for_path
 
 __all__ = [
     "DATA_AXIS",
     "MODEL_AXIS",
     "ContextParallel",
     "data_group",
+    "PARAM_RULES",
+    "ShardContext",
+    "gather_params",
     "make_mesh",
     "maybe_init_distributed",
+    "mesh_coordinate",
+    "mesh_size",
+    "model_group",
+    "param_specs",
+    "shard_params",
+    "spec_for_path",
     "ring_attention_sharded",
     "ring_attention_zigzag_sharded",
     "ring_flash_attention",

@@ -1,6 +1,8 @@
 """Collectives over a process group: the port's counterparts of JAX's
 `lax.ppermute` (`ring_shift`), `lax.psum` (`all_reduce_sum`) and
-`multihost_utils.process_allgather` (`all_gather_vector`).
+`multihost_utils.process_allgather` (`all_gather_vector`), and the three
+that FSDP and tensor parallelism need where GSPMD inserts its own
+(`all_gather_dim`, `reduce_scatter_dim`, `broadcast`).
 
 Over NCCL they move the tensors where they lie. Over gloo a CUDA tensor is
 staged through a pinned host buffer on the way out and copied back to its
@@ -113,3 +115,49 @@ def all_gather_vector(x: torch.Tensor, group=None) -> torch.Tensor:
         return out.to(x.device)
     return out
 
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Every rank's x concatenated along `dim` in group-rank order, on x's
+    device (a rank's block of a sharded leaf → the leaf). Every rank passes
+    the same shape and dtype."""
+    global staged_bytes
+    x = x.contiguous()
+    wire = _out(x, group)
+    parts = [_buffer(x, group) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, wire, group=group)
+    if wire is not x:
+        staged_bytes += sum(p.numel() * p.element_size() for p in parts)
+        parts = [p.to(x.device, non_blocking=True) for p in parts]
+    return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The sum of x over the group, cut into n equal blocks along `dim`; rank
+    r gets block r (a gradient of a gathered leaf → this rank's block of its
+    sum), in x's dtype and on x's device."""
+    global staged_bytes
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter over {n} ranks of a dim of {x.shape[dim]}")
+    blocks = [b.contiguous() for b in x.chunk(n, dim=dim)]
+    out = _buffer(blocks[r], group)
+    dist.reduce_scatter(out, [_out(b, group) for b in blocks], op=dist.ReduceOp.SUM, group=group)
+    if out.device != x.device:
+        staged_bytes += out.numel() * out.element_size()
+        out = out.to(x.device)
+    return out
+
+
+def broadcast(x: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """x of the group's rank `src` on every rank, in place (x must have the
+    same shape and dtype everywhere); returns x."""
+    global staged_bytes
+    if not x.is_contiguous():
+        raise ValueError("broadcast works in place: x must be contiguous")
+    wire = _out(x, group)
+    dist.broadcast(wire, src=_global(group, src), group=group)
+    if wire is not x:
+        x.copy_(wire)
+        staged_bytes += x.numel() * x.element_size()
+    return x

@@ -10,10 +10,14 @@ fewer cards (two or four ranks on one card), every rank takes `cuda:0` and the
 group runs over gloo, whose collectives `comm.py` stages through pinned host
 memory. On the CPU the group is gloo.
 
-The mesh is a `DeviceMesh` with dims ("data", "model"), as JAX's. Only
-`model == 1` is ported: the data dim carries example-level data parallelism
-(each rank its own examples, gradients summed before the clip) or context
-parallelism (the ranks split one sequence, `ring_attention.py`).
+The mesh is a `DeviceMesh` with dims ("data", "model"), as JAX's: (world /
+tp, tp). Rank r sits at (r // tp, r % tp), so a model group is made of
+adjacent ranks (on one node). The data dim carries FSDP (`sharding.py`,
+`fsdp.py`: each rank its own examples, parameters, gradients and optimizer
+state sharded over it) or context parallelism (the ranks split one sequence,
+`ring_attention.py`); the model dim carries Megatron-style tensor parallelism
+(`tensor.py`: heads and MLP width split, one all-reduce after each
+row-parallel product).
 """
 
 from __future__ import annotations
@@ -56,27 +60,37 @@ def maybe_init_distributed(device="cuda") -> Optional[torch.device]:
 
 def make_mesh(model_parallel: int = 1):
     """The mesh over every rank of the process group: (data = world /
-    model_parallel, model = model_parallel). Only model_parallel 1 is ported.
-    Its device type is where the group's collectives run: "cuda" over NCCL,
-    "cpu" over gloo."""
-    if model_parallel > 1:
-        raise NotImplementedError(
-            f"model_parallel={model_parallel}: tensor parallelism is not ported yet (ROADMAP A13)")
+    model_parallel, model = model_parallel), rank r at (r // model_parallel,
+    r % model_parallel). Raises when model_parallel does not divide the world
+    (as JAX's `cli/train.py` does). Its device type is where the group's
+    collectives run: "cuda" over NCCL, "cpu" over gloo."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: launch with torchrun (maybe_init_distributed)")
     from torch.distributed.device_mesh import init_device_mesh
 
     world = dist.get_world_size()
+    if model_parallel < 1 or world % model_parallel:
+        raise ValueError(f"tensor_parallel_size={model_parallel} does not divide {world} ranks")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, (world // model_parallel, model_parallel),
                             mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
 
 
+def mesh_size(mesh, axis: str) -> int:
+    """The size of the mesh's `axis` (1 without a mesh)."""
+    return 1 if mesh is None else mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def mesh_coordinate(mesh, axis: str) -> int:
+    """This rank's coordinate along `axis` (0 without a mesh)."""
+    return 0 if mesh is None else mesh.get_local_rank(axis)
+
+
 def data_group(mesh):
-    """The process group of the mesh's data dim (refusing a model dim above
-    1), or None without a mesh."""
-    if mesh is None:
-        return None
-    if mesh.size(mesh.mesh_dim_names.index(MODEL_AXIS)) != 1:
-        raise NotImplementedError("a mesh with model > 1 (tensor parallelism) is not ported yet (ROADMAP A13)")
-    return mesh.get_group(DATA_AXIS)
+    """The process group of the mesh's data dim, or None without a mesh."""
+    return None if mesh is None else mesh.get_group(DATA_AXIS)
+
+
+def model_group(mesh):
+    """The process group of the mesh's model dim, or None without a mesh."""
+    return None if mesh is None else mesh.get_group(MODEL_AXIS)

@@ -1,0 +1,320 @@
+"""Parameter sharding rules: FSDP over "data", tensor parallelism over
+"model" (port of `time_r1_tpu/parallel/sharding.py`).
+
+The rule table is JAX's `PARAM_RULES` over the port's paths and layout:
+linear weights are (out, in) here and (in, out) there, so JAX's
+`P(None, D, M)` over a stacked (L, in, out) kernel is `(M, D)` over the
+port's per-layer (out, in) weight: out over "model", in over "data". Biases,
+norms and the (V, H) embedding keep JAX's order without the layer axis. As
+JAX's `_divisible` does, an axis that does not divide a dim is dropped for
+that leaf (which then stays whole along it).
+
+A rank (d, m) holds its contiguous block of every leaf (`shard_params`),
+with one exception: the vision tower's fused `qkv_w` / `qkv_b` ((3·1280,
+1280) and (3·1280,)) are split per head. Rank m holds its heads' q, its
+heads' k and its heads' v, in that order. The contiguous block of the fused
+rows would cut through q|k|v, which GSPMD reshards around and Megatron-style
+compute cannot; the split is a difference of layout that gives the same
+results (ROADMAP §C).
+
+`ShardContext` carries a mesh's groups, sizes, this rank's coordinates and
+the spec tree of the parameters it shards. The layer functions of the model
+(`models/qwen25vl/language.py`, `vision.py`) take one: they gather a layer's
+data shards just before use (`fsdp.py`) and run its model-local heads and
+MLP width (`tensor.py`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+
+from .comm import all_reduce_sum
+from .mesh import DATA_AXIS as D
+from .mesh import MODEL_AXIS as M
+
+# (regex over the port's 'a/b/c' param path) → the axis of each dim. First
+# match wins; no match replicates (small tensors, quantized leaves' q8/s).
+PARAM_RULES: list[tuple[str, tuple]] = [
+    # --- text decoder: (out, in) weights, one dict a layer ---
+    (r"^text/layers/\d+/(q_w|k_w|v_w)$", (M, D)),
+    (r"^text/layers/\d+/(q_b|k_b|v_b)$", (M,)),
+    (r"^text/layers/\d+/o_w$", (D, M)),
+    (r"^text/layers/\d+/(gate_w|up_w)$", (M, D)),
+    (r"^text/layers/\d+/down_w$", (D, M)),
+    (r"^text/layers/\d+/.*layernorm$", ()),
+    (r"^text/embed_tokens$", (D, M)),
+    (r"^text/lm_head$", (M, D)),
+    (r"^text/norm$", ()),
+    # --- vision tower ---
+    (r"^visual/patch_embed$", (M, None)),
+    (r"^visual/blocks/\d+/qkv_w$", (M, D)),
+    (r"^visual/blocks/\d+/qkv_b$", (M,)),
+    (r"^visual/blocks/\d+/proj_w$", (D, M)),
+    (r"^visual/blocks/\d+/proj_b$", ()),
+    (r"^visual/blocks/\d+/(gate_w|up_w)$", (M, D)),
+    (r"^visual/blocks/\d+/(gate_b|up_b)$", (M,)),
+    (r"^visual/blocks/\d+/down_w$", (D, M)),
+    (r"^visual/blocks/\d+/down_b$", ()),
+    (r"^visual/blocks/\d+/norm\d$", ()),
+    (r"^visual/merger/ln_q$", ()),
+    (r"^visual/merger/fc1_w$", (M, D)),
+    (r"^visual/merger/fc1_b$", (M,)),
+    (r"^visual/merger/fc2_w$", (D, M)),
+    (r"^visual/merger/fc2_b$", ()),
+    # LoRA adapters (rl/lora.py: lora_a (r, in), lora_b (out, r)): the hidden
+    # dim like their base weight. In the table, unused: a LoRA trainer keeps
+    # its adapters and base whole on every rank (model 1 only).
+    (r"lora_a$", (None, D)),
+    (r"lora_b$", (M, None)),
+]
+
+# fused leaves split per head over "model": (regex, parts along dim 0)
+FUSED_RULES: list[tuple[str, int]] = [
+    (r"^visual/blocks/\d+/qkv_(w|b)$", 3),
+]
+
+
+@dataclass(frozen=True)
+class Spec:
+    """How one leaf is sharded: the mesh axis of each dim (None: whole along
+    it), and for a fused leaf the number of parts its dim 0 holds (q|k|v),
+    each split over "model" on its own."""
+
+    dims: tuple
+    parts: int = 1
+
+    def axis_dim(self, axis: str) -> Optional[int]:
+        """The dim sharded over `axis`, or None."""
+        return self.dims.index(axis) if axis in self.dims else None
+
+
+def spec_for_path(path: str) -> tuple:
+    """The rule table's dims for a path (`()`, replicated, when none matches)."""
+    for pattern, dims in PARAM_RULES:
+        if re.search(pattern, path):
+            return dims
+    return ()
+
+
+def fused_parts(path: str) -> int:
+    for pattern, parts in FUSED_RULES:
+        if re.search(pattern, path):
+            return parts
+    return 1
+
+
+def _divisible(shape, dims: tuple, sizes: dict, parts: int = 1) -> tuple:
+    """JAX's `_divisible`: drop an axis that does not divide its dim (a fused
+    dim 0 must divide by parts·size)."""
+    out = []
+    for i, dim in enumerate(shape):
+        ax = dims[i] if i < len(dims) else None
+        if ax is None:
+            out.append(None)
+            continue
+        size = sizes[ax]
+        n = dim // parts if (i == 0 and parts > 1 and dim % parts == 0) else dim
+        out.append(ax if n % size == 0 and n >= size else None)
+    return tuple(out)
+
+
+def mesh_sizes(mesh) -> dict:
+    """{"data": n, "model": m} of a DeviceMesh, or of such a dict itself."""
+    if isinstance(mesh, dict):
+        return {D: int(mesh.get(D, 1)), M: int(mesh.get(M, 1))}
+    return {ax: mesh.size(mesh.mesh_dim_names.index(ax)) for ax in (D, M)}
+
+
+def _map(tree, fn, path: str = ""):
+    """fn(path, leaf) over a tree of dicts and lists, keeping its shape."""
+    if isinstance(tree, dict):
+        return {k: _map(v, fn, f"{path}/{k}" if path else str(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn, f"{path}/{i}") for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def param_specs(tree: Any, mesh) -> Any:
+    """A tree of `Spec`s matching `tree` by the rule table (any device, the
+    `meta` one too), with JAX's `_divisible` applied to each leaf's shape."""
+    sizes = mesh_sizes(mesh)
+
+    def f(path, leaf):
+        parts = fused_parts(path)
+        return Spec(_divisible(tuple(leaf.shape), spec_for_path(path), sizes, parts), parts)
+
+    return _map(tree, f)
+
+
+def _heads_major(x: torch.Tensor, parts: int, n: int) -> torch.Tensor:
+    """Dim 0 of a fused leaf reordered from (part, model rank, rows) to
+    (model rank, part, rows): rank m's block is then contiguous."""
+    rows = x.shape[0] // (parts * n)
+    return x.reshape(parts, n, rows, *x.shape[1:]).transpose(0, 1).reshape(x.shape)
+
+
+def _parts_major(x: torch.Tensor, parts: int, n: int) -> torch.Tensor:
+    """`_heads_major`'s inverse."""
+    rows = x.shape[0] // (parts * n)
+    return x.reshape(n, parts, rows, *x.shape[1:]).transpose(0, 1).reshape(x.shape)
+
+
+def shard_leaf(x: torch.Tensor, spec: Spec, sizes: dict, coords: dict) -> torch.Tensor:
+    """Rank `coords`' block of a whole leaf (a new contiguous tensor)."""
+    if spec.parts > 1 and spec.dims and spec.dims[0] == M:
+        x = _heads_major(x, spec.parts, sizes[M])
+    for i, ax in enumerate(spec.dims):
+        if ax is not None:
+            x = x.chunk(sizes[ax], dim=i)[coords[ax]]
+    return x.detach().clone(memory_format=torch.contiguous_format)
+
+
+def shard_params(tree: Any, mesh, coords: Optional[dict] = None, specs: Any = None) -> Any:
+    """This rank's blocks of every leaf of a whole tree, by the rule table
+    (`coords` {"data": d, "model": m}: another rank's; defaults to this
+    process's coordinates on the mesh)."""
+    sizes = mesh_sizes(mesh)
+    if coords is None:
+        coords = {ax: mesh.get_local_rank(ax) for ax in (D, M)}
+    specs = param_specs(tree, mesh) if specs is None else specs
+    return _zip(tree, specs, lambda x, s: shard_leaf(x, s, sizes, coords))
+
+
+def _zip(tree, specs, fn):
+    if isinstance(tree, dict):
+        return {k: _zip(v, specs[k], fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_zip(v, s, fn) for v, s in zip(tree, specs)]
+    return fn(tree, specs)
+
+
+@dataclass
+class ShardContext:
+    """A mesh's groups and sizes, this rank's coordinates and the spec tree
+    of the parameters (or the subtree `at` selects). Passed to the model's
+    layer functions, the loss and the optimizer's clip."""
+
+    data_group: Any
+    model_group: Any
+    dp: int
+    tp: int
+    data_rank: int
+    model_rank: int
+    specs: Any
+
+    @staticmethod
+    def build(mesh, params) -> "ShardContext":
+        """The context of `mesh` over a whole tree shaped like `params`."""
+        from .mesh import data_group, model_group
+
+        sizes = mesh_sizes(mesh)
+        return ShardContext(data_group(mesh), model_group(mesh), sizes[D], sizes[M], mesh.get_local_rank(D),
+                            mesh.get_local_rank(M), param_specs(params, mesh))
+
+    @property
+    def sizes(self) -> dict:
+        return {D: self.dp, M: self.tp}
+
+    @property
+    def coords(self) -> dict:
+        return {D: self.data_rank, M: self.model_rank}
+
+    def at(self, *keys) -> "ShardContext":
+        """The same context over a subtree of the specs."""
+        specs = self.specs
+        for k in keys:
+            specs = specs[k]
+        return dataclasses.replace(self, specs=specs)
+
+    def shard(self, tree: Any) -> Any:
+        """This rank's blocks of a whole tree shaped like the specs."""
+        return shard_params(tree, self.sizes, self.coords, self.specs)
+
+    def layer(self, lp: dict, li: Optional[int] = None, key: Optional[str] = None) -> dict:
+        """A layer dict gathered over "data" (`fsdp.gather_layer`): each leaf
+        in its model-local form. The specs are `specs[key][li]`, or the
+        context's own."""
+        from .fsdp import gather_layer
+
+        specs = self.specs if key is None else self.specs[key]
+        return gather_layer(lp, specs if li is None else specs[li], self)
+
+    def whole(self, x: torch.Tensor, key: str) -> torch.Tensor:
+        """Leaf `key` gathered whole on every rank (`fsdp.gather_whole`)."""
+        from .fsdp import gather_whole
+
+        return gather_whole(x, self.specs[key], self)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """Before a column-parallel product (`tensor.copy_to_model`)."""
+        from .tensor import copy_to_model
+
+        return x if self.tp == 1 else copy_to_model(x, self.model_group)
+
+    def exit(self, y: torch.Tensor) -> torch.Tensor:
+        """After a row-parallel product (`tensor.reduce_from_model`)."""
+        from .tensor import reduce_from_model
+
+        return y if self.tp == 1 else reduce_from_model(y, self.model_group)
+
+
+def global_sq_sum(blocks: list, specs: list, shard: ShardContext) -> torch.Tensor:
+    """Σ x² over the whole leaves that `blocks` (this rank's, one per spec)
+    belong to, as an f32 0-d tensor equal on every rank: the blocks of a leaf
+    sharded over an axis are summed over its group, and a leaf whole along an
+    axis (the same on every rank of it) is counted once."""
+    dev = blocks[0].device if blocks else torch.device("cpu")
+    by = {(d, m): torch.zeros((), dtype=torch.float32, device=dev) for d in (False, True) for m in (False, True)}
+    for x, s in zip(blocks, specs):
+        key = (D in s.dims and shard.dp > 1, M in s.dims and shard.tp > 1)
+        by[key] = by[key] + x.float().pow(2).sum()
+    if shard.dp > 1:
+        part = torch.stack([by[(True, False)], by[(True, True)]])
+        all_reduce_sum([part], shard.data_group)
+        by[(True, False)], by[(True, True)] = part[0], part[1]
+    if shard.tp > 1:
+        part = torch.stack([by[(False, True)], by[(True, True)]])
+        all_reduce_sum([part], shard.model_group)
+        by[(False, True)], by[(True, True)] = part[0], part[1]
+    return by[(False, False)] + by[(True, False)] + by[(False, True)] + by[(True, True)]
+
+
+@torch.no_grad()
+def gather_params(tree: Any, shard: ShardContext, keep: bool = True, text_layer=None, to=None) -> Any:
+    """The whole tree from every rank's blocks (`fsdp.gather_whole`, leaf by
+    leaf; every rank of the mesh calls it together). keep=False: this rank
+    takes part in the collectives and keeps nothing (returns None).
+    text_layer: applied to each gathered text layer dict before the next is
+    gathered (the rollout copy's quantization: one bf16 layer whole at a
+    time). to: a device for the kept leaves (the CPU for a save). A leaf
+    that is whole on every rank is returned as it is, not copied."""
+    import torch.distributed as dist
+
+    from .fsdp import gather_whole
+
+    group = shard.data_group if shard.data_group is not None else shard.model_group
+    nccl = group is not None and dist.get_backend(group) == "nccl"
+
+    def whole(x, spec):
+        if nccl and not x.is_cuda:  # an offloaded optimizer leaf: NCCL moves device tensors only
+            x = x.to(torch.device("cuda", torch.cuda.current_device()))
+        x = gather_whole(x, spec, shard)
+        return None if not keep else (x if to is None else x.to(to))
+
+    def walk(sub, specs, path):
+        if isinstance(sub, dict):
+            if path.startswith("text/layers/") and text_layer is not None:
+                lp = {k: whole(v, specs[k]) for k, v in sub.items()}
+                return text_layer(lp) if keep else None
+            return {k: walk(v, specs[k], f"{path}/{k}" if path else k) for k, v in sub.items()}
+        if isinstance(sub, (list, tuple)):
+            return [walk(v, s, f"{path}/{i}") for i, (v, s) in enumerate(zip(sub, specs))]
+        return whole(sub, specs)
+
+    out = walk(tree, shard.specs, "")
+    return out if keep else None

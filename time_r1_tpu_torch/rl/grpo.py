@@ -36,6 +36,16 @@ in JAX; GRPO: the row count, `:380`), so the gradients summed over the ranks
 (`grpo_value_and_grad`, before the clip) are the whole batch's, as are the
 metrics, which are reduced there too.
 
+Sharded (`shard=`, a `parallel/sharding.py::ShardContext` over the params,
+whose leaves are this rank's blocks): every forward gathers each layer's
+FSDP shards just before use and runs the rank's heads and MLP width
+(`models/qwen25vl/language.py`, `vision.py`); the embedding and the head are
+gathered whole once a loss (`model.text_ends`). The gradients come back as
+blocks: the data-sharded ones reduce-scattered in the backward, the others
+all-reduced over the data group after it; nothing is summed over "model".
+All data ranks must agree on whether their batch has video (the vision
+tower's gathers are collectives).
+
 `gradient_checkpointing` (False, True/"full", "dots", "dots_small") makes
 each decoder layer of both differentiated forwards one checkpointed unit
 (`models/qwen25vl/language.py::REMAT_POLICIES`): the backward reruns the
@@ -53,10 +63,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models.qwen25vl import Qwen25VLConfig, VisionInputs
 from ..models.qwen25vl.language import NEG_INF, KVCache, decoder_forward, shared_decode_forward
-from ..models.qwen25vl.model import merge_vision_embeddings
+from ..models.qwen25vl.model import merge_vision_embeddings, text_ends
 from ..models.qwen25vl.vision import vision_blocks_forward, vision_forward, vision_merge_forward
 from ..ops.quant import embed_lookup, head_logits
 from ..parallel.comm import all_reduce_sum
+from ..parallel.mesh import DATA_AXIS
+from ..parallel.sharding import global_sq_sum
 
 
 @dataclass(frozen=True)
@@ -113,7 +125,11 @@ def compute_group_advantages(rewards: np.ndarray, num_generations: int) -> np.nd
     return ((r - mean) / (std + 1e-4)).reshape(-1)
 
 
-def _vision_feats(params: dict, cfg: Qwen25VLConfig, batch, fix_vit: bool) -> torch.Tensor:
+def _at(shard, key: str):
+    return None if shard is None else shard.at(key)
+
+
+def _vision_feats(params: dict, cfg: Qwen25VLConfig, batch, fix_vit: bool, shard=None) -> torch.Tensor:
     """Merged vision features for the loss. With `vision_hidden` (the frozen
     blocks' output, precomputed or captured by the rollout) only the trainable
     merger runs here. Otherwise fix_vit runs the blocks without a graph (they
@@ -121,34 +137,54 @@ def _vision_feats(params: dict, cfg: Qwen25VLConfig, batch, fix_vit: bool) -> to
     without fix_vit the whole tower is differentiated, off K2/K3 (they have no
     backward), as JAX's `_vision_feats` passes use_window_kernel=fix_vit."""
     if fix_vit:
-        batch = precompute_frozen_vision(params, cfg, batch)
+        batch = precompute_frozen_vision(params, cfg, batch, shard)
     v = batch.vision
     if batch.vision_hidden is not None:
-        return vision_merge_forward(params["visual"], cfg.vision, batch.vision_hidden, v.reverse)
+        return vision_merge_forward(params["visual"], cfg.vision, batch.vision_hidden, v.reverse,
+                                    shard=_at(shard, "visual"))
     return vision_forward(params["visual"], cfg.vision, v.patches, v.perm, v.pos_hw, v.key_valid,
-                          v.full_gather, v.full_inverse, v.reverse, use_window_kernel=fix_vit)
+                          v.full_gather, v.full_inverse, v.reverse, use_window_kernel=fix_vit,
+                          shard=_at(shard, "visual"))
 
 
-def precompute_frozen_vision(params: dict, cfg: Qwen25VLConfig, batch):
+def precompute_frozen_vision(params: dict, cfg: Qwen25VLConfig, batch, shard=None):
     """fix_vit: run the frozen ViT blocks once, without a graph (K2/K3 on the
     card), and attach their output to the batch; the policy and ref forwards
-    then run only the merger."""
+    then run only the merger. shard: over sharded params, every data rank
+    calls it together (the blocks' gathers are collectives)."""
     if batch.vision is None or batch.vision_hidden is not None:
         return batch
     v = batch.vision
     with torch.no_grad():
         x = vision_blocks_forward(params["visual"], cfg.vision, v.patches, v.perm, v.pos_hw,
-                                  v.key_valid, v.full_gather, v.full_inverse, use_window_kernel=True)
+                                  v.key_valid, v.full_gather, v.full_inverse, use_window_kernel=True,
+                                  shard=_at(shard, "visual"))
     return batch._replace(vision_hidden=x)
 
 
-def _merged_embeds(params: dict, cfg: Qwen25VLConfig, batch, ids: torch.Tensor, fix_vit: bool) -> torch.Tensor:
-    """The token embeddings of `ids` with the batch's vision features merged
-    at its vision tokens, from each row's feature offset."""
-    embeds = embed_lookup(params["text"]["embed_tokens"], ids)
+def check_vision_agrees(batch, shard) -> None:
+    """Over sharded params the data ranks run the vision tower's gathers
+    together: refuse a step where some ranks' batches have video and others'
+    none (JAX's `_global_vision` unions the videos; not ported, ROADMAP A13)."""
+    if shard is None or shard.dp == 1:
+        return
+    dev = batch.advantages.device
+    has = torch.tensor([float(batch.vision is not None)], device=dev)
+    all_reduce_sum([has], shard.data_group)
+    if 0 < float(has[0]) < shard.dp:
+        raise NotImplementedError("sharded training with video in some data ranks' batches and none in others' "
+                                  "is not ported (JAX unions the videos; ROADMAP A13)")
+
+
+def _merged_embeds(params: dict, cfg: Qwen25VLConfig, batch, ids: torch.Tensor, fix_vit: bool, emb=None,
+                   shard=None) -> torch.Tensor:
+    """The token embeddings of `ids` (from `emb`, the gathered table, or the
+    params' own) with the batch's vision features merged at its vision
+    tokens, from each row's feature offset."""
+    embeds = embed_lookup(params["text"]["embed_tokens"] if emb is None else emb, ids)
     if batch.vision is None:
         return embeds
-    feats = _vision_feats(params, cfg, batch, fix_vit)
+    feats = _vision_feats(params, cfg, batch, fix_vit, shard)
     return merge_vision_embeddings(
         embeds, ids, feats, (cfg.video_token_id, cfg.image_token_id),
         feature_offset=batch.feat_offsets if batch.feat_offsets is not None else 0,
@@ -156,7 +192,7 @@ def _merged_embeds(params: dict, cfg: Qwen25VLConfig, batch, ids: torch.Tensor, 
 
 
 def _hidden_states(params: dict, cfg: Qwen25VLConfig, batch: GRPOBatch, remat=False, fix_vit: bool = False,
-                   lora: Optional[tuple] = None, cp=None) -> torch.Tensor:
+                   lora: Optional[tuple] = None, cp=None, shard=None, emb=None) -> torch.Tensor:
     """Full rows: embed, merge the vision features, run the decoder over the
     rows with the padding mask (K1 on the card, B1/B2 in its backward) → the
     final hidden states (B, T, H).
@@ -167,10 +203,11 @@ def _hidden_states(params: dict, cfg: Qwen25VLConfig, batch: GRPOBatch, remat=Fa
     positions. T must divide by `cp.multiple` (the trainer pads to it)."""
     if cp is not None and lora is not None:
         raise ValueError("LoRA with the context-parallel loss is not plumbed, as in JAX: merge the adapters instead")
-    embeds = _merged_embeds(params, cfg, batch, batch.input_ids, fix_vit)
+    embeds = _merged_embeds(params, cfg, batch, batch.input_ids, fix_vit, emb, shard)
     if cp is None:
         hidden, _ = decoder_forward(params["text"], cfg.text, embeds, batch.position_ids,
-                                    attention_mask=batch.attention_mask, remat=remat, lora=lora)
+                                    attention_mask=batch.attention_mask, remat=remat, lora=lora,
+                                    shard=_at(shard, "text"))
         return hidden
     T = embeds.shape[1]
     if T % cp.multiple:
@@ -179,7 +216,8 @@ def _hidden_states(params: dict, cfg: Qwen25VLConfig, batch: GRPOBatch, remat=Fa
     idx = cp.index(T, embeds.device)
     hidden, _ = decoder_forward(params["text"], cfg.text, embeds.index_select(1, idx),
                                 batch.position_ids.index_select(2, idx),
-                                attention_mask=batch.attention_mask.index_select(1, idx), remat=remat, cp=cp)
+                                attention_mask=batch.attention_mask.index_select(1, idx), remat=remat, cp=cp,
+                                shard=_at(shard, "text"))
     return hidden
 
 
@@ -191,7 +229,7 @@ def _by_position(x: torch.Tensor) -> torch.Tensor:
 
 def _split_logps_entropy(
     params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch: GRPOSplitBatch, fix_vit: bool = False,
-    lora: Optional[tuple] = None,
+    lora: Optional[tuple] = None, shard=None, ends: Optional[tuple] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Shared-prefix forward → per-token (logps, entropy), both (B, Lc) f32.
 
@@ -203,20 +241,23 @@ def _split_logps_entropy(
     lora=(per-layer decoder adapters, scaling): merged inside each layer of
     both forwards (`language.decoder_forward`)."""
     text = params["text"]
-    embeds = _merged_embeds(params, cfg, batch, batch.prompt_ids, fix_vit)
+    emb, head = ends if ends is not None else text_ends(text, cfg.text)
+    tshard = _at(shard, "text")
+    embeds = _merged_embeds(params, cfg, batch, batch.prompt_ids, fix_vit, emb, shard)
     P, Lp, _ = embeds.shape
     B = batch.comp_ids.shape[0]
     cache = KVCache.zeros(cfg.text, P, Lp, dtype=embeds.dtype, device=embeds.device)
     remat = hp.gradient_checkpointing
     hidden_p, prefix = decoder_forward(text, cfg.text, embeds, batch.prompt_pos,
-                                       attention_mask=batch.prompt_mask, cache=cache, remat=remat, lora=lora)
-    embeds_c = embed_lookup(text["embed_tokens"], batch.comp_ids)
+                                       attention_mask=batch.prompt_mask, cache=cache, remat=remat, lora=lora,
+                                       shard=tshard)
+    embeds_c = embed_lookup(emb, batch.comp_ids)
     prefix_bias = torch.where(batch.prompt_mask > 0, 0.0, NEG_INF).float()
     hidden_c, _ = shared_decode_forward(text, cfg.text, embeds_c, batch.comp_pos, prefix, None, prefix_bias,
-                                        remat=remat, lora=lora)
+                                        remat=remat, lora=lora, shard=tshard)
     h_last = hidden_p[:, -1:].repeat_interleave(B // P, dim=0)  # (B, 1, H), shared within a group
     h_pred = torch.cat([h_last, hidden_c[:, :-1]], dim=1)  # (B, Lc, H)
-    return per_token_logps_entropy(params, cfg, h_pred, batch.comp_ids, hp.logp_chunk)
+    return per_token_logps_entropy(params, cfg, h_pred, batch.comp_ids, hp.logp_chunk, head=head)
 
 
 def _chunk_logps_entropy(h: torch.Tensor, t: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -232,7 +273,7 @@ def _chunk_logps_entropy(h: torch.Tensor, t: torch.Tensor, w: torch.Tensor) -> t
 
 
 def per_token_logps_entropy(
-    params: dict, cfg: Qwen25VLConfig, hidden: torch.Tensor, targets: torch.Tensor, chunk: int
+    params: dict, cfg: Qwen25VLConfig, hidden: torch.Tensor, targets: torch.Tensor, chunk: int, head=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked per-token log p(target) and full-distribution entropy.
 
@@ -240,9 +281,9 @@ def per_token_logps_entropy(
     tokens → (logps, entropy), both (B, T) f32. Under autograd each chunk is
     recomputed in the backward (`torch.utils.checkpoint`, as JAX's
     `jax.checkpoint` per chunk): one chunk's f32 logits are B·chunk·V·4 bytes,
-    622 MB at B = 8, chunk = 128 and the 3B vocabulary."""
-    text = params["text"]
-    w = text["embed_tokens"] if cfg.text.tie_word_embeddings else text["lm_head"]
+    622 MB at B = 8, chunk = 128 and the 3B vocabulary. head: the (V, H)
+    head matrix to use (a gathered one), else the params' own."""
+    w = text_ends(params["text"], cfg.text)[1] if head is None else head
     remat = torch.is_grad_enabled() and hidden.requires_grad
     logps, ents = [], []
     for c0 in range(0, hidden.shape[1], chunk):
@@ -257,42 +298,49 @@ def per_token_logps_entropy(
 
 
 def _logps_entropy(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch,
-                   lora: Optional[tuple] = None, cp=None) -> tuple[torch.Tensor, torch.Tensor]:
+                   lora: Optional[tuple] = None, cp=None, shard=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-token (logps, entropy), f32: (B, Lc) over a split batch's
     completion chunks, (B, T-1) over full rows (token t predicted at t-1).
     With cp, (B, T/n) at this rank's positions, the value at position t that
-    of token t+1 (0 at position T-1, which predicts nothing)."""
+    of token t+1 (0 at position T-1, which predicts nothing). With shard, the
+    embedding and the head are gathered once here."""
+    check_vision_agrees(batch, shard)
+    emb, head = text_ends(params["text"], cfg.text, _at(shard, "text"))
     if isinstance(batch, GRPOSplitBatch):
         if cp is not None:
             raise ValueError("context parallelism covers the full-row layout (shared_prefix_loss=False)")
-        return _split_logps_entropy(params, cfg, hp, batch, fix_vit=hp.fix_vit, lora=lora)
+        return _split_logps_entropy(params, cfg, hp, batch, fix_vit=hp.fix_vit, lora=lora, shard=shard,
+                                    ends=(emb, head))
     hidden = _hidden_states(params, cfg, batch, remat=hp.gradient_checkpointing, fix_vit=hp.fix_vit, lora=lora,
-                            cp=cp)
+                            cp=cp, shard=shard, emb=emb)
     if cp is None:
-        return per_token_logps_entropy(params, cfg, hidden[:, :-1], batch.input_ids[:, 1:], hp.logp_chunk)
+        return per_token_logps_entropy(params, cfg, hidden[:, :-1], batch.input_ids[:, 1:], hp.logp_chunk,
+                                       head=head)
     targets = cp.shard(_by_position(batch.input_ids[:, 1:]), 1)
-    return per_token_logps_entropy(params, cfg, hidden, targets, hp.logp_chunk)
+    return per_token_logps_entropy(params, cfg, hidden, targets, hp.logp_chunk, head=head)
 
 
 @torch.no_grad()
 def compute_ref_logps(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch,
-                      lora: Optional[tuple] = None, cp=None) -> torch.Tensor:
+                      lora: Optional[tuple] = None, cp=None, shard=None) -> torch.Tensor:
     """Per-token logps under the reference weights, without a graph: (B, Lc)
     for a split batch, (B, T-1) for full rows. Nothing is differentiated
     here, so the reference's ViT blocks run frozen (K2/K3 on the card)
     whatever fix_vit says; with fix_vit the batch's `vision_hidden` (the
     policy's frozen blocks, equal to the reference's) is reused. The LoRA
     trainer's reference is the unmerged base (lora None). With cp the group
-    runs the ring forward together and every rank gets the whole (B, T-1)."""
-    batch = precompute_frozen_vision(params, cfg, batch)
-    logps, _ = _logps_entropy(params, cfg, hp, batch, lora=lora, cp=cp)
+    runs the ring forward together and every rank gets the whole (B, T-1).
+    With shard, over the reference's blocks (gathered, no reduce-scatter)."""
+    check_vision_agrees(batch, shard)
+    batch = precompute_frozen_vision(params, cfg, batch, shard)
+    logps, _ = _logps_entropy(params, cfg, hp, batch, lora=lora, cp=cp, shard=shard)
     if cp is not None:
         logps = cp.gather(logps, 1)[:, :-1]
     return logps
 
 
 def grpo_loss(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch,
-              lora: Optional[tuple] = None, cp=None, group=None) -> tuple[torch.Tensor, dict]:
+              lora: Optional[tuple] = None, cp=None, group=None, shard=None) -> tuple[torch.Tensor, dict]:
     """Loss and metrics (0-d tensors, without a graph) for one split or
     full-row batch; differentiable in every parameter that requires grad,
     and in the adapters of lora=(per-layer decoder adapters, scaling).
@@ -301,8 +349,9 @@ def grpo_loss(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch,
     context-parallel group over full rows that every rank holds alike) the
     loss is this rank's share: its tokens' sum over the global normalizer, so
     that the sum over the ranks is the whole batch's loss. The metrics are
-    the whole batch's, reduced over the ranks here."""
-    logps, entropy = _logps_entropy(params, cfg, hp, batch, lora=lora, cp=cp)
+    the whole batch's, reduced over the ranks here. Over sharded params
+    (`shard`) `group` is the data group (the model ranks hold the same rows)."""
+    logps, entropy = _logps_entropy(params, cfg, hp, batch, lora=lora, cp=cp, shard=shard)
     ref_logps = batch.ref_logps
     if isinstance(batch, GRPOSplitBatch):
         comp_mask = batch.comp_mask.float()  # every chunk position predicts a completion token
@@ -392,21 +441,28 @@ def trainable_leaves(params: dict, fix_vit: bool) -> list[torch.Tensor]:
     return _leaves({"visual": visual, "text": params["text"]})
 
 
-def grpo_value_and_grad(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch, cp=None, group=None
-                        ) -> tuple[torch.Tensor, dict, list[torch.Tensor]]:
+def grpo_value_and_grad(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch, cp=None, group=None,
+                        shard=None) -> tuple[torch.Tensor, dict, list[torch.Tensor]]:
     """(loss, metrics, grads) with one grad per `trainable_leaves(params,
     hp.fix_vit)` entry (zeros where the loss does not reach a leaf). Marks
     those leaves as requiring grad. Over ranks (`cp` or `group`, as
     `grpo_loss`) the gradients and the loss are summed over the group, so
-    every rank holds the whole batch's."""
+    every rank holds the whole batch's. Over sharded params (`shard`) each
+    grad is the sum over the data group of this rank's block: the
+    data-sharded leaves' were reduce-scattered in the backward, the others
+    are all-reduced here."""
     leaves = trainable_leaves(params, hp.fix_vit)
     for p in leaves:
         p.requires_grad_(True)
-    loss, metrics = grpo_loss(params, cfg, hp, batch, cp=cp, group=group)
+    loss, metrics = grpo_loss(params, cfg, hp, batch, cp=cp, group=group, shard=shard)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     loss = loss.detach().reshape(1)
-    _reduce(grads + [loss], cp, group)
+    if shard is None:
+        _reduce(grads + [loss], cp, group)
+    elif shard.dp > 1:
+        whole = [g for g, s in zip(grads, trainable_leaves(shard.specs, hp.fix_vit)) if s.axis_dim(DATA_AXIS) is None]
+        all_reduce_sum(whole + [loss], shard.data_group)
     return loss[0], metrics, grads
 
 
@@ -418,18 +474,27 @@ def _reduce(tensors: list, cp, group) -> None:
         all_reduce_sum(tensors, over)
 
 
-def make_train_step(cfg: Qwen25VLConfig, hp: GRPOHyperParams, optimizer, cp=None, group=None):
+def make_train_step(cfg: Qwen25VLConfig, hp: GRPOHyperParams, optimizer, cp=None, group=None, shard=None):
     """The train step: (params, opt_state, batch) → (params, opt_state, loss,
     metrics). Parameters and optimizer state are updated in place (the same
     objects come back), so an engine holding `params` samples from the new
     weights with no copy. grad_norm is taken over the micro-step gradients
     after the frozen leaves are left out, as JAX takes it after zeroing them,
     and over ranks after the gradients are summed (the optimizer's clip
-    reads the same sums)."""
+    reads the same sums). Over sharded params (`shard`) the parameters, the
+    gradients and the state are this rank's blocks, and the norm counts each
+    whole leaf once (`parallel/sharding.py::global_sq_sum`, which this sets
+    as the optimizer's `sq_sum`, so its clip reads the same norm)."""
+    specs = None if shard is None else trainable_leaves(shard.specs, hp.fix_vit)
+    if shard is not None:
+        optimizer.sq_sum = lambda grads: global_sq_sum(grads, specs, shard)
 
     def train_step(params: dict, opt_state, batch):
-        loss, metrics, grads = grpo_value_and_grad(params, cfg, hp, batch, cp=cp, group=group)
-        gnorm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+        loss, metrics, grads = grpo_value_and_grad(params, cfg, hp, batch, cp=cp, group=group, shard=shard)
+        if shard is None:
+            gnorm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+        else:
+            gnorm = torch.sqrt(global_sq_sum(grads, specs, shard))
         optimizer.update(trainable_leaves(params, hp.fix_vit), grads, opt_state)
         metrics = dict(metrics, grad_norm=gnorm, loss=loss)
         return params, opt_state, loss, metrics

@@ -24,6 +24,12 @@ Offload (`AdamWMultiSteps.init(params, offload=True)`, the trainer's
 `offload_optimizer`): the moments and the accumulation live in host memory
 between steps and stream through the device a leaf at a time, bit-equal to
 the device-resident update.
+
+Sharded (FSDP/TP, `parallel/sharding.py`): `params`, the gradients and the
+state are this rank's blocks, and `sq_sum` gives the clip the whole leaves'
+Σ g² (`sharding.global_sq_sum`); accumulation is per block, and under
+offload the arenas hold the rank's blocks only (JAX's sharded
+`pinned_host` state, `time_r1_tpu/rl/trainer.py:418-430`).
 """
 
 from __future__ import annotations
@@ -65,11 +71,13 @@ def join_schedules(schedules: Sequence[Schedule], boundaries: Sequence[int]) -> 
     return schedule
 
 
-def offloadable(leaf: torch.Tensor) -> bool:
+def offloadable(leaf: torch.Tensor, numel: Optional[int] = None) -> bool:
     """The JAX package's `_offloadable` rule (`time_r1_tpu/rl/grpo.py:404-409`):
     under offload a state leaf with a dimension and at least 1024 elements
-    lives in host memory; smaller ones stay on the device."""
-    return leaf.dim() >= 1 and leaf.numel() >= 1024
+    lives in host memory; smaller ones stay on the device. `numel`: the whole
+    leaf's elements when `leaf` is a rank's block of it (JAX decides on the
+    global array)."""
+    return leaf.dim() >= 1 and (leaf.numel() if numel is None else numel) >= 1024
 
 
 class HostArena:
@@ -277,7 +285,8 @@ class AdamWMultiSteps:
 
     def __init__(self, learning_rate: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 0.0, max_grad_norm: float = 1.0, every_k: int = 1,
-                 schedule_start: int = 0):
+                 schedule_start: int = 0, sq_sum: Optional[Callable] = None):
+        self.sq_sum = sq_sum  # grads -> Σ g² over the whole leaves (sharded), else the local sum
         self.lr, self.b1, self.b2, self.eps = learning_rate, b1, b2, eps
         self.weight_decay, self.max_grad_norm, self.every_k = weight_decay, max_grad_norm, every_k
         self.schedule_start = schedule_start
@@ -288,9 +297,13 @@ class AdamWMultiSteps:
         """The rate of the update taken when `count` updates were applied."""
         return self.lr(count - self.schedule_start) if callable(self.lr) else self.lr
 
-    def init(self, params: list[torch.Tensor], offload: bool = False) -> OptState:
+    def init(self, params: list[torch.Tensor], offload: bool = False,
+             numels: Optional[Sequence[int]] = None) -> OptState:
+        """The state of `params`; `numels`: each one's whole leaf's elements
+        when they are a rank's blocks (the offload rule reads those)."""
         trees = ("mu", "nu", "acc") if self.every_k > 1 else ("mu", "nu")
-        host = [offload and offloadable(p) for p in params]
+        numels = [None] * len(params) if numels is None else numels
+        host = [offload and offloadable(p, n) for p, n in zip(params, numels)]
         pin = any(p.is_cuda for p in params)
         state = OptState(offloaded=host)
         for name in trees:
@@ -316,7 +329,8 @@ class AdamWMultiSteps:
         p.add_(rates[u.dtype] * u)
 
     def _begin_update(self, grads, state: OptState) -> tuple:
-        g_norm = float(torch.sqrt(sum(g.float().pow(2).sum() for g in grads)))
+        sq = self.sq_sum(grads) if self.sq_sum is not None else sum(g.float().pow(2).sum() for g in grads)
+        g_norm = float(torch.sqrt(sq))
         scale = None if g_norm < self.max_grad_norm else self.max_grad_norm
         lr = self.lr_at(state.count)
         self.lrs.append(lr)

@@ -60,8 +60,26 @@ over (JAX's `train()` re-initializes the state it restored; ROADMAP §C).
 `gradient_checkpointing` selects the remat policy of the loss's decoder
 layers (`remat_policy`).
 
-Across processes (`mesh`, a `parallel.make_mesh` DeviceMesh with model 1;
+Across processes (`mesh`, a `parallel.make_mesh` DeviceMesh (data, model);
 torchrun launches one process a rank):
+- sharding: a full-parameter trainer keeps the policy, the reference, the
+  gradients and the optimizer state sharded by the rule table
+  (`parallel/sharding.py`): FSDP over "data" (ZeRO-3: a layer's weights
+  gathered just before use, gradients reduce-scattered; offload_optimizer
+  pins the rank's blocks only) and Megatron-style TP over "model" (heads and
+  MLP width split). Once a `step_batch`, in weight_sync, every rank gathers
+  the policy and the rank that rolls out keeps it as the engine's own tree
+  (quantized one layer at a time under rollout_quantization), as ZeRO-3
+  gathers before `generate`: the engine and its captured decode run as on
+  one card (ROADMAP §C). Model-rank 0 of each model group rolls out and
+  scores, and broadcasts the groups, rewards and their metrics over the
+  model group: all its ranks train on the same rows. The dataset shard, the
+  loss normalizer, the metric gather and the gradient sums go by the data
+  coordinate and the data group; a save gathers to global rank 0 (the
+  optimizer state too) and a resume loads and shards. Refused by name
+  (ROADMAP A13): a tp that does not divide the kv or vision heads, use_peft,
+  context parallelism or a quantized base with model > 1. A LoRA trainer
+  keeps PR 19's data parallelism (adapters and base whole on every rank).
 - data parallelism: each rank trains its own shard of the dataset (padded to
   a common length by modular repetition, so that no rank's shard runs out
   first and hangs the others' collectives), rolls out its own examples with
@@ -85,7 +103,6 @@ torchrun launches one process a rank):
   trainer_state.json, with a barrier after each save; a resume reads the same
   directory on every rank. The frozen ViT is never captured from the rollout
   under a mesh, as in JAX.
-Not ported yet: a mesh with model > 1 (tensor parallelism, ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -113,16 +130,19 @@ from ..models.qwen25vl.convert import (
     save_lora_npz,
 )
 from ..models.qwen25vl.model import vision_signature
-from ..ops.quant import QBITS, is_quantized
+from ..ops.quant import QBITS, is_quantized, quantize_layer, quantize_text_params
 from ..parallel.comm import all_gather_vector
-from ..parallel.mesh import data_group
+from ..parallel.mesh import MODEL_AXIS, data_group, mesh_coordinate, mesh_size, model_group
 from ..parallel.ring_attention import ContextParallel
+from ..parallel.sharding import ShardContext, gather_params, shard_leaf
+from ..parallel.tensor import check_heads
 from ..sampler import Engine, Request, SamplingParams
 from ..utils.checkpoint import is_native_checkpoint, load_params_into, save_params
 from ..utils.logging_sinks import DebugRewardLog
 from ..utils.profiling import PhaseTimers
 from .grpo import (
     GRPOHyperParams,
+    check_vision_agrees,
     compute_group_advantages,
     compute_ref_logps,
     make_lora_train_step,
@@ -302,7 +322,19 @@ class GRPOTrainer:
                 "products in the decoder layers, where the ViT's adapters have no place"
             )
         self.mesh = mesh
-        self._group = data_group(mesh)  # refuses model > 1 (A13)
+        self.tp = mesh_size(mesh, MODEL_AXIS)
+        if self.tp > 1:
+            if self._quantized_base:
+                raise NotImplementedError("a quantized trained tree with model > 1: fused int8 columns cannot "
+                                          "TP-split (JAX cli/evaluate.py:172; ROADMAP A13)")
+            if config.use_peft:
+                raise NotImplementedError("use_peft with model > 1 is not ported (ROADMAP A13): with model 1 the "
+                                          "adapters and the frozen base stay whole on every rank")
+            if config.context_parallel_size > 1:
+                raise NotImplementedError("context_parallel_size > 1 with model > 1 is not ported (ROADMAP A13)")
+            check_heads(cfg, self.tp)
+        self._group = data_group(mesh)
+        self._model_group = model_group(mesh)
         self._ranks = 1 if self._group is None else dist.get_world_size(self._group)
         self._cp = None
         if config.context_parallel_size > 1:
@@ -319,8 +351,9 @@ class GRPOTrainer:
         # whole group under context parallelism (its first rank rolls out)
         self.data_ranks = 1 if self._cp is not None else self._ranks
         self._data_rank = 0 if self._group is None or self._cp is not None else dist.get_rank(self._group)
-        self._rolls_out = self._cp is None or self._cp.rank == 0
-        self._writes = self._group is None or dist.get_rank() == 0  # under a mesh, global rank 0 writes
+        # model-rank 0 of each model group rolls out (under CP, the group's first rank)
+        self._rolls_out = (self._cp is None or self._cp.rank == 0) and mesh_coordinate(mesh, MODEL_AXIS) == 0
+        self._writes = mesh is None or dist.get_rank() == 0  # under a mesh, global rank 0 writes
         self.device = resolve_device(device)
         self.cfg = cfg
         self.processor = processor
@@ -344,6 +377,15 @@ class GRPOTrainer:
             if config.beta != 0.0 and ref_params is None:
                 ref_params = params  # the adapter-disable trick: the unmerged base is the reference
         self.ref_params = ref_params if config.beta != 0.0 else None
+        # a full-parameter trainer on a mesh keeps the policy and the
+        # reference sharded by the rule table (the engine gets a gathered copy)
+        self.shard = None
+        if mesh is not None and not config.use_peft:
+            self.shard = ShardContext.build(mesh, params)
+            self._whole_numels = [p.numel() for p in trainable_leaves(params, config.fix_vit)]
+            self.params = self.shard.shard(params)
+            if self.ref_params is not None:
+                self.ref_params = self.shard.shard(self.ref_params)
         # int8 KV rides with quantized weights, as in the JAX trainer: the
         # rollout samples through the quantized policy and the loss recomputes
         # its log-probs in bf16. A quantized base is already the rollout form:
@@ -351,6 +393,8 @@ class GRPOTrainer:
         self.engine = Engine(params, cfg, dtype=dtype, device=self.device,
                              quantization=(config.rollout_quantization or None) if not self._quantized_base else None,
                              kv_cache_quant=bool(config.rollout_quantization))
+        if self.shard is not None and not self._rolls_out:
+            self.engine.params = None  # a rank that does not roll out keeps no whole copy
         self.hp = GRPOHyperParams(
             num_generations=config.num_generations,
             beta=config.beta,
@@ -414,11 +458,13 @@ class GRPOTrainer:
             self._train_step = make_lora_train_step(self.cfg, self.hp, self.optimizer, self.lora_cfg,
                                                     group=self._group)
             return
+        numels = None if self.shard is None else self._whole_numels  # the offload rule reads the whole leaves
         if self.opt_state is None:
             self.opt_state = self.optimizer.init(trainable_leaves(self.params, self.hp.fix_vit),
-                                                 offload=c.offload_optimizer)
-        self._train_step = make_train_step(self.cfg, self.hp, self.optimizer, cp=self._cp,
-                                           group=None if self._cp is not None else self._group)
+                                                 offload=c.offload_optimizer, numels=numels)
+        group = None if self._cp is not None or self._ranks == 1 else self._group
+        self._train_step = make_train_step(self.cfg, self.hp, self.optimizer, cp=self._cp, group=group,
+                                           shard=self.shard)
 
     # ------------------------------------------------------------------
     def _log_metric(self, key: str, value: float):
@@ -529,9 +575,12 @@ class GRPOTrainer:
         thread); None builds them here, in the host_preproc phase."""
         c = self.c
         groups = rewards_all = None
+        if self._rolls_out or self.shard is not None:  # over shards the gather is every rank's collective
+            with self.timers.phase("weight_sync"):
+                self._sync_engine()
         if self._rolls_out:
             groups, rewards_all = self._roll_out(examples, requests)
-        if self._cp is not None:
+        if self._cp is not None or self.tp > 1:
             with self.timers.phase("batch_broadcast"):
                 groups, rewards_all = self._broadcast_groups(groups, rewards_all)
 
@@ -541,6 +590,7 @@ class GRPOTrainer:
             else:
                 batch = build_grpo_batch_groups(self.cfg, groups, dtype=self.dtype, device=self.device,
                                                 pad_multiple=None if self._cp is None else self._cp.multiple)
+        check_vision_agrees(batch, self.shard)
         if self.hp.fix_vit and batch.vision is not None:
             with self.timers.phase("vision_frozen"):
                 cap = self.engine.captured_vision
@@ -548,11 +598,11 @@ class GRPOTrainer:
                 if cap is not None and cap[0] == vision_signature(grids, batch.vision):
                     batch = batch._replace(vision_hidden=cap[1])
                 else:
-                    batch = precompute_frozen_vision(self.params, self.cfg, batch)
+                    batch = precompute_frozen_vision(self.params, self.cfg, batch, self.shard)
         if self.ref_params is not None:
             with self.timers.phase("ref_logps"):
                 batch = batch._replace(ref_logps=compute_ref_logps(self.ref_params, self.cfg, self.hp, batch,
-                                                                   cp=self._cp))
+                                                                   cp=self._cp, shard=self.shard))
 
         with self.timers.phase("train_step"):
             if self.lora is not None:
@@ -566,11 +616,9 @@ class GRPOTrainer:
         return {"loss": float(loss), "reward": float(rewards_all.mean())}
 
     def _roll_out(self, examples, requests):
-        """Weight sync, host preprocessing (when `requests` is None), the
-        G-way rollouts and their scoring → (groups, rewards)."""
+        """Host preprocessing (when `requests` is None), the G-way rollouts
+        and their scoring → (groups, rewards)."""
         c = self.c
-        with self.timers.phase("weight_sync"):
-            self._sync_engine()
         if requests is None:
             with self.timers.phase("host_preproc"):
                 requests = self.prepare_requests(examples)
@@ -587,28 +635,47 @@ class GRPOTrainer:
             return self._score_rollouts(examples, requests, all_completions)
 
     def _broadcast_groups(self, groups, rewards_all):
-        """Context parallelism: the first rank's scored groups and rewards to
-        every rank of the group, as host objects (patches as CPU tensors), so
-        that every rank builds the same batch."""
+        """The rolling-out rank's scored groups, rewards and the metrics their
+        scoring logged, to every rank of its group (the context-parallel
+        group, or the model group), as host objects (patches as CPU tensors),
+        so that every rank builds the same batch and logs the same metrics."""
+        group = self._group if self._cp is not None else self._model_group
         box = [None]
         if self._rolls_out:
             box = [([dict(g, patches=None if g["patches"] is None else torch.as_tensor(g["patches"]).cpu())
-                     for g in groups], rewards_all)]
-        dist.broadcast_object_list(box, src=dist.get_global_rank(self._group, 0), group=self._group)
-        return box[0]
+                     for g in groups], rewards_all, self._rollout_metrics)]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0), group=group)
+        groups, rewards_all, logged = box[0]
+        if not self._rolls_out:
+            for k, v in logged:
+                self._log_metric(k, v)
+        return groups, rewards_all
 
     def _prepare(self, examples):
         """prepare_requests on a rank that rolls out; None on the others."""
         return self.prepare_requests(examples) if self._rolls_out else None
 
     def _sync_engine(self) -> None:
-        """The live policy into the engine, once a step_batch. Full-parameter:
-        the same tensors (a re-quantization pass with rollout_quantization).
+        """The live policy into the engine, once a step_batch. Sharded: every
+        rank gathers the policy and the rank that rolls out keeps it as the
+        engine's tree, quantized one layer at a time with rollout_quantization
+        (the old copy dropped first). Full-parameter on one process: the same
+        tensors (a re-quantization pass with rollout_quantization).
         LoRA over an int8 base: the adapters as side products, with no merge
         and no copy; over a bf16 base with rollout_quantization: the old
         quantized copy dropped, then a new one merged and quantized one layer
         at a time; otherwise the merged tree."""
-        if self.lora is None:
+        if self.shard is not None:
+            self.engine.params = None
+            q = self.c.rollout_quantization
+            bits = QBITS[q] if q else None
+            tree = gather_params(self.params, self.shard, keep=self._rolls_out,
+                                 text_layer=(lambda lp: quantize_layer(lp, bits=bits, fuse=True)) if q else None)
+            if self._rolls_out:
+                if q:
+                    tree = dict(tree, text=quantize_text_params(tree["text"], bits=bits))
+                self.engine.set_params(tree, prequantized=bool(q))
+        elif self.lora is None:
             self.engine.set_params(self.params)
         elif self._quantized_base:
             layers, rest = lora_layers_tree(self.lora)
@@ -631,11 +698,26 @@ class GRPOTrainer:
             return self.params
         return merge_lora(self.params, self.lora, self.lora_cfg)
 
+    @torch.no_grad()
+    def gathered_params(self, keep: bool = True, to=None) -> Optional[dict]:
+        """The whole policy: the params, or over shards the tree gathered
+        from every rank's blocks (every rank calls it; keep=False takes part
+        and keeps nothing)."""
+        if self.shard is None:
+            return self._policy_params()
+        return gather_params(self.params, self.shard, keep=keep, to=to)
+
+    def _log_rollout_metric(self, key: str, value: float):
+        self._log_metric(key, value)
+        self._rollout_metrics.append((key, float(value)))
+
     def _score_rollouts(self, examples, requests, all_completions):
         """Host scoring of a step's P·G rollouts: decode the texts, run the
         reward and metric functions, compute the group advantages, and build
-        the loss batch's group dicts."""
+        the loss batch's group dicts. The metrics it logs are also kept in
+        `_rollout_metrics` for `_broadcast_groups`."""
         G = self.c.num_generations
+        self._rollout_metrics = []
         groups, rewards_all = [], []
         for ei, (example, req) in enumerate(zip(examples, requests)):
             completions = all_completions[ei * G: (ei + 1) * G]
@@ -653,11 +735,11 @@ class GRPOTrainer:
                     self._debug_log.log_reward(completion_texts[g], None, example.get("solution"),
                                                float(rewards[g]))
             for i, fn in enumerate(self.reward_funcs):
-                self._log_metric(f"rewards/{fn.__name__}", rewards_per_func[:, i].mean())
+                self._log_rollout_metric(f"rewards/{fn.__name__}", rewards_per_func[:, i].mean())
             for fn in self.metric_funcs:
                 vals = [v for v in fn(completions=completion_texts, **reward_kwargs) if v is not None]
                 if vals:
-                    self._log_metric(f"metrics/{fn.__name__}", float(np.mean(vals)))
+                    self._log_rollout_metric(f"metrics/{fn.__name__}", float(np.mean(vals)))
             rewards_all.append(rewards)
             groups.append({
                 "prompt_ids": req.input_ids,
@@ -671,8 +753,8 @@ class GRPOTrainer:
         advantages = compute_group_advantages(rewards_all, G)
         for i, g in enumerate(groups):
             g["advantages"] = advantages[i * G: (i + 1) * G]
-        self._log_metric("reward", rewards_all.mean())
-        self._log_metric("reward_std", rewards_all.reshape(-1, G).std(axis=1, ddof=1).mean())
+        self._log_rollout_metric("reward", rewards_all.mean())
+        self._log_rollout_metric("reward_std", rewards_all.reshape(-1, G).std(axis=1, ddof=1).mean())
         return groups, rewards_all
 
     def _strip_stop(self, comp):
@@ -755,18 +837,43 @@ class GRPOTrainer:
         and a model card. With the tokenizer beside the weights, the SF loop's
         evaluate and its next round's train load the directory as a model
         (the JAX package writes no tokenizer: ROADMAP §C). Over ranks, global
-        rank 0 writes and every rank of the group waits for it."""
+        rank 0 writes and every rank waits for it; over shards every rank
+        first takes part in gathering the params (and the optimizer state)
+        to rank 0's host memory, leaf by leaf."""
         self.opt_state.wait()
+        params = opt_tree = None
+        if self.shard is not None:
+            params = self.gathered_params(keep=self._writes, to="cpu")
+            if not self.c.save_only_model:
+                opt_tree = self._gathered_opt_tree(keep=self._writes)
         if self._writes:  # one rank writes; the others wait at the barrier
-            self._write_checkpoint(path)
-        if self._ranks > 1:
-            dist.barrier(group=self._group)
+            self._write_checkpoint(path, params, opt_tree)
+        if self.mesh is not None and dist.get_world_size() > 1:
+            dist.barrier()
 
-    def _write_checkpoint(self, path: str):
+    def _opt_specs(self) -> dict:
+        """The spec tree of `opt_state.tree()`: each state list's leaves
+        sharded as their parameters."""
+        from ..parallel.sharding import Spec
+
+        specs = trainable_leaves(self.shard.specs, self.hp.fix_vit)
+        out = {"count": Spec(()), "mini_step": Spec(()), "mu": specs, "nu": specs}
+        if self.opt_state.acc is not None:
+            out["acc"] = specs
+        return out
+
+    @torch.no_grad()
+    def _gathered_opt_tree(self, keep: bool) -> Optional[dict]:
+        """The optimizer state's tree with its blocks gathered whole (host
+        memory on a rank that keeps it)."""
+        return gather_params(self.opt_state.tree(), dataclasses.replace(self.shard, specs=self._opt_specs()),
+                             keep=keep, to="cpu")
+
+    def _write_checkpoint(self, path: str, params=None, opt_tree=None):
         os.makedirs(path, exist_ok=True)
         # a LoRA run saves the merged model (over an int8 base, the base) and
         # the adapters beside it, in the JAX package's format
-        save_params(path, self._policy_params())
+        save_params(path, self._policy_params() if params is None else params)
         if self.lora is not None:
             save_lora_npz(os.path.join(path, LORA_FILE), self.lora, self.cfg)
         if hasattr(self.processor, "save_pretrained"):  # a processor of ids only (chip_smoke.py) has none
@@ -774,7 +881,7 @@ class GRPOTrainer:
         if not self.c.save_only_model:
             # the full training state (HF --save_only_model false): a resume
             # restores the moments and the accumulation and schedule counts
-            save_params(path, self.opt_state.tree(), name="opt_state")
+            save_params(path, self.opt_state.tree() if opt_tree is None else opt_tree, name="opt_state")
         with open(os.path.join(path, "trainer_state.json"), "w") as f:
             json.dump({"global_step": self.global_step}, f)
         with open(os.path.join(path, NATIVE_CONFIG), "w") as f:
@@ -804,17 +911,31 @@ class GRPOTrainer:
             else:
                 load_params_into(path, self.params)
                 restore_opt = False
+        elif self.shard is not None:  # every rank reads the whole tree and keeps its blocks
+            load_params_into(path, self.params, block=self._block_of(self.shard.specs))
         else:
             load_params_into(path, self.params)  # refuses an orbax directory, and a tree of another shape
-        self._sync_engine()
+        if self.shard is None:  # over shards the next step_batch's weight_sync gathers the restored policy
+            self._sync_engine()
         state_path = os.path.join(path, "trainer_state.json")
         if os.path.exists(state_path):
             with open(state_path) as f:
                 self.global_step = json.load(f).get("global_step", self.global_step)
         if restore_opt and is_native_checkpoint(path, "opt_state"):
             tree = self.opt_state.tree()
-            load_params_into(path, tree, name="opt_state")
+            load_params_into(path, tree, name="opt_state",
+                             block=None if self.shard is None else self._block_of(self._opt_specs()))
             self.opt_state.load_tree(tree)
+
+    def _block_of(self, specs):
+        """(checkpoint key, whole leaf) -> this rank's block, by the spec at
+        that key of `specs` (a tree shaped like what was saved)."""
+        def block(key: str, leaf: torch.Tensor) -> torch.Tensor:
+            spec = specs
+            for part in key.split("."):
+                spec = spec[int(part)] if isinstance(spec, list) else spec[part]
+            return shard_leaf(leaf, spec, self.shard.sizes, self.shard.coords)
+        return block
 
     def save_model_card(self, path: str):
         """A draft model card (timer1_trainer.py:795-857)."""

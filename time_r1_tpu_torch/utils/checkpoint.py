@@ -118,17 +118,19 @@ def load_params(path: str, name: str = "params", device="cpu", dtype: Optional[t
 
 
 @torch.no_grad()
-def load_params_into(path: str, like, name: str = "params") -> None:
+def load_params_into(path: str, like, name: str = "params", block=None) -> None:
     """Copy the tree save_params wrote into the tensors of `like`, in place
     (one leaf at a time from the mapped file; whatever holds them sees the
-    restored values). Its paths, shapes and dtypes must be like's."""
+    restored values). Its paths, shapes and dtypes must be like's. block:
+    `(key, saved leaf) -> this rank's block of it` when `like` holds a
+    sharded tree's blocks (`parallel/sharding.py`)."""
     flat = _read(path, name)
     want = flatten(like)
     if set(flat) != set(want):
         missing, extra = sorted(set(want) - set(flat)), sorted(set(flat) - set(want))
         raise ValueError(f"{checkpoint_file(path, name)}: tree differs (missing {missing[:5]}, extra {extra[:5]})")
     for key, dst in want.items():
-        src = flat[key]
+        src = flat[key] if block is None else block(key, flat[key])
         if src.shape != dst.shape or src.dtype != dst.dtype:
             raise ValueError(f"{key}: saved {tuple(src.shape)} {src.dtype}, held {tuple(dst.shape)} {dst.dtype}")
         dst.copy_(src)
