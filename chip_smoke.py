@@ -119,7 +119,7 @@ Phases (any failed check raises and the exit code is non-zero):
    phase 5 (`step_batch_tc_launches`), all on the tensor cores;
 9. a GRPO run from the command line, once phase 8's model is freed (it
    writes up to 26 GB under TMPDIR and refuses to start with less free):
-   (a) Qwen2.5-VL-3B's seeded weights at CLI_LAYERS (18) decoder layers
+   (a) Qwen2.5-VL-3B's seeded weights at CLI_LAYERS (12) decoder layers
    (phases 10 and 12 (d) too; launch counts below are at 36: L / 36 of
    them) through `save_hf_checkpoint` and `load_checkpoint`, bit-equal, with
    a config.json that reads back as written; (b)
@@ -230,7 +230,42 @@ Phases (any failed check raises and the exit code is non-zero):
    moments), and `cli.train.main --tensor_parallel_size 2` for 2 steps. Phase 2
    first holds K1, B1, B2, S1 and S2 at 8 q over 1 kv head and 7 over 1,
    and K2/K3 at 8 and 4 heads of 80. Where the machine shows two cards or
-   more, (d) and (e) run again over NCCL.
+   more, (d) and (e) run again over NCCL;
+15. generation over a mesh (`Engine(shard=...)`, `parallel/pipeline.py`),
+   2 ranks over gloo on the first card, as phase 14's, after one process's
+   references (its decode eager, as the mesh's): (a) the TP Engine over
+   make_mesh(2) (8 q over 1 kv head, 8 vision heads and half the MLP width
+   a rank) and (b) PPEngine over 2 stages (stage 0 the vision tower, the
+   embedding, the head and 6 of 12 layers), each on phase 4's two video
+   requests at G = 1 and the first at G = 8 (the TP Engine's shared-prefix
+   decode, D2; PPEngine's expanded rows), and int8 weights (the TP Engine
+   at G = 8 with the int8 KV cache, D2 and Q2; PPEngine at G = 1, Q2), 64
+   greedy tokens, Qwen2.5-VL-3B at MESH_LAYERS (12) decoder layers in bf16
+   and at 2 layers and 4 vision blocks in f32: the launches of K1, K2, K3,
+   D2 and Q2 on each rank by the formula (`mesh_launches`), tensor-core in
+   bf16, FMA in f32; the ranks' tokens equal; in f32 PPEngine's tokens and
+   the TP Engine's without int8 equal one process's, every f32 prefill's
+   logits within MESH_F32_TOL; the bf16 runs' logits within MESH_LOGIT_TOL
+   of one process's where the prefixes agree, the f32 TP Engine's over int8
+   within MESH_INT8_F32_TOL, the tokens that agree counted (in f32 the TP
+   Engine also runs over int8 weights with an f32 KV cache, its tokens
+   held: a witness that Q2's bf16 rounding, not the int8 KV cache, turns
+   TP's f32 summation order into whole steps); decode
+   ms a step, GB staged, the peak and the weights a rank holds; (c) at 3B widths and 2 layers in f32,
+   `cli.evaluate.main` with --tensor_parallel_size 2 and with
+   --pipeline_parallel_size 2, records equal to one process's, and
+   `cli.demo.main --pipeline_parallel_size 2`, its answer one process's.
+   Phase 2 first holds D2 at 8 q over 1 kv head and 7 over 1 (bf16 and int8
+   caches, bf16 and f32) and Q2 at the 3B's tp-2 widths (hid 2048, inter
+   5504) and the 7B's tp-4 (3584, 4736), M 1 and 8, and the sum of Q2 over
+   each rank's block of a whole quantized MLP against Q2 over the whole one
+   in f32 within Q2_PARTIAL_TOL (`tp_decode_quant_cases`).
+   Where the machine shows two cards or more, (a)-(c) run again over NCCL.
+   `scripts/check_parallel.py g`, 4 cards only: Qwen2.5-VL-7B at full depth
+   served over NCCL at tp 4, 4 stages and 2x2, against one card's: at full
+   depth in bf16 its prefill and decode logits where the prefixes agree
+   within SEVEN_B_LOGIT_TOL; at SEVEN_B_F32_LAYERS in f32 its tokens equal
+   and every logit within MESH_F32_TOL.
 
 From phase 3 on, every `Engine` and `PagedEngine` decode on the card is a
 captured CUDA graph replayed once a step (`time_r1_tpu_torch/sampler/graph.py`;
@@ -243,7 +278,10 @@ D2's launches by name).
 The kernels' entries for K1, B1 and B2 also give phase 13 (b)'s launches
 on each rank of the 3B's context-parallel loss step, and those of K1-K3, B1,
 B2, S1 and S2 phase 14 (d)'s on rank 0 of each mesh
-(`launches_sharded_loss_per_rank`).
+(`launches_sharded_loss_per_rank`); those of K1-K3, D2 and Q2 phase 15's in
+each bf16 run of the TP Engine and of PPEngine, [rank 0, rank 1]
+(`launches_tp_engine`, `launches_pp_engine`), and D2's and Q2's their
+TP-local cases under their tags.
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 kernels JSON line and the result JSON line; the line before them gives the
@@ -417,6 +455,7 @@ def phase_kernels() -> dict:
     attention_7b_cases(results)
     full_row_attention_cases(gen, results)
     results.update(phase_decode_quant_kernels())
+    tp_decode_quant_cases(torch.Generator(device="cuda").manual_seed(9), results)
     results.update(phase_paged_kernels())
     return results
 
@@ -1738,6 +1777,141 @@ def quant_kernels(gen) -> dict:
     q1 = q1_kernel(gen)
     q2 = q2_kernel(gen)
     return {q1["name"]: q1, q2["name"]: q2}
+
+
+# D2 and Q2 at phase 15's TP-local shapes: one kv head a rank (the 3B's 16 q
+# over 2 kv at tp 2, G 8; the 7B's 28 over 4 at tp 4, G 7) at the G-way
+# step's shape of `decode_kernels` (P, R, H, Hkv, D, Lp, Lo, left pad), and
+# the MLP's inter / tp (the 3B's 11008 at tp 2, the 7B's 18944 at tp 4) at
+# (hid, inter), M rows each
+TP_D2 = {"3B_tp2_G8": (1, 8, 8, 1, 128, 2048, 256, 134), "7B_tp4_G7": (1, 8, 7, 1, 128, 2048, 256, 134)}
+TP_Q2 = {"3B_tp2": (2048, 5504), "7B_tp4": (3584, 4736)}
+TP_Q2_ROWS = (1, 8)
+# max |Σ_m Q2(x, rank m's block) − Q2(x, whole)| / max |Q2(x, whole)|, f32 x: gate, up and the bf16 activation are
+# the same numbers in both (each a sum over hid), so only the order of down's f32 sums over inter differs
+Q2_PARTIAL_TOL = 1e-5
+
+
+def tp_decode_quant_cases(gen, results: dict) -> None:
+    """D2 at TP_D2 over bf16 and int8 caches (bf16 and f32 activations,
+    suffix lengths 0, 1, 199) and Q2 at TP_Q2 (M 1 and 8: bf16 end to end
+    and both dtypes with their phases apart) against their plain versions;
+    each timed in bf16 (D2 at suffix 199, Q2 at M 8) beside its bound, its
+    plain version and one library call; written to the kernels' entries as
+    their tags."""
+    import torch
+    import torch.nn.functional as F
+
+    from time_r1_tpu_torch.ops import decode_attention as da
+    from time_r1_tpu_torch.ops.fused_mlp import _launch as fused_mlp_launch
+    from time_r1_tpu_torch.ops.fused_mlp import fused_mlp_int8, fused_mlp_int8_plain
+    from time_r1_tpu_torch.ops.quant import dequantize_weight, quantize_weight
+
+    dev = torch.device("cuda")
+    for tag, (P, R, H, Hkv, D, Lp, Lo, pad) in TP_D2.items():
+        base = decode_base(gen, P, R, H, Hkv, D, Lp, Lo, pad)
+        row = {"cases": {}}
+        for dtype in (torch.bfloat16, torch.float32):
+            key = str(dtype).split(".")[-1]
+            for int8 in (False, True):
+                x = decode_views(base, dtype, int8)
+                for own_len in (0, 1, 199):
+                    got = da.shared_prefix_decode_full(*d2_args(x, own_len))
+                    want = da.shared_prefix_decode_full_plain(*d2_args(x, own_len))
+                    check_case(row, f"D2 {tag}", f"{key}, {'int8' if int8 else key} caches, suffix {own_len}",
+                               [(got, want)], DECODE_TOL[key])
+        B, N, own, live = P * R, R * (H // Hkv), 199, Lp - pad
+        cat = {n: torch.cat([base[f"{n}p"].expand(B, -1, -1, -1), base[f"{n}o"][:, :own], base[f"{n}n"][:, None]], 1)
+               .transpose(1, 2).to(torch.bfloat16) for n in ("k", "v")}
+        mask = torch.cat([base["bias"].expand(B, -1), torch.zeros(B, own + 1, device=dev)], 1)[:, None, None, :]
+        qt, mk = base["q"].transpose(1, 2).to(torch.bfloat16), mask.to(torch.bfloat16)
+        row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, cat["k"], cat["v"], attn_mask=mk,
+                                                                           enable_gqa=True), 50)
+        for int8 in (False, True):
+            args = d2_args(decode_views(base, torch.bfloat16, int8), own)
+            kv, sc = (1, 8) if int8 else (2, 0)
+            nbytes = (P * Hkv * live * (2 * D * kv + sc) + B * Hkv * own * (2 * D * kv + sc) + 2 * B * Hkv * D * 2
+                      + 2 * P * Hkv * N * D * 2 + Lp * P * 4)
+            b_ms, b_by = bound(4.0 * D * (N * live * P * Hkv + B * H * (own + 1)), nbytes)
+            sfx = "_int8" if int8 else ""
+            row.update({f"ms{sfx}": cuda_ms(lambda: da.shared_prefix_decode_full(*args), 50),
+                        f"call_ms{sfx}": cuda_ms(lambda: da.shared_prefix_decode_full(*args), 50, queued=False),
+                        f"plain_ms{sfx}": cuda_ms(lambda: da.shared_prefix_decode_full_plain(*args), 10),
+                        f"bound_ms{sfx}": b_ms, f"bound_by{sfx}": b_by})
+            log(f"[kernels] D2 {tag}{sfx} (H {H} over Hkv {Hkv}): {row[f'ms{sfx}']:.4f} ms on the device, "
+                f"{row[f'call_ms{sfx}']:.4f} ms per call (plain {row[f'plain_ms{sfx}']:.3f}, bound {b_ms:.5f} by "
+                f"{b_by}, library {row['library_ms']:.4f})")
+        results["shared_prefix_decode_full"][tag] = row
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+
+    for tag, (hid, inter) in TP_Q2.items():
+        gu, dn = quantize_weight(randn(2 * inter, hid) * 0.02), quantize_weight(randn(hid, inter) * 0.02)
+        row = {"cases": {}, "phases_apart": {}}
+        for M in TP_Q2_ROWS:
+            xf = randn(M, hid)
+            for dtype in (torch.bfloat16, torch.float32):
+                key = str(dtype).split(".")[-1]
+                args = (xf.to(dtype), gu["q8"], gu["s"], dn["q8"], dn["s"])
+                y, act = fused_mlp_launch(*args)
+                case = f"M={M} hid={hid} inter={inter} {key}"
+                row["phases_apart"][case] = q2_phases_apart(y, act, *args)
+                if dtype is torch.bfloat16:
+                    check_case(row, f"Q2 {tag}", case, [(y, fused_mlp_int8_plain(*args))], QUANT_TOL[key])
+        M = TP_Q2_ROWS[-1]
+        args = (randn(M, hid).to(torch.bfloat16), gu["q8"], gu["s"], dn["q8"], dn["s"])
+        gud, dnd = dequantize_weight(gu, torch.bfloat16), dequantize_weight(dn, torch.bfloat16)
+
+        def library():
+            g, u = F.linear(args[0], gud).chunk(2, dim=-1)
+            return F.linear(F.silu(g) * u, dnd)
+
+        weight_bytes = 3 * inter * hid
+        b_ms, b_by = bound(2.0 * M * hid * 3 * inter, weight_bytes + (2 * inter + hid) * 4 + 2 * M * hid * 2)
+        row.update(ms=cuda_ms(lambda: fused_mlp_int8(*args), 50),
+                   call_ms=cuda_ms(lambda: fused_mlp_int8(*args), 50, queued=False),
+                   plain_ms=cuda_ms(lambda: fused_mlp_int8_plain(*args), 10), library_ms=cuda_ms(library, 50),
+                   bound_ms=b_ms, bound_by=b_by, rows=M)
+        row["weight_gbps"] = weight_bytes / row["ms"] / 1e6
+        log(f"[kernels] Q2 {tag} (hid {hid}, inter {inter}, M {M}): {row['ms']:.4f} ms on the device "
+            f"({row['weight_gbps']:.0f} GB/s of int8 weights, {100 * b_ms / row['ms']:.1f}% of the bound), "
+            f"{row['call_ms']:.4f} ms per call (plain {row['plain_ms']:.3f}, bound {b_ms:.5f} by {b_by}, library "
+            f"{row['library_ms']:.4f})")
+        row["partial_sums"] = q2_partial_sums(gen, hid, inter, int(tag.split("_tp")[1]))
+        results["fused_mlp_int8"][tag] = row
+
+
+def q2_partial_sums(gen, hid: int, inter: int, tp: int) -> float:
+    """The TP Engine's Q2 route on the card: a whole (hid, tp·inter) MLP
+    quantized whole, each rank's block taken as `serving_layer` takes it
+    (its gate and up rows with their scales, its columns of down with every
+    scale whole), Q2 launched over each block and the partial sums added,
+    against Q2 over the whole MLP; f32, M 8. Raises above Q2_PARTIAL_TOL."""
+    import torch
+
+    from time_r1_tpu_torch.ops.fused_mlp import fused_mlp_int8
+    from time_r1_tpu_torch.ops.quant import quantize_weight
+
+    width = tp * inter
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32)
+
+    gu, dn = quantize_weight(randn(2 * width, hid) * 0.02), quantize_weight(randn(hid, width) * 0.02)
+    x = randn(TP_Q2_ROWS[-1], hid)
+    whole = fused_mlp_int8(x, gu["q8"], gu["s"], dn["q8"], dn["s"])
+    total = torch.zeros_like(whole)
+    for m in range(tp):
+        rows = torch.cat([torch.arange(m * inter, (m + 1) * inter), width + torch.arange(m * inter, (m + 1) * inter)])
+        total += fused_mlp_int8(x, gu["q8"][rows].contiguous(), gu["s"][rows].contiguous(),
+                                dn["q8"][:, m * inter:(m + 1) * inter].contiguous(), dn["s"])
+    err = ((total - whole).abs().max() / whole.abs().max()).item()
+    log(f"[kernels] Q2 partial sums over {tp} blocks of inter {inter} (hid {hid}, f32): {err:.3e} of the whole "
+        f"MLP's max (limit {Q2_PARTIAL_TOL})")
+    if not err <= Q2_PARTIAL_TOL:
+        raise AssertionError(f"Q2 partial sums over {tp} blocks: {err} > {Q2_PARTIAL_TOL}")
+    return err
 
 
 # Q1's checks: the int4 decode products (N, K) of Qwen2.5-VL 3B at M = 1, 8,
@@ -3761,8 +3935,8 @@ def phase_input_path(card: str) -> dict:
 PHASE9_BYTES = 26e9  # what phase 9 writes at its peak (three 3B checkpoints of at most 7.5 GB), with room
 # The decoder depth of the CLI phases (9, 10 and 12 (d): the 3B; 11: the 7B), cut so that the script, its
 # phases 13 and 14 included, stays inside its time limit: their checks are of the entry points' plumbing, whose
-# work per layer is the same at any depth
-CLI_LAYERS = 18
+# work per layer is the same at any depth (12, with phase 15 inside the limit too)
+CLI_LAYERS = 12
 LORA_7B_LAYERS = 14
 
 
@@ -5522,7 +5696,7 @@ def parallel_rank(job: str, root: str) -> int:
         with open(os.path.join(root, "args.json")) as f:
             args = json.load(f)
         result = {"ring": ring_job, "cp_loss": cp_loss_job, "dp": dp_job, "sharded": sharded_job,
-                  "seven_b": seven_b_job}[job](args)
+                  "seven_b": seven_b_job, "mesh": mesh_job, "seven_b_serving": seven_b_serving_job}[job](args)
         with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
             json.dump(result, f)
         dist.barrier()
@@ -6678,6 +6852,607 @@ def phase_sharded(card: str, parts: str = "de", nccl_only: bool = False) -> dict
     log(f"[sharded] phase 14 ({parts}): {time.perf_counter() - t0:.1f} s; {card}")
     return result
 
+# ---------------------------------------------------------------------------
+# phase 15: generation over a mesh (the TP Engine, PPEngine, the eval and demo CLIs)
+MESH_LAYERS = 12  # (a), (b)'s bf16 decoder depth at 3B widths (two ranks and one process share the card)
+MESH_NEW_TOKENS = 64
+# max |mesh - one process| / max |one process| of a row's logits where the two runs' prefixes are equal, for the
+# runs held by their logits (`mesh_job`): in bf16 each row-parallel product's partial sums round to bf16 before
+# the all-reduce adds them (2 a layer, compounding over MESH_LAYERS: 2.8e-2 at 12 layers on an H100); with int8
+# weights Q2 rounds x and its activations to bf16, and the int8 KV cache each K/V vector to 1/127 of its scale,
+# so an f32 rounding difference there moves a value by a whole step
+MESH_LOGIT_TOL = 5e-2
+# the f32 TP Engine over int8 weights, held like the bf16 runs by its logits where the prefixes agree. Readings on an
+# H100: 2.90e-3 with the int8 KV cache (its tokens part from one process's at step 39), 2.23e-3 with an f32 one (the
+# witness, its tokens all equal and held); both leave MESH_F32_TOL at the first decode step, the first through Q2,
+# whose bf16 rounding of x turns TP's f32 summation order into whole bf16 steps (Q2's own partial sums over the
+# ranks' blocks agree with the whole MLP's within Q2_PARTIAL_TOL: phase 2)
+MESH_INT8_F32_TOL = 1e-2
+# every f32 run's prefill logits (before any bf16 rounding or int8 KV read moves a value by a step): readings 1.8e-6
+# to 3.7e-6 on an H100
+MESH_F32_TOL = 1e-4
+MESH_TIMEOUT = 400  # s: the parent's wait for phase 15's spawn
+# (name, engine, G, quantization, int8 KV): the TP Engine over make_mesh(2) or PPEngine over 2 stages; G = 1
+# serves phase 4's two video requests, G = 8 the first (the TP Engine's shared-prefix decode, D2; PPEngine
+# expands the rows); the reference is one process's Engine with the same arguments
+MESH_RUNS = (
+    ("tp_g1", "tp", 1, None, False),
+    ("tp_g8", "tp", 8, None, False),
+    ("tp_int8_g8", "tp", 8, "int8", True),
+    ("pp_g1", "pp", 1, None, False),
+    ("pp_g8", "pp", 8, None, False),
+    ("pp_int8_g1", "pp", 1, "int8", False),
+    ("tp_int8w_g8", "tp", 8, "int8", False),  # f32 only: the witness, int8 weights over an f32 KV cache
+)
+MESH_REFS = {"g1": (1, None, False), "g8": (8, None, False), "int8_g8": (8, "int8", True),
+             "int8_g1": (1, "int8", False), "int8w_g8": (8, "int8", False)}  # each mesh run's is its name's tail
+MESH_F32_ONLY = ("tp_int8w_g8", "int8w_g8")  # runs and references made in f32 only
+
+
+def mesh_ref_key(name: str) -> str:
+    return name.split("_", 1)[1]
+
+
+def mesh_cases():
+    """(a), (b)'s configurations: Qwen2.5-VL-3B at MESH_LAYERS in bf16 (the
+    tensor-core kernels, the whole vision tower), and at 2 decoder layers
+    and 4 vision blocks (the last a full-attention one) in f32 (FMA)."""
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
+
+    cfg = Qwen25VLConfig.qwen25vl_3b()
+    small = replace(cfg, text=replace(cfg.text, num_hidden_layers=2),
+                    vision=replace(cfg.vision, depth=4, fullatt_block_indexes=(3,)))
+    return {"bf16": (cut_depth(cfg, MESH_LAYERS), "bfloat16"), "f32": (small, "float32")}
+
+
+def mesh_requests(cfg, G: int) -> list:
+    """Phase 4's two video requests (G = 1), or the first (G > 1)."""
+    rng = np.random.default_rng(0)
+    reqs = [video_request(cfg, rng, 32, 224, 392), video_request(cfg, rng, 24, 280, 336)]
+    return reqs if G == 1 else reqs[:1]
+
+
+def mesh_rows(G: int) -> int:
+    """The rows whose logits a run records: both requests at G = 1; at G > 1
+    the first (greedy: the G rows are alike)."""
+    return 2 if G == 1 else 1
+
+
+def mesh_sampling(G: int):
+    from time_r1_tpu_torch.sampler import SamplingParams
+
+    # no stop id: every row takes all MESH_NEW_TOKENS, so that the launches follow from the step count
+    return SamplingParams(temperature=0.0, max_new_tokens=MESH_NEW_TOKENS, stop_token_ids=(), num_return_sequences=G)
+
+
+def recording_pick(eng, store: list, rows: int) -> None:
+    """eng's token choice (`_pick`) wrapped to append, where this rank has
+    them, the first `rows` rows of the logits of each pick (the prefill's
+    last position, then each decode step) to `store`, as f32 on the host."""
+    original = eng._pick
+
+    def _pick(gen, sp):
+        pick = original(gen, sp)
+
+        def recorded(logits, counts, like):
+            if logits is not None:
+                store.append(logits[:rows].float().cpu())
+            return pick(logits, counts, like)
+
+        return recorded
+
+    eng._pick = _pick
+
+
+def mesh_launches(cfg, kind: str, G: int, quant, kv: bool, stage: int, steps: int) -> dict:
+    """One mesh run's launches on a rank: K2/K3 in one vision pass (the TP
+    Engine on every rank at its heads; PPEngine on stage 0 only), K1 a layer
+    of the rank's in the one prefill chunk, and a layer of the rank's every
+    decode step: D2 in the TP Engine's G-way decode, Q2 with int8 weights
+    (PPEngine's expanded rows decode through `mha_cached`: no D2)."""
+    L = cfg.text.num_hidden_layers // (2 if kind == "pp" else 1)
+    vision = vision_tc_launches(cfg) if kind == "tp" or stage == 0 else {n: 0 for n in vision_tc_launches(cfg)}
+    out = vision | {"flash_attention": L, "shared_prefix_decode_full": L * steps if kind == "tp" and G > 1 else 0,
+                    "fused_mlp_int8": L * steps if quant == "int8" else 0}
+    return out
+
+
+def mesh_reference(card: str) -> tuple:
+    """(a), (b) first, in this process: one process's Engine for each
+    configuration and each of MESH_REFS, its decode eager as the mesh's is
+    (`eager_decode`), the tokens and (bf16 G = 1) each pick's logits to a
+    file; then (c)'s one-process records. The card is freed before the
+    ranks start. Returns ({key: file}, root, {key: numbers})."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from time_r1_tpu_torch.cli import demo, evaluate
+    from time_r1_tpu_torch.models.processor import Qwen25VLProcessor
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.sampler import Engine
+
+    root = tempfile.mkdtemp(prefix="timer1_phase15_")
+    files, numbers = {}, {}
+    for tag, (cfg, dtype_name) in mesh_cases().items():
+        dtype = getattr(torch, dtype_name)
+        params = init_params(cfg, seed=0, device="cuda", dtype=dtype)
+        refs = {}
+        for key, (G, quant, kv) in MESH_REFS.items():
+            if tag != "f32" and key in MESH_F32_ONLY:
+                continue
+            eng = Engine(params, cfg, dtype=dtype, device="cuda", quantization=quant, kv_cache_quant=kv)
+            store = []
+            recording_pick(eng, store, mesh_rows(G))
+            torch.cuda.reset_peak_memory_stats()
+            with eager_decode():
+                tokens = eng.generate(mesh_requests(cfg, G), mesh_sampling(G))
+            tm = eng.timings
+            refs[key] = dict(tokens=tokens, logits=store,
+                             peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                             decode_ms=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1))
+            numbers[f"{tag}_{key}"] = {k: refs[key][k] for k in ("peak_gib", "decode_ms")}
+            log(f"[mesh] one process {tag} {key}: {[len(t) for t in tokens]} tokens, decode "
+                f"{refs[key]['decode_ms']:.2f} ms/step (eager), peak {refs[key]['peak_gib']:.2f} GiB; {card}")
+            del eng
+        files[tag] = os.path.join(root, f"{tag}.pt")
+        torch.save(refs, files[tag])
+        del params, refs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c): the CLIs' one-process records, f32 at 2 decoder layers, from a native checkpoint
+    cfg = reduced_config()
+    ckpt = os.path.join(root, "ckpt")
+    native_checkpoint(ckpt, init_params(cfg, seed=0, device="cpu", dtype=torch.float32), cfg)
+    data = write_dataset(root, "eval", 2)
+    with cli_stand_ins(cfg), mesh_cli_patches():
+        eng = Engine(*evaluate.load_checkpoint(ckpt, device="cuda"), dtype=torch.float32, device="cuda")
+        proc = Qwen25VLProcessor.from_pretrained(ckpt)
+        recs = read_jsonl(evaluate.main(evaluate.get_args(mesh_eval_argv(ckpt, data, os.path.join(root, "one"))),
+                                        eng, proc))
+        pred = demo.main(demo.get_args(mesh_demo_argv(ckpt, os.path.join(root, "demo_one"))), eng, proc)
+    files["cli"] = dict(ckpt=ckpt, data=data, records=recs, demo=list(pred), root=root)
+    log(f"[mesh] (c) one process: {[(r['qid'], r['output_text'][-24:]) for r in recs]}; demo {pred}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return files, root, numbers
+
+
+@contextmanager
+def mesh_cli_patches():
+    """(c)'s harness, beside `cli_stand_ins`: the checkpoint read in f32
+    (the CLIs read bf16; f32 tokens must equal one process's) and the demo's
+    video decode from phase 8's seeded frames of CLI_CLIP."""
+    import torch
+
+    from time_r1_tpu_torch.cli import demo, evaluate
+
+    loader = FrameLoader()
+
+    def f32(load):
+        return lambda path, dtype=torch.bfloat16, device="cuda": load(path, dtype=torch.float32, device=device)
+
+    with patched(evaluate, "load_checkpoint", f32), patched(demo, "load_checkpoint", f32), \
+            patched(demo, "fetch_video", lambda fetch: lambda ele: loader({**ele, "video": CLI_CLIP})):
+        yield
+
+
+def mesh_eval_argv(ckpt: str, data: str, out: str, *extra) -> list:
+    return ["--model_base", ckpt, "--datasets", "tvgbench_filter", "--split", data, "--output_dir", out,
+            "--use_r1_thinking_prompt", "--max_new_tokens", "8", "--total_pixels", str(EVAL_PIXELS[0]),
+            "--min_pixels", str(EVAL_PIXELS[1]), "--num_workers", "0", *extra]
+
+
+def mesh_demo_argv(ckpt: str, out: str, *extra) -> list:
+    return ["--model_base", ckpt, "--video_path", CLI_CLIP, "--output_dir", out, "--max_new_tokens", "8",
+            "--total_pixels", str(EVAL_PIXELS[0]), "--min_pixels", str(EVAL_PIXELS[1]), *extra]
+
+
+def held_gib(tree) -> float:
+    """The bytes of the storages a tree's tensors hold, each storage once
+    (a view holds its whole base), in GiB."""
+    import torch
+
+    storages = {}
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        elif isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            storages[st.data_ptr()] = st.nbytes()
+
+    walk(tree)
+    return sum(storages.values()) / 2**30
+
+
+def collective_ms(group, shape, dtype, n: int = 50) -> float:
+    """Host ms of one `tensor.reduce_from_model` (the TP Engine's all-reduce
+    after each row-parallel product) of a `shape` tensor, over n calls
+    between two synchronizations."""
+    import torch
+
+    from time_r1_tpu_torch.parallel.tensor import reduce_from_model
+
+    y = torch.ones(shape, dtype=dtype, device="cuda")
+    for _ in range(5):
+        reduce_from_model(y, group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        reduce_from_model(y, group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def mesh_job(args: dict) -> dict:
+    """Phase 15 on each of 2 ranks: (a) the TP Engine over make_mesh(2) and
+    (b) PPEngine over 2 stages, each of MESH_RUNS in each of mesh_cases,
+    against one process's file: the launches on this rank by the formula
+    (`mesh_launches`), on the tensor cores in bf16 and FMA in f32; the ranks'
+    tokens equal; in f32 PPEngine's tokens and the TP Engine's without int8
+    equal one process's, as do the witness's (the f32 TP Engine over int8
+    weights and an f32 KV cache), and every f32 prefill's logits within
+    MESH_F32_TOL; the other runs' logits within MESH_LOGIT_TOL (bf16) or
+    MESH_INT8_F32_TOL (the f32 TP Engine over int8) of one process's at
+    positions whose prefixes are equal, the tokens that agree counted, and
+    in f32 the first decode step whose logits leave MESH_F32_TOL; decode ms a step,
+    the bytes staged, the peak and the weights the rank holds. Then (c)
+    `mesh_cli_run`."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.parallel import ShardContext, comm, make_mesh
+    from time_r1_tpu_torch.parallel.pipeline import PPEngine
+    from time_r1_tpu_torch.sampler import Engine
+
+    rank = dist.get_rank()
+    out = {}
+    for tag, (cfg, dtype_name) in mesh_cases().items():
+        dtype = getattr(torch, dtype_name)
+        params = init_params(cfg, seed=0, device="cuda", dtype=dtype)
+        refs = torch.load(args[tag], weights_only=False)
+        for name, kind, G, quant, kv in MESH_RUNS:
+            if tag != "f32" and name in MESH_F32_ONLY:
+                continue
+            if kind == "tp":
+                eng = Engine(params, cfg, dtype=dtype, device="cuda", quantization=quant, kv_cache_quant=kv,
+                             shard=ShardContext.build(make_mesh(2), params))
+                stage, held = 0, held_gib(eng.params)
+            else:
+                eng = PPEngine(params, cfg, n_stages=2, dtype=dtype, quantization=quant or "", device="cuda")
+                stage, held = eng.stage, held_gib(eng.stage_params) + held_gib(eng.params or {})
+            store = []
+            recording_pick(eng, store, mesh_rows(G))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            staged0 = comm.staged_bytes
+            reset_launches()
+            tokens = eng.generate(mesh_requests(cfg, G), mesh_sampling(G))
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            staged = (comm.staged_bytes - staged0) / 1e9
+            tm = eng.timings
+            want = mesh_launches(cfg, kind, G, quant, kv, stage, tm["decode_steps"])
+            check_tc_route(f"mesh {tag} {name} rank {rank}", launches,
+                           {k: v for k, v in want.items() if k in TC_KERNELS and v}, tensor_cores=dtype_name == "bfloat16")
+            bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+            if bad:
+                raise AssertionError(f"mesh {tag} {name} rank {rank}: launches (got, want) {bad}")
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, tokens)
+            if any(t != tokens for t in every):
+                raise AssertionError(f"mesh {tag} {name}: the ranks' tokens differ")
+            ref = refs[mesh_ref_key(name)]
+            res = dict(decode_ms=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1), decode_steps=tm["decode_steps"],
+                       prefill_ms=tm["prefill_s"] * 1e3, vision_ms=tm["vision_s"] * 1e3, staged_gb=staged,
+                       peak_gib=peak, held_gib=held, one_peak_gib=ref["peak_gib"], one_decode_ms=ref["decode_ms"],
+                       launches={k: launches[k] for k in want})
+            if kind == "tp":  # a decode step runs 2 a layer
+                res["allreduce_ms"] = collective_ms(eng.shard.model_group, (len(tokens), 1, cfg.text.hidden_size),
+                                                    dtype)
+            agree = [next((i for i, (a, b) in enumerate(zip(t, r)) if a != b), min(len(t), len(r)))
+                     for t, r in zip(tokens, ref["tokens"])]
+            res["tokens_agree"] = agree
+            # f32 holds the tokens where the mesh changes only the order of f32 sums (PP's stages: none; TP without
+            # int8) and in the witness (TP over int8 weights, an f32 KV cache); bf16 and TP over int8 hold the
+            # logits at positions whose prefixes agree
+            order_only = dtype_name == "float32" and (kind == "pp" or quant is None)
+            exact = dtype_name == "float32" and (kind == "pp" or not kv)
+            if exact and tokens != ref["tokens"]:
+                raise AssertionError(f"mesh {tag} {name}: f32 tokens differ from one process's (agree {agree})")
+            if store:  # the ranks that sample or see the logits
+                errs = []  # each pick's worst row error at a position whose prefix agrees
+                for t, (got, want_l) in enumerate(zip(store, ref["logits"])):
+                    rows = [b for b in range(got.shape[0]) if t <= agree[b]]
+                    errs.append(max(((got[b] - want_l[b]).abs().max() / want_l[b].abs().max()).item() for b in rows)
+                                if rows else 0.0)
+                res["logit_rel_err"], res["prefill_logit_rel_err"] = max(errs), errs[0]
+                limit = MESH_LOGIT_TOL if dtype_name == "bfloat16" else MESH_INT8_F32_TOL
+                if dtype_name == "float32":
+                    res["leaves_f32_at"] = next((t for t, e in enumerate(errs) if e > MESH_F32_TOL), None)
+                    if not errs[0] <= MESH_F32_TOL:
+                        raise AssertionError(f"mesh {tag} {name}: prefill logits {errs[0]} apart > {MESH_F32_TOL}")
+                if not order_only and not res["logit_rel_err"] <= limit:
+                    raise AssertionError(f"mesh {tag} {name}: logits {res['logit_rel_err']} apart > {limit}")
+            log(f"mesh {tag} {name}: tokens agree with one process's for {agree} of {MESH_NEW_TOKENS} a row"
+                + (f", logits {res['logit_rel_err']:.3e} apart (prefill's {res['prefill_logit_rel_err']:.3e})"
+                   if "logit_rel_err" in res else "")
+                + (f"; the logits leave {MESH_F32_TOL} at pick {res['leaves_f32_at']}" if "leaves_f32_at" in res else "")
+                + f"; decode {res['decode_ms']:.2f} ms/step (one process eager {ref['decode_ms']:.2f}"
+                + (f"; one all-reduce of a step {res['allreduce_ms']:.3f} ms" if "allreduce_ms" in res else "") + "); "
+                f"{staged:.3f} GB staged; peak {peak:.2f} GiB (one process {ref['peak_gib']:.2f}); holds "
+                f"{held:.2f} GiB of weights; launches {res['launches']}")
+            out[f"{tag}_{name}"] = res
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+        del params, refs
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["cli"] = mesh_cli_run(args["cli"], rank)
+    return out
+
+
+def mesh_cli_run(args: dict, rank: int) -> dict:
+    """(c) on each rank: `cli.evaluate.main --tensor_parallel_size 2`, then
+    `--pipeline_parallel_size 2`, then `cli.demo.main
+    --pipeline_parallel_size 2`, from the parent's f32 native checkpoint at 2
+    decoder layers; rank 0's records and answer against one process's."""
+    import torch
+
+    from time_r1_tpu_torch.cli import demo, evaluate
+
+    cfg = reduced_config()
+    out = {}
+    with cli_stand_ins(cfg), mesh_cli_patches():
+        for flag in ("--tensor_parallel_size", "--pipeline_parallel_size"):
+            t0 = time.perf_counter()
+            path = evaluate.main(evaluate.get_args(mesh_eval_argv(
+                args["ckpt"], args["data"], os.path.join(args["root"], flag.strip("-")), flag, "2")))
+            torch.cuda.synchronize()
+            out[flag] = time.perf_counter() - t0
+            if rank == 0 and read_jsonl(path) != args["records"]:
+                raise AssertionError(f"cli.evaluate {flag} 2: the records differ from one process's: "
+                                     f"{read_jsonl(path)} against {args['records']}")
+        pred = demo.main(demo.get_args(mesh_demo_argv(args["ckpt"], os.path.join(args["root"], "demo_pp"),
+                                                      "--pipeline_parallel_size", "2")))
+    if list(pred) != args["demo"]:
+        raise AssertionError(f"cli.demo --pipeline_parallel_size 2 answered {pred}, one process {args['demo']}")
+    log(f"cli.evaluate --tensor_parallel_size 2 {out['--tensor_parallel_size']:.1f} s and "
+        f"--pipeline_parallel_size 2 {out['--pipeline_parallel_size']:.1f} s: "
+        + ("records equal one process's" if rank == 0 else "rank 0 writes") + "; cli.demo --pipeline_parallel_size 2 "
+        f"answers as one process")
+    return out
+
+
+def phase_mesh_serving(card: str, nccl_only: bool = False) -> dict:
+    """Phase 15: generation over a mesh, 2 ranks over gloo on the first card
+    (and again over NCCL, a card a rank, where the machine shows two or
+    more; nccl_only: NCCL only): one process's references first
+    (`mesh_reference`), then (a), (b), (c) in one spawn (`mesh_job`).
+    Returns rank 0's launches of each bf16 run over gloo."""
+    import shutil
+
+    import torch
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    files, root, one = mesh_reference(card)
+    result = {}
+    try:
+        routes = ([] if nccl_only and cards >= 2 else [False]) + ([True] if cards >= 2 else [])
+        for nccl in routes:
+            route = "nccl" if nccl else "gloo"
+            ranks = spawn_ranks("mesh", 2, files, card, nccl, timeout=MESH_TIMEOUT)
+            for key in ranks[0]:
+                if key == "cli":
+                    continue
+                res = [r[key] for r in ranks]
+                log(f"[mesh] {key} over {route}: decode {[round(r['decode_ms'], 2) for r in res]} ms/step by rank "
+                    f"(one process eager {res[0]['one_decode_ms']:.2f}"
+                    + (f"; one all-reduce of a step {[round(r['allreduce_ms'], 3) for r in res]} ms"
+                       if "allreduce_ms" in res[0] else "") + "); prefill "
+                    f"{[round(r['prefill_ms'], 1) for r in res]} ms; {[round(r['staged_gb'], 3) for r in res]} GB "
+                    f"staged; peak {[round(r['peak_gib'], 2) for r in res]} GiB (one process "
+                    f"{res[0]['one_peak_gib']:.2f}); weights held {[round(r['held_gib'], 2) for r in res]} GiB; "
+                    f"tokens agree {res[0]['tokens_agree']}"
+                    + (f"; logits {res[0]['logit_rel_err']:.3e} apart" if "logit_rel_err" in res[0] else "")
+                    + f"; {card}")
+                if not nccl and key.startswith("bf16_"):
+                    result[key] = res[0]["launches"]
+                    result[f"{key}_rank1"] = res[1]["launches"]
+            log(f"[mesh] (c) over {route}: evaluate tp 2 {ranks[0]['cli']['--tensor_parallel_size']:.1f} s, "
+                f"pp 2 {ranks[0]['cli']['--pipeline_parallel_size']:.1f} s; the records and the demo's answer equal "
+                f"one process's; {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[mesh] phase 15: {time.perf_counter() - t0:.1f} s; {card}")
+    return result
+
+
+# (g): Qwen2.5-VL-7B served over 4 cards (NCCL): (mesh, pipeline stages, tp)
+SEVEN_B_MESHES = (("tp4", 1, 4), ("pp4", 4, 1), ("tp2xpp2", 2, 2))
+SEVEN_B_F32_LAYERS = 4  # (g)'s f32 decoder depth (4 vision blocks, the last a full-attention one), as phase 15's f32
+# (g)'s bf16 logits at full depth against one card's where the prefixes agree: MESH_LOGIT_TOL scaled by the square
+# root of the bf16 partial-sum roundings' count against phase 15's (28 layers × 2 all-reduces × 4 partial sums over
+# 12 × 2 × 2: ×2.2). Reading on an H100 at tp 4: 5.68e-2. The f32 run at SEVEN_B_F32_LAYERS holds the tokens and
+# every logit within MESH_F32_TOL: a fault in TP at the 7B's heads shows there, not under bf16's rounding
+SEVEN_B_LOGIT_TOL = 1e-1
+
+
+def seven_b_cases() -> dict:
+    """(g)'s configurations: the 7B at full depth in bf16 (the tensor-core
+    kernels, the peaks) and at SEVEN_B_F32_LAYERS in f32 (FMA)."""
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
+
+    cfg = Qwen25VLConfig.qwen25vl_7b()
+    small = replace(cut_depth(cfg, SEVEN_B_F32_LAYERS), vision=replace(cfg.vision, depth=4, fullatt_block_indexes=(3,)))
+    return {"bf16": (cfg, "bfloat16"), "f32": (small, "float32")}
+
+
+def seven_b_serving_launches(cfg, stages: int, tp: int, rank: int) -> dict:
+    """(g)'s launches on a rank: K1 a layer of its stage in the one prefill
+    chunk, K2/K3 in one vision pass on every rank of the TP Engine and on
+    stage 0's ranks of PPEngine; no decode kernel at G = 1."""
+    vision = vision_tc_launches(cfg)
+    if stages > 1 and rank // tp != 0:
+        vision = {n: 0 for n in vision}
+    return vision | {"flash_attention": cfg.text.num_hidden_layers // stages}
+
+
+def seven_b_serving_job(args: dict) -> dict:
+    """(g) on each of 4 ranks, a card a rank (NCCL): the 7B's seeded weights
+    of each of seven_b_cases served on each of SEVEN_B_MESHES (the TP Engine
+    at tp 4, 7 q over 1 kv head a rank; PPEngine at 4 stages; PPEngine at 2
+    stages of tp 2), phase 4's two video requests, greedy, MESH_NEW_TOKENS:
+    the launches by the formula (tensor cores in bf16, FMA in f32), the
+    ranks' tokens equal, how many agree with one card's, the prefill's and
+    each decode step's logits, on the ranks that hold them, against one
+    card's where the prefixes agree: within SEVEN_B_LOGIT_TOL in bf16; in
+    f32 the tokens equal and every logit within MESH_F32_TOL. Also the
+    decode ms a step, the weights held and the peak a rank (the whole tree
+    freed before the generate) against one card's."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.parallel import ShardContext, make_mesh
+    from time_r1_tpu_torch.parallel.pipeline import PPEngine
+    from time_r1_tpu_torch.sampler import Engine
+
+    rank = dist.get_rank()
+    refs = torch.load(args["file"], weights_only=False)
+    out = {}
+    for tag, (cfg, dtype_name) in seven_b_cases().items():
+        dtype, ref = getattr(torch, dtype_name), refs[tag]
+        for mesh_name, stages, tp in SEVEN_B_MESHES:
+            params = init_params(cfg, seed=0, device="cuda", dtype=dtype)
+            if stages == 1:
+                eng = Engine(params, cfg, dtype=dtype, device="cuda", shard=ShardContext.build(make_mesh(tp), params))
+            else:
+                eng = PPEngine(params, cfg, n_stages=stages, dtype=dtype, tp=tp, device="cuda")
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() / 2**30
+            store = []
+            recording_pick(eng, store, 2)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            tokens = eng.generate(mesh_requests(cfg, 1), mesh_sampling(1))
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            name = f"{tag} {mesh_name} rank {rank}"
+            want = seven_b_serving_launches(cfg, stages, tp, rank)
+            check_tc_route(f"7b serving {name}", launches, {k: v for k, v in want.items() if v},
+                           tensor_cores=dtype_name == "bfloat16")
+            bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+            if bad:
+                raise AssertionError(f"7b serving {name}: launches (got, want) {bad}")
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, tokens)
+            if any(t != tokens for t in every):
+                raise AssertionError(f"7b serving {tag} {mesh_name}: the ranks' tokens differ")
+            agree = [next((i for i, (a, b) in enumerate(zip(t, r)) if a != b), min(len(t), len(r)))
+                     for t, r in zip(tokens, ref["tokens"])]
+            if dtype_name == "float32" and tokens != ref["tokens"]:
+                raise AssertionError(f"7b serving {name}: f32 tokens differ from one card's (agree {agree})")
+            tm = eng.timings
+            res = dict(held_gib=held, peak_gib=peak, decode_ms=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1),
+                       prefill_ms=tm["prefill_s"] * 1e3, vision_ms=tm["vision_s"] * 1e3, tokens_agree=agree,
+                       launches={k: launches[k] for k in want})
+            if store:  # the ranks that see the logits: every TP rank, stage 0's under PP
+                errs = [((got[b] - want_l[b]).abs().max() / want_l[b].abs().max()).item()
+                        for t, (got, want_l) in enumerate(zip(store, ref["logits"])) for b in range(2) if t <= agree[b]]
+                res["logit_rel_err"], res["prefill_logit_rel_err"] = max(errs), max(errs[:2])
+                limit = SEVEN_B_LOGIT_TOL if dtype_name == "bfloat16" else MESH_F32_TOL
+                if not res["logit_rel_err"] <= limit:
+                    raise AssertionError(f"7b serving {name}: logits {res['logit_rel_err']} apart > {limit}")
+            if stages == 1:
+                res["allreduce_ms"] = collective_ms(eng.shard.model_group, (2, 1, cfg.text.hidden_size), dtype)
+            log(f"[7b serving] {name}: holds {held:.2f} GiB, peak {peak:.2f} GiB (one card {ref['peak_gib']:.2f}); "
+                f"decode {res['decode_ms']:.2f} ms/step (one card eager {ref['decode_ms']:.2f}"
+                + (f"; one all-reduce of a step {res['allreduce_ms']:.3f} ms" if "allreduce_ms" in res else "") + "); "
+                f"prefill {res['prefill_ms']:.1f} ms; tokens agree with one card's for {agree} of {MESH_NEW_TOKENS}"
+                + (f", logits {res['logit_rel_err']:.3e} apart where the prefixes agree (the prefill's "
+                   f"{res['prefill_logit_rel_err']:.3e})" if "logit_rel_err" in res else ""))
+            out[f"{tag}_{mesh_name}"] = res
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+    return out
+
+
+def phase_mesh_7b(card: str) -> dict:
+    """(g), on 4 cards only: one card's eager Engine over each of
+    seven_b_cases first (its tokens, each pick's logits, peak and decode ms,
+    to a file), then `seven_b_serving_job` over NCCL."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.sampler import Engine
+
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        raise AssertionError(f"(g) needs 4 cards, the machine shows {cards}")
+    t0 = time.perf_counter()
+    refs = {}
+    for tag, (cfg, dtype_name) in seven_b_cases().items():
+        dtype = getattr(torch, dtype_name)
+        eng = Engine(init_params(cfg, seed=0, device="cuda", dtype=dtype), cfg, dtype=dtype, device="cuda")
+        store = []
+        recording_pick(eng, store, 2)
+        torch.cuda.reset_peak_memory_stats()
+        with eager_decode():
+            tokens = eng.generate(mesh_requests(cfg, 1), mesh_sampling(1))
+        refs[tag] = dict(tokens=tokens, logits=store, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         decode_ms=eng.timings["decode_s"] * 1e3 / max(eng.timings["decode_steps"], 1))
+        log(f"[7b serving] one card {tag}: peak {refs[tag]['peak_gib']:.2f} GiB, decode {refs[tag]['decode_ms']:.2f} "
+            f"ms/step (eager); {card}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="timer1_7b_serving_")
+    try:
+        torch.save(refs, os.path.join(root, "refs.pt"))
+        ranks = spawn_ranks("seven_b_serving", 4, {"file": os.path.join(root, "refs.pt")}, card, nccl=True,
+                            timeout=SHARDED_TIMEOUT)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for key in ranks[0]:
+        res, one = [r[key] for r in ranks], refs[key.split("_", 1)[0]]
+        log(f"[7b serving] {key} over nccl: held {[round(r['held_gib'], 2) for r in res]} GiB, peak "
+            f"{[round(r['peak_gib'], 2) for r in res]} GiB by rank (one card {one['peak_gib']:.2f}); decode "
+            f"{[round(r['decode_ms'], 2) for r in res]} ms/step (one card eager {one['decode_ms']:.2f}"
+            + (f"; one all-reduce of a step {[round(r['allreduce_ms'], 3) for r in res]} ms"
+               if "allreduce_ms" in res[0] else "") + "); tokens agree "
+            f"{res[0]['tokens_agree']}; logits {[round(r['logit_rel_err'], 7) for r in res if 'logit_rel_err' in r]} "
+            f"apart by rank that holds them; {card}")
+    log(f"[7b serving] (g): {time.perf_counter() - t0:.1f} s; {card}")
+    return {"one": {tag: {k: v for k, v in r.items() if k not in ("tokens", "logits")} for tag, r in refs.items()},
+            "ranks": ranks}
+
+
 def timed(phase, *args):
     """phase(*args), its seconds logged."""
     t0 = time.perf_counter()
@@ -6723,6 +7498,7 @@ def main() -> int:
     full_param = timed(phase_full_param_7b, card)  # the 7B's full parameters, the state offloaded; the full-row loss
     parallel = timed(phase_parallel, card)  # ranks over gloo: ring attention (K1, B1, B2), the CP loss, DP, the CLI
     sharded = timed(phase_sharded, card)  # ranks over gloo: FSDP and TP loss steps, step_batch over TP, the CLI
+    mesh = timed(phase_mesh_serving, card)  # ranks over gloo: the TP Engine, PPEngine, cli.evaluate / cli.demo
     for tag, name in zip("ab", PAGED_KERNELS):
         quant_launches[name] = serve[tag]["launches"][name]
         quant_launches[f"{name}_tc"] = serve[tag]["launches"][f"{name}_tc"]
@@ -6809,6 +7585,13 @@ def main() -> int:
             if k["name"] in counts:
                 k.setdefault("launches_sharded_loss_per_rank", {})[key] = counts[k["name"]]
     s2["launches_sharded_loss_per_rank_dkv_prefix"] = {key: c["shared_prefix_bwd_dkv"] for key, c in sharded.items()}
+    for k in kernels:  # phase 15: each bf16 run of the TP Engine and of PPEngine, [rank 0, rank 1]
+        for kind in ("tp", "pp"):
+            runs = {name: [mesh[f"bf16_{name}"][k["name"]], mesh[f"bf16_{name}_rank1"][k["name"]]]
+                    for name, engine, *_ in MESH_RUNS
+                    if engine == kind and name not in MESH_F32_ONLY and k["name"] in mesh[f"bf16_{name}"]}
+            if any(any(v) for v in runs.values()):
+                k[f"launches_{kind}_engine"] = runs
     log(f"[env] chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,12 +10,18 @@ after phase 2's K1, B1, B2, S1, S2, K2 and K3 cases at the TP-local heads;
 (e) step_batch over TP with int8 rollouts, `cli.train.main
 --tensor_parallel_size 2` and FSDP with offload_optimizer; (f), asked for by
 name only and on 4 cards, Qwen2.5-VL-7B's full parameters over NCCL on 4x1,
-2x2 and 1x4 meshes). The ranks are processes over gloo, all on the first
-card; where the machine shows several cards, (a), (c), (d) and (e) run again
-over NCCL, a card a rank (with --nccl, phase 14 only over NCCL). Given
-parts among a-f, only those run; none runs a, b, c, d and e.
+2x2 and 1x4 meshes), phase 15 as (h) (phase 2's D2 and Q2 cases at the
+TP-local shapes first; then the TP Engine and PPEngine over 2 ranks against
+one process's, and `cli.evaluate --tensor_parallel_size 2` /
+`--pipeline_parallel_size 2` and `cli.demo --pipeline_parallel_size 2`),
+and (g), asked for by name only and on 4 cards: Qwen2.5-VL-7B served over
+NCCL by the TP Engine at tp 4, PPEngine at 4 stages and at 2 stages of tp 2,
+against one card's (in bf16 at full depth, and in f32 at 4 layers). The
+ranks are processes over gloo, all on the first card; where the machine
+shows several cards, (a), (c), (d), (e) and (h) run again over NCCL, a card
+a rank (with --nccl, phases 14 and 15 only over NCCL). Given parts among a-h, only those run; none runs a, b, c, d, e and h.
 
-    python3 scripts/check_parallel.py [--nccl] [a] [b] [c] [d] [e] [f]
+    python3 scripts/check_parallel.py [--nccl] [a] [b] [c] [d] [e] [f] [g] [h]
 
 Writes up to 15 GB under the temporary directory (TMPDIR) and deletes it.
 Prints the card's name and power limit first. Needs a CUDA device and nvcc;
@@ -45,7 +51,7 @@ def main(parts, nccl_only: bool = False) -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = chip_smoke.card_line()
     chip_smoke.log(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; {card}")
-    parts = "".join(sorted(set(parts))) or "abcde"
+    parts = "".join(sorted(set(parts))) or "abcdeh"
     t0 = time.perf_counter()
     chip_smoke.phase_build()
     if set(parts) & set("abc"):
@@ -60,13 +66,19 @@ def main(parts, nccl_only: bool = False) -> int:
                                                     dtype)
             chip_smoke.vision_local_head_cases(torch.Generator(device="cuda").manual_seed(0), results)
         chip_smoke.phase_sharded(card, "".join(p for p in parts if p in "def"), nccl_only=nccl_only)
+    if "h" in parts:  # phase 2's D2 and Q2 at the TP-local shapes before any rank runs them
+        chip_smoke.tp_decode_quant_cases(torch.Generator(device="cuda").manual_seed(9),
+                                         {"shared_prefix_decode_full": {}, "fused_mlp_int8": {}})
+        chip_smoke.phase_mesh_serving(card, nccl_only=nccl_only)
+    if "g" in parts:
+        chip_smoke.phase_mesh_7b(card)
     chip_smoke.log(f"[env] check_parallel: {time.perf_counter() - t0:.1f} s")
     return 0
 
 
 if __name__ == "__main__":
-    parser = argparse.ArgumentParser(description="chip_smoke.py's phases 13 and 14, or parts a-f of them")
-    parser.add_argument("parts", nargs="*", choices=["a", "b", "c", "d", "e", "f"])
-    parser.add_argument("--nccl", action="store_true", help="phase 14 over NCCL only (several cards)")
+    parser = argparse.ArgumentParser(description="chip_smoke.py's phases 13, 14 and 15, or parts a-h of them")
+    parser.add_argument("parts", nargs="*", choices=["a", "b", "c", "d", "e", "f", "g", "h"])
+    parser.add_argument("--nccl", action="store_true", help="phases 14 and 15 over NCCL only (several cards)")
     args = parser.parse_args()
     sys.exit(main(args.parts, args.nccl))

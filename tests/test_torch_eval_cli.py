@@ -14,7 +14,14 @@ clips written with OpenCV (tests/test_torch_video.py::write_clip):
   same prob records, and on the test split the two-pass answer forcing the
   same texts;
 - quantized serving from a checkpoint the port wrote (int8 weights, int8
-  KV), and the A13 refusals;
+  KV);
+- over a mesh of 2 gloo ranks (`test_torch_pipeline.cli_worker`),
+  `evaluate.main` with --tensor_parallel_size 2 and with
+  --pipeline_parallel_size 2, and `demo.main` with --pipeline_parallel_size
+  2, from a checkpoint the port wrote: the records one process writes,
+  global rank 0 the only writer; the refusals that remain (A13: continuous
+  batching over a mesh, int4 under TP; JAX's ValueErrors: prob-based MCQ
+  under PP, too few ranks);
 - `eval_all.score_dir` and `main` on the same shards give JAX's scores, and
   the EgoSchema upload payload is JAX's (`requests.post` patched in both);
 - `calc_difficulty.merge` writes a byte-equal train_v4_cloud.json at the
@@ -262,13 +269,89 @@ def test_quantized_serving_from_a_port_checkpoint(setup, tmp_path, monkeypatch):
     assert built == [dict(device="cpu", quantization="int8", kv_cache_quant=True)]
 
 
-@pytest.mark.parametrize("flags", [["--tensor_parallel_size", "2"], ["--pipeline_parallel_size", "2"]])
-def test_mesh_options_are_refused(setup, tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="A13"):
-        evaluate.main(evaluate.get_args(_argv(setup["ann"], tmp_path, *flags)), device="cpu")
-    if flags[0] == "--pipeline_parallel_size":
-        with pytest.raises(NotImplementedError, match="A13"):
-            demo.main(demo.get_args(flags), device="cpu")
+def _port_checkpoint(path):
+    from time_r1_tpu_torch.models.qwen25vl.convert import NATIVE_CONFIG, config_to_plain_dict
+    from time_r1_tpu_torch.utils.checkpoint import save_params
+
+    save_params(str(path), port_params(jax_params()))
+    (path / NATIVE_CONFIG).write_text(json.dumps(config_to_plain_dict(CFG)))
+    return str(path)
+
+
+MESH_FLAGS = {"tp2": ["--tensor_parallel_size", "2"], "pp2": ["--pipeline_parallel_size", "2"]}
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(setup, tmp_path_factory):
+    """`cli.evaluate` with each of MESH_FLAGS and `cli.demo
+    --pipeline_parallel_size 2` over 2 gloo ranks
+    (`test_torch_pipeline.cli_worker`) from a port checkpoint, and the same
+    two CLIs in one process over the same weights (f32)."""
+    from test_torch_ring_attention import spawn_ranks
+
+    root = tmp_path_factory.mktemp("mesh_cli")
+    ckpt = _port_checkpoint(root / "ckpt")
+    demo_argv = ["--model_base", ckpt, "--video_path", setup["clip"], "--max_new_tokens", "6", *PIXELS]
+    one = {"evaluate": _records(evaluate.main(evaluate.get_args(_argv(setup["ann"], root / "one")), *setup["port"],
+                                              device="cpu")),
+           "demo": demo.main(demo.get_args([*demo_argv, "--output_dir", str(root / "demo_one")]), *setup["port"],
+                             device="cpu")}
+    job = dict(pad=CFG.pad_token_id, eos=CFG.eos_token_id,
+               evaluate={tag: [*_argv(setup["ann"], root / tag, *flags)[:1], ckpt,
+                               *_argv(setup["ann"], root / tag, *flags)[2:]] for tag, flags in MESH_FLAGS.items()},
+               demo=[*demo_argv, "--output_dir", str(root / "demo_pp2"), "--pipeline_parallel_size", "2"])
+    (root / "cli.json").write_text(json.dumps(job))
+    ranks = spawn_ranks("test_torch_pipeline", "cli_worker", 2, root)
+    return dict(root=root, ckpt=ckpt, one=one, ranks=ranks)
+
+
+@pytest.mark.parametrize("tag", list(MESH_FLAGS))
+def test_evaluate_over_a_mesh_equals_one_process(mesh_runs, tag):
+    """Global rank 0 writes the records, which equal one process's (the
+    JAX package's CLI holds its PP run to its single-device one the same
+    way, tests/test_pp_generate.py:59); the other rank writes nothing."""
+    ranks = mesh_runs["ranks"]
+    assert ranks[0][tag] == ranks[1][tag]  # the same path: rank 0's file
+    recs = _records(ranks[0][tag])
+    assert [r["qid"] for r in recs] == ["tvg_0", "tvg_1", "tvg_2"]
+    assert recs == mesh_runs["one"]["evaluate"]
+    assert sorted(os.listdir(mesh_runs["root"] / tag)) == sorted(os.listdir(mesh_runs["root"] / "one"))
+
+
+def test_demo_over_a_pipeline_equals_one_process(mesh_runs):
+    ranks = mesh_runs["ranks"]
+    assert ranks[0]["demo"] == ranks[1]["demo"] == mesh_runs["one"]["demo"]
+    assert _records(mesh_runs["root"] / "demo_pp2" / "tmp_output.jsonl") == \
+        _records(mesh_runs["root"] / "demo_one" / "tmp_output.jsonl")
+
+
+# the refusals that remain over a mesh: (flags, error, message)
+MESH_REFUSALS = {
+    "tp_continuous": (["--tensor_parallel_size", "2", "--use_continuous_batching"], NotImplementedError, "A13"),
+    "pp_continuous": (["--pipeline_parallel_size", "2", "--use_continuous_batching"], NotImplementedError, "A13"),
+    "tp_int4": (["--tensor_parallel_size", "2", "--quantization", "int4"], NotImplementedError, "A13"),
+    "pp_prob_mcq": (["--pipeline_parallel_size", "2"], ValueError, "prob-based MCQ scoring needs the bucket engine"),
+    "tp_too_few_ranks": (["--tensor_parallel_size", "2"], ValueError, "needs 2 ranks"),
+    "pp_too_few_ranks": (["--pipeline_parallel_size", "2"], ValueError,
+                         r"pipeline_parallel_size=2 × tensor_parallel_size=1 needs 2 devices but only 1 exist"),
+}
+
+
+@pytest.mark.parametrize("case", list(MESH_REFUSALS))
+def test_mesh_refusals(setup, tmp_path, case):
+    flags, error, message = MESH_REFUSALS[case]
+    argv = _argv("train" if case == "pp_prob_mcq" else setup["ann"], tmp_path / "out", *flags,
+                 datasets=("mvbench",) if case == "pp_prob_mcq" else ("tvgbench_filter",))
+    argv[1] = _port_checkpoint(tmp_path / "ckpt")
+    with pytest.raises(error, match=message):
+        evaluate.main(evaluate.get_args(argv), device="cpu")
+
+
+def test_demo_pipeline_needs_its_ranks(setup, tmp_path):
+    argv = ["--model_base", _port_checkpoint(tmp_path / "ckpt"), "--video_path", setup["clip"],
+            "--output_dir", str(tmp_path / "out"), "--pipeline_parallel_size", "2", *PIXELS]
+    with pytest.raises(ValueError, match="needs 2 devices but only 1 exist"):
+        demo.main(demo.get_args(argv), device="cpu")
 
 
 def test_evaluate_runs_on_the_card_unless_asked(setup, tmp_path, monkeypatch):

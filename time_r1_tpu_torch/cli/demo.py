@@ -8,8 +8,11 @@ The serving path of `cli/evaluate.py` for one request: `Engine` through
 `TextEngine`, greedy. The demo's prompt template has leading and trailing
 newlines: it is NOT the eval's r1 template (demo.py:15-21). Appends one
 record to {output_dir}/tmp_output.jsonl and writes a timing summary. Runs on
-the card unless `device` says otherwise. `--pipeline_parallel_size > 1` is
-not ported yet (ROADMAP A13) and is refused.
+the card unless `device` says otherwise. `--pipeline_parallel_size pp > 1`
+serves through `parallel/pipeline.py::PPEngine(params, cfg, n_stages=pp)`
+under torchrun (pp ranks, as JAX's `cli/demo.py:83-88`): every rank loads the
+whole checkpoint on the host and keeps its stage; global rank 0 prints and
+writes.
 """
 
 from __future__ import annotations
@@ -48,8 +51,7 @@ def get_args(argv=None):
     p.add_argument("--min_pixels", type=int, default=16 * 28 * 28)
     p.add_argument("--device", type=str, default="auto", help="accepted for recipe parity")
     p.add_argument("--pipeline_parallel_size", type=int, default=1,
-                   help="stage-shard the decoder layers over a pipeline mesh; values above 1 are not ported yet "
-                   "(ROADMAP A13)")
+                   help="stage-shard the decoder layers over a pipeline mesh (launch with torchrun)")
     return p.parse_args(argv)
 
 
@@ -79,14 +81,27 @@ def build_request(processor: Qwen25VLProcessor, args) -> Request:
 
 def main(args, engine: Engine = None, processor: Qwen25VLProcessor = None, device="cuda"):
     """Answer the query; returns (pred, output text)."""
-    if getattr(args, "pipeline_parallel_size", 1) > 1:
-        raise NotImplementedError("--pipeline_parallel_size > 1 (a device mesh) is not ported yet (ROADMAP A13)")
+    import torch.distributed as dist
+
     os.makedirs(args.output_dir, exist_ok=True)
     output_file = os.path.join(args.output_dir, "tmp_output.jsonl")
 
     if engine is None:
-        params, cfg = load_checkpoint(args.model_base, device=device)
-        engine = Engine(params, cfg, device=device)
+        pp = getattr(args, "pipeline_parallel_size", 1) or 1
+        if pp > 1:
+            from ..parallel import maybe_init_distributed
+            from ..parallel.pipeline import PPEngine
+
+            dev = maybe_init_distributed(device) or device
+            params, cfg = load_checkpoint(args.model_base, device="cpu")  # each rank keeps its stage
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            if world < pp:
+                raise ValueError(f"pipeline_parallel_size={pp} × tensor_parallel_size=1 needs {pp} devices "
+                                 f"but only {world} exist (torchrun --nproc_per_node {pp})")
+            engine = PPEngine(params, cfg, n_stages=pp, dtype=params["text"]["norm"].dtype, device=dev)
+        else:
+            params, cfg = load_checkpoint(args.model_base, device=device)
+            engine = Engine(params, cfg, device=device)
         processor = Qwen25VLProcessor.from_pretrained(args.model_base)
     text_engine = TextEngine(engine, processor)
 
@@ -98,6 +113,8 @@ def main(args, engine: Engine = None, processor: Qwen25VLProcessor = None, devic
     t0 = time.perf_counter()
     output_texts = text_engine.generate([request], max_new_tokens=args.max_new_tokens)
     pred = extract_answer_tg(output_texts[0])
+    if dist.is_initialized() and dist.get_rank() != 0:  # over a mesh global rank 0 prints and writes
+        return pred, output_texts[0]
     print(output_texts[0], pred)
     with open(output_file, "a+") as f:
         f.write(json.dumps({"pred": pred, "target": target, "duration": duration,

@@ -23,13 +23,30 @@ position (`Engine.last_token_logits`). An undecodable video still gets a
 record (pred unparsable, scored 0 with the row in the denominator).
 
 Runs on the card unless `device` says otherwise (the tests pass "cpu").
-`--tensor_parallel_size > 1` and `--pipeline_parallel_size > 1` (a device
-mesh) are not ported yet (ROADMAP A13) and are refused.
+
+Over a mesh, under torchrun (JAX's `cli/evaluate.py:150-263`); every rank
+loads the whole checkpoint on the host and keeps its part on its card:
+- `--tensor_parallel_size tp > 1` without PP: the tensor-parallel `Engine`
+  over `make_mesh(tp)` (data 1), tp ranks (`torchrun --nproc_per_node tp`);
+  `--tp_group_index gi` puts local rank r on card gi·tp + r (ValueError where
+  the machine shows fewer than tp·(gi+1) cards; group 0 shares one card over
+  gloo where it shows fewer than tp);
+- `--pipeline_parallel_size pp > 1`: `parallel/pipeline.py::PPEngine` over
+  `make_pp_mesh(pp, tp)`, pp·tp ranks. Unset, tp is world // pp clamped to
+  a divisor of the kv heads, and 1 under `--quantization`; too few ranks
+  raise JAX's ValueError, and so does prob-based MCQ scoring (it needs the
+  bucket engine);
+- global rank 0 (model rank 0 of stage 0) writes the jsonl shard and the
+  timing summary; the other ranks write nothing. Every rank reads the shard
+  for the resume before any writes.
+Refused by name (A13): a mesh with `--use_continuous_batching` (the paged and
+continuous engines over shards) and int4 weights under TP.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -71,7 +88,7 @@ def get_args(argv=None):
         "--tensor_parallel_size",
         type=int,
         default=None,
-        help="shard the model over a tensor-parallel mesh; values above 1 are not ported yet (ROADMAP A13)",
+        help="shard the model over a tensor-parallel mesh of this many ranks (launch with torchrun)",
     )
     p.add_argument(
         "--tp_group_index",
@@ -82,7 +99,7 @@ def get_args(argv=None):
     )
     p.add_argument(
         "--pipeline_parallel_size", type=int, default=1,
-        help="stage-shard the decoder layers over a pipeline mesh; values above 1 are not ported yet (ROADMAP A13)",
+        help="stage-shard the decoder layers over a pipeline mesh (launch with torchrun)",
     )
     p.add_argument("--device", type=str, default="auto", help="accepted for recipe parity")
     p.add_argument(
@@ -141,9 +158,55 @@ def get_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    if (getattr(args, "tensor_parallel_size", None) or 1) > 1 or getattr(args, "pipeline_parallel_size", 1) > 1:
-        raise NotImplementedError("--tensor_parallel_size / --pipeline_parallel_size > 1 (a device mesh) are not "
-                                  "ported yet (ROADMAP A13)")
+    tp = getattr(args, "tensor_parallel_size", None) or 1
+    pp = getattr(args, "pipeline_parallel_size", 1) or 1
+    if (tp > 1 or pp > 1) and getattr(args, "use_continuous_batching", False):
+        raise NotImplementedError("--use_continuous_batching over a mesh (the paged and continuous engines over "
+                                  "shards) is not ported (ROADMAP A13)")
+    if tp > 1 and pp <= 1 and getattr(args, "quantization", "") == "int4":
+        raise NotImplementedError("--quantization int4 under --tensor_parallel_size > 1 is not ported (ROADMAP A13)")
+
+
+def build_mesh_engine(args, device="cuda"):
+    """The engine over a mesh (JAX's `cli/evaluate.py:150-197`): a
+    `PPEngine` when --pipeline_parallel_size > 1, else the tensor-parallel
+    `Engine`; returns (engine, processor). Joins torchrun's group first."""
+    import torch.distributed as dist
+
+    from ..parallel import ShardContext, make_mesh, maybe_init_distributed
+    from ..parallel.pipeline import PPEngine
+
+    pp = getattr(args, "pipeline_parallel_size", 1) or 1
+    tp_arg = getattr(args, "tensor_parallel_size", None)
+    gi = getattr(args, "tp_group_index", 0)
+    quant = getattr(args, "quantization", "") or ""
+    dev = maybe_init_distributed(device, first_card=gi * (tp_arg or 1) if pp <= 1 else 0) or device
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    params, cfg = load_checkpoint(args.model_base, device="cpu")  # whole on the host; each rank keeps its part
+    dtype = params["text"]["norm"].dtype  # the checkpoint's load dtype (bf16)
+    if pp > 1:
+        tp = tp_arg
+        if tp is None:
+            # the reference uses every device: tp = devices // pp (vllm_infer.py:50), clamped to a divisor
+            # of the kv heads (whole GQA groups a rank); fused int8 columns cannot split
+            tp = max(world // pp, 1)
+            while tp > 1 and cfg.text.num_key_value_heads % tp != 0:
+                tp -= 1
+            if quant:
+                tp = 1
+        if world < pp * tp:
+            raise ValueError(f"pipeline_parallel_size={pp} × tensor_parallel_size={tp} needs {pp * tp} devices "
+                             f"but only {world} exist (torchrun --nproc_per_node {pp * tp})")
+        engine = PPEngine(params, cfg, n_stages=pp, dtype=dtype, tp=tp, quantization=quant, device=dev)
+        return engine, Qwen25VLProcessor.from_pretrained(args.model_base)
+    tp = tp_arg
+    if world != tp:
+        raise ValueError(f"tensor_parallel_size={tp} group {gi} needs {tp} ranks (torchrun --nproc_per_node {tp}) "
+                         f"but the group has {world}")
+    engine = Engine(params, cfg, dtype=dtype, device=dev, quantization=quant or None,
+                    kv_cache_quant=getattr(args, "kv_cache_dtype", "") == "int8",
+                    shard=ShardContext.build(make_mesh(tp), params))
+    return engine, Qwen25VLProcessor.from_pretrained(args.model_base)
 
 
 def make_generation_engine(args, engine: Engine):
@@ -216,8 +279,17 @@ def text_record(b: dict, text: str, datatype: str) -> dict:
 def main(args, engine: Engine = None, processor: Qwen25VLProcessor = None, device="cuda"):
     """Evaluate as the flags ask; returns the jsonl shard's path. A given
     `engine` (and `processor`) is used as is; otherwise both load from
-    --model_base onto `device`."""
+    --model_base onto `device` (over a mesh, `build_mesh_engine`)."""
+    import torch.distributed as dist
+
     _refuse_unported(args)
+    pp = getattr(args, "pipeline_parallel_size", 1) or 1
+    mesh = pp > 1 or (getattr(args, "tensor_parallel_size", None) or 1) > 1
+    # mcq + train split: probability-based scoring over the option letters
+    prob_mode = args.datatype == "mcq" and args.split == "train"
+    if prob_mode and pp > 1:
+        raise ValueError("prob-based MCQ scoring needs the bucket engine; it is unavailable under "
+                         "--pipeline_parallel_size > 1")
     os.makedirs(args.output_dir, exist_ok=True)
     output_file = os.path.join(args.output_dir, f"{args.datatype}_{args.curr_idx}_{args.total_idx}.jsonl")
 
@@ -229,7 +301,9 @@ def main(args, engine: Engine = None, processor: Qwen25VLProcessor = None, devic
     except Exception:
         pass
 
-    if engine is None:
+    if engine is None and mesh:
+        engine, processor = build_mesh_engine(args, device)
+    elif engine is None:
         params, cfg = load_checkpoint(args.model_base, device=device)
         engine = Engine(
             params,
@@ -240,9 +314,11 @@ def main(args, engine: Engine = None, processor: Qwen25VLProcessor = None, devic
         )
         processor = Qwen25VLProcessor.from_pretrained(args.model_base)
     text_engine = TextEngine(make_generation_engine(args, engine), processor)
+    # over a mesh global rank 0 writes; every rank has read the shard for the resume before it does
+    writes = not dist.is_initialized() or dist.get_rank() == 0
+    if dist.is_initialized():
+        dist.barrier()
 
-    # mcq + train split: probability-based scoring over the option letters
-    prob_mode = args.datatype == "mcq" and args.split == "train"
     dataset = EvalDataset(
         processor,
         datatype=args.datatype,
@@ -266,11 +342,12 @@ def main(args, engine: Engine = None, processor: Qwen25VLProcessor = None, devic
     t0 = time.perf_counter()
     n_done = 0
     limit = getattr(args, "limit", 0)
-    with open(output_file, "a+") as f:
+    with open(output_file, "a+") if writes else contextlib.nullcontext() as f:
         def write(rec: dict) -> None:
             nonlocal n_done
-            f.write(json.dumps(rec) + "\n")
-            f.flush()
+            if writes:
+                f.write(json.dumps(rec) + "\n")
+                f.flush()
             n_done += 1
 
         for batch in dataset.iter_batches(args.batch_size):
@@ -293,6 +370,8 @@ def main(args, engine: Engine = None, processor: Qwen25VLProcessor = None, devic
                 write(text_record(b, text, args.datatype))
 
     total = time.perf_counter() - t0
+    if not writes:
+        return output_file
     print(f"\n--- Timing Summary ---\nTotal program execution time: {total:.2f} seconds")
     with open(os.path.join(args.output_dir, "timing_summary_vllm.txt"), "w") as tf:
         tf.write("\n--- Timing Summary ---\n")

@@ -146,10 +146,14 @@ class KVCache:
 
     @staticmethod
     def zeros(cfg: TextConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda",
-              quant: bool = False) -> "KVCache":
-        """An empty cache; quant=True gives the int8 form with zero scales."""
+              quant: bool = False, shard=None, layers: Optional[int] = None) -> "KVCache":
+        """An empty cache; quant=True gives the int8 form with zero scales.
+        shard (a ShardContext): the rank's kv heads (nkv/tp, `_heads`), with
+        per-token scales a local head in the int8 form. layers: a pipeline
+        stage's layer count (default: every layer)."""
         device = resolve_device(device)
-        shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
+        nkv = _heads(cfg, shard)[1]
+        shape = (cfg.num_hidden_layers if layers is None else layers, batch, max_len, nkv, cfg.head_dim)
         if quant:
             return KVCache(
                 torch.zeros(shape, dtype=torch.int8, device=device),
@@ -229,8 +233,16 @@ def decoder_forward(
     lora_side: Optional[tuple] = None,  # (per-layer adapters, scaling): side products
     cp=None,  # parallel.ContextParallel: the inputs are this rank's sequence shard
     shard=None,  # parallel.sharding.ShardContext over the text params: FSDP and TP layers
+    layer_offset: int = 0,  # a pipeline stage's first layer: params["layers"] are layers offset, offset + 1, ...
+    final_norm: bool = True,  # False: the hidden state before the final norm (a pipeline stage's)
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Run all decoder layers; returns (hidden (B, S, hid), updated cache).
+
+    A pipeline stage (`parallel/pipeline.py`) passes its own layers as
+    params["layers"], their first index as `layer_offset` (the sliding-window
+    flags and the adapters are read at the model's layer index) and a cache
+    of that many layers, and takes the hidden state before the final norm
+    (final_norm=False; its params then need no "norm").
 
     With cp, hidden, position_ids and attention_mask are this rank's shard of
     the sequence in the group's layout (S local positions, a whole number of
@@ -335,7 +347,7 @@ def decoder_forward(
     def layer(x, lp, li):
         if shard is not None:
             lp = shard.layer(lp, li, "layers")
-        lp, side = _layer_adapters(lp, li, lora, lora_side)
+        lp, side = _layer_adapters(lp, layer_offset + li, lora, lora_side)
         h = _rms_norm(x, lp["input_layernorm"], eps)
         q, k, v = attn_qkv_proj(h, lp, nh, nkv, hd, lora=side, tp=shard)
         q = rope(q, cos_b, sin_b).to(x.dtype)
@@ -357,7 +369,7 @@ def decoder_forward(
         elif flash:
             attn = flash_attention(q, k.contiguous(), v.contiguous(), kv_bias, True, None, 0)
         else:
-            attn = mha_reference(q, k, v, bias=window_bias if sliding[li] else bias)
+            attn = mha_reference(q, k, v, bias=window_bias if sliding[layer_offset + li] else bias)
         x = x + attn_out_proj(attn.reshape(B, S, nh * hd).to(x.dtype), lp, side, tp=shard)
         x = x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp, lora=side, tp=shard)
         return x, k, v
@@ -372,7 +384,7 @@ def decoder_forward(
         if fills:
             layer_kv.append((k, v))
 
-    hidden = _rms_norm(x, params["norm"], eps)
+    hidden = _rms_norm(x, params["norm"], eps) if final_norm else x
     if fills:
         ks, vs = zip(*layer_kv)
         new_cache = KVCache(torch.stack(ks).to(cache.k.dtype), torch.stack(vs).to(cache.v.dtype), S)
@@ -439,10 +451,11 @@ def _write_q8(cache: KVCache, li: int, at, k: torch.Tensor, v: torch.Tensor) -> 
 
 
 def suffix_cache_zeros(cfg: TextConfig, batch: int, max_new: int, dtype=torch.bfloat16,
-                       device="cuda", quant: bool = False) -> KVCache:
+                       device="cuda", quant: bool = False, shard=None) -> KVCache:
     """Empty per-row generated-suffix cache (L, batch, max_new, Hkv, hd) for
-    the shared-prefix decode; quant=True gives the int8 form."""
-    return KVCache.zeros(cfg, batch, max_new, dtype=dtype, device=device, quant=quant)
+    the shared-prefix decode; quant=True gives the int8 form; shard: the
+    rank's kv heads, as `KVCache.zeros`."""
+    return KVCache.zeros(cfg, batch, max_new, dtype=dtype, device=device, quant=quant, shard=shard)
 
 
 def decode_step_attention(q, kp, vp, kps, vps, ko, vo, kos, vos, own_len, k, v,

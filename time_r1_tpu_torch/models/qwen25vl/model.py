@@ -102,11 +102,13 @@ def vision_signature(grids, vis: VisionInputs) -> tuple:
     return tuple(tuple(int(x) for x in g) for g in grids), int(vis.perm.shape[0])
 
 
-def compute_vision_features(params: dict, cfg: Qwen25VLConfig, vis: VisionInputs) -> torch.Tensor:
-    """The frozen vision tower; K2/K3 carry its attention when the patches are on the card."""
+def compute_vision_features(params: dict, cfg: Qwen25VLConfig, vis: VisionInputs, shard=None) -> torch.Tensor:
+    """The frozen vision tower; K2/K3 carry its attention when the patches are
+    on the card. shard: a ShardContext over the visual params (the rank's
+    heads)."""
     return vision_forward(
         params["visual"], cfg.vision, vis.patches, vis.perm, vis.pos_hw,
-        vis.key_valid, vis.full_gather, vis.full_inverse, vis.reverse, use_window_kernel=True,
+        vis.key_valid, vis.full_gather, vis.full_inverse, vis.reverse, use_window_kernel=True, shard=shard,
     )
 
 
@@ -120,6 +122,7 @@ def forward(
     cache: Optional[KVCache] = None,
     use_flash: Optional[bool] = None,
     lora_side: Optional[tuple] = None,  # (per-layer adapters, scaling): language.decoder_forward
+    shard=None,  # a ShardContext over the text layers (language.decoder_forward); embedding and head whole
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Full forward → (logits (B, S, V) f32, updated KV cache)."""
     embeds = embed_lookup(params["text"]["embed_tokens"], input_ids, dtype=params["text"]["norm"].dtype)
@@ -128,7 +131,7 @@ def forward(
         embeds = merge_vision_embeddings(embeds, input_ids, feats, (cfg.video_token_id, cfg.image_token_id))
     hidden, new_cache = decoder_forward(
         params["text"], cfg.text, embeds, position_ids,
-        attention_mask=attention_mask, cache=cache, use_flash=use_flash, lora_side=lora_side,
+        attention_mask=attention_mask, cache=cache, use_flash=use_flash, lora_side=lora_side, shard=shard,
     )
     return lm_logits(params["text"], cfg.text, hidden), new_cache
 
@@ -142,11 +145,13 @@ def forward_shared_decode(
     suffix: KVCache,  # (L, B, max_new, ...) per-row generated suffix
     prefix_bias: torch.Tensor,  # (P, Lp) f32 additive
     lora_side: Optional[tuple] = None,  # (per-layer adapters, scaling): language.decoder_forward
+    shard=None,  # a ShardContext over the text layers, as forward
 ) -> tuple[torch.Tensor, KVCache]:
     """Decode-phase forward with the prompt KV shared across rollout rows
     (language.shared_decode_forward) → (logits (B, S, V) f32, new suffix)."""
     embeds = embed_lookup(params["text"]["embed_tokens"], input_ids, dtype=params["text"]["norm"].dtype)
     hidden, new_suffix = shared_decode_forward(
         params["text"], cfg.text, embeds, position_ids, prefix, suffix, prefix_bias, lora_side=lora_side,
+        shard=shard,
     )
     return lm_logits(params["text"], cfg.text, hidden), new_suffix

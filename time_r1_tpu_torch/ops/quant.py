@@ -329,14 +329,16 @@ def mlp_proj(h: torch.Tensor, mlp: dict, lora=None, tp=None) -> torch.Tensor:
 
     tp (a `parallel/sharding.py::ShardContext`): gate/up are the rank's
     column blocks of the width and down its row block; h enters the model
-    group and down's partial sums are all-reduced over it. A quantized tree
-    is never split over "model" (the trainer refuses it), so Q2 never sees
-    a shard."""
+    group and down's partial sums are all-reduced over it. A serving tree
+    split over "model" (`parallel/sharding.py::serving_params`) holds the
+    rank's fused int8 gate | up and its columns of down with every scale
+    whole: Q2 runs on those local widths (the 3B at tp 2: I 5504; the 7B at
+    tp 4: I 4736), and its partial sums are all-reduced like the unfused
+    product's. A local shape Q2 cannot take raises in its wrapper."""
     if tp is not None:
         h = tp.enter(h)
     if (
-        tp is None
-        and lora is None
+        lora is None
         and "gu" in mlp
         and h.is_cuda
         and h.ndim == 3
@@ -345,8 +347,8 @@ def mlp_proj(h: torch.Tensor, mlp: dict, lora=None, tp=None) -> torch.Tensor:
     ):
         B, S, hid = h.shape
         out = fused_mlp_int8(h.reshape(B * S, hid), mlp["gu"]["q8"], mlp["gu"]["s"],
-                             mlp["down_w"]["q8"], mlp["down_w"]["s"])
-        return out.reshape(B, S, hid)
+                             mlp["down_w"]["q8"], mlp["down_w"]["s"]).reshape(B, S, hid)
+        return out if tp is None else tp.exit(out)
     grouped = lora[0].get("gu_side") if lora is not None else None
     with proj_name("mlp_gu"):
         if "gu" in mlp:
@@ -383,18 +385,23 @@ def quantize_layer(lp: dict, bits: int = 8, fuse: bool = True) -> dict:
                 lp[key] = quantize_weight(lp[key], bits=bits)
         return lp
     if "qkv" not in lp:
-        lp["qkv"] = quantize_weight(torch.cat([lp.pop("q_w"), lp.pop("k_w"), lp.pop("v_w")]), bits=bits)
+        lp["qkv"] = _cat_rows([lp.pop("q_w"), lp.pop("k_w"), lp.pop("v_w")])
         lp["qkv_b"] = torch.cat([lp.pop("q_b"), lp.pop("k_b"), lp.pop("v_b")])
-    elif not is_quantized(lp["qkv"]):
-        lp["qkv"] = quantize_weight(lp["qkv"], bits=bits)
     if "gu" not in lp:
-        lp["gu"] = quantize_weight(torch.cat([lp.pop("gate_w"), lp.pop("up_w")]), bits=bits)
-    elif not is_quantized(lp["gu"]):
-        lp["gu"] = quantize_weight(lp["gu"], bits=bits)
-    for key in ("o_w", "down_w"):
+        lp["gu"] = _cat_rows([lp.pop("gate_w"), lp.pop("up_w")])
+    for key in ("qkv", "gu", "o_w", "down_w"):
         if not is_quantized(lp[key]):
             lp[key] = quantize_weight(lp[key], bits=bits)
     return lp
+
+
+def _cat_rows(ws: list):
+    """Weights stacked along their output rows: tensors, or quantized leaves
+    (their values and per-row scales alike: the same leaf as quantizing the
+    stacked weight)."""
+    if all(is_quantized(w) for w in ws):
+        return {k: torch.cat([w[k] for w in ws]) for k in ws[0]}
+    return torch.cat(ws)
 
 
 @torch.no_grad()

@@ -1,8 +1,10 @@
 """Collectives over a process group: the port's counterparts of JAX's
 `lax.ppermute` (`ring_shift`), `lax.psum` (`all_reduce_sum`) and
-`multihost_utils.process_allgather` (`all_gather_vector`), and the three
+`multihost_utils.process_allgather` (`all_gather_vector`), the three
 that FSDP and tensor parallelism need where GSPMD inserts its own
-(`all_gather_dim`, `reduce_scatter_dim`, `broadcast`).
+(`all_gather_dim`, `reduce_scatter_dim`, `broadcast`), and the one-way hop
+of pipeline generation (`send_next` / `recv_prev`: one edge of JAX's
+ppermute ring, where the receiver waits for its sender).
 
 Over NCCL they move the tensors where they lie. Over gloo a CUDA tensor is
 staged through a pinned host buffer on the way out and copied back to its
@@ -63,14 +65,31 @@ def ring_shift(tensors: Sequence[torch.Tensor], group=None) -> list[torch.Tensor
     ops += [dist.P2POp(dist.irecv, b, prv, group) for b in recvs]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
+    return [_back(b, t) for b, t in zip(recvs, tensors)]
+
+
+def _back(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A received buffer on like's device: a staged one copied back, counted."""
     global staged_bytes
-    out = []
-    for b, t in zip(recvs, tensors):
-        if b.device != t.device:
-            staged_bytes += b.numel() * b.element_size()
-            b = b.to(t.device)
-        out.append(b)
-    return out
+    if buf.device == like.device:
+        return buf
+    staged_bytes += buf.numel() * buf.element_size()
+    return buf.to(like.device)
+
+
+def send_next(x: torch.Tensor, group=None) -> None:
+    """Send x to the group's next rank (r + 1 mod n); returns when it is sent.
+    The receiver calls `recv_prev` with a tensor like x."""
+    dist.send(_out(x.contiguous(), group), _global(group, (dist.get_rank(group) + 1) % dist.get_world_size(group)),
+              group=group)
+
+
+def recv_prev(like: torch.Tensor, group=None) -> torch.Tensor:
+    """The tensor the group's previous rank (r − 1 mod n) sent with
+    `send_next`, of like's shape and dtype on like's device. Waits for it."""
+    buf = _buffer(like, group)
+    dist.recv(buf, _global(group, (dist.get_rank(group) - 1) % dist.get_world_size(group)), group=group)
+    return _back(buf, like)
 
 
 def all_reduce_sum(tensors: Sequence[torch.Tensor], group=None) -> None:

@@ -10,14 +10,24 @@ fewer cards (two or four ranks on one card), every rank takes `cuda:0` and the
 group runs over gloo, whose collectives `comm.py` stages through pinned host
 memory. On the CPU the group is gloo.
 
-The mesh is a `DeviceMesh` with dims ("data", "model"), as JAX's: (world /
-tp, tp). Rank r sits at (r // tp, r % tp), so a model group is made of
+The training mesh is a `DeviceMesh` with dims ("data", "model"), as JAX's:
+(world / tp, tp). Rank r sits at (r // tp, r % tp), so a model group is made of
 adjacent ranks (on one node). The data dim carries FSDP (`sharding.py`,
 `fsdp.py`: each rank its own examples, parameters, gradients and optimizer
 state sharded over it) or context parallelism (the ranks split one sequence,
 `ring_attention.py`); the model dim carries Megatron-style tensor parallelism
 (`tensor.py`: heads and MLP width split, one all-reduce after each
-row-parallel product).
+row-parallel product). Evaluation takes it with data 1 (`make_mesh(tp)`
+over a world of tp ranks).
+
+Pipeline generation (`pipeline.py`) takes `make_pp_mesh(n_stages, tp)`, dims
+("stage", "model"), as JAX's `time_r1_tpu/parallel/pipeline.py:42-46`: rank
+r at (r // tp, r % tp), so a stage's model group is made of adjacent ranks
+and the stage group of a model coordinate is every tp-th rank.
+
+`--tp_group_index gi` (eval): `maybe_init_distributed(first_card=gi·tp)`
+puts local rank r on card gi·tp + r, as JAX's eval takes the devices
+[gi·tp, (gi+1)·tp).
 """
 
 from __future__ import annotations
@@ -30,14 +40,25 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+STAGE_AXIS = "stage"
 
 
-def maybe_init_distributed(device="cuda") -> Optional[torch.device]:
+def card_group_check(first_card: int, n: int, cards: int, what: str) -> None:
+    """JAX's `cli/evaluate.py:201-205` refusal: the cards [first_card,
+    first_card + n) must exist. first_card 0 is always allowed: its ranks
+    share the first card when the machine shows fewer."""
+    if first_card > 0 and cards < first_card + n:
+        raise ValueError(f"{what} needs devices [{first_card}, {first_card + n}) but only {cards} exist")
+
+
+def maybe_init_distributed(device="cuda", first_card: int = 0) -> Optional[torch.device]:
     """Join torchrun's process group; a no-op returning None without its
-    environment (one process). Returns this rank's device: `cuda:LOCAL_RANK`
-    when every local rank has a card (NCCL), else `cuda:0` shared by all ranks
-    (gloo), or the CPU (gloo) when `device` is the CPU. Sets the current CUDA
-    device before the group exists, as NCCL needs."""
+    environment (one process). Returns this rank's device:
+    `cuda:first_card + LOCAL_RANK` when the machine shows a card for every
+    local rank from `first_card` on (NCCL), else `cuda:0` shared by all ranks
+    (gloo; with first_card > 0 a ValueError, `card_group_check`), or the CPU
+    (gloo) when `device` is the CPU. Sets the current CUDA device before the
+    group exists, as NCCL needs."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world <= 1 or "RANK" not in os.environ:
         return None
@@ -45,8 +66,10 @@ def maybe_init_distributed(device="cuda") -> Optional[torch.device]:
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
     if torch.device(device).type == "cuda":
-        own = torch.cuda.device_count() >= local_world
-        dev = torch.device("cuda", local_rank if own else 0)
+        cards = torch.cuda.device_count()
+        card_group_check(first_card, local_world, cards, f"a group of {local_world} ranks from card {first_card}")
+        own = cards >= first_card + local_world
+        dev = torch.device("cuda", first_card + local_rank if own else 0)
         torch.cuda.set_device(dev)
         backend = "nccl" if own else "gloo"
         note = "" if own else f" (the {local_world} local ranks share one card)"
@@ -76,6 +99,22 @@ def make_mesh(model_parallel: int = 1):
                             mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
 
 
+def make_pp_mesh(n_stages: int, tp: int = 1):
+    """The pipeline mesh over every rank of the process group: dims
+    ("stage", "model") of sizes (n_stages, tp), rank r at (r // tp, r % tp).
+    Raises ValueError when n_stages·tp is not the world size."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_pp_mesh needs a process group: launch with torchrun (maybe_init_distributed)")
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = dist.get_world_size()
+    if n_stages < 1 or tp < 1 or n_stages * tp != world:
+        raise ValueError(f"pipeline_parallel_size={n_stages} × tensor_parallel_size={tp} needs "
+                         f"{n_stages * tp} ranks, the group has {world}")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, (n_stages, tp), mesh_dim_names=(STAGE_AXIS, MODEL_AXIS))
+
+
 def mesh_size(mesh, axis: str) -> int:
     """The size of the mesh's `axis` (1 without a mesh)."""
     return 1 if mesh is None else mesh.size(mesh.mesh_dim_names.index(axis))
@@ -94,3 +133,8 @@ def data_group(mesh):
 def model_group(mesh):
     """The process group of the mesh's model dim, or None without a mesh."""
     return None if mesh is None else mesh.get_group(MODEL_AXIS)
+
+
+def stage_group(mesh):
+    """The process group of a pipeline mesh's stage dim, or None without a mesh."""
+    return None if mesh is None else mesh.get_group(STAGE_AXIS)

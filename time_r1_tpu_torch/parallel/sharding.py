@@ -17,6 +17,18 @@ rows would cut through q|k|v, which GSPMD reshards around and Megatron-style
 compute cannot; the split is a difference of layout that gives the same
 results (ROADMAP §C).
 
+Serving over a model group (`serving_params`, the tensor-parallel `Engine`
+of eval, data 1) takes the rank's blocks of the decoder layers and of the
+vision tower by the same table and keeps the embedding, the final norm and
+the head whole. Quantized (int8), each projection is quantized whole and
+then split, as JAX's `time_r1_tpu/parallel/pipeline.py:58-82` states:
+a column-parallel weight (q, k, v, gate, up: output rows split) takes its
+rows of q8 and of the per-row scales; a row-parallel one (o, down: input
+columns split) takes its columns of q8 and keeps every scale whole, since
+each is a max over the split axis (quantizing the local block would change
+it). The rank then fuses its own q | k | v heads and gate | up columns into
+the "qkv" / "gu" leaves that `attn_qkv_proj` and Q2 take.
+
 `ShardContext` carries a mesh's groups, sizes, this rank's coordinates and
 the spec tree of the parameters it shards. The layer functions of the model
 (`models/qwen25vl/language.py`, `vision.py`) take one: they gather a layer's
@@ -282,6 +294,68 @@ def global_sq_sum(blocks: list, specs: list, shard: ShardContext) -> torch.Tenso
         all_reduce_sum([part], shard.model_group)
         by[(False, True)], by[(True, True)] = part[0], part[1]
     return by[(False, False)] + by[(True, False)] + by[(False, True)] + by[(True, True)]
+
+
+@torch.no_grad()
+def serving_layer(lp: dict, tp: int, m: int, bits: int = 0, device=None) -> dict:
+    """Model rank m's serving form of one whole decoder layer (the port's
+    unfused per-layer dict): its blocks by the rule table (`shard_leaf` at
+    data 1); with bits 8 each projection quantized whole, its q8 split as
+    the weight and its per-output-row scales as the weight's dim 0 (split
+    for the column-parallel leaves, whole for the row-parallel ones: the
+    module docstring), and the rank's q | k | v and gate | up then fused
+    (`ops/quant.py::quantize_layer`). `device`: where the leaves go (the
+    quantization runs there)."""
+    from ..ops.quant import is_quantized, quantize_layer, quantize_weight
+
+    if "qkv" in lp or "gu" in lp or any(is_quantized(v) for v in lp.values()):
+        raise ValueError("serving shards are cut from an unquantized, unfused tree")
+    if bits not in (0, 8):
+        raise NotImplementedError(f"int{bits} weights under tensor parallelism are not ported (ROADMAP A13)")
+    sizes, coords = {D: 1, M: tp}, {D: 0, M: m}
+    specs = param_specs({"text": {"layers": [lp]}}, sizes)["text"]["layers"][0]
+
+    def cut(x: torch.Tensor, spec: Spec):
+        x = x.detach()
+        if not (bits and x.dim() == 2):
+            return shard_leaf(x, spec, sizes, coords).to(device if device is not None else x.device)
+        q = quantize_weight(x.to(device if device is not None else x.device), bits)  # whole, where the blocks go
+        return {"q8": shard_leaf(q["q8"], spec, sizes, coords), "s": shard_leaf(q["s"], Spec(spec.dims[:1]), sizes, coords)}
+
+    out = {k: cut(v, specs[k]) for k, v in lp.items()}
+    return quantize_layer(out, bits=bits, fuse=True) if bits else out
+
+
+@torch.no_grad()
+def serving_params(params: dict, shard: "ShardContext", bits: int = 0, device=None) -> dict:
+    """This rank's serving tree from a whole {visual, text} tree on a mesh
+    of data 1 (the eval mesh): `serving_layer` for each decoder layer, the
+    rank's blocks of the vision tower by the rule table, and the embedding,
+    the final norm and the head whole (int8 under bits 8, as
+    `ops/quant.py::quantize_text_params` has them). Every leaf goes to
+    `device`. FSDP (data > 1) and int4 raise NotImplementedError (A13)."""
+    from ..ops.quant import quantize_text_params
+
+    if shard.dp != 1:
+        raise NotImplementedError("a serving engine over FSDP shards (data > 1) is not ported (ROADMAP A13)")
+
+    def to(x):
+        return x.detach().to(device if device is not None else x.device)
+
+    text = {k: to(v) for k, v in params["text"].items() if k != "layers"}
+    text = quantize_text_params(dict(text, layers=[]), bits=bits) if bits else text
+    text["layers"] = [serving_layer(lp, shard.tp, shard.model_rank, bits, device) for lp in params["text"]["layers"]]
+    vis = shard.at("visual")
+    visual = _zip(params["visual"], vis.specs, lambda x, sp: shard_leaf(to(x), sp, vis.sizes, vis.coords))
+    return {"visual": visual, "text": text}
+
+
+def serving_context(shard: "ShardContext", layers: list) -> "ShardContext":
+    """The context a serving tree's decoder takes (`decoder_forward(shard=)`):
+    the model group and rank of `shard`, and a spec over each leaf of the
+    serving layers `layers` that gathers nothing (data 1: each is already
+    the rank's model-local form)."""
+    return dataclasses.replace(shard, specs={"layers": [{k: Spec(()) for k in lp} for lp in layers]})
 
 
 @torch.no_grad()

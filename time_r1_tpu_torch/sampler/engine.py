@@ -28,7 +28,19 @@
   trainer's weight sync over such a base is this call, with no merge and no
   copy;
 - stop ids kept in the output (include_stop_token), left-padded power-of-two
-  prompt buckets.
+  prompt buckets;
+- tensor parallelism (`shard=`, a `parallel/sharding.py::ShardContext` over
+  a mesh of data 1: the eval's `--tensor_parallel_size`): the engine keeps
+  the rank's serving tree (`serving_params`: its q/k/v heads and MLP
+  columns, its rows of o and down, the vision tower's heads, int8 quantized
+  whole and then split; the embedding, the final norm and the head whole),
+  runs the vision tower, the chunked prefill and the decode at the rank's
+  heads with one all-reduce after each row-parallel product, and caches its
+  own kv heads. Model-rank 0 samples and broadcasts each token over the
+  model group, so every rank holds the same tokens. Under a mesh the decode
+  is eager (`capture=False`), decided here from the constructor's
+  arguments: a gloo collective stages through host memory, which a CUDA
+  graph cannot record (JAX runs one compiled program; ROADMAP §C).
 """
 
 from __future__ import annotations
@@ -59,6 +71,7 @@ from ..models.qwen25vl.model import (
 )
 from ..models.qwen25vl.vision import vision_blocks_forward, vision_merge_forward
 from ..ops.quant import QBITS, embed_lookup, group_side_adapters, quantize_kv_cache, quantize_params
+from ..parallel.comm import broadcast
 from .graph import StepGraph
 from .params import SamplingParams
 
@@ -126,6 +139,7 @@ def prefill_chunk(
     feats: Optional[torch.Tensor],  # (U_pad, hidden) or None
     feat_offsets: Optional[torch.Tensor],  # (B,) absolute feature starts
     lora_side: Optional[tuple] = None,  # (per-layer adapters, scaling), Engine.set_lora_side
+    shard=None,  # a ShardContext over the text layers (the TP engine's)
 ) -> tuple[torch.Tensor, KVCache]:
     """One prompt chunk through the decoder, appending to the cache at
     `cache.length`; returns (logits at the chunk's last position (B, 1, V), cache)."""
@@ -136,7 +150,7 @@ def prefill_chunk(
         )
     hidden, cache = decoder_forward(
         params["text"], cfg.text, embeds, pos_ids,
-        attention_mask=mask, cache=cache, lora_side=lora_side,
+        attention_mask=mask, cache=cache, lora_side=lora_side, shard=shard,
     )
     return lm_logits(params["text"], cfg.text, hidden[:, -1:]), cache
 
@@ -147,18 +161,43 @@ def is_stop(tokens: torch.Tensor, stop_ids: torch.Tensor) -> torch.Tensor:
     return (tokens[:, None] == stop_ids[None, :]).any(-1)
 
 
+def token_pick(generator: Optional[torch.Generator], sp: SamplingParams, group=None) -> Callable:
+    """The decode loops' choice of the next tokens from (logits (B, V) or
+    None, counts or None, like (B,) long): `sample_tokens` here, or under a
+    process group the tokens that the group's rank 0 samples, broadcast to
+    every rank (`comm.broadcast`), so that all ranks hold the same tokens;
+    the other ranks sample nothing and may pass no logits (a pipeline
+    stage's)."""
+    import torch.distributed as dist
+
+    def pick(logits, counts, like):
+        if group is None:
+            return sample_tokens(logits, generator, sp, counts)
+        if dist.get_rank(group) == 0:
+            tok = sample_tokens(logits, generator, sp, counts).contiguous()
+        else:
+            tok = torch.empty_like(like)
+        return broadcast(tok, 0, group)
+
+    return pick
+
+
 def _run_decode_loop(
     cfg: Qwen25VLConfig,
-    first_logits: torch.Tensor,  # (B, V) logits at the last prompt position
+    first_logits: Optional[torch.Tensor],  # (B, V) logits at the last prompt position
     start_pos: torch.Tensor,  # (B,) rope position of the first generated token
     sp: SamplingParams,
     generator: Optional[torch.Generator],
     step_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],  # (last (B,), pos3) → logits (B, V)
     capture: bool,
+    pick: Optional[Callable] = None,  # token_pick(...): the tokens from the logits
 ) -> tuple[torch.Tensor, int]:
     """The sample/stop/repetition bookkeeping both decode loops share; the
     cache layout lives in `step_fn`, which must update its cache in place.
-    Returns (tokens (B, max_new), number of decode steps run).
+    Returns (tokens (B, max_new), number of decode steps run). `pick`
+    (default `token_pick(generator, sp)`) turns each step's logits into
+    tokens; a rank whose pick broadcasts another's tokens may have no logits
+    (first_logits and step_fn's result None).
 
     The state (last, done, tokens, counts, the step counter) lives on the
     device and the step (`body`) writes it in place, the token at the device
@@ -171,14 +210,17 @@ def _run_decode_loop(
 
     Position convention: `last` is generated token step-1 (0-based), which
     sits at rope position start_pos + step - 1 on all three mrope axes."""
-    B, V = first_logits.shape
-    device = first_logits.device
+    B = start_pos.shape[0]
+    V = first_logits.shape[-1] if first_logits is not None else cfg.text.vocab_size
+    device = start_pos.device
     max_new = sp.max_new_tokens
     pad = cfg.pad_token_id
     stop_ids = torch.tensor(sp.stop_token_ids, dtype=torch.long, device=device)
     track_counts = sp.repetition_penalty != 1.0
+    pick = pick or token_pick(generator, sp)
+    like = torch.zeros((B,), dtype=torch.long, device=device)
 
-    last = sample_tokens(first_logits, generator, sp)
+    last = pick(first_logits, None, like)
     counts = torch.zeros((B, V if track_counts else 1), dtype=torch.int32, device=device)
     if track_counts:
         counts.scatter_add_(1, last[:, None], torch.ones((B, 1), dtype=torch.int32, device=device))
@@ -190,7 +232,7 @@ def _run_decode_loop(
     def body():
         pos3 = (start_pos + step - 1)[None, :, None].expand(3, B, 1)
         logits = step_fn(last, pos3)
-        nxt = sample_tokens(logits, generator, sp, counts if track_counts else None)
+        nxt = pick(logits, counts if track_counts else None, like)
         nxt = torch.where(done, pad, nxt)
         if track_counts:
             counts.scatter_add_(1, nxt[:, None], (~done).int()[:, None])
@@ -220,6 +262,8 @@ def decode_loop(
     generator: Optional[torch.Generator],
     capture: bool = True,
     lora_side: Optional[tuple] = None,
+    shard=None,
+    pick: Optional[Callable] = None,
 ) -> tuple[torch.Tensor, int]:
     """Sample + decode up to sp.max_new_tokens over the full per-row cache;
     returns (tokens (B, max_new), number of decode steps run). Each step
@@ -228,7 +272,9 @@ def decode_loop(
     against it); on the CPU it runs eagerly. lora_side: side-path adapters,
     read by every step (a capture records their tensors: the graph lives for
     this call only, so adapters installed before the next call are the ones
-    it captures)."""
+    it captures). shard: a ShardContext over the text layers (the TP
+    engine's, whose steps all-reduce: it passes capture=False); pick: as
+    `_run_decode_loop`."""
     if cache.length + sp.max_new_tokens - 1 > cache.k.shape[2]:
         raise ValueError(f"a cache of {cache.k.shape[2]} positions holds {cache.length} and cannot take "
                          f"{sp.max_new_tokens - 1} decode steps")
@@ -236,10 +282,10 @@ def decode_loop(
 
     def step_fn(last, pos3):
         logits, _ = forward(params, cfg, last[:, None], pos3, attention_mask=mask, cache=cache,
-                            lora_side=lora_side)
+                            lora_side=lora_side, shard=shard)
         return logits[:, -1]
 
-    return _run_decode_loop(cfg, first_logits, start_pos, sp, generator, step_fn, capture)
+    return _run_decode_loop(cfg, first_logits, start_pos, sp, generator, step_fn, capture, pick)
 
 
 def decode_loop_shared(
@@ -254,6 +300,8 @@ def decode_loop_shared(
     generator: Optional[torch.Generator],
     capture: bool = True,
     lora_side: Optional[tuple] = None,
+    shard=None,
+    pick: Optional[Callable] = None,
 ) -> tuple[torch.Tensor, int]:
     """decode_loop over the shared-prefix layout: the prompt KV is stored once
     per prompt and each rollout row keeps only its generated-suffix cache
@@ -265,7 +313,8 @@ def decode_loop_shared(
     device memory; on the CPU it is `mha_shared_prefix`. D2 cannot check that
     length against the suffix without a sync, so it is checked here, once:
     the suffix must hold max_new_tokens positions (the last step writes at
-    max_new_tokens - 2). `capture` and `lora_side` as in `decode_loop`."""
+    max_new_tokens - 2). `capture`, `lora_side`, `shard` and `pick` as in
+    `decode_loop`."""
     if suffix.length + sp.max_new_tokens > suffix.k.shape[2]:
         raise ValueError(f"a suffix cache of {suffix.k.shape[2]} positions holding {suffix.length} cannot take "
                          f"{sp.max_new_tokens} tokens")
@@ -273,10 +322,10 @@ def decode_loop_shared(
 
     def step_fn(last, pos3):
         logits, _ = forward_shared_decode(params, cfg, last[:, None], pos3, prefix, suffix, prefix_bias,
-                                          lora_side=lora_side)
+                                          lora_side=lora_side, shard=shard)
         return logits[:, -1]
 
-    return _run_decode_loop(cfg, first_logits, start_pos, sp, generator, step_fn, capture)
+    return _run_decode_loop(cfg, first_logits, start_pos, sp, generator, step_fn, capture, pick)
 
 
 def _same_layout(held: list, layers: list) -> bool:
@@ -290,7 +339,17 @@ def _same_layout(held: list, layers: list) -> bool:
 class Engine:
     """Request-level generation engine over a loaded model. Every call runs
     under `torch.no_grad()`, so a trainer may hand it parameters that require
-    grad."""
+    grad.
+
+    shard (a `parallel/sharding.py::ShardContext` built over the whole tree
+    on a mesh of data 1, `ShardContext.build(make_mesh(tp), params)`): the
+    tensor-parallel engine. `params` (and those of `set_params`) is then the
+    whole tree, on any device; the engine keeps the rank's serving tree on
+    its `device` (`serving_params`), and every rank of the model group
+    calls `generate` / `last_token_logits` together, with the same
+    requests. Its decode is eager (the module docstring); int4 and FSDP
+    shards raise NotImplementedError (A13), as `check_heads` does for a tp
+    that splits a head."""
 
     def __init__(
         self,
@@ -301,6 +360,7 @@ class Engine:
         device="cuda",
         quantization: Optional[str] = None,
         kv_cache_quant: bool = False,
+        shard=None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -308,6 +368,15 @@ class Engine:
         self.quantization = quantization
         self.kv_cache_quant = kv_cache_quant
         self.lora_side: Optional[tuple] = None  # (per-layer adapters, scaling), set_lora_side
+        self.shard = shard
+        self._text_shard = self._vis_shard = None
+        if shard is not None:
+            from ..parallel.tensor import check_heads
+
+            check_heads(cfg, shard.tp)
+            self._vis_shard = shard.at("visual")
+        # a mesh's decode is eager: its collectives stage through host memory over gloo
+        self.capture = shard is None
         self.set_params(params)
         self.prefill_chunk_tokens = prefill_chunk_tokens
         # seconds of the last generate(): vision, prefill, decode, and decode steps
@@ -327,11 +396,25 @@ class Engine:
         previous copy is dropped first so that its memory serves the new one.
         prequantized: `params` is already the quantized copy (the LoRA
         trainer's merge-then-quantize). An unknown `quantization` name is a
-        KeyError, as the JAX package's dict lookup."""
+        KeyError, as the JAX package's dict lookup. With a shard, `params` is
+        the whole tree and the engine cuts its serving tree from it."""
         self.params = None
-        if self.quantization and not prequantized:
+        if self.shard is not None:
+            from ..parallel.sharding import serving_context, serving_params
+
+            if prequantized:
+                raise ValueError("a tensor-parallel engine quantizes the whole tree itself (prequantized=False)")
+            bits = QBITS[self.quantization] if self.quantization else 0
+            params = serving_params(params, self.shard, bits, self.device)
+            self._text_shard = serving_context(self.shard.at("text"), params["text"]["layers"])
+        elif self.quantization and not prequantized:
             params = quantize_params(params, bits=QBITS[self.quantization])
         self.params = params
+
+    def _pick(self, gen: torch.Generator, sp: SamplingParams) -> Callable:
+        """The decode's token choice: under a shard model-rank 0 samples and
+        broadcasts (`token_pick`)."""
+        return token_pick(gen, sp, None if self.shard is None else self.shard.model_group)
 
     @torch.no_grad()
     def set_lora_side(self, layers: Optional[list], scaling: float = 1.0) -> None:
@@ -348,6 +431,8 @@ class Engine:
         if layers is None:
             self.lora_side = None
             return
+        if self.shard is not None:
+            raise NotImplementedError("side-path LoRA on a tensor-parallel engine is not ported (ROADMAP A13)")
         if os.environ.get("TIMER1_GROUP_SIDE_LORA", "0") == "1":
             self.lora_side = (group_side_adapters(layers, dtype=self.dtype), scaling)
             return
@@ -373,9 +458,11 @@ class Engine:
         return time.perf_counter()
 
     # ------------------------------------------------------------------
-    def _pack(self, reqs: Sequence[Request], extra_len: int = 0):
+    def _pack(self, reqs: Sequence[Request], extra_len: int = 0, with_vision: bool = True):
         """Left-pad prompts → (ids, mask, pos_ids, start_pos, vis, S, max_len);
-        ids/mask/pos_ids/start_pos are host numpy arrays."""
+        ids/mask/pos_ids/start_pos are host numpy arrays. with_vision=False:
+        the positions only, vis None and no patch copied to the device (a
+        pipeline stage that runs no vision tower)."""
         B = len(reqs)
         S = _bucket(max(len(r.input_ids) for r in reqs))
         max_len = S + _round_up(extra_len, 128) if extra_len else S
@@ -393,7 +480,8 @@ class Engine:
             if r.patches is not None:
                 grids.append(tuple(int(x) for x in r.grid_thw))
                 spgs.append(r.second_per_grid_t)
-                patch_list.append(torch.as_tensor(r.patches).to(self.device, self.dtype))
+                if with_vision:
+                    patch_list.append(torch.as_tensor(r.patches).to(self.device, self.dtype))
         if patch_list:
             patches = torch.cat(patch_list, dim=0)
             unit = self.cfg.vision.merge_unit
@@ -416,13 +504,13 @@ class Engine:
         """Merged vision features; with capture on, as blocks → merger with the
         pre-merger hidden states kept for the trainer."""
         if not self.capture_vision_hidden:
-            return compute_vision_features(self.params, self.cfg, vis)
+            return compute_vision_features(self.params, self.cfg, vis, shard=self._vis_shard)
         vcfg, visual = self.cfg.vision, self.params["visual"]
         hidden = vision_blocks_forward(visual, vcfg, vis.patches, vis.perm, vis.pos_hw,
                                        vis.key_valid, vis.full_gather, vis.full_inverse,
-                                       use_window_kernel=True)
+                                       use_window_kernel=True, shard=self._vis_shard)
         self.captured_vision = (self._last_vis_sig, hidden)
-        return vision_merge_forward(visual, vcfg, hidden, vis.reverse)
+        return vision_merge_forward(visual, vcfg, hidden, vis.reverse, shard=self._vis_shard)
 
     def _prefill(self, ids, mask, pos_ids, vis, S: int, max_len: int, on_chunk: Optional[Callable[[], object]] = None):
         """Vision tower, then chunked prefill → (last-position logits (B, V), cache).
@@ -436,7 +524,8 @@ class Engine:
             self.captured_vision = None  # never serve a previous batch's videos
         feats = self._vision(vis) if vis is not None else None
         t1 = self._sync()
-        cache = KVCache.zeros(self.cfg.text, B, max_len, dtype=self.dtype, device=self.device)
+        cache = KVCache.zeros(self.cfg.text, B, max_len, dtype=self.dtype, device=self.device,
+                              shard=self._text_shard)
         dev = self.device
         ids_t = torch.from_numpy(ids).to(dev)
         pos_t = torch.from_numpy(pos_ids).to(dev)
@@ -459,7 +548,7 @@ class Engine:
                 feat_off = torch.from_numpy(row_start + is_vis[:, :c0].sum(axis=1)).to(dev)
             logits, cache = prefill_chunk(
                 self.params, self.cfg, cache, ids_t[:, c0:c1], pos_t[:, :, c0:c1],
-                mask_t, feats, feat_off, lora_side=self.lora_side,
+                mask_t, feats, feat_off, lora_side=self.lora_side, shard=self._text_shard,
             )
         t2 = self._sync()
         self.timings = {"vision_s": t1 - t0, "prefill_s": t2 - t1 - in_callback}
@@ -484,12 +573,14 @@ class Engine:
             prefix = self._maybe_quant_cache(prefix)
             prefix_bias = torch.where(torch.from_numpy(mask[:, :S] > 0).to(self.device), 0.0, NEG_INF).float()
             suffix = suffix_cache_zeros(self.cfg.text, len(reqs) * G, _round_up(sp.max_new_tokens, 128),
-                                        dtype=self.dtype, device=self.device, quant=self.kv_cache_quant)
+                                        dtype=self.dtype, device=self.device, quant=self.kv_cache_quant,
+                                        shard=self._text_shard)
             t0 = self._sync()
             tokens, steps = decode_loop_shared(
                 self.params, self.cfg, prefix, suffix, first1.repeat_interleave(G, dim=0),
                 torch.from_numpy(np.repeat(start1, G)).to(self.device).long(), prefix_bias, sp, gen,
-                lora_side=self.lora_side,
+                capture=self.capture, lora_side=self.lora_side, shard=self._text_shard,
+                pick=self._pick(gen, sp),
             )
         else:
             ids, mask, pos_ids, start_pos, vis, S, max_len = self._pack(reqs, extra_len=sp.max_new_tokens)
@@ -499,7 +590,8 @@ class Engine:
             tokens, steps = decode_loop(
                 self.params, self.cfg, cache, first_logits,
                 torch.from_numpy(start_pos).to(self.device).long(), mask_t, sp, gen,
-                lora_side=self.lora_side,
+                capture=self.capture, lora_side=self.lora_side, shard=self._text_shard,
+                pick=self._pick(gen, sp),
             )
         tokens = tokens.cpu().numpy()
         self.timings.update(decode_s=time.perf_counter() - t0, decode_steps=steps)
