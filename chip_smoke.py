@@ -236,11 +236,11 @@ Phases (any failed check raises and the exit code is non-zero):
    references (its decode eager, as the mesh's): (a) the TP Engine over
    make_mesh(2) (8 q over 1 kv head, 8 vision heads and half the MLP width
    a rank) and (b) PPEngine over 2 stages (stage 0 the vision tower, the
-   embedding, the head and 6 of 12 layers), each on phase 4's two video
+   embedding, the head and 3 of 6 layers), each on phase 4's two video
    requests at G = 1 and the first at G = 8 (the TP Engine's shared-prefix
    decode, D2; PPEngine's expanded rows), and int8 weights (the TP Engine
    at G = 8 with the int8 KV cache, D2 and Q2; PPEngine at G = 1, Q2), 64
-   greedy tokens, Qwen2.5-VL-3B at MESH_LAYERS (12) decoder layers in bf16
+   greedy tokens, Qwen2.5-VL-3B at MESH_LAYERS (6) decoder layers in bf16
    and at 2 layers and 4 vision blocks in f32: the launches of K1, K2, K3,
    D2 and Q2 on each rank by the formula (`mesh_launches`), tensor-core in
    bf16, FMA in f32; the ranks' tokens equal; in f32 PPEngine's tokens and
@@ -265,7 +265,28 @@ Phases (any failed check raises and the exit code is non-zero):
    served over NCCL at tp 4, 4 stages and 2x2, against one card's: at full
    depth in bf16 its prefill and decode logits where the prefixes agree
    within SEVEN_B_LOGIT_TOL; at SEVEN_B_F32_LAYERS in f32 its tokens equal
-   and every logit within MESH_F32_TOL.
+   and every logit within MESH_F32_TOL;
+16. continuous batching over a mesh, in phase 15's spawn, after one
+   process's references (eager): over make_mesh(2) `PagedEngine` with a
+   bf16 pool (P1) and with int8 weights and int8 pages over a TP Engine's
+   serving tree (P2, Q2), `ContinuousEngine` (its `mha_cached` step) on
+   phase 7's stream cut to 8 requests (in f32 its first 8 text requests;
+   4 slots, pages of 128, 1024-token prefill chunks), and the TP Engine over int4 weights at G = 1 and 8 (Q1
+   at the rank's widths, D2) on the stream's first two text requests, 64 greedy tokens,
+   Qwen2.5-VL-3B at CMESH_LAYERS (6) in bf16 and 2 layers in f32: the
+   launches on each rank by the formula (`cmesh_launches`), the ranks'
+   tokens equal, the f32 bf16-pool and slot engines' tokens equal one
+   process's, every f32 admission's prefill logits within MESH_F32_TOL, the
+   logits within MESH_LOGIT_TOL (bf16) or CMESH_F32_LIMITS (f32 over
+   quantized weights) where the prefixes agree (`pick_errors`); (e)
+   `cli.evaluate.main --tensor_parallel_size 2` with `scripts/test.sh`'s
+   continuous int8 flags (CMESH_CLI_TP) and `--pipeline_parallel_size 2
+   --use_continuous_batching` at 2 layers in f32, records equal to one
+   process's. Phase 2 first holds P1 and P2 at 8 and 7 q over 1 kv head and
+   Q1 at the 3B's tp-2 and the 7B's tp-4 products (`tp_paged_q1_cases`).
+   `scripts/check_parallel.py i`, 4 cards only: Qwen2.5-VL-7B at full depth
+   through `cli.evaluate` at tp 4 over NCCL with `scripts/test.sh`'s eval
+   flags, int8 and int4, against one card's records.
 
 From phase 3 on, every `Engine` and `PagedEngine` decode on the card is a
 captured CUDA graph replayed once a step (`time_r1_tpu_torch/sampler/graph.py`;
@@ -280,8 +301,10 @@ on each rank of the 3B's context-parallel loss step, and those of K1-K3, B1,
 B2, S1 and S2 phase 14 (d)'s on rank 0 of each mesh
 (`launches_sharded_loss_per_rank`); those of K1-K3, D2 and Q2 phase 15's in
 each bf16 run of the TP Engine and of PPEngine, [rank 0, rank 1]
-(`launches_tp_engine`, `launches_pp_engine`), and D2's and Q2's their
-TP-local cases under their tags.
+(`launches_tp_engine`, `launches_pp_engine`); those of K1-K3, P1, P2, Q1,
+Q2 and D2 phase 16's, [rank 0, rank 1] (`launches_tp_paged`,
+`launches_tp_continuous`, `launches_tp_int4`); and D2's, Q2's, P1's, P2's
+and Q1's their TP-local cases under their tags.
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 kernels JSON line and the result JSON line; the line before them gives the
@@ -457,6 +480,7 @@ def phase_kernels() -> dict:
     results.update(phase_decode_quant_kernels())
     tp_decode_quant_cases(torch.Generator(device="cuda").manual_seed(9), results)
     results.update(phase_paged_kernels())
+    tp_paged_q1_cases(torch.Generator(device="cuda").manual_seed(11), results)
     return results
 
 
@@ -1912,6 +1936,143 @@ def q2_partial_sums(gen, hid: int, inter: int, tp: int) -> float:
     if not err <= Q2_PARTIAL_TOL:
         raise AssertionError(f"Q2 partial sums over {tp} blocks: {err} > {Q2_PARTIAL_TOL}")
     return err
+
+
+# phase 16's kernels at the TP-local shapes: P1 / P2 at one kv head a rank (the 3B's 16 q over 2 kv heads at tp 2,
+# G 8; the 7B's 28 over 4 at tp 4, G 7), 4 slots over a 2048-key prefix and at mixed lengths; Q1 at the rank's
+# widths of the four int4 products (qkv and gate|up split along N, o and down along K), M 4 and 8
+TP_PAGED = {"3B_tp2_G8": 8, "7B_tp4_G7": 7}
+TP_PAGED_LENGTHS = {"prefix 2048": (2048,) * 4, "mixed": (0, 327, 1689, 2041)}
+TP_Q1 = {
+    "3B_tp2": {"qkv": (1280, 2048), "o": (2048, 1024), "gu": (11008, 2048), "down": (2048, 5504)},
+    "7B_tp4": {"qkv": (1152, 3584), "o": (3584, 896), "gu": (9472, 3584), "down": (3584, 4736)},
+}
+TP_Q1_ROWS = (4, 8)
+
+
+def tp_paged_q1_cases(gen, results: dict) -> None:
+    """P1 and P2 at TP_PAGED's heads (one kv head, G 8 and 7) and
+    TP_PAGED_LENGTHS, and Q1 at TP_Q1's products and TP_Q1_ROWS, against
+    their plain versions in bf16 (the tensor-core kernels, each launch's
+    route read from `.tc_launches`, two launches bit-equal) and f32 (the FMA
+    kernels); each timed in bf16 (P1 / P2 at the 2048-key prefix, Q1 a
+    layer's four products at M 8) beside its bound, its plain version and
+    one library call (SDPA over the bf16 view; `F.linear` over dequantized
+    weights); written to the kernels' entries as their tags."""
+    import torch
+    import torch.nn.functional as F
+
+    from time_r1_tpu_torch.ops import paged_attention as pa
+    from time_r1_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+    from time_r1_tpu_torch.ops.quant import dequantize_weight, quantize_weight
+
+    dev = torch.device("cuda")
+
+    def upcast(args):
+        return [a.float() if isinstance(a, torch.Tensor) and a.is_floating_point() else a for a in args]
+
+    for tag, G in TP_PAGED.items():
+        rows = {n: {"cases": {}} for n in PAGED_KERNELS}
+        for label, lengths in TP_PAGED_LENGTHS.items():
+            c = paged_case(gen, dev, lengths, 128, 16, 65, G=G, nkv=1)
+            live = c["lengths"] > 0
+            for dtype in (torch.bfloat16, torch.float32):
+                key = str(dtype).split(".")[-1]
+                p1 = (c["q"].to(dtype), c["kp"].to(dtype), c["vp"].to(dtype), c["table"], c["lengths"], c["P"])
+                p2 = (c["q"].to(dtype), c["k8"], c["v8"], c["ks"], c["vs"], c["table"], c["lengths"], c["P"])
+                for name, fn, plain, args in ((PAGED_KERNELS[0], pa.paged_prefix_attention,
+                                               pa.paged_prefix_attention_plain, p1),
+                                              (PAGED_KERNELS[1], pa.paged_prefix_attention_q8,
+                                               pa.paged_prefix_attention_q8_plain, p2)):
+                    n0, tc0 = fn.launches, fn.tc_launches
+                    got, want = fn(*args), plain(*upcast(args))
+                    torch.cuda.synchronize()
+                    tc = dtype is torch.bfloat16
+                    if (fn.launches - n0, fn.tc_launches - tc0) != (1, int(tc)):
+                        raise AssertionError(f"{name} {tag} {label} {key}: {fn.launches - n0} launches, "
+                                             f"{fn.tc_launches - tc0} on the tensor cores")
+                    if tc and not all(torch.equal(x, y) for x, y in zip(got, fn(*args))):
+                        raise AssertionError(f"{name} {tag} {label} {key}: two launches differ")
+                    (acc, m, l), (acc_w, m_w, l_w) = got, want
+                    check_case(rows[name], f"{name} {tag}", f"{label}, {key}",
+                               [(acc, acc_w), (m[live], m_w[live]), (l, l_w)], PAGED_TOL[key])
+        c = paged_case(gen, dev, TP_PAGED_LENGTHS["prefix 2048"], 128, 16, 65, G=G, nkv=1)
+        S, nkv, _, D = c["q"].shape
+        live_keys, view, idx = sum(c["lengths"].tolist()), c["table"].shape[1] * c["P"], c["table"].long()
+        qt = c["q"].to(torch.bfloat16).reshape(S, nkv * G, 1, D)
+        kt = c["kp"].to(torch.bfloat16)[:, idx].reshape(nkv, S, view, D).transpose(0, 1).repeat_interleave(G, dim=1)
+        vt = c["vp"].to(torch.bfloat16)[:, idx].reshape(nkv, S, view, D).transpose(0, 1).repeat_interleave(G, dim=1)
+        mask = torch.where(torch.arange(view, device=dev)[None] < c["lengths"][:, None], 0.0, -1e4)
+        mask = mask.to(torch.bfloat16)[:, None, None, :]
+        sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 50)
+        small = S * nkv * G * D * 2 + c["table"].numel() * 4 + S * 4 + S * nkv * G * (D + 2) * 4
+        for name, fn, plain, args, kv_bytes in (
+            (PAGED_KERNELS[0], pa.paged_prefix_attention, pa.paged_prefix_attention_plain,
+             (c["q"].to(torch.bfloat16), c["kp"].to(torch.bfloat16), c["vp"].to(torch.bfloat16), c["table"],
+              c["lengths"], c["P"]), live_keys * nkv * D * 2 * 2),
+            (PAGED_KERNELS[1], pa.paged_prefix_attention_q8, pa.paged_prefix_attention_q8_plain,
+             (c["q"].to(torch.bfloat16), c["k8"], c["v8"], c["ks"], c["vs"], c["table"], c["lengths"], c["P"]),
+             live_keys * nkv * (D * 2 + 8)),
+        ):
+            row = rows[name]
+            b_ms, b_by = bound(4.0 * live_keys * nkv * G * D, kv_bytes + small)
+            row.update(ms=cuda_ms(lambda: fn(*args), 50), call_ms=cuda_ms(lambda: fn(*args), 50, queued=False),
+                       plain_ms=cuda_ms(lambda: plain(*args), 10), library_ms=sdpa, bound_ms=b_ms, bound_by=b_by)
+            row["bound_share"] = b_ms / row["ms"]
+            log(f"[kernels] {name} {tag} (G {G} over 1 kv head, 4 slots of 2048 keys): {row['ms']:.4f} ms on the "
+                f"device ({100 * row['bound_share']:.1f}% of the bound {b_ms:.5f} by {b_by}), {row['call_ms']:.4f} "
+                f"ms per call (plain {row['plain_ms']:.3f}, library {sdpa:.4f})")
+            results[name][tag] = row
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+
+    for tag, products in TP_Q1.items():
+        row = {"cases": {}, "per_product": {}}
+        weights = {name: quantize_weight(randn(N, K) * 0.02, bits=4) for name, (N, K) in products.items()}
+        for name, (N, K) in products.items():
+            w = weights[name]
+            for M in TP_Q1_ROWS:
+                xf = randn(M, K)
+                for dtype in (torch.bfloat16, torch.float32):
+                    key = str(dtype).split(".")[-1]
+                    x = xf.to(dtype)
+                    n0, tc0 = int4_matmul.launches, int4_matmul.tc_launches
+                    got = int4_matmul(x, w["q4"], w["s"])
+                    tc = dtype is torch.bfloat16  # every TP-local width takes the tensor cores in bf16
+                    if (int4_matmul.launches - n0, int4_matmul.tc_launches - tc0) != (1, int(tc)):
+                        raise AssertionError(f"Q1 {tag} {name} M={M} {key}: {int4_matmul.launches - n0} launches, "
+                                             f"{int4_matmul.tc_launches - tc0} on the tensor cores")
+                    if tc and not torch.equal(got, int4_matmul(x, w["q4"], w["s"])):
+                        raise AssertionError(f"Q1 {tag} {name} M={M}: two launches differ")
+                    check_case(row, f"Q1 {tag}", f"{name} M={M} ({N}, {K}) {key}",
+                               [(got, int4_matmul_plain(x, w["q4"], w["s"]))], QUANT_TOL[key])
+        M = TP_Q1_ROWS[-1]
+        sums = {k: 0.0 for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")}
+        for name, (N, K) in products.items():
+            w = weights[name]
+            x = randn(M, K).to(torch.bfloat16)
+            wd = dequantize_weight(w, torch.bfloat16)
+            t = dict(ms=cuda_ms(lambda: int4_matmul(x, w["q4"], w["s"]), 50),
+                     call_ms=cuda_ms(lambda: int4_matmul(x, w["q4"], w["s"]), 50, queued=False),
+                     plain_ms=cuda_ms(lambda: int4_matmul_plain(x, w["q4"], w["s"]), 10),
+                     library_ms=cuda_ms(lambda: F.linear(x, wd), 50))
+            del wd
+            t["bound_ms"], t["bound_by"] = bound(2.0 * M * N * K, N * K // 2 + N * 4 + M * K * 2 + M * N * 2)
+            t["weight_gbps"] = N * K // 2 / t["ms"] / 1e6
+            row["per_product"][f"M={M} {name}"] = t
+            for k in sums:
+                sums[k] += t[k]
+            log(f"[kernels] int4_matmul {tag} {name} ({N}, {K}) M={M}: {t['ms']:.4f} ms on the device "
+                f"({t['weight_gbps']:.0f} GB/s of int4 weights, {100 * t['bound_ms'] / t['ms']:.1f}% of the bound "
+                f"{t['bound_ms']:.5f} by {t['bound_by']}), {t['call_ms']:.4f} ms per call, plain {t['plain_ms']:.3f}, "
+                f"library {t['library_ms']:.4f}")
+        row.update(sums, rows=M, bound_by="/".join(sorted({t["bound_by"] for t in row["per_product"].values()})),
+                   bound_share=sums["bound_ms"] / sums["ms"])
+        log(f"[kernels] int4_matmul {tag} M={M}, a layer's four products at the rank's widths: {sums['ms']:.4f} ms "
+            f"({100 * row['bound_share']:.1f}% of the bound {sums['bound_ms']:.5f}; plain {sums['plain_ms']:.3f}, "
+            f"library {sums['library_ms']:.4f})")
+        results["int4_matmul"][tag] = row
 
 
 # Q1's checks: the int4 decode products (N, K) of Qwen2.5-VL 3B at M = 1, 8,
@@ -5161,6 +5322,21 @@ def full_row_step_launches(cfg, decode_steps: int) -> dict:
 NO_SPLIT = ("shared_prefix_fwd", "shared_prefix_bwd", "shared_prefix_bwd_dkv")  # S1, S2: the split loss only
 
 
+def plan_beside_peak(tag: str, n: int, peak_gib: float, offload: bool = True) -> None:
+    """`parallel/plan.py`'s budget of the 7B step over n data devices (the
+    rule table over the meta tree, no step run), logged beside a measured
+    peak: the plan counts the parameters and gradients a device keeps, the
+    peak adds the step's activations, the reference copy and the rollout's
+    int8 copy and caches."""
+    from time_r1_tpu_torch.parallel.plan import format_budget, plan_7b_train_step
+
+    budget = plan_7b_train_step(n_devices=n, offload_optimizer=offload)
+    for line in format_budget(budget).splitlines():
+        log(f"[plan] {tag} {line}")
+    log(f"[plan] {tag} the plan's steady state {budget['steady_state_per_device_gb']:.2f} GiB a device against the "
+        f"measured peak {peak_gib:.2f} GiB ({peak_gib - budget['steady_state_per_device_gb']:.2f} GiB above it)")
+
+
 def phase_full_param_7b(card: str) -> dict:
     """Phase 12, once phase 11's model is freed. (a) Full-parameter GRPO on
     Qwen2.5-VL-7B (bf16, seeded weights, a reference copy) with the
@@ -5285,6 +5461,7 @@ def phase_full_param_7b(card: str) -> dict:
         f"{pinned / 2**30:.2f} GiB pinned, MemAvailable {avail2 / 2**30:.2f} GiB (before the arenas "
         f"{avail0 / 2**30:.2f}); layer 0's q_w moved: {moved}; ViT blocks and patch embed bit-unchanged: "
         f"{vit_same}; {card}")
+    plan_beside_peak("(a)", 1, peak)
     if trainer.opt_state.count != 2 or len(updates) != 4 or [u["applied"] for u in updates] != [False, True] * 2:
         raise AssertionError(f"(a): {trainer.opt_state.count} updates over {len(updates)} micro-steps")
     if peak >= 79.0 or not moved or not vit_same:
@@ -5596,7 +5773,8 @@ PARALLEL_TIMEOUT = 300  # s: the parent's wait for one spawn of ranks (each take
 CP_LAYOUT = "zigzag"  # the CLI's default --context_parallel_layout
 CP_MULTIPLE = 2 * 2 * 128  # zig-zag over 2 ranks: trainer.py:647-649
 DP_LAYERS = 2  # (c)'s decoder depth at 3B widths: two trainers share the card, the time limit holds
-CP_LOSS_LAYERS = 4  # (b)'s bf16 depth (its 36 layers took 68 s of phase 13 and the script's time limit holds)
+CP_LOSS_LAYERS = 2  # (b)'s bf16 depth (its 36 layers took 68 s of phase 13; 4 until phase 16 came into the script's
+# time limit: the checks are per layer the same)
 # (b) bf16 at CP_LOSS_LAYERS: loss and metrics within 2e-2 of the one-process values (1e-3 absolute floor);
 # per gradient leaf ||ring - one|| / ||one|| under 0.25, over all leaves under 5e-2
 CP_BF16_TOL = dict(loss=2e-2, metric=2e-2, floor=1e-3, leaf=0.25, whole=5e-2)
@@ -5696,7 +5874,8 @@ def parallel_rank(job: str, root: str) -> int:
         with open(os.path.join(root, "args.json")) as f:
             args = json.load(f)
         result = {"ring": ring_job, "cp_loss": cp_loss_job, "dp": dp_job, "sharded": sharded_job,
-                  "seven_b": seven_b_job, "mesh": mesh_job, "seven_b_serving": seven_b_serving_job}[job](args)
+                  "seven_b": seven_b_job, "mesh": mesh_job, "seven_b_serving": seven_b_serving_job,
+                  "eval_7b": eval_7b_job}[job](args)
         with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
             json.dump(result, f)
         dist.barrier()
@@ -6844,6 +7023,8 @@ def phase_sharded(card: str, parts: str = "de", nccl_only: bool = False) -> dict
                     f"{[[c['weight_sync_ms'] for c in r[mesh]['calls']] for r in ranks]} ms; peak "
                     f"{[max(round(c['peak_gib'], 2) for c in r[mesh]['calls']) for r in ranks]} GiB by rank "
                     f"(phase 12 (a) on one card: 60.54 GiB with 42.80 GiB pinned, 4.1-6.1 s); {card}")
+            plan_beside_peak("(f) 4x1", 4, max(c["peak_gib"] for r in ranks for c in r["4x1"]["calls"]),
+                             offload=False)
             result["seven_b"] = ranks[0]
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -6854,7 +7035,8 @@ def phase_sharded(card: str, parts: str = "de", nccl_only: bool = False) -> dict
 
 # ---------------------------------------------------------------------------
 # phase 15: generation over a mesh (the TP Engine, PPEngine, the eval and demo CLIs)
-MESH_LAYERS = 12  # (a), (b)'s bf16 decoder depth at 3B widths (two ranks and one process share the card)
+MESH_LAYERS = 6  # (a), (b)'s bf16 decoder depth at 3B widths (two ranks and one process share the card; 12 until
+# phase 16 came into the script's time limit)
 MESH_NEW_TOKENS = 64
 # max |mesh - one process| / max |one process| of a row's logits where the two runs' prefixes are equal, for the
 # runs held by their logits (`mesh_job`): in bf16 each row-parallel product's partial sums round to bf16 before
@@ -6925,23 +7107,32 @@ def mesh_sampling(G: int):
     return SamplingParams(temperature=0.0, max_new_tokens=MESH_NEW_TOKENS, stop_token_ids=(), num_return_sequences=G)
 
 
-def recording_pick(eng, store: list, rows: int) -> None:
-    """eng's token choice (`_pick`) wrapped to append, where this rank has
-    them, the first `rows` rows of the logits of each pick (the prefill's
-    last position, then each decode step) to `store`, as f32 on the host."""
-    original = eng._pick
+def recording_pick(eng, store: list, rows=None) -> None:
+    """The token choice (`_pick`) of eng (of a continuous engine's prefill
+    engine, which picks for it) wrapped to append, where this rank has the
+    logits, (logits, tokens) of each pick's first `rows` rows (None: all) to
+    `store` on the host, the logits as f32: the prefill's last position,
+    then each decode step."""
+    inner = getattr(eng, "_prefill_engine", eng)
+    original = inner._pick
 
     def _pick(gen, sp):
         pick = original(gen, sp)
 
         def recorded(logits, counts, like):
-            if logits is not None:
-                store.append(logits[:rows].float().cpu())
-            return pick(logits, counts, like)
+            tok = pick(logits, counts, like)
+            if logits is not None:  # a copy: a decode loop writes into `tok` later
+                store.append((logits[:rows].float().cpu().clone(), tok[:rows].cpu().clone()))
+            return tok
 
         return recorded
 
-    eng._pick = _pick
+    inner._pick = _pick
+
+
+def picked_logits(store: list) -> list:
+    """The logits of `recording_pick`'s entries."""
+    return [lg for lg, _ in store]
 
 
 def mesh_launches(cfg, kind: str, G: int, quant, kv: bool, stage: int, steps: int) -> dict:
@@ -6989,7 +7180,7 @@ def mesh_reference(card: str) -> tuple:
             with eager_decode():
                 tokens = eng.generate(mesh_requests(cfg, G), mesh_sampling(G))
             tm = eng.timings
-            refs[key] = dict(tokens=tokens, logits=store,
+            refs[key] = dict(tokens=tokens, logits=picked_logits(store),
                              peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                              decode_ms=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1))
             numbers[f"{tag}_{key}"] = {k: refs[key][k] for k in ("peak_gib", "decode_ms")}
@@ -7018,6 +7209,13 @@ def mesh_reference(card: str) -> tuple:
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    # phase 16's references, made here so that its ranks run in this spawn
+    files["cmesh"] = cmesh_reference(root, card)
+    t0 = time.perf_counter()
+    files["cmesh"].update(cli=files["cli"], cli_records=cmesh_cli_reference(files["cli"]))
+    files["cmesh"]["seconds"] += time.perf_counter() - t0
+    log(f"[mesh16] (e) one process {' '.join(CMESH_CLI_TP)}: "
+        f"{[(r['qid'], r['output_text'][-24:]) for r in files['cmesh']['cli_records']]}")
     return files, root, numbers
 
 
@@ -7173,7 +7371,7 @@ def mesh_job(args: dict) -> dict:
                 raise AssertionError(f"mesh {tag} {name}: f32 tokens differ from one process's (agree {agree})")
             if store:  # the ranks that sample or see the logits
                 errs = []  # each pick's worst row error at a position whose prefix agrees
-                for t, (got, want_l) in enumerate(zip(store, ref["logits"])):
+                for t, (got, want_l) in enumerate(zip(picked_logits(store), ref["logits"])):
                     rows = [b for b in range(got.shape[0]) if t <= agree[b]]
                     errs.append(max(((got[b] - want_l[b]).abs().max() / want_l[b].abs().max()).item() for b in rows)
                                 if rows else 0.0)
@@ -7202,6 +7400,7 @@ def mesh_job(args: dict) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     out["cli"] = mesh_cli_run(args["cli"], rank)
+    out["cmesh"] = cmesh_job(args["cmesh"], rank)  # phase 16
     return out
 
 
@@ -7237,12 +7436,360 @@ def mesh_cli_run(args: dict, rank: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: continuous batching over a mesh (PagedEngine, ContinuousEngine and the int4 TP Engine over shards), run
+# in phase 15's spawn against one process's engines made with phase 15's references
+CMESH_LAYERS = 6  # the bf16 decoder depth at 3B widths (the f32 runs take mesh_cases' 2 layers)
+CMESH_REQUESTS = 8  # phase 7's stream cut to its first 8 requests: both videos and 6 texts
+CMESH_CHUNK = 1024  # phase 7's prefill chunk: a video's 2048-token admission interleaves a segment
+# (name, engine, G, quantization, int8 KV): the paged and slot engines over the stream, 4 slots; the TP Engine over
+# int4 weights on the stream's first two text requests (G = 1: both; G = 8: the first), its vision tower being
+# phase 15's (the TP vision tower over gloo stages ~3 GB a video)
+CMESH_RUNS = (
+    ("paged", "paged", 1, None, False),
+    ("paged_int8", "paged", 1, "int8", True),
+    ("continuous", "continuous", 1, None, False),
+    ("int4_g1", "engine", 1, "int4", False),
+    ("int4_g8", "engine", 8, "int4", False),
+)
+# f32 runs held by their tokens (only the order of f32 sums differs from one process's): the bf16 pool and the slot
+# engine. The f32 runs over quantized weights are held by their logits where the prefixes agree, at their own limits:
+# int8 as phase 15's TP int8 (Q2 rounds x to bf16); int4 at MESH_F32_TOL until a reading sets it (Q1's f32 route
+# rounds nothing, so TP changes only the order of its sums)
+CMESH_EXACT_F32 = ("paged", "continuous")
+CMESH_F32_LIMITS = {"paged_int8": MESH_INT8_F32_TOL, "int4_g1": MESH_F32_TOL, "int4_g8": MESH_F32_TOL}
+# (e): `scripts/test.sh`'s eval flags under TP (TP=2 CONTINUOUS=1 QUANT=int8 KV_DTYPE=int8, BATCH 2 here), and
+# PP with the continuous-batching flag, which it ignores
+CMESH_CLI_TP = ("--use_continuous_batching", "--kv_block_size", "128", "--quantization", "int8", "--kv_cache_dtype",
+                "int8", "--batch_size", "2")
+
+
+def cmesh_cases():
+    """Phase 16's configurations: mesh_cases' with the bf16 decoder at
+    CMESH_LAYERS."""
+    cases = mesh_cases()
+    return {"bf16": (cut_depth(cases["bf16"][0], CMESH_LAYERS), "bfloat16"), "f32": cases["f32"]}
+
+
+def cmesh_engine(kind: str, params, cfg, dtype, quant, kv, shard=None):
+    """A phase-16 engine, over `shard` or in one process."""
+    from time_r1_tpu_torch.sampler import ContinuousEngine, Engine, PagedEngine
+
+    kw = dict(dtype=dtype, device="cuda", shard=shard)
+    cont = dict(max_slots=4, max_len=4096, segment=16, prefill_chunk_tokens=CMESH_CHUNK)
+    if kind == "engine":
+        return Engine(params, cfg, quantization=quant, kv_cache_quant=kv, **kw)
+    if kind == "paged":
+        return PagedEngine(params, cfg, page_size=128, quantization=quant, kv_cache_quant=kv, **cont, **kw)
+    return ContinuousEngine(params, cfg, quantization=quant, **cont, **kw)
+
+
+def cmesh_inputs(cfg, kind: str, G: int, dtype_name: str):
+    """A run's requests and sampling: the stream's first CMESH_REQUESTS (in
+    f32 its first CMESH_REQUESTS text requests: the TP vision tower in f32 is
+    phase 15's), or for the TP Engine its first two text requests (G > 1:
+    the first), MESH_NEW_TOKENS greedy tokens, no stop id."""
+    stream = stream_requests(cfg)
+    texts = [r for r in stream if r.patches is None]
+    if kind == "engine":
+        reqs = texts[:2 if G == 1 else 1]
+    else:
+        reqs = (stream if dtype_name == "bfloat16" else texts)[:CMESH_REQUESTS]
+    return reqs, mesh_sampling(G)
+
+
+@contextmanager
+def recording_lives(lives: list):
+    """The continuous engines' live slots at each decode step, appended to
+    `lives` (a (slots,) bool each) before the step's pick: `PagedEngine`'s
+    step receives them, `ContinuousEngine`'s are computed in its segment
+    from the state it passes (`decode_segment`), at the pick. A dead slot's
+    row is computed all the same, over stale state that may read another
+    slot's pages: its logits are no output."""
+    from time_r1_tpu_torch.sampler import continuous, paged
+
+    one_step, segment = paged._paged_one_step, continuous.decode_segment
+
+    def paged_step(params, pool, cfg, sp, last, start_pos, steps, live, *a, **kw):
+        lives.append(live.cpu().clone())
+        return one_step(params, pool, cfg, sp, last, start_pos, steps, live, *a, **kw)
+
+    def slot_segment(params, state, cfg, n, sp, generator, active, max_steps, shard=None, pick=None):
+        def live_pick(logits, counts, like):
+            lives.append((active & ~state.done & (state.steps < max_steps)).cpu().clone())
+            return pick(logits, counts, like)
+
+        return segment(params, state, cfg, n, sp, generator, active, max_steps, shard=shard, pick=live_pick)
+
+    paged._paged_one_step, continuous.decode_segment = paged_step, slot_segment
+    try:
+        yield
+    finally:
+        paged._paged_one_step, continuous.decode_segment = one_step, segment
+
+
+def pick_errors(store: list, ref: list, lives=None) -> tuple:
+    """Each pick's max |got - one| / max |one| over the live rows whose
+    every earlier live pick agreed with one process's, and how many rows
+    were compared; returns (errors, rows compared, the prefills' errors).
+    lives: a continuous engine's live slots of each decode step
+    (`recording_lives`), where a single-row pick is an admission's first
+    token (its prefix is the prompt) from the prefill's logits; None: the
+    `Engine`'s picks, every row live, the first from the prefill."""
+    import torch
+
+    agree, steps = None, iter(lives or ())
+    errs, firsts, compared = [], [], 0
+    for i, ((got, tok), (want, tok_r)) in enumerate(zip(store, ref)):
+        first = got.shape[0] == 1 if lives is not None else i == 0
+        live = torch.ones(got.shape[0], dtype=torch.bool) if first or lives is None else next(steps)
+        ok = live if first or agree is None else live & agree
+        rows = [b for b in range(got.shape[0]) if ok[b]]
+        compared += len(rows)
+        err = max(((got[b] - want[b]).abs().max() / want[b].abs().max()).item() for b in rows) if rows else 0.0
+        errs.append(err)
+        if first:
+            firsts.append(err)
+        if not (first and lives is not None):
+            agree = (agree if agree is not None else torch.ones_like(live)) & ((tok == tok_r) | ~live)
+    return errs, compared, firsts
+
+
+def cmesh_launches(cfg, kind: str, G: int, quant, kv: bool, tm: dict, reqs: list) -> dict:
+    """A phase-16 run's launches on a rank, from its timings and requests:
+    K2/K3 a video admission (the TP Engine's text requests: none), K1 a
+    layer per prefill chunk of CMESH_CHUNK (the TP Engine: one chunk, whose
+    int4 products run Q1 too when its rows, prompts × bucket, are 256 at
+    most), and a layer every decode step:
+    P1 over a bf16 / f32 pool, P2 and Q2 over int8 weights and pages, Q1 for
+    each of the four int4 products, D2 in the G-way decode; none of them in
+    the slot engine's `mha_cached` step."""
+    from time_r1_tpu_torch.sampler.engine import _bucket
+
+    L, steps = cfg.text.num_hidden_layers, tm["decode_steps"]
+    prefill_q1 = 0
+    if kind == "engine":
+        videos, chunks = 0, 1
+        prefill_q1 = int(len(reqs) * _bucket(max(len(r.input_ids) for r in reqs)) <= 256)
+    else:
+        videos = sum(v for _, _, v in tm["admissions"])
+        chunks = sum(-(-S // CMESH_CHUNK) for _, S, _ in tm["admissions"])
+    out = {k: v * videos for k, v in vision_tc_launches(cfg).items()}
+    out.update(flash_attention=L * chunks, paged_prefix_attention=0, paged_prefix_attention_q8=0, fused_mlp_int8=0,
+               int4_matmul=0, shared_prefix_decode_full=0)
+    if kind == "paged":
+        out["paged_prefix_attention_q8" if kv else "paged_prefix_attention"] = L * steps
+    if quant == "int8":
+        out["fused_mlp_int8"] = L * steps
+    if quant == "int4":
+        out["int4_matmul"] = 4 * L * (steps + prefill_q1)
+    if kind == "engine" and G > 1:
+        out["shared_prefix_decode_full"] = L * steps
+    return out
+
+
+def cmesh_reference(root: str, card: str) -> dict:
+    """Phase 16's one-process references, in the parent before phase 15's
+    spawn: each of CMESH_RUNS in each of cmesh_cases, decoded eagerly as the
+    mesh's (`eager_decode`), its tokens, its picks' logits and tokens, decode
+    ms a step and peak to a file; then (e)'s records: `cli.evaluate` with
+    CMESH_CLI_TP over an f32 int8 engine with an int8 KV cache, from phase
+    15's checkpoint (the caller's `cli`). Returns {"file", "cli_records",
+    "seconds"}."""
+    import gc
+
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+
+    t0 = time.perf_counter()
+    refs = {}
+    for tag, (cfg, dtype_name) in cmesh_cases().items():
+        dtype = getattr(torch, dtype_name)
+        params = init_params(cfg, seed=0, device="cuda", dtype=dtype)
+        for name, kind, G, quant, kv in CMESH_RUNS:
+            eng = cmesh_engine(kind, params, cfg, dtype, quant, kv)
+            reqs, sp = cmesh_inputs(cfg, kind, G, dtype_name)
+            store, lives = [], []
+            recording_pick(eng, store, mesh_rows(G) if kind == "engine" else None)
+            torch.cuda.reset_peak_memory_stats()
+            with eager_decode(), recording_lives(lives):
+                tokens = eng.generate(reqs, sp)
+            tm = eng.timings
+            refs[f"{tag}_{name}"] = dict(tokens=tokens, picks=store, lives=lives,
+                                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                                         decode_ms=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1))
+            log(f"[mesh16] one process {tag} {name}: {sum(len(t) for t in tokens)} tokens over {len(tokens)} rows, "
+                f"decode {refs[f'{tag}_{name}']['decode_ms']:.2f} ms/step (eager), peak "
+                f"{refs[f'{tag}_{name}']['peak_gib']:.2f} GiB; {card}")
+            del eng
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    path = os.path.join(root, "cmesh.pt")
+    torch.save(refs, path)
+    return {"file": path, "seconds": time.perf_counter() - t0}
+
+
+def cmesh_cli_reference(cli: dict) -> list:
+    """(e)'s one-process records: `cli.evaluate` with CMESH_CLI_TP (no mesh)
+    over an f32 engine with int8 weights and an int8 KV cache."""
+    import gc
+
+    import torch
+
+    from time_r1_tpu_torch.cli import evaluate
+    from time_r1_tpu_torch.models.processor import Qwen25VLProcessor
+    from time_r1_tpu_torch.sampler import Engine
+
+    cfg = reduced_config()
+    with cli_stand_ins(cfg), mesh_cli_patches():
+        params, ckpt_cfg = evaluate.load_checkpoint(cli["ckpt"], device="cuda")
+        eng = Engine(params, ckpt_cfg, dtype=torch.float32, device="cuda", quantization="int8", kv_cache_quant=True)
+        proc = Qwen25VLProcessor.from_pretrained(cli["ckpt"])
+        recs = read_jsonl(evaluate.main(evaluate.get_args(mesh_eval_argv(
+            cli["ckpt"], cli["data"], os.path.join(cli["root"], "one16"), *CMESH_CLI_TP)), eng, proc))
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs
+
+
+def cmesh_job(args: dict, rank: int) -> dict:
+    """Phase 16 on each of 2 ranks: each of CMESH_RUNS in each of
+    cmesh_cases over make_mesh(2) (the engines over the whole tree, the
+    int8 paged engine over a TP Engine's serving tree as the eval builds
+    it), against one process's: the launches on this rank by the formula
+    (`cmesh_launches`; tensor cores in bf16, FMA in f32), the ranks' tokens
+    equal; CMESH_EXACT_F32's f32 tokens equal one process's; every bf16 run's
+    logits within MESH_LOGIT_TOL and the f32 quantized runs' within
+    CMESH_F32_LIMITS where the prefixes agree, every f32 admission's prefill
+    logits within MESH_F32_TOL; decode ms a step, bytes staged, the weights
+    held and the peak. Then (e) `cmesh_cli_run`."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.parallel import ShardContext, comm, make_mesh
+    from time_r1_tpu_torch.sampler import Engine, PagedEngine
+
+    t0 = time.perf_counter()
+    refs = torch.load(args["file"], weights_only=False)
+    out = {}
+    for tag, (cfg, dtype_name) in cmesh_cases().items():
+        dtype = getattr(torch, dtype_name)
+        params = init_params(cfg, seed=0, device="cuda", dtype=dtype)
+        shard = ShardContext.build(make_mesh(2), params)
+        for name, kind, G, quant, kv in CMESH_RUNS:
+            if name == "paged_int8":  # the eval's route: the paged engine over its TP Engine's serving tree
+                tree = Engine(params, cfg, dtype=dtype, device="cuda", quantization=quant, shard=shard).params
+                eng = PagedEngine(tree, cfg, max_slots=4, max_len=4096, segment=16, prefill_chunk_tokens=CMESH_CHUNK,
+                                  page_size=128, kv_cache_quant=kv, dtype=dtype, device="cuda", shard=shard)
+                del tree
+            else:
+                eng = cmesh_engine(kind, params, cfg, dtype, quant, kv, shard)
+            held = held_gib(eng.params)
+            reqs, sp = cmesh_inputs(cfg, kind, G, dtype_name)
+            store, lives = [], []
+            recording_pick(eng, store, mesh_rows(G) if kind == "engine" else None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            staged0 = comm.staged_bytes
+            reset_launches()
+            with recording_lives(lives):
+                tokens = eng.generate(reqs, sp)
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            tm = eng.timings
+            label = f"mesh16 {tag} {name} rank {rank}"
+            want = cmesh_launches(cfg, kind, G, quant, kv, tm, reqs)
+            check_tc_route(label, launches, {k: v for k, v in want.items() if k in TC_KERNELS and v},
+                           tensor_cores=dtype_name == "bfloat16")
+            bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+            if bad:
+                raise AssertionError(f"{label}: launches (got, want) {bad}")
+            if any(len(t) != MESH_NEW_TOKENS for t in tokens):
+                raise AssertionError(f"{label}: rows of {[len(t) for t in tokens]} tokens, want {MESH_NEW_TOKENS}")
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, tokens)
+            if any(t != tokens for t in every):
+                raise AssertionError(f"mesh16 {tag} {name}: the ranks' tokens differ")
+            ref = refs[f"{tag}_{name}"]
+            agree = [next((i for i, (a, b) in enumerate(zip(t, r)) if a != b), min(len(t), len(r)))
+                     for t, r in zip(tokens, ref["tokens"])]
+            if dtype_name == "float32" and name in CMESH_EXACT_F32 and tokens != ref["tokens"]:
+                raise AssertionError(f"{label}: f32 tokens differ from one process's (agree {agree})")
+            if kind != "engine" and not all(torch.equal(a, b) for a, b in zip(lives, ref["lives"])):
+                raise AssertionError(f"{label}: the live slots differ from one process's (no stop id: the schedule "
+                                     f"follows from the lengths)")
+            errs, compared, firsts = pick_errors(store, ref["picks"], lives if kind != "engine" else None)
+            res = dict(decode_ms=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1), decode_steps=tm["decode_steps"],
+                       prefill_ms=tm["prefill_s"] * 1e3, staged_gb=(comm.staged_bytes - staged0) / 1e9,
+                       peak_gib=peak, held_gib=held, one_peak_gib=ref["peak_gib"], one_decode_ms=ref["decode_ms"],
+                       launches={k: launches[k] for k in want}, tokens_agree=agree, logit_rel_err=max(errs),
+                       prefill_logit_rel_err=max(firsts), picks_compared=compared)
+            limit = MESH_LOGIT_TOL if dtype_name == "bfloat16" else CMESH_F32_LIMITS.get(name)
+            if dtype_name == "float32" and not res["prefill_logit_rel_err"] <= MESH_F32_TOL:
+                raise AssertionError(f"{label}: prefill logits {res['prefill_logit_rel_err']} apart > {MESH_F32_TOL}")
+            if limit is not None and not res["logit_rel_err"] <= limit:
+                raise AssertionError(f"{label}: logits {res['logit_rel_err']} apart > {limit}")
+            log(f"{label}: tokens agree with one process's for {agree} of {MESH_NEW_TOKENS}, logits "
+                f"{res['logit_rel_err']:.3e} apart over {compared} rows of picks (the prefills' "
+                f"{res['prefill_logit_rel_err']:.3e}); decode {res['decode_ms']:.2f} ms/step (one process eager "
+                f"{ref['decode_ms']:.2f}); {res['staged_gb']:.3f} GB staged; peak {peak:.2f} GiB (one process "
+                f"{ref['peak_gib']:.2f}); holds {held:.2f} GiB of weights; launches {res['launches']}")
+            out[f"{tag}_{name}"] = res
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+        del params, shard
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["cli"] = cmesh_cli_run(args, rank)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def cmesh_cli_run(args: dict, rank: int) -> dict:
+    """(e) on each rank: `cli.evaluate.main --tensor_parallel_size 2` with
+    CMESH_CLI_TP, and `--pipeline_parallel_size 2 --use_continuous_batching`,
+    from phase 15's f32 checkpoint at 2 decoder layers: rank 0's records
+    against one process's with the same flags, and against phase 15's
+    one-process records (the bucket engine's, which PP's equal)."""
+    import torch
+
+    from time_r1_tpu_torch.cli import evaluate
+
+    cli = args["cli"]
+    out = {}
+    with cli_stand_ins(reduced_config()), mesh_cli_patches():
+        for tag, extra, want in (("tp2", ("--tensor_parallel_size", "2", *CMESH_CLI_TP), args["cli_records"]),
+                                 ("pp2", ("--pipeline_parallel_size", "2", "--use_continuous_batching"),
+                                  cli["records"])):
+            t0 = time.perf_counter()
+            path = evaluate.main(evaluate.get_args(mesh_eval_argv(cli["ckpt"], cli["data"],
+                                                                  os.path.join(cli["root"], f"{tag}_16"), *extra)))
+            torch.cuda.synchronize()
+            out[tag] = time.perf_counter() - t0
+            if rank == 0 and read_jsonl(path) != want:
+                raise AssertionError(f"cli.evaluate {' '.join(extra)}: the records differ from one process's: "
+                                     f"{read_jsonl(path)} against {want}")
+    log(f"[mesh16] (e) cli.evaluate --tensor_parallel_size 2 {' '.join(CMESH_CLI_TP)} {out['tp2']:.1f} s, "
+        f"--pipeline_parallel_size 2 --use_continuous_batching {out['pp2']:.1f} s: "
+        + ("records equal one process's" if rank == 0 else "rank 0 writes"))
+    return out
+
+
 def phase_mesh_serving(card: str, nccl_only: bool = False) -> dict:
-    """Phase 15: generation over a mesh, 2 ranks over gloo on the first card
-    (and again over NCCL, a card a rank, where the machine shows two or
-    more; nccl_only: NCCL only): one process's references first
-    (`mesh_reference`), then (a), (b), (c) in one spawn (`mesh_job`).
-    Returns rank 0's launches of each bf16 run over gloo."""
+    """Phases 15 and 16: generation over a mesh, 2 ranks over gloo on the
+    first card (and again over NCCL, a card a rank, where the machine shows
+    two or more; nccl_only: NCCL only): one process's references first
+    (`mesh_reference`, phase 16's too), then phase 15's (a), (b), (c) and
+    phase 16 in one spawn (`mesh_job`). Returns rank 0's and rank 1's
+    launches of each bf16 run over gloo, phase 16's under "cmesh"."""
     import shutil
 
     import torch
@@ -7257,7 +7804,7 @@ def phase_mesh_serving(card: str, nccl_only: bool = False) -> dict:
             route = "nccl" if nccl else "gloo"
             ranks = spawn_ranks("mesh", 2, files, card, nccl, timeout=MESH_TIMEOUT)
             for key in ranks[0]:
-                if key == "cli":
+                if key in ("cli", "cmesh"):
                     continue
                 res = [r[key] for r in ranks]
                 log(f"[mesh] {key} over {route}: decode {[round(r['decode_ms'], 2) for r in res]} ms/step by rank "
@@ -7276,6 +7823,23 @@ def phase_mesh_serving(card: str, nccl_only: bool = False) -> dict:
             log(f"[mesh] (c) over {route}: evaluate tp 2 {ranks[0]['cli']['--tensor_parallel_size']:.1f} s, "
                 f"pp 2 {ranks[0]['cli']['--pipeline_parallel_size']:.1f} s; the records and the demo's answer equal "
                 f"one process's; {card}")
+            cm = [r["cmesh"] for r in ranks]
+            for key in cm[0]:
+                if key in ("cli", "seconds"):
+                    continue
+                res = [c[key] for c in cm]
+                log(f"[mesh16] {key} over {route}: decode {[round(r['decode_ms'], 2) for r in res]} ms/step by rank "
+                    f"(one process eager {res[0]['one_decode_ms']:.2f}); prefill {[round(r['prefill_ms'], 1) for r in res]}"
+                    f" ms; {[round(r['staged_gb'], 3) for r in res]} GB staged; peak "
+                    f"{[round(r['peak_gib'], 2) for r in res]} GiB (one process {res[0]['one_peak_gib']:.2f}); weights "
+                    f"held {[round(r['held_gib'], 2) for r in res]} GiB; tokens agree {res[0]['tokens_agree']}; logits "
+                    f"{res[0]['logit_rel_err']:.3e} apart (prefills {res[0]['prefill_logit_rel_err']:.3e}); {card}")
+                if not nccl and key.startswith("bf16_"):
+                    result.setdefault("cmesh", {})[key] = [r["launches"] for r in res]
+            seconds = files["cmesh"]["seconds"] + max(c["seconds"] for c in cm)
+            log(f"[mesh16] phase 16 over {route}: {seconds:.1f} s (one process's references "
+                f"{files['cmesh']['seconds']:.1f}, the ranks' {max(c['seconds'] for c in cm):.1f}); (e) tp 2 "
+                f"{cm[0]['cli']['tp2']:.1f} s, pp 2 {cm[0]['cli']['pp2']:.1f} s; {card}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"[mesh] phase 15: {time.perf_counter() - t0:.1f} s; {card}")
@@ -7378,7 +7942,8 @@ def seven_b_serving_job(args: dict) -> dict:
                        launches={k: launches[k] for k in want})
             if store:  # the ranks that see the logits: every TP rank, stage 0's under PP
                 errs = [((got[b] - want_l[b]).abs().max() / want_l[b].abs().max()).item()
-                        for t, (got, want_l) in enumerate(zip(store, ref["logits"])) for b in range(2) if t <= agree[b]]
+                        for t, (got, want_l) in enumerate(zip(picked_logits(store), ref["logits"])) for b in range(2)
+                        if t <= agree[b]]
                 res["logit_rel_err"], res["prefill_logit_rel_err"] = max(errs), max(errs[:2])
                 limit = SEVEN_B_LOGIT_TOL if dtype_name == "bfloat16" else MESH_F32_TOL
                 if not res["logit_rel_err"] <= limit:
@@ -7425,7 +7990,7 @@ def phase_mesh_7b(card: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         with eager_decode():
             tokens = eng.generate(mesh_requests(cfg, 1), mesh_sampling(1))
-        refs[tag] = dict(tokens=tokens, logits=store, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        refs[tag] = dict(tokens=tokens, logits=picked_logits(store), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                          decode_ms=eng.timings["decode_s"] * 1e3 / max(eng.timings["decode_steps"], 1))
         log(f"[7b serving] one card {tag}: peak {refs[tag]['peak_gib']:.2f} GiB, decode {refs[tag]['decode_ms']:.2f} "
             f"ms/step (eager); {card}")
@@ -7450,6 +8015,147 @@ def phase_mesh_7b(card: str) -> dict:
             f"apart by rank that holds them; {card}")
     log(f"[7b serving] (g): {time.perf_counter() - t0:.1f} s; {card}")
     return {"one": {tag: {k: v for k, v in r.items() if k not in ("tokens", "logits")} for tag, r in refs.items()},
+            "ranks": ranks}
+
+
+# (i): Qwen2.5-VL-7B at full depth served through `cli.evaluate` at tp 4 over NCCL (4 cards) with `scripts/test.sh`'s
+# eval flags (TP=4 CONTINUOUS=1 QUANT=... KV_DTYPE=int8; BATCH 4 and 64 new tokens here, the script's 1024 would
+# only lengthen the run), int8 and int4 weights, against one card's `cli.evaluate` with the same flags but TP
+EVAL_7B_ITEMS = 4
+EVAL_7B_FLAGS = ("--use_vllm_inference", "--use_continuous_batching", "--kv_block_size", "128", "--kv_cache_dtype",
+                 "int8", "--batch_size", "4")
+EVAL_7B_QUANTS = ("int8", "int4")
+
+
+def eval_7b_argv(ckpt: str, data: str, out: str, quant: str, *extra) -> list:
+    argv = mesh_eval_argv(ckpt, data, out, *EVAL_7B_FLAGS, "--quantization", quant, *extra)
+    argv[argv.index("--max_new_tokens") + 1] = str(MESH_NEW_TOKENS)
+    return argv
+
+
+@contextmanager
+def spied_generation_engine(store: list):
+    """`cli.evaluate`'s generation engine, kept in `store` as it is made."""
+    from time_r1_tpu_torch.cli import evaluate
+
+    with patched(evaluate, "make_generation_engine",
+                 lambda make: lambda *a, **kw: store.append(make(*a, **kw)) or store[-1]):
+        yield
+
+
+def eval_7b_run(args: dict, quant: str, tp: int) -> dict:
+    """One `cli.evaluate.main` of (i) (tp 1: one card, in the parent), its
+    records, the generation engine's decode ms a step, the weights it holds
+    and the card's peak."""
+    import torch
+
+    from time_r1_tpu_torch.cli import evaluate
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
+
+    made: list = []
+    extra = ("--tensor_parallel_size", str(tp)) if tp > 1 else ()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with cli_stand_ins(Qwen25VLConfig.qwen25vl_7b()), spied_generation_engine(made):
+        path = evaluate.main(evaluate.get_args(eval_7b_argv(args["ckpt"], args["data"],
+                                                            os.path.join(args["root"], f"{quant}_tp{tp}"), quant,
+                                                            *extra)))
+    torch.cuda.synchronize()
+    eng = made[0]
+    tm = eng.timings
+    return dict(records=read_jsonl(path) if os.path.exists(path) else None, seconds=time.perf_counter() - t0,
+                decode_ms=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1), decode_steps=tm["decode_steps"],
+                prefill_s=tm["prefill_s"], held_gib=held_gib(eng.params),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def eval_7b_job(args: dict) -> dict:
+    """(i) on each of 4 ranks, a card a rank (NCCL): `cli.evaluate.main`
+    with --tensor_parallel_size 4 and EVAL_7B_FLAGS over each of
+    EVAL_7B_QUANTS; rank 0's records against one card's (the output texts
+    that agree counted: bf16 over 28 layers and 4-way partial sums may part
+    at a near tie), the generation engine's decode ms a step, the weights
+    held and the peak on every rank."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    out = {}
+    for quant in EVAL_7B_QUANTS:
+        res = eval_7b_run(args, quant, 4)
+        one = args["one"][quant]
+        if rank == 0:
+            if [r["qid"] for r in res["records"]] != [r["qid"] for r in one["records"]]:
+                raise AssertionError(f"(i) {quant}: the records' qids differ from one card's")
+            res["texts_equal"] = sum(a["output_text"] == b["output_text"] for a, b in zip(res["records"],
+                                                                                           one["records"]))
+            res["preds_equal"] = sum(a["pred"] == b["pred"] for a, b in zip(res["records"], one["records"]))
+        log(f"[eval 7b] tp 4 {quant} rank {rank}: {res['seconds']:.1f} s; decode {res['decode_ms']:.2f} ms/step over "
+            f"{res['decode_steps']} steps (one card {one['decode_ms']:.2f}); holds {res['held_gib']:.2f} GiB of "
+            f"weights (one card {one['held_gib']:.2f}), peak {res['peak_gib']:.2f} GiB (one card "
+            f"{one['peak_gib']:.2f})" + (f"; output texts equal to one card's {res['texts_equal']} of "
+                                         f"{len(res['records'])}, preds {res['preds_equal']}" if rank == 0 else ""))
+        if rank == 0:
+            for r in res["records"]:
+                log(f"[eval 7b] tp 4 {quant} record {r['qid']}: pred {r['pred']}, text {r['output_text'][-40:]!r}")
+        out[quant] = {k: v for k, v in res.items() if k != "records"}
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def phase_eval_7b(card: str) -> dict:
+    """(i), on 4 cards only: the 7B's seeded bf16 weights written as a native
+    checkpoint, one card's `cli.evaluate.main` with EVAL_7B_FLAGS over each of
+    EVAL_7B_QUANTS (the records, decode ms, weights and peak), then
+    `eval_7b_job` over NCCL. Writes ~16 GB under TMPDIR, deleted at the
+    end."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig, init_params
+
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        raise AssertionError(f"(i) needs 4 cards, the machine shows {cards}")
+    t0 = time.perf_counter()
+    cfg = Qwen25VLConfig.qwen25vl_7b()
+    root = tempfile.mkdtemp(prefix="timer1_eval_7b_")
+    try:
+        ckpt = os.path.join(root, "ckpt")
+        nbytes = native_checkpoint(ckpt, init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16), cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        args = dict(ckpt=ckpt, data=write_dataset(root, "eval", EVAL_7B_ITEMS), root=root, one={})
+        log(f"[eval 7b] native checkpoint {nbytes / 1e9:.2f} GB written in {time.perf_counter() - t0:.1f} s")
+        for quant in EVAL_7B_QUANTS:
+            one = eval_7b_run(args, quant, 1)
+            args["one"][quant] = one
+            log(f"[eval 7b] one card {quant}: {one['seconds']:.1f} s; decode {one['decode_ms']:.2f} ms/step over "
+                f"{one['decode_steps']} steps; holds {one['held_gib']:.2f} GiB of weights, peak {one['peak_gib']:.2f} "
+                f"GiB; {card}")
+            for r in one["records"]:
+                log(f"[eval 7b] one card {quant} record {r['qid']}: pred {r['pred']}, text {r['output_text'][-40:]!r}")
+            gc.collect()
+            torch.cuda.empty_cache()
+        ranks = spawn_ranks("eval_7b", 4, args, card, nccl=True, timeout=SHARDED_TIMEOUT)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for quant in EVAL_7B_QUANTS:
+        res = [r[quant] for r in ranks]
+        log(f"[eval 7b] tp 4 {quant} over nccl: decode {[round(r['decode_ms'], 2) for r in res]} ms/step by rank "
+            f"(one card {args['one'][quant]['decode_ms']:.2f}); held {[round(r['held_gib'], 2) for r in res]} GiB, "
+            f"peak {[round(r['peak_gib'], 2) for r in res]} GiB (one card {args['one'][quant]['held_gib']:.2f}, "
+            f"{args['one'][quant]['peak_gib']:.2f}); output texts equal {res[0]['texts_equal']} of {EVAL_7B_ITEMS}, "
+            f"preds {res[0]['preds_equal']}; {card}")
+    log(f"[eval 7b] (i): {time.perf_counter() - t0:.1f} s; {card}")
+    return {"one": {q: {k: v for k, v in r.items() if k != "records"} for q, r in args["one"].items()},
             "ranks": ranks}
 
 
@@ -7498,7 +8204,9 @@ def main() -> int:
     full_param = timed(phase_full_param_7b, card)  # the 7B's full parameters, the state offloaded; the full-row loss
     parallel = timed(phase_parallel, card)  # ranks over gloo: ring attention (K1, B1, B2), the CP loss, DP, the CLI
     sharded = timed(phase_sharded, card)  # ranks over gloo: FSDP and TP loss steps, step_batch over TP, the CLI
-    mesh = timed(phase_mesh_serving, card)  # ranks over gloo: the TP Engine, PPEngine, cli.evaluate / cli.demo
+    # ranks over gloo: the TP Engine, PPEngine, cli.evaluate / cli.demo (15); PagedEngine, ContinuousEngine and the
+    # int4 TP Engine over the mesh, cli.evaluate with the recipe's eval flags (16)
+    mesh = timed(phase_mesh_serving, card)
     for tag, name in zip("ab", PAGED_KERNELS):
         quant_launches[name] = serve[tag]["launches"][name]
         quant_launches[f"{name}_tc"] = serve[tag]["launches"][f"{name}_tc"]
@@ -7592,6 +8300,13 @@ def main() -> int:
                     if engine == kind and name not in MESH_F32_ONLY and k["name"] in mesh[f"bf16_{name}"]}
             if any(any(v) for v in runs.values()):
                 k[f"launches_{kind}_engine"] = runs
+    cmesh = mesh["cmesh"]
+    for k in kernels:  # phase 16: each bf16 run over the mesh, [rank 0, rank 1]
+        for key, names in (("launches_tp_paged", ("paged", "paged_int8")), ("launches_tp_continuous", ("continuous",)),
+                           ("launches_tp_int4", ("int4_g1", "int4_g8"))):
+            runs = {n: [r[k["name"]] for r in cmesh[f"bf16_{n}"]] for n in names if k["name"] in cmesh[f"bf16_{n}"][0]}
+            if any(any(v) for v in runs.values()):
+                k[key] = runs
     log(f"[env] chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

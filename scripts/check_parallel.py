@@ -16,12 +16,22 @@ one process's, and `cli.evaluate --tensor_parallel_size 2` /
 `--pipeline_parallel_size 2` and `cli.demo --pipeline_parallel_size 2`),
 and (g), asked for by name only and on 4 cards: Qwen2.5-VL-7B served over
 NCCL by the TP Engine at tp 4, PPEngine at 4 stages and at 2 stages of tp 2,
-against one card's (in bf16 at full depth, and in f32 at 4 layers). The
-ranks are processes over gloo, all on the first card; where the machine
-shows several cards, (a), (c), (d), (e) and (h) run again over NCCL, a card
-a rank (with --nccl, phases 14 and 15 only over NCCL). Given parts among a-h, only those run; none runs a, b, c, d, e and h.
+against one card's (in bf16 at full depth, and in f32 at 4 layers). (h) also
+runs phase 16 in phase 15's spawn (PagedEngine, ContinuousEngine and the
+int4 TP Engine over 2 ranks against one process's, `cli.evaluate` with
+`scripts/test.sh`'s continuous int8 flags at tp 2 and the continuous flag
+under pp 2), after phase 2's P1 / P2 and Q1 cases at the TP-local shapes.
+(i), asked for by name only and on 4 cards: Qwen2.5-VL-7B at full depth
+through `cli.evaluate --tensor_parallel_size 4` over NCCL with
+`scripts/test.sh`'s eval flags (continuous batching over the paged pool,
+int8 KV pages), int8 and int4 weights, against one card's `cli.evaluate`
+(the records, decode ms a step, the weights and the peak a rank; writes
+~16 GB under TMPDIR). The ranks are processes over gloo, all on the first
+card; where the machine shows several cards, (a), (c), (d), (e) and (h) run
+again over NCCL, a card a rank (with --nccl, phases 14-16 only over NCCL).
+Given parts among a-i, only those run; none runs a, b, c, d, e and h.
 
-    python3 scripts/check_parallel.py [--nccl] [a] [b] [c] [d] [e] [f] [g] [h]
+    python3 scripts/check_parallel.py [--nccl] [a] [b] [c] [d] [e] [f] [g] [h] [i]
 
 Writes up to 15 GB under the temporary directory (TMPDIR) and deletes it.
 Prints the card's name and power limit first. Needs a CUDA device and nvcc;
@@ -66,19 +76,24 @@ def main(parts, nccl_only: bool = False) -> int:
                                                     dtype)
             chip_smoke.vision_local_head_cases(torch.Generator(device="cuda").manual_seed(0), results)
         chip_smoke.phase_sharded(card, "".join(p for p in parts if p in "def"), nccl_only=nccl_only)
-    if "h" in parts:  # phase 2's D2 and Q2 at the TP-local shapes before any rank runs them
+    if "h" in parts:  # phase 2's D2, Q2, P1, P2 and Q1 at the TP-local shapes before any rank runs them
         chip_smoke.tp_decode_quant_cases(torch.Generator(device="cuda").manual_seed(9),
                                          {"shared_prefix_decode_full": {}, "fused_mlp_int8": {}})
+        chip_smoke.tp_paged_q1_cases(torch.Generator(device="cuda").manual_seed(11),
+                                     {"paged_prefix_attention": {}, "paged_prefix_attention_q8": {},
+                                      "int4_matmul": {}})
         chip_smoke.phase_mesh_serving(card, nccl_only=nccl_only)
     if "g" in parts:
         chip_smoke.phase_mesh_7b(card)
+    if "i" in parts:
+        chip_smoke.phase_eval_7b(card)
     chip_smoke.log(f"[env] check_parallel: {time.perf_counter() - t0:.1f} s")
     return 0
 
 
 if __name__ == "__main__":
-    parser = argparse.ArgumentParser(description="chip_smoke.py's phases 13, 14 and 15, or parts a-h of them")
-    parser.add_argument("parts", nargs="*", choices=["a", "b", "c", "d", "e", "f", "g", "h"])
-    parser.add_argument("--nccl", action="store_true", help="phases 14 and 15 over NCCL only (several cards)")
+    parser = argparse.ArgumentParser(description="chip_smoke.py's phases 13-16, or parts a-i of them")
+    parser.add_argument("parts", nargs="*", choices=["a", "b", "c", "d", "e", "f", "g", "h", "i"])
+    parser.add_argument("--nccl", action="store_true", help="phases 14-16 over NCCL only (several cards)")
     args = parser.parse_args()
     sys.exit(main(args.parts, args.nccl))

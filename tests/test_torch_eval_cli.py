@@ -16,12 +16,15 @@ clips written with OpenCV (tests/test_torch_video.py::write_clip):
 - quantized serving from a checkpoint the port wrote (int8 weights, int8
   KV);
 - over a mesh of 2 gloo ranks (`test_torch_pipeline.cli_worker`),
-  `evaluate.main` with --tensor_parallel_size 2 and with
-  --pipeline_parallel_size 2, and `demo.main` with --pipeline_parallel_size
-  2, from a checkpoint the port wrote: the records one process writes,
-  global rank 0 the only writer; the refusals that remain (A13: continuous
-  batching over a mesh, int4 under TP; JAX's ValueErrors: prob-based MCQ
-  under PP, too few ranks);
+  `evaluate.main` with --tensor_parallel_size 2 (alone, with
+  --use_continuous_batching over the paged pool with int8 weights and int8
+  pages and over the slot engine, and with --quantization int4) and with
+  --pipeline_parallel_size 2 (alone and with --use_continuous_batching,
+  which it ignores, as JAX does), and `demo.main` with
+  --pipeline_parallel_size 2, from a checkpoint the port wrote: the records
+  one process writes with the same flags, global rank 0 the only writer;
+  the refusals that remain (JAX's ValueErrors: prob-based MCQ under PP, too
+  few ranks);
 - `eval_all.score_dir` and `main` on the same shards give JAX's scores, and
   the EgoSchema upload payload is JAX's (`requests.post` patched in both);
 - `calc_difficulty.merge` writes a byte-equal train_v4_cloud.json at the
@@ -278,7 +281,29 @@ def _port_checkpoint(path):
     return str(path)
 
 
-MESH_FLAGS = {"tp2": ["--tensor_parallel_size", "2"], "pp2": ["--pipeline_parallel_size", "2"]}
+TP2, PP2 = ["--tensor_parallel_size", "2"], ["--pipeline_parallel_size", "2"]
+CONTINUOUS = ["--use_continuous_batching", "--max_model_len", "1000", "--batch_size", "2"]
+# tag: (the mesh's flags, the other flags, which one process runs with too)
+MESH_FLAGS = {
+    "tp2": (TP2, []),
+    "pp2": (PP2, []),
+    "tp2_paged_int8": (TP2, [*CONTINUOUS, "--kv_block_size", "128", "--quantization", "int8",
+                             "--kv_cache_dtype", "int8"]),
+    "tp2_continuous": (TP2, [*CONTINUOUS, "--kv_block_size", "0"]),
+    "tp2_int4": (TP2, ["--quantization", "int4"]),
+    "pp2_continuous": (PP2, CONTINUOUS),
+}
+
+
+def _one_process(setup, out, flags):
+    """`evaluate.main` in one process with `flags` (no mesh), over an f32
+    engine quantized as the flags ask."""
+    args = evaluate.get_args(_argv(setup["ann"], out, *flags))
+    engine, processor = setup["port"]
+    if args.quantization or args.kv_cache_dtype:
+        engine = Engine(port_params(jax_params()), CFG, dtype=torch.float32, device="cpu",
+                        quantization=args.quantization or None, kv_cache_quant=args.kv_cache_dtype == "int8")
+    return _records(evaluate.main(args, engine, processor, device="cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -286,19 +311,21 @@ def mesh_runs(setup, tmp_path_factory):
     """`cli.evaluate` with each of MESH_FLAGS and `cli.demo
     --pipeline_parallel_size 2` over 2 gloo ranks
     (`test_torch_pipeline.cli_worker`) from a port checkpoint, and the same
-    two CLIs in one process over the same weights (f32)."""
+    two CLIs in one process over the same weights (f32), `cli.evaluate`
+    with each tag's other flags."""
     from test_torch_ring_attention import spawn_ranks
 
     root = tmp_path_factory.mktemp("mesh_cli")
     ckpt = _port_checkpoint(root / "ckpt")
     demo_argv = ["--model_base", ckpt, "--video_path", setup["clip"], "--max_new_tokens", "6", *PIXELS]
-    one = {"evaluate": _records(evaluate.main(evaluate.get_args(_argv(setup["ann"], root / "one")), *setup["port"],
-                                              device="cpu")),
+    one = {"evaluate": {tag: _one_process(setup, root / "one" if not other else root / f"one_{tag}", other)
+                        for tag, (_, other) in MESH_FLAGS.items()},
            "demo": demo.main(demo.get_args([*demo_argv, "--output_dir", str(root / "demo_one")]), *setup["port"],
                              device="cpu")}
     job = dict(pad=CFG.pad_token_id, eos=CFG.eos_token_id,
-               evaluate={tag: [*_argv(setup["ann"], root / tag, *flags)[:1], ckpt,
-                               *_argv(setup["ann"], root / tag, *flags)[2:]] for tag, flags in MESH_FLAGS.items()},
+               evaluate={tag: [*_argv(setup["ann"], root / tag, *mesh, *other)[:1], ckpt,
+                               *_argv(setup["ann"], root / tag, *mesh, *other)[2:]]
+                         for tag, (mesh, other) in MESH_FLAGS.items()},
                demo=[*demo_argv, "--output_dir", str(root / "demo_pp2"), "--pipeline_parallel_size", "2"])
     (root / "cli.json").write_text(json.dumps(job))
     ranks = spawn_ranks("test_torch_pipeline", "cli_worker", 2, root)
@@ -307,15 +334,19 @@ def mesh_runs(setup, tmp_path_factory):
 
 @pytest.mark.parametrize("tag", list(MESH_FLAGS))
 def test_evaluate_over_a_mesh_equals_one_process(mesh_runs, tag):
-    """Global rank 0 writes the records, which equal one process's (the
-    JAX package's CLI holds its PP run to its single-device one the same
-    way, tests/test_pp_generate.py:59); the other rank writes nothing."""
+    """Global rank 0 writes the records, which equal one process's with the
+    same flags but the mesh's (the JAX package's CLI holds its PP run to its
+    single-device one the same way, tests/test_pp_generate.py:59); the other
+    rank writes nothing. Under PP --use_continuous_batching changes
+    nothing."""
     ranks = mesh_runs["ranks"]
     assert ranks[0][tag] == ranks[1][tag]  # the same path: rank 0's file
     recs = _records(ranks[0][tag])
     assert [r["qid"] for r in recs] == ["tvg_0", "tvg_1", "tvg_2"]
-    assert recs == mesh_runs["one"]["evaluate"]
+    assert recs == mesh_runs["one"]["evaluate"][tag]
     assert sorted(os.listdir(mesh_runs["root"] / tag)) == sorted(os.listdir(mesh_runs["root"] / "one"))
+    if tag == "pp2_continuous":
+        assert recs == _records(ranks[0]["pp2"])
 
 
 def test_demo_over_a_pipeline_equals_one_process(mesh_runs):
@@ -325,11 +356,8 @@ def test_demo_over_a_pipeline_equals_one_process(mesh_runs):
         _records(mesh_runs["root"] / "demo_one" / "tmp_output.jsonl")
 
 
-# the refusals that remain over a mesh: (flags, error, message)
+# the refusals that remain over a mesh, JAX's ValueErrors: (flags, error, message)
 MESH_REFUSALS = {
-    "tp_continuous": (["--tensor_parallel_size", "2", "--use_continuous_batching"], NotImplementedError, "A13"),
-    "pp_continuous": (["--pipeline_parallel_size", "2", "--use_continuous_batching"], NotImplementedError, "A13"),
-    "tp_int4": (["--tensor_parallel_size", "2", "--quantization", "int4"], NotImplementedError, "A13"),
     "pp_prob_mcq": (["--pipeline_parallel_size", "2"], ValueError, "prob-based MCQ scoring needs the bucket engine"),
     "tp_too_few_ranks": (["--tensor_parallel_size", "2"], ValueError, "needs 2 ranks"),
     "pp_too_few_ranks": (["--pipeline_parallel_size", "2"], ValueError,

@@ -14,7 +14,8 @@ Without processes: the rank's serving tree (`sharding.serving_params`) holds
 the rule table's blocks, each in storage of its own, and its fused int8 leaves equal the matching rows of
 the whole tree's quantized leaf, the row-parallel ones its columns with every
 scale whole; `mlp_proj` runs a shard's int8 MLP and the model rank's partial
-sums add up to the whole MLP; int4 and FSDP shards are refused by name (A13).
+sums add up to the whole MLP; FSDP shards are refused by name (A13; int4
+shards: `test_torch_tp_paged.py`).
 
 This module imports no JAX at its top: the ranks import it to run `_worker`.
 """
@@ -228,8 +229,6 @@ def test_unported_serving_shards_are_refused():
     from time_r1_tpu_torch.parallel import ShardContext, param_specs, serving_params
 
     params = port_params(jax_params())
-    with pytest.raises(NotImplementedError, match="A13"):
-        serving_params(params, _ctx(params, 2, 0), bits=4)
     fsdp = ShardContext(None, None, 2, 1, 0, 0, param_specs(params, {"data": 2, "model": 1}))
     with pytest.raises(NotImplementedError, match="A13"):
         serving_params(params, fsdp)

@@ -36,11 +36,14 @@ loads the whole checkpoint on the host and keeps its part on its card:
   a divisor of the kv heads, and 1 under `--quantization`; too few ranks
   raise JAX's ValueError, and so does prob-based MCQ scoring (it needs the
   bucket engine);
+- `--use_continuous_batching` under TP: `PagedEngine` / `ContinuousEngine`
+  over the TP engine's serving tree and shard (JAX's `:216-251` hands them
+  `engine.params`, which GSPMD splits), with `--quantization int8|int4` and
+  `--kv_cache_dtype int8` as on one card; under PP the flag is ignored and
+  `PPEngine` generates, as in JAX (`:216-217`);
 - global rank 0 (model rank 0 of stage 0) writes the jsonl shard and the
   timing summary; the other ranks write nothing. Every rank reads the shard
   for the resume before any writes.
-Refused by name (A13): a mesh with `--use_continuous_batching` (the paged and
-continuous engines over shards) and int4 weights under TP.
 """
 
 from __future__ import annotations
@@ -157,16 +160,6 @@ def get_args(argv=None):
     return args
 
 
-def _refuse_unported(args) -> None:
-    tp = getattr(args, "tensor_parallel_size", None) or 1
-    pp = getattr(args, "pipeline_parallel_size", 1) or 1
-    if (tp > 1 or pp > 1) and getattr(args, "use_continuous_batching", False):
-        raise NotImplementedError("--use_continuous_batching over a mesh (the paged and continuous engines over "
-                                  "shards) is not ported (ROADMAP A13)")
-    if tp > 1 and pp <= 1 and getattr(args, "quantization", "") == "int4":
-        raise NotImplementedError("--quantization int4 under --tensor_parallel_size > 1 is not ported (ROADMAP A13)")
-
-
 def build_mesh_engine(args, device="cuda"):
     """The engine over a mesh (JAX's `cli/evaluate.py:150-197`): a
     `PPEngine` when --pipeline_parallel_size > 1, else the tensor-parallel
@@ -211,14 +204,17 @@ def build_mesh_engine(args, device="cuda"):
 
 def make_generation_engine(args, engine: Engine):
     """The engine that generates: `engine` itself, or a continuous-batching
-    engine over its weights (evaluate.py:205-244)."""
-    if not getattr(args, "use_continuous_batching", False):
+    engine over its weights (evaluate.py:205-244), and over its shard under
+    TP. A `PPEngine` (--pipeline_parallel_size > 1) generates itself: the
+    flag is ignored there, as in JAX."""
+    if not getattr(args, "use_continuous_batching", False) or (getattr(args, "pipeline_parallel_size", 1) or 1) > 1:
         return engine
     # max_model_len as the reference sizes it: total_pixels//28//28 + 4096 + max_new_tokens (vllm_infer.py:52)
     max_len = args.max_model_len or (args.total_pixels // 28 // 28 + 4096 + args.max_new_tokens)
     kv_block = getattr(args, "kv_block_size", 128)
     kv_quant = getattr(args, "kv_cache_dtype", "") == "int8"
-    kw = dict(max_slots=max(args.batch_size, 1), max_len=max_len, dtype=engine.dtype, device=engine.device)
+    kw = dict(max_slots=max(args.batch_size, 1), max_len=max_len, dtype=engine.dtype, device=engine.device,
+              shard=getattr(engine, "shard", None))
     if kv_block > 0:
         kw["max_len"] = -(-max_len // kv_block) * kv_block
         return PagedEngine(engine.params, engine.cfg, page_size=kv_block, kv_cache_quant=kv_quant, **kw)
@@ -282,7 +278,6 @@ def main(args, engine: Engine = None, processor: Qwen25VLProcessor = None, devic
     --model_base onto `device` (over a mesh, `build_mesh_engine`)."""
     import torch.distributed as dist
 
-    _refuse_unported(args)
     pp = getattr(args, "pipeline_parallel_size", 1) or 1
     mesh = pp > 1 or (getattr(args, "tensor_parallel_size", None) or 1) > 1
     # mcq + train split: probability-based scoring over the option letters

@@ -334,7 +334,11 @@ def mlp_proj(h: torch.Tensor, mlp: dict, lora=None, tp=None) -> torch.Tensor:
     rank's fused int8 gate | up and its columns of down with every scale
     whole: Q2 runs on those local widths (the 3B at tp 2: I 5504; the 7B at
     tp 4: I 4736), and its partial sums are all-reduced like the unfused
-    product's. A local shape Q2 cannot take raises in its wrapper."""
+    product's. A local shape Q2 cannot take raises in its wrapper. An int4
+    serving tree holds the same blocks of q4 (down's packed K/2 bytes split,
+    its scales whole): each product runs Q1 at the rank's widths (the 3B at
+    tp 2: gate|up 11008 × 2048, down 2048 × 5504), down's partial sums
+    all-reduced likewise."""
     if tp is not None:
         h = tp.enter(h)
     if (

@@ -4,9 +4,10 @@ group and its (data, model) mesh (`mesh.py`), the collectives over a group
 (`sharding.py`), FSDP's gather-use-drop (`fsdp.py`), Megatron-style tensor
 parallelism (`tensor.py`) and ring attention over K1, B1 and B2
 (`ring_attention.py`), the serving shards of the tensor-parallel engine
-(`sharding.serving_params`) and pipeline-parallel generation
-(`pipeline.py`: `pp_decoder_layers`, `pp_generate`, `PPEngine` over
-`make_pp_mesh`). The memory plan is not ported yet (ROADMAP A13)."""
+(`sharding.serving_params`, int8 or int4, which the paged and slot engines
+take over as it is) and pipeline-parallel generation (`pipeline.py`:
+`pp_decoder_layers`, `pp_generate`, `PPEngine` over `make_pp_mesh`), and
+the 7B's memory plan (`plan.py`: `plan_7b_train_step`, `format_budget`)."""
 
 from .mesh import (
     DATA_AXIS,

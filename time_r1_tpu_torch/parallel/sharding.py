@@ -20,14 +20,17 @@ results (ROADMAP §C).
 Serving over a model group (`serving_params`, the tensor-parallel `Engine`
 of eval, data 1) takes the rank's blocks of the decoder layers and of the
 vision tower by the same table and keeps the embedding, the final norm and
-the head whole. Quantized (int8), each projection is quantized whole and
-then split, as JAX's `time_r1_tpu/parallel/pipeline.py:58-82` states:
-a column-parallel weight (q, k, v, gate, up: output rows split) takes its
-rows of q8 and of the per-row scales; a row-parallel one (o, down: input
-columns split) takes its columns of q8 and keeps every scale whole, since
-each is a max over the split axis (quantizing the local block would change
-it). The rank then fuses its own q | k | v heads and gate | up columns into
-the "qkv" / "gu" leaves that `attn_qkv_proj` and Q2 take.
+the head whole. Quantized (int8 or int4), each projection is quantized
+whole and then split, as JAX's `time_r1_tpu/parallel/pipeline.py:58-82`
+states: a column-parallel weight (q, k, v, gate, up: output rows split)
+takes its rows of q8 / q4 and of the per-row scales; a row-parallel one (o,
+down: input columns split) takes its columns of q8, or its packed K/2 bytes
+of q4, and keeps every scale whole, since each is a max over the split axis
+(quantizing the local block would change it). The rank then fuses its own
+q | k | v heads and gate | up columns into the "qkv" / "gu" leaves that
+`attn_qkv_proj`, Q1 and Q2 take. The tree it returns is a `ServingTree`,
+which records what it was cut for: an engine handed one (the paged and slot
+engines over a TP engine's `params`) takes it as it is.
 
 `ShardContext` carries a mesh's groups, sizes, this rank's coordinates and
 the spec tree of the parameters it shards. The layer functions of the model
@@ -300,40 +303,64 @@ def global_sq_sum(blocks: list, specs: list, shard: ShardContext) -> torch.Tenso
 def serving_layer(lp: dict, tp: int, m: int, bits: int = 0, device=None) -> dict:
     """Model rank m's serving form of one whole decoder layer (the port's
     unfused per-layer dict): its blocks by the rule table (`shard_leaf` at
-    data 1); with bits 8 each projection quantized whole, its q8 split as
-    the weight and its per-output-row scales as the weight's dim 0 (split
-    for the column-parallel leaves, whole for the row-parallel ones: the
-    module docstring), and the rank's q | k | v and gate | up then fused
+    data 1); with bits 8 or 4 each projection quantized whole, its q8 (or
+    packed q4, split along the bytes: two k a byte) split as the weight and
+    its per-output-row scales as the weight's dim 0 (split for the
+    column-parallel leaves, whole for the row-parallel ones: the module
+    docstring), and the rank's q | k | v and gate | up then fused
     (`ops/quant.py::quantize_layer`). `device`: where the leaves go (the
     quantization runs there)."""
     from ..ops.quant import is_quantized, quantize_layer, quantize_weight
 
     if "qkv" in lp or "gu" in lp or any(is_quantized(v) for v in lp.values()):
         raise ValueError("serving shards are cut from an unquantized, unfused tree")
-    if bits not in (0, 8):
-        raise NotImplementedError(f"int{bits} weights under tensor parallelism are not ported (ROADMAP A13)")
+    if bits not in (0, 8, 4):
+        raise ValueError(f"serving weights are bf16, int8 or int4, not {bits} bits")
     sizes, coords = {D: 1, M: tp}, {D: 0, M: m}
     specs = param_specs({"text": {"layers": [lp]}}, sizes)["text"]["layers"][0]
+    key = "q8" if bits == 8 else "q4"
 
     def cut(x: torch.Tensor, spec: Spec):
         x = x.detach()
         if not (bits and x.dim() == 2):
             return shard_leaf(x, spec, sizes, coords).to(device if device is not None else x.device)
         q = quantize_weight(x.to(device if device is not None else x.device), bits)  # whole, where the blocks go
-        return {"q8": shard_leaf(q["q8"], spec, sizes, coords), "s": shard_leaf(q["s"], Spec(spec.dims[:1]), sizes, coords)}
+        split = spec.axis_dim(M)
+        if split is not None and q[key].shape[split] % tp:  # int4 over K/2 bytes: a byte holds two k
+            raise ValueError(f"a {tuple(q[key].shape)} {key} leaf cannot split over {tp} model ranks")
+        return {key: shard_leaf(q[key], spec, sizes, coords), "s": shard_leaf(q["s"], Spec(spec.dims[:1]), sizes, coords)}
 
     out = {k: cut(v, specs[k]) for k, v in lp.items()}
     return quantize_layer(out, bits=bits, fuse=True) if bits else out
 
 
+class ServingTree(dict):
+    """A rank's serving tree ({visual, text}, `serving_params`), which also
+    records what it was cut for: the model group's size `tp`, the model rank
+    and the weights' bits (0: unquantized)."""
+
+    def __init__(self, tree: dict, tp: int, model_rank: int, bits: int):
+        super().__init__(tree)
+        self.tp, self.model_rank, self.bits = tp, model_rank, bits
+
+    def check(self, shard: "ShardContext", bits: Optional[int]) -> None:
+        """Refuse a tree cut for another rank, or at other bits than `bits`
+        (None: any)."""
+        if (self.tp, self.model_rank) != (shard.tp, shard.model_rank):
+            raise ValueError(f"a serving tree of model rank {self.model_rank} of {self.tp} handed to model rank "
+                             f"{shard.model_rank} of {shard.tp}")
+        if bits is not None and bits != self.bits:
+            raise ValueError(f"a serving tree of {self.bits}-bit weights where {bits} bits were asked (0: none)")
+
+
 @torch.no_grad()
-def serving_params(params: dict, shard: "ShardContext", bits: int = 0, device=None) -> dict:
+def serving_params(params: dict, shard: "ShardContext", bits: int = 0, device=None) -> ServingTree:
     """This rank's serving tree from a whole {visual, text} tree on a mesh
     of data 1 (the eval mesh): `serving_layer` for each decoder layer, the
     rank's blocks of the vision tower by the rule table, and the embedding,
-    the final norm and the head whole (int8 under bits 8, as
+    the final norm and the head whole (int8 under bits 8 and 4, as
     `ops/quant.py::quantize_text_params` has them). Every leaf goes to
-    `device`. FSDP (data > 1) and int4 raise NotImplementedError (A13)."""
+    `device`. FSDP (data > 1) raises NotImplementedError (A13)."""
     from ..ops.quant import quantize_text_params
 
     if shard.dp != 1:
@@ -347,7 +374,7 @@ def serving_params(params: dict, shard: "ShardContext", bits: int = 0, device=No
     text["layers"] = [serving_layer(lp, shard.tp, shard.model_rank, bits, device) for lp in params["text"]["layers"]]
     vis = shard.at("visual")
     visual = _zip(params["visual"], vis.specs, lambda x, sp: shard_leaf(to(x), sp, vis.sizes, vis.coords))
-    return {"visual": visual, "text": text}
+    return ServingTree({"visual": visual, "text": text}, shard.tp, shard.model_rank, bits)
 
 
 def serving_context(shard: "ShardContext", layers: list) -> "ShardContext":

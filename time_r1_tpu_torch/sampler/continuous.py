@@ -19,6 +19,9 @@ step. The cache is in the engine's dtype only (no int8 KV, as in JAX); the
 weights may be quantized (`quantization`). The state is updated in place
 (JAX donates and replaces it). Same request and response semantics as
 `Engine.generate` (stop ids, include-stop).
+
+Tensor parallelism (`shard=`): as `sampler/paged.py`'s, over slot caches of
+the rank's kv heads; the attention stays `mha_cached` at the local heads.
 """
 
 from __future__ import annotations
@@ -26,23 +29,23 @@ from __future__ import annotations
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..models.qwen25vl import Qwen25VLConfig
+from ..models.qwen25vl.language import _heads
 from ..ops.attention import NEG_INF, mha_cached
-from ..ops.quant import QBITS, quantize_params
-from .engine import Engine, Request, sample_tokens
+from .engine import Engine, Request, token_pick
 from .paged import decode_layers, group_by_bucket, retire_tokens, row_generator
 from .params import SamplingParams
 
 
 @dataclass
 class SlotState:
-    k: torch.Tensor  # (L, slots, max_len, Hkv, hd)
+    k: torch.Tensor  # (L, slots, max_len, Hkv, hd), the rank's Hkv under a shard
     v: torch.Tensor
     lengths: torch.Tensor  # (slots,) long: written kv length per slot
     last: torch.Tensor  # (slots,) long: last token
@@ -54,11 +57,13 @@ class SlotState:
 @torch.no_grad()
 def decode_segment(params: dict, state: SlotState, cfg: Qwen25VLConfig, segment: int, sp: SamplingParams,
                    generator: Optional[torch.Generator], active: torch.Tensor,
-                   max_steps: torch.Tensor) -> torch.Tensor:
+                   max_steps: torch.Tensor, shard=None, pick: Optional[Callable] = None) -> torch.Tensor:
     """`segment` decode steps for the active slots (bool (slots,)) within
     their budgets (max_steps, per slot), on the device and in place on
     `state`. Returns the tokens (slots, segment): the pad id where a slot was
-    not live."""
+    not live. shard: as `paged.decode_layers`; pick: the token choice
+    (`engine.token_pick`, by default over `generator` alone)."""
+    pick = pick or token_pick(generator, sp)
     slots, max_len = state.k.shape[1], state.k.shape[2]
     dev = state.k.device
     stop_ids = torch.tensor(sp.stop_token_ids, dtype=torch.long, device=dev)
@@ -75,11 +80,11 @@ def decode_segment(params: dict, state: SlotState, cfg: Qwen25VLConfig, segment:
         def attend(li, q, k, v):
             return mha_cached(q, state.k[li].to(q.dtype), state.v[li].to(q.dtype), k, v, bias_old, bias_new)
 
-        logits, ks, vs = decode_layers(params, cfg, state.last, state.start_pos + state.steps, attend)
+        logits, ks, vs = decode_layers(params, cfg, state.last, state.start_pos + state.steps, attend, shard=shard)
         # one scatter of every layer's new K/V at each slot's write column
         state.k[:, rows, state.lengths] = ks.to(state.k.dtype)
         state.v[:, rows, state.lengths] = vs.to(state.v.dtype)
-        nxt = torch.where(live, sample_tokens(logits, generator, sp), cfg.pad_token_id)
+        nxt = torch.where(live, pick(logits, None, state.last), cfg.pad_token_id)
         state.done = state.done | (live & torch.isin(nxt, stop_ids))
         state.lengths = state.lengths + live.long()
         state.last = torch.where(live, nxt, state.last)
@@ -93,7 +98,9 @@ class ContinuousEngine:
 
     `timings` after `generate`, as `PagedEngine.timings`: vision_s,
     prefill_s, decode_s, segments, decode_steps, interleaved_segments (here
-    the segments run between the bucket groups of a wave) and admissions."""
+    the segments run between the bucket groups of a wave) and admissions.
+
+    shard: the TP engine's `ShardContext`; `params` as `PagedEngine`'s."""
 
     def __init__(
         self,
@@ -106,19 +113,20 @@ class ContinuousEngine:
         prefill_chunk_tokens: int = 8192,
         quantization: Optional[str] = None,  # None | "int8" | "int4" (weight-only, ops/quant.py)
         device="cuda",
+        shard=None,
     ):
         self.device = resolve_device(device)
-        if quantization:
-            params = quantize_params(params, bits=QBITS[quantization])
-        self.params = params
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_len = max_len
         self.segment = segment
         self.dtype = dtype
-        # the bucket engine prefills the admissions (the quantized tree is
-        # built once and shared with it)
-        self._prefill_engine = Engine(params, cfg, dtype, prefill_chunk_tokens, device=self.device)
+        # the bucket engine prefills the admissions; it quantizes the tree
+        # once (under a shard it cuts it, or keeps a serving tree) and the
+        # decode shares it
+        self._prefill_engine = Engine(params, cfg, dtype, prefill_chunk_tokens, device=self.device,
+                                      quantization=quantization, shard=shard)
+        self.params = self._prefill_engine.params
         self.timings: dict = {}
 
     def _sync(self) -> float:
@@ -135,8 +143,10 @@ class ContinuousEngine:
         self.timings["vision_s"] += eng.timings["vision_s"]
         self.timings["admissions"].append((len(reqs), S, vis is not None))
         firsts = []
+        like = torch.zeros((1,), dtype=torch.long, device=self.device)
         for row, (slot, req_idx, req) in enumerate(admits):
-            first = int(sample_tokens(first_logits[row:row + 1], row_generator(self.device, sp.seed, req_idx), sp)[0])
+            pick = eng._pick(row_generator(self.device, sp.seed, req_idx), sp)  # under a shard rank 0's, broadcast
+            first = int(pick(first_logits[row:row + 1], None, like)[0])
             L_prompt = len(req.input_ids)
             lead = S - L_prompt  # left padding in the batched prefill cache
             state.k[:, slot, :L_prompt] = cache.k[:, row, lead:].to(state.k.dtype)
@@ -163,8 +173,8 @@ class ContinuousEngine:
         self.timings = {"vision_s": 0.0, "prefill_s": 0.0, "decode_s": 0.0, "segments": 0, "decode_steps": 0,
                         "interleaved_segments": 0, "admissions": []}
 
-        tcfg = self.cfg.text
-        shape = (tcfg.num_hidden_layers, self.max_slots, self.max_len, tcfg.num_key_value_heads, tcfg.head_dim)
+        tcfg, eng = self.cfg.text, self._prefill_engine
+        shape = (tcfg.num_hidden_layers, self.max_slots, self.max_len, _heads(tcfg, eng._text_shard)[1], tcfg.head_dim)
         n = self.max_slots
         state = SlotState(
             k=torch.zeros(shape, dtype=self.dtype, device=dev),
@@ -178,6 +188,7 @@ class ContinuousEngine:
         slot_req: list = [None] * n  # request index per slot
         slot_tokens: list[list[int]] = [[] for _ in range(n)]
         gen = torch.Generator(device=dev).manual_seed(sp.seed if sp.seed is not None else 0)
+        pick = eng._pick(gen, sp)
         admitting = False
 
         def register(admit, first):
@@ -200,7 +211,8 @@ class ContinuousEngine:
                                      device=dev)
             t0 = self._sync()
             steps_before = state.steps.clone()
-            toks = decode_segment(self.params, state, self.cfg, self.segment, sp, gen, active, max_steps)
+            toks = decode_segment(self.params, state, self.cfg, self.segment, sp, gen, active, max_steps,
+                                  shard=eng._text_shard, pick=pick)
             # the segment's one read to the host
             host = torch.cat([toks, (state.steps - steps_before)[:, None], state.done[:, None].long()],
                              dim=1).cpu().numpy()

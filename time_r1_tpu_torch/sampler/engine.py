@@ -40,7 +40,9 @@
   model group, so every rank holds the same tokens. Under a mesh the decode
   is eager (`capture=False`), decided here from the constructor's
   arguments: a gloo collective stages through host memory, which a CUDA
-  graph cannot record (JAX runs one compiled program; ROADMAP §C).
+  graph cannot record (JAX runs one compiled program; ROADMAP §C). Its
+  weights may be int8 or int4 (quantized whole, then split: Q2 and Q1 at
+  the rank's widths on the card).
 """
 
 from __future__ import annotations
@@ -344,10 +346,11 @@ class Engine:
     shard (a `parallel/sharding.py::ShardContext` built over the whole tree
     on a mesh of data 1, `ShardContext.build(make_mesh(tp), params)`): the
     tensor-parallel engine. `params` (and those of `set_params`) is then the
-    whole tree, on any device; the engine keeps the rank's serving tree on
-    its `device` (`serving_params`), and every rank of the model group
-    calls `generate` / `last_token_logits` together, with the same
-    requests. Its decode is eager (the module docstring); int4 and FSDP
+    whole tree, on any device, and the engine keeps the rank's serving tree
+    on its `device` (`serving_params`); or it is already that tree (a
+    `ServingTree`, another TP engine's `params`), kept as it is. Every rank
+    of the model group calls `generate` / `last_token_logits` together, with
+    the same requests. Its decode is eager (the module docstring); FSDP
     shards raise NotImplementedError (A13), as `check_heads` does for a tp
     that splits a head."""
 
@@ -397,15 +400,20 @@ class Engine:
         prequantized: `params` is already the quantized copy (the LoRA
         trainer's merge-then-quantize). An unknown `quantization` name is a
         KeyError, as the JAX package's dict lookup. With a shard, `params` is
-        the whole tree and the engine cuts its serving tree from it."""
+        the whole tree and the engine cuts its serving tree from it, or a
+        `ServingTree` of this rank, at the asked bits (any when
+        `quantization` is None), used as it is."""
         self.params = None
         if self.shard is not None:
-            from ..parallel.sharding import serving_context, serving_params
+            from ..parallel.sharding import ServingTree, serving_context, serving_params
 
-            if prequantized:
+            if isinstance(params, ServingTree):
+                params.check(self.shard, QBITS[self.quantization] if self.quantization else None)
+            elif prequantized:
                 raise ValueError("a tensor-parallel engine quantizes the whole tree itself (prequantized=False)")
-            bits = QBITS[self.quantization] if self.quantization else 0
-            params = serving_params(params, self.shard, bits, self.device)
+            else:
+                bits = QBITS[self.quantization] if self.quantization else 0
+                params = serving_params(params, self.shard, bits, self.device)
             self._text_shard = serving_context(self.shard.at("text"), params["text"]["layers"])
         elif self.quantization and not prequantized:
             params = quantize_params(params, bits=QBITS[self.quantization])

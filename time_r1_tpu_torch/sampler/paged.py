@@ -40,6 +40,17 @@ Side-path LoRA (`set_lora_side`): one set of adapters for every request,
 prepared by the prefill engine (`Engine.set_lora_side`) and added as side
 products in the prefill and in every paged decode step (`decode_layers`),
 over bf16 or int8 pages.
+
+Tensor parallelism (`shard=`, the TP `Engine`'s `ShardContext` over a mesh
+of data 1): the prefill engine is the TP `Engine` over the rank's serving
+tree, the pool holds the rank's kv heads (nkv/tp, G unchanged), each decode
+step runs the rank's heads and MLP width with one all-reduce after o and
+after down, and model-rank 0 samples every token (the first of each
+admission too) and broadcasts it (`engine.token_pick`). Every rank thus
+holds the same tokens, so the host takes the same admissions, page
+allocations and retirements on every rank. The decode is eager under a
+shard (`PagedDecode(capture=False)`, as the TP `Engine`'s; ROADMAP §C).
+Side-path LoRA over a shard is refused by the TP `Engine` (A13).
 """
 
 from __future__ import annotations
@@ -55,11 +66,11 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..models.qwen25vl import Qwen25VLConfig
-from ..models.qwen25vl.language import _rms_norm, lm_logits, mrope_cos_sin
+from ..models.qwen25vl.language import _heads, _rms_norm, lm_logits, mrope_cos_sin
 from ..ops.attention import rope
 from ..ops.paged_attention import combine_with_new_token, paged_prefix_attention, paged_prefix_attention_q8
-from ..ops.quant import QBITS, attn_out_proj, attn_qkv_proj, embed_lookup, mlp_proj, quantize_kv, quantize_params
-from .engine import Engine, _bucket, is_stop, sample_tokens
+from ..ops.quant import attn_out_proj, attn_qkv_proj, embed_lookup, mlp_proj, quantize_kv
+from .engine import Engine, _bucket, is_stop, token_pick
 from .graph import StepGraph
 from .params import SamplingParams
 
@@ -93,11 +104,12 @@ class PageAllocator:
 
 
 def make_pool(cfg: Qwen25VLConfig, n_pages: int, page_size: int, slots: int, max_pages: int,
-              dtype=torch.bfloat16, kv_quant: bool = False, device="cuda") -> PagedPool:
-    """An empty pool; kv_quant=True gives int8 pages with zero scales."""
+              dtype=torch.bfloat16, kv_quant: bool = False, device="cuda", shard=None) -> PagedPool:
+    """An empty pool; kv_quant=True gives int8 pages with zero scales. shard
+    (a ShardContext): the rank's kv heads, nkv/tp."""
     device = resolve_device(device)
     t = cfg.text
-    shape = (t.num_hidden_layers, t.num_key_value_heads, n_pages, page_size, t.head_dim)
+    shape = (t.num_hidden_layers, _heads(t, shard)[1], n_pages, page_size, t.head_dim)
     kv_dtype = torch.int8 if kv_quant else dtype
     return PagedPool(
         k=torch.zeros(shape, dtype=kv_dtype, device=device),
@@ -142,7 +154,7 @@ def write_prompt(pool: PagedPool, slot: int, prompt_pages, table_row, k_seq: tor
 
 
 def decode_layers(params: dict, cfg: Qwen25VLConfig, last: torch.Tensor, pos: torch.Tensor,
-                  attend: Callable, lora_side: Optional[tuple] = None
+                  attend: Callable, lora_side: Optional[tuple] = None, shard=None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One token per row (last (rows,), rope position pos (rows,)) through
     every decoder layer and the head: the decode step that the paged and the
@@ -150,9 +162,13 @@ def decode_layers(params: dict, cfg: Qwen25VLConfig, last: torch.Tensor, pos: to
     takes layer li's post-rope q (rows, 1, H, hd) and new k, v (rows, 1, Hkv,
     hd) and returns the context (rows, ...) with H·hd values a row.
     lora_side: (per-layer adapters, scaling), added as side products at every
-    projection. Returns (f32 logits (rows, V), new K and V (L, rows, Hkv, hd))."""
+    projection. shard (a ShardContext over a serving tree's text layers,
+    `sharding.serving_context`): the layers are the rank's, H and Hkv its
+    local heads, and the o and down products' partial sums are all-reduced
+    over the model group (`ops/quant.py`'s `tp=`). Returns (f32 logits
+    (rows, V), new K and V (L, rows, Hkv, hd))."""
     tcfg = cfg.text
-    nh, nkv, hd = tcfg.num_attention_heads, tcfg.num_key_value_heads, tcfg.head_dim
+    nh, nkv, hd = _heads(tcfg, shard)
     eps = tcfg.rms_norm_eps
     text = params["text"]
     rows = last.shape[0]
@@ -162,12 +178,12 @@ def decode_layers(params: dict, cfg: Qwen25VLConfig, last: torch.Tensor, pos: to
     new_k, new_v = [], []
     for li, lp in enumerate(text["layers"]):
         side = None if lora_side is None else (lora_side[0][li], lora_side[1])
-        q, k, v = attn_qkv_proj(_rms_norm(x, lp["input_layernorm"], eps), lp, nh, nkv, hd, lora=side)
+        q, k, v = attn_qkv_proj(_rms_norm(x, lp["input_layernorm"], eps), lp, nh, nkv, hd, lora=side, tp=shard)
         q = rope(q, cos_b, sin_b).to(x.dtype)
         k = rope(k, cos_b, sin_b).to(x.dtype)
         attn = attend(li, q, k, v)
-        x = x + attn_out_proj(attn.reshape(rows, 1, nh * hd).to(x.dtype), lp, side)
-        x = x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp, lora=side)
+        x = x + attn_out_proj(attn.reshape(rows, 1, nh * hd).to(x.dtype), lp, side, tp=shard)
+        x = x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp, lora=side, tp=shard)
         new_k.append(k[:, 0])
         new_v.append(v[:, 0])
     logits = lm_logits(text, tcfg, _rms_norm(x, text["norm"], eps))[:, 0]
@@ -176,15 +192,18 @@ def decode_layers(params: dict, cfg: Qwen25VLConfig, last: torch.Tensor, pos: to
 
 def _paged_one_step(params: dict, pool: PagedPool, cfg: Qwen25VLConfig, sp: SamplingParams,
                     last: torch.Tensor, start_pos: torch.Tensor, steps: torch.Tensor, live: torch.Tensor,
-                    generator: Optional[torch.Generator], lora_side: Optional[tuple] = None) -> torch.Tensor:
+                    generator: Optional[torch.Generator], lora_side: Optional[tuple] = None, shard=None,
+                    pick: Optional[Callable] = None) -> torch.Tensor:
     """One decode step over the paged pool → next token per slot (slots,).
     last, start_pos, steps: (slots,) long; live: (slots,) bool. Updates the
     pool in place: the new K/V of every layer at each live slot's cell
     (lengths // P, lengths % P), dead slots into scratch page 0, and
-    lengths += live. lora_side: side-path adapters (`decode_layers`)."""
+    lengths += live. lora_side, shard: as `decode_layers` (the pool then
+    holds the rank's kv heads); pick: the token choice (`engine.token_pick`,
+    by default over `generator` alone)."""
     tcfg = cfg.text
-    nkv, hd = tcfg.num_key_value_heads, tcfg.head_dim
-    G = tcfg.num_attention_heads // nkv
+    nh, nkv, hd = _heads(tcfg, shard)
+    G = nh // nkv
     slots, max_pages = pool.page_table.shape
     P = pool.k.shape[3]
     kv_quant = pool.k_scale is not None
@@ -199,7 +218,7 @@ def _paged_one_step(params: dict, pool: PagedPool, cfg: Qwen25VLConfig, sp: Samp
             acc, m, l = paged_prefix_attention(qg, pool.k[li], pool.v[li], pool.page_table, pool.lengths, P)
         return combine_with_new_token(acc, m, l, qg, k[:, 0], v[:, 0])
 
-    logits, ks, vs = decode_layers(params, cfg, last, start_pos + steps, attend, lora_side)
+    logits, ks, vs = decode_layers(params, cfg, last, start_pos + steps, attend, lora_side, shard)
     # one scatter of every layer's new K/V: (L, slots, Hkv, hd) → the cells
     # (L, Hkv, page, offset); dead slots write into scratch page 0
     cell = pool.lengths.long()
@@ -214,7 +233,7 @@ def _paged_one_step(params: dict, pool: PagedPool, cfg: Qwen25VLConfig, sp: Samp
     pool.k[:, :, page, off] = ks.transpose(1, 2).to(pool.k.dtype)
     pool.v[:, :, page, off] = vs.transpose(1, 2).to(pool.v.dtype)
     pool.lengths += live.to(torch.int32)
-    nxt = sample_tokens(logits, generator, sp)
+    nxt = (pick or token_pick(generator, sp))(logits, None, last)
     return torch.where(live, nxt, cfg.pad_token_id)
 
 
@@ -231,10 +250,12 @@ class PagedDecode:
     storages in place (admissions write the pool's page table and lengths in
     place too, so every replay reads the current ones). lora_side: the
     engine's side-path adapters, which the capture records (one graph a
-    `generate`)."""
+    `generate`). shard, pick: as `_paged_one_step`; a step over a shard
+    runs collectives, so it runs eagerly whatever `capture` says."""
 
     def __init__(self, params: dict, pool: PagedPool, cfg: Qwen25VLConfig, sp: SamplingParams, segment: int,
-                 generator: Optional[torch.Generator], capture: bool = True, lora_side: Optional[tuple] = None):
+                 generator: Optional[torch.Generator], capture: bool = True, lora_side: Optional[tuple] = None,
+                 shard=None, pick: Optional[Callable] = None):
         slots = pool.page_table.shape[0]
         dev = pool.k.device
         self.io = io = torch.zeros((6, slots), dtype=torch.long, device=dev)
@@ -247,14 +268,15 @@ class PagedDecode:
         def body():  # reads no `self`: no reference cycle keeps the pool and the weights alive
             # the live slots: active, not done and within their budget
             live = (active != 0) & (done == 0) & (steps < max_steps)
-            nxt = _paged_one_step(params, pool, cfg, sp, last, start_pos, steps, live, generator, lora_side)
+            nxt = _paged_one_step(params, pool, cfg, sp, last, start_pos, steps, live, generator, lora_side,
+                                  shard, pick)
             done.bitwise_or_((live & is_stop(nxt, stop_ids)).long())
             last.copy_(torch.where(live, nxt, last))
             steps.add_(live.long())
             toks.index_copy_(1, col, nxt[:, None])
             col.add_(1)
 
-        self.graph = StepGraph(body, dev, generator, capture)
+        self.graph = StepGraph(body, dev, generator, capture and shard is None)
 
     def load(self, host: torch.Tensor) -> None:
         """Fill `io` from a (6, slots) host array (last, start_pos, steps,
@@ -335,7 +357,13 @@ class PagedEngine:
     (prefill_s is the admissions' wall time without the segments run inside
     them), decode_s (every segment), segments and decode_steps (segments ×
     segment), interleaved_segments (segments run inside an admission), and
-    admissions: one (rows, prompt bucket S, has_video) per batched prefill."""
+    admissions: one (rows, prompt bucket S, has_video) per batched prefill.
+
+    shard: the TP engine's `ShardContext` (the module docstring). `params`
+    is then the whole tree (cut and quantized as `quantization` asks) or the
+    rank's serving tree (`ServingTree`, a TP `Engine`'s `params`: the eval
+    hands its engine's tree over), and every rank of the model group calls
+    `generate` together with the same requests."""
 
     def __init__(
         self,
@@ -352,11 +380,9 @@ class PagedEngine:
         kv_cache_quant: bool = False,  # int8 pages + per-token scales
         interleave_decode: bool = True,  # decode segments between prefill chunks and groups
         device="cuda",
+        shard=None,
     ):
         self.device = resolve_device(device)
-        if quantization:
-            params = quantize_params(params, bits=QBITS[quantization])
-        self.params = params
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_len = max_len
@@ -369,8 +395,11 @@ class PagedEngine:
         self.interleave_decode = interleave_decode
         self.prefill_chunk_tokens = prefill_chunk_tokens
         # the prefill (and its cache) stay in `dtype`; pages quantize at
-        # write_prompt. The quantized tree is built once, shared with it.
-        self._prefill_engine = Engine(params, cfg, dtype, prefill_chunk_tokens, device=self.device)
+        # write_prompt. The prefill engine quantizes the tree once (under a
+        # shard it cuts it, or keeps a serving tree) and the decode shares it
+        self._prefill_engine = Engine(params, cfg, dtype, prefill_chunk_tokens, device=self.device,
+                                      quantization=quantization, shard=shard)
+        self.params = self._prefill_engine.params
         self.timings: dict = {}
 
     @property
@@ -400,9 +429,10 @@ class PagedEngine:
         self.timings["vision_s"] += eng.timings["vision_s"]
         self.timings["admissions"].append((len(reqs), S, vis is not None))
         out = []
+        like = torch.zeros((1,), dtype=torch.long, device=self.device)
         for row, (slot, req_idx, req) in enumerate(admits):
-            gen = row_generator(self.device, sp.seed, req_idx)
-            first = int(sample_tokens(first_logits[row:row + 1], gen, sp)[0])
+            pick = eng._pick(row_generator(self.device, sp.seed, req_idx), sp)  # under a shard rank 0's, broadcast
+            first = int(pick(first_logits[row:row + 1], None, like)[0])
             L_prompt = len(req.input_ids)
             lead = S - L_prompt
             n_prompt_pages = -(-L_prompt // self.P)
@@ -434,8 +464,9 @@ class PagedEngine:
         self.timings = {"vision_s": 0.0, "prefill_s": 0.0, "decode_s": 0.0, "segments": 0, "decode_steps": 0,
                         "interleaved_segments": 0, "admissions": []}
 
+        eng = self._prefill_engine
         pool = make_pool(self.cfg, self.n_pages, self.P, self.max_slots, self.max_pages, self.dtype,
-                         kv_quant=self.kv_cache_quant, device=dev)
+                         kv_quant=self.kv_cache_quant, device=dev, shard=eng._text_shard)
         allocator = PageAllocator(self.n_pages)
         slot_req: list = [None] * self.max_slots
         slot_tokens: list[list[int]] = [[] for _ in range(self.max_slots)]
@@ -444,7 +475,8 @@ class PagedEngine:
         steps = np.zeros((self.max_slots,), np.int64)
         last = np.zeros((self.max_slots,), np.int64)
         gen = torch.Generator(device=dev).manual_seed(sp.seed if sp.seed is not None else 0)
-        decoder = PagedDecode(self.params, pool, self.cfg, sp, self.segment, gen, lora_side=self.lora_side)
+        decoder = PagedDecode(self.params, pool, self.cfg, sp, self.segment, gen, capture=eng.capture,
+                              lora_side=self.lora_side, shard=eng._text_shard, pick=eng._pick(gen, sp))
         admitting = False
 
         def retire(slot, idx):
