@@ -97,7 +97,7 @@ Phases (any failed check raises and the exit code is non-zero):
    per decode step, D2 on the tensor cores over the int8 caches), then one
    `Engine(quantization="int4", kv_cache_quant=True).generate` at G = 8, 200
    tokens (Q1 144 and D2 36 per step, all on the tensor cores);
-7. continuous-batching serving at full width and SERVE_LAYERS (12) decoder
+7. continuous-batching serving at full width and SERVE_LAYERS (4) decoder
    layers, once phase 6's model is freed: 12 requests (phase 4's two videos, ten text prompts of 200-1800 tokens),
    128 greedy tokens each, through 4 slots with 1024-token prefill chunks:
    PagedEngine (P1 on every decode step), PagedEngine with int8 weights and
@@ -119,7 +119,7 @@ Phases (any failed check raises and the exit code is non-zero):
    phase 5 (`step_batch_tc_launches`), all on the tensor cores;
 9. a GRPO run from the command line, once phase 8's model is freed (it
    writes up to 26 GB under TMPDIR and refuses to start with less free):
-   (a) Qwen2.5-VL-3B's seeded weights at CLI_LAYERS (12) decoder layers
+   (a) Qwen2.5-VL-3B's seeded weights at CLI_LAYERS (2) decoder layers
    (phases 10 and 12 (d) too; launch counts below are at 36: L / 36 of
    them) through `save_hf_checkpoint` and `load_checkpoint`, bit-equal, with
    a config.json that reads back as written; (b)
@@ -149,7 +149,7 @@ Phases (any failed check raises and the exit code is non-zero):
    prefill chunk, all on the tensor cores, summing to the round's; (b) two
    rounds at 3B widths with 2 decoder layers and "random_sample": round 1
    trains from round 0's smallest checkpoint on round 0's filtered json;
-11. LoRA GRPO on Qwen2.5-VL-7B at LORA_7B_LAYERS (14) decoder layers (the
+11. LoRA GRPO on Qwen2.5-VL-7B at LORA_7B_LAYERS (4) decoder layers (the
    counts below are at 28: L / 28 of them) over an int8 base, once phase
    10's model is freed (it writes up to 40 GB under TMPDIR and deletes it):
    (a) seeded bf16 7B weights through `save_hf_checkpoint`, then `cli.train.main` with
@@ -172,7 +172,7 @@ Phases (any failed check raises and the exit code is non-zero):
    rollouts, beta 0.04, G = 8, 200 tokens, accumulation 2, 4 step_batch
    calls on 2 examples of phase 8's 4 s clip: MemAvailable above the state's
    bytes plus 8 GiB before it is pinned, what PyTorch's pinned allocator
-   takes for one tree's bytes (in a process of its own), then every
+   takes for a quarter of one tree's bytes (in a process of its own), then every
    offloaded leaf pinned
    with exactly its bytes, the peak under 79 GiB, a decoder weight moved and
    the ViT unchanged, per call exactly K1 112, S1 84, B1 28, B2 56, S2 28 +
@@ -180,16 +180,19 @@ Phases (any failed check raises and the exit code is non-zero):
    update's streamed GB and GB/s; (b) at 2 layers of the 7B's widths, offload
    on against off over 4 micro-steps, bit-equal, for full parameters and for
    LoRA over the full-row loss; (c) the full-row loss
-   (shared_prefix_loss=False) on the 3B under remat: per call K1 144, B1 36,
-   B2 36, no S1 or S2, its train_step beside the split loss's on the same
+   (shared_prefix_loss=False) on the 3B at FULL_ROW_LAYERS (12) under remat:
+   per call K1 4, B1 1 and B2 1 a layer, no S1 or S2, its train_step beside the split loss's on the same
    request, and at 2 layers in f32 the two losses and their gradients
    agreeing; (d) `cli.finetune.main` on the 3B (--beta 0.0 --use_grpo
    false) from `video.npz` files that `cli.preprocess_videos` wrote, the
    decoder never called, one update, a save;
 13. data and context parallelism (`time_r1_tpu_torch/parallel/`), the ranks
-   processes over gloo on the first card, started from torchrun's
-   environment variables after this process built the kernels, a rank that
-   fails or hangs failing the phase (`spawn_ranks`, `parallel_rank`): (a)
+   processes over gloo on the first card, given torchrun's environment
+   variables after this process built the kernels (one pool of rank
+   processes serves every spawn of phases 13-17, each job in a process group
+   of its own: `RankPool`; the 3B of phases 13-16 has MESH_VISION_DEPTH (8)
+   vision blocks, `mesh_3b`), a rank that fails or hangs failing the phase
+   (`spawn_ranks`, `parallel_rank`): (a)
    ring attention over 2 and 4 ranks, contiguous and zig-zag causal and
    contiguous non-causal, bf16 and f32, at phase 2's full-row shape and at
    the 7B's heads (28 over 4), each rank's out, lse, dq, dk and dv against
@@ -239,8 +242,8 @@ Phases (any failed check raises and the exit code is non-zero):
    embedding, the head and 3 of 6 layers), each on phase 4's two video
    requests at G = 1 and the first at G = 8 (the TP Engine's shared-prefix
    decode, D2; PPEngine's expanded rows), and int8 weights (the TP Engine
-   at G = 8 with the int8 KV cache, D2 and Q2; PPEngine at G = 1, Q2), 64
-   greedy tokens, Qwen2.5-VL-3B at MESH_LAYERS (6) decoder layers in bf16
+   at G = 8 with the int8 KV cache, D2 and Q2; PPEngine at G = 1, Q2),
+   MESH_NEW_TOKENS (16) greedy tokens, Qwen2.5-VL-3B at MESH_LAYERS (2) decoder layers in bf16
    and at 2 layers and 4 vision blocks in f32: the launches of K1, K2, K3,
    D2 and Q2 on each rank by the formula (`mesh_launches`), tensor-core in
    bf16, FMA in f32; the ranks' tokens equal; in f32 PPEngine's tokens and
@@ -272,8 +275,8 @@ Phases (any failed check raises and the exit code is non-zero):
    serving tree (P2, Q2), `ContinuousEngine` (its `mha_cached` step) on
    phase 7's stream cut to 8 requests (in f32 its first 8 text requests;
    4 slots, pages of 128, 1024-token prefill chunks), and the TP Engine over int4 weights at G = 1 and 8 (Q1
-   at the rank's widths, D2) on the stream's first two text requests, 64 greedy tokens,
-   Qwen2.5-VL-3B at CMESH_LAYERS (6) in bf16 and 2 layers in f32: the
+   at the rank's widths, D2) on the stream's first two text requests, MESH_NEW_TOKENS greedy tokens,
+   Qwen2.5-VL-3B at CMESH_LAYERS (2) in bf16 and 2 layers in f32: the
    launches on each rank by the formula (`cmesh_launches`), the ranks'
    tokens equal, the f32 bf16-pool and slot engines' tokens equal one
    process's, every f32 admission's prefill logits within MESH_F32_TOL, the
@@ -286,13 +289,35 @@ Phases (any failed check raises and the exit code is non-zero):
    Q1 at the 3B's tp-2 and the 7B's tp-4 products (`tp_paged_q1_cases`).
    `scripts/check_parallel.py i`, 4 cards only: Qwen2.5-VL-7B at full depth
    through `cli.evaluate` at tp 4 over NCCL with `scripts/test.sh`'s eval
-   flags, int8 and int4, against one card's records.
+   flags, int8 and int4, against one card's records;
+17. tensor parallelism past the kv heads: 4 ranks over gloo on the first
+   card, Qwen2.5-VL-3B at KVREP_LAYERS (2) decoder layers and its whole
+   vision tower at tp 4, so that each of its 2 kv heads is replicated on 2
+   ranks (4 q heads over the rank's 1 kv head, 4 vision heads), after one
+   process's references (eager): (a) the TP Engine on two text requests
+   and an 8-frame video at G = 1 (K1, K2, K3), on the two texts at G = 8
+   (D2) and in f32 (FMA, the tokens equal one process's), (b) PagedEngine
+   over int8 weights and int8 pages on four texts (P2, Q2 at inter 2752),
+   KVREP_NEW_TOKENS greedy tokens: the launches by the formula
+   (`kvrep_launches`) on each rank, the ranks' tokens equal, the bf16
+   logits within MESH_LOGIT_TOL where the prefixes agree; (c) one bf16
+   `step_batch` over a 1x4 mesh (DP_TOKENS a rollout): its launches by the
+   formula, the loss, the gradient and the k/v leaves' gradient against one
+   process's with the completions replayed, the k/v blocks bit-equal within
+   each replica pair after the update. Phase 2 first holds K1, B1, B2, S1,
+   S2, D2, P1 and P2 at 4 and 2 q over 1 kv head, K2/K3 at 2 heads, Q1 at
+   the 3B's tp-4 products (down's K 2752 on the FMA kernel) and Q2 at inter
+   2752 and 1376. `scripts/check_parallel.py j`, 4 cards only: the 3B at
+   full depth through `cli.evaluate` (test.sh's flags) and `cli.train` at
+   tp 4 over NCCL against one card's, then tp 8 over 8 gloo ranks on the
+   first card.
 
 From phase 3 on, every `Engine` and `PagedEngine` decode on the card is a
 captured CUDA graph replayed once a step (`time_r1_tpu_torch/sampler/graph.py`;
 ContinuousEngine stays eager), and the launch checks read the wrappers'
 counters, which each replay advances by what its capture recorded. Phases 4,
-5, 6 and 7 (a), (b) also time their decode eagerly and captured in turns;
+5, 6 and 7 (a), (b) also time their decode eagerly and captured in turns
+(4-6 over TURN_TOKENS a row, 7 over its stream);
 phase 5 profiles 16 steady rollout steps of each (the device's idle share,
 D2's launches by name).
 
@@ -303,8 +328,9 @@ B2, S1 and S2 phase 14 (d)'s on rank 0 of each mesh
 each bf16 run of the TP Engine and of PPEngine, [rank 0, rank 1]
 (`launches_tp_engine`, `launches_pp_engine`); those of K1-K3, P1, P2, Q1,
 Q2 and D2 phase 16's, [rank 0, rank 1] (`launches_tp_paged`,
-`launches_tp_continuous`, `launches_tp_int4`); and D2's, Q2's, P1's, P2's
-and Q1's their TP-local cases under their tags.
+`launches_tp_continuous`, `launches_tp_int4`); those of phase 17's bf16
+runs and step, [rank 0, ..., rank 3] (`launches_kv_replicated`); and D2's,
+Q2's, P1's, P2's and Q1's their TP-local cases under their tags.
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 kernels JSON line and the result JSON line; the line before them gives the
@@ -332,8 +358,11 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # max |kernel - plain| on valid rows
 LOGIT_TOL = 2e-3  # phase 3: f32 last-position logits, card vs CPU
 
 
+T0 = time.perf_counter()  # the process's start: every log line gives the seconds since
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.perf_counter() - T0:7.1f}] {msg}", flush=True)
 
 
 SPIN_CYCLES_PER_S = 2.0e9  # about the H100's SM clock; a longer spin than needed costs only time
@@ -1808,8 +1837,10 @@ def quant_kernels(gen) -> dict:
 # step's shape of `decode_kernels` (P, R, H, Hkv, D, Lp, Lo, left pad), and
 # the MLP's inter / tp (the 3B's 11008 at tp 2, the 7B's 18944 at tp 4) at
 # (hid, inter), M rows each
-TP_D2 = {"3B_tp2_G8": (1, 8, 8, 1, 128, 2048, 256, 134), "7B_tp4_G7": (1, 8, 7, 1, 128, 2048, 256, 134)}
-TP_Q2 = {"3B_tp2": (2048, 5504), "7B_tp4": (3584, 4736)}
+# the 3B at tp 4 and 8 (phase 17): one replicated kv head a rank under 4 and 2 q heads
+TP_D2 = {"3B_tp2_G8": (1, 8, 8, 1, 128, 2048, 256, 134), "7B_tp4_G7": (1, 8, 7, 1, 128, 2048, 256, 134),
+         "3B_tp4_G4": (1, 8, 4, 1, 128, 2048, 256, 134), "3B_tp8_G2": (1, 8, 2, 1, 128, 2048, 256, 134)}
+TP_Q2 = {"3B_tp2": (2048, 5504), "7B_tp4": (3584, 4736), "3B_tp4": (2048, 2752), "3B_tp8": (2048, 1376)}
 TP_Q2_ROWS = (1, 8)
 # max |Σ_m Q2(x, rank m's block) − Q2(x, whole)| / max |Q2(x, whole)|, f32 x: gate, up and the bf16 activation are
 # the same numbers in both (each a sum over hid), so only the order of down's f32 sums over inter differs
@@ -1941,11 +1972,13 @@ def q2_partial_sums(gen, hid: int, inter: int, tp: int) -> float:
 # phase 16's kernels at the TP-local shapes: P1 / P2 at one kv head a rank (the 3B's 16 q over 2 kv heads at tp 2,
 # G 8; the 7B's 28 over 4 at tp 4, G 7), 4 slots over a 2048-key prefix and at mixed lengths; Q1 at the rank's
 # widths of the four int4 products (qkv and gate|up split along N, o and down along K), M 4 and 8
-TP_PAGED = {"3B_tp2_G8": 8, "7B_tp4_G7": 7}
+TP_PAGED = {"3B_tp2_G8": 8, "7B_tp4_G7": 7, "3B_tp4_G4": 4, "3B_tp8_G2": 2}
 TP_PAGED_LENGTHS = {"prefix 2048": (2048,) * 4, "mixed": (0, 327, 1689, 2041)}
 TP_Q1 = {
     "3B_tp2": {"qkv": (1280, 2048), "o": (2048, 1024), "gu": (11008, 2048), "down": (2048, 5504)},
     "7B_tp4": {"qkv": (1152, 3584), "o": (3584, 896), "gu": (9472, 3584), "down": (3584, 4736)},
+    # the 3B at tp 4: q over its replicated kv head; down's K 2752 (2752 % 128 = 64) takes the FMA kernel
+    "3B_tp4": {"qkv": (768, 2048), "o": (2048, 512), "gu": (5504, 2048), "down": (2048, 2752)},
 }
 TP_Q1_ROWS = (4, 8)
 
@@ -1963,7 +1996,7 @@ def tp_paged_q1_cases(gen, results: dict) -> None:
     import torch.nn.functional as F
 
     from time_r1_tpu_torch.ops import paged_attention as pa
-    from time_r1_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+    from time_r1_tpu_torch.ops.int4_matmul import TC_K, UNIT, int4_matmul, int4_matmul_plain
     from time_r1_tpu_torch.ops.quant import dequantize_weight, quantize_weight
 
     dev = torch.device("cuda")
@@ -2039,7 +2072,8 @@ def tp_paged_q1_cases(gen, results: dict) -> None:
                     x = xf.to(dtype)
                     n0, tc0 = int4_matmul.launches, int4_matmul.tc_launches
                     got = int4_matmul(x, w["q4"], w["s"])
-                    tc = dtype is torch.bfloat16  # every TP-local width takes the tensor cores in bf16
+                    # bf16 takes the tensor cores where N % 16 and K % 128 allow (`ops/int4_matmul.py::check_args`)
+                    tc = dtype is torch.bfloat16 and K % TC_K == 0 and N % UNIT == 0
                     if (int4_matmul.launches - n0, int4_matmul.tc_launches - tc0) != (1, int(tc)):
                         raise AssertionError(f"Q1 {tag} {name} M={M} {key}: {int4_matmul.launches - n0} launches, "
                                              f"{int4_matmul.tc_launches - tc0} on the tensor cores")
@@ -2533,12 +2567,11 @@ def to_device(tree, device, scale: float = 1.0):
 def phase_reduced_depth() -> None:
     import torch
 
-    from time_r1_tpu_torch.models.qwen25vl import init_params
     from time_r1_tpu_torch.sampler import Engine, SamplingParams
 
     cfg = reduced_config()
     torch.set_num_threads(os.cpu_count() or 1)
-    params_cpu = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    params_cpu = reduced_params_cpu()
     params_gpu = to_device(params_cpu, torch.device("cuda"))
     req = video_request(cfg, np.random.default_rng(1), frames=8, height=224, width=392)
     sp = SamplingParams(max_new_tokens=8, stop_token_ids=())
@@ -2561,6 +2594,22 @@ def phase_reduced_depth() -> None:
         raise AssertionError(f"reduced-depth logits disagree: {err}")
     if tg != tc:
         raise AssertionError(f"greedy tokens differ: card {tg} cpu {tc}")
+
+
+_REDUCED_CPU: list = []  # reduced_config()'s seeded f32 weights on the host, made once
+
+
+def reduced_params_cpu() -> dict:
+    """A copy of `init_params(reduced_config(), seed=0)` in f32 on the host:
+    the phases that hold the card against the CPU, and the checkpoints
+    phases 3f and 15 write, share one draw (5-8 s of host RNG a draw)."""
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+
+    if not _REDUCED_CPU:
+        _REDUCED_CPU.append(init_params(reduced_config(), seed=0, device="cpu", dtype=torch.float32))
+    return to_device(_REDUCED_CPU[0], torch.device("cpu"))
 
 
 def reduced_config():
@@ -2588,12 +2637,11 @@ def phase_reduced_train() -> None:
     have no backward; the reference forward still takes them)."""
     import torch
 
-    from time_r1_tpu_torch.models.qwen25vl import init_params
     from time_r1_tpu_torch.rl import GRPOHyperParams, build_grpo_split_batch
     from time_r1_tpu_torch.rl.grpo import compute_ref_logps, grpo_value_and_grad, precompute_frozen_vision
 
     cfg = reduced_config()
-    params_cpu = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    params_cpu = reduced_params_cpu()
     # the reference model: the same weights scaled, so that the KL term is not zero
     ref_cpu = to_device(params_cpu, torch.device("cpu"), scale=0.98)
     req = video_request(cfg, np.random.default_rng(1), frames=8, height=224, width=392)
@@ -2673,14 +2721,13 @@ def phase_reduced_lora() -> None:
     metrics and every adapter gradient, card against CPU within TRAIN_TOL."""
     import torch
 
-    from time_r1_tpu_torch.models.qwen25vl import init_params
     from time_r1_tpu_torch.rl import GRPOHyperParams, build_grpo_split_batch, grpo_loss
     from time_r1_tpu_torch.rl.grpo import compute_ref_logps, precompute_frozen_vision
     from time_r1_tpu_torch.rl.lora import lora_layers_tree, lora_leaves, merge_lora
     from time_r1_tpu_torch.sampler import Engine, SamplingParams
 
     cfg = reduced_config()
-    params_cpu = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    params_cpu = reduced_params_cpu()
     lora_cpu, lcfg = seeded_adapters(params_cpu, cfg, seed=3)
     req = video_request(cfg, np.random.default_rng(1), frames=8, height=224, width=392)
     sp = SamplingParams(max_new_tokens=8, stop_token_ids=())
@@ -2849,7 +2896,8 @@ def phase_full_size() -> dict:
         raise AssertionError(f"bad last-position logits: shape {logits.shape}")
     log(f"[full] last-position logits finite; argmax {logits.argmax(-1).tolist()}, "
         f"first generated {[o[0] for o in out]}")
-    decode_both_ways("full", lambda: (eng.generate(reqs, sp), eng.timings)[1])
+    turn = replace(sp, max_new_tokens=TURN_TOKENS)
+    decode_both_ways("full", lambda: (eng.generate(reqs, turn), eng.timings)[1])
     return launches
 
 
@@ -2925,7 +2973,8 @@ def decode_windows(eng, req, config, cfg) -> dict:
     torch.profiler (`settled_window`), with D2's launches by name there (36
     a step)."""
     sp = rollout_sampling(config, cfg)
-    out = {"in_turns": decode_both_ways("train rollout", lambda: (eng.generate([req], sp), eng.timings)[1])}
+    turn = replace(sp, max_new_tokens=TURN_TOKENS)
+    out = {"in_turns": decode_both_ways("train rollout", lambda: (eng.generate([req], turn), eng.timings)[1])}
     L = cfg.text.num_hidden_layers
     for mode in ("eager", "captured"):
         def run(mode=mode):
@@ -2968,7 +3017,7 @@ def phase_train_full_size() -> dict:
     trainer = GRPOTrainer(params, cfg, IdsProcessor(), rewards, config=config, ref_params=ref,
                           dtype=torch.bfloat16, device="cuda")
     example = {"problem": "a person opens a door", "solution": (2.0, 9.5), "durations": 32.0}
-    before = [p.detach().cpu() for p in trainable_leaves(params, config.fix_vit)]
+    before = [p.detach().clone() for p in trainable_leaves(params, config.fix_vit)]  # on the card: no host copy
     per_call = []
     for call in (1, 2):
         trainer.timers = PhaseTimers(sync=True)
@@ -3003,8 +3052,9 @@ def phase_train_full_size() -> dict:
     decode_windows(trainer.engine, req, config, cfg)
     changed = total_elems = 0
     for p, b in zip(trainable_leaves(params, config.fix_vit), before):
-        changed += int((p.detach().cpu() != b).sum())
+        changed += int((p.detach() != b).sum())
         total_elems += b.numel()
+    del before
     log(f"[train] after one optimizer update (two micro-steps, lr {config.learning_rate}): {changed} of "
         f"{total_elems} trainable bf16 elements changed")
     return per_call[-1]
@@ -3071,8 +3121,8 @@ def phase_quant_full_size() -> dict:
                        tensor_cores=True)
         out = {k: launches[k] for k in ("shared_prefix_decode_attention", "shared_prefix_decode_full",
                                         "fused_mlp_int8")}
-    decode_both_ways("quant int8 rollout", lambda: (trainer.engine.generate([req], rollout_sampling(config, cfg)),
-                                                    trainer.engine.timings)[1])
+    turn = replace(rollout_sampling(config, cfg), max_new_tokens=TURN_TOKENS)
+    decode_both_ways("quant int8 rollout", lambda: (trainer.engine.generate([req], turn), trainer.engine.timings)[1])
     del trainer, ref
     gc.collect()
     torch.cuda.empty_cache()
@@ -3103,7 +3153,8 @@ def phase_quant_full_size() -> dict:
         "int4_matmul": 4 * L * tm["decode_steps"]}, tensor_cores=True)
     if len(rows) != 8 or not all(len(r) == 200 for r in rows):
         raise AssertionError(f"int4 generate: rows of {[len(r) for r in rows]} tokens")
-    decode_both_ways("quant int4 generate", lambda: (eng.generate([req], sp), eng.timings)[1])
+    turn = replace(sp, max_new_tokens=TURN_TOKENS)
+    decode_both_ways("quant int4 generate", lambda: (eng.generate([req], turn), eng.timings)[1])
     out["int4_matmul"], out["int4_matmul_tc"] = launches["int4_matmul"], launches["int4_matmul_tc"]
     return out
 
@@ -3151,11 +3202,10 @@ def phase_reduced_quant() -> dict:
     rounding boundary."""
     import torch
 
-    from time_r1_tpu_torch.models.qwen25vl import init_params
     from time_r1_tpu_torch.sampler import Engine
 
     cfg = reduced_config()
-    params_cpu = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    params_cpu = reduced_params_cpu()
     params_gpu = to_device(params_cpu, torch.device("cuda"))
     req = video_request(cfg, np.random.default_rng(1), frames=8, height=224, width=392)
     G, steps = 4, 16
@@ -3206,12 +3256,11 @@ def phase_reduced_serving() -> dict:
     tokens the bucket Engine's over its int8 KV cache."""
     import torch
 
-    from time_r1_tpu_torch.models.qwen25vl import init_params
     from time_r1_tpu_torch.sampler import ContinuousEngine, Engine, PagedEngine, SamplingParams
 
     cfg = reduced_config()
     L = cfg.text.num_hidden_layers
-    params_cpu = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    params_cpu = reduced_params_cpu()
     params_gpu = to_device(params_cpu, torch.device("cuda"))
     rng = np.random.default_rng(2)
     reqs = [video_request(cfg, np.random.default_rng(1), frames=8, height=224, width=392)]
@@ -3424,10 +3473,14 @@ def settled_window(run, first: int, count: int, tries: int = 4) -> tuple:
     raise AssertionError(f"no two of {tries} profiler windows saw the same device records: {seen}")
 
 
+TURN_TOKENS = 64  # phases 4-6: the tokens a row of each timed turn (the path's own 128 or 200 before the last cuts, PERF.md §4)
+
+
 def decode_both_ways(tag: str, run) -> dict:
     """Time one call `run()` (a generate; it returns the engine's timings)
     eagerly (`eager_decode`) and captured, in turns (eager, captured), in one
-    process: decode ms/step and the call's wall seconds for each."""
+    process: decode ms/step and the call's wall seconds for each. Phases 4-6
+    time TURN_TOKENS a row, phase 7 its whole stream."""
     import torch
 
     out = {}
@@ -3609,7 +3662,8 @@ def phase_captured_decode() -> dict:
 LENGTH_MIX = (200, 450, 900, 1800)  # scripts/bench_serving.py:38
 
 
-SERVE_LAYERS = 12  # phase 7's decoder depth: its 36 layers took 100 s (eager turns, ContinuousEngine) of the limit
+SERVE_LAYERS = 4  # phase 7's decoder depth: its 36 layers took 100 s (eager turns, ContinuousEngine) of the limit
+# (12 until phase 17 came into it, 6 before the last cuts, PERF.md §4)
 
 
 def stream_requests(cfg):
@@ -4097,13 +4151,31 @@ PHASE9_BYTES = 26e9  # what phase 9 writes at its peak (three 3B checkpoints of 
 # The decoder depth of the CLI phases (9, 10 and 12 (d): the 3B; 11: the 7B), cut so that the script, its
 # phases 13 and 14 included, stays inside its time limit: their checks are of the entry points' plumbing, whose
 # work per layer is the same at any depth (12, with phase 15 inside the limit too)
-CLI_LAYERS = 12
-LORA_7B_LAYERS = 14
+CLI_LAYERS = 2  # phases 9, 10 (a), 12 (d): 36 until phase 14, 18 until phase 15, 12 until phase 17, 6 before the
+# last cuts (PERF.md §4)
+LORA_7B_LAYERS = 4  # phase 11: 28 until phase 14, 14 until phase 17, 8 before the last cuts (PERF.md §4)
 
 
 def cut_depth(cfg, layers: int):
     """cfg with its decoder cut to `layers` layers (full width)."""
     return replace(cfg, text=replace(cfg.text, num_hidden_layers=layers))
+
+
+# Phases 13-16's vision tower: the 3B's first 8 blocks at full width (7 windowed, then a full-attention one, as the
+# whole tower repeats them), so K2 and K3 run at every mesh layout. The whole tower (32) before the last cuts for
+# the script's time limit (PERF.md §4): over gloo it was more than half of every gathered, staged or saved tree's
+# bytes
+MESH_VISION_DEPTH = 8
+
+
+def mesh_3b(layers: int):
+    """Qwen2.5-VL-3B at full width for phases 13-16: `layers` decoder layers
+    and MESH_VISION_DEPTH vision blocks."""
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
+
+    cfg = Qwen25VLConfig.qwen25vl_3b()
+    vision = replace(cfg.vision, depth=MESH_VISION_DEPTH, fullatt_block_indexes=(MESH_VISION_DEPTH - 1,))
+    return replace(cut_depth(cfg, layers), vision=vision)
 CLI_CLIP = "clip_4s_30fps"  # phase 8's training clip: 8 frames at 364x644, bucket 2048
 
 
@@ -4588,7 +4660,6 @@ def phase_reduced_eval() -> dict:
 
     from time_r1_tpu_torch.cli import evaluate
     from time_r1_tpu_torch.models.processor import Qwen25VLProcessor
-    from time_r1_tpu_torch.models.qwen25vl import init_params
     from time_r1_tpu_torch.models.qwen25vl.convert import load_checkpoint
     from time_r1_tpu_torch.sampler import Engine
 
@@ -4604,7 +4675,7 @@ def phase_reduced_eval() -> dict:
     out = {}
     try:
         ckpt = os.path.join(root, "ckpt")
-        native_checkpoint(ckpt, init_params(cfg, seed=0, device="cpu", dtype=torch.float32), cfg)
+        native_checkpoint(ckpt, reduced_params_cpu(), cfg)
         data = write_dataset(root, "eval", 2)
         with cli_stand_ins(cfg):
             for mode, (flags, paged) in modes.items():
@@ -5249,8 +5320,9 @@ print(json.dumps(dict(pinned=t.is_pinned(), before=before, after=available())))
 
 def pinned_allocator_probe(nbytes: int, card: str) -> dict:
     """What PyTorch's pinned allocator takes from the host for one request of
-    `nbytes` (one optimizer tree of the 7B), against the next power of two:
-    the reason `HostArena` registers its own allocation instead."""
+    `nbytes` (a quarter of one optimizer tree of the 7B: pinning runs at ~1
+    GB/s, and the rounding shows at any size), against the next power of
+    two: the reason `HostArena` registers its own allocation instead."""
     t0 = time.perf_counter()
     run = subprocess.run([sys.executable, "-c", PINNED_PROBE, str(nbytes)], capture_output=True, text=True,
                          timeout=300, check=True)
@@ -5260,7 +5332,8 @@ def pinned_allocator_probe(nbytes: int, card: str) -> dict:
     taken = got["before"] - got["after"]
     res = dict(requested_gib=nbytes / 2**30, taken_gib=taken / 2**30, pow2_gib=2 ** (nbytes - 1).bit_length() / 2**30,
                s=time.perf_counter() - t0)
-    log(f"[7b] PyTorch's pinned allocator, one pin_memory=True tensor of one tree's bytes: {res['requested_gib']:.2f} GiB "
+    log(f"[7b] PyTorch's pinned allocator, one pin_memory=True tensor of a quarter of one tree's bytes: "
+        f"{res['requested_gib']:.2f} GiB "
         f"asked, MemAvailable down {res['taken_gib']:.2f} GiB (the next power of two: {res['pow2_gib']:.0f} GiB), "
         f"{res['s']:.1f} s with the process; {card}")
     return res
@@ -5345,8 +5418,8 @@ def phase_full_param_7b(card: str) -> dict:
     tokens, accumulation 2, for 4 step_batch calls (2 updates) on 2 examples
     of phase 8's 4 s clip (FrameLoader's seeded frames, the processor over
     StandInTokenizer). Before the state is pinned, MemAvailable must exceed
-    its bytes plus 8 GiB, and `pinned_allocator_probe` measures one tree's
-    bytes from PyTorch's pinned allocator. After: every offloaded leaf pinned on the host with
+    its bytes plus 8 GiB, and `pinned_allocator_probe` measures a quarter
+    of one tree's bytes from PyTorch's pinned allocator. After: every offloaded leaf pinned on the host with
     exactly the offloaded bytes, the peak under 79 GiB, a decoder weight
     moved and the ViT blocks bit-unchanged, and per call exactly
     `remat_step_launches` at 28 layers with Q2 a layer a decode step, all on
@@ -5388,7 +5461,7 @@ def phase_full_param_7b(card: str) -> dict:
     if avail0 < state_bytes + MEM_ROOM:
         raise AssertionError(f"(a): MemAvailable {avail0 / 2**30:.2f} GiB is less than the offloaded state "
                              f"{state_bytes / 2**30:.2f} GiB plus {MEM_ROOM / 2**30:.0f} GiB")
-    probe = pinned_allocator_probe(state_bytes // 3, card)
+    probe = pinned_allocator_probe(state_bytes // 12, card)
     avail0 = mem_available()
     processor = Qwen25VLProcessor(StandInTokenizer(cfg), pad_token_id=cfg.pad_token_id, eos_token_id=cfg.eos_token_id)
     rewards = [REWARD_FUNCS_REGISTRY["iou"], REWARD_FUNCS_REGISTRY["format"], char_parity_reward]
@@ -5489,8 +5562,13 @@ def tree_leaves(tree) -> list:
     return list(flatten(tree).values())
 
 
-def cpu_leaves(tree) -> list:
-    return [t.detach().cpu() for t in tree_leaves(tree)]
+def leaves_equal(a, b) -> bool:
+    """The two trees' leaves bit-equal in order, compared on the card a leaf
+    at a time (an offloaded leaf is copied up from its pinned host memory)."""
+    import torch
+
+    dev = torch.device("cuda")
+    return all(torch.equal(x.detach().to(dev), y.detach().to(dev)) for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
 def offload_bit_equal(card: str) -> dict:
@@ -5539,9 +5617,8 @@ def offload_bit_equal(card: str) -> dict:
         check_host_state(f"(b) {tag}", on.opt_state, lora_leaves(on.lora) if lora else trainable_leaves(on.params, True))
         moved = (any(float(b.detach().abs().max()) > 0 for b in lora_leaves(on.lora)[1::2]) if lora else
                  not all(torch.equal(a, b) for a, b in zip(tree_leaves(on.params), tree_leaves(params0))))
-        out = dict(trained_equal=all(torch.equal(a, b) for a, b in zip(cpu_leaves(trained(on)), cpu_leaves(trained(off)))),
-                   state_equal=all(torch.equal(a, b) for a, b in zip(cpu_leaves(on.opt_state.tree()),
-                                                                     cpu_leaves(off.opt_state.tree()))),
+        out = dict(trained_equal=leaves_equal(trained(on), trained(off)),
+                   state_equal=leaves_equal(on.opt_state.tree(), off.opt_state.tree()),
                    updates=on.opt_state.count, moved=moved, host_gib=on.opt_state.host_bytes / 2**30,
                    update_ms=[round(u["s"] * 1e3, 1) for u in updates])
         log(f"[7b] (b) {tag}, 2 layers at the 7B's widths, offload on against off over 4 micro-steps: {out}; {card}")
@@ -5552,9 +5629,12 @@ def offload_bit_equal(card: str) -> dict:
     return results
 
 
+FULL_ROW_LAYERS = 12  # phase 12 (c)'s decoder depth: 36 before the last cuts for the time limit (PERF.md §4)
+
+
 def full_row_3b(card: str) -> tuple:
     """(c) The full-row loss (shared_prefix_loss=False) on Qwen2.5-VL-3B at
-    full width and depth: phase 5's trainer (a reference copy, G = 8, 200
+    full width and FULL_ROW_LAYERS deep: phase 5's trainer (a reference copy, G = 8, 200
     tokens, accumulation 2) under remat "full", on phase 4's first request,
     two step_batch calls: each exactly `full_row_step_launches` (K1, B1, B2,
     D2, K2, K3) on the tensor cores and no S1 or S2; then two calls of the
@@ -5571,7 +5651,7 @@ def full_row_3b(card: str) -> tuple:
     from time_r1_tpu_torch.utils.profiling import PhaseTimers
     from time_r1_tpu_torch.utils.rewards import REWARD_FUNCS_REGISTRY
 
-    cfg = Qwen25VLConfig.qwen25vl_3b()
+    cfg = cut_depth(Qwen25VLConfig.qwen25vl_3b(), FULL_ROW_LAYERS)
     L = cfg.text.num_hidden_layers
     params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     ref = to_device(params, torch.device("cuda"))
@@ -5656,14 +5736,16 @@ def full_row_agreement(card: str) -> dict:
             check_step_launches("(c) f32 full-row loss", launches, 1, 1, {n: 0 for n in NO_SPLIT})
             check_tc_route("(c) f32 full-row loss", launches, {"flash_attention": None, "flash_bwd_dq": None,
                                                                "flash_bwd_dkv": None}, tensor_cores=False)
-        out[name] = (float(loss), {k: float(v) for k, v in metrics.items()}, [g.cpu() for g in grads])
+        out[name] = (float(loss), {k: float(v) for k, v in metrics.items()}, [g.detach() for g in grads])
     (lf, mf, gf), (ls, ms, gs) = out["full"], out["split"]
     np.testing.assert_allclose(ls, lf, rtol=2e-5, atol=2e-6)
     for k in mf:
         np.testing.assert_allclose(ms[k], mf[k], rtol=2e-4, atol=2e-5, err_msg=k)
     worst = 0.0
-    for i, (a, b) in enumerate(zip(gs, gf)):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=5e-4, atol=5e-5, err_msg=f"gradient leaf {i}")
+    for i, (a, b) in enumerate(zip(gs, gf)):  # on the card: np.testing.assert_allclose's rule, |a - b| <= atol + rtol |b|
+        bad = int((~torch.isclose(a, b, rtol=5e-4, atol=5e-5, equal_nan=True)).sum())
+        if bad:
+            raise AssertionError(f"(c) gradient leaf {i}: {bad} of {a.numel()} elements beyond rtol 5e-4 / atol 5e-5")
         worst = max(worst, float((a - b).abs().max()))
     res = dict(loss_full=lf, loss_split=ls, worst_grad_abs_diff=worst, leaves=len(gf))
     log(f"[7b] (c) 2 layers, f32 on the card: full-row against split {res}; {card}")
@@ -5671,8 +5753,8 @@ def full_row_agreement(card: str) -> dict:
 
 
 def finetune_3b(card: str) -> dict:
-    """(d) `cli.finetune.main` on Qwen2.5-VL-3B at full width and depth (a
-    native checkpoint of seeded weights) with the recipe's --beta 0.0
+    """(d) `cli.finetune.main` on Qwen2.5-VL-3B at full width and CLI_LAYERS
+    deep (a native checkpoint of seeded weights) with the recipe's --beta 0.0
     --use_grpo false over a 2-item Charades-format json, whose video.npz
     files `cli.preprocess_videos.main` writes from phase 8's seeded frames
     (fetch_video patched to FrameLoader on CLI_CLIP). While main runs, the
@@ -5773,6 +5855,8 @@ PARALLEL_TIMEOUT = 300  # s: the parent's wait for one spawn of ranks (each take
 CP_LAYOUT = "zigzag"  # the CLI's default --context_parallel_layout
 CP_MULTIPLE = 2 * 2 * 128  # zig-zag over 2 ranks: trainer.py:647-649
 DP_LAYERS = 2  # (c)'s decoder depth at 3B widths: two trainers share the card, the time limit holds
+DP_TOKENS = 32  # the rollout length of `dp_trainer` (the default 200 until phase 17 came into the script's limit,
+# 64 before the last cuts, PERF.md §4)
 CP_LOSS_LAYERS = 2  # (b)'s bf16 depth (its 36 layers took 68 s of phase 13; 4 until phase 16 came into the script's
 # time limit: the checks are per layer the same)
 # (b) bf16 at CP_LOSS_LAYERS: loss and metrics within 2e-2 of the one-process values (1e-3 absolute floor);
@@ -5791,14 +5875,183 @@ def ring_launches(layout: str, causal: bool, n: int, r: int) -> int:
     return r + 1 if causal else n
 
 
+class RankPool:
+    """Rank processes over gloo, all on the first card, kept from one spawn
+    to the next: each starts Python, PyTorch and its CUDA context once (7-11
+    s a spawn on an H100 host) and then runs `parallel_rank` for every job
+    it is given, a process group of the job's own each time. Worker r reads
+    `w<r>.job<k>.json` in the pool's directory (a job, or a stop) and writes
+    `w<r>.done<k>` with its exit code; a worker whose parent is gone exits."""
+
+    def __init__(self):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="timer1_rank_pool_")
+        self.procs: list = []
+        self.jobs: list = []  # the next job's index, per worker
+
+    def grow(self, world: int) -> None:
+        here = os.path.dirname(os.path.abspath(__file__))
+        first_card = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES=first_card)
+        for r in range(len(self.procs), world):
+            code = (f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+                    f"sys.exit(chip_smoke.rank_worker({self.dir!r}, {r}))")
+            logf = open(os.path.join(self.dir, f"w{r}.log"), "w")
+            self.procs.append(subprocess.Popen([sys.executable, "-c", code], env=env, stdout=logf,
+                                               stderr=subprocess.STDOUT, cwd=here))
+            logf.close()
+            self.jobs.append(0)
+
+    def post(self, r: int, msg: dict) -> int:
+        """Hand worker r its next message; returns the message's index."""
+        k = self.jobs[r]
+        path = os.path.join(self.dir, f"w{r}.job{k}.json")
+        with open(path + ".tmp", "w") as f:
+            json.dump(msg, f)
+        os.replace(path + ".tmp", path)
+        self.jobs[r] = k + 1
+        return k
+
+    def run(self, job: str, world: int, root: str, port: int, timeout: float) -> tuple:
+        """The job on workers 0..world-1: (exit codes, None) or (codes so far,
+        why it failed: a worker gone or the timeout)."""
+        self.grow(world)
+        ks = [self.post(r, dict(job=job, root=root, env=dict(
+            RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+            MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)))) for r in range(world)]
+        codes: list = [None] * world
+        t0 = time.perf_counter()
+        while True:
+            for r in range(world):
+                done = os.path.join(self.dir, f"w{r}.done{ks[r]}")
+                if codes[r] is None and os.path.exists(done):
+                    with open(done) as f:
+                        codes[r] = int(f.read())
+            if all(c is not None for c in codes):
+                return codes, None
+            gone = [r for r in range(world) if codes[r] is None and self.procs[r].poll() is not None]
+            if gone:
+                return codes, f"worker(s) {gone} exited with {[self.procs[r].returncode for r in gone]}"
+            if any(codes) or time.perf_counter() - t0 > timeout:
+                # a failed rank leaves the others waiting in a collective
+                return codes, f"a rank did not finish in {timeout} s" if not any(codes) else None
+            time.sleep(0.05)
+
+    def close(self, kill: bool = False) -> None:
+        """Stop the workers (kill: at once) and remove the directory."""
+        import shutil
+
+        if not kill:
+            for r, p in enumerate(self.procs):
+                if p.poll() is None:
+                    self.post(r, {"stop": True})
+            for p in self.procs:
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    pass
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        self.procs = []
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+_POOL: list = []  # the gloo rank pool, once made
+
+
+def close_rank_pool(kill: bool = False) -> None:
+    """Stop the gloo rank pool's workers, if any were started."""
+    while _POOL:
+        _POOL.pop().close(kill)
+
+
+def rank_pool() -> RankPool:
+    if not _POOL:
+        import atexit
+
+        _POOL.append(RankPool())
+        atexit.register(close_rank_pool, True)
+    return _POOL[0]
+
+
+def rank_worker(pool_dir: str, r: int) -> int:
+    """A pooled gloo rank (`RankPool`): PyTorch and the card once, then each
+    job as a fresh process would see it (launch and staging counters at 0,
+    the default seed, the peak memory reset, the cached blocks freed after),
+    its output in the job's `rank<r>.log`."""
+    import gc
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+
+    import time_r1_tpu_torch.models  # noqa: F401  (imported once, not per job)
+    import time_r1_tpu_torch.rl  # noqa: F401
+    import time_r1_tpu_torch.sampler  # noqa: F401
+    from time_r1_tpu_torch.parallel import comm, fsdp
+
+    torch.cuda.init()
+    seed = torch.initial_seed()
+    parent = os.getppid()
+    log(f"rank worker {r} ready: PyTorch and the card")
+    k = 0
+    while True:
+        path = os.path.join(pool_dir, f"w{r}.job{k}.json")
+        while not os.path.exists(path):
+            if os.getppid() != parent:
+                return 1
+            time.sleep(0.02)
+        with open(path) as f:
+            msg = json.load(f)
+        if msg.get("stop"):
+            return 0
+        os.environ.update(msg["env"])
+        reset_launches()
+        comm.staged_bytes = 0
+        fsdp.layer_gathers = 0
+        torch.manual_seed(seed)
+        torch.cuda.reset_peak_memory_stats()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        saved = os.dup(1), os.dup(2)
+        fd = os.open(os.path.join(msg["root"], f"rank{r}.log"), os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+        os.dup2(fd, 1)
+        os.dup2(fd, 2)
+        os.close(fd)
+        try:
+            code = parallel_rank(msg["job"], msg["root"])
+        finally:
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os.dup2(saved[0], 1)
+            os.dup2(saved[1], 2)
+            os.close(saved[0])
+            os.close(saved[1])
+        gc.collect()
+        torch.cuda.empty_cache()
+        if hasattr(torch._C, "_host_emptyCache"):
+            torch._C._host_emptyCache()  # the pinned staging blocks the job cached
+        log(f"rank worker {r}: job {k} ({msg['job']}) exit code {code}; "
+            f"{torch.cuda.memory_allocated() / 2**20:.0f} MiB still allocated")
+        with open(os.path.join(pool_dir, f"w{r}.done{k}.tmp"), "w") as f:
+            f.write(str(code))
+        os.replace(os.path.join(pool_dir, f"w{r}.done{k}.tmp"), os.path.join(pool_dir, f"w{r}.done{k}"))
+        if code:
+            return code
+        k += 1
+
+
 def spawn_ranks(job: str, world: int, args: dict, card: str, nccl: bool = False,
                 timeout: float = PARALLEL_TIMEOUT) -> list:
     """Run `parallel_rank(job)` in `world` processes with torchrun's
     environment (127.0.0.1, a free port): over gloo with the ranks all on
-    the first card, or with `nccl` a card a rank (the machine shows `world`
-    cards at least). Waits `timeout` s at most; a rank that fails or
-    hangs is an error (the others are killed). Prints every rank's log,
-    returns each rank's result."""
+    the first card (`RankPool`'s workers, kept between spawns), or with
+    `nccl` a card a rank (new processes; the machine shows `world` cards at
+    least). Waits `timeout` s at most; a rank that fails or hangs is an
+    error (the others are killed). Prints every rank's log, returns each
+    rank's result."""
     import shutil
     import socket
     import tempfile
@@ -5810,36 +6063,50 @@ def spawn_ranks(job: str, world: int, args: dict, card: str, nccl: bool = False,
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     here = os.path.dirname(os.path.abspath(__file__))
-    first_card = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
-    procs = []
     t0 = time.perf_counter()
-    for r in range(world):
-        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-        if not nccl:
-            env["CUDA_VISIBLE_DEVICES"] = first_card
-        code = f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; sys.exit(chip_smoke.parallel_rank({job!r}, {root!r}))"
-        logf = open(os.path.join(root, f"rank{r}.log"), "w")
-        procs.append((subprocess.Popen([sys.executable, "-c", code], env=env, stdout=logf, stderr=subprocess.STDOUT,
-                                       cwd=here), logf))
     failed = None
-    try:
-        for p, _ in procs:
-            p.wait(timeout=max(timeout - (time.perf_counter() - t0), 1.0))
-    except subprocess.TimeoutExpired:
-        failed = f"a rank did not finish in {timeout} s"
-    finally:
-        for p, logf in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            logf.close()
+    if nccl:
+        procs = []
+        for r in range(world):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                       LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            code = (f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+                    f"sys.exit(chip_smoke.parallel_rank({job!r}, {root!r}))")
+            logf = open(os.path.join(root, f"rank{r}.log"), "w")
+            procs.append((subprocess.Popen([sys.executable, "-c", code], env=env, stdout=logf,
+                                           stderr=subprocess.STDOUT, cwd=here), logf))
+        try:
+            for p, _ in procs:
+                p.wait(timeout=max(timeout - (time.perf_counter() - t0), 1.0))
+        except subprocess.TimeoutExpired:
+            failed = f"a rank did not finish in {timeout} s"
+        finally:
+            for p, logf in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                logf.close()
+        codes = [p.returncode for p, _ in procs]
+    else:
+        pool = rank_pool()
+        codes, failed = pool.run(job, world, root, port, timeout)
+        if failed or any(codes):
+            for r in range(world):
+                with open(os.path.join(pool.dir, f"w{r}.log")) as f:
+                    for line in f.read().splitlines():
+                        log(f"[parallel worker {r}] {line}")
+            close_rank_pool(kill=True)  # the next spawn starts new workers
     for r in range(world):
-        with open(os.path.join(root, f"rank{r}.log")) as f:
-            for line in f.read().splitlines():
-                log(f"[parallel {job} rank {r}] {line}")
-    codes = [p.returncode for p, _ in procs]
-    route = "nccl, a card a rank" if nccl else "gloo on one card"
+        log_path = os.path.join(root, f"rank{r}.log")
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                for line in f.read().splitlines():
+                    log(f"[parallel {job} rank {r}] {line}")
+    if not nccl and _POOL:  # each worker's line after the job: what it still holds
+        for r in range(world):
+            with open(os.path.join(_POOL[0].dir, f"w{r}.log")) as f:
+                log(f"[parallel worker {r}] {f.read().splitlines()[-1]}")
+    route = "nccl, a card a rank" if nccl else "gloo on one card (pooled workers)"
     log(f"[parallel] {job}: {world} ranks over {route}, exit codes {codes}, {time.perf_counter() - t0:.1f} s; {card}")
     try:
         if failed or any(codes):
@@ -5875,7 +6142,7 @@ def parallel_rank(job: str, root: str) -> int:
             args = json.load(f)
         result = {"ring": ring_job, "cp_loss": cp_loss_job, "dp": dp_job, "sharded": sharded_job,
                   "seven_b": seven_b_job, "mesh": mesh_job, "seven_b_serving": seven_b_serving_job,
-                  "eval_7b": eval_7b_job}[job](args)
+                  "eval_7b": eval_7b_job, "kvrep": kvrep_job, "three_b_tp4": three_b_tp4_job}[job](args)
         with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
             json.dump(result, f)
         dist.barrier()
@@ -6037,14 +6304,10 @@ def cp_loss_groups(cfg):
 
 
 def cp_loss_cases():
-    """(b)'s two configurations: Qwen2.5-VL-3B at CP_LOSS_LAYERS decoder
-    layers in bf16 (the tensor-core kernels), and at 2 in f32 (FMA), where
-    the tolerances are tests/test_torch_sequence_parallel.py's."""
-    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
-
-    cfg = Qwen25VLConfig.qwen25vl_3b()
-    return {"bf16": (replace(cfg, text=replace(cfg.text, num_hidden_layers=CP_LOSS_LAYERS)), "bfloat16"),
-            "f32_2_layers": (replace(cfg, text=replace(cfg.text, num_hidden_layers=2)), "float32")}
+    """(b)'s two configurations: Qwen2.5-VL-3B (`mesh_3b`) at CP_LOSS_LAYERS
+    decoder layers in bf16 (the tensor-core kernels), and at 2 in f32 (FMA),
+    where the tolerances are tests/test_torch_sequence_parallel.py's."""
+    return {"bf16": (mesh_3b(CP_LOSS_LAYERS), "bfloat16"), "f32_2_layers": (mesh_3b(2), "float32")}
 
 
 def cp_loss_setup(cfg, dtype_name: str, cp=None):
@@ -6193,10 +6456,11 @@ def cp_loss_reference(card: str) -> tuple:
 
 
 def dp_trainer(cfg, mesh, out_dir: str, extra_rewards=(), **kw):
-    """(c)'s trainer: seeded bf16 weights at cfg's depth and a reference
-    copy, phase 8's clip through FrameLoader and the stand-in processor, the
-    default TrainConfig but for one update a step_batch and lr 1e-3 (an
-    AdamW step that moves bf16 weights); `extra_rewards` beside its three."""
+    """(c)'s trainer (and phase 14 (e)'s, phase 17 (c)'s): seeded bf16
+    weights at cfg's depth and a reference copy, phase 8's clip through
+    FrameLoader and the stand-in processor, the default TrainConfig but for
+    one update a step_batch, lr 1e-3 (an AdamW step that moves bf16
+    weights) and DP_TOKENS a rollout; `extra_rewards` beside its three."""
     import torch
 
     from time_r1_tpu_torch.models.processor import Qwen25VLProcessor
@@ -6207,8 +6471,8 @@ def dp_trainer(cfg, mesh, out_dir: str, extra_rewards=(), **kw):
     params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     ref = to_device(params, torch.device("cuda"))
     loader = FrameLoader()
-    config = TrainConfig(gradient_accumulation_steps=1, learning_rate=1e-3, report_to="none", output_dir=out_dir,
-                         **kw)
+    config = TrainConfig(**{**dict(gradient_accumulation_steps=1, learning_rate=1e-3, report_to="none",
+                                   output_dir=out_dir, max_completion_length=DP_TOKENS), **kw})
     processor = Qwen25VLProcessor(StandInTokenizer(cfg), pad_token_id=cfg.pad_token_id, eos_token_id=cfg.eos_token_id)
     rewards = [REWARD_FUNCS_REGISTRY["iou"], REWARD_FUNCS_REGISTRY["format"], char_parity_reward, *extra_rewards]
     return GRPOTrainer(params, cfg, processor, rewards, config=config, ref_params=ref, dtype=torch.bfloat16,
@@ -6234,13 +6498,11 @@ def dp_job(args: dict) -> dict:
     import torch
     import torch.distributed as dist
 
-    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
     from time_r1_tpu_torch.parallel import comm, make_mesh
     from time_r1_tpu_torch.rl.grpo import trainable_leaves
 
     rank = dist.get_rank()
-    base = Qwen25VLConfig.qwen25vl_3b()
-    cfg = replace(base, text=replace(base.text, num_hidden_layers=DP_LAYERS))
+    cfg = mesh_3b(DP_LAYERS)
     mesh = make_mesh()
     root = tempfile.mkdtemp(prefix=f"timer1_phase13_dp{rank}_")
     out = {"layers": DP_LAYERS}
@@ -6437,7 +6699,7 @@ def cp_loss_phase(card: str) -> dict:
         shutil.rmtree(ref_root, ignore_errors=True)
     for tag in files:
         log(f"[parallel] (b) {tag}: peak {[round(r[tag]['peak_gib'], 2) for r in cp]} GiB by rank against one "
-            f"process's {one[tag]['peak_gib']:.2f} GiB (phase 12 (c)'s whole step_batch: 43.16 GiB); reference "
+            f"process's {one[tag]['peak_gib']:.2f} GiB (phase 12 (c)'s whole step_batch at 36 layers: 43.16 GiB); reference "
             f"forward and loss step {[round(r[tag]['ref_and_step_s'], 2) for r in cp]} s by rank against "
             f"{one[tag]['ref_and_step_s']:.2f} s; {card}")
     return cp[0]["bf16"]["launches"]
@@ -6451,10 +6713,7 @@ def dp_phase(card: str, nccl: bool) -> None:
 
     import torch
 
-    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
-
-    base = Qwen25VLConfig.qwen25vl_3b()
-    cfg = replace(base, text=replace(base.text, num_hidden_layers=DP_LAYERS))
+    cfg = mesh_3b(DP_LAYERS)
     root = tempfile.mkdtemp(prefix="timer1_phase13_cli_")
     try:
         hf = os.path.join(root, "hf")
@@ -6476,15 +6735,17 @@ def dp_phase(card: str, nccl: bool) -> None:
 # gloo on the first card; (d) and (e) again over NCCL where the machine shows
 # several cards, and (f), the 7B over NCCL on 4 cards, from
 # scripts/check_parallel.py only.
-SHARDED_LAYERS = 4  # (d)'s bf16 depth (36, the 3B's full depth, costs FSDP 75 s a rank over gloo: PERF.md)
+SHARDED_LAYERS = 2  # (d)'s bf16 depth (36, the 3B's full depth, costs FSDP 75 s a rank over gloo: PERF.md; 4 until
+# phase 17 came into the script's time limit)
 SHARDED_MESHES = {"fsdp": 1, "tp": 2}  # (d): the model dim of each 2-rank mesh (2x1, 1x2)
 STEP_LAYERS = 2  # (e)'s decoder depth at 3B widths (two trainers share the card, the time limit holds)
 SEVEN_B_TPS = (1, 2, 4)  # (f): 4x1, 2x2, 1x4 over 4 cards
 SHARDED_TIMEOUT = 600  # s: the parent's wait for one spawn of phase 14's ranks
 # K1, B1, B2, S1, S2 at the TP-local heads of phase 14's meshes: the 3B's 16
 # q over 2 kv heads at tp 2, the 7B's 28 over 4 at tp 4 (one kv head a rank)
-TP_ATTN = {"3B_tp2_G8": dict(ATTN_7B, H=8, Hkv=1), "7B_tp4_G7": dict(ATTN_7B, H=7, Hkv=1)}
-TP_VISION_HEADS = (8, 4)  # K2, K3: the vision tower's 16 heads of 80 at tp 2 and 4
+TP_ATTN = {"3B_tp2_G8": dict(ATTN_7B, H=8, Hkv=1), "7B_tp4_G7": dict(ATTN_7B, H=7, Hkv=1),
+           "3B_tp4_G4": dict(ATTN_7B, H=4, Hkv=1), "3B_tp8_G2": dict(ATTN_7B, H=2, Hkv=1)}  # replicated kv heads
+TP_VISION_HEADS = (8, 4, 2)  # K2, K3: the vision tower's 16 heads of 80 at tp 2, 4 and 8
 
 
 def rel_norm(got, want) -> float:
@@ -6517,16 +6778,15 @@ def sharded_loss_groups(cfg):
 
 
 def sharded_loss_cases():
-    """(d)'s configurations: Qwen2.5-VL-3B at SHARDED_LAYERS in bf16 (the
-    tensor-core kernels), and at 2 decoder layers and 4 vision blocks (the
-    last a full-attention one) in f32 (FMA)."""
+    """(d)'s configurations: Qwen2.5-VL-3B at SHARDED_LAYERS in bf16
+    (`mesh_3b`: the tensor-core kernels), and at 2 decoder layers and 4
+    vision blocks (the last a full-attention one) in f32 (FMA)."""
     from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
 
     cfg = Qwen25VLConfig.qwen25vl_3b()
     small = replace(cfg, text=replace(cfg.text, num_hidden_layers=2),
                     vision=replace(cfg.vision, depth=4, fullatt_block_indexes=(3,)))
-    return {"bf16": (replace(cfg, text=replace(cfg.text, num_hidden_layers=SHARDED_LAYERS)), "bfloat16"),
-            "f32_2_layers": (small, "float32")}
+    return {"bf16": (mesh_3b(SHARDED_LAYERS), "bfloat16"), "f32_2_layers": (small, "float32")}
 
 
 def sharded_loss_step(cfg, dtype_name: str, groups, shard=None, group=None) -> tuple:
@@ -6683,15 +6943,13 @@ def sharded_step_job(args: dict) -> dict:
     import torch
     import torch.distributed as dist
 
-    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
     from time_r1_tpu_torch.parallel import comm, make_mesh
     from time_r1_tpu_torch.rl.grpo import trainable_leaves
     from time_r1_tpu_torch.utils.checkpoint import flatten
     from time_r1_tpu_torch.utils.profiling import PhaseTimers
 
     rank = dist.get_rank()
-    base = Qwen25VLConfig.qwen25vl_3b()
-    cfg = replace(base, text=replace(base.text, num_hidden_layers=STEP_LAYERS))
+    cfg = mesh_3b(STEP_LAYERS)
     L = STEP_LAYERS
     root = tempfile.mkdtemp(prefix=f"timer1_phase14_step{rank}_")
     out = {"layers": L}
@@ -6969,8 +7227,6 @@ def phase_sharded(card: str, parts: str = "de", nccl_only: bool = False) -> dict
 
     import torch
 
-    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
-
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -6985,9 +7241,8 @@ def phase_sharded(card: str, parts: str = "de", nccl_only: bool = False) -> dict
     try:
         args = dict(files, parts=de)
         if "e" in de:
-            base = Qwen25VLConfig.qwen25vl_3b()
             args["hf"] = os.path.join(root, "hf")
-            cli_hf_checkpoint(replace(base, text=replace(base.text, num_hidden_layers=STEP_LAYERS)), args["hf"])
+            cli_hf_checkpoint(mesh_3b(STEP_LAYERS), args["hf"])
             args["data"] = write_dataset(root, "train", 2)
             gc.collect()
             torch.cuda.empty_cache()
@@ -7035,9 +7290,10 @@ def phase_sharded(card: str, parts: str = "de", nccl_only: bool = False) -> dict
 
 # ---------------------------------------------------------------------------
 # phase 15: generation over a mesh (the TP Engine, PPEngine, the eval and demo CLIs)
-MESH_LAYERS = 6  # (a), (b)'s bf16 decoder depth at 3B widths (two ranks and one process share the card; 12 until
-# phase 16 came into the script's time limit)
-MESH_NEW_TOKENS = 64
+MESH_LAYERS = 2  # (a), (b)'s bf16 decoder depth at 3B widths (two ranks and one process share the card; 12 until
+# phase 16 came into the script's time limit, 6 until phase 17)
+MESH_NEW_TOKENS = 16  # phases 15, 16 and (i): 64 until phase 17 came into the script's time limit, 32 before the
+# last cuts (PERF.md §4)
 # max |mesh - one process| / max |one process| of a row's logits where the two runs' prefixes are equal, for the
 # runs held by their logits (`mesh_job`): in bf16 each row-parallel product's partial sums round to bf16 before
 # the all-reduce adds them (2 a layer, compounding over MESH_LAYERS: 2.8e-2 at 12 layers on an H100); with int8
@@ -7077,14 +7333,14 @@ def mesh_ref_key(name: str) -> str:
 
 def mesh_cases():
     """(a), (b)'s configurations: Qwen2.5-VL-3B at MESH_LAYERS in bf16 (the
-    tensor-core kernels, the whole vision tower), and at 2 decoder layers
+    tensor-core kernels, `mesh_3b`'s vision blocks), and at 2 decoder layers
     and 4 vision blocks (the last a full-attention one) in f32 (FMA)."""
     from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
 
     cfg = Qwen25VLConfig.qwen25vl_3b()
     small = replace(cfg, text=replace(cfg.text, num_hidden_layers=2),
                     vision=replace(cfg.vision, depth=4, fullatt_block_indexes=(3,)))
-    return {"bf16": (cut_depth(cfg, MESH_LAYERS), "bfloat16"), "f32": (small, "float32")}
+    return {"bf16": (mesh_3b(MESH_LAYERS), "bfloat16"), "f32": (small, "float32")}
 
 
 def mesh_requests(cfg, G: int) -> list:
@@ -7196,7 +7452,7 @@ def mesh_reference(card: str) -> tuple:
     # (c): the CLIs' one-process records, f32 at 2 decoder layers, from a native checkpoint
     cfg = reduced_config()
     ckpt = os.path.join(root, "ckpt")
-    native_checkpoint(ckpt, init_params(cfg, seed=0, device="cpu", dtype=torch.float32), cfg)
+    native_checkpoint(ckpt, reduced_params_cpu(), cfg)
     data = write_dataset(root, "eval", 2)
     with cli_stand_ins(cfg), mesh_cli_patches():
         eng = Engine(*evaluate.load_checkpoint(ckpt, device="cuda"), dtype=torch.float32, device="cuda")
@@ -7439,7 +7695,7 @@ def mesh_cli_run(args: dict, rank: int) -> dict:
 # ---------------------------------------------------------------------------
 # phase 16: continuous batching over a mesh (PagedEngine, ContinuousEngine and the int4 TP Engine over shards), run
 # in phase 15's spawn against one process's engines made with phase 15's references
-CMESH_LAYERS = 6  # the bf16 decoder depth at 3B widths (the f32 runs take mesh_cases' 2 layers)
+CMESH_LAYERS = 2  # the bf16 decoder depth at 3B widths (the f32 runs take mesh_cases' 2 layers; 6 until phase 17)
 CMESH_REQUESTS = 8  # phase 7's stream cut to its first 8 requests: both videos and 6 texts
 CMESH_CHUNK = 1024  # phase 7's prefill chunk: a video's 2048-token admission interleaves a segment
 # (name, engine, G, quantization, int8 KV): the paged and slot engines over the stream, 4 slots; the TP Engine over
@@ -7499,16 +7755,26 @@ def cmesh_inputs(cfg, kind: str, G: int, dtype_name: str):
 
 
 @contextmanager
-def recording_lives(lives: list):
+def recording_lives(lives: list, admitted: list):
     """The continuous engines' live slots at each decode step, appended to
     `lives` (a (slots,) bool each) before the step's pick: `PagedEngine`'s
     step receives them, `ContinuousEngine`'s are computed in its segment
     from the state it passes (`decode_segment`), at the pick. A dead slot's
     row is computed all the same, over stale state that may read another
-    slot's pages: its logits are no output."""
+    slot's pages: its logits are no output. `admitted` gets each admitted
+    request's slot, in the order of the admissions' single-row picks."""
     from time_r1_tpu_torch.sampler import continuous, paged
 
     one_step, segment = paged._paged_one_step, continuous.decode_segment
+    admits = paged.PagedEngine._admit_group, continuous.ContinuousEngine._admit_group
+
+    def paged_admit(self, pool, allocator, admits_, *a, **kw):  # admits_: [(slot, req_idx, Request)], picked in order
+        admitted.extend(slot for slot, _, _ in admits_)
+        return admits[0](self, pool, allocator, admits_, *a, **kw)
+
+    def slot_admit(self, state, admits_, *a, **kw):
+        admitted.extend(slot for slot, _, _ in admits_)
+        return admits[1](self, state, admits_, *a, **kw)
 
     def paged_step(params, pool, cfg, sp, last, start_pos, steps, live, *a, **kw):
         lives.append(live.cpu().clone())
@@ -7522,23 +7788,26 @@ def recording_lives(lives: list):
         return segment(params, state, cfg, n, sp, generator, active, max_steps, shard=shard, pick=live_pick)
 
     paged._paged_one_step, continuous.decode_segment = paged_step, slot_segment
+    paged.PagedEngine._admit_group, continuous.ContinuousEngine._admit_group = paged_admit, slot_admit
     try:
         yield
     finally:
         paged._paged_one_step, continuous.decode_segment = one_step, segment
+        paged.PagedEngine._admit_group, continuous.ContinuousEngine._admit_group = admits
 
 
-def pick_errors(store: list, ref: list, lives=None) -> tuple:
+def pick_errors(store: list, ref: list, lives=None, admitted=None) -> tuple:
     """Each pick's max |got - one| / max |one| over the live rows whose
-    every earlier live pick agreed with one process's, and how many rows
-    were compared; returns (errors, rows compared, the prefills' errors).
-    lives: a continuous engine's live slots of each decode step
-    (`recording_lives`), where a single-row pick is an admission's first
-    token (its prefix is the prompt) from the prefill's logits; None: the
-    `Engine`'s picks, every row live, the first from the prefill."""
+    every earlier pick agreed with one process's, and how many rows were
+    compared; returns (errors, rows compared, the prefills' errors). lives:
+    a continuous engine's live slots of each decode step and admitted the
+    slot of each admission (`recording_lives`), where a single-row pick is
+    an admission's first token (its prefix is the prompt) from the
+    prefill's logits, and starts its slot's agreement; None: the `Engine`'s
+    picks, every row live, the first from the prefill."""
     import torch
 
-    agree, steps = None, iter(lives or ())
+    agree, steps, slots = None, iter(lives or ()), iter(admitted or ())
     errs, firsts, compared = [], [], 0
     for i, ((got, tok), (want, tok_r)) in enumerate(zip(store, ref)):
         first = got.shape[0] == 1 if lives is not None else i == 0
@@ -7550,7 +7819,11 @@ def pick_errors(store: list, ref: list, lives=None) -> tuple:
         errs.append(err)
         if first:
             firsts.append(err)
-        if not (first and lives is not None):
+        if first and lives is not None:  # the admitted slot's prefix: its prompt and this token
+            if agree is None:
+                agree = torch.ones(lives[0].shape[0] if lives else 1, dtype=torch.bool)
+            agree[next(slots)] = bool(torch.equal(tok, tok_r))
+        else:
             agree = (agree if agree is not None else torch.ones_like(live)) & ((tok == tok_r) | ~live)
     return errs, compared, firsts
 
@@ -7610,13 +7883,13 @@ def cmesh_reference(root: str, card: str) -> dict:
         for name, kind, G, quant, kv in CMESH_RUNS:
             eng = cmesh_engine(kind, params, cfg, dtype, quant, kv)
             reqs, sp = cmesh_inputs(cfg, kind, G, dtype_name)
-            store, lives = [], []
+            store, lives, admitted = [], [], []
             recording_pick(eng, store, mesh_rows(G) if kind == "engine" else None)
             torch.cuda.reset_peak_memory_stats()
-            with eager_decode(), recording_lives(lives):
+            with eager_decode(), recording_lives(lives, admitted):
                 tokens = eng.generate(reqs, sp)
             tm = eng.timings
-            refs[f"{tag}_{name}"] = dict(tokens=tokens, picks=store, lives=lives,
+            refs[f"{tag}_{name}"] = dict(tokens=tokens, picks=store, lives=lives, admitted=admitted,
                                          peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                                          decode_ms=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1))
             log(f"[mesh16] one process {tag} {name}: {sum(len(t) for t in tokens)} tokens over {len(tokens)} rows, "
@@ -7692,13 +7965,13 @@ def cmesh_job(args: dict, rank: int) -> dict:
                 eng = cmesh_engine(kind, params, cfg, dtype, quant, kv, shard)
             held = held_gib(eng.params)
             reqs, sp = cmesh_inputs(cfg, kind, G, dtype_name)
-            store, lives = [], []
+            store, lives, admitted = [], [], []
             recording_pick(eng, store, mesh_rows(G) if kind == "engine" else None)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             staged0 = comm.staged_bytes
             reset_launches()
-            with recording_lives(lives):
+            with recording_lives(lives, admitted):
                 tokens = eng.generate(reqs, sp)
             launches = read_launches()
             peak = torch.cuda.max_memory_allocated() / 2**30
@@ -7721,10 +7994,11 @@ def cmesh_job(args: dict, rank: int) -> dict:
                      for t, r in zip(tokens, ref["tokens"])]
             if dtype_name == "float32" and name in CMESH_EXACT_F32 and tokens != ref["tokens"]:
                 raise AssertionError(f"{label}: f32 tokens differ from one process's (agree {agree})")
-            if kind != "engine" and not all(torch.equal(a, b) for a, b in zip(lives, ref["lives"])):
+            if kind != "engine" and not (admitted == ref["admitted"] and
+                                         all(torch.equal(a, b) for a, b in zip(lives, ref["lives"]))):
                 raise AssertionError(f"{label}: the live slots differ from one process's (no stop id: the schedule "
                                      f"follows from the lengths)")
-            errs, compared, firsts = pick_errors(store, ref["picks"], lives if kind != "engine" else None)
+            errs, compared, firsts = pick_errors(store, ref["picks"], *((lives, admitted) if kind != "engine" else ()))
             res = dict(decode_ms=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1), decode_steps=tm["decode_steps"],
                        prefill_ms=tm["prefill_s"] * 1e3, staged_gb=(comm.staged_bytes - staged0) / 1e9,
                        peak_gib=peak, held_gib=held, one_peak_gib=ref["peak_gib"], one_decode_ms=ref["decode_ms"],
@@ -8159,6 +8433,547 @@ def phase_eval_7b(card: str) -> dict:
             "ranks": ranks}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: tensor parallelism past the kv heads (each kv head replicated on tp/nkv model ranks): the 3B's 2 kv
+# heads at tp 4, 4 ranks over gloo on the first card, against one process's engines and step
+KVREP_TP = 4
+KVREP_LAYERS = 2  # the decoder depth at 3B widths, with the whole vision tower (4 ranks and one process share the card)
+KVREP_NEW_TOKENS = 16  # 32 before the last cuts for the script's time limit (PERF.md §4)
+KVREP_TIMEOUT = 300  # s: the parent's wait for phase 17's spawn
+KVREP_VIDEO = (8, 224, 392)  # (a)'s video request: frames, height, width (448 video tokens)
+KVREP_TEXTS = (180, 260, 150, 330)  # prompt lengths of the text requests (each prefill over 128 rows: no Q2 there)
+# (name, engine, G, quantization, int8 KV, dtype): (a) the TP Engine on two texts and a video (G 1: K1, K2, K3) and on
+# the two texts (G 8: D2 at the rank's 4 q heads over its 1 kv head), and in f32 on the two texts (FMA; the tokens
+# held equal to one process's); (b) PagedEngine over int8 weights and int8 pages on four texts (P2, Q2 at inter 2752)
+KVREP_RUNS = (
+    ("engine_g1", "engine", 1, None, False, "bfloat16"),
+    ("engine_g8", "engine", 8, None, False, "bfloat16"),
+    ("paged_int8", "paged", 1, "int8", True, "bfloat16"),
+    ("engine_g1_f32", "engine", 1, None, False, "float32"),
+)
+
+
+def kvrep_config(layers: int = KVREP_LAYERS):
+    """Qwen2.5-VL-3B (16 q over 2 kv heads) cut to `layers` decoder layers, at full width and vision depth."""
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
+
+    return cut_depth(Qwen25VLConfig.qwen25vl_3b(), layers)
+
+
+def kvrep_inputs(cfg, name: str, kind: str, G: int):
+    """A run's requests and sampling: the texts of KVREP_TEXTS (the paged
+    engine all four, the TP Engine the first two) and, for engine_g1, a
+    video; KVREP_NEW_TOKENS greedy tokens, no stop id."""
+    from time_r1_tpu_torch.sampler import SamplingParams
+
+    rng = np.random.default_rng(17)
+    texts = [text_request(cfg, rng, n) for n in KVREP_TEXTS]
+    reqs = texts if kind == "paged" else texts[:2]
+    if name == "engine_g1":
+        reqs = reqs + [video_request(cfg, np.random.default_rng(18), *KVREP_VIDEO)]
+    return reqs, SamplingParams(temperature=0.0, max_new_tokens=KVREP_NEW_TOKENS, stop_token_ids=(),
+                                num_return_sequences=G)
+
+
+def kvrep_launches(cfg, kind: str, G: int, quant, kv: bool, tm: dict, reqs: list) -> dict:
+    """A run's launches on a rank (`cmesh_launches`), K2 and K3 in the TP
+    Engine's one vision pass where a request holds a video."""
+    want = cmesh_launches(cfg, kind, G, quant, kv, tm, reqs)
+    if kind == "engine" and any(r.patches is not None for r in reqs):
+        want.update(vision_tc_launches(cfg))
+    return want
+
+
+def kvrep_reference(card: str, tp: int, runs: tuple, layers: int) -> tuple:
+    """One process's engines of `runs` at `layers` in the parent, decoded
+    eagerly as the mesh's: tokens, picks (logits and tokens; G > 1 the first
+    row), live slots, decode ms a step and peak, to a file; the card freed
+    before the ranks start. Returns (file, root)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+
+    root = tempfile.mkdtemp(prefix="timer1_phase17_")
+    cfg, refs = kvrep_config(layers), {}
+    for dtype_name in ("bfloat16", "float32"):
+        todo = [r for r in KVREP_RUNS if r[0] in runs and r[5] == dtype_name]
+        if not todo:
+            continue
+        dtype = getattr(torch, dtype_name)
+        params = init_params(cfg, seed=0, device="cuda", dtype=dtype)
+        for name, kind, G, quant, kv, _ in todo:
+            eng = cmesh_engine(kind, params, cfg, dtype, quant, kv)
+            reqs, sp = kvrep_inputs(cfg, name, kind, G)
+            store, lives, admitted = [], [], []
+            recording_pick(eng, store, 1 if G > 1 else None)
+            torch.cuda.reset_peak_memory_stats()
+            with eager_decode(), recording_lives(lives, admitted):
+                tokens = eng.generate(reqs, sp)
+            tm = eng.timings
+            refs[name] = dict(tokens=tokens, picks=store, lives=lives, admitted=admitted, held_gib=held_gib(eng.params),
+                              peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                              decode_ms=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1))
+            log(f"[kvrep] one process {name} at {layers} layers: {sum(len(t) for t in tokens)} tokens over "
+                f"{len(tokens)} rows, decode {refs[name]['decode_ms']:.2f} ms/step (eager), peak "
+                f"{refs[name]['peak_gib']:.2f} GiB; {card}")
+            del eng
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    path = os.path.join(root, "kvrep.pt")
+    torch.save(refs, path)
+    return path, root
+
+
+def kv_block_digests(params: dict) -> list:
+    """sha256 of each text layer's k/v leaves (this rank's blocks), in order."""
+    import hashlib
+
+    import torch
+
+    return [hashlib.sha256(lp[k].detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()).hexdigest()
+            for lp in params["text"]["layers"] for k in ("k_w", "v_w", "k_b", "v_b")]
+
+
+def kvrep_engines(args: dict, rank: int) -> dict:
+    """(a), (b) on each rank: each of args' runs over make_mesh(tp) with the
+    3B's kv heads replicated (tp/2 ranks a head), against one process's:
+    the rank's heads (nh/tp q over one kv head, `local_heads`), the launches
+    by the formula (tensor cores in bf16, FMA in f32), the ranks' tokens
+    equal, the f32 tokens equal one process's and its prefill logits within
+    MESH_F32_TOL, the bf16 logits within MESH_LOGIT_TOL where the prefixes
+    agree; decode ms a step, bytes staged, the weights held and the peak."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.models.qwen25vl.language import _heads
+    from time_r1_tpu_torch.parallel import ShardContext, comm, make_mesh
+    from time_r1_tpu_torch.parallel.tensor import local_heads
+
+    tp, cfg = args["tp"], kvrep_config(args["layers"])
+    refs = torch.load(args["file"], weights_only=False)
+    out = {}
+    for dtype_name in ("bfloat16", "float32"):
+        todo = [r for r in KVREP_RUNS if r[0] in args["runs"] and r[5] == dtype_name]
+        if not todo:
+            continue
+        dtype = getattr(torch, dtype_name)
+        params = init_params(cfg, seed=0, device="cuda", dtype=dtype)
+        shard = ShardContext.build(make_mesh(tp), params).with_kv_heads(cfg.text.num_key_value_heads)
+        m = shard.model_rank
+        nh, nkv, kv_index, r = local_heads(cfg.text, tp, m)
+        if (nh, nkv, kv_index, r) != (cfg.text.num_attention_heads // tp, 1, m // (tp // 2), tp // 2):
+            raise AssertionError(f"kvrep rank {rank}: local heads {(nh, nkv, kv_index, r)} at tp {tp}")
+        for name, kind, G, quant, kv, _ in todo:
+            eng = cmesh_engine(kind, params, cfg, dtype, quant, kv, shard)
+            inner = getattr(eng, "_prefill_engine", eng)
+            if _heads(cfg.text, inner._text_shard)[:2] != (nh, 1):
+                raise AssertionError(f"kvrep {name} rank {rank}: the engine runs {_heads(cfg.text, inner._text_shard)}")
+            held = held_gib(eng.params)
+            reqs, sp = kvrep_inputs(cfg, name, kind, G)
+            store, lives, admitted = [], [], []
+            recording_pick(eng, store, 1 if G > 1 else None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            staged0 = comm.staged_bytes
+            reset_launches()
+            with recording_lives(lives, admitted):
+                tokens = eng.generate(reqs, sp)
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            tm = eng.timings
+            label = f"kvrep tp {tp} {name} rank {rank}"
+            want = kvrep_launches(cfg, kind, G, quant, kv, tm, reqs)
+            check_tc_route(label, launches, {k: v for k, v in want.items() if k in TC_KERNELS and v},
+                           tensor_cores=dtype_name == "bfloat16")
+            bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+            if bad:
+                raise AssertionError(f"{label}: launches (got, want) {bad}")
+            if any(len(t) != KVREP_NEW_TOKENS for t in tokens):
+                raise AssertionError(f"{label}: rows of {[len(t) for t in tokens]} tokens, want {KVREP_NEW_TOKENS}")
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, tokens)
+            if any(t != tokens for t in every):
+                raise AssertionError(f"kvrep tp {tp} {name}: the ranks' tokens differ")
+            ref = refs[name]
+            agree = [next((i for i, (a, b) in enumerate(zip(t, r)) if a != b), min(len(t), len(r)))
+                     for t, r in zip(tokens, ref["tokens"])]
+            if dtype_name == "float32" and tokens != ref["tokens"]:
+                raise AssertionError(f"{label}: f32 tokens differ from one process's (agree {agree})")
+            if kind != "engine" and not (admitted == ref["admitted"] and
+                                         all(torch.equal(a, b) for a, b in zip(lives, ref["lives"]))):
+                raise AssertionError(f"{label}: the live slots differ from one process's")
+            res = dict(decode_ms=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1), decode_steps=tm["decode_steps"],
+                       prefill_ms=tm["prefill_s"] * 1e3, staged_gb=(comm.staged_bytes - staged0) / 1e9,
+                       peak_gib=peak, held_gib=held, one_peak_gib=ref["peak_gib"], one_decode_ms=ref["decode_ms"],
+                       one_held_gib=ref["held_gib"], launches={k: launches[k] for k in want}, tokens_agree=agree)
+            if store:  # the rank that samples
+                errs, compared, firsts = pick_errors(store, ref["picks"],
+                                                     *((lives, admitted) if kind != "engine" else ()))
+                res.update(logit_rel_err=max(errs), prefill_logit_rel_err=max(firsts), picks_compared=compared)
+                if dtype_name == "float32" and not res["prefill_logit_rel_err"] <= MESH_F32_TOL:
+                    raise AssertionError(f"{label}: prefill logits {res['prefill_logit_rel_err']} apart > "
+                                         f"{MESH_F32_TOL}")
+                if dtype_name == "bfloat16" and not res["logit_rel_err"] <= MESH_LOGIT_TOL:
+                    raise AssertionError(f"{label}: logits {res['logit_rel_err']} apart > {MESH_LOGIT_TOL}")
+            log(f"{label}: {nh} q heads over 1 kv head (kv head {kv_index}, on {r} ranks); tokens agree with one "
+                f"process's for {agree} of {KVREP_NEW_TOKENS}"
+                + (f", logits {res['logit_rel_err']:.3e} apart over {res['picks_compared']} rows of picks (the "
+                   f"prefills' {res['prefill_logit_rel_err']:.3e})" if "logit_rel_err" in res else "")
+                + f"; decode {res['decode_ms']:.2f} ms/step (one process eager {ref['decode_ms']:.2f}); "
+                f"{res['staged_gb']:.3f} GB staged; peak {peak:.2f} GiB (one process {ref['peak_gib']:.2f}); holds "
+                f"{held:.2f} GiB of weights (one process {ref['held_gib']:.2f}); launches {res['launches']}")
+            out[name] = res
+            del eng, inner
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+        del params, shard
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def kvrep_step(args: dict, rank: int) -> dict:
+    """(c) on each rank: one bf16 `step_batch` over a 1×tp mesh (the kv
+    heads replicated, their gradients summed over the replicas): the
+    launches by the formula (model rank 0 rolls out over the gathered copy),
+    the loss and rows equal on every rank, the k/v blocks bit-equal within
+    each replica group after the update and different across groups; then
+    on rank 0 one process's `step_batch` with the completions replayed,
+    against which the loss (DP_TOL) and the step's gradient (the first
+    moments, gathered: all leaves, and the k/v leaves alone) are held
+    (CP_BF16_TOL's whole)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from time_r1_tpu_torch.parallel import comm, make_mesh
+    from time_r1_tpu_torch.parallel.sharding import _map
+    from time_r1_tpu_torch.rl import trainer as trainer_mod
+    from time_r1_tpu_torch.rl.grpo import trainable_leaves
+
+    tp, cfg = args["tp"], kvrep_config(args["layers"])
+    L = cfg.text.num_hidden_layers
+    root = tempfile.mkdtemp(prefix=f"timer1_phase17_step{rank}_")
+    tr = dp_trainer(cfg, make_mesh(tp), root, extra_rewards=(row_spread_reward,))
+    recorded, rows = [], []
+    if tr._rolls_out:
+        generate = tr.engine.generate
+        tr.engine.generate = lambda requests, sp: recorded.append(generate(requests, sp)) or recorded[-1]
+    build = trainer_mod.build_grpo_split_batch
+    trainer_mod.build_grpo_split_batch = lambda *a, **kw: rows.append(build(*a, **kw)) or rows[-1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    staged0 = comm.staged_bytes
+    reset_launches()
+    t0 = time.perf_counter()
+    info = tr.step_batch([DP_EXAMPLES[0]])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    trainer_mod.build_grpo_split_batch = build
+    launches = read_launches()
+    steps = [None] * tp
+    dist.all_gather_object(steps, tr.engine.timings["decode_steps"] if tr._rolls_out else 0)
+    n_steps = steps[0]
+    if tr._rolls_out:
+        want = step_batch_tc_launches(cfg, n_steps) | {k: 2 * v for k, v in vision_tc_launches(cfg).items()}
+    else:  # no rollout: the ref forward and the loss only; the frozen ViT once
+        want = sharded_loss_launches(cfg) | {"flash_attention": 2 * L, "shared_prefix_fwd": 2 * L}
+        want["shared_prefix_decode_full"] = 0
+    check_tc_route(f"kvrep step_batch rank {rank}", launches, {k: v for k, v in want.items() if v}, tensor_cores=True)
+    bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if bad:
+        raise AssertionError(f"kvrep step_batch rank {rank}: launches (got, want) {bad}")
+    batch = rows[0]
+    row_digest = [float(t.float().sum()) for t in (batch.prompt_ids, batch.comp_ids, batch.comp_mask,
+                                                   batch.advantages)]
+    every = [None] * tp
+    dist.all_gather_object(every, (info["loss"], row_digest, kv_block_digests(tr.params),
+                                   tr.params["text"]["layers"][0]["k_w"].shape[0]))
+    r = tp // cfg.text.num_key_value_heads
+    for m in range(tp):
+        if every[m][:2] != every[0][:2]:
+            raise AssertionError(f"kvrep step_batch: rank {m}'s loss and rows differ from rank 0's")
+        if every[m][3] != cfg.text.head_dim:
+            raise AssertionError(f"kvrep step_batch: rank {m} holds {every[m][3]} k rows, not one whole head")
+        if every[m][2] != every[m - m % r][2]:
+            raise AssertionError(f"kvrep step_batch: rank {m}'s k/v blocks differ from their replica's on rank "
+                                 f"{m - m % r} after the update")
+    if every[0][2] == every[r][2]:
+        raise AssertionError("kvrep step_batch: two kv heads' blocks are equal")
+    res = dict(step_s=step_s, loss=info["loss"], decode_steps=n_steps,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, staged_gb=(comm.staged_bytes - staged0) / 1e9, launches={k: launches[k] for k in want},
+               rolls_out=tr._rolls_out)
+    log(f"kvrep step_batch (1x{tp}) rank {rank}: {step_s:.2f} s, loss {info['loss']:.6f}, {n_steps} decode steps; "
+        f"peak {res['peak_gib']:.2f} GiB; {res['staged_gb']:.2f} GB staged; the ranks' loss and rows equal; the k/v "
+        f"blocks bit-equal within each of the {cfg.text.num_key_value_heads} replica groups of {r}")
+    paths = trainable_leaves(_map(tr.params, lambda path, x: path), tr.hp.fix_vit)
+    kv_idx = [i for i, p in enumerate(paths) if p.rsplit("/", 1)[-1] in ("k_w", "v_w", "k_b", "v_b")]
+    metrics = tr.pop_metrics()
+    mu = tr._gathered_opt_tree(keep=rank == 0)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        one = dp_trainer(cfg, None, root, extra_rewards=(row_spread_reward,))
+        replay = [list(c) for c in recorded[0]]
+        one.engine.generate = lambda requests, sp: [list(c) for c in replay]
+        one_info = one.step_batch([DP_EXAMPLES[0]])
+        one_metrics = one.pop_metrics()
+        grad_err = rel_norm(mu["mu"], one.opt_state.mu)
+        kv_err = rel_norm([mu["mu"][i] for i in kv_idx], [one.opt_state.mu[i] for i in kv_idx])
+        rel = {k: abs(metrics[k] - v) / max(abs(v), DP_TOL["floor"]) for k, v in one_metrics.items()}
+        rel["loss"] = abs(info["loss"] - one_info["loss"]) / max(abs(one_info["loss"]), DP_TOL["floor"])
+        log(f"kvrep step_batch against one process: loss {info['loss']:.6f} vs {one_info['loss']:.6f}; relative "
+            f"errors {({k: f'{v:.2e}' for k, v in rel.items()})}; gradient (the first moments) ||tp - one|| / ||one|| "
+            f"{grad_err:.3e}, the k/v leaves' {kv_err:.3e}")
+        if set(one_metrics) != set(metrics) or max(rel.values()) > DP_TOL["rel"] or grad_err > CP_BF16_TOL["whole"] \
+                or kv_err > CP_BF16_TOL["whole"]:
+            raise AssertionError(f"kvrep step_batch: against one process {rel}, gradient {grad_err}, k/v {kv_err}")
+        res["vs_one_process"] = dict(rel=rel, grad_err=grad_err, kv_grad_err=kv_err)
+        del one, mu
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def kvrep_job(args: dict) -> dict:
+    """Phase 17 (and `scripts/check_parallel.py j`'s tp-8 part) on each rank:
+    `kvrep_engines`, then `kvrep_step` when asked."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    out = {"engines": kvrep_engines(args, rank)}
+    if args["step"]:
+        out["step"] = kvrep_step(args, rank)
+    return out
+
+
+def phase_kv_replication(card: str, tp: int = KVREP_TP, runs: tuple = tuple(r[0] for r in KVREP_RUNS),
+                         step: bool = True, layers: int = KVREP_LAYERS) -> dict:
+    """Phase 17: the 3B past its 2 kv heads, tp ranks over gloo on the first
+    card at `layers` decoder layers: one process's references
+    (`kvrep_reference`), then `kvrep_job` in one spawn. Returns each bf16
+    run's launches on every rank, and the step's under "step_batch"."""
+    import shutil
+
+    t0 = time.perf_counter()
+    path, root = kvrep_reference(card, tp, runs, layers)
+    try:
+        ranks = spawn_ranks("kvrep", tp, dict(file=path, tp=tp, runs=list(runs), step=step, layers=layers), card,
+                            timeout=KVREP_TIMEOUT)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    result = {}
+    for name in ranks[0]["engines"]:
+        res = [r["engines"][name] for r in ranks]
+        log(f"[kvrep] tp {tp} {name} over gloo: decode {[round(x['decode_ms'], 2) for x in res]} ms/step by rank (one "
+            f"process eager {res[0]['one_decode_ms']:.2f}); prefill {[round(x['prefill_ms'], 1) for x in res]} ms; "
+            f"{[round(x['staged_gb'], 3) for x in res]} GB staged; peak {[round(x['peak_gib'], 2) for x in res]} GiB "
+            f"(one process {res[0]['one_peak_gib']:.2f}); weights {[round(x['held_gib'], 2) for x in res]} GiB (one "
+            f"process {res[0]['one_held_gib']:.2f}); tokens agree {res[0]['tokens_agree']}"
+            + (f"; logits {res[0]['logit_rel_err']:.3e} apart" if "logit_rel_err" in res[0] else "") + f"; {card}")
+        if name in {r[0] for r in KVREP_RUNS if r[5] == "bfloat16"}:
+            result[name] = [x["launches"] for x in res]
+    if step:
+        res = [r["step"] for r in ranks]
+        log(f"[kvrep] tp {tp} step_batch over gloo: {[round(x['step_s'], 2) for x in res]} s by rank; peak "
+            f"{[round(x['peak_gib'], 2) for x in res]} GiB; {[round(x['staged_gb'], 2) for x in res]} GB staged; "
+            f"against one process {res[0]['vs_one_process']}; {card}")
+        result["step_batch"] = [x["launches"] for x in res]
+    log(f"[kvrep] phase 17 (tp {tp}, {layers} layers): {time.perf_counter() - t0:.1f} s; {card}")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# `scripts/check_parallel.py j`, asked for by name only: the 3B past its kv heads over 4 cards (NCCL) at full depth
+# through the CLIs, and at tp 8 over 8 gloo ranks on one card
+THREE_B_TP4_ITEMS = 4
+# scripts/test.sh's eval flags at TP=4, and at TP=4 CONTINUOUS=1 QUANT=int8 KV_DTYPE=int8 (BATCH 4 here); the
+# checkpoint read in f32 (`mesh_cli_patches`), so that the plain run's records equal one card's
+THREE_B_TP4_EVALS = {
+    "tp4": ("--use_vllm_inference", "--batch_size", "4"),
+    "tp4_continuous_int8": ("--use_vllm_inference", "--batch_size", "4", "--use_continuous_batching", "--kv_block_size",
+                            "128", "--quantization", "int8", "--kv_cache_dtype", "int8"),
+}
+THREE_B_TP4_EXACT = ("tp4",)  # f32, TP changes only the order of f32 sums: the records equal one card's
+TP8_LAYERS = 2
+
+
+def three_b_eval_run(args: dict, tag: str, tp: int) -> dict:
+    """One `cli.evaluate.main` of j (tp 1: one card, in the parent): records,
+    seconds, the generation engine's decode ms a step, weights and peak."""
+    import torch
+
+    from time_r1_tpu_torch.cli import evaluate
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
+
+    made: list = []
+    extra = ("--tensor_parallel_size", str(tp)) if tp > 1 else ()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with cli_stand_ins(Qwen25VLConfig.qwen25vl_3b()), mesh_cli_patches(), spied_generation_engine(made):
+        argv = mesh_eval_argv(args["ckpt"], args["data"], os.path.join(args["root"], f"{tag}_tp{tp}"),
+                              *THREE_B_TP4_EVALS[tag], *extra)
+        argv[argv.index("--max_new_tokens") + 1] = str(MESH_NEW_TOKENS)
+        path = evaluate.main(evaluate.get_args(argv))
+    torch.cuda.synchronize()
+    eng = made[0]
+    tm = eng.timings
+    return dict(records=read_jsonl(path) if os.path.exists(path) else None, seconds=time.perf_counter() - t0,
+                decode_ms=tm["decode_s"] * 1e3 / max(tm["decode_steps"], 1), decode_steps=tm["decode_steps"],
+                held_gib=held_gib(eng.params), peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def three_b_train_run(args: dict, tp: int) -> dict:
+    """`cli.train.main` of j at full depth from the HF checkpoint (tp 1: one
+    card): 2 step_batch calls (accumulation 2: one update, after both), each
+    call's loss and seconds, the peak."""
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
+    from time_r1_tpu_torch.rl import GRPOTrainer
+
+    steps = []
+
+    def counted(original):
+        def step_batch(self, examples, requests=None):
+            t0 = time.perf_counter()
+            res = original(self, examples, requests=requests)
+            torch.cuda.synchronize()
+            steps.append(dict(s=time.perf_counter() - t0, loss=res["loss"]))
+            return res
+        return step_batch
+
+    extra = ("--tensor_parallel_size", str(tp)) if tp > 1 else ()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = Qwen25VLConfig.qwen25vl_3b()
+    with cli_stand_ins(cfg) as cli, patched(GRPOTrainer, "step_batch", counted):
+        trainer = cli.main(cli_args(cli, args["hf"], os.path.join(args["root"], f"train_tp{tp}"), args["train"],
+                                    *extra))
+    if len(steps) != 2 or trainer.global_step != 2:
+        raise AssertionError(f"j: cli.train at tp {tp} ran {len(steps)} step_batch calls")
+    out = dict(losses=[s["loss"] for s in steps], step_s=[s["s"] for s in steps],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del trainer
+    return out
+
+
+def three_b_tp4_job(args: dict) -> dict:
+    """j on each of 4 ranks, a card a rank (NCCL): `cli.evaluate.main` with
+    each of THREE_B_TP4_EVALS at --tensor_parallel_size 4 (rank 0's records
+    against one card's: equal for THREE_B_TP4_EXACT, the qids equal and the
+    agreeing texts counted for the int8 run), then `cli.train.main
+    --tensor_parallel_size 4` (each step_batch's loss within DP_TOL of one
+    card's: both calls roll out from the same initial weights)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    out = {}
+    for tag in THREE_B_TP4_EVALS:
+        res = three_b_eval_run(args, tag, 4)
+        one = args["one"][tag]
+        if rank == 0:
+            if [r["qid"] for r in res["records"]] != [r["qid"] for r in one["records"]]:
+                raise AssertionError(f"j {tag}: the records' qids differ from one card's")
+            res["texts_equal"] = sum(a["output_text"] == b["output_text"]
+                                     for a, b in zip(res["records"], one["records"]))
+            if tag in THREE_B_TP4_EXACT and res["records"] != one["records"]:
+                raise AssertionError(f"j {tag}: the records differ from one card's ({res['texts_equal']} texts equal)")
+        log(f"[3b tp4] {tag} rank {rank}: {res['seconds']:.1f} s; decode {res['decode_ms']:.2f} ms/step over "
+            f"{res['decode_steps']} steps (one card {one['decode_ms']:.2f}); holds {res['held_gib']:.2f} GiB of "
+            f"weights (one card {one['held_gib']:.2f}), peak {res['peak_gib']:.2f} GiB (one card {one['peak_gib']:.2f})"
+            + (f"; output texts equal to one card's {res['texts_equal']} of {len(res['records'])}"
+               if rank == 0 else ""))
+        out[tag] = {k: v for k, v in res.items() if k != "records"}
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    res = three_b_train_run(args, 4)
+    one = args["one"]["train"]
+    rel = [abs(a - b) / max(abs(b), DP_TOL["floor"]) for a, b in zip(res["losses"], one["losses"])]
+    log(f"[3b tp4] cli.train --tensor_parallel_size 4 rank {rank}: losses {res['losses']} (one card {one['losses']}, "
+        f"relative {[f'{x:.2e}' for x in rel]}); step_batch {[round(s, 2) for s in res['step_s']]} s (one card "
+        f"{[round(s, 2) for s in one['step_s']]}); peak {res['peak_gib']:.2f} GiB (one card {one['peak_gib']:.2f})")
+    if max(rel) > DP_TOL["rel"]:
+        raise AssertionError(f"j: cli.train at tp 4, losses {res['losses']} against one card's {one['losses']}")
+    out["train"] = dict(res, rel=rel)
+    return out
+
+
+def phase_three_b_tp4(card: str) -> dict:
+    """j, on 4 cards: the 3B's seeded bf16 weights as a native checkpoint
+    (eval) and an HF one (train), one card's runs (`three_b_eval_run` for
+    each of THREE_B_TP4_EVALS, `three_b_train_run`), then
+    `three_b_tp4_job` over NCCL; then tp 8 over 8 gloo ranks on the first
+    card at TP8_LAYERS (`phase_kv_replication`: the TP Engine at G 8 and one
+    step_batch). Writes ~24 GB under TMPDIR, deleted at the end."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig, init_params
+
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        raise AssertionError(f"j needs 4 cards, the machine shows {cards}")
+    t0 = time.perf_counter()
+    cfg = Qwen25VLConfig.qwen25vl_3b()
+    root = tempfile.mkdtemp(prefix="timer1_3b_tp4_")
+    try:
+        ckpt = os.path.join(root, "ckpt")
+        nbytes = native_checkpoint(ckpt, init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16), cfg)
+        args = dict(ckpt=ckpt, data=write_dataset(root, "eval", THREE_B_TP4_ITEMS), root=root, one={},
+                    hf=os.path.join(root, "hf"), train=write_dataset(root, "train", 2))
+        cli_hf_checkpoint(cfg, args["hf"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[3b tp4] checkpoints written ({nbytes / 1e9:.2f} GB native) in {time.perf_counter() - t0:.1f} s")
+        for tag in THREE_B_TP4_EVALS:
+            one = three_b_eval_run(args, tag, 1)
+            args["one"][tag] = one
+            log(f"[3b tp4] one card {tag}: {one['seconds']:.1f} s; decode {one['decode_ms']:.2f} ms/step over "
+                f"{one['decode_steps']} steps; holds {one['held_gib']:.2f} GiB of weights, peak {one['peak_gib']:.2f} "
+                f"GiB; {card}")
+            gc.collect()
+            torch.cuda.empty_cache()
+        args["one"]["train"] = three_b_train_run(args, 1)
+        log(f"[3b tp4] one card cli.train: losses {args['one']['train']['losses']}, step_batch "
+            f"{[round(s, 2) for s in args['one']['train']['step_s']]} s, peak {args['one']['train']['peak_gib']:.2f} "
+            f"GiB; {card}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = spawn_ranks("three_b_tp4", 4, args, card, nccl=True, timeout=SHARDED_TIMEOUT)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for tag in THREE_B_TP4_EVALS:
+        res = [r[tag] for r in ranks]
+        log(f"[3b tp4] {tag} over nccl: decode {[round(x['decode_ms'], 2) for x in res]} ms/step by rank (one card "
+            f"{args['one'][tag]['decode_ms']:.2f}); held {[round(x['held_gib'], 2) for x in res]} GiB, peak "
+            f"{[round(x['peak_gib'], 2) for x in res]} GiB (one card {args['one'][tag]['held_gib']:.2f}, "
+            f"{args['one'][tag]['peak_gib']:.2f}); texts equal {res[0]['texts_equal']} of {THREE_B_TP4_ITEMS}; {card}")
+    log(f"[3b tp4] (j) 4 cards: {time.perf_counter() - t0:.1f} s; {card}")
+    tp8 = phase_kv_replication(card, tp=8, runs=("engine_g8",), step=True, layers=TP8_LAYERS)
+    return {"ranks": ranks, "tp8": tp8}
+
+
 def timed(phase, *args):
     """phase(*args), its seconds logged."""
     t0 = time.perf_counter()
@@ -8207,6 +9022,8 @@ def main() -> int:
     # ranks over gloo: the TP Engine, PPEngine, cli.evaluate / cli.demo (15); PagedEngine, ContinuousEngine and the
     # int4 TP Engine over the mesh, cli.evaluate with the recipe's eval flags (16)
     mesh = timed(phase_mesh_serving, card)
+    # 4 ranks over gloo: the 3B's 2 kv heads at tp 4, each on 2 ranks: the TP Engine, PagedEngine, a step_batch (17)
+    kvrep = timed(phase_kv_replication, card)
     for tag, name in zip("ab", PAGED_KERNELS):
         quant_launches[name] = serve[tag]["launches"][name]
         quant_launches[f"{name}_tc"] = serve[tag]["launches"][f"{name}_tc"]
@@ -8307,6 +9124,11 @@ def main() -> int:
             runs = {n: [r[k["name"]] for r in cmesh[f"bf16_{n}"]] for n in names if k["name"] in cmesh[f"bf16_{n}"][0]}
             if any(any(v) for v in runs.values()):
                 k[key] = runs
+    for k in kernels:  # phase 17: each bf16 run at tp 4 over the 3B's replicated kv heads, [rank 0, ..., rank 3]
+        runs = {n: [r[k["name"]] for r in ranks] for n, ranks in kvrep.items() if k["name"] in ranks[0]}
+        if any(any(v) for v in runs.values()):
+            k["launches_kv_replicated"] = runs
+    close_rank_pool()
     log(f"[env] chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

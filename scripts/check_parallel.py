@@ -29,9 +29,21 @@ int8 KV pages), int8 and int4 weights, against one card's `cli.evaluate`
 ~16 GB under TMPDIR). The ranks are processes over gloo, all on the first
 card; where the machine shows several cards, (a), (c), (d), (e) and (h) run
 again over NCCL, a card a rank (with --nccl, phases 14-16 only over NCCL).
-Given parts among a-i, only those run; none runs a, b, c, d, e and h.
+(j), asked for by name only and on 4 cards: Qwen2.5-VL-3B past its 2 kv
+heads (each replicated on 2 ranks) at full depth over NCCL: `cli.evaluate
+--tensor_parallel_size 4` with `scripts/test.sh`'s eval flags, plain (the
+checkpoint read in f32: records equal one card's) and continuous with int8
+weights and int8 pages, and `cli.train --tensor_parallel_size 4` for 2
+step_batch calls (losses within 2e-2 of one card's); then tp 8 over 8 gloo
+ranks on the first card at 2 decoder layers (the TP Engine at G = 8 and one
+step_batch against one process's; writes ~24 GB under TMPDIR). (k): phase 2's
+K1, B1, B2, S1, S2, K2, K3, D2, P1, P2, Q1 and Q2 cases at the TP-local
+shapes (the 3B at tp 4 and 8 among them), then phase 17: the 3B at tp 4
+over 4 gloo ranks on one card (the TP Engine, PagedEngine over int8, one
+step_batch) against one process's.
+Given parts among a-k, only those run; none runs a, b, c, d, e and h.
 
-    python3 scripts/check_parallel.py [--nccl] [a] [b] [c] [d] [e] [f] [g] [h] [i]
+    python3 scripts/check_parallel.py [--nccl] [a] [b] [c] [d] [e] [f] [g] [h] [i] [j] [k]
 
 Writes up to 15 GB under the temporary directory (TMPDIR) and deletes it.
 Prints the card's name and power limit first. Needs a CUDA device and nvcc;
@@ -87,13 +99,28 @@ def main(parts, nccl_only: bool = False) -> int:
         chip_smoke.phase_mesh_7b(card)
     if "i" in parts:
         chip_smoke.phase_eval_7b(card)
+    if "k" in parts:  # phase 2's cases at the TP-local shapes, then phase 17
+        results = {name: {} for name in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "shared_prefix_fwd",
+                                         "shared_prefix_bwd", "window_attention_rope", "full_attention_rope",
+                                         "shared_prefix_decode_full", "fused_mlp_int8", "paged_prefix_attention",
+                                         "paged_prefix_attention_q8", "int4_matmul")}
+        for tag, shape in chip_smoke.TP_ATTN.items():
+            for dtype in (torch.bfloat16, torch.float32):
+                chip_smoke.attention_head_cases(results, shape, tag if dtype is torch.bfloat16 else f"{tag}_f32", dtype)
+        chip_smoke.vision_local_head_cases(torch.Generator(device="cuda").manual_seed(0), results)
+        chip_smoke.tp_decode_quant_cases(torch.Generator(device="cuda").manual_seed(9), results)
+        chip_smoke.tp_paged_q1_cases(torch.Generator(device="cuda").manual_seed(11), results)
+        chip_smoke.phase_kv_replication(card)
+    if "j" in parts:
+        chip_smoke.phase_three_b_tp4(card)
+    chip_smoke.close_rank_pool()
     chip_smoke.log(f"[env] check_parallel: {time.perf_counter() - t0:.1f} s")
     return 0
 
 
 if __name__ == "__main__":
-    parser = argparse.ArgumentParser(description="chip_smoke.py's phases 13-16, or parts a-i of them")
-    parser.add_argument("parts", nargs="*", choices=["a", "b", "c", "d", "e", "f", "g", "h", "i"])
+    parser = argparse.ArgumentParser(description="chip_smoke.py's phases 13-17, or parts a-k of them")
+    parser.add_argument("parts", nargs="*", choices=["a", "b", "c", "d", "e", "f", "g", "h", "i", "j", "k"])
     parser.add_argument("--nccl", action="store_true", help="phases 14-16 over NCCL only (several cards)")
     args = parser.parse_args()
     sys.exit(main(args.parts, args.nccl))

@@ -207,3 +207,19 @@ def test_pp_refusals(ranks2):
         assert "TP×PP with --quantization" in r["errors"]["tp_quant"]
         assert "pipeline_parallel_size=3 does not divide the 2 decoder layers" in r["errors"]["stages"]
         assert "needs 4 ranks, the group has 2" in r["errors"]["mesh"]
+
+
+def test_pp_tp_above_the_kv_heads_keeps_jaxs_assertion():
+    """TP×PP with a tp the kv heads do not divide (the tiny config's 2 at tp
+    4): JAX asserts `num_key_value_heads % tp == 0`
+    (`time_r1_tpu/parallel/pipeline.py:460-463`), no kv-head replication
+    inside a stage; the port raises ValueError on the same condition, before
+    any group or mesh is made."""
+    from test_torch_bridge import CFG, JCFG, jax_params, numpy_tree, port_params
+    from time_r1_tpu.parallel.pipeline import PPEngine as JaxPPEngine
+    from time_r1_tpu_torch.parallel.pipeline import PPEngine
+
+    with pytest.raises(ValueError, match=r"num_key_value_heads % tp == 0"):
+        PPEngine(port_params(jax_params()), CFG, n_stages=1, tp=4, device="cpu")
+    with pytest.raises(AssertionError):
+        JaxPPEngine(numpy_tree(jax_params()), JCFG, n_stages=1, tp=4)

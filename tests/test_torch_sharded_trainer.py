@@ -13,8 +13,10 @@
   save after the first `step_batch` (`save_only_model` false: params and the
   sharded optimizer state gathered to rank 0) and a resume into a fresh
   trainer, whose second step equals the uninterrupted run's bit for bit;
-- the refusals by name (A13): a model dim that does not divide the kv heads
-  (1×4 over the tiny config's 2), use_peft, context parallelism and a
+- the refusals by name (A13): a model dim that would split a head (1×4 over
+  the tiny config's 2 vision heads, and the 7B's 28 q heads at tp 8: a model
+  dim that is a multiple of the kv heads is taken, each kv head replicated,
+  `tests/test_torch_kv_replication.py`), use_peft, context parallelism and a
   quantized base with model > 1;
 - two ranks with `--tensor_parallel_size 2`: `cli.train.main` from an HF
   checkpoint over clips the port's decoder reads, and `cli.finetune.main`
@@ -52,9 +54,12 @@ def _recording():
 
 
 def _refusals(params, cfg) -> dict:
-    """The A13 refusals' messages (None where nothing was raised)."""
+    """The A13 refusals' messages, a list for each case (None where nothing
+    was raised)."""
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
     from time_r1_tpu_torch.ops.quant import quantize_params
     from time_r1_tpu_torch.parallel import make_mesh
+    from time_r1_tpu_torch.parallel.tensor import check_heads
 
     out = {}
     cases = {
@@ -68,7 +73,12 @@ def _refusals(params, cfg) -> dict:
             _trainer(tree, None, cfg, "unused", mesh=mesh, **kw)
             out[name] = None
         except NotImplementedError as e:
-            out[name] = str(e)
+            out[name] = [str(e)]
+    try:  # the 7B's 28 q heads at tp 8 (its 4 kv heads alone would be replicated)
+        check_heads(Qwen25VLConfig.qwen25vl_7b(), 8)
+        out["kv_heads"] = None
+    except NotImplementedError as e:
+        out["kv_heads"] = None if out["kv_heads"] is None else out["kv_heads"] + [str(e)]
     return out
 
 
@@ -223,13 +233,16 @@ def test_sharded_resume_equals_the_uninterrupted_run(four):
         assert max(float((a - b).abs().max()) for a, b in zip(res["whole"], res["first"])) > 0
 
 
-@pytest.mark.parametrize("case,match", [("kv_heads", "num_key_value_heads"), ("use_peft", "use_peft"),
+@pytest.mark.parametrize("case,match", [("kv_heads", "does not divide num_attention_heads"), ("use_peft", "use_peft"),
                                         ("context_parallel", "context_parallel_size"),
                                         ("quantized_base", "cannot TP-split")])
 def test_refusals_name_a13(four, case, match):
     for r in four[2]:
-        msg = r["refusals"][case]
-        assert msg is not None and "A13" in msg and match in msg
+        msgs = r["refusals"][case]
+        assert msgs is not None and all("A13" in msg and match in msg for msg in msgs)
+    if case == "kv_heads":  # the tiny config's 2 vision heads at tp 4, the 7B's 28 q heads at tp 8
+        assert [m.split(" does")[0] for m in four[2][0]["refusals"][case]] == ["tensor_parallel_size=4",
+                                                                                "tensor_parallel_size=8"]
 
 
 @pytest.mark.parametrize("entry", ["train", "finetune"])

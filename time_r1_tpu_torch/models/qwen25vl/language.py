@@ -49,7 +49,8 @@ loop over the layers where JAX scans.
   subtree): each layer function gathers its FSDP shards over "data" first
   (`ShardContext.layer`), inside the unit remat checkpoints, so the backward
   gathers again and no gathered weight is a residual; it then runs the
-  rank's heads (nh/tp q over nkv/tp kv, G unchanged) and MLP width, with
+  rank's heads (nh/tp q over nkv/tp kv, G unchanged; or over its one
+  replicated kv head where tp is a multiple of nkv) and MLP width, with
   Megatron's identity/all-reduce pair around the column- and row-parallel
   products (`ShardContext.enter` / `exit`). The final norm is whole on every
   rank. The caches it fills hold the rank's kv heads.
@@ -148,7 +149,7 @@ class KVCache:
     def zeros(cfg: TextConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda",
               quant: bool = False, shard=None, layers: Optional[int] = None) -> "KVCache":
         """An empty cache; quant=True gives the int8 form with zero scales.
-        shard (a ShardContext): the rank's kv heads (nkv/tp, `_heads`), with
+        shard (a ShardContext): the rank's kv heads (`_heads`), with
         per-token scales a local head in the int8 form. layers: a pipeline
         stage's layer count (default: every layer)."""
         device = resolve_device(device)
@@ -343,6 +344,7 @@ def decoder_forward(
 
     sliding = _sliding_flags(cfg)
     _check_lora(lora, lora_side, quant_kv)
+    mlp_tp = _mlp_shard(cfg, shard)
 
     def layer(x, lp, li):
         if shard is not None:
@@ -371,7 +373,7 @@ def decoder_forward(
         else:
             attn = mha_reference(q, k, v, bias=window_bias if sliding[layer_offset + li] else bias)
         x = x + attn_out_proj(attn.reshape(B, S, nh * hd).to(x.dtype), lp, side, tp=shard)
-        x = x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp, lora=side, tp=shard)
+        x = x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp, lora=side, tp=mlp_tp)
         return x, k, v
 
     if remat and in_place and torch.is_grad_enabled():
@@ -395,9 +397,24 @@ def decoder_forward(
 
 def _heads(cfg: TextConfig, shard) -> tuple[int, int, int]:
     """(q heads, kv heads, head dim) of this rank: all of them, or under a
-    model dim of tp its nh/tp and nkv/tp."""
-    tp = 1 if shard is None else shard.tp
-    return cfg.num_attention_heads // tp, cfg.num_key_value_heads // tp, cfg.head_dim
+    model dim of tp its nh/tp q heads over nkv/tp kv heads, or over its one
+    replicated kv head where tp is a multiple of nkv
+    (`parallel/tensor.py::local_heads`)."""
+    if shard is None:
+        return cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    from ...parallel.tensor import local_heads
+
+    nh, nkv, _, _ = local_heads(cfg, shard.tp, shard.model_rank)
+    return nh, nkv, cfg.head_dim
+
+
+def _mlp_shard(cfg: TextConfig, shard):
+    """The context the MLP runs under: `shard`, or None where the model dim
+    does not split the MLP's width (the rule table then leaves gate, up and
+    down whole on every rank, `parallel/tensor.py::splits`)."""
+    from ...parallel.tensor import splits
+
+    return shard if shard is not None and splits(cfg.intermediate_size, shard.tp) else None
 
 
 def _check_lora(lora, lora_side, quant_kv: bool) -> None:
@@ -580,7 +597,8 @@ def shared_decode_forward(
                 _write_at(suffix.k, li, L0, k.to(suffix.k.dtype))
                 _write_at(suffix.v, li, L0, v.to(suffix.v.dtype))
         x = x + attn_out_proj(attn.reshape(B, S, nh * hd).to(x.dtype), lp, side, tp=shard)
-        return x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp, lora=side, tp=shard)
+        return x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp, lora=side,
+                            tp=_mlp_shard(cfg, shard))
 
     if remat and suffix is not None and torch.is_grad_enabled():
         raise ValueError("remat takes the loss chunk (suffix=None): a decode step writes its suffix in place")

@@ -25,7 +25,9 @@ merger gather their FSDP shards over "data" and run the rank's heads
 identity/all-reduce pair around the column-parallel (qkv, gate/up, fc1) and
 row-parallel (proj, down, fc2) products; a row-parallel product's bias is
 added once, after the all-reduce. The fused qkv is split per head
-(`parallel/sharding.py`), so the rank's rows are its q | k | v.
+(`parallel/sharding.py`), so the rank's rows are its q | k | v. An MLP
+width the model dim does not split (the 3B's 3420 at tp 8) is whole on every
+rank and runs whole there, with neither of the pair.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch.nn.functional as F
 
 from ...ops.attention import NEG_INF, rope
 from ...ops.vision_attention import full_attention_rope, window_attention_rope
+from ...parallel.tensor import splits
 from .config import VisionConfig
 from .language import _rms_norm
 
@@ -234,6 +237,10 @@ def vision_blocks_forward(
     def row_parallel(t, w, b):  # a row-parallel product: its bias once, after the all-reduce
         return F.linear(t, w, b) if shard is None else shard.exit(F.linear(t, w)) + b
 
+    # an MLP width the model dim does not split (3420 at tp 8) stays whole on every rank (`_divisible`): it
+    # runs whole there, outside Megatron's pair, so that nothing sums it tp times
+    mlp_split = shard is not None and splits(cfg.intermediate_size, shard.tp)
+
     for i, bp in enumerate(params["blocks"]):
         if shard is not None:
             bp = shard.layer(bp, i, "blocks")
@@ -254,10 +261,13 @@ def vision_blocks_forward(
             out = _block_attention(windows(roped(q)), windows(roped(k)), windows(v), windows(key_bias), hd**-0.5)
             attn = out.reshape(-1, nh, hd)
         x = x + row_parallel(attn.reshape(-1, nh * hd), bp["proj_w"], bp["proj_b"])
-        h = enter(_rms_norm(x, bp["norm2"], eps))
+        h = _rms_norm(x, bp["norm2"], eps)
+        h = enter(h) if mlp_split else h
         g = F.linear(h, bp["gate_w"], bp["gate_b"])
         u = F.linear(h, bp["up_w"], bp["up_b"])
-        x = x + row_parallel(F.silu(g) * u, bp["down_w"], bp["down_b"])
+        act = F.silu(g) * u
+        x = x + (row_parallel(act, bp["down_w"], bp["down_b"]) if mlp_split
+                 else F.linear(act, bp["down_w"], bp["down_b"]))
     return x
 
 

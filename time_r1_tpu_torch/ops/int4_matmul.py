@@ -13,7 +13,9 @@ applied in x's dtype. The kernels apply the scale to the f32 sum and cast
 once, so in bf16 the two differ by the rounding of the product (a bf16 ulp).
 
 Two kernels, by one written rule (`check_args`): bf16 x with N % 16 == 0 and
-K % 128 == 0 (every Qwen2.5-VL 3B and 7B product) takes the tensor-core
+K % 128 == 0 (every Qwen2.5-VL 3B and 7B product on one card and at the
+tensor-parallel widths, but the 3B's down product at tp 4 and 8, K 2752 and
+1376, which takes the FMA kernel) takes the tensor-core
 kernel, one launch that streams 16-row units of the weight through a
 shared-memory ring and multiplies on the tensor cores, each output one
 fixed-order sum in one block (`work_partition` mirrors the blocks' units);

@@ -14,6 +14,7 @@ from .mesh import (
     MODEL_AXIS,
     STAGE_AXIS,
     data_group,
+    kv_replica_group,
     make_mesh,
     make_pp_mesh,
     maybe_init_distributed,
@@ -51,6 +52,7 @@ __all__ = [
     "PARAM_RULES",
     "ShardContext",
     "gather_params",
+    "kv_replica_group",
     "make_mesh",
     "make_pp_mesh",
     "maybe_init_distributed",

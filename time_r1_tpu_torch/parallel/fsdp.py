@@ -12,7 +12,9 @@ all-reduced after the backward, bucketed (`rl/grpo.py::grpo_value_and_grad`).
 `gather_whole` also gathers a leaf over "model" for a computation that runs
 it whole on every model rank (the embedding, the LM head, the vision patch
 embed). Every model rank computes the same gradient for it, so the backward
-of that gather takes the rank's own block and sums nothing over "model".
+of that gather takes the rank's own block and sums nothing over "model". A
+replicated kv leaf (`sharding.Spec.replicas`) comes back with one replica of
+each head: the gather over "model" keeps every r-th rank's block.
 
 `layer_gathers` counts the layer dicts gathered (the forward, and the
 backward's rerun under remat); `live_gathered()` the gathered tensors still
@@ -24,6 +26,7 @@ from __future__ import annotations
 import weakref
 
 import torch
+import torch.distributed as dist
 
 from .comm import all_gather_dim, reduce_scatter_dim
 from .mesh import DATA_AXIS, MODEL_AXIS
@@ -51,19 +54,30 @@ class _GatherData(torch.autograd.Function):
         return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
 
 
+def _model_gather(x: torch.Tensor, dim: int, group, replicas: int) -> torch.Tensor:
+    """The model group's blocks concatenated along `dim`, one of each
+    `replicas` equal blocks kept."""
+    x = all_gather_dim(x, dim, group)
+    if replicas > 1:
+        blocks = x.chunk(dist.get_world_size(group), dim=dim)
+        x = torch.cat(blocks[::replicas], dim=dim)
+    return x
+
+
 class _GatherModel(torch.autograd.Function):
-    """forward: the model group's blocks concatenated along `dim`; backward:
-    this rank's block of the gradient, which every model rank computed
-    alike (nothing is summed over "model")."""
+    """forward: the model group's blocks concatenated along `dim` (one
+    replica of each replicated block); backward: this rank's block of the
+    gradient, which every model rank computed alike (nothing is summed over
+    "model")."""
 
     @staticmethod
-    def forward(ctx, x, dim, group, n, r):
-        ctx.dim, ctx.n, ctx.r = dim, n, r
-        return all_gather_dim(x, dim, group)
+    def forward(ctx, x, dim, group, n, r, replicas):
+        ctx.dim, ctx.n, ctx.r = dim, n // replicas, r // replicas
+        return _model_gather(x, dim, group, replicas)
 
     @staticmethod
     def backward(ctx, g):
-        return g.chunk(ctx.n, dim=ctx.dim)[ctx.r].contiguous(), None, None, None, None
+        return g.chunk(ctx.n, dim=ctx.dim)[ctx.r].contiguous(), None, None, None, None, None
 
 
 def _track(x: torch.Tensor) -> torch.Tensor:
@@ -90,9 +104,9 @@ def gather_whole(x: torch.Tensor, spec, shard) -> torch.Tensor:
     if dim is None or shard.tp == 1:
         return x
     if torch.is_grad_enabled() and x.requires_grad:
-        x = _GatherModel.apply(x, dim, shard.model_group, shard.tp, shard.model_rank)
+        x = _GatherModel.apply(x, dim, shard.model_group, shard.tp, shard.model_rank, spec.replicas)
     else:
-        x = all_gather_dim(x, dim, shard.model_group)
+        x = _model_gather(x, dim, shard.model_group, spec.replicas)
     if spec.parts > 1 and dim == 0:
         x = _parts_major(x, spec.parts, shard.tp)
     return _track(x)

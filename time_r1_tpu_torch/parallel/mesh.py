@@ -17,8 +17,9 @@ adjacent ranks (on one node). The data dim carries FSDP (`sharding.py`,
 state sharded over it) or context parallelism (the ranks split one sequence,
 `ring_attention.py`); the model dim carries Megatron-style tensor parallelism
 (`tensor.py`: heads and MLP width split, one all-reduce after each
-row-parallel product). Evaluation takes it with data 1 (`make_mesh(tp)`
-over a world of tp ranks).
+row-parallel product; where tp is a multiple of the kv heads, each kv head
+is replicated on tp/nkv adjacent model ranks, `kv_replica_group`).
+Evaluation takes it with data 1 (`make_mesh(tp)` over a world of tp ranks).
 
 Pipeline generation (`pipeline.py`) takes `make_pp_mesh(n_stages, tp)`, dims
 ("stage", "model"), as JAX's `time_r1_tpu/parallel/pipeline.py:42-46`: rank
@@ -138,3 +139,27 @@ def model_group(mesh):
 def stage_group(mesh):
     """The process group of a pipeline mesh's stage dim, or None without a mesh."""
     return None if mesh is None else mesh.get_group(STAGE_AXIS)
+
+
+def kv_replica_group(mesh, nkv: int):
+    """The process group of this rank's kv-head replicas: the model ranks of
+    its data coordinate that hold the same kv head when tp = r·nkv (model
+    ranks [h·r, (h+1)·r) hold kv head h, `tensor.local_heads`); None when
+    no head is replicated (r = 1) or without a mesh. Every rank of the
+    group makes every such group, in the same order, as `dist.new_group`
+    needs: call it on every rank together."""
+    if mesh is None:
+        return None
+    tp, dp = mesh_size(mesh, MODEL_AXIS), mesh_size(mesh, DATA_AXIS)
+    if tp <= nkv:
+        return None
+    r = tp // nkv
+    rank = dist.get_rank()
+    mine = None
+    for d in range(dp):
+        for h in range(nkv):
+            ranks = [d * tp + h * r + j for j in range(r)]
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                mine = group
+    return mine

@@ -222,7 +222,10 @@ class PPEngine:
     `params` is the whole tree (on any device); each rank keeps its part on
     `device`. `mesh`: an existing `make_pp_mesh(n_stages, tp)` (default: one
     over the process group). TP×PP with `quantization` raises JAX's
-    ValueError; a tp that splits a head raises NotImplementedError (A13,
+    ValueError, as does a tp that does not divide the kv heads or the q
+    heads (JAX's assertion, `time_r1_tpu/parallel/pipeline.py:460-463`: no
+    kv-head replication inside a stage, ROADMAP §C); a tp that does not
+    divide the vision's heads raises NotImplementedError (A13,
     `parallel/tensor.py::check_heads`)."""
 
     def __init__(self, params: dict, cfg, n_stages: int, dtype=torch.bfloat16, tp: int = 1,
@@ -238,6 +241,11 @@ class PPEngine:
                 "TP×PP with --quantization is unsupported: the quantized decode tree fuses qkv/gate-up columns, "
                 "which cannot be contiguously column-split over the model axis"
             )
+        nh, nkv = cfg.text.num_attention_heads, cfg.text.num_key_value_heads
+        if tp > 1 and (nkv % tp or nh % tp):
+            raise ValueError(f"TP×PP needs num_key_value_heads % tp == 0 and num_attention_heads % tp == 0 (whole "
+                             f"GQA groups a rank inside a stage): num_key_value_heads={nkv}, "
+                             f"num_attention_heads={nh}, tp={tp}")
         check_heads(cfg, tp)
         self.device = resolve_device(device)
         self.cfg, self.dtype = cfg, dtype

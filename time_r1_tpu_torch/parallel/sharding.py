@@ -17,6 +17,15 @@ rows would cut through q|k|v, which GSPMD reshards around and Megatron-style
 compute cannot; the split is a difference of layout that gives the same
 results (ROADMAP §C).
 
+Where tp is a multiple of the text kv heads (`parallel/tensor.py`), the k
+and v weights and biases are cut into nkv parts over "model" and rank m
+takes part m // r: each kv head is replicated on r = tp/nkv ranks
+(`Spec.replicas`; `param_specs(..., kv_heads=nkv)`,
+`ShardContext.with_kv_heads`). Gathering such a leaf takes one replica of
+each head (`fsdp.gather_whole`), the clip's norm counts it once
+(`global_sq_sum`), and the trainer sums the replicas' gradients over
+`ShardContext.kv_group`.
+
 Serving over a model group (`serving_params`, the tensor-parallel `Engine`
 of eval, data 1) takes the rank's blocks of the decoder layers and of the
 vision tower by the same table and keeps the embedding, the final norm and
@@ -88,6 +97,9 @@ PARAM_RULES: list[tuple[str, tuple]] = [
     (r"lora_b$", (M, None)),
 ]
 
+# the text k/v leaves: replicated over "model" where tp is a multiple of the kv heads (the module docstring)
+KV_RULE = r"^text/layers/\d+/(k_w|v_w|k_b|v_b)$"
+
 # fused leaves split per head over "model": (regex, parts along dim 0)
 FUSED_RULES: list[tuple[str, int]] = [
     (r"^visual/blocks/\d+/qkv_(w|b)$", 3),
@@ -98,10 +110,12 @@ FUSED_RULES: list[tuple[str, int]] = [
 class Spec:
     """How one leaf is sharded: the mesh axis of each dim (None: whole along
     it), and for a fused leaf the number of parts its dim 0 holds (q|k|v),
-    each split over "model" on its own."""
+    each split over "model" on its own; for a replicated kv leaf the model
+    ranks that hold each of its tp/replicas blocks."""
 
     dims: tuple
     parts: int = 1
+    replicas: int = 1  # model ranks that hold the same block (replicated kv heads): rank m takes block m // replicas
 
     def axis_dim(self, axis: str) -> Optional[int]:
         """The dim sharded over `axis`, or None."""
@@ -154,16 +168,29 @@ def _map(tree, fn, path: str = ""):
     return fn(path, tree)
 
 
-def param_specs(tree: Any, mesh) -> Any:
+def param_specs(tree: Any, mesh, kv_heads: Optional[int] = None) -> Any:
     """A tree of `Spec`s matching `tree` by the rule table (any device, the
-    `meta` one too), with JAX's `_divisible` applied to each leaf's shape."""
+    `meta` one too), with JAX's `_divisible` applied to each leaf's shape.
+    kv_heads: the text's kv heads, whose k/v leaves are replicated where the
+    model dim is a multiple of them (`replicated_kv`)."""
     sizes = mesh_sizes(mesh)
 
     def f(path, leaf):
         parts = fused_parts(path)
-        return Spec(_divisible(tuple(leaf.shape), spec_for_path(path), sizes, parts), parts)
+        spec = Spec(_divisible(tuple(leaf.shape), spec_for_path(path), sizes, parts), parts)
+        return replicated_kv(spec, sizes[M], kv_heads) if kv_heads and re.search(KV_RULE, path) else spec
 
     return _map(tree, f)
+
+
+def replicated_kv(spec: Spec, tp: int, nkv: int) -> Spec:
+    """A k/v leaf's spec over a model dim of tp with nkv kv heads: as it is
+    where tp divides nkv, else dim 0 cut into nkv heads over "model", each
+    on tp/nkv ranks (the rows are nkv·head_dim, so the cut never splits a
+    head)."""
+    if tp <= nkv:
+        return spec
+    return Spec((M,) + tuple(spec.dims[1:]), spec.parts, tp // nkv)
 
 
 def _heads_major(x: torch.Tensor, parts: int, n: int) -> torch.Tensor:
@@ -185,7 +212,8 @@ def shard_leaf(x: torch.Tensor, spec: Spec, sizes: dict, coords: dict) -> torch.
         x = _heads_major(x, spec.parts, sizes[M])
     for i, ax in enumerate(spec.dims):
         if ax is not None:
-            x = x.chunk(sizes[ax], dim=i)[coords[ax]]
+            n = sizes[ax] // spec.replicas if ax == M else sizes[ax]
+            x = x.chunk(n, dim=i)[coords[ax] // spec.replicas if ax == M else coords[ax]]
     return x.detach().clone(memory_format=torch.contiguous_format)
 
 
@@ -212,7 +240,11 @@ def _zip(tree, specs, fn):
 class ShardContext:
     """A mesh's groups and sizes, this rank's coordinates and the spec tree
     of the parameters (or the subtree `at` selects). Passed to the model's
-    layer functions, the loss and the optimizer's clip."""
+    layer functions, the loss and the optimizer's clip. kv_heads: the text's
+    kv heads its specs replicate where tp is a multiple of them (0: not
+    recorded, nothing replicated); kv_group: the process group of this
+    rank's kv-head replicas (`mesh.kv_replica_group`, the trainer's), over
+    which their gradients are summed."""
 
     data_group: Any
     model_group: Any
@@ -221,6 +253,8 @@ class ShardContext:
     data_rank: int
     model_rank: int
     specs: Any
+    kv_heads: int = 0
+    kv_group: Any = None
 
     @staticmethod
     def build(mesh, params) -> "ShardContext":
@@ -230,6 +264,22 @@ class ShardContext:
         sizes = mesh_sizes(mesh)
         return ShardContext(data_group(mesh), model_group(mesh), sizes[D], sizes[M], mesh.get_local_rank(D),
                             mesh.get_local_rank(M), param_specs(params, mesh))
+
+    def with_kv_heads(self, nkv: int) -> "ShardContext":
+        """The same context with the text's k/v specs replicated for nkv kv
+        heads (`replicated_kv`; where tp divides nkv they are unchanged):
+        how the trainer and the engines make a context their model's. A
+        context that recorded them is returned as it is."""
+        if self.kv_heads:
+            if self.kv_heads != nkv:
+                raise ValueError(f"a shard context built for {self.kv_heads} kv heads handed to a model of {nkv}")
+            return self
+        specs = self.specs
+        if isinstance(specs, dict) and isinstance(specs.get("text"), dict) and "layers" in specs["text"]:
+            layers = [{k: replicated_kv(s, self.tp, nkv) if k in ("k_w", "v_w", "k_b", "v_b") else s
+                       for k, s in lp.items()} for lp in specs["text"]["layers"]]
+            specs = dict(specs, text=dict(specs["text"], layers=layers))
+        return dataclasses.replace(self, specs=specs, kv_heads=nkv)
 
     @property
     def sizes(self) -> dict:
@@ -282,10 +332,13 @@ def global_sq_sum(blocks: list, specs: list, shard: ShardContext) -> torch.Tenso
     """Σ x² over the whole leaves that `blocks` (this rank's, one per spec)
     belong to, as an f32 0-d tensor equal on every rank: the blocks of a leaf
     sharded over an axis are summed over its group, and a leaf whole along an
-    axis (the same on every rank of it) is counted once."""
+    axis (the same on every rank of it) is counted once, as is a replicated
+    kv block (only the first of its replicas adds it)."""
     dev = blocks[0].device if blocks else torch.device("cpu")
     by = {(d, m): torch.zeros((), dtype=torch.float32, device=dev) for d in (False, True) for m in (False, True)}
     for x, s in zip(blocks, specs):
+        if shard.model_rank % s.replicas:
+            continue
         key = (D in s.dims and shard.dp > 1, M in s.dims and shard.tp > 1)
         by[key] = by[key] + x.float().pow(2).sum()
     if shard.dp > 1:
@@ -300,7 +353,7 @@ def global_sq_sum(blocks: list, specs: list, shard: ShardContext) -> torch.Tenso
 
 
 @torch.no_grad()
-def serving_layer(lp: dict, tp: int, m: int, bits: int = 0, device=None) -> dict:
+def serving_layer(lp: dict, tp: int, m: int, bits: int = 0, device=None, kv_heads: Optional[int] = None) -> dict:
     """Model rank m's serving form of one whole decoder layer (the port's
     unfused per-layer dict): its blocks by the rule table (`shard_leaf` at
     data 1); with bits 8 or 4 each projection quantized whole, its q8 (or
@@ -309,7 +362,9 @@ def serving_layer(lp: dict, tp: int, m: int, bits: int = 0, device=None) -> dict
     column-parallel leaves, whole for the row-parallel ones: the module
     docstring), and the rank's q | k | v and gate | up then fused
     (`ops/quant.py::quantize_layer`). `device`: where the leaves go (the
-    quantization runs there)."""
+    quantization runs there). kv_heads: the text's kv heads; where tp is a
+    multiple of them the rank takes its whole replicated kv head
+    (`replicated_kv`), rows and scales alike."""
     from ..ops.quant import is_quantized, quantize_layer, quantize_weight
 
     if "qkv" in lp or "gu" in lp or any(is_quantized(v) for v in lp.values()):
@@ -317,7 +372,7 @@ def serving_layer(lp: dict, tp: int, m: int, bits: int = 0, device=None) -> dict
     if bits not in (0, 8, 4):
         raise ValueError(f"serving weights are bf16, int8 or int4, not {bits} bits")
     sizes, coords = {D: 1, M: tp}, {D: 0, M: m}
-    specs = param_specs({"text": {"layers": [lp]}}, sizes)["text"]["layers"][0]
+    specs = param_specs({"text": {"layers": [lp]}}, sizes, kv_heads)["text"]["layers"][0]
     key = "q8" if bits == 8 else "q4"
 
     def cut(x: torch.Tensor, spec: Spec):
@@ -328,7 +383,8 @@ def serving_layer(lp: dict, tp: int, m: int, bits: int = 0, device=None) -> dict
         split = spec.axis_dim(M)
         if split is not None and q[key].shape[split] % tp:  # int4 over K/2 bytes: a byte holds two k
             raise ValueError(f"a {tuple(q[key].shape)} {key} leaf cannot split over {tp} model ranks")
-        return {key: shard_leaf(q[key], spec, sizes, coords), "s": shard_leaf(q["s"], Spec(spec.dims[:1]), sizes, coords)}
+        return {key: shard_leaf(q[key], spec, sizes, coords),
+                "s": shard_leaf(q["s"], Spec(spec.dims[:1], replicas=spec.replicas), sizes, coords)}
 
     out = {k: cut(v, specs[k]) for k, v in lp.items()}
     return quantize_layer(out, bits=bits, fuse=True) if bits else out
@@ -371,7 +427,8 @@ def serving_params(params: dict, shard: "ShardContext", bits: int = 0, device=No
 
     text = {k: to(v) for k, v in params["text"].items() if k != "layers"}
     text = quantize_text_params(dict(text, layers=[]), bits=bits) if bits else text
-    text["layers"] = [serving_layer(lp, shard.tp, shard.model_rank, bits, device) for lp in params["text"]["layers"]]
+    text["layers"] = [serving_layer(lp, shard.tp, shard.model_rank, bits, device, shard.kv_heads or None)
+                      for lp in params["text"]["layers"]]
     vis = shard.at("visual")
     visual = _zip(params["visual"], vis.specs, lambda x, sp: shard_leaf(to(x), sp, vis.sizes, vis.coords))
     return ServingTree({"visual": visual, "text": text}, shard.tp, shard.model_rank, bits)

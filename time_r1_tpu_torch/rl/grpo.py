@@ -450,7 +450,8 @@ def grpo_value_and_grad(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, 
     every rank holds the whole batch's. Over sharded params (`shard`) each
     grad is the sum over the data group of this rank's block: the
     data-sharded leaves' were reduce-scattered in the backward, the others
-    are all-reduced here."""
+    are all-reduced here; a replicated kv block's is then summed over its
+    replicas (`shard.kv_group`)."""
     leaves = trainable_leaves(params, hp.fix_vit)
     for p in leaves:
         p.requires_grad_(True)
@@ -460,9 +461,18 @@ def grpo_value_and_grad(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, 
     loss = loss.detach().reshape(1)
     if shard is None:
         _reduce(grads + [loss], cp, group)
-    elif shard.dp > 1:
-        whole = [g for g, s in zip(grads, trainable_leaves(shard.specs, hp.fix_vit)) if s.axis_dim(DATA_AXIS) is None]
+        return loss[0], metrics, grads
+    specs = trainable_leaves(shard.specs, hp.fix_vit)
+    if shard.dp > 1:
+        whole = [g for g, s in zip(grads, specs) if s.axis_dim(DATA_AXIS) is None]
         all_reduce_sum(whole + [loss], shard.data_group)
+    if shard.kv_group is not None:
+        # a replicated kv head's gradient on each replica is the part its own q heads reach (the data-sharded
+        # blocks' already reduce-scattered over "data"): their sum over the replicas is the head's. The sum comes
+        # out bit-equal on every replica, and so do the clip's norm (`global_sq_sum`) and the optimizer's
+        # elementwise update of bit-equal parameters and state, device-resident or offloaded (`rl/optim.py`
+        # runs the same arithmetic on each): the replicas stay bit-equal step after step
+        all_reduce_sum([g for g, s in zip(grads, specs) if s.replicas > 1], shard.kv_group)
     return loss[0], metrics, grads
 
 

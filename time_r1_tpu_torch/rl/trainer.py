@@ -76,9 +76,13 @@ torchrun launches one process a rank):
   model group: all its ranks train on the same rows. The dataset shard, the
   loss normalizer, the metric gather and the gradient sums go by the data
   coordinate and the data group; a save gathers to global rank 0 (the
-  optimizer state too) and a resume loads and shards. Refused by name
-  (ROADMAP A13): a tp that does not divide the kv or vision heads, use_peft,
-  context parallelism or a quantized base with model > 1. A LoRA trainer
+  optimizer state too) and a resume loads and shards. Where tp is a
+  multiple of the kv heads each kv head is replicated on tp/nkv model ranks
+  (`parallel/tensor.py`): their gradients are summed over the replicas
+  after the backward and the replicas stay bit-equal. Refused by name
+  (ROADMAP A13): a tp that does not divide the q or vision heads
+  (`check_heads`), use_peft, context parallelism or a quantized base with
+  model > 1. A LoRA trainer
   keeps PR 19's data parallelism (adapters and base whole on every rank).
 - data parallelism: each rank trains its own shard of the dataset (padded to
   a common length by modular repetition, so that no rank's shard runs out
@@ -132,7 +136,7 @@ from ..models.qwen25vl.convert import (
 from ..models.qwen25vl.model import vision_signature
 from ..ops.quant import QBITS, is_quantized, quantize_layer, quantize_text_params
 from ..parallel.comm import all_gather_vector
-from ..parallel.mesh import MODEL_AXIS, data_group, mesh_coordinate, mesh_size, model_group
+from ..parallel.mesh import MODEL_AXIS, data_group, kv_replica_group, mesh_coordinate, mesh_size, model_group
 from ..parallel.ring_attention import ContextParallel
 from ..parallel.sharding import ShardContext, gather_params, shard_leaf
 from ..parallel.tensor import check_heads
@@ -381,7 +385,9 @@ class GRPOTrainer:
         # reference sharded by the rule table (the engine gets a gathered copy)
         self.shard = None
         if mesh is not None and not config.use_peft:
-            self.shard = ShardContext.build(mesh, params)
+            nkv = cfg.text.num_key_value_heads
+            self.shard = dataclasses.replace(ShardContext.build(mesh, params).with_kv_heads(nkv),
+                                             kv_group=kv_replica_group(mesh, nkv))
             self._whole_numels = [p.numel() for p in trainable_leaves(params, config.fix_vit)]
             self.params = self.shard.shard(params)
             if self.ref_params is not None:

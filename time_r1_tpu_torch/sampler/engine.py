@@ -352,7 +352,9 @@ class Engine:
     of the model group calls `generate` / `last_token_logits` together, with
     the same requests. Its decode is eager (the module docstring); FSDP
     shards raise NotImplementedError (A13), as `check_heads` does for a tp
-    that splits a head."""
+    that would split a q or vision head. Where tp is a multiple of the kv
+    heads each rank holds one replicated kv head (`parallel/tensor.py`):
+    the context takes the model's kv heads (`ShardContext.with_kv_heads`)."""
 
     def __init__(
         self,
@@ -377,6 +379,7 @@ class Engine:
             from ..parallel.tensor import check_heads
 
             check_heads(cfg, shard.tp)
+            shard = self.shard = shard.with_kv_heads(cfg.text.num_key_value_heads)
             self._vis_shard = shard.at("visual")
         # a mesh's decode is eager: its collectives stage through host memory over gloo
         self.capture = shard is None

@@ -43,13 +43,14 @@ over bf16 or int8 pages.
 
 Tensor parallelism (`shard=`, the TP `Engine`'s `ShardContext` over a mesh
 of data 1): the prefill engine is the TP `Engine` over the rank's serving
-tree, the pool holds the rank's kv heads (nkv/tp, G unchanged), each decode
-step runs the rank's heads and MLP width with one all-reduce after o and
-after down, and model-rank 0 samples every token (the first of each
-admission too) and broadcasts it (`engine.token_pick`). Every rank thus
-holds the same tokens, so the host takes the same admissions, page
-allocations and retirements on every rank. The decode is eager under a
-shard (`PagedDecode(capture=False)`, as the TP `Engine`'s; ROADMAP §C).
+tree, the pool holds the rank's kv heads (nkv/tp, G unchanged; its one
+replicated head where tp is a multiple of nkv), each decode step runs the
+rank's heads and MLP width with one all-reduce after o and after down, and
+model-rank 0 samples every token (the first of each admission too) and
+broadcasts it (`engine.token_pick`). Every rank thus holds the same tokens,
+so the host takes the same admissions, page allocations and retirements on
+every rank. The decode is eager under a shard (`PagedDecode(capture=False)`,
+as the TP `Engine`'s; ROADMAP §C).
 Side-path LoRA over a shard is refused by the TP `Engine` (A13).
 """
 
@@ -66,7 +67,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..models.qwen25vl import Qwen25VLConfig
-from ..models.qwen25vl.language import _heads, _rms_norm, lm_logits, mrope_cos_sin
+from ..models.qwen25vl.language import _heads, _mlp_shard, _rms_norm, lm_logits, mrope_cos_sin
 from ..ops.attention import rope
 from ..ops.paged_attention import combine_with_new_token, paged_prefix_attention, paged_prefix_attention_q8
 from ..ops.quant import attn_out_proj, attn_qkv_proj, embed_lookup, mlp_proj, quantize_kv
@@ -106,7 +107,7 @@ class PageAllocator:
 def make_pool(cfg: Qwen25VLConfig, n_pages: int, page_size: int, slots: int, max_pages: int,
               dtype=torch.bfloat16, kv_quant: bool = False, device="cuda", shard=None) -> PagedPool:
     """An empty pool; kv_quant=True gives int8 pages with zero scales. shard
-    (a ShardContext): the rank's kv heads, nkv/tp."""
+    (a ShardContext): the rank's kv heads (`language._heads`)."""
     device = resolve_device(device)
     t = cfg.text
     shape = (t.num_hidden_layers, _heads(t, shard)[1], n_pages, page_size, t.head_dim)
@@ -169,6 +170,7 @@ def decode_layers(params: dict, cfg: Qwen25VLConfig, last: torch.Tensor, pos: to
     (rows, V), new K and V (L, rows, Hkv, hd))."""
     tcfg = cfg.text
     nh, nkv, hd = _heads(tcfg, shard)
+    mlp_tp = _mlp_shard(tcfg, shard)
     eps = tcfg.rms_norm_eps
     text = params["text"]
     rows = last.shape[0]
@@ -183,7 +185,7 @@ def decode_layers(params: dict, cfg: Qwen25VLConfig, last: torch.Tensor, pos: to
         k = rope(k, cos_b, sin_b).to(x.dtype)
         attn = attend(li, q, k, v)
         x = x + attn_out_proj(attn.reshape(rows, 1, nh * hd).to(x.dtype), lp, side, tp=shard)
-        x = x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp, lora=side, tp=shard)
+        x = x + mlp_proj(_rms_norm(x, lp["post_attention_layernorm"], eps), lp, lora=side, tp=mlp_tp)
         new_k.append(k[:, 0])
         new_v.append(v[:, 0])
     logits = lm_logits(text, tcfg, _rms_norm(x, text["norm"], eps))[:, 0]
