@@ -310,7 +310,20 @@ Phases (any failed check raises and the exit code is non-zero):
    2752 and 1376. `scripts/check_parallel.py j`, 4 cards only: the 3B at
    full depth through `cli.evaluate` (test.sh's flags) and `cli.train` at
    tp 4 over NCCL against one card's, then tp 8 over 8 gloo ranks on the
-   first card.
+   first card;
+18. the parity harness against HF transformers at full width: for
+   Qwen2.5-VL-3B (tied head) and -7B (untied) at PARITY_LAYERS (2) decoder
+   layers and PARITY_VISION_DEPTH (8) vision blocks (blocks 0-6 windowed,
+   block 7 full), `Qwen2_5_VLForConditionalGeneration` initialised by
+   transformers after a seed and written by `save_pretrained` in bf16
+   (`hf_parity_checkpoint`), then `time_r1_tpu_torch.cli.parity.main` with
+   --skip_demo --skip_benchmark on the card: activations "pass" (each
+   layer, the logits within the harness's atol/rtol; "skip" fails), every
+   layer's max |diff| printed, the bf16 argmax agreement, K2 7 and K3 1
+   launches on the FMA kernels in the f32 forward and on the tensor cores
+   in the bf16 one, K1 none (the prompt's 55 tokens are no multiple of
+   128). `scripts/check_parity.py b`: both at full depth through `python -m
+   time_r1_tpu_torch.cli.parity`.
 
 From phase 3 on, every `Engine` and `PagedEngine` decode on the card is a
 captured CUDA graph replayed once a step (`time_r1_tpu_torch/sampler/graph.py`;
@@ -329,7 +342,9 @@ each bf16 run of the TP Engine and of PPEngine, [rank 0, rank 1]
 (`launches_tp_engine`, `launches_pp_engine`); those of K1-K3, P1, P2, Q1,
 Q2 and D2 phase 16's, [rank 0, rank 1] (`launches_tp_paged`,
 `launches_tp_continuous`, `launches_tp_int4`); those of phase 17's bf16
-runs and step, [rank 0, ..., rank 3] (`launches_kv_replicated`); and D2's,
+runs and step, [rank 0, ..., rank 3] (`launches_kv_replicated`); those of
+K2 and K3 phase 18's, by model (`launches_parity`, `tc_launches_parity`);
+and D2's,
 Q2's, P1's, P2's and Q1's their TP-local cases under their tags.
 
 The last three lines are the card's name and power limit (nvidia-smi), the
@@ -8974,6 +8989,136 @@ def phase_three_b_tp4(card: str) -> dict:
     return {"ranks": ranks, "tp8": tp8}
 
 
+# ---------------------------------------------------------------------------
+# phase 18
+PARITY_LAYERS = 2  # the decoder depth of phase 18's checkpoints (36 / 28 at full depth: scripts/check_parity.py)
+PARITY_VISION_DEPTH = 8  # blocks 0-6 windowed (K2), block 7 full attention (K3), as at 32 blocks
+PARITY_MODELS = ("3b", "7b")  # the tied head and the untied one, which the HF loader reads apart
+HF_TOP_LEVEL = ("image_token_id", "video_token_id", "vision_start_token_id", "vision_end_token_id",
+                "bos_token_id", "eos_token_id", "pad_token_id", "tie_word_embeddings")
+
+
+def parity_config(name: str, layers: int = None, vision_depth: int = None):
+    """Qwen2.5-VL-3B or -7B at its published widths, its depths cut where
+    given; the full-attention blocks kept are those below the cut."""
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
+
+    cfg = Qwen25VLConfig.qwen25vl_3b() if name == "3b" else Qwen25VLConfig.qwen25vl_7b()
+    if layers is not None:
+        cfg = replace(cfg, text=replace(cfg.text, num_hidden_layers=layers))
+    if vision_depth is not None:
+        full = tuple(i for i in cfg.vision.fullatt_block_indexes if i < vision_depth)
+        cfg = replace(cfg, vision=replace(cfg.vision, depth=vision_depth, fullatt_block_indexes=full))
+    return cfg
+
+
+def hf_parity_checkpoint(cfg, path: str, seed: int = 0, device: str = "cuda") -> float:
+    """transformers' Qwen2_5_VLForConditionalGeneration at `cfg`'s shapes,
+    its weights drawn by transformers' own initialisation after
+    torch.manual_seed(seed) on `device`, written by save_pretrained
+    (safetensors) in bf16, the published checkpoints' dtype. The token ids
+    and the head's tying also at the top level of config.json, where the
+    published configs carry them (save_pretrained nests them under
+    text_config). Returns the GB written."""
+    import torch
+    from transformers import Qwen2_5_VLConfig, Qwen2_5_VLForConditionalGeneration
+
+    from time_r1_tpu_torch.models.qwen25vl.convert import config_to_hf_dict
+
+    text = config_to_hf_dict(cfg)
+    vision = text.pop("vision_config")
+    top = {k: text[k] for k in HF_TOP_LEVEL}
+    for k in ("architectures", "model_type", "torch_dtype"):
+        text.pop(k)
+    hf_cfg = Qwen2_5_VLConfig(text_config=text, vision_config=vision, **top)
+    torch.manual_seed(seed)
+    with torch.device(device):
+        model = Qwen2_5_VLForConditionalGeneration(hf_cfg)
+    model.to(device="cpu", dtype=torch.bfloat16).save_pretrained(path, safe_serialization=True)
+    del model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    cfg_path = os.path.join(path, "config.json")
+    with open(cfg_path) as f:
+        written = json.load(f)
+    written.update(top)
+    with open(cfg_path, "w") as f:
+        json.dump(written, f)
+    return sum(os.path.getsize(os.path.join(path, n)) for n in os.listdir(path)) / 1e9
+
+
+def parity_run(card: str, name: str, cfg, ckpt: str, out_dir: str) -> dict:
+    """`cli.parity.main` with --skip_demo --skip_benchmark on `ckpt` (at
+    `cfg`) on the card, its launch counts read around it: the report's
+    activations must pass ("skip" fails), K2 and K3 run once a windowed and
+    a full block in the f32 forward (FMA) and in the bf16 one (tensor
+    cores), K1 not at all."""
+    from time_r1_tpu_torch.cli import parity
+
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = parity.main(parity.get_args(["--model_base", ckpt, "--output_dir", out_dir, "--skip_demo",
+                                      "--skip_benchmark"]), device="cuda")
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    with open(os.path.join(out_dir, "parity_report.json")) as f:
+        report = json.load(f)["activations"]
+    status, detail = report["status"], report["detail"]
+    for line in detail.splitlines():
+        log(f"[parity {name}] {line}")
+    if rc != 0 or status != "pass":
+        raise AssertionError(f"phase 18 ({name}): cli.parity returned {rc}, activations {status!r}")
+    full = len(cfg.vision.fullatt_block_indexes)
+    for kname, n in (("window_attention_rope", cfg.vision.depth - full), ("full_attention_rope", full)):
+        tc, all_ = launches[f"{kname}_tc"], launches[kname]
+        log(f"[parity {name}] {kname}: {tc} tensor-core launches in the bf16 forward, {all_ - tc} FMA in the f32 one")
+        if tc != n or all_ - tc != n:
+            raise AssertionError(f"phase 18 ({name}): {kname} ran {tc} tensor-core and {all_ - tc} FMA launches, "
+                                 f"want {n} of each")
+    if launches["flash_attention"]:
+        raise AssertionError(f"phase 18 ({name}): K1 launched {launches['flash_attention']} times")
+    tokens = parity._fixed_prompt(cfg, (4, 6, 8)).shape[1]  # the harness's grid at the published patch width
+    log(f"[parity {name}] flash_attention: 0 launches: the harness's prompt is {tokens} tokens, not a multiple of 128 "
+        "(`_flash_eligible`, time_r1_tpu_torch/models/qwen25vl/language.py:213)")
+    log(f"[parity {name}] cli.parity.main: {seconds:.1f} s; {card}")
+    return {"launches": launches, "seconds": seconds, "detail": detail}
+
+
+def phase_parity(card: str) -> dict:
+    """Phase 18: the parity harness at full width. For the 3B and the 7B at
+    PARITY_LAYERS decoder layers and PARITY_VISION_DEPTH vision blocks, an
+    HF checkpoint that transformers wrote (`hf_parity_checkpoint`) through
+    `cli.parity.main` on the card (`parity_run`). Writes ~5 GB under TMPDIR,
+    deleted at the end."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    import transformers
+
+    log(f"[parity] transformers {transformers.__version__} imported in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    root = tempfile.mkdtemp(prefix="timer1_parity_")
+    try:
+        for name in PARITY_MODELS:
+            t0 = time.perf_counter()
+            cfg = parity_config(name, PARITY_LAYERS, PARITY_VISION_DEPTH)
+            ckpt = os.path.join(root, name)
+            gb = hf_parity_checkpoint(cfg, ckpt)
+            log(f"[parity {name}] transformers wrote {gb:.2f} GB ({cfg.text.num_hidden_layers} decoder layers, "
+                f"{cfg.vision.depth} vision blocks, tied head {cfg.text.tie_word_embeddings}) in "
+                f"{time.perf_counter() - t0:.1f} s")
+            out[name] = parity_run(card, name, cfg, ckpt, os.path.join(root, f"{name}_out"))
+            shutil.rmtree(ckpt)
+            torch.cuda.empty_cache()
+            log(f"[parity {name}] {time.perf_counter() - t0:.1f} s with the checkpoint; {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def timed(phase, *args):
     """phase(*args), its seconds logged."""
     t0 = time.perf_counter()
@@ -9024,6 +9169,7 @@ def main() -> int:
     mesh = timed(phase_mesh_serving, card)
     # 4 ranks over gloo: the 3B's 2 kv heads at tp 4, each on 2 ranks: the TP Engine, PagedEngine, a step_batch (17)
     kvrep = timed(phase_kv_replication, card)
+    parity = timed(phase_parity, card)  # cli.parity against HF transformers: the 3B and the 7B at full width (18)
     for tag, name in zip("ab", PAGED_KERNELS):
         quant_launches[name] = serve[tag]["launches"][name]
         quant_launches[f"{name}_tc"] = serve[tag]["launches"][f"{name}_tc"]
@@ -9128,6 +9274,10 @@ def main() -> int:
         runs = {n: [r[k["name"]] for r in ranks] for n, ranks in kvrep.items() if k["name"] in ranks[0]}
         if any(any(v) for v in runs.values()):
             k["launches_kv_replicated"] = runs
+    for k in kernels:  # phase 18: cli.parity's f32 and bf16 forwards (K2, K3 FMA + tensor-core), by model
+        if k["name"] in FWD_TC and any(r["launches"][k["name"]] for r in parity.values()):
+            k["launches_parity"] = {m: r["launches"][k["name"]] for m, r in parity.items()}
+            k["tc_launches_parity"] = {m: r["launches"][f"{k['name']}_tc"] for m, r in parity.items()}
     close_rank_pool()
     log(f"[env] chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included")
     print(card, flush=True)

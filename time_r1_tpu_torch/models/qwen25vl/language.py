@@ -236,8 +236,14 @@ def decoder_forward(
     shard=None,  # parallel.sharding.ShardContext over the text params: FSDP and TP layers
     layer_offset: int = 0,  # a pipeline stage's first layer: params["layers"] are layers offset, offset + 1, ...
     final_norm: bool = True,  # False: the hidden state before the final norm (a pipeline stage's)
+    collect_hiddens: bool = False,  # also return every layer's output (cli/parity.py)
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Run all decoder layers; returns (hidden (B, S, hid), updated cache).
+
+    collect_hiddens=True (the no-cache path only, as in JAX) returns
+    (hidden, None, per_layer): per_layer (L, B, S, hid) stacks each layer's
+    output before the final norm, HF's `output_hidden_states` slots 1..L.
+    cli/parity.py diffs them layer by layer against HF transformers.
 
     A pipeline stage (`parallel/pipeline.py`) passes its own layers as
     params["layers"], their first index as `layer_offset` (the sliding-window
@@ -272,6 +278,8 @@ def decoder_forward(
     window); its cache is a new one stacked from the per-layer K/V, written
     nowhere in place, so the prompt forward of the loss is differentiable in
     them."""
+    if collect_hiddens and (cache is not None or cp is not None or shard is not None or lora_side is not None):
+        raise ValueError("collect_hiddens takes the no-cache forward only: no cache, cp, shard or lora_side")
     nh, nkv, hd = _heads(cfg, shard)
     eps = cfg.rms_norm_eps
     B, S, _ = hidden.shape
@@ -380,13 +388,17 @@ def decoder_forward(
         raise ValueError("remat takes a forward that writes no cache in place (no cache, or one it fills)")
     layer_fn = _layer_remat(layer, remat)
     x = hidden
-    layer_kv = []
+    layer_kv, per_layer = [], []
     for li, lp in enumerate(params["layers"]):
         x, k, v = layer_fn(x, lp, li)
         if fills:
             layer_kv.append((k, v))
+        if collect_hiddens:
+            per_layer.append(x)
 
     hidden = _rms_norm(x, params["norm"], eps) if final_norm else x
+    if collect_hiddens:
+        return hidden, None, torch.stack(per_layer)
     if fills:
         ks, vs = zip(*layer_kv)
         new_cache = KVCache(torch.stack(ks).to(cache.k.dtype), torch.stack(vs).to(cache.v.dtype), S)

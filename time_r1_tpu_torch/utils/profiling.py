@@ -4,12 +4,15 @@ PyTorch returns from a CUDA call once the work is enqueued, so by default a
 phase measures the host's dispatch time and the device's cost lands wherever
 the host next waits. With `sync=True` (or TIMER1_SYNC_TIMERS=1) each phase
 boundary calls `torch.cuda.synchronize()`: phase times become device costs,
-at the price of the overlap between host and device.
+at the price of the overlap between host and device. `trace(log_dir)` wraps
+a region in a `torch.profiler` window (the counterpart of JAX's
+`xla_trace`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from collections import defaultdict
@@ -52,3 +55,36 @@ class PhaseTimers:
             }
             for k in self.totals
         }
+
+    def write(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.summary(), f, indent=2)
+
+    def reset(self) -> None:
+        self.totals.clear()
+        self.counts.clear()
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]):
+    """Profile the wrapped region with `torch.profiler` (CPU activity, and
+    CUDA activity where a card is present) and write its Chrome trace,
+    viewable in Perfetto, under `log_dir`; does nothing when log_dir is empty
+    or None."""
+    if not log_dir:
+        yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+GLOBAL_TIMERS = PhaseTimers()

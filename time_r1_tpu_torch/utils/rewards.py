@@ -3,8 +3,10 @@
 A copy of the JAX package's `time_r1_tpu/utils/rewards.py` (pure host code,
 no jax), kept here because the port imports nothing of that package: the
 timestamp parser, the tIoU rewards, the format reward, the MCQ reward, the
-think-section metrics and the two registries. The ROUGE-L diversity reward,
-which no registry names, is not copied.
+think-section metrics, the ROUGE-L diversity reward (which no registry names,
+as in JAX) and the two registries. The diversity reward's stemmer is nltk's
+Porter stemmer, imported where it is first used: without nltk it raises
+ImportError, where JAX's returns the tokens unstemmed.
 
 All functions take `completions: list[str]` plus per-sample kwargs and return
 `list[float]` (or None entries where a metric does not apply).
@@ -12,6 +14,7 @@ All functions take `completions: list[str]` plus per-sample kwargs and return
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import List, Optional, Sequence
 
@@ -227,6 +230,73 @@ def reward_paragraph_structure(
             score = 0.0
         out.append(max(0.0, score))
     return out
+
+
+def _lcs_length(a: Sequence[str], b: Sequence[str]) -> int:
+    """Token-level longest-common-subsequence length (for ROUGE-L)."""
+    if not a or not b:
+        return 0
+    prev = [0] * (len(b) + 1)
+    for x in a:
+        cur = [0] * (len(b) + 1)
+        for j, y in enumerate(b, start=1):
+            if x == y:
+                cur[j] = prev[j - 1] + 1
+            else:
+                cur[j] = max(prev[j], cur[j - 1])
+        prev = cur
+    return prev[-1]
+
+
+@functools.cache
+def _porter():
+    from nltk.stem import porter
+
+    return porter.PorterStemmer()
+
+
+def _stem_tokens(text: str) -> List[str]:
+    """rouge_score-style tokenization: lowercase alphanumeric tokens, the
+    Porter stem of each token longer than 3 characters (the reference's
+    diversity_reward_func, main.py:375-377, use_stemmer=True)."""
+    tokens = re.findall(r"[a-z0-9]+", text.lower())
+    stemmer = _porter()
+    return [stemmer.stem(t) if len(t) > 3 else t for t in tokens]
+
+
+def rouge_l_fmeasure(a: str, b: str, use_stemmer: bool = True) -> float:
+    """ROUGE-L F-measure on token sequences (the rouge_score dependency
+    written out)."""
+    ta = _stem_tokens(a) if use_stemmer else re.findall(r"[a-z0-9]+", a.lower())
+    tb = _stem_tokens(b) if use_stemmer else re.findall(r"[a-z0-9]+", b.lower())
+    if not ta or not tb:
+        return 0.0
+    lcs = _lcs_length(ta, tb)
+    if lcs == 0:
+        return 0.0
+    precision = lcs / len(tb)
+    recall = lcs / len(ta)
+    return 2 * precision * recall / (precision + recall)
+
+
+def diversity_reward_func(completions: Sequence[str], num_generations: int = 8, **kwargs) -> List[float]:
+    """Mean pairwise (1 - ROUGE-L) dissimilarity within each G-sized rollout
+    group (main.py:369-413; registered but disabled by default there)."""
+    if not completions:
+        return []
+    batch_size = len(completions) // num_generations
+    rewards: List[float] = []
+    for i in range(batch_size):
+        group = [str(c) for c in completions[i * num_generations: (i + 1) * num_generations]]
+        for j in range(num_generations):
+            total, count = 0.0, 0
+            for k in range(num_generations):
+                if j == k:
+                    continue
+                total += 1.0 - rouge_l_fmeasure(group[j], group[k])
+                count += 1
+            rewards.append(total / count if count else 0.0)
+    return rewards
 
 
 REWARD_FUNCS_REGISTRY = {
