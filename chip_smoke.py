@@ -56,7 +56,7 @@ Phases (any failed check raises and the exit code is non-zero):
    merged inside each remat-checkpointed layer: loss, metrics and every
    adapter gradient, card against CPU (`phase_reduced_lora`);
 3c. the quantized G-way decode at reduced depth, int8 weights and int8 KV,
-   then int4 weights: 16 teacher-forced steps, card (D2, Q2, Q1) against CPU
+   then int4 weights: QUANT_STEPS (8) teacher-forced steps, card (D2, Q2, Q1) against CPU
    (plain paths) on every step's logits, Q1 on its FMA kernel only;
 3d. continuous batching at reduced depth (f32, one 8-frame video and four
    text requests through 2 slots): equal greedy tokens card against CPU for
@@ -111,7 +111,7 @@ Phases (any failed check raises and the exit code is non-zero):
    3B's special ids: the resize on the card with TF32 requested (at most 1
    gray level off the host's, on under 1e-3 of the pixels), a 32 s clip at
    10 fps (64 frames at 196x392, 3136 video tokens) served through the
-   trainer's engine at bucket 4096, greedy, 128 tokens, and two
+   trainer's engine at bucket 4096, greedy, 32 tokens, and two
    `step_batch([example])` calls with requests=None on a 4 s clip at 30 fps
    (8 frames at 364x644, 1196 video tokens, bucket 2048), prepare_requests
    inside host_preproc, the same requests prepared meanwhile on a worker
@@ -169,10 +169,10 @@ Phases (any failed check raises and the exit code is non-zero):
    page-locked host memory, once phase 11's model is freed (it writes up to
    26 GB under TMPDIR and deletes it): (a) seeded bf16 7B weights and a
    reference copy under `GRPOTrainer` with offload_optimizer, remat, int8
-   rollouts, beta 0.04, G = 8, 200 tokens, accumulation 2, 4 step_batch
-   calls on 2 examples of phase 8's 4 s clip: MemAvailable above the state's
+   rollouts, beta 0.04, G = 8, FULL_PARAM_7B_TOKENS (64) tokens, accumulation
+   2, FULL_PARAM_7B_CALLS (2) step_batch calls on 2 examples of phase 8's 4 s clip: MemAvailable above the state's
    bytes plus 8 GiB before it is pinned, what PyTorch's pinned allocator
-   takes for a quarter of one tree's bytes (in a process of its own), then every
+   takes for an eighth of one tree's bytes (in a process of its own), then every
    offloaded leaf pinned
    with exactly its bytes, the peak under 79 GiB, a decoder weight moved and
    the ViT unchanged, per call exactly K1 112, S1 84, B1 28, B2 56, S2 28 +
@@ -323,7 +323,28 @@ Phases (any failed check raises and the exit code is non-zero):
    launches on the FMA kernels in the f32 forward and on the tensor cores
    in the bf16 one, K1 none (the prompt's 55 tokens are no multiple of
    128). `scripts/check_parity.py b`: both at full depth through `python -m
-   time_r1_tpu_torch.cli.parity`.
+   time_r1_tpu_torch.cli.parity`;
+19. the training configurations that JAX runs and the port once refused
+   (ROADMAP A13), Qwen2.5-VL-3B at full width, MESH_VISION_DEPTH (8)
+   vision blocks, each part against one process's: in phase 14's spawn of
+   2 ranks (a) LoRA r 16 over a 1x2 mesh (`GRPOTrainer(use_peft=True)`, the
+   base sharded, the adapters whole), one `step_batch` with int8 rollouts
+   at A13_LAYERS (2) in bf16 and in f32: the gathered, merged int8 rollout
+   copy bit-equal to one process's `merge_quantize`, the loss and the
+   adapters' gradient (the first moments) within DP_TOL / CP_BF16_TOL's
+   whole (bf16) or A13_F32_TOL (f32), the ranks' adapters equal; (c) phase
+   14's FSDP trainer (2x1) with the ViT trained and data rank 1's example
+   text-only (its tower runs on a placeholder video), one step against one
+   process's over both examples; in phase 17's spawn of 4 ranks on a 2x2
+   mesh (CP 2 on the zig-zag ring over "data", TP 2 over "model") (b) the
+   full-row loss step at A13_LAYERS and (d) LoRA r 16 under CP at
+   A13_LORA_CP_LAYERS (1), every adapter merged into the rank's base blocks
+   before the loss, bf16, remat "full", the loss, metrics and gradients at
+   CP_BF16_TOL. Each part's launches of K1, B1, B2, S1, S2, K2, K3, D2 and
+   Q2 on every rank by the formula (`a13_launches`), on the tensor cores in
+   bf16. `scripts/check_parallel.py l` runs phase 19 alone; `m`, 4 cards
+   only: the 7B's LoRA r 16 over its bf16 base at tp 4 through `cli.train`
+   over NCCL against one card's.
 
 From phase 3 on, every `Engine` and `PagedEngine` decode on the card is a
 captured CUDA graph replayed once a step (`time_r1_tpu_torch/sampler/graph.py`;
@@ -331,7 +352,7 @@ ContinuousEngine stays eager), and the launch checks read the wrappers'
 counters, which each replay advances by what its capture recorded. Phases 4,
 5, 6 and 7 (a), (b) also time their decode eagerly and captured in turns
 (4-6 over TURN_TOKENS a row, 7 over its stream);
-phase 5 profiles 16 steady rollout steps of each (the device's idle share,
+phase 5 profiles WINDOW_STEPS (8) steady rollout steps of each (the device's idle share,
 D2's launches by name).
 
 The kernels' entries for K1, B1 and B2 also give phase 13 (b)'s launches
@@ -344,6 +365,8 @@ Q2 and D2 phase 16's, [rank 0, rank 1] (`launches_tp_paged`,
 `launches_tp_continuous`, `launches_tp_int4`); those of phase 17's bf16
 runs and step, [rank 0, ..., rank 3] (`launches_kv_replicated`); those of
 K2 and K3 phase 18's, by model (`launches_parity`, `tc_launches_parity`);
+those of K1-K3, B1, B2, S1, S2, D2 and Q2 phase 19's, by part, [rank 0, ...]
+(`launches_a13`);
 and D2's,
 Q2's, P1's, P2's and Q1's their TP-local cases under their tags.
 
@@ -2737,7 +2760,7 @@ def phase_reduced_lora() -> None:
     import torch
 
     from time_r1_tpu_torch.rl import GRPOHyperParams, build_grpo_split_batch, grpo_loss
-    from time_r1_tpu_torch.rl.grpo import compute_ref_logps, precompute_frozen_vision
+    from time_r1_tpu_torch.rl.grpo import Adapters, compute_ref_logps, precompute_frozen_vision
     from time_r1_tpu_torch.rl.lora import lora_layers_tree, lora_leaves, merge_lora
     from time_r1_tpu_torch.sampler import Engine, SamplingParams
 
@@ -2786,7 +2809,7 @@ def phase_reduced_lora() -> None:
         leaves = lora_leaves(lora)
         for t in leaves:
             t.requires_grad_(True)
-        loss, metrics = grpo_loss(params, cfg, hp, batch, lora=(lora_layers_tree(lora)[0], lcfg.scaling))
+        loss, metrics = grpo_loss(params, cfg, hp, batch, lora=Adapters(lora_layers_tree(lora)[0], lcfg.scaling))
         grads = torch.autograd.grad(loss, leaves)
         res[device] = (loss.item(), {k: float(v) for k, v in metrics.items()}, [x.cpu() for x in grads])
         log(f"[lora-reduced] {device}: in-layer merged loss {loss.item():.6f}, metrics {res[device][1]}, "
@@ -2981,12 +3004,17 @@ def rollout_sampling(config, cfg):
                           stop_token_ids=(), num_return_sequences=config.num_generations, seed=0)
 
 
+# phase 5's profiler windows: WINDOW_STEPS steady steps from step WINDOW_FIRST of a WINDOW_TOKENS-token decode (16
+# from 32 of 64 before the last cuts for the script's time limit, PERF.md §4; the windows' margin is 2 steps a side)
+WINDOW_FIRST, WINDOW_STEPS, WINDOW_TOKENS = 16, 8, 32
+
+
 def decode_windows(eng, req, config, cfg) -> dict:
     """Phase 5's rollout decode after the two `step_batch` calls: its ms/step
-    eager and captured in turns, then the device's idle share over 16 steady
-    decode steps (steps 32-47, one host-check segment) of each, by
-    torch.profiler (`settled_window`), with D2's launches by name there (36
-    a step)."""
+    eager and captured in turns, then the device's idle share over
+    WINDOW_STEPS steady decode steps (from step WINDOW_FIRST, inside one
+    host-check segment) of each, by torch.profiler (`settled_window`), with
+    D2's launches by name there (36 a step)."""
     sp = rollout_sampling(config, cfg)
     turn = replace(sp, max_new_tokens=TURN_TOKENS)
     out = {"in_turns": decode_both_ways("train rollout", lambda: (eng.generate([req], turn), eng.timings)[1])}
@@ -2995,18 +3023,18 @@ def decode_windows(eng, req, config, cfg) -> dict:
         def run(mode=mode):
             if mode == "eager":
                 with eager_decode():
-                    eng.generate([req], replace(sp, max_new_tokens=64))
+                    eng.generate([req], replace(sp, max_new_tokens=WINDOW_TOKENS))
             else:
-                eng.generate([req], replace(sp, max_new_tokens=64))
+                eng.generate([req], replace(sp, max_new_tokens=WINDOW_TOKENS))
 
-        win, seen = settled_window(run, first=32, count=16)
+        win, seen = settled_window(run, first=WINDOW_FIRST, count=WINDOW_STEPS)
         st = win.stats()
         d2 = win.kernels("decode_full_tc")
-        log(f"[train] rollout decode, 16 steady steps {mode}: device span {st['span_ms']:.2f} ms, busy "
+        log(f"[train] rollout decode, {WINDOW_STEPS} steady steps {mode}: device span {st['span_ms']:.2f} ms, busy "
             f"{st['busy_ms']:.2f} ms, idle share {st['idle_share']:.4f}, {st['device_events']} device events "
             f"(windows' records {seen}), {d2} D2 launches by name; most device time: {win.top(8)}")
-        if d2 != 16 * L:
-            raise AssertionError(f"rollout window ({mode}): {d2} D2 launches by name, want {16 * L}")
+        if d2 != WINDOW_STEPS * L:
+            raise AssertionError(f"rollout window ({mode}): {d2} D2 launches by name, want {WINDOW_STEPS * L}")
         out[mode] = st
     return out
 
@@ -3205,10 +3233,13 @@ def teacher_forced_logits(eng, cfg, req, tokens: np.ndarray) -> list:
     return out
 
 
+QUANT_STEPS = 8  # phase 3c's teacher-forced decode steps (16 before the last cuts for the time limit, PERF.md §4)
+
+
 def phase_reduced_quant() -> dict:
     """Phase 3c: the quantized G-way decode at reduced depth (3B widths, 2
     layers, 2 ViT blocks, f32 activations, int8 KV), int8 then int4 weights,
-    16 teacher-forced steps of fixed tokens for G = 4 rows: the card (D2 with
+    QUANT_STEPS teacher-forced steps of fixed tokens for G = 4 rows: the card (D2 with
     Q2 at int8, Q1 at int4) against the CPU (plain paths) on every step's
     logits. Tolerance, on max |card - cpu| / max |cpu| per step: at int8, Q2
     rounds x and the activation to bf16 where the CPU's unfused MLP stays f32
@@ -3223,7 +3254,7 @@ def phase_reduced_quant() -> dict:
     params_cpu = reduced_params_cpu()
     params_gpu = to_device(params_cpu, torch.device("cuda"))
     req = video_request(cfg, np.random.default_rng(1), frames=8, height=224, width=392)
-    G, steps = 4, 16
+    G, steps = 4, QUANT_STEPS
     tokens = np.random.default_rng(4).integers(0, 151000, size=(G, steps))
     errs = {}
     for quant in ("int8", "int4"):
@@ -3488,7 +3519,8 @@ def settled_window(run, first: int, count: int, tries: int = 4) -> tuple:
     raise AssertionError(f"no two of {tries} profiler windows saw the same device records: {seen}")
 
 
-TURN_TOKENS = 64  # phases 4-6: the tokens a row of each timed turn (the path's own 128 or 200 before the last cuts, PERF.md §4)
+# phases 4-6: the tokens a row of each timed turn (the path's own 128 or 200, then 64, before the last cuts, PERF.md §4)
+TURN_TOKENS = 16
 
 
 def decode_both_ways(tag: str, run) -> dict:
@@ -4004,7 +4036,7 @@ def phase_input_path(card: str) -> dict:
     (a) the loader's two clips, planned as INPUT_CLIPS says; (b) the resize on
     the card against the host's; (c) the processor's video tokens, t·h·w/4 of
     the grid; (d) the 32 s clip served through `trainer.engine.generate`
-    (greedy, 128 tokens, bucket 4096, after a 2-token warm-up), then two
+    (greedy, 32 tokens, bucket 4096, after a 2-token warm-up), then two
     `step_batch([example])` calls on the 4 s clip with requests=None (bucket
     2048, prepare_requests inside host_preproc); while the first runs, a
     one-worker thread pool prepares the same example's requests, held against
@@ -4072,10 +4104,10 @@ def phase_input_path(card: str) -> dict:
             raise AssertionError(f"{name}: patches not staged on the card in bf16")
         return req
 
-    # (d) serving: the 32 s clip, greedy, 128 tokens
+    # (d) serving: the 32 s clip, greedy, 32 tokens (128 before the last cuts for the time limit, PERF.md §4)
     req32 = prepare_checked("clip_32s_10fps")
     prepare_checked("clip_4s_30fps")
-    sp = SamplingParams(max_new_tokens=128, stop_token_ids=())
+    sp = SamplingParams(max_new_tokens=32, stop_token_ids=())
     t0 = time.perf_counter()
     trainer.engine.generate([req32], replace(sp, max_new_tokens=2))  # warm-up, as phase 4
     torch.cuda.synchronize()
@@ -5335,7 +5367,7 @@ print(json.dumps(dict(pinned=t.is_pinned(), before=before, after=available())))
 
 def pinned_allocator_probe(nbytes: int, card: str) -> dict:
     """What PyTorch's pinned allocator takes from the host for one request of
-    `nbytes` (a quarter of one optimizer tree of the 7B: pinning runs at ~1
+    `nbytes` (an eighth of one optimizer tree of the 7B: pinning runs at ~1
     GB/s, and the rounding shows at any size), against the next power of
     two: the reason `HostArena` registers its own allocation instead."""
     t0 = time.perf_counter()
@@ -5347,7 +5379,7 @@ def pinned_allocator_probe(nbytes: int, card: str) -> dict:
     taken = got["before"] - got["after"]
     res = dict(requested_gib=nbytes / 2**30, taken_gib=taken / 2**30, pow2_gib=2 ** (nbytes - 1).bit_length() / 2**30,
                s=time.perf_counter() - t0)
-    log(f"[7b] PyTorch's pinned allocator, one pin_memory=True tensor of a quarter of one tree's bytes: "
+    log(f"[7b] PyTorch's pinned allocator, one pin_memory=True tensor of an eighth of one tree's bytes: "
         f"{res['requested_gib']:.2f} GiB "
         f"asked, MemAvailable down {res['taken_gib']:.2f} GiB (the next power of two: {res['pow2_gib']:.0f} GiB), "
         f"{res['s']:.1f} s with the process; {card}")
@@ -5425,15 +5457,20 @@ def plan_beside_peak(tag: str, n: int, peak_gib: float, offload: bool = True) ->
         f"measured peak {peak_gib:.2f} GiB ({peak_gib - budget['steady_state_per_device_gb']:.2f} GiB above it)")
 
 
+FULL_PARAM_7B_TOKENS = 64  # phase 12 (a)'s rollout length (the recipe's 200 before the last cuts, PERF.md §4)
+FULL_PARAM_7B_CALLS = 2  # phase 12 (a)'s step_batch calls at accumulation 2: one update (4, two, before the last cuts)
+
+
 def phase_full_param_7b(card: str) -> dict:
     """Phase 12, once phase 11's model is freed. (a) Full-parameter GRPO on
     Qwen2.5-VL-7B (bf16, seeded weights, a reference copy) with the
     optimizer state in page-locked host memory: `GRPOTrainer` with
-    offload_optimizer, remat, int8 rollouts, beta 0.04, fix_vit, G = 8, 200
-    tokens, accumulation 2, for 4 step_batch calls (2 updates) on 2 examples
+    offload_optimizer, remat, int8 rollouts, beta 0.04, fix_vit, G = 8,
+    FULL_PARAM_7B_TOKENS tokens, accumulation 2, for FULL_PARAM_7B_CALLS step_batch calls (one update
+    each two) on 2 examples
     of phase 8's 4 s clip (FrameLoader's seeded frames, the processor over
     StandInTokenizer). Before the state is pinned, MemAvailable must exceed
-    its bytes plus 8 GiB, and `pinned_allocator_probe` measures a quarter
+    its bytes plus 8 GiB, and `pinned_allocator_probe` measures an eighth
     of one tree's bytes from PyTorch's pinned allocator. After: every offloaded leaf pinned on the host with
     exactly the offloaded bytes, the peak under 79 GiB, a decoder weight
     moved and the ViT blocks bit-unchanged, and per call exactly
@@ -5460,7 +5497,8 @@ def phase_full_param_7b(card: str) -> dict:
     cfg = Qwen25VLConfig.qwen25vl_7b()
     L = cfg.text.num_hidden_layers
     config = TrainConfig(offload_optimizer=True, gradient_checkpointing=True, rollout_quantization="int8", beta=0.04,
-                         fix_vit=True, num_generations=8, max_completion_length=200, gradient_accumulation_steps=2,
+                         fix_vit=True, num_generations=8, max_completion_length=FULL_PARAM_7B_TOKENS,
+                         gradient_accumulation_steps=2,
                          report_to="none")
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
@@ -5476,7 +5514,7 @@ def phase_full_param_7b(card: str) -> dict:
     if avail0 < state_bytes + MEM_ROOM:
         raise AssertionError(f"(a): MemAvailable {avail0 / 2**30:.2f} GiB is less than the offloaded state "
                              f"{state_bytes / 2**30:.2f} GiB plus {MEM_ROOM / 2**30:.0f} GiB")
-    probe = pinned_allocator_probe(state_bytes // 12, card)
+    probe = pinned_allocator_probe(state_bytes // 24, card)
     avail0 = mem_available()
     processor = Qwen25VLProcessor(StandInTokenizer(cfg), pad_token_id=cfg.pad_token_id, eos_token_id=cfg.eos_token_id)
     rewards = [REWARD_FUNCS_REGISTRY["iou"], REWARD_FUNCS_REGISTRY["format"], char_parity_reward]
@@ -5500,7 +5538,7 @@ def phase_full_param_7b(card: str) -> dict:
     examples = [{"problem": f"a person opens door number {i}", "solution": (0.5 + i, 2.5 + i), "durations": n / fps,
                  "video_path": CLI_CLIP} for i in range(2)]
     calls, total = [], {}
-    for call in range(4):
+    for call in range(FULL_PARAM_7B_CALLS):
         trainer.timers = PhaseTimers(sync=True)
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -5540,17 +5578,18 @@ def phase_full_param_7b(card: str) -> dict:
         check_tc_route(f"7b step_batch {call + 1}", launches, remat_step_launches(cfg, tm["decode_steps"]),
                        tensor_cores=True)
     avail2 = mem_available()
-    check_host_state("(a) after 4 calls", trainer.opt_state, leaves)
+    check_host_state(f"(a) after {FULL_PARAM_7B_CALLS} calls", trainer.opt_state, leaves)
     peak = max(st["peak_gib"] for st in calls)
     moved = not torch.equal(q_w, q_before)
     vit_same = all(torch.equal(t.detach().cpu(), b) for t, b in zip(
         (t for name in ("patch_embed", "blocks") for t in tree_leaves(params["visual"][name])), vit))
-    log(f"[7b] (a) after 4 step_batch calls ({trainer.opt_state.count} updates): peak {peak:.2f} GiB allocated; "
+    log(f"[7b] (a) after {FULL_PARAM_7B_CALLS} step_batch calls ({trainer.opt_state.count} updates): peak {peak:.2f} GiB allocated; "
         f"{pinned / 2**30:.2f} GiB pinned, MemAvailable {avail2 / 2**30:.2f} GiB (before the arenas "
         f"{avail0 / 2**30:.2f}); layer 0's q_w moved: {moved}; ViT blocks and patch embed bit-unchanged: "
         f"{vit_same}; {card}")
     plan_beside_peak("(a)", 1, peak)
-    if trainer.opt_state.count != 2 or len(updates) != 4 or [u["applied"] for u in updates] != [False, True] * 2:
+    if (trainer.opt_state.count != FULL_PARAM_7B_CALLS // 2 or len(updates) != FULL_PARAM_7B_CALLS
+            or [u["applied"] for u in updates] != [False, True] * (FULL_PARAM_7B_CALLS // 2)):
         raise AssertionError(f"(a): {trainer.opt_state.count} updates over {len(updates)} micro-steps")
     if peak >= 79.0 or not moved or not vit_same:
         raise AssertionError(f"(a): peak {peak:.2f} GiB (want < 79), decoder weight moved {moved}, ViT unchanged "
@@ -5868,6 +5907,7 @@ RING_TOL = {"bfloat16": GRAD_TOL["bfloat16"], "float32": 1e-5}  # max |ring - on
 RING_SIZES = (2, 4)
 PARALLEL_TIMEOUT = 300  # s: the parent's wait for one spawn of ranks (each takes 35-90 s)
 CP_LAYOUT = "zigzag"  # the CLI's default --context_parallel_layout
+CP_CLI_TOKENS = 64  # (c)'s `cli.train --context_parallel_size 2` rollout length (the CLI's 200 before the last cuts)
 CP_MULTIPLE = 2 * 2 * 128  # zig-zag over 2 ranks: trainer.py:647-649
 DP_LAYERS = 2  # (c)'s decoder depth at 3B widths: two trainers share the card, the time limit holds
 DP_TOKENS = 32  # the rollout length of `dp_trainer` (the default 200 until phase 17 came into the script's limit,
@@ -6157,7 +6197,8 @@ def parallel_rank(job: str, root: str) -> int:
             args = json.load(f)
         result = {"ring": ring_job, "cp_loss": cp_loss_job, "dp": dp_job, "sharded": sharded_job,
                   "seven_b": seven_b_job, "mesh": mesh_job, "seven_b_serving": seven_b_serving_job,
-                  "eval_7b": eval_7b_job, "kvrep": kvrep_job, "three_b_tp4": three_b_tp4_job}[job](args)
+                  "eval_7b": eval_7b_job, "kvrep": kvrep_job, "three_b_tp4": three_b_tp4_job,
+                  "lora_7b_tp4": lora_7b_tp4_job}[job](args)
         with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
             json.dump(result, f)
         dist.barrier()
@@ -6395,15 +6436,18 @@ def cp_loss_job(args: dict) -> dict:
     return out
 
 
-def cp_against_one(tag: str, dtype_name: str, res: dict, grads, ref: dict, what: str = "cp loss") -> dict:
+def cp_against_one(tag: str, dtype_name: str, res: dict, grads, ref: dict, what: str = "cp loss",
+                   kl_floor: float = CP_BF16_TOL["floor"]) -> dict:
     """(b): the CP loss, metrics and gradients against one process's (and
     phase 14 (d)'s sharded ones, `what` naming the run; `grads` may be a
-    generator of gathered gradients on the card)."""
+    generator of gathered gradients on the card). `kl_floor`: the KL
+    metric's absolute floor in bf16 (phase 19 (d)'s A13_KL_FLOOR)."""
     import torch
 
     errs = {"loss": abs(res["loss"] - ref["loss"]) / max(abs(ref["loss"]), CP_BF16_TOL["floor"])}
     for k, v in ref["metrics"].items():
-        errs[f"metric {k}"] = abs(res["metrics"][k] - v) / max(abs(v), CP_BF16_TOL["floor"])
+        floor = kl_floor if k == "kl" else CP_BF16_TOL["floor"]
+        errs[f"metric {k}"] = abs(res["metrics"][k] - v) / max(abs(v), floor)
     leaf, num, den, worst = [], 0.0, 0.0, (0.0, -1)
     close = True
     for i, (g, w) in enumerate(zip(grads, ref["grads"])):
@@ -6417,7 +6461,8 @@ def cp_against_one(tag: str, dtype_name: str, res: dict, grads, ref: dict, what:
         if dtype_name == "float32":
             close &= bool(torch.allclose(g, w, rtol=8e-4, atol=8e-5))
     whole = (num / max(den, 1e-30)) ** 0.5
-    log(f"{what} {tag} against one process: loss {res['loss']:.6f} vs {ref['loss']:.6f}; relative errors "
+    kl = f"; kl {res['metrics']['kl']:.6e} vs {ref['metrics']['kl']:.6e}" if "kl" in ref["metrics"] else ""
+    log(f"{what} {tag} against one process: loss {res['loss']:.6f} vs {ref['loss']:.6f}{kl}; relative errors "
         f"{ {k: f'{v:.2e}' for k, v in errs.items()} }; gradients ||{what} - one|| / ||one|| over all leaves "
         f"{whole:.3e}, worst leaf {worst[0]:.3e} (#{worst[1]} of {len(leaf)}); one process's peak "
         f"{ref['peak_gib']:.2f} GiB")
@@ -6470,12 +6515,14 @@ def cp_loss_reference(card: str) -> tuple:
     return files, root, numbers
 
 
-def dp_trainer(cfg, mesh, out_dir: str, extra_rewards=(), **kw):
-    """(c)'s trainer (and phase 14 (e)'s, phase 17 (c)'s): seeded bf16
-    weights at cfg's depth and a reference copy, phase 8's clip through
-    FrameLoader and the stand-in processor, the default TrainConfig but for
-    one update a step_batch, lr 1e-3 (an AdamW step that moves bf16
-    weights) and DP_TOKENS a rollout; `extra_rewards` beside its three."""
+def dp_trainer(cfg, mesh, out_dir: str, extra_rewards=(), dtype=None, with_ref: bool = True, **kw):
+    """(c)'s trainer (and phase 14 (e)'s, phase 17 (c)'s, phase 19's):
+    seeded weights at cfg's depth (bf16, or `dtype`) and a reference copy
+    (with_ref False: none, a LoRA trainer's base is its reference), phase
+    8's clip through FrameLoader and the stand-in processor, the default
+    TrainConfig but for one update a step_batch, lr 1e-3 (an AdamW step
+    that moves bf16 weights) and DP_TOKENS a rollout; `extra_rewards`
+    beside its three."""
     import torch
 
     from time_r1_tpu_torch.models.processor import Qwen25VLProcessor
@@ -6483,14 +6530,15 @@ def dp_trainer(cfg, mesh, out_dir: str, extra_rewards=(), **kw):
     from time_r1_tpu_torch.rl import GRPOTrainer, TrainConfig
     from time_r1_tpu_torch.utils.rewards import REWARD_FUNCS_REGISTRY
 
-    params = init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
-    ref = to_device(params, torch.device("cuda"))
+    dtype = torch.bfloat16 if dtype is None else dtype
+    params = init_params(cfg, seed=0, device="cuda", dtype=dtype)
+    ref = to_device(params, torch.device("cuda")) if with_ref else None
     loader = FrameLoader()
     config = TrainConfig(**{**dict(gradient_accumulation_steps=1, learning_rate=1e-3, report_to="none",
                                    output_dir=out_dir, max_completion_length=DP_TOKENS), **kw})
     processor = Qwen25VLProcessor(StandInTokenizer(cfg), pad_token_id=cfg.pad_token_id, eos_token_id=cfg.eos_token_id)
     rewards = [REWARD_FUNCS_REGISTRY["iou"], REWARD_FUNCS_REGISTRY["format"], char_parity_reward, *extra_rewards]
-    return GRPOTrainer(params, cfg, processor, rewards, config=config, ref_params=ref, dtype=torch.bfloat16,
+    return GRPOTrainer(params, cfg, processor, rewards, config=config, ref_params=ref, dtype=dtype,
                        video_loader=lambda ele: loader({**ele, "video": CLI_CLIP}), mesh=mesh, device="cuda")
 
 
@@ -6628,7 +6676,8 @@ def cp_cli_run(cfg, args: dict, rank: int) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     with cli_stand_ins(cfg) as cli, patched(GRPOTrainer, "step_batch", counted):
-        trainer = cli.main(cli_args(cli, args["hf"], args["out"], args["data"], "--context_parallel_size", "2"))
+        trainer = cli.main(cli_args(cli, args["hf"], args["out"], args["data"], "--context_parallel_size", "2",
+                                    "--max_completion_length", str(CP_CLI_TOKENS)))
     peak = torch.cuda.max_memory_allocated() / 2**30
     for i, st in enumerate(steps, start=1):
         want = {"flash_bwd_dq": 5 * L, "flash_bwd_dkv": 5 * L} | ({"flash_attention": 15 * L} if rank == 1 else {})
@@ -7216,12 +7265,15 @@ def seven_b_job(args: dict) -> dict:
 
 def sharded_job(args: dict) -> dict:
     """Phase 14 on each of 2 ranks, in one spawn: (d) `sharded_loss_job`,
-    then (e) `sharded_step_job`, as args["parts"] asks."""
+    then (e) `sharded_step_job`, then phase 19's (a) and (c)
+    (`a13_sharded_job`, part "l"), as args["parts"] asks."""
     out = {}
     if "d" in args["parts"]:
         out["loss"] = sharded_loss_job(args)
     if "e" in args["parts"]:
         out["step"] = sharded_step_job(args)
+    if "l" in args["parts"]:
+        out["a13"] = a13_sharded_job(args)
     return out
 
 
@@ -7235,7 +7287,9 @@ def phase_sharded(card: str, parts: str = "de", nccl_only: bool = False) -> dict
     --tensor_parallel_size 2` from an HF checkpoint written here, FSDP with
     offload_optimizer (`sharded_step_job`); (f), only when asked and with 4
     cards: the 7B's full parameters over NCCL on 4x1, 2x2 and 1x4
-    (`seven_b_job`). Returns (d)'s launches on rank 0 of each mesh."""
+    (`seven_b_job`); "l": phase 19's (a) and (c) in the same spawn
+    (`a13_sharded_job`). Returns (d)'s launches on rank 0 of each mesh, and
+    under "a13" phase 19's results on every rank, by part (gloo)."""
     import gc
     import shutil
     import tempfile
@@ -7250,7 +7304,7 @@ def phase_sharded(card: str, parts: str = "de", nccl_only: bool = False) -> dict
         + (", then (d) and (e) again over NCCL, a card a rank" if cards >= 2 else "") + f"; {card}")
     result = {}
     routes = ([] if nccl_only and cards >= 2 else [False]) + ([True] if cards >= 2 else [])
-    de = "".join(p for p in parts if p in "de")
+    de = "".join(p for p in parts if p in "del")
     files, ref_root, one = sharded_loss_reference(card) if "d" in de else ({}, None, {})
     root = tempfile.mkdtemp(prefix="timer1_phase14_cli_")
     try:
@@ -7271,6 +7325,8 @@ def phase_sharded(card: str, parts: str = "de", nccl_only: bool = False) -> dict
                     f"against one process's {one[key]['peak_gib']:.2f}; step {[round(r['step_s'], 2) for r in res]} s "
                     f"against {one[key]['step_s']:.2f}; {[round(r['staged_gb'], 2) for r in res]} GB staged; {card}")
                 result.setdefault(f"{key}_{route}", res[0]["launches"])
+            if "l" in de:
+                result.setdefault("a13", {part: [r["a13"][part] for r in ranks] for part in ranks[0]["a13"]})
             if "e" in de:
                 if sorted(d for d in os.listdir(args["out"]) if d.startswith("epoch-")) != ["epoch-1"]:
                     raise AssertionError("cli tp: no epoch-1 checkpoint")
@@ -8453,8 +8509,8 @@ def phase_eval_7b(card: str) -> dict:
 # heads at tp 4, 4 ranks over gloo on the first card, against one process's engines and step
 KVREP_TP = 4
 KVREP_LAYERS = 2  # the decoder depth at 3B widths, with the whole vision tower (4 ranks and one process share the card)
-KVREP_NEW_TOKENS = 16  # 32 before the last cuts for the script's time limit (PERF.md §4)
-KVREP_TIMEOUT = 300  # s: the parent's wait for phase 17's spawn
+KVREP_NEW_TOKENS = 8  # 32, then 16, before the last cuts for the script's time limit (PERF.md §4)
+KVREP_TIMEOUT = 500  # s: the parent's wait for phase 17's spawn, phase 19's (b) and (d) included
 KVREP_VIDEO = (8, 224, 392)  # (a)'s video request: frames, height, width (448 video tokens)
 KVREP_TEXTS = (180, 260, 150, 330)  # prompt lengths of the text requests (each prefill over 128 rows: no Q2 there)
 # (name, engine, G, quantization, int8 KV, dtype): (a) the TP Engine on two texts and a video (G 1: K1, K2, K3) and on
@@ -8766,32 +8822,49 @@ def kvrep_step(args: dict, rank: int) -> dict:
 
 def kvrep_job(args: dict) -> dict:
     """Phase 17 (and `scripts/check_parallel.py j`'s tp-8 part) on each rank:
-    `kvrep_engines`, then `kvrep_step` when asked."""
+    `kvrep_engines`, then `kvrep_step` when asked, then phase 19's (b) and
+    (d) (`a13_cp_job`) when args name their reference files."""
     import torch.distributed as dist
 
     rank = dist.get_rank()
     out = {"engines": kvrep_engines(args, rank)}
     if args["step"]:
         out["step"] = kvrep_step(args, rank)
+    if args.get("a13"):
+        out["a13"] = a13_cp_job(args)
     return out
 
 
 def phase_kv_replication(card: str, tp: int = KVREP_TP, runs: tuple = tuple(r[0] for r in KVREP_RUNS),
-                         step: bool = True, layers: int = KVREP_LAYERS) -> dict:
+                         step: bool = True, layers: int = KVREP_LAYERS, a13: bool = False) -> dict:
     """Phase 17: the 3B past its 2 kv heads, tp ranks over gloo on the first
     card at `layers` decoder layers: one process's references
-    (`kvrep_reference`), then `kvrep_job` in one spawn. Returns each bf16
-    run's launches on every rank, and the step's under "step_batch"."""
+    (`kvrep_reference`), then `kvrep_job` in one spawn; with a13 (4 ranks),
+    phase 19's (b) and (d) in the same spawn after their one-process
+    references (`a13_cp_references`). Returns each bf16 run's launches on
+    every rank, the step's under "step_batch", and phase 19's results on
+    every rank by part under "a13"."""
     import shutil
 
     t0 = time.perf_counter()
     path, root = kvrep_reference(card, tp, runs, layers)
+    args = dict(file=path, tp=tp, runs=list(runs), step=step, layers=layers)
+    a13_root = None
+    if a13:
+        if tp != 4:
+            raise ValueError(f"phase 19 (b), (d) run on a 2x2 mesh: 4 ranks, not {tp}")
+        t1 = time.perf_counter()
+        args["a13"], a13_root = a13_cp_references(card)
+        log(f"[a13] phase 19 (b), (d): one process's references {time.perf_counter() - t1:.1f} s; {card}")
     try:
-        ranks = spawn_ranks("kvrep", tp, dict(file=path, tp=tp, runs=list(runs), step=step, layers=layers), card,
-                            timeout=KVREP_TIMEOUT)
+        ranks = spawn_ranks("kvrep", tp, args, card, timeout=KVREP_TIMEOUT)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        if a13_root is not None:
+            shutil.rmtree(a13_root, ignore_errors=True)
     result = {}
+    if a13:
+        result["a13"] = {part: [r["a13"][part] for r in ranks] for part in ranks[0]["a13"]}
     for name in ranks[0]["engines"]:
         res = [r["engines"][name] for r in ranks]
         log(f"[kvrep] tp {tp} {name} over gloo: decode {[round(x['decode_ms'], 2) for x in res]} ms/step by rank (one "
@@ -9119,6 +9192,504 @@ def phase_parity(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the training configurations that JAX runs and the port once refused (ROADMAP A13): LoRA over a TP
+# mesh, CP inside a TP mesh, a sharded step where one data rank has no video, LoRA under CP. (a), (c) run in phase
+# 14's spawn of 2 ranks, (b), (d) in phase 17's of 4 (`RankPool`'s workers: no start-up of their own)
+A13_LAYERS = 2  # (a), (b), (c)'s decoder depth at 3B widths, MESH_VISION_DEPTH vision blocks
+A13_LORA_CP_LAYERS = 1  # (d)'s
+A13_LORA = dict(use_peft=True, lora_r=16, lora_alpha=32.0)  # scripts/posttrain/train_rl.sh:11's r 16
+A13_KERNELS = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "shared_prefix_fwd", "shared_prefix_bwd",
+               "window_attention_rope", "full_attention_rope", "shared_prefix_decode_full", "fused_mlp_int8")
+# (a) in f32: the loss and the adapters' gradient (the first moments) against one process's, the CPU tests' order
+A13_F32_TOL = dict(loss=3e-5, whole=1e-4)
+# (b), (d): the KL metric's absolute floor in bf16. The KL is second order in the per-token log-prob gap d
+# (≈ d²/2), so a noise ε in the log-probs moves it by ≈ ε·sqrt(2·KL): relative ε·sqrt(2/KL), unbounded as the
+# adapters shrink. Below the floor the check is absolute, |ΔKL| <= CP_BF16_TOL's 2e-2 × 1e-2 = 2e-4, which an rms
+# log-prob noise up to 2e-2·sqrt(1e-2 / 2) = 1.4e-3 meets; a13_adapters keeps the KL above it, a relative check
+A13_KL_FLOOR = 1e-2
+
+
+def a13_launches(tag: str, rank: int, want: dict, tensor_cores: bool) -> dict:
+    """A13_KERNELS' launches on this rank since the last reset, printed, and
+    held against `want` (exact counts, None: at least one) on the
+    tensor-core kernels (bf16) or the FMA ones (f32); the rest must be 0."""
+    launches = read_launches()
+    got = {k: launches[k] for k in A13_KERNELS}
+    got.update({f"{k}_tc": launches[f"{k}_tc"] for k in A13_KERNELS if k in TC_KERNELS})
+    log(f"[a13] {tag} rank {rank} launches: {got}")
+    check_tc_route(f"a13 {tag} rank {rank}", launches, {k: v for k, v in want.items() if v != 0 and k in TC_KERNELS},
+                   tensor_cores=tensor_cores)
+    bad = {k: (got[k], v) for k, v in want.items() if v is not None and got[k] != v}
+    bad.update({k: got[k] for k in A13_KERNELS if k not in want and got[k]})
+    if bad:
+        raise AssertionError(f"a13 {tag} rank {rank}: launches (got, want) {bad}")
+    return got
+
+
+def a13_step_launches(cfg, rolls_out: bool, decode_steps: int, towers: int, int8: bool) -> dict:
+    """One `step_batch`'s launches on a rank: the rollout's (a rank that rolls
+    out: K1 in its prefill, D2 and with int8 rollouts Q2 a layer a decode
+    step), the reference's and the loss's (K1, S1 each; B1, B2, S2 in the
+    backward), K2 and K3 in `towers` frozen passes of the ViT."""
+    L = cfg.text.num_hidden_layers
+    want = {"flash_attention": (3 if rolls_out else 2) * L, "flash_bwd_dq": L, "flash_bwd_dkv": 2 * L,
+            "shared_prefix_fwd": 2 * L, "shared_prefix_bwd": L,
+            "shared_prefix_decode_full": L * decode_steps if rolls_out else 0,
+            "fused_mlp_int8": L * decode_steps if rolls_out and int8 else 0}
+    return want | {k: towers * v for k, v in vision_tc_launches(cfg).items()}
+
+
+def a13_digest(tree) -> list:
+    """Each leaf's sum, in tree order (a rollout copy, an adapter tree)."""
+    from time_r1_tpu_torch.utils.checkpoint import flatten
+
+    return [float(t.float().sum()) for t in flatten(tree).values()]
+
+
+def a13_lora_tp(root: str, rank: int, dtype_name: str) -> dict:
+    """(a) on each of 2 ranks: a LoRA r 16 `GRPOTrainer` over a 1x2 mesh (the
+    bf16 or f32 base sharded, the adapters whole), one `step_batch` with int8
+    rollouts: model-rank 0 gathers the base, merges and quantizes it a layer
+    at a time and rolls out (D2, Q2); the launches by the formula; the loss,
+    the adapters and the first moments bit-equal on both ranks; then on rank
+    0 one process's LoRA trainer with the completions replayed: its int8
+    rollout copy (`merge_quantize`) bit-equal to the gathered one, the loss
+    and the step's adapter gradient (the first moments) within DP_TOL /
+    CP_BF16_TOL's whole (bf16) or A13_F32_TOL (f32)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from time_r1_tpu_torch.parallel import comm, make_mesh
+
+    dtype = getattr(torch, dtype_name)
+    cfg = mesh_3b(A13_LAYERS)
+    kw = dict(extra_rewards=(row_spread_reward,), rollout_quantization="int8", dtype=dtype, with_ref=False,
+              **A13_LORA)
+    tr = dp_trainer(cfg, make_mesh(2), root, **kw)
+    recorded, copy_digest = [], []
+    if tr._rolls_out:
+        generate = tr.engine.generate
+
+        def record(requests, sp):
+            copy_digest.extend(a13_digest(tr.engine.params))
+            recorded.append(generate(requests, sp))
+            return recorded[-1]
+
+        tr.engine.generate = record
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    staged0 = comm.staged_bytes
+    reset_launches()
+    t0 = time.perf_counter()
+    info = tr.step_batch([DP_EXAMPLES[0]])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    steps = [None, None]
+    dist.all_gather_object(steps, tr.engine.timings["decode_steps"] if tr._rolls_out else 0)
+    want = a13_step_launches(cfg, tr._rolls_out, steps[0], 2 if tr._rolls_out else 1, True)
+    if dtype_name == "float32" and tr._rolls_out:  # f32 D2 runs D1's split pass and a tail (ROADMAP §B)
+        want.update(shared_prefix_decode_full=None, fused_mlp_int8=None)
+    launches = a13_launches(f"(a) lora tp {dtype_name}", rank, want, tensor_cores=dtype_name == "bfloat16")
+    metrics = tr.pop_metrics()
+    mu = [t.detach().clone() for t in tr.opt_state.mu]
+    every = [None, None]
+    dist.all_gather_object(every, (info["loss"], a13_digest(tr.lora), [float(t.float().sum()) for t in mu]))
+    if every[0] != every[1]:
+        raise AssertionError(f"a13 (a) {dtype_name}: the ranks' loss, adapters or moments differ")
+    res = dict(step_s=step_s, loss=info["loss"], decode_steps=steps[0], launches=launches,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, staged_gb=(comm.staged_bytes - staged0) / 1e9,
+               weight_sync_ms=round(tr.timers.summary().get("weight_sync", {}).get("total_s", 0.0) * 1e3, 1),
+               adapters_mib=sum(t.numel() * t.element_size() for t in mu) / 2**20)
+    log(f"[a13] (a) lora r 16 tp 2 {dtype_name} rank {rank}: {step_s:.2f} s, loss {info['loss']:.6f}, "
+        f"{steps[0]} decode steps; peak {res['peak_gib']:.2f} GiB; {res['staged_gb']:.2f} GB staged; the ranks' "
+        f"loss, adapters and moments equal")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        one = dp_trainer(cfg, None, root, **kw)
+        replay = [list(c) for c in recorded[0]]
+        one_copy = []
+        one.engine.generate = lambda requests, sp: one_copy.extend(a13_digest(one.engine.params)) or [
+            list(c) for c in replay]
+        one_info = one.step_batch([DP_EXAMPLES[0]])
+        one_metrics = one.pop_metrics()
+        if one_copy != copy_digest:
+            raise AssertionError(f"a13 (a) {dtype_name}: the gathered, merged int8 rollout copy differs from one "
+                                 "process's merge_quantize")
+        grad_err = rel_norm(mu, one.opt_state.mu)
+        loss_err = abs(info["loss"] - one_info["loss"]) / max(abs(one_info["loss"]), DP_TOL["floor"])
+        rel = {k: abs(metrics[k] - v) / max(abs(v), DP_TOL["floor"]) for k, v in one_metrics.items()}
+        log(f"[a13] (a) {dtype_name} against one process's LoRA step (the int8 rollout copy bit-equal): loss "
+            f"{info['loss']:.6f} vs {one_info['loss']:.6f}, {loss_err:.2e}; metrics "
+            f"{({k: f'{v:.2e}' for k, v in rel.items()})}; adapter gradient (the first moments) ||tp - one|| / ||one|| {grad_err:.3e}")
+        tol = A13_F32_TOL if dtype_name == "float32" else dict(loss=DP_TOL["rel"], whole=CP_BF16_TOL["whole"])
+        if set(one_metrics) != set(metrics) or loss_err > tol["loss"] or grad_err > tol["whole"]:
+            raise AssertionError(f"a13 (a) {dtype_name}: against one process loss {loss_err}, gradient {grad_err}")
+        res["vs_one_process"] = dict(loss_err=loss_err, grad_err=grad_err, metrics=rel)
+        del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def a13_text_only(cfg, req):
+    """A request's prompt without its video: the vision tokens dropped."""
+    from time_r1_tpu_torch.sampler import Request
+
+    vision = {cfg.vision_start_token_id, cfg.vision_end_token_id, cfg.video_token_id, cfg.image_token_id}
+    return Request([t for t in req.input_ids if t not in vision], None, None, 1.0)
+
+
+def a13_union(root: str, rank: int) -> dict:
+    """(c) on each of 2 ranks: phase 14's FSDP trainer (2x1) with the ViT
+    trained (fix_vit off), data rank 1's example text-only: the rank with
+    no video runs the tower on a placeholder (`rl/grpo.py::align_vision`),
+    so the tower's gathers and reduce-scatters fire on both ranks; the
+    launches by the formula (rank 1: K2 and K3 in the reference's frozen
+    pass over the placeholder); then on rank 0 one process over both
+    examples with the ranks' completions replayed: the loss and metrics
+    within DP_TOL, the step's gradient (the first moments) within
+    CP_BF16_TOL's whole."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from time_r1_tpu_torch.parallel import comm, make_mesh
+
+    cfg = mesh_3b(A13_LAYERS)
+    tr = dp_trainer(cfg, make_mesh(1), root, extra_rewards=(row_spread_reward,), fix_vit=False)
+    if rank == 1:
+        prepare = tr.prepare_requests
+        tr.prepare_requests = lambda examples: [a13_text_only(cfg, r) for r in prepare(examples)]
+    recorded = []
+    generate = tr.engine.generate
+    tr.engine.generate = lambda requests, sp: recorded.append(generate(requests, sp)) or recorded[-1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    staged0 = comm.staged_bytes
+    reset_launches()
+    t0 = time.perf_counter()
+    info = tr.step_batch([DP_EXAMPLES[rank]])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    # rank 0: the rollout's tower and the reference's; rank 1: the reference's over the placeholder (the loss's
+    # differentiable tower runs off K2/K3, as with fix_vit off anywhere)
+    want = a13_step_launches(cfg, True, tr.engine.timings["decode_steps"], 2 if rank == 0 else 1, False)
+    launches = a13_launches("(c) union", rank, want, tensor_cores=True)
+    metrics = tr.pop_metrics()
+    mu = tr._gathered_opt_tree(keep=rank == 0)
+    comps = [None, None]
+    dist.all_gather_object(comps, recorded[0])
+    res = dict(step_s=step_s, loss=info["loss"], launches=launches, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               staged_gb=(comm.staged_bytes - staged0) / 1e9)
+    log(f"[a13] (c) FSDP step, rank 1 text-only, fix_vit off, rank {rank}: {step_s:.2f} s, loss {info['loss']:.6f}; "
+        f"peak {res['peak_gib']:.2f} GiB; {res['staged_gb']:.2f} GB staged")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        one = dp_trainer(cfg, None, root, extra_rewards=(row_spread_reward,), fix_vit=False)
+        prepare = one.prepare_requests
+        one.prepare_requests = lambda examples: (lambda reqs: [reqs[0], a13_text_only(cfg, reqs[1])])(prepare(examples))
+        replay = [c for cs in comps for c in cs]
+        one.engine.generate = lambda requests, sp: [list(c) for c in replay]
+        one_info = one.step_batch(DP_EXAMPLES)
+        one_metrics = one.pop_metrics()
+        grad_err = rel_norm(mu["mu"], one.opt_state.mu)
+        rel = {k: abs(metrics[k] - v) / max(abs(v), DP_TOL["floor"]) for k, v in one_metrics.items()}
+        rel["loss"] = abs(info["loss"] - one_info["loss"]) / max(abs(one_info["loss"]), DP_TOL["floor"])
+        log(f"[a13] (c) against one process over both examples: loss {info['loss']:.6f} vs {one_info['loss']:.6f}; "
+            f"relative errors {({k: f'{v:.2e}' for k, v in rel.items()})}; gradient (the first moments) "
+            f"||fsdp - one|| / ||one|| {grad_err:.3e}")
+        if set(one_metrics) != set(metrics) or max(rel.values()) > DP_TOL["rel"] or grad_err > CP_BF16_TOL["whole"]:
+            raise AssertionError(f"a13 (c): against one process {rel}, gradient {grad_err}")
+        res["vs_one_process"] = dict(rel=rel, grad_err=grad_err)
+        del one, mu
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def a13_sharded_job(args: dict) -> dict:
+    """Phase 19 (a) in bf16 and f32, then (c), in phase 14's spawn."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    root = tempfile.mkdtemp(prefix=f"timer1_phase19_{rank}_")
+    try:
+        return {"lora_tp_bf16": a13_lora_tp(root, rank, "bfloat16"),
+                "lora_tp_f32": a13_lora_tp(root, rank, "float32"), "union": a13_union(root, rank)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def a13_adapters(params, cfg):
+    """(d)'s adapters over a whole tree: `init_lora` at r 16 (seed 0) with
+    lora_b drawn from a seeded generator on the card (the init's 0 would make
+    the merge the identity): the same on every rank and in the parent. At
+    std 1e-2 the policy's log-probs move ~0.1-1 from the base's, well above
+    their bf16 noise, so that the loss, the gradients and the KL metric
+    (above A13_KL_FLOOR) compare signal."""
+    import torch
+
+    from time_r1_tpu_torch.rl.lora import LoRAConfig, init_lora, lora_leaves
+
+    lcfg = LoRAConfig(rank=A13_LORA["lora_r"], alpha=A13_LORA["lora_alpha"])
+    lora = init_lora(params, lcfg, seed=0)
+    lora.pop("visual", None)  # fix_vit
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for t in lora_leaves(lora)[1::2]:  # each pair's lora_b
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda") * 1e-2)
+    return lora, lcfg
+
+
+def a13_cp_setup(cfg, dtype, shard=None, cp=None):
+    """(b), (d)'s seeded weights (this rank's blocks under `shard`), the
+    full-row batch of phase 13 (b) padded to CP_MULTIPLE, its reference
+    log-probs (the policy's own weights, the ring's under cp) and hp."""
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.rl import GRPOHyperParams, build_grpo_batch_groups
+    from time_r1_tpu_torch.rl.grpo import compute_ref_logps
+
+    whole = init_params(cfg, seed=0, device="cuda", dtype=dtype)
+    params = whole if shard is None else shard.shard(whole)
+    batch = build_grpo_batch_groups(cfg, cp_loss_groups(cfg), dtype=dtype, pad_multiple=CP_MULTIPLE, device="cuda")
+    hp = GRPOHyperParams(num_generations=8, beta=0.04, fix_vit=True, gradient_checkpointing="full")
+    batch = batch._replace(ref_logps=compute_ref_logps(params, cfg, hp, batch, cp=cp, shard=shard))
+    return whole, params, batch, hp
+
+
+def a13_cp_references(card: str) -> tuple:
+    """(b) and (d) first, in the parent: one process's full-row loss step
+    (the 3B at A13_LAYERS) and LoRA loss step (at A13_LORA_CP_LAYERS), bf16,
+    to a file each; the card freed before the ranks start. Returns ({key:
+    file}, root)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from time_r1_tpu_torch.rl.grpo import grpo_value_and_grad, lora_value_and_grad
+
+    root = tempfile.mkdtemp(prefix="timer1_phase19_ref_")
+    files = {}
+    for key, layers in (("cp_tp", A13_LAYERS), ("lora_cp", A13_LORA_CP_LAYERS)):
+        cfg = mesh_3b(layers)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        whole, params, batch, hp = a13_cp_setup(cfg, torch.bfloat16)
+        if key == "cp_tp":
+            loss, metrics, grads = grpo_value_and_grad(params, cfg, hp, batch)
+        else:
+            lora, lcfg = a13_adapters(whole, cfg)
+            loss, metrics, grads = lora_value_and_grad(params, lora, cfg, hp, lcfg, batch)
+        torch.cuda.synchronize()
+        ref = dict(loss=float(loss), metrics={k: float(v) for k, v in metrics.items()},
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30, grads=[g.cpu() for g in grads])
+        files[key] = os.path.join(root, f"{key}.pt")
+        torch.save(ref, files[key])
+        log(f"[a13] ({'b' if key == 'cp_tp' else 'd'}) one process, {key} at {layers} layers: full rows of "
+            f"{batch.input_ids.shape[1]} tokens, loss {ref['loss']:.6f}; {time.perf_counter() - t0:.2f} s; peak "
+            f"{ref['peak_gib']:.2f} GiB; {card}")
+        del whole, params, batch, grads, loss, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    return files, root
+
+
+def a13_cp_job(args: dict) -> dict:
+    """(b), then (d), on each of 4 ranks in phase 17's spawn, over a 2x2 mesh
+    (CP 2 over "data" on the zig-zag ring, TP 2 over "model", the weights
+    FSDP-sharded over "data"), bf16, remat "full": (b) the 3B's full-row
+    loss step (`grpo_value_and_grad(cp=, shard=)`), each ring step on the
+    rank's 8 q over 1 kv head; (d) LoRA r 16 at 1 layer, every adapter merged
+    into the rank's base blocks before the loss (`lora_value_and_grad(cp=,
+    shard=)`). The launches by the ring's formula (15 K1, 5 B1, 5 B2 a
+    layer: 2n + 1 a ring at n = 2, the reference's, the loss's and its
+    rerun) on each rank; rank 0 holds the loss, the metrics and the gathered
+    gradients (the adapters' under (d)) against the parent's one-process
+    files at CP_BF16_TOL."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from time_r1_tpu_torch.models.qwen25vl import init_params
+    from time_r1_tpu_torch.parallel import ContextParallel, ShardContext, comm, data_group, make_mesh
+    from time_r1_tpu_torch.parallel.fsdp import gather_whole
+    from time_r1_tpu_torch.rl.grpo import grpo_value_and_grad, lora_value_and_grad, trainable_leaves
+
+    rank = dist.get_rank()
+    mesh = make_mesh(2)
+    cp = ContextParallel(data_group(mesh), CP_LAYOUT)
+    out = {}
+    for key, layers in (("cp_tp", A13_LAYERS), ("lora_cp", A13_LORA_CP_LAYERS)):
+        cfg = mesh_3b(layers)
+        L = cfg.text.num_hidden_layers
+        meta = init_params(cfg, device="meta", dtype=torch.bfloat16)
+        shard = ShardContext.build(mesh, meta).with_kv_heads(cfg.text.num_key_value_heads)
+        torch.cuda.reset_peak_memory_stats()
+        staged0 = comm.staged_bytes
+        reset_launches()
+        t0 = time.perf_counter()
+        whole, params, batch, hp = a13_cp_setup(cfg, torch.bfloat16, shard, cp)
+        if key == "cp_tp":
+            del whole
+            loss, metrics, grads = grpo_value_and_grad(params, cfg, hp, batch, cp=cp, shard=shard)
+            gathered = (gather_whole(g, s, shard) for g, s in zip(grads, trainable_leaves(shard.specs, True)))
+        else:
+            lora, lcfg = a13_adapters(whole, cfg)
+            del whole
+            loss, metrics, grads = lora_value_and_grad(params, lora, cfg, hp, lcfg, batch, cp=cp, shard=shard)
+            gathered = iter(grads)  # the adapters' gradients: whole on every rank
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        n = 2 * cp.size + 1
+        want = {"flash_attention": 3 * n * L, "flash_bwd_dq": n * L, "flash_bwd_dkv": n * L,
+                "window_attention_rope": None, "full_attention_rope": None}
+        res = dict(loss=float(loss), metrics={k: float(v) for k, v in metrics.items()}, step_s=step_s,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30, staged_gb=(comm.staged_bytes - staged0) / 1e9,
+                   launches=a13_launches(f"({'b' if key == 'cp_tp' else 'd'}) {key}", rank, want, tensor_cores=True))
+        log(f"[a13] {key} (2x2: cp 2 zig-zag, tp 2) at {L} layers rank {rank}: loss {res['loss']:.6f}; reference "
+            f"forward and loss step {step_s:.2f} s; peak {res['peak_gib']:.2f} GiB; {res['staged_gb']:.2f} GB staged")
+        if rank == 0:
+            ref = torch.load(args["a13"][key], weights_only=False)
+            res["vs_one_process"] = cp_against_one(key, "bfloat16", res, gathered, ref, what=f"a13 {key}",
+                                                   kl_floor=A13_KL_FLOOR)
+            del ref
+        else:
+            for _ in gathered:
+                pass
+        del params, batch, grads, loss, gathered
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[key] = res
+        dist.barrier()
+    return out
+
+
+LORA_7B_TP4_FLAGS = ("--use_peft", "true", "--lora_r", "16", "--lora_alpha", "32")  # train_rl.sh:11's opt-in
+
+
+def lora_7b_tp_run(args: dict, tp: int) -> dict:
+    """m: `cli.train.main` with LORA_7B_TP4_FLAGS on the 7B at full depth
+    from the HF checkpoint over its bf16 base (tp 1: one card; tp 4 over
+    NCCL, a card a rank): 2 step_batch calls (accumulation 2: one update),
+    each call's loss and seconds, the peak, the base's and the adapters'
+    GiB on this rank."""
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
+    from time_r1_tpu_torch.rl import GRPOTrainer
+    from time_r1_tpu_torch.rl.lora import lora_leaves
+
+    steps = []
+
+    def counted(original):
+        def step_batch(self, examples, requests=None):
+            t0 = time.perf_counter()
+            res = original(self, examples, requests=requests)
+            torch.cuda.synchronize()
+            steps.append(dict(s=time.perf_counter() - t0, loss=res["loss"]))
+            return res
+        return step_batch
+
+    extra = LORA_7B_TP4_FLAGS + (("--tensor_parallel_size", str(tp)) if tp > 1 else ())
+    torch.cuda.reset_peak_memory_stats()
+    with cli_stand_ins(Qwen25VLConfig.qwen25vl_7b()) as cli, patched(GRPOTrainer, "step_batch", counted):
+        trainer = cli.main(cli_args(cli, args["hf"], os.path.join(args["root"], f"lora_tp{tp}"), args["train"],
+                                    *extra))
+    if len(steps) != 2 or trainer.global_step != 2 or trainer.lora is None:
+        raise AssertionError(f"m: cli.train LoRA at tp {tp} ran {len(steps)} step_batch calls")
+    out = dict(losses=[s["loss"] for s in steps], step_s=[s["s"] for s in steps],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, base_gib=held_gib(trainer.params),
+               adapters_gib=sum(t.numel() * t.element_size() for t in lora_leaves(trainer.lora)) / 2**30)
+    del trainer
+    return out
+
+
+def lora_7b_tp4_job(args: dict) -> dict:
+    """m on each of 4 ranks, a card a rank (NCCL): `lora_7b_tp_run` at tp 4,
+    each step_batch's loss within DP_TOL of one card's (both calls roll out
+    from the same initial weights and adapters)."""
+    import torch.distributed as dist
+
+    res = lora_7b_tp_run(args, 4)
+    one = args["one"]
+    rel = [abs(a - b) / max(abs(b), DP_TOL["floor"]) for a, b in zip(res["losses"], one["losses"])]
+    log(f"[lora 7b tp4] rank {dist.get_rank()}: losses {res['losses']} (one card {one['losses']}, relative "
+        f"{[f'{x:.2e}' for x in rel]}); step_batch {[round(s, 2) for s in res['step_s']]} s (one card "
+        f"{[round(s, 2) for s in one['step_s']]}); peak {res['peak_gib']:.2f} GiB, base {res['base_gib']:.2f} GiB, "
+        f"adapters {res['adapters_gib']:.3f} GiB (one card {one['peak_gib']:.2f}, {one['base_gib']:.2f}, "
+        f"{one['adapters_gib']:.3f})")
+    if max(rel) > DP_TOL["rel"]:
+        raise AssertionError(f"m: LoRA at tp 4, losses {res['losses']} against one card's {one['losses']}")
+    return dict(res, rel=rel)
+
+
+def phase_lora_7b_tp4(card: str) -> dict:
+    """m, on 4 cards: the recipe's opt-in pair (`--use_peft true --lora_r 16
+    --tensor_parallel_size 4`) on Qwen2.5-VL-7B at full depth over its bf16
+    base: the seeded weights as an HF checkpoint, one card's run, then
+    `lora_7b_tp4_job` over NCCL. Writes ~16 GB under TMPDIR, deleted at
+    the end."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from time_r1_tpu_torch.models.qwen25vl import Qwen25VLConfig
+
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        raise AssertionError(f"m needs 4 cards, the machine shows {cards}")
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="timer1_lora_7b_tp4_")
+    try:
+        args = dict(root=root, hf=os.path.join(root, "hf"), train=write_dataset(root, "train", 2))
+        cli_hf_checkpoint(Qwen25VLConfig.qwen25vl_7b(), args["hf"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        args["one"] = lora_7b_tp_run(args, 1)
+        log(f"[lora 7b tp4] one card: losses {args['one']['losses']}, step_batch "
+            f"{[round(s, 2) for s in args['one']['step_s']]} s, peak {args['one']['peak_gib']:.2f} GiB; {card}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = spawn_ranks("lora_7b_tp4", 4, args, card, nccl=True, timeout=SHARDED_TIMEOUT)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[lora 7b tp4] (m) over nccl: peak {[round(r['peak_gib'], 2) for r in ranks]} GiB by rank, base "
+        f"{[round(r['base_gib'], 2) for r in ranks]} GiB, adapters {ranks[0]['adapters_gib']:.3f} GiB; losses "
+        f"{ranks[0]['losses']} against one card's {args['one']['losses']}; {time.perf_counter() - t0:.1f} s; {card}")
+    return {"ranks": ranks, "one": args["one"]}
+
+
+def a13_summary(card: str, sharded: dict, cp: dict) -> dict:
+    """Phase 19's lines beside the card, and A13_KERNELS' launches on every
+    rank of each part, by part (the kernels JSON line's `launches_a13`)."""
+    parts = {"a_lora_tp_bf16": sharded["lora_tp_bf16"], "a_lora_tp_f32": sharded["lora_tp_f32"],
+             "c_union": sharded["union"], "b_cp_tp": cp["cp_tp"], "d_lora_cp": cp["lora_cp"]}
+    for name, ranks in parts.items():
+        log(f"[a13] phase 19 {name}: {[round(r.get('step_s', 0.0), 2) for r in ranks]} s by rank; peak "
+            f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; {[round(r['staged_gb'], 2) for r in ranks]} GB staged; "
+            f"against one process {ranks[0]['vs_one_process']}; {card}")
+    return {name: [r["launches"] for r in ranks] for name, ranks in parts.items()}
+
+
+
 def timed(phase, *args):
     """phase(*args), its seconds logged."""
     t0 = time.perf_counter()
@@ -9163,12 +9734,17 @@ def main() -> int:
     lora_launches = timed(phase_lora_7b, card)  # the same from `cli.train.main` on the 7B, LoRA over an int8 base
     full_param = timed(phase_full_param_7b, card)  # the 7B's full parameters, the state offloaded; the full-row loss
     parallel = timed(phase_parallel, card)  # ranks over gloo: ring attention (K1, B1, B2), the CP loss, DP, the CLI
-    sharded = timed(phase_sharded, card)  # ranks over gloo: FSDP and TP loss steps, step_batch over TP, the CLI
+    # ranks over gloo: FSDP and TP loss steps, step_batch over TP, the CLI; phase 19 (a) LoRA at tp 2, (c) a step
+    # with no video on one data rank
+    sharded = timed(phase_sharded, card, "del")
+    a13_sharded = sharded.pop("a13")
     # ranks over gloo: the TP Engine, PPEngine, cli.evaluate / cli.demo (15); PagedEngine, ContinuousEngine and the
     # int4 TP Engine over the mesh, cli.evaluate with the recipe's eval flags (16)
     mesh = timed(phase_mesh_serving, card)
     # 4 ranks over gloo: the 3B's 2 kv heads at tp 4, each on 2 ranks: the TP Engine, PagedEngine, a step_batch (17)
-    kvrep = timed(phase_kv_replication, card)
+    # and phase 19 (b) the CP loss on 2x2 (CP 2, TP 2), (d) LoRA under CP over the same mesh
+    kvrep = timed(phase_kv_replication, card, KVREP_TP, tuple(r[0] for r in KVREP_RUNS), True, KVREP_LAYERS, True)
+    a13 = a13_summary(card, a13_sharded, kvrep.pop("a13"))
     parity = timed(phase_parity, card)  # cli.parity against HF transformers: the 3B and the 7B at full width (18)
     for tag, name in zip("ab", PAGED_KERNELS):
         quant_launches[name] = serve[tag]["launches"][name]
@@ -9242,7 +9818,8 @@ def main() -> int:
         if k["name"] in TRAIN_KERNELS or k["name"] == "fused_mlp_int8":
             k["launches_lora_7b"] = lora_launches[k["name"]]
     s2["launches_lora_7b_dkv_prefix"] = lora_launches["shared_prefix_bwd_dkv"]
-    for k in kernels:  # phase 12: (a) 4 step_batch calls of the 7B's full parameters, (c) one full-row 3B call
+    for k in kernels:  # phase 12: (a) FULL_PARAM_7B_CALLS step_batch calls of the 7B's full parameters, (c) one
+        # full-row 3B call
         if k["name"] in TRAIN_KERNELS or k["name"] == "fused_mlp_int8":
             k["launches_full_param_7b"] = full_param["full_param_7b"][k["name"]]
             k["launches_full_row_3b"] = full_param["full_row_3b"][k["name"]]
@@ -9274,6 +9851,9 @@ def main() -> int:
         runs = {n: [r[k["name"]] for r in ranks] for n, ranks in kvrep.items() if k["name"] in ranks[0]}
         if any(any(v) for v in runs.values()):
             k["launches_kv_replicated"] = runs
+    for k in kernels:  # phase 19: each part's launches on every rank, by part
+        if k["name"] in A13_KERNELS:
+            k["launches_a13"] = {part: [r[k["name"]] for r in ranks] for part, ranks in a13.items()}
     for k in kernels:  # phase 18: cli.parity's f32 and bf16 forwards (K2, K3 FMA + tensor-core), by model
         if k["name"] in FWD_TC and any(r["launches"][k["name"]] for r in parity.values()):
             k["launches_parity"] = {m: r["launches"][k["name"]] for m, r in parity.items()}

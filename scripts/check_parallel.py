@@ -41,9 +41,19 @@ K1, B1, B2, S1, S2, K2, K3, D2, P1, P2, Q1 and Q2 cases at the TP-local
 shapes (the 3B at tp 4 and 8 among them), then phase 17: the 3B at tp 4
 over 4 gloo ranks on one card (the TP Engine, PagedEngine over int8, one
 step_batch) against one process's.
-Given parts among a-k, only those run; none runs a, b, c, d, e and h.
+(l): phase 19 alone: phase 2's K1, B1, B2, S1, S2, K2 and K3 cases at
+the 3B's TP-local heads, then (a) LoRA r 16 over a 1x2 mesh (one
+step_batch with int8 rollouts, bf16 and f32) and (c) an FSDP step with
+data rank 1's example text-only and the ViT trained, in one spawn of 2
+gloo ranks, and (b) the 3B's CP loss on a 2x2 mesh (CP 2, TP 2) and (d)
+LoRA under CP on it, in one spawn of 4, each against one process's. (m),
+asked for by name only and on 4 cards: Qwen2.5-VL-7B's LoRA r 16 over
+its bf16 base at full depth through `cli.train --use_peft true
+--tensor_parallel_size 4` over NCCL, 2 step_batch calls, against one
+card's LoRA run (writes ~16 GB under TMPDIR).
+Given parts among a-m, only those run; none runs a, b, c, d, e and h.
 
-    python3 scripts/check_parallel.py [--nccl] [a] [b] [c] [d] [e] [f] [g] [h] [i] [j] [k]
+    python3 scripts/check_parallel.py [--nccl] [a] [b] [c] [d] [e] [f] [g] [h] [i] [j] [k] [l] [m]
 
 Writes up to 15 GB under the temporary directory (TMPDIR) and deletes it.
 Prints the card's name and power limit first. Needs a CUDA device and nvcc;
@@ -113,14 +123,26 @@ def main(parts, nccl_only: bool = False) -> int:
         chip_smoke.phase_kv_replication(card)
     if "j" in parts:
         chip_smoke.phase_three_b_tp4(card)
+    if "l" in parts:  # phase 2's cases at the local heads, then phase 19 in the spawns of phases 14 and 17
+        results = {name: {} for name in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "shared_prefix_fwd",
+                                         "shared_prefix_bwd", "window_attention_rope", "full_attention_rope")}
+        for dtype in (torch.bfloat16, torch.float32):
+            chip_smoke.attention_head_cases(results, chip_smoke.TP_ATTN["3B_tp2_G8"],
+                                            "3B_tp2_G8" if dtype is torch.bfloat16 else "3B_tp2_G8_f32", dtype)
+        chip_smoke.vision_local_head_cases(torch.Generator(device="cuda").manual_seed(0), results)
+        sharded = chip_smoke.phase_sharded(card, "l")
+        kvrep = chip_smoke.phase_kv_replication(card, runs=(), step=False, a13=True)
+        chip_smoke.a13_summary(card, sharded["a13"], kvrep["a13"])
+    if "m" in parts:
+        chip_smoke.phase_lora_7b_tp4(card)
     chip_smoke.close_rank_pool()
     chip_smoke.log(f"[env] check_parallel: {time.perf_counter() - t0:.1f} s")
     return 0
 
 
 if __name__ == "__main__":
-    parser = argparse.ArgumentParser(description="chip_smoke.py's phases 13-17, or parts a-k of them")
-    parser.add_argument("parts", nargs="*", choices=["a", "b", "c", "d", "e", "f", "g", "h", "i", "j", "k"])
+    parser = argparse.ArgumentParser(description="chip_smoke.py's phases 13-17 and 19, or parts a-m of them")
+    parser.add_argument("parts", nargs="*", choices=["a", "b", "c", "d", "e", "f", "g", "h", "i", "j", "k", "l", "m"])
     parser.add_argument("--nccl", action="store_true", help="phases 14-16 over NCCL only (several cards)")
     args = parser.parse_args()
     sys.exit(main(args.parts, args.nccl))

@@ -47,6 +47,7 @@ from time_r1_tpu_torch.models.qwen25vl import params_from_jax, params_to_jax
 from time_r1_tpu_torch.models.qwen25vl.convert import load_lora_npz, lora_from_jax, lora_to_jax, save_lora_npz
 from time_r1_tpu_torch.ops.quant import head_logits, quantize_params, quantize_weight
 from time_r1_tpu_torch.rl import GRPOHyperParams, build_grpo_split_batch, grpo_loss
+from time_r1_tpu_torch.rl.grpo import Adapters
 from time_r1_tpu_torch.rl.lora import (
     LoRAConfig,
     fused_splits_for,
@@ -225,7 +226,7 @@ def _port_loss_and_grads(tbase, tl, hp, tb):
         x.requires_grad_(True)
     dec, rest = lora_layers_tree(tl)
     assert not rest
-    loss, metrics = grpo_loss(tbase, CFG, hp, tb, lora=(dec, LCFG.scaling))
+    loss, metrics = grpo_loss(tbase, CFG, hp, tb, lora=Adapters(dec, LCFG.scaling))
     grads = torch.autograd.grad(loss, leaves)
     return float(loss.detach()), metrics, lora_to_jax(_with(tl, grads), CFG)
 

@@ -16,8 +16,9 @@
 - the refusals by name (A13): a model dim that would split a head (1×4 over
   the tiny config's 2 vision heads, and the 7B's 28 q heads at tp 8: a model
   dim that is a multiple of the kv heads is taken, each kv head replicated,
-  `tests/test_torch_kv_replication.py`), use_peft, context parallelism and a
-  quantized base with model > 1;
+  `tests/test_torch_kv_replication.py`) and a quantized base with model > 1
+  (use_peft and context parallelism with model > 1 train:
+  `tests/test_torch_lora_tp.py`, `tests/test_torch_cp_tp.py`);
 - two ranks with `--tensor_parallel_size 2`: `cli.train.main` from an HF
   checkpoint over clips the port's decoder reads, and `cli.finetune.main`
   over `cli.preprocess_videos`' npz files: the ranks' gathered weights
@@ -64,8 +65,6 @@ def _refusals(params, cfg) -> dict:
     out = {}
     cases = {
         "kv_heads": (make_mesh(4), {}, params),
-        "use_peft": (make_mesh(2), dict(use_peft=True), params),
-        "context_parallel": (make_mesh(2), dict(context_parallel_size=2, beta=0.0), params),
         "quantized_base": (make_mesh(2), dict(use_peft=True), quantize_params(params, bits=8, fuse=False)),
     }
     for name, (mesh, kw, tree) in cases.items():
@@ -233,8 +232,7 @@ def test_sharded_resume_equals_the_uninterrupted_run(four):
         assert max(float((a - b).abs().max()) for a, b in zip(res["whole"], res["first"])) > 0
 
 
-@pytest.mark.parametrize("case,match", [("kv_heads", "does not divide num_attention_heads"), ("use_peft", "use_peft"),
-                                        ("context_parallel", "context_parallel_size"),
+@pytest.mark.parametrize("case,match", [("kv_heads", "does not divide num_attention_heads"),
                                         ("quantized_base", "cannot TP-split")])
 def test_refusals_name_a13(four, case, match):
     for r in four[2]:

@@ -18,18 +18,21 @@ by the rule table (`parallel/sharding.py`), FSDP over the data axis, each data
 rank training its own shard of the dataset, and with --tensor_parallel_size
 tp tensor parallelism over the model axis (heads and MLP width split; the
 tp adjacent ranks of a model group train the same rows); or with
---context_parallel_size N (N = the number of ranks) context parallelism, the
-ranks splitting each full row's sequence over ring attention:
+--context_parallel_size N (N = the data ranks, ranks / tp) context
+parallelism, the data ranks splitting each full row's sequence over ring
+attention, inside tensor parallelism when tp > 1:
 
     torchrun --nproc_per_node 4 -m time_r1_tpu_torch.cli.train \
         --model_name_or_path CKPT --output_dir OUT --train_data_path train.json \
-        [--tensor_parallel_size 2 | --context_parallel_size 4 --context_parallel_layout zigzag]
+        [--tensor_parallel_size 2 | --context_parallel_size 4 --context_parallel_layout zigzag
+         | --context_parallel_size 2 --tensor_parallel_size 2 | --use_peft true --tensor_parallel_size 2]
 
 Each rank takes its own card over NCCL when the machine has one for each, else
 they share the first card over gloo.
 
 LoRA (`--use_peft true --lora_r --lora_alpha`) trains adapters over the
-frozen base, which is then also the reference: no second load.
+frozen base, which is then also the reference: no second load. Over a mesh
+the adapters stay whole on every rank and the base is sharded when tp > 1.
 `--train_base_quantization int8` (with --use_peft only) puts the loaded base
 into int8 in the decode-fused layout one layer at a time, each bf16 layer
 dropped once quantized, so the bf16 and int8 trees are never both whole on

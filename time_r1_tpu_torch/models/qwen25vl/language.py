@@ -37,6 +37,8 @@ loop over the layers where JAX scans.
   `lora_side=` adds the adapters as side products at each projection
   (`ops/quant.py::lora_delta`), over any base and cache (the rollouts'
   decode). The two are refused together, and `lora` with an int8 cache.
+  Under a shard context the adapters stay whole and each layer merges the
+  part of them that its model-local blocks need (`ShardContext.lora_local`).
 
 - Context parallelism (`cp=`, a `parallel/ring_attention.py::ContextParallel`):
   the no-cache forward over this rank's shard of the sequence (contiguous, or
@@ -357,7 +359,7 @@ def decoder_forward(
     def layer(x, lp, li):
         if shard is not None:
             lp = shard.layer(lp, li, "layers")
-        lp, side = _layer_adapters(lp, layer_offset + li, lora, lora_side)
+        lp, side = _layer_adapters(lp, li, lora, lora_side, shard, layer_offset)
         h = _rms_norm(x, lp["input_layernorm"], eps)
         q, k, v = attn_qkv_proj(h, lp, nh, nkv, hd, lora=side, tp=shard)
         q = rope(q, cos_b, sin_b).to(x.dtype)
@@ -438,16 +440,23 @@ def _check_lora(lora, lora_side, quant_kv: bool) -> None:
         raise ValueError("the in-layer LoRA merge is the loss path's: it takes no int8 KV cache")
 
 
-def _layer_adapters(lp: dict, li: int, lora, lora_side) -> tuple[dict, Optional[tuple]]:
-    """Layer li's params with its adapters merged (lora), and its side
-    adapters (lora_side) as (slice, scaling) or None. The merge is built
-    here, outside every projection's name, so that no remat policy keeps it."""
+def _layer_adapters(lp: dict, li: int, lora, lora_side, shard=None, offset: int = 0) -> tuple[dict, Optional[tuple]]:
+    """Layer li's params (li counted in params["layers"]) with its adapters
+    merged (lora), and its side adapters (lora_side) as (slice, scaling) or
+    None; the adapters are read at the model's layer index, offset + li. The
+    merge is built here, outside every projection's name, so that no remat
+    policy keeps it. Under a shard context the layer's leaves are the rank's
+    model-local blocks: the whole adapters are cut to them first
+    (`ShardContext.lora_local` by the layer's specs)."""
     if lora is not None:
         from ...rl.lora import apply_layer_lora  # rl imports the models: a lazy import, as in JAX
 
-        return apply_layer_lora(lp, lora[0][li], lora[1]), None
+        adapters = lora[0][offset + li]
+        if shard is not None:
+            adapters = shard.lora_local(adapters, shard.specs["layers"][li])
+        return apply_layer_lora(lp, adapters, lora[1]), None
     if lora_side is not None:
-        return lp, (lora_side[0][li], lora_side[1])
+        return lp, (lora_side[0][offset + li], lora_side[1])
     return lp, None
 
 
@@ -577,7 +586,7 @@ def shared_decode_forward(
     def layer(x, lp, li):
         if shard is not None:
             lp = shard.layer(lp, li, "layers")
-        lp, side = _layer_adapters(lp, li, lora, lora_side)
+        lp, side = _layer_adapters(lp, li, lora, lora_side, shard)
         h = _rms_norm(x, lp["input_layernorm"], eps)
         q, k, v = attn_qkv_proj(h, lp, nh, nkv, hd, lora=side, tp=shard)
         q = rope(q, cos_b, sin_b).to(x.dtype)

@@ -195,12 +195,15 @@ def vision_blocks_forward(
     prep_full_inverse: torch.Tensor,
     use_window_kernel: bool = False,
     shard=None,
+    lora=None,
 ) -> torch.Tensor:
     """Patch embed + the ViT blocks, in window-layout order; returns the
     pre-merger hidden states (P_pad, hidden_size). use_window_kernel routes
     the attention through K2/K3, which have no backward (a frozen tower);
     without it the blocks are differentiable, as JAX's jnp branch. shard: a
-    ShardContext over the visual params (see the module)."""
+    ShardContext over the visual params (see the module). lora=(per-block
+    adapters, scaling): merged into each block after its gather, as the
+    decoder's layers merge theirs (`language._layer_adapters`)."""
     nh, hd = cfg.num_heads // (1 if shard is None else shard.tp), cfg.head_dim
     eps = cfg.rms_norm_eps
     win_patches = cfg.window_patches * cfg.window_patches * cfg.merge_unit
@@ -244,6 +247,8 @@ def vision_blocks_forward(
     for i, bp in enumerate(params["blocks"]):
         if shard is not None:
             bp = shard.layer(bp, i, "blocks")
+        if lora is not None:
+            bp = _block_adapters(bp, lora, i, shard)
         h = enter(_rms_norm(x, bp["norm1"], eps))
         q, k, v = (
             t.reshape(-1, nh, hd).contiguous()
@@ -269,6 +274,16 @@ def vision_blocks_forward(
         x = x + (row_parallel(act, bp["down_w"], bp["down_b"]) if mlp_split
                  else F.linear(act, bp["down_w"], bp["down_b"]))
     return x
+
+
+def _block_adapters(bp: dict, lora: tuple, i: int, shard) -> dict:
+    """Block i's params with its adapters merged; under a shard context the
+    whole adapters cut to the block's model-local leaves first (the fused
+    qkv's per head, as its leaf, `ShardContext.lora_local`)."""
+    from ...rl.lora import apply_layer_lora  # rl imports the models: a lazy import, as in JAX
+
+    adapters = lora[0][i] if shard is None else shard.lora_local(lora[0][i], shard.specs["blocks"][i])
+    return apply_layer_lora(bp, adapters, lora[1])
 
 
 def vision_merge_forward(params: dict, cfg: VisionConfig, x: torch.Tensor, prep_reverse: torch.Tensor,
@@ -299,12 +314,14 @@ def vision_forward(
     prep_reverse: torch.Tensor,
     use_window_kernel: bool = False,
     shard=None,
+    lora=None,
 ) -> torch.Tensor:
     """The vision tower; returns merged features (U_pad, out_hidden_size) in
-    original merge-unit order. use_window_kernel, shard: see
-    `vision_blocks_forward`."""
+    original merge-unit order. use_window_kernel, shard, lora: see
+    `vision_blocks_forward` (the merger has no adapters: `rl/lora.py`
+    adapts the blocks' weights)."""
     x = vision_blocks_forward(
         params, cfg, patches, prep_perm, prep_pos_hw, prep_key_valid,
-        prep_full_gather, prep_full_inverse, use_window_kernel=use_window_kernel, shard=shard,
+        prep_full_gather, prep_full_inverse, use_window_kernel=use_window_kernel, shard=shard, lora=lora,
     )
     return vision_merge_forward(params, cfg, x, prep_reverse, shard=shard)

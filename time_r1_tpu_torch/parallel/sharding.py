@@ -41,6 +41,12 @@ q | k | v heads and gate | up columns into the "qkv" / "gu" leaves that
 which records what it was cut for: an engine handed one (the paged and slot
 engines over a TP engine's `params`) takes it as it is.
 
+LoRA adapters stay whole on every rank. A layer merges the part of them
+that its blocks need (`lora_block`, by the spec of the base leaf: lora_b's
+rows where the leaf's dim 0 is cut, a replicated kv head's whole; lora_a's
+columns where its dim 1 is), so the adapters' gradients on a rank are the
+parts its blocks reach (`rl/grpo.py::lora_value_and_grad` sums them).
+
 `ShardContext` carries a mesh's groups, sizes, this rank's coordinates and
 the spec tree of the parameters it shards. The layer functions of the model
 (`models/qwen25vl/language.py`, `vision.py`) take one: they gather a layer's
@@ -92,7 +98,8 @@ PARAM_RULES: list[tuple[str, tuple]] = [
     (r"^visual/merger/fc2_b$", ()),
     # LoRA adapters (rl/lora.py: lora_a (r, in), lora_b (out, r)): the hidden
     # dim like their base weight. In the table, unused: a LoRA trainer keeps
-    # its adapters and base whole on every rank (model 1 only).
+    # its adapters whole on every rank, and a layer merges the part of them
+    # that its blocks need (`lora_block`; ROADMAP §C).
     (r"lora_a$", (None, D)),
     (r"lora_b$", (M, None)),
 ]
@@ -206,15 +213,43 @@ def _parts_major(x: torch.Tensor, parts: int, n: int) -> torch.Tensor:
     return x.reshape(n, parts, rows, *x.shape[1:]).transpose(0, 1).reshape(x.shape)
 
 
-def shard_leaf(x: torch.Tensor, spec: Spec, sizes: dict, coords: dict) -> torch.Tensor:
-    """Rank `coords`' block of a whole leaf (a new contiguous tensor)."""
+def _cut(x: torch.Tensor, spec: Spec, sizes: dict, coords: dict) -> torch.Tensor:
+    """Rank `coords`' block of a whole leaf, as autograd sees it (no copy
+    where a view will do)."""
     if spec.parts > 1 and spec.dims and spec.dims[0] == M:
         x = _heads_major(x, spec.parts, sizes[M])
     for i, ax in enumerate(spec.dims):
         if ax is not None:
             n = sizes[ax] // spec.replicas if ax == M else sizes[ax]
             x = x.chunk(n, dim=i)[coords[ax] // spec.replicas if ax == M else coords[ax]]
-    return x.detach().clone(memory_format=torch.contiguous_format)
+    return x
+
+
+def shard_leaf(x: torch.Tensor, spec: Spec, sizes: dict, coords: dict) -> torch.Tensor:
+    """Rank `coords`' block of a whole leaf (a new contiguous tensor)."""
+    return _cut(x, spec, sizes, coords).detach().clone(memory_format=torch.contiguous_format)
+
+
+def lora_block(adapter: dict, spec: Spec, sizes: dict, coords: dict) -> dict:
+    """The part of a whole adapter pair ({lora_a (r, in), lora_b (out, r)},
+    `rl/lora.py`) that gives rank `coords`' block of its delta B@A, by the
+    spec of its base leaf (`spec`, which cut that leaf): lora_b's rows by the
+    spec's dim 0 (a column-parallel weight's heads or width, a fused leaf's
+    q | k | v per head, a replicated kv head whole) and lora_a's columns by
+    its dim 1 (a row-parallel weight's). B_block @ A_block is then the block
+    of B@A, element for element. Differentiable: the adapters' gradients
+    reach only their cut parts. `sizes` with "data" 1 gives the model-local
+    form that a layer merges into after its FSDP gather (`ShardContext.lora_local`)."""
+    dims = tuple(spec.dims) + (None,) * (2 - len(spec.dims))
+    return {"lora_a": _cut(adapter["lora_a"], Spec((None, dims[1])), sizes, coords),
+            "lora_b": _cut(adapter["lora_b"], Spec((dims[0], None), spec.parts, spec.replicas), sizes, coords)}
+
+
+def splits_over_model(spec: Spec, tp: int) -> bool:
+    """Whether a leaf of this spec is cut over a model dim of tp (a
+    replicated kv leaf is): its blocks differ from one model rank to the
+    next, and so do the parts of an adapter's gradient that they reach."""
+    return tp > 1 and M in spec.dims
 
 
 def shard_params(tree: Any, mesh, coords: Optional[dict] = None, specs: Any = None) -> Any:
@@ -308,6 +343,17 @@ class ShardContext:
 
         specs = self.specs if key is None else self.specs[key]
         return gather_layer(lp, specs if li is None else specs[li], self)
+
+    def lora_local(self, adapters: Optional[dict], specs: dict) -> Optional[dict]:
+        """One layer's whole adapters ({name: {lora_a, lora_b}}) cut to the
+        rank's model-local blocks of their base leaves (`lora_block` at data
+        1: the layer's leaves are gathered over "data" before the merge), by
+        the layer's specs `specs`. An adapter whose base leaf has no spec of
+        its own (a decode-fused "qkv" / "gu": no rule cuts it) stays whole."""
+        if not adapters:
+            return adapters
+        sizes, coords = {D: 1, M: self.tp}, {D: 0, M: self.model_rank}
+        return {k: lora_block(ab, specs.get(k, Spec(())), sizes, coords) for k, ab in adapters.items()}
 
     def whole(self, x: torch.Tensor, key: str) -> torch.Tensor:
         """Leaf `key` gathered whole on every rank (`fsdp.gather_whole`)."""
@@ -447,9 +493,9 @@ def gather_params(tree: Any, shard: ShardContext, keep: bool = True, text_layer=
     """The whole tree from every rank's blocks (`fsdp.gather_whole`, leaf by
     leaf; every rank of the mesh calls it together). keep=False: this rank
     takes part in the collectives and keeps nothing (returns None).
-    text_layer: applied to each gathered text layer dict before the next is
-    gathered (the rollout copy's quantization: one bf16 layer whole at a
-    time). to: a device for the kept leaves (the CPU for a save). A leaf
+    text_layer(layer dict, layer index): applied to each gathered text layer
+    dict before the next is gathered (the rollout copy's adapter merge and
+    quantization: one bf16 layer whole at a time). to: a device for the kept leaves (the CPU for a save). A leaf
     that is whole on every rank is returned as it is, not copied."""
     import torch.distributed as dist
 
@@ -468,7 +514,7 @@ def gather_params(tree: Any, shard: ShardContext, keep: bool = True, text_layer=
         if isinstance(sub, dict):
             if path.startswith("text/layers/") and text_layer is not None:
                 lp = {k: whole(v, specs[k]) for k, v in sub.items()}
-                return text_layer(lp) if keep else None
+                return text_layer(lp, int(path.rsplit("/", 1)[1])) if keep else None
             return {k: walk(v, specs[k], f"{path}/{k}" if path else k) for k, v in sub.items()}
         if isinstance(sub, (list, tuple)):
             return [walk(v, s, f"{path}/{i}") for i, (v, s) in enumerate(zip(sub, specs))]

@@ -22,10 +22,13 @@ give the same loss and gradients.
 
 LoRA (`make_lora_train_step`): the base stays frozen and only the adapter
 tree (`rl/lora.py`) is differentiated and updated. The decoder's adapters
-merge inside each layer function (`lora=` of the loss functions), so one
-layer's merged weights exist at a time, also over an int8 base, whose
-quantized head carries the gradient into the hidden states
-(`ops/quant.py::head_logits`); other adapters (the ViT's) merge first.
+merge inside each layer function and the ViT's inside each block (`lora=`
+of the loss functions, an `Adapters`), so one layer's merged weights exist
+at a time, also over an int8 base, whose quantized head carries the
+gradient into the hidden states (`ops/quant.py::head_logits`). Under
+context parallelism every adapter merges into the base before the loss, as
+JAX's step does (`time_r1_tpu/rl/grpo.py:507-510`): the ring decoder takes
+no `lora=`.
 
 Across ranks (`parallel/`): `group=` is the data-parallel group whose ranks
 each hold their own rows; `cp=` (a `parallel.ContextParallel`) splits the
@@ -43,8 +46,13 @@ FSDP shards just before use and runs the rank's heads and MLP width
 gathered whole once a loss (`model.text_ends`). The gradients come back as
 blocks: the data-sharded ones reduce-scattered in the backward, the others
 all-reduced over the data group after it; nothing is summed over "model".
-All data ranks must agree on whether their batch has video (the vision
-tower's gathers are collectives).
+The vision tower's gathers (and, where it trains, its reduce-scatters) are
+collectives of the data group: a rank whose batch has no video in a step
+where another's has runs the tower on a placeholder (`align_vision`). LoRA
+over sharded params keeps the adapters whole on every rank: each layer
+merges the part of them that its blocks need, and their gradients are
+summed over the data group, and over the model group where the base leaf
+is cut over it (`lora_value_and_grad`).
 
 `gradient_checkpointing` (False, True/"full", "dots", "dots_small") makes
 each decoder layer of both differentiated forwards one checkpointed unit
@@ -125,17 +133,39 @@ def compute_group_advantages(rewards: np.ndarray, num_generations: int) -> np.nd
     return ((r - mean) / (std + 1e-4)).reshape(-1)
 
 
+class Adapters(NamedTuple):
+    """The loss's LoRA adapters (`rl/lora.py`), each merged inside its own
+    layer function: the decoder layers' (one dict a layer, or None) and the
+    ViT blocks' (one dict a block, or None: fix_vit leaves none), with their
+    scaling."""
+
+    layers: Optional[list]
+    scaling: float
+    blocks: Optional[list] = None
+
+
+def _text_lora(lora) -> Optional[tuple]:
+    """The decoder's (layers, scaling) of a `lora=` argument, or None."""
+    return None if lora is None or lora.layers is None else (lora.layers, lora.scaling)
+
+
+def _vision_lora(lora) -> Optional[tuple]:
+    """The ViT blocks' (blocks, scaling) of a `lora=` argument, or None."""
+    return None if lora is None or lora.blocks is None else (lora.blocks, lora.scaling)
+
+
 def _at(shard, key: str):
     return None if shard is None else shard.at(key)
 
 
-def _vision_feats(params: dict, cfg: Qwen25VLConfig, batch, fix_vit: bool, shard=None) -> torch.Tensor:
+def _vision_feats(params: dict, cfg: Qwen25VLConfig, batch, fix_vit: bool, shard=None, lora=None) -> torch.Tensor:
     """Merged vision features for the loss. With `vision_hidden` (the frozen
     blocks' output, precomputed or captured by the rollout) only the trainable
     merger runs here. Otherwise fix_vit runs the blocks without a graph (they
     get no gradient, K2/K3 carry their attention) and the merger with one;
     without fix_vit the whole tower is differentiated, off K2/K3 (they have no
-    backward), as JAX's `_vision_feats` passes use_window_kernel=fix_vit."""
+    backward), as JAX's `_vision_feats` passes use_window_kernel=fix_vit, and
+    the blocks' adapters (lora, as `grpo_loss`'s) merge inside each block."""
     if fix_vit:
         batch = precompute_frozen_vision(params, cfg, batch, shard)
     v = batch.vision
@@ -144,7 +174,7 @@ def _vision_feats(params: dict, cfg: Qwen25VLConfig, batch, fix_vit: bool, shard
                                     shard=_at(shard, "visual"))
     return vision_forward(params["visual"], cfg.vision, v.patches, v.perm, v.pos_hw, v.key_valid,
                           v.full_gather, v.full_inverse, v.reverse, use_window_kernel=fix_vit,
-                          shard=_at(shard, "visual"))
+                          shard=_at(shard, "visual"), lora=_vision_lora(lora))
 
 
 def precompute_frozen_vision(params: dict, cfg: Qwen25VLConfig, batch, shard=None):
@@ -162,29 +192,52 @@ def precompute_frozen_vision(params: dict, cfg: Qwen25VLConfig, batch, shard=Non
     return batch._replace(vision_hidden=x)
 
 
-def check_vision_agrees(batch, shard) -> None:
-    """Over sharded params the data ranks run the vision tower's gathers
-    together: refuse a step where some ranks' batches have video and others'
-    none (JAX's `_global_vision` unions the videos; not ported, ROADMAP A13)."""
+PLACEHOLDER_GRID = (1, 2, 2)  # the smallest grid the tower takes: one temporal patch, one 2x2 merge unit
+
+
+def placeholder_vision(cfg: Qwen25VLConfig, device) -> VisionInputs:
+    """Vision inputs of one zero video of `PLACEHOLDER_GRID` (one merge unit,
+    padded to one attention window): what a rank with no video runs the
+    tower on when another data rank's batch has video (`align_vision`)."""
+    from ..models.qwen25vl.vision import prepare_vision_inputs
+
+    t, h, w = PLACEHOLDER_GRID
+    patches = torch.zeros((t * h * w, cfg.vision.patch_input_dim), dtype=torch.float32, device=device)
+    return VisionInputs.build(prepare_vision_inputs([PLACEHOLDER_GRID], cfg.vision), patches)
+
+
+def align_vision(cfg: Qwen25VLConfig, batch, shard):
+    """The batch as this rank's vision tower must run it. Over sharded params
+    the data ranks run the tower's gathers together, and its reduce-scatters
+    in the backward where it trains: a rank whose batch has no video, in a
+    step where another data rank's has, gets a placeholder video
+    (`placeholder_vision`). Its batch has no vision token, so the placeholder's
+    features replace no embedding (`merge_vision_embeddings` selects none of
+    them): they enter the loss multiplied by 0 and add 0 to every gradient,
+    while the tower's collectives fire in the same order as on the other
+    ranks. Each rank keeps its own videos; JAX unions them
+    (`time_r1_tpu/rl/trainer.py::_global_vision`), which gives the same
+    results, since a video's features do not depend on the others' (ROADMAP
+    §C). Every data rank calls this together (it is an all-reduce)."""
     if shard is None or shard.dp == 1:
-        return
+        return batch
     dev = batch.advantages.device
     has = torch.tensor([float(batch.vision is not None)], device=dev)
     all_reduce_sum([has], shard.data_group)
-    if 0 < float(has[0]) < shard.dp:
-        raise NotImplementedError("sharded training with video in some data ranks' batches and none in others' "
-                                  "is not ported (JAX unions the videos; ROADMAP A13)")
+    if batch.vision is None and float(has[0]) > 0:
+        return batch._replace(vision=placeholder_vision(cfg, dev))
+    return batch
 
 
 def _merged_embeds(params: dict, cfg: Qwen25VLConfig, batch, ids: torch.Tensor, fix_vit: bool, emb=None,
-                   shard=None) -> torch.Tensor:
+                   shard=None, lora=None) -> torch.Tensor:
     """The token embeddings of `ids` (from `emb`, the gathered table, or the
     params' own) with the batch's vision features merged at its vision
     tokens, from each row's feature offset."""
     embeds = embed_lookup(params["text"]["embed_tokens"] if emb is None else emb, ids)
     if batch.vision is None:
         return embeds
-    feats = _vision_feats(params, cfg, batch, fix_vit, shard)
+    feats = _vision_feats(params, cfg, batch, fix_vit, shard, lora)
     return merge_vision_embeddings(
         embeds, ids, feats, (cfg.video_token_id, cfg.image_token_id),
         feature_offset=batch.feat_offsets if batch.feat_offsets is not None else 0,
@@ -192,7 +245,7 @@ def _merged_embeds(params: dict, cfg: Qwen25VLConfig, batch, ids: torch.Tensor, 
 
 
 def _hidden_states(params: dict, cfg: Qwen25VLConfig, batch: GRPOBatch, remat=False, fix_vit: bool = False,
-                   lora: Optional[tuple] = None, cp=None, shard=None, emb=None) -> torch.Tensor:
+                   lora: Optional[Adapters] = None, cp=None, shard=None, emb=None) -> torch.Tensor:
     """Full rows: embed, merge the vision features, run the decoder over the
     rows with the padding mask (K1 on the card, B1/B2 in its backward) → the
     final hidden states (B, T, H).
@@ -203,10 +256,10 @@ def _hidden_states(params: dict, cfg: Qwen25VLConfig, batch: GRPOBatch, remat=Fa
     positions. T must divide by `cp.multiple` (the trainer pads to it)."""
     if cp is not None and lora is not None:
         raise ValueError("LoRA with the context-parallel loss is not plumbed, as in JAX: merge the adapters instead")
-    embeds = _merged_embeds(params, cfg, batch, batch.input_ids, fix_vit, emb, shard)
+    embeds = _merged_embeds(params, cfg, batch, batch.input_ids, fix_vit, emb, shard, lora)
     if cp is None:
         hidden, _ = decoder_forward(params["text"], cfg.text, embeds, batch.position_ids,
-                                    attention_mask=batch.attention_mask, remat=remat, lora=lora,
+                                    attention_mask=batch.attention_mask, remat=remat, lora=_text_lora(lora),
                                     shard=_at(shard, "text"))
         return hidden
     T = embeds.shape[1]
@@ -229,7 +282,7 @@ def _by_position(x: torch.Tensor) -> torch.Tensor:
 
 def _split_logps_entropy(
     params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch: GRPOSplitBatch, fix_vit: bool = False,
-    lora: Optional[tuple] = None, shard=None, ends: Optional[tuple] = None,
+    lora: Optional[Adapters] = None, shard=None, ends: Optional[tuple] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Shared-prefix forward → per-token (logps, entropy), both (B, Lc) f32.
 
@@ -238,12 +291,13 @@ def _split_logps_entropy(
     chunk over it. Completion token 0 is predicted by the last prompt token's
     hidden state (column Lp-1, shared by the G rows of a group), token t ≥ 1 by
     the chunk's position t-1. The prefix gradient sums over each prompt's rows.
-    lora=(per-layer decoder adapters, scaling): merged inside each layer of
-    both forwards (`language.decoder_forward`)."""
+    lora (`Adapters`): the decoder's merged inside each layer of both
+    forwards (`language.decoder_forward`), the ViT's inside each block."""
     text = params["text"]
     emb, head = ends if ends is not None else text_ends(text, cfg.text)
     tshard = _at(shard, "text")
-    embeds = _merged_embeds(params, cfg, batch, batch.prompt_ids, fix_vit, emb, shard)
+    embeds = _merged_embeds(params, cfg, batch, batch.prompt_ids, fix_vit, emb, shard, lora)
+    lora = _text_lora(lora)
     P, Lp, _ = embeds.shape
     B = batch.comp_ids.shape[0]
     cache = KVCache.zeros(cfg.text, P, Lp, dtype=embeds.dtype, device=embeds.device)
@@ -298,13 +352,13 @@ def per_token_logps_entropy(
 
 
 def _logps_entropy(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch,
-                   lora: Optional[tuple] = None, cp=None, shard=None) -> tuple[torch.Tensor, torch.Tensor]:
+                   lora: Optional[Adapters] = None, cp=None, shard=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-token (logps, entropy), f32: (B, Lc) over a split batch's
     completion chunks, (B, T-1) over full rows (token t predicted at t-1).
     With cp, (B, T/n) at this rank's positions, the value at position t that
     of token t+1 (0 at position T-1, which predicts nothing). With shard, the
     embedding and the head are gathered once here."""
-    check_vision_agrees(batch, shard)
+    batch = align_vision(cfg, batch, shard)
     emb, head = text_ends(params["text"], cfg.text, _at(shard, "text"))
     if isinstance(batch, GRPOSplitBatch):
         if cp is not None:
@@ -322,7 +376,7 @@ def _logps_entropy(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch
 
 @torch.no_grad()
 def compute_ref_logps(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch,
-                      lora: Optional[tuple] = None, cp=None, shard=None) -> torch.Tensor:
+                      lora: Optional[Adapters] = None, cp=None, shard=None) -> torch.Tensor:
     """Per-token logps under the reference weights, without a graph: (B, Lc)
     for a split batch, (B, T-1) for full rows. Nothing is differentiated
     here, so the reference's ViT blocks run frozen (K2/K3 on the card)
@@ -331,7 +385,7 @@ def compute_ref_logps(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, ba
     trainer's reference is the unmerged base (lora None). With cp the group
     runs the ring forward together and every rank gets the whole (B, T-1).
     With shard, over the reference's blocks (gathered, no reduce-scatter)."""
-    check_vision_agrees(batch, shard)
+    batch = align_vision(cfg, batch, shard)
     batch = precompute_frozen_vision(params, cfg, batch, shard)
     logps, _ = _logps_entropy(params, cfg, hp, batch, lora=lora, cp=cp, shard=shard)
     if cp is not None:
@@ -340,10 +394,10 @@ def compute_ref_logps(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, ba
 
 
 def grpo_loss(params: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, batch,
-              lora: Optional[tuple] = None, cp=None, group=None, shard=None) -> tuple[torch.Tensor, dict]:
+              lora: Optional[Adapters] = None, cp=None, group=None, shard=None) -> tuple[torch.Tensor, dict]:
     """Loss and metrics (0-d tensors, without a graph) for one split or
     full-row batch; differentiable in every parameter that requires grad,
-    and in the adapters of lora=(per-layer decoder adapters, scaling).
+    and in the adapters of lora (an `Adapters`).
 
     Over ranks (`group`: data-parallel, each rank its own rows; `cp`: a
     context-parallel group over full rows that every rank holds alike) the
@@ -512,31 +566,75 @@ def make_train_step(cfg: Qwen25VLConfig, hp: GRPOHyperParams, optimizer, cp=None
     return train_step
 
 
-def make_lora_train_step(cfg: Qwen25VLConfig, hp: GRPOHyperParams, optimizer, lora_cfg, group=None):
+def lora_value_and_grad(base: dict, lora: dict, cfg: Qwen25VLConfig, hp: GRPOHyperParams, lora_cfg, batch,
+                        group=None, cp=None, shard=None) -> tuple[torch.Tensor, dict, list[torch.Tensor]]:
+    """(loss, metrics, grads) of the LoRA loss, one grad per
+    `rl/lora.py::lora_leaves(lora)` entry (zeros where the loss does not
+    reach a leaf), summed over the ranks: the whole batch's, alike on every
+    rank. Marks the adapter leaves as requiring grad; the base never is. The
+    decoder's adapters merge inside each layer and the ViT's (without
+    fix_vit) inside each block. `group`: data parallelism, as
+    `grpo_value_and_grad`'s.
+
+    cp (a `parallel.ContextParallel`): every adapter merges into the base
+    before the loss, inside autograd, as JAX's step does under cp
+    (`time_r1_tpu/rl/grpo.py:507-510`), and the gradients are summed over the
+    group, whose ranks each hold a piece of every row.
+
+    shard (a ShardContext over `base`, this rank's blocks; the adapters stay
+    whole on every rank): each layer merges the part of the adapters that its
+    blocks need (under cp, the merge before the loss cuts them to the blocks:
+    `merge_lora(shard=)`). A rank's adapter gradient is then its own rows'
+    part, and where the base leaf is cut over "model" its own blocks' part:
+    every gradient is summed over the data group, and those of adapters
+    whose base leaf is cut over "model" (`adapter_specs`) over the model
+    group too. Over a leaf that is whole along "model" every model rank
+    computed the same gradient, which a sum would multiply by tp. The sums
+    come out alike on every rank, so the clip's norm counts each adapter
+    once and the ranks' adapters stay bit-equal."""
+    from ..parallel.sharding import splits_over_model
+    from .lora import adapter_specs, lora_layers_tree, lora_leaves, merge_lora
+
+    leaves = lora_leaves(lora)
+    for p in leaves:
+        p.requires_grad_(True)
+    if cp is not None:
+        params, adapters = merge_lora(base, lora, lora_cfg, shard=shard), None
+    else:
+        dec, rest = lora_layers_tree(lora)
+        if set(rest) - {"visual"} or set(rest.get("visual", {})) - {"blocks"}:
+            raise ValueError(f"adapters outside the decoder layers and the ViT blocks: {sorted(rest)}")
+        params, adapters = base, Adapters(dec, lora_cfg.scaling, rest.get("visual", {}).get("blocks"))
+    loss, metrics = grpo_loss(params, cfg, hp, batch, lora=adapters, cp=cp, group=group, shard=shard)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    loss = loss.detach().reshape(1)
+    if shard is None:
+        _reduce(grads + [loss], cp, group)
+        return loss[0], metrics, grads
+    if shard.dp > 1:
+        all_reduce_sum(grads + [loss], shard.data_group)
+    split = [g for g, s in zip(grads, adapter_specs(lora, shard.specs)) if splits_over_model(s, shard.tp)]
+    if split:
+        all_reduce_sum(split, shard.model_group)
+    return loss[0], metrics, grads
+
+
+def make_lora_train_step(cfg: Qwen25VLConfig, hp: GRPOHyperParams, optimizer, lora_cfg, group=None, cp=None,
+                         shard=None):
     """The LoRA train step: (base params, adapters, opt_state, batch) →
-    (adapters, opt_state, loss, metrics). Only the adapter leaves
-    (`rl/lora.py::lora_leaves`) get gradients and the clip and AdamW of
-    `optimizer`, in place; the base is never marked as requiring grad. The
-    decoder's adapters merge inside each layer; the rest (the ViT's, without
-    fix_vit) merge before the loss. `group`: data parallelism, as
-    `make_train_step`'s."""
-    from .lora import lora_layers_tree, lora_leaves, merge_lora
+    (adapters, opt_state, loss, metrics). Only the adapter leaves get
+    gradients (`lora_value_and_grad`, whose `group`, `cp` and `shard` these
+    are) and the clip and AdamW of `optimizer`, in place. The gradients are
+    whole and alike on every rank, so the norm is the plain one."""
+    from .lora import lora_leaves
 
     def train_step(base: dict, lora: dict, opt_state, batch):
-        leaves = lora_leaves(lora)
-        for p in leaves:
-            p.requires_grad_(True)
-        dec, rest = lora_layers_tree(lora)
-        params = merge_lora(base, rest, lora_cfg) if rest else base
-        loss, metrics = grpo_loss(params, cfg, hp, batch,
-                                  lora=(dec, lora_cfg.scaling) if dec is not None else None, group=group)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        loss = loss.detach().reshape(1)
-        _reduce(grads + [loss], None, group)
+        loss, metrics, grads = lora_value_and_grad(base, lora, cfg, hp, lora_cfg, batch, group=group, cp=cp,
+                                                   shard=shard)
         gnorm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
-        optimizer.update(leaves, grads, opt_state)
-        metrics = dict(metrics, grad_norm=gnorm, loss=loss[0])
-        return lora, opt_state, loss[0], metrics
+        optimizer.update(lora_leaves(lora), grads, opt_state)
+        metrics = dict(metrics, grad_norm=gnorm, loss=loss)
+        return lora, opt_state, loss, metrics
 
     return train_step

@@ -25,6 +25,13 @@ merge concatenates their deltas along the output axis in the order in which
 `ops/quant.py::quantize_text_params` concatenates the weights. Quantized
 leaves ({"q8", "s"}) are seen by their q8 shape; int4 leaves have no training
 layout and give nothing.
+
+Over a sharded base (`parallel/sharding.py`) the adapters stay whole: a
+merge takes the part of each that the rank's block of its weight needs
+(`parallel/sharding.py::lora_block`; `merge_lora(shard=)` over the blocks,
+`ShardContext.lora_local` inside a layer after its gather), and
+`adapter_specs` gives the spec that says how each adapter's gradient is
+summed over the mesh.
 """
 
 from __future__ import annotations
@@ -176,17 +183,26 @@ def apply_layer_lora(lp: dict, lslice: Optional[dict], scaling: float) -> dict:
     return merged
 
 
-def merge_lora(params: dict, lora: dict, cfg: LoRAConfig) -> dict:
+def merge_lora(params: dict, lora: dict, cfg: LoRAConfig, shard=None) -> dict:
     """The functionally merged tree: W + scaling·B@A at each adapted weight,
     every other leaf shared with `params`. A quantized base has no merged
     tree (it would not fit where it trains): use `apply_layer_lora` per layer
-    (the loss) or `merge_quantize` (the rollout copy)."""
+    (the loss) or `merge_quantize` (the rollout copy).
 
-    def walk(node, sub):
+    shard (a `parallel/sharding.py::ShardContext` over `params`, whose leaves
+    are this rank's blocks): each whole adapter is cut to its base leaf's
+    block first (`lora_block`), so the merged tree is the rank's blocks of
+    the merged model, and autograd takes the adapters' gradients through the
+    model's gathers (the loss under context parallelism over a mesh)."""
+    from ..parallel.sharding import Spec, lora_block
+
+    def walk(node, sub, specs):
         if isinstance(node, list):
-            return [walk(x, s) for x, s in zip(node, sub)]
+            return [walk(x, s, None if specs is None else sp)
+                    for x, s, sp in zip(node, sub, specs if specs is not None else node)]
         if not any(isinstance(v, dict) and "lora_a" in v for v in sub.values()):
-            return {k: walk(node[k], sub[k]) if k in sub else v for k, v in node.items()}
+            return {k: walk(node[k], sub[k], None if specs is None else specs[k]) if k in sub else v
+                    for k, v in node.items()}
         for key in sub:
             target = node.get(key, next((node.get(f) for f, c in FUSED_ORDERS.items() if key in c and f in node),
                                         None))
@@ -195,9 +211,30 @@ def merge_lora(params: dict, lora: dict, cfg: LoRAConfig) -> dict:
             if is_quantized(target):
                 raise ValueError("merge_lora over a quantized base: merge per layer (apply_layer_lora) "
                                  "or merge and quantize (merge_quantize)")
+        if specs is not None:
+            sub = {k: lora_block(ab, specs.get(k, Spec(())), shard.sizes, shard.coords) for k, ab in sub.items()}
         return apply_layer_lora(node, sub, cfg.scaling)
 
-    return walk(params, lora)
+    return walk(params, lora, None if shard is None else shard.specs)
+
+
+def adapter_specs(lora, specs) -> list:
+    """The spec of each adapter leaf's base leaf (`specs`, a spec tree over
+    the base, `parallel/sharding.py::param_specs`), in `lora_leaves` order:
+    how the leaf's gradient is reduced over a mesh (`rl/grpo.py::
+    make_lora_train_step`). A decode-fused base's components ("qkv", "gu":
+    no rule cuts them) take a whole leaf's spec."""
+    from ..parallel.sharding import Spec
+
+    if isinstance(lora, list):
+        return [x for sub, sp in zip(lora, specs) for x in adapter_specs(sub, sp)]
+    out = []
+    for k, v in lora.items():
+        if isinstance(v, dict) and "lora_a" in v:
+            out += [specs.get(k, Spec(()))] * len(v)
+        else:
+            out += adapter_specs(v, specs[k])
+    return out
 
 
 def lora_layers_tree(lora: dict):

@@ -81,9 +81,22 @@ torchrun launches one process a rank):
   (`parallel/tensor.py`): their gradients are summed over the replicas
   after the backward and the replicas stay bit-equal. Refused by name
   (ROADMAP A13): a tp that does not divide the q or vision heads
-  (`check_heads`), use_peft, context parallelism or a quantized base with
-  model > 1. A LoRA trainer
-  keeps PR 19's data parallelism (adapters and base whole on every rank).
+  (`check_heads`), and a quantized base with model > 1.
+- LoRA over a mesh: with model > 1 the frozen base (and the reference, which
+  is that base) is sharded as a full-parameter trainer's is, and the adapters
+  and their optimizer state stay whole on every rank (ROADMAP §C): each
+  layer merges the part of them its blocks need, and the gradients are
+  summed over the data group, and over the model group where the base leaf
+  is cut over it (`rl/grpo.py::lora_value_and_grad`). The rolling-out rank
+  gathers the base and merges the adapters one layer at a time (merged and
+  quantized under rollout_quantization); `gathered_params` and a save give
+  the merged policy, and the adapters once. With model 1 the base and the
+  adapters stay whole on every rank and the adapters' gradients are summed
+  over the data group.
+- a sharded step where some data ranks' batches have video and others'
+  none: such a rank runs the vision tower on a placeholder video whose
+  features enter nothing (`rl/grpo.py::align_vision`), so the tower's
+  collectives fire on every rank; JAX unions the videos instead.
 - data parallelism: each rank trains its own shard of the dataset (padded to
   a common length by modular repetition, so that no rank's shard runs out
   first and hangs the others' collectives), rolls out its own examples with
@@ -99,7 +112,10 @@ torchrun launches one process a rank):
   the group trains one batch. Its first rank rolls out and scores and
   broadcasts the groups; every rank builds the same batch, the reference
   log-probs come from the ring forward of the whole group, and each rank's
-  loss covers its own positions.
+  loss covers its own positions. With model > 1 the ring runs over the data
+  group of the rank's model coordinate, on the rank's heads, and the groups
+  go from global rank 0 to every rank of the mesh. Under LoRA every adapter
+  merges into the base before the loss, as in JAX.
 - without a mesh a trainer is a one-process trainer, whatever group its
   process is in.
 - pop_metrics gathers the registry's keys with a presence mask (JAX's
@@ -146,7 +162,7 @@ from ..utils.logging_sinks import DebugRewardLog
 from ..utils.profiling import PhaseTimers
 from .grpo import (
     GRPOHyperParams,
-    check_vision_agrees,
+    align_vision,
     compute_group_advantages,
     compute_ref_logps,
     make_lora_train_step,
@@ -154,7 +170,16 @@ from .grpo import (
     precompute_frozen_vision,
     trainable_leaves,
 )
-from .lora import LoRAConfig, fused_splits_for, init_lora, lora_layers_tree, lora_leaves, merge_lora, merge_quantize
+from .lora import (
+    LoRAConfig,
+    apply_layer_lora,
+    fused_splits_for,
+    init_lora,
+    lora_layers_tree,
+    lora_leaves,
+    merge_lora,
+    merge_quantize,
+)
 from .optim import AdamWMultiSteps, join_schedules, linear_schedule
 from .rollout import build_grpo_batch_groups, build_grpo_split_batch
 
@@ -331,11 +356,6 @@ class GRPOTrainer:
             if self._quantized_base:
                 raise NotImplementedError("a quantized trained tree with model > 1: fused int8 columns cannot "
                                           "TP-split (JAX cli/evaluate.py:172; ROADMAP A13)")
-            if config.use_peft:
-                raise NotImplementedError("use_peft with model > 1 is not ported (ROADMAP A13): with model 1 the "
-                                          "adapters and the frozen base stay whole on every rank")
-            if config.context_parallel_size > 1:
-                raise NotImplementedError("context_parallel_size > 1 with model > 1 is not ported (ROADMAP A13)")
             check_heads(cfg, self.tp)
         self._group = data_group(mesh)
         self._model_group = model_group(mesh)
@@ -347,8 +367,6 @@ class GRPOTrainer:
             if self._ranks != config.context_parallel_size:
                 raise ValueError(f"context_parallel_size={config.context_parallel_size} must equal the mesh data "
                                  f"axis ({self._ranks})")
-            if config.use_peft:
-                raise ValueError("LoRA with the context-parallel loss is not plumbed, as in JAX")
             config.shared_prefix_loss = False  # CP splits the sequence of full rows
             self._cp = ContextParallel(self._group, config.context_parallel_layout)
         # the ranks that split the data: each rank under data parallelism, the
@@ -381,17 +399,20 @@ class GRPOTrainer:
             if config.beta != 0.0 and ref_params is None:
                 ref_params = params  # the adapter-disable trick: the unmerged base is the reference
         self.ref_params = ref_params if config.beta != 0.0 else None
-        # a full-parameter trainer on a mesh keeps the policy and the
-        # reference sharded by the rule table (the engine gets a gathered copy)
+        # a full-parameter trainer on a mesh, and a LoRA trainer on one with
+        # model > 1, keep the policy (the frozen base) and the reference
+        # sharded by the rule table (the engine gets a gathered copy); the
+        # adapters stay whole
         self.shard = None
-        if mesh is not None and not config.use_peft:
+        if mesh is not None and (not config.use_peft or self.tp > 1):
             nkv = cfg.text.num_key_value_heads
             self.shard = dataclasses.replace(ShardContext.build(mesh, params).with_kv_heads(nkv),
                                              kv_group=kv_replica_group(mesh, nkv))
             self._whole_numels = [p.numel() for p in trainable_leaves(params, config.fix_vit)]
+            base_is_ref = config.use_peft and self.ref_params is params
             self.params = self.shard.shard(params)
             if self.ref_params is not None:
-                self.ref_params = self.shard.shard(self.ref_params)
+                self.ref_params = self.params if base_is_ref else self.shard.shard(self.ref_params)
         # int8 KV rides with quantized weights, as in the JAX trainer: the
         # rollout samples through the quantized policy and the loss recomputes
         # its log-probs in bf16. A quantized base is already the rollout form:
@@ -458,17 +479,17 @@ class GRPOTrainer:
             every_k=max(c.gradient_accumulation_steps, 1),
             schedule_start=0 if self.opt_state is None else self.opt_state.count,
         )
+        group = None if self._cp is not None or self._ranks == 1 else self._group
         if self.lora is not None:
             if self.opt_state is None:
                 self.opt_state = self.optimizer.init(lora_leaves(self.lora), offload=c.offload_optimizer)
-            self._train_step = make_lora_train_step(self.cfg, self.hp, self.optimizer, self.lora_cfg,
-                                                    group=self._group)
+            self._train_step = make_lora_train_step(self.cfg, self.hp, self.optimizer, self.lora_cfg, group=group,
+                                                    cp=self._cp, shard=self.shard)
             return
         numels = None if self.shard is None else self._whole_numels  # the offload rule reads the whole leaves
         if self.opt_state is None:
             self.opt_state = self.optimizer.init(trainable_leaves(self.params, self.hp.fix_vit),
                                                  offload=c.offload_optimizer, numels=numels)
-        group = None if self._cp is not None or self._ranks == 1 else self._group
         self._train_step = make_train_step(self.cfg, self.hp, self.optimizer, cp=self._cp, group=group,
                                            shard=self.shard)
 
@@ -596,7 +617,7 @@ class GRPOTrainer:
             else:
                 batch = build_grpo_batch_groups(self.cfg, groups, dtype=self.dtype, device=self.device,
                                                 pad_multiple=None if self._cp is None else self._cp.multiple)
-        check_vision_agrees(batch, self.shard)
+        batch = align_vision(self.cfg, batch, self.shard)
         if self.hp.fix_vit and batch.vision is not None:
             with self.timers.phase("vision_frozen"):
                 cap = self.engine.captured_vision
@@ -642,15 +663,21 @@ class GRPOTrainer:
 
     def _broadcast_groups(self, groups, rewards_all):
         """The rolling-out rank's scored groups, rewards and the metrics their
-        scoring logged, to every rank of its group (the context-parallel
-        group, or the model group), as host objects (patches as CPU tensors),
-        so that every rank builds the same batch and logs the same metrics."""
-        group = self._group if self._cp is not None else self._model_group
+        scoring logged, to every rank that trains on them (the
+        context-parallel group, the model group, or with both every rank of
+        the mesh, from global rank 0), as host objects (patches as CPU
+        tensors), so that every rank builds the same batch and logs the same
+        metrics."""
+        if self._cp is not None and self.tp > 1:
+            group, src = None, 0  # the mesh spans the process group (`make_mesh`)
+        else:
+            group = self._group if self._cp is not None else self._model_group
+            src = dist.get_global_rank(group, 0)
         box = [None]
         if self._rolls_out:
             box = [([dict(g, patches=None if g["patches"] is None else torch.as_tensor(g["patches"]).cpu())
                      for g in groups], rewards_all, self._rollout_metrics)]
-        dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0), group=group)
+        dist.broadcast_object_list(box, src=src, group=group)
         groups, rewards_all, logged = box[0]
         if not self._rolls_out:
             for k, v in logged:
@@ -670,16 +697,14 @@ class GRPOTrainer:
         LoRA over an int8 base: the adapters as side products, with no merge
         and no copy; over a bf16 base with rollout_quantization: the old
         quantized copy dropped, then a new one merged and quantized one layer
-        at a time; otherwise the merged tree."""
+        at a time; otherwise the merged tree. LoRA over shards: the base
+        gathered and the adapters merged one layer at a time (and quantized)
+        on the rank that rolls out."""
         if self.shard is not None:
             self.engine.params = None
             q = self.c.rollout_quantization
-            bits = QBITS[q] if q else None
-            tree = gather_params(self.params, self.shard, keep=self._rolls_out,
-                                 text_layer=(lambda lp: quantize_layer(lp, bits=bits, fuse=True)) if q else None)
+            tree = self._gathered_policy(keep=self._rolls_out, bits=QBITS[q] if q else None)
             if self._rolls_out:
-                if q:
-                    tree = dict(tree, text=quantize_text_params(tree["text"], bits=bits))
                 self.engine.set_params(tree, prequantized=bool(q))
         elif self.lora is None:
             self.engine.set_params(self.params)
@@ -708,10 +733,38 @@ class GRPOTrainer:
     def gathered_params(self, keep: bool = True, to=None) -> Optional[dict]:
         """The whole policy: the params, or over shards the tree gathered
         from every rank's blocks (every rank calls it; keep=False takes part
-        and keeps nothing)."""
+        and keeps nothing); under LoRA the base merged with the adapters."""
         if self.shard is None:
             return self._policy_params()
-        return gather_params(self.params, self.shard, keep=keep, to=to)
+        return self._gathered_policy(keep=keep, to=to)
+
+    @torch.no_grad()
+    def _gathered_policy(self, keep: bool, to=None, bits: Optional[int] = None) -> Optional[dict]:
+        """The policy gathered from every rank's blocks (`gather_params`),
+        under LoRA with each layer's adapters merged as it is gathered, and
+        with `bits` each layer quantized then and the ends after (the
+        rollout copy): one whole bf16 layer at a time."""
+        dec, rest = lora_layers_tree(self.lora) if self.lora is not None else (None, {})
+
+        def adapters(sub, like):  # the whole adapters where the gathered leaves are (a save's: the host)
+            return {k: {n: t.detach().to(like.device) for n, t in ab.items()} for k, ab in sub.items()}
+
+        def text_layer(lp, li):
+            if dec is not None and dec[li]:
+                lp = apply_layer_lora(lp, adapters(dec[li], next(iter(lp.values()))), self.lora_cfg.scaling)
+            return quantize_layer(lp, bits=bits, fuse=True) if bits else lp
+
+        tree = gather_params(self.params, self.shard, keep=keep, to=to, text_layer=text_layer)
+        if tree is None:
+            return None
+        if rest:
+            blocks = rest["visual"]["blocks"]
+            tree = dict(tree, visual=dict(tree["visual"], blocks=[
+                apply_layer_lora(bp, adapters(sub, bp["qkv_w"]), self.lora_cfg.scaling)
+                for bp, sub in zip(tree["visual"]["blocks"], blocks)]))
+        if bits:
+            tree = dict(tree, text=quantize_text_params(tree["text"], bits=bits))
+        return tree
 
     def _log_rollout_metric(self, key: str, value: float):
         self._log_metric(key, value)
@@ -850,7 +903,7 @@ class GRPOTrainer:
         params = opt_tree = None
         if self.shard is not None:
             params = self.gathered_params(keep=self._writes, to="cpu")
-            if not self.c.save_only_model:
+            if not self.c.save_only_model and self.lora is None:  # LoRA's state is whole on every rank
                 opt_tree = self._gathered_opt_tree(keep=self._writes)
         if self._writes:  # one rank writes; the others wait at the barrier
             self._write_checkpoint(path, params, opt_tree)
@@ -915,7 +968,8 @@ class GRPOTrainer:
                 raise ValueError(f"a quantized-base resume needs {lora_path}: this checkpoint has no adapters; "
                                  "pass it as --model_name_or_path to start a new run instead")
             else:
-                load_params_into(path, self.params)
+                load_params_into(path, self.params,
+                                 block=None if self.shard is None else self._block_of(self.shard.specs))
                 restore_opt = False
         elif self.shard is not None:  # every rank reads the whole tree and keeps its blocks
             load_params_into(path, self.params, block=self._block_of(self.shard.specs))
@@ -930,7 +984,8 @@ class GRPOTrainer:
         if restore_opt and is_native_checkpoint(path, "opt_state"):
             tree = self.opt_state.tree()
             load_params_into(path, tree, name="opt_state",
-                             block=None if self.shard is None else self._block_of(self._opt_specs()))
+                             block=None if self.shard is None or self.lora is not None
+                             else self._block_of(self._opt_specs()))
             self.opt_state.load_tree(tree)
 
     def _block_of(self, specs):
